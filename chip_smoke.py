@@ -1,0 +1,553 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (deepfake_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--report PATH]
+
+Phases, in order; any failure exits non-zero and prints no result:
+  1. the card's name and power limit; build every CUDA kernel from csrc/.
+  2. each kernel against its plain PyTorch version on the card, at the
+     shapes fused serving gives it (b8 x 32 frames at 224, SwinV2-B at
+     224), f32 with TF32 off and bf16; kernel, plain, library and bound
+     times per shape and per b8 request.
+  3. fused serving at full width (IRv2 + NeXtVLAD, SwinV2-B, wav2vec2-base,
+     fusion head; random weights from --seed) in bf16: three b8 requests
+     and one b1 request, with the launch counters showing that the
+     requests went through every kernel; then the same requests on the
+     plain routes (kernels off, same weights) for the end-to-end
+     comparison, and each branch's device time on both.
+  4. the kernel routes against the plain routes, fused b2 in f32 (TF32
+     off), the same weights: scores and branch features.
+The last two lines are {"kernels": [...]} and {"ok": true, "device": ...};
+--report writes every measurement and check as JSON to PATH. Imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 SIMT; bf16 dense tensor cores
+K1_SRC = "deepfake_tpu_torch/csrc/inception_block.cu"
+K2_SRC = "deepfake_tpu_torch/csrc/window_attn.cu"
+K1_REPLACES = ("deepfake_tpu/ops/pallas_inception.py:229 fused_inception_block_a; "
+               "deepfake_tpu/ops/pallas_inception.py:149 fused_inception_block")
+K2_TOK_REPLACES = "deepfake_tpu/ops/pallas_window_attn.py:847 pallas_window_attention_nhc_packed"
+K2_HEAD_REPLACES = "deepfake_tpu/ops/pallas_window_attn.py:1127 pallas_window_attention"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_time_ms(fn, iters: int = 3, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def errors(got, want):
+    """(max abs error, max of |got - want| / max(|want|, 1)) in f32."""
+    d = (got.float() - want.float()).abs()
+    return d.max().item(), (d / want.float().abs().clamp(min=1.0)).max().item()
+
+
+def bound_ms(flops: float, nbytes: float, dtype: str):
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ---------------------------------------------------------------- phase 2: K1
+
+def randomize_bn(model, gen):
+    """Random BN affines and running stats, random final-conv biases, so
+    that folding and every epilogue term matter."""
+    import torch
+
+    from deepfake_tpu_torch.models.layers import BatchNorm
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                n = m.weight.numel()
+                dev = m.weight.device
+                m.weight.copy_(1 + 0.2 * torch.randn(n, generator=gen, device=dev))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen, device=dev))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen, device=dev))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen, device=dev))
+            elif isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.copy_(0.1 * torch.randn(m.bias.numel(), generator=gen, device=m.bias.device))
+
+
+def k1_flops_bytes(blk, rows: int, C: int, elt: int):
+    macs = blk.w_in.numel() + blk.w_out.numel() + sum(c.w.numel() for ch in blk.chains for c in ch)
+    weights = elt * macs + 4 * (blk.a_in.numel() + blk.b_out.numel()
+                                + sum(c.affine.numel() for ch in blk.chains for c in ch))
+    return 2.0 * rows * macs, 2.0 * rows * C * elt + weights
+
+
+def phase_k1(dev, gen, frames: int, report):
+    import torch
+
+    from deepfake_tpu_torch.models import inception_resnet_v2 as irv2
+    from deepfake_tpu_torch.models.layers import init_weights
+    from deepfake_tpu_torch.ops.inception_block import inception_block, inception_block_plain
+
+    cases = [  # name, module, spatial side, blocks per request
+        ("A", irv2.BlockA(0.17, True), 25, 10),
+        ("B", irv2.BlockB(0.10, True), 12, 20),
+        ("C", irv2.BlockC(0.20, True, True), 5, 9),
+        ("c_9", irv2.BlockC(1.0, False, True), 5, 1),
+    ]
+    per_request = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for name, block, side, count in cases:
+        block = init_weights(block.to(dev), gen)
+        randomize_bn(block, gen)
+        C = block.conv.out_channels
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            dname = str(dtype).split(".")[1]
+            blk = block.pack_weights(dtype)
+            x = (0.5 * torch.randn(frames, side, side, C, generator=gen, device=dev)).to(dtype)
+            got = inception_block(x, blk)
+            torch.cuda.synchronize()
+            err, rel = errors(got, inception_block_plain(x, blk))
+            errs[dname] = max(errs[dname], err)
+            if not (math.isfinite(rel) and rel <= tol):
+                fail(f"K1 block {name} {dname}: max rel err {rel:.3e} > {tol}")
+            ms = cuda_time_ms(lambda: inception_block(x, blk))
+            plain = cuda_time_ms(lambda: inception_block_plain(x, blk), iters=2)
+            flops, nbytes = k1_flops_bytes(blk, x.shape[0] * side * side, C, x.element_size())
+            b, by = bound_ms(flops, nbytes, dname)
+            row = dict(kernel="inception_block", case=f"{name} [{frames}x{side}x{side}x{C}]",
+                       dtype=dname, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                       gflop=flops / 1e9, mbytes=nbytes / 1e6, max_rel_err=rel,
+                       max_abs_err=err)
+            report["k1"].append(row)
+            log(f"K1 {name:4s} {dname:8s} kernel_ms={ms:.3f} plain_ms={plain:.3f} "
+                f"bound_ms={b:.4f} ({by}) GFLOP={flops / 1e9:.1f} rel_err={rel:.2e} (tol {tol})")
+            if dtype == torch.bfloat16:
+                for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", b),
+                             ("flops", flops), ("bytes", nbytes)):
+                    per_request[k] += count * v
+            del x, got
+        del block
+    torch.cuda.empty_cache()
+    inception_block.launches = 0
+    _, by = bound_ms(per_request["flops"], per_request["bytes"], "bfloat16")
+    return dict(name="inception_block (K1)", route="cuda", source=K1_SRC, replaces=K1_REPLACES,
+                launches=None, max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
+                ms=per_request["ms"], plain_ms=per_request["plain_ms"],
+                bound_ms=per_request["bound_ms"], bound_by=by, library_ms=None,
+                per="one fused b8 request: 10 A + 20 B + 10 C blocks, bf16")
+
+
+# ---------------------------------------------------------------- phase 2: K2
+
+SWIN_B_STAGES = [  # (resolution, heads, C, depth) of SwinV2-B at 224
+    (56, 4, 128, 2), (28, 8, 256, 2), (14, 16, 512, 18), (7, 32, 1024, 2)]
+
+
+def attn_case(dev, gen, B_, H, C, mask_np, dtype):
+    import torch
+
+    N = 49
+    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=dev).to(dtype)
+    bias = 16 * torch.sigmoid(torch.randn(H, N, N, generator=gen, device=dev))
+    ls = torch.exp(torch.clamp(math.log(10.0) + 0.3 * torch.randn(H, 1, 1, generator=gen,
+                                                                   device=dev), max=math.log(100)))
+    mask = None if mask_np is None else torch.from_numpy(mask_np).to(dev)
+    return qkv, bias, mask, ls
+
+
+def k2_flops_bytes(B_, H, C, n_masks, elt):
+    N, D = 49, C // H
+    flops = 4.0 * B_ * H * N * N * D
+    nbytes = 4.0 * B_ * N * C * elt + 4.0 * H * N * N + 4.0 * n_masks * N * N
+    return flops, nbytes
+
+
+def phase_k2(dev, gen, batch: int, report):
+    import torch
+    import torch.nn.functional as F
+
+    from deepfake_tpu_torch.models.swin2d import shift_attn_mask
+    from deepfake_tpu_torch.ops import window_attn_kernel as k2
+    from deepfake_tpu_torch.ops.window_attn import l2_normalize
+
+    tok = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+           "bytes": 0.0, "err": 0.0, "err32": 0.0}
+    head = dict(tok)
+    cases = []
+    for res, H, C, depth in SWIN_B_STAGES:
+        ws_ = min(res, 7)
+        nW = (res // ws_) ** 2
+        shifted = res > 7  # blocks alternate unshifted / shifted; stage 3 never shifts
+        n_plain, n_masked = ((depth + 1) // 2, depth // 2) if shifted else (depth, 0)
+        mask_np = shift_attn_mask(res, res, 7, 3) if shifted else None
+        cases.append((f"stage res {res}", batch * nW, H, C, None, n_plain, tok))
+        if shifted:
+            cases.append((f"stage res {res} shifted", batch * nW, H, C, mask_np, n_masked, tok))
+    # batch 1 at stage 3: one 7x7 window, head-major (B_ == 1)
+    cases.append(("stage res 7, B_=1", 1, 32, 1024, None, 2, head))
+    for name, B_, H, C, mask_np, count, acc in cases:
+        D, N = C // H, 49
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            dname = str(dtype).split(".")[1]
+            qkv, bias, mask, ls = attn_case(dev, gen, B_, H, C, mask_np, dtype)
+            q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+            hq, hk, hv = (t.reshape(B_, N, H, D).transpose(1, 2).contiguous() for t in (q, k, v))
+            kw = dict(bias=bias, mask=mask, logit_scale=ls)
+            for layout, run, plain in (
+                    ("tokens", lambda: k2.window_attention_tokens(q, k, v, num_heads=H, **kw),
+                     lambda: k2.window_attention_tokens_plain(q, k, v, num_heads=H, **kw)),
+                    ("heads", lambda: k2.window_attention_heads(hq, hk, hv, **kw),
+                     lambda: k2.window_attention_heads_plain(hq, hk, hv, **kw))):
+                if layout == "tokens" and B_ == 1:
+                    continue  # SwinV2 takes the head-major route at B_ == 1
+                got = run()
+                torch.cuda.synchronize()
+                err, rel = errors(got, plain())
+                if not (math.isfinite(rel) and rel <= tol):
+                    fail(f"K2 {layout} {name} {dname}: max rel err {rel:.3e} > {tol}")
+                timed = (layout == "tokens") == (acc is tok)
+                row = dict(kernel=f"window_attn_{layout}", case=f"{name} B_={B_} H={H} C={C}",
+                           dtype=dname, max_abs_err=err, max_rel_err=rel)
+                if timed:
+                    ms = cuda_time_ms(run, iters=10)
+                    pms = cuda_time_ms(plain, iters=5)
+                    am = bias[None].to(dtype)
+                    if mask is not None:
+                        nW = mask.shape[0]
+                        am = (am.view(1, 1, H, N, N) + mask.to(dtype).view(1, nW, 1, N, N)).expand(
+                            B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
+                    qn = (l2_normalize(hq.float()) * ls).to(dtype)
+                    kn = l2_normalize(hk.float()).to(dtype)
+                    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                        qn, kn, hv, attn_mask=am, scale=1.0), iters=10)
+                    flops, nbytes = k2_flops_bytes(B_, H, C, 0 if mask is None else mask.shape[0],
+                                                   qkv.element_size())
+                    b, by = bound_ms(flops, nbytes, dname)
+                    row.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b, bound_by=by)
+                    log(f"K2 {layout:6s} {name:24s} B_={B_:4d} H={H:2d} {dname:8s} "
+                        f"kernel_ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib:.4f} "
+                        f"bound_ms={b:.4f} ({by}) rel_err={rel:.2e} (tol {tol})")
+                    if dtype == torch.bfloat16:
+                        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lib),
+                                         ("bound_ms", b), ("flops", flops), ("bytes", nbytes)):
+                            acc[key] += count * val
+                acc["err" if dtype == torch.bfloat16 else "err32"] = max(
+                    acc["err" if dtype == torch.bfloat16 else "err32"], err)
+                report["k2"].append(row)
+    k2.window_attention_tokens.launches = 0
+    k2.window_attention_heads.launches = 0
+    out = []
+    for name, acc, rep, per in (
+            ("window_attn_tokens (K2, token-major)", tok, K2_TOK_REPLACES,
+             "one fused b8 request: 24 SwinV2-B blocks, bf16"),
+            ("window_attn_heads (K2, head-major)", head, K2_HEAD_REPLACES,
+             "one fused b1 request: the 2 stage-3 blocks at B_=1, bf16")):
+        _, by = bound_ms(acc["flops"], acc["bytes"], "bfloat16")
+        out.append(dict(name=name, route="cuda", source=K2_SRC, replaces=rep, launches=None,
+                        max_abs_err=acc["err"], max_abs_err_f32=acc["err32"], ms=acc["ms"],
+                        plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"], bound_by=by,
+                        library_ms=acc["library_ms"], per=per))
+    return out
+
+
+# ---------------------------------------------------------------- phases 3 and 4
+
+def fused_inputs(cfg, batch, dev, gen):
+    """Random (frames, mel image, wave) of the fused model's input shapes."""
+    import torch
+
+    from deepfake_tpu_torch.models.registry import example_inputs
+
+    (zeros,) = example_inputs(cfg, batch, dev)
+    return tuple(s * torch.randn(z.shape, generator=gen, device=dev)
+                 for z, s in zip(zeros, (0.5, 1.0, 1.0)))
+
+
+def counts():
+    from deepfake_tpu_torch.ops.inception_block import inception_block
+    from deepfake_tpu_torch.ops.window_attn_kernel import (
+        window_attention_heads, window_attention_tokens,
+    )
+
+    return {"inception_block": inception_block.launches,
+            "window_attn_tokens": window_attention_tokens.launches,
+            "window_attn_heads": window_attention_heads.launches}
+
+
+def reset_counts():
+    from deepfake_tpu_torch.ops.inception_block import inception_block
+    from deepfake_tpu_torch.ops.window_attn_kernel import (
+        window_attention_heads, window_attention_tokens,
+    )
+
+    inception_block.launches = 0
+    window_attention_tokens.launches = 0
+    window_attention_heads.launches = 0
+
+
+def branch_times(pred, inputs):
+    """Device time of each part of one fused forward (CUDA events), after
+    the counted requests: where a request's time goes."""
+    import torch
+
+    m = pred.model
+    with torch.inference_mode():
+        video, audio, wave = pred._inputs(inputs)
+        feats = m.branch_features((video, audio, wave))
+        parts = {"video: IRv2 + NeXtVLAD": lambda: m.video_extractor(video),
+                 "audio: SwinV2-B": lambda: m.audio_extractor(audio),
+                 "paudio: wav2vec2-base": lambda: m.paudio_extractor(wave),
+                 "fusion head": lambda: m.head(*feats)}
+        return {name: cuda_time_ms(fn, iters=3) for name, fn in parts.items()}
+
+
+def serve(pred, requests):
+    """Answer each request; returns (latencies in s, scores), each score
+    checked finite and in [0, 1]."""
+    lat, out = [], []
+    for inputs in requests:
+        t = time.perf_counter()
+        scores = pred.predict(inputs)  # ends in a device->host copy
+        lat.append(time.perf_counter() - t)
+        B = inputs[0].shape[0]
+        if scores.shape != (B,) or not np.isfinite(scores).all() or not (
+                (scores >= 0) & (scores <= 1)).all():
+            fail(f"serving: bad scores for a b{B} request: {scores}")
+        out.append(scores)
+    return lat, out
+
+
+def device_profile(pred, inputs, wall_ms: float):
+    """One request under torch.profiler: the device's busy time (the sum of
+    its kernels' durations; one stream, so they do not overlap), its idle
+    share of ``wall_ms`` (the request's unprofiled latency), and the kernels
+    that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pred.predict(inputs)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_idle_share=1.0 - busy / wall_ms,
+                kernel_names=len(by_name), top_kernels_ms=[[n[:90], t] for n, t in top])
+
+
+def branch_rel_err(pa, pb, inputs):
+    """max |a - b| / max |b| of each branch feature (video, audio, paudio)
+    of two predictors on the same request."""
+    import torch
+
+    with torch.inference_mode():
+        fa = pa.model.branch_features(pa._inputs(inputs))
+        fb = pb.model.branch_features(pb._inputs(inputs))
+    return [((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-6)).item()
+            for a, b in zip(fa, fb)]
+
+
+def phase_serving(cfg, cfg_plain, dev, gen, report):
+    """Fused serving on the kernel routes (the main path), then the same
+    requests on the plain routes (cuDNN convs, plain attention) with the
+    same weights, for the end-to-end comparison."""
+    import torch
+
+    from deepfake_tpu_torch.serving import Predictor
+
+    t0 = time.perf_counter()
+    pred = Predictor(cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"serving: Predictor(fused, {cfg.parallel.compute_dtype}) built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in pred.model.parameters()) / 1e6:.1f} M params")
+    plain = Predictor(cfg_plain, device=dev)
+    requests = [fused_inputs(cfg, 8, dev, gen) for _ in range(3)] + [fused_inputs(cfg, 1, dev, gen)]
+    for p in (pred, plain):  # warm-up at both batch sizes: cuDNN plans, allocator
+        serve(p, [requests[0], requests[-1]])
+    torch.cuda.synchronize()
+    reset_counts()  # the main path's run starts here
+    lat, per_req, scores = [], [], []
+    for inputs in requests:
+        before = counts()
+        (t,), (sc,) = serve(pred, [inputs])
+        after = counts()
+        lat.append(t)
+        scores.append(sc)
+        per_req.append({k: after[k] - before[k] for k in after})
+    launches = counts()  # ... and ends here
+    for i, d in enumerate(per_req):
+        b8 = i < 3
+        if d["inception_block"] != 40:
+            fail(f"request {i}: K1 ran {d['inception_block']} block calls, expected 40")
+        if b8 and (d["window_attn_tokens"] == 0 or d["window_attn_heads"] != 0):
+            fail(f"b8 request {i}: K2 launches {d}")
+        if not b8 and d["window_attn_heads"] == 0:
+            fail(f"b1 request: no head-major K2 launch: {d}")
+    lat_plain, scores_plain = serve(plain, requests)
+    if counts() != launches:
+        fail("the plain routes launched a kernel")
+    d_score = max(float(np.abs(a - b).max()) for a, b in zip(scores, scores_plain))
+    d_feat = branch_rel_err(pred, plain, requests[0])
+    res = dict(per_request_launches=per_req, latency_s=lat, p50_b8_s=statistics.median(lat[:3]),
+               clips_per_s_b8=8 * 3 / sum(lat[:3]), b1_latency_s=lat[3],
+               plain_latency_s=lat_plain, plain_p50_b8_s=statistics.median(lat_plain[:3]),
+               plain_clips_per_s_b8=8 * 3 / sum(lat_plain[:3]),
+               max_abs_score_diff_vs_plain_bf16=d_score, branch_rel_err_vs_plain_bf16=d_feat,
+               branch_ms_b8=branch_times(pred, requests[0]),
+               plain_branch_ms_b8=branch_times(plain, requests[0]))
+    res["profile"] = {
+        "kernel routes b8": device_profile(pred, requests[0], res["p50_b8_s"] * 1e3),
+        "kernel routes b1": device_profile(pred, requests[3], lat[3] * 1e3),
+        "plain routes b8": device_profile(plain, requests[0], res["plain_p50_b8_s"] * 1e3)}
+    report["serving"] = res
+    log(f"serving: launches per request {per_req}")
+    log(f"serving: kernel routes b8 p50 {res['p50_b8_s'] * 1e3:.1f} ms, "
+        f"{res['clips_per_s_b8']:.2f} clips/s; b1 {lat[3] * 1e3:.1f} ms ({report['card']})")
+    log(f"serving: plain routes  b8 p50 {res['plain_p50_b8_s'] * 1e3:.1f} ms, "
+        f"{res['plain_clips_per_s_b8']:.2f} clips/s; b1 {lat_plain[3] * 1e3:.1f} ms; "
+        f"vs kernel routes: max |score diff| {d_score:.2e}, branch feature rel err "
+        f"{', '.join(f'{e:.2e}' for e in d_feat)} (bf16)")
+    log("serving: b8 branch times (ms), kernel routes " + json.dumps(res["branch_ms_b8"]))
+    log("serving: b8 branch times (ms), plain routes  " + json.dumps(res["plain_branch_ms_b8"]))
+    for name, prof in res["profile"].items():
+        log(f"serving: profile {name}: device busy {prof['device_busy_ms']:.2f} ms of "
+            f"{prof['wall_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}; top "
+            + json.dumps(prof["top_kernels_ms"]))
+    # bf16 end to end: ~3 significant digits through some 300 layers
+    if not (d_score <= 2e-2 and max(d_feat) <= 5e-2):
+        fail("serving: kernel and plain routes disagree in bf16")
+    del pred, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
+    import torch
+
+    from deepfake_tpu_torch.serving import Predictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pk = Predictor(cfg_kernel, device=dev)
+    pp = Predictor(cfg_plain, device=dev)
+    for (n1, a), (n2, b) in zip(pk.model.state_dict().items(), pp.model.state_dict().items()):
+        if n1 != n2 or not torch.equal(a, b):
+            fail(f"parity: the two models' weights differ at {n1}")
+    inputs = fused_inputs(cfg_kernel, batch, dev, gen)
+    scores = [p.predict(inputs) for p in (pk, pp)]
+    d_score = float(np.abs(scores[0] - scores[1]).max())
+    rel = branch_rel_err(pk, pp, inputs)
+    report["parity"] = dict(batch=batch, max_abs_score_diff=d_score, branch_rel_err=rel,
+                            scores_kernel=scores[0].tolist(), scores_plain=scores[1].tolist())
+    log(f"parity f32 b{batch}: max |score diff| {d_score:.3e}; branch feature rel err "
+        f"video {rel[0]:.2e} audio {rel[1]:.2e} paudio {rel[2]:.2e}")
+    if not (d_score <= 1e-3 and max(rel) <= 1e-3):
+        fail("kernel routes and plain routes disagree")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--report", help="write the detailed report as JSON to this path")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from deepfake_tpu_torch.config import Config
+    from deepfake_tpu_torch.kernels import build
+
+    t_all = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    dev = torch.device("cuda", 0)
+    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "k1": [], "k2": []}
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t = time.perf_counter()
+    ptxas = build.build_all()
+    report["build_s"] = time.perf_counter() - t
+    log(f"build: {report['build_s']:.1f} s for {list(build.SOURCES)}")
+    for name, text in ptxas.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    gen = torch.Generator(dev).manual_seed(args.seed)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = [phase_k1(dev, gen, 8 * 32, report)] + phase_k2(dev, gen, 8, report)
+
+    def config(dtype: str, kernels: bool):
+        cfg = Config()
+        cfg.random_seed = args.seed
+        cfg.parallel.compute_dtype = dtype
+        cfg.model.irv2_fused_blocks = cfg.model.swin2d_attn_kernel = kernels
+        return cfg
+
+    launches = phase_serving(config("bfloat16", True), config("bfloat16", False), dev, gen, report)
+    kernels[0]["launches"] = launches["inception_block"]
+    kernels[1]["launches"] = launches["window_attn_tokens"]
+    kernels[2]["launches"] = launches["window_attn_heads"]
+    for k in kernels:
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        log(f"kernel {k['name']}: {k['per']}: kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+            f"library_ms={lib} bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) "
+            f"launches on the main path={k['launches']}")
+    phase_parity(config("float32", True), config("float32", False), dev, gen, report, batch=2)
+
+    report["total_s"] = time.perf_counter() - t_all
+    report["kernels"] = kernels
+    if args.report:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=1)
+    log(f"total: {report['total_s']:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

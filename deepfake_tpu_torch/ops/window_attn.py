@@ -1,0 +1,43 @@
+"""Windowed attention in plain PyTorch (SwinV2 cosine attention).
+
+Counterpart of deepfake_tpu/ops/window_attn.py:25-93, the JAX package's
+einsum path. Shapes:
+
+  q, k, v      [B_, H, N, D]   (B_ = batch * windows, windows batch-major)
+  logit_scale  [H, 1, 1]       (already clamped at log(100) and exponentiated)
+  bias         [H, N, N]       relative position bias (additive)
+  mask         [nW, N, N] or None; window w uses mask[w % nW]
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """torch F.normalize semantics over the last axis: x / max(|x|, eps)."""
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=eps)
+
+
+def add_mask(attn: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """attn [B_, H, N, N] f32 plus mask [nW, N, N] tiled over B_."""
+    if mask is None:
+        return attn
+    nW = mask.shape[0]
+    B_, H, N, _ = attn.shape
+    return (attn.view(B_ // nW, nW, H, N, N) + mask.float()[None, :, None]).view(B_, H, N, N)
+
+
+def cosine_window_attention(q, k, v, logit_scale, bias, mask=None) -> torch.Tensor:
+    """SwinV2 cosine attention as the JAX inference path computes it:
+    L2-normalised q, k; logits times the per-head scale, plus bias and
+    mask; f32 softmax with the static shift exp(min(x - 24, 60))
+    (window_attn.py:31-56: cosine logits are bounded and every row's max is
+    >= 0, so it equals the max-stabilised form up to f32 rounding); PV in
+    v's type."""
+    attn = l2_normalize(q.float()) @ l2_normalize(k.float()).transpose(-1, -2)
+    attn = add_mask(attn * logit_scale.float() + bias.float()[None], mask)
+    e = torch.exp(torch.clamp(attn - 24.0, max=60.0))
+    return (e / e.sum(dim=-1, keepdim=True)).to(v.dtype) @ v

@@ -1,0 +1,154 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+K1 (deepfake_tpu_torch/ops/inception_block.py) and K2
+(deepfake_tpu_torch/ops/window_attn_kernel.py) run here, on the CPU,
+through their plain versions; the Pallas kernels run in interpret mode, as
+tests/test_pallas_inception.py and tests/test_pallas_kernels.py run them.
+Weights go across with load_jax_variables. All f32.
+
+tests/test_torch_cuda.py holds the CUDA kernels against these plain
+versions on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from deepfake_tpu.models import inception_resnet_v2 as jirv2
+from deepfake_tpu.models.swin2d import shift_attn_mask
+from deepfake_tpu.ops.pallas_window_attn import (
+    pallas_window_attention, pallas_window_attention_nhc_packed,
+)
+from deepfake_tpu_torch.io.jax_weights import load_jax_variables
+from deepfake_tpu_torch.models import inception_resnet_v2 as tirv2
+from deepfake_tpu_torch.models.layers import as_nchw, as_nhwc
+from deepfake_tpu_torch.ops.window_attn_kernel import (
+    window_attention_heads, window_attention_tokens,
+)
+
+from tests.torch_port_helpers import random_variables
+
+BLOCKS = [
+    # (block kind, channels C, frame side S, kwargs): S as
+    # tests/test_pallas_inception.py runs the Pallas blocks
+    ("A", 320, 9, {}),
+    ("B", 1088, 4, {}),
+    ("C", 2080, 5, {}),
+    ("C", 2080, 5, dict(scale=1.0, activation=False)),  # c_9
+]
+
+
+def _block_pair(kind, C, kw):
+    jcls = getattr(jirv2, f"Block{kind}")
+    tcls = getattr(tirv2, f"Block{kind}")
+    return jcls(use_pallas=True, **kw), tcls(fused=True, C=C, **kw)
+
+
+@pytest.mark.parametrize("kind,C,S,kw", BLOCKS, ids=["A_S9", "B_S4", "C_S5", "c9_S5"])
+def test_k1_plain_matches_pallas_block(kind, C, S, kw):
+    """Port block on the K1 route (plain version on the CPU) == JAX block on
+    its Pallas route (interpret mode): max relative error <= 1e-5."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, S, S, C)).astype(np.float32) * 0.5
+    jblock, tblock = _block_pair(kind, C, kw)
+    variables = random_variables(jblock, jnp.asarray(x), seed=1)
+    want = np.asarray(jblock.apply(variables, jnp.asarray(x)))
+    load_jax_variables(tblock, variables)
+    with torch.inference_mode():
+        got = as_nhwc(tblock(as_nchw(torch.from_numpy(x)))).numpy()
+    rel = np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0))
+    assert rel <= 1e-5, rel
+
+
+def _attn_inputs(B_, H, N, D, seed, masked):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)
+    q, k, v = mk(B_, H, N, D), mk(B_, H, N, D), mk(B_, H, N, D)
+    bias = 16.0 / (1.0 + np.exp(-mk(H, N, N)))
+    mask = shift_attn_mask(14, 14, 7, 3) if masked else None  # nW = 4
+    logit_scale = np.exp(np.minimum(mk(H, 1, 1) * 0.5 + np.log(10.0), np.log(100.0)))
+    return q, k, v, bias, mask, logit_scale.astype(np.float32)
+
+
+@pytest.mark.parametrize("B_,masked", [(8, True), (1, False)], ids=["shifted_nW4", "single"])
+@pytest.mark.parametrize("cosine", [True, False], ids=["cosine", "scaled"])
+def test_k2_plain_heads_matches_pallas(B_, masked, cosine):
+    """Head-major K2 (plain on the CPU) == pallas_window_attention (routes
+    _run_packed at B_=8 and _run at B_=1): max abs error <= 1e-5."""
+    q, k, v, bias, mask, ls = _attn_inputs(B_, 2, 49, 8, 3, masked)
+    kw = dict(logit_scale=ls) if cosine else dict(scale=0.35)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    want = np.asarray(pallas_window_attention(
+        j(q), j(k), j(v), bias=j(bias), mask=j(mask), cosine=cosine,
+        **{n: j(a) if n == "logit_scale" else a for n, a in kw.items()}))
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    got = window_attention_heads(t(q), t(k), t(v), bias=t(bias), mask=t(mask), cosine=cosine,
+                                 **{n: t(a) if n == "logit_scale" else a for n, a in kw.items()})
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_k2_plain_tokens_matches_pallas_nhc_packed():
+    """Token-major K2 (plain on the CPU) == pallas_window_attention_nhc_packed
+    with a shift mask, nW=4, N=49: max abs error <= 1e-5."""
+    B_, H, N, D = 8, 4, 49, 8
+    q, k, v, bias, mask, ls = _attn_inputs(B_, H, N, D, 5, True)
+    tok = lambda a: a.transpose(0, 2, 1, 3).reshape(B_, N, H * D)
+    want = np.asarray(pallas_window_attention_nhc_packed(
+        jnp.asarray(tok(q)), jnp.asarray(tok(k)), jnp.asarray(tok(v)), num_heads=H,
+        bias=jnp.asarray(bias), mask=jnp.asarray(mask), cosine=True,
+        logit_scale=jnp.asarray(ls)))
+    # q, k, v as column slices of one qkv tensor, as SwinV2 passes them
+    qkv = torch.from_numpy(np.concatenate([tok(q), tok(k), tok(v)], axis=-1))
+    C = H * D
+    got = window_attention_tokens(
+        qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], num_heads=H,
+        bias=torch.from_numpy(bias), mask=torch.from_numpy(mask),
+        logit_scale=torch.from_numpy(ls))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_k2_rejects_large_windows_on_card_only_shapes():
+    """N=392 (3D windows) is not K2's: the CUDA wrapper raises before any
+    launch. On the CPU the plain version still serves it."""
+    from deepfake_tpu_torch.ops.window_attn_kernel import _launch
+
+    q = torch.zeros(1, 1, 392, 32)
+    with pytest.raises(ValueError, match="N <= 64"):
+        _launch(q, q, q, (0, 0, 0), q, (0, 0, 0), windows=1, heads=1, n=392, d=32,
+                bias=torch.zeros(1, 392, 392), mask=None, logit_scale=torch.ones(1),
+                scale=None, cosine=True)
+
+
+def test_k1_bf16_rejects_channels_it_cannot_chunk():
+    """K1's tensor-core path copies 16-byte chunks of 8 bf16 channels: the
+    wrapper raises before any launch for a width that is not a multiple of
+    8 (every IRv2 width is)."""
+    from deepfake_tpu_torch.ops.inception_block import _launch
+
+    a = torch.zeros(16, 20, dtype=torch.bfloat16)
+    w = torch.zeros(1, 20, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _launch(None, None, 1, a, 0, 20, w, 1, 1, 16, (4, 4), 8,
+                affine=torch.zeros(2, 8), out0=torch.zeros(16, 8, dtype=torch.bfloat16))
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """No compiler, no kernel: the build raises instead of handing back a
+    plain path."""
+    from deepfake_tpu_torch.kernels import build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.library("window_attn")
+
+
+def test_k2_wrapper_takes_the_plain_version_for_cpu_tensors_only():
+    """Only a CPU tensor selects the plain version; any other device that is
+    not CUDA raises rather than running the plain path."""
+    q = torch.zeros(2, 1, 49, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        window_attention_heads(q, q, q, bias=torch.zeros(1, 49, 49), logit_scale=torch.ones(1))
