@@ -4,19 +4,28 @@
     python3 chip_smoke.py [--seed N] [--report PATH]
 
 Phases, in order; any failure exits non-zero and prints no result:
-  1. the card's name and power limit; build every CUDA kernel from csrc/.
+  1. the card's name and power limit; build every CUDA kernel from csrc/
+     (one nvcc per source, all at once).
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes fused serving gives it (b8 x 32 frames at 224, SwinV2-B at
-     224), f32 with TF32 off and bf16; kernel, plain, library and bound
-     times per shape and per b8 request.
+     shapes serving gives it (fused: b8 x 32 frames at 224, SwinV2-B at 224;
+     video_swin: the four Video Swin-S stages at b8 x 32 frames of 224, K3's
+     attention and K4's four launches of a block), f32 with TF32 off and
+     bf16; kernel, plain, library and bound times per shape and per b8
+     request.
   3. fused serving at full width (IRv2 + NeXtVLAD, SwinV2-B, wav2vec2-base,
      fusion head; random weights from --seed) in bf16: three b8 requests
      and one b1 request, with the launch counters showing that the
      requests went through every kernel; then the same requests on the
      plain routes (kernels off, same weights) for the end-to-end
      comparison, and each branch's device time on both.
-  4. the kernel routes against the plain routes, fused b2 in f32 (TF32
-     off), the same weights: scores and branch features.
+  4. the same for video_swin serving (Video Swin-S 3D, 32 frames of 224):
+     three b8 and one b1 request through K3 and K4 (24 and 96 launches
+     each), then on the plain route.
+  5. the kernel routes against the plain routes in f32 (TF32 off), the same
+     weights: fused b2 (scores and branch features) and video_swin b2
+     (scores and per-frame features). In f32 every kernel runs its SIMT
+     parity kernel, not the tensor-core kernel that serves bf16; phase 2
+     holds the tensor-core kernels.
 The last two lines are {"kernels": [...]} and {"ok": true, "device": ...};
 --report writes every measurement and check as JSON to PATH. Imports
 nothing of JAX.
@@ -43,6 +52,14 @@ K1_REPLACES = ("deepfake_tpu/ops/pallas_inception.py:229 fused_inception_block_a
                "deepfake_tpu/ops/pallas_inception.py:149 fused_inception_block")
 K2_TOK_REPLACES = "deepfake_tpu/ops/pallas_window_attn.py:847 pallas_window_attention_nhc_packed"
 K2_HEAD_REPLACES = "deepfake_tpu/ops/pallas_window_attn.py:1127 pallas_window_attention"
+K3_SRC = "deepfake_tpu_torch/csrc/window_attn3d.cu"
+K3_TOK_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:709 pallas_window_attention_nhc; "
+                   "the attention of deepfake_tpu/ops/pallas_window_attn.py:548 "
+                   "pallas_window_attention_nhc_qkv")
+K4_SRC = "deepfake_tpu_torch/csrc/ln_linear.cu"
+K4_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:548 pallas_window_attention_nhc_qkv "
+               "(LayerNorm, qkv and proj; with K3); deepfake_tpu/ops/pallas_mlp.py:101 "
+               "fused_mlp_tail")
 
 
 def log(*a):
@@ -277,6 +294,217 @@ def phase_k2(dev, gen, batch: int, report):
     return out
 
 
+# ---------------------------------------------------------------- phase 2: K3
+
+# (token grid, heads, C, depth) of each Video Swin-S stage at 32 frames of
+# 224: patch (2,4,4), window (8,7,7), 392 tokens per window
+SWIN3D_STAGES = [((16, 56, 56), 3, 96, 2), ((16, 28, 28), 6, 192, 2),
+                 ((16, 14, 14), 12, 384, 18), ((16, 7, 7), 24, 768, 2)]
+N3 = 392
+
+
+def k3_check(got, want, what: str):
+    """Max abs error of K3 against its plain version, held to 1e-5 in f32
+    and to two bf16 ulps of the largest |output| in bf16."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    if want.dtype == torch.float32:
+        tol = 1e-5
+    else:
+        tol = 2.0 * 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+    if not (math.isfinite(err) and err <= tol):
+        fail(f"K3 {what}: max abs err {err:.3e} > {tol:.3e}")
+    return err, tol
+
+
+def k3_flops_bytes(B_, H, C, n_masks, elt, mask_elt):
+    """q, k, v read and out written once, the f32 bias and the mask read once."""
+    flops = 4.0 * B_ * H * N3 * N3 * (C // H)
+    nbytes = 4.0 * B_ * N3 * C * elt + 4.0 * H * N3 * N3 + mask_elt * n_masks * N3 * N3
+    return flops, nbytes
+
+
+def sdpa_mask(bias, mask, B_, dtype):
+    """bias [H, N, N] plus the window's mask, as one [B_, H, N, N] attn_mask."""
+    H, N, _ = bias.shape
+    am = bias[None].to(dtype)
+    if mask is None:
+        return am
+    nW = mask.shape[0]
+    am = am.view(1, 1, H, N, N) + mask.to(dtype).view(1, nW, 1, N, N)
+    return am.expand(B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
+
+
+def phase_k3(dev, gen, batch: int, report):
+    import torch
+    import torch.nn.functional as F
+
+    from deepfake_tpu_torch.models.swin3d import compute_mask_3d, get_window_size
+    from deepfake_tpu_torch.ops import window_attn3d_kernel as k3
+
+    acc = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+           "bytes": 0.0}
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for grid, H, C, depth in SWIN3D_STAGES:
+        ws, ss = get_window_size(grid, (8, 7, 7), (4, 3, 3))
+        nW = math.prod(n // w for n, w in zip(grid, ws))
+        B_ = batch * nW
+        # the model's shift mask buffer: bf16, [nW, N, N]
+        mask3 = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(dev, torch.bfloat16)
+        for mask, count in ((None, (depth + 1) // 2), (mask3, depth // 2)):
+            name = f"stage {grid} B_={B_} H={H} C={C}" + (" shifted" if mask is not None else "")
+            scale = (C // H) ** -0.5
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
+                qkv = torch.randn(B_, N3, 3 * C, generator=gen, device=dev).to(dtype)
+                # large enough that a wrong bias or mask index moves the output
+                # well past the tolerance
+                bias = 0.5 * torch.randn(H, N3, N3, generator=gen, device=dev)
+                q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+                kw = dict(num_heads=H, bias=bias, mask=mask, scale=scale)
+                run = lambda: k3.window_attn3d_tokens(q, k, v, **kw)
+                plain = lambda: k3.window_attn3d_tokens_plain(q, k, v, **kw)
+                got = run()
+                torch.cuda.synchronize()
+                err, tol = k3_check(got, plain(), f"tokens {name} {dname}")
+                errs[dname] = max(errs[dname], err)
+                row = dict(kernel="window_attn3d_tokens", case=name, dtype=dname,
+                           max_abs_err=err, tol=tol, blocks_per_request=count)
+                if dtype == torch.bfloat16:
+                    ms = cuda_time_ms(run, iters=10)
+                    pms = cuda_time_ms(plain, iters=3)
+                    hq, hk, hv = (t.reshape(B_, N3, H, C // H).transpose(1, 2).contiguous()
+                                  for t in (q, k, v))
+                    am = sdpa_mask(bias, mask, B_, dtype)
+                    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                        hq, hk, hv, attn_mask=am, scale=scale), iters=10)
+                    del hq, hk, hv, am
+                    n_masks = 0 if mask is None else mask.shape[0]
+                    flops, nbytes = k3_flops_bytes(B_, H, C, n_masks, 2, 2)
+                    b, by = bound_ms(flops, nbytes, dname)
+                    row.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b, bound_by=by,
+                               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+                    log(f"K3 tokens {name:42s} {dname} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+                        f"library_ms={lib:.4f} bound_ms={b:.4f} ({by}) err={err:.2e} "
+                        f"(tol {tol:.2e})")
+                    for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lib),
+                                     ("bound_ms", b), ("flops", flops), ("bytes", nbytes)):
+                        acc[key] += count * val
+                else:
+                    row["ms"] = cuda_time_ms(run, iters=3)
+                    log(f"K3 tokens {name:42s} {dname} kernel_ms={row['ms']:.4f} "
+                        f"err={err:.2e} (tol {tol:.0e})")
+                report["k3"].append(row)
+                del qkv, bias, q, k, v, got
+            torch.cuda.empty_cache()
+
+    k3.window_attn3d_tokens.launches = 0
+    _, by = bound_ms(acc["flops"], acc["bytes"], "bfloat16")
+    return dict(name="window_attn3d_tokens (K3)", route="cuda", source=K3_SRC,
+                replaces=K3_TOK_REPLACES, launches=None, max_abs_err=errs["bfloat16"],
+                max_abs_err_f32=errs["float32"], ms=acc["ms"], plain_ms=acc["plain_ms"],
+                bound_ms=acc["bound_ms"], bound_by=by, library_ms=acc["library_ms"],
+                per="one video_swin b8 request: 24 Video Swin-S blocks, bf16")
+
+
+# ---------------------------------------------------------------- phase 2: K4
+
+# K4's launches in one Swin3D block at channel width C: (role, K / C, N / C, options)
+K4_ROLES = [("LN1 + qkv", 1, 3, dict(ln=True)), ("proj", 1, 1, {}),
+            ("x + attn, LN2, fc1, GELU", 1, 4, dict(ln=True, x2=True, gelu=True)),
+            ("fc2 + (x + attn)", 4, 1, dict(res=2))]
+
+
+def k4_check(got, want, what: str):
+    """Max abs error of K4 against its plain version, held to 1e-5 of
+    max(|plain|, 1) in f32 and to two bf16 ulps of the largest |output| in
+    bf16."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    big = want.float().abs().max().item()
+    if want.dtype == torch.float32:
+        tol = 1e-5 * max(big, 1.0)
+    else:
+        tol = 2.0 * 2.0 ** (math.floor(math.log2(big)) - 7)
+    if not (math.isfinite(err) and err <= tol):
+        fail(f"K4 {what}: max abs err {err:.3e} > {tol:.3e}")
+    return err, tol
+
+
+def phase_k4(dev, gen, batch: int, report):
+    import torch
+    import torch.nn.functional as F
+
+    from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, ln_linear_plain
+
+    acc = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+           "bytes": 0.0}
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for grid, H, C, depth in SWIN3D_STAGES:
+        M = batch * math.prod(grid)
+        for role, kf, nf, opt in K4_ROLES:
+            K, N = kf * C, nf * C
+            name = f"C={C} {role} [{M}x{K}] -> {N}"
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
+
+                def rnd(*shape, sc=1.0):
+                    return (sc * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+
+                x, w, b = rnd(M, K), rnd(N, K, sc=K ** -0.5), rnd(N, sc=0.5)
+                kw = {}
+                if opt.get("ln"):
+                    kw["ln"] = (1 + rnd(K, sc=0.2), rnd(K, sc=0.5), 1e-6)
+                if opt.get("x2"):
+                    kw["x2"] = rnd(M, K)
+                if opt.get("gelu"):
+                    kw["gelu"] = True
+                if opt.get("res"):
+                    kw.update(res=rnd(M, N), res2=rnd(M, N))
+                run = lambda: ln_linear(x, w, b, **kw)
+                plain = lambda: ln_linear_plain(x, w, b, **kw)
+                got = run()
+                torch.cuda.synchronize()
+                err, tol = k4_check(got, plain(), f"{name} {dname}")
+                errs[dname] = max(errs[dname], err)
+                row = dict(kernel="ln_linear", case=name, dtype=dname, max_abs_err=err, tol=tol,
+                           blocks_per_request=depth)
+                if dtype == torch.bfloat16:
+                    ms = cuda_time_ms(run, iters=10)
+                    pms = cuda_time_ms(plain, iters=3)
+                    lib = cuda_time_ms(lambda: F.linear(x, w, b), iters=10)
+                    flops = 2.0 * M * K * N
+                    nbytes = 2.0 * (M * K * (2 if opt.get("x2") else 1) + N * K + N
+                                    + (2 * K if opt.get("ln") else 0)
+                                    + M * N * (1 + opt.get("res", 0)))
+                    bnd, by = bound_ms(flops, nbytes, dname)
+                    row.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bnd, bound_by=by,
+                               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+                    log(f"K4 {name:46s} {dname} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+                        f"F.linear_ms={lib:.4f} bound_ms={bnd:.4f} ({by}) err={err:.2e} "
+                        f"(tol {tol:.2e})")
+                    for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lib),
+                                     ("bound_ms", bnd), ("flops", flops), ("bytes", nbytes)):
+                        acc[key] += depth * val
+                else:
+                    row["ms"] = cuda_time_ms(run, iters=3)
+                    log(f"K4 {name:46s} {dname} kernel_ms={row['ms']:.4f} err={err:.2e} "
+                        f"(tol {tol:.2e})")
+                report["k4"].append(row)
+                del x, w, b, kw, got
+            torch.cuda.empty_cache()
+    ln_linear.launches = 0
+    _, by = bound_ms(acc["flops"], acc["bytes"], "bfloat16")
+    return dict(name="ln_linear (K4)", route="cuda", source=K4_SRC, replaces=K4_REPLACES,
+                launches=None, max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
+                ms=acc["ms"], plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"], bound_by=by,
+                library_ms=acc["library_ms"],
+                per="one video_swin b8 request: 4 launches in each of 24 Video Swin-S blocks, "
+                    "bf16; library_ms is F.linear, the product and bias alone")
+
+
 # ---------------------------------------------------------------- phases 3 and 4
 
 def fused_inputs(cfg, batch, dev, gen):
@@ -290,26 +518,27 @@ def fused_inputs(cfg, batch, dev, gen):
                  for z, s in zip(zeros, (0.5, 1.0, 1.0)))
 
 
-def counts():
+def wrappers():
+    """Every kernel wrapper, by the name its launches are reported under."""
     from deepfake_tpu_torch.ops.inception_block import inception_block
+    from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear
+    from deepfake_tpu_torch.ops.window_attn3d_kernel import window_attn3d_tokens
     from deepfake_tpu_torch.ops.window_attn_kernel import (
         window_attention_heads, window_attention_tokens,
     )
 
-    return {"inception_block": inception_block.launches,
-            "window_attn_tokens": window_attention_tokens.launches,
-            "window_attn_heads": window_attention_heads.launches}
+    return {"inception_block": inception_block, "window_attn_tokens": window_attention_tokens,
+            "window_attn_heads": window_attention_heads,
+            "window_attn3d_tokens": window_attn3d_tokens, "ln_linear": ln_linear}
+
+
+def counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 def reset_counts():
-    from deepfake_tpu_torch.ops.inception_block import inception_block
-    from deepfake_tpu_torch.ops.window_attn_kernel import (
-        window_attention_heads, window_attention_tokens,
-    )
-
-    inception_block.launches = 0
-    window_attention_tokens.launches = 0
-    window_attention_heads.launches = 0
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 def branch_times(pred, inputs):
@@ -336,7 +565,7 @@ def serve(pred, requests):
         t = time.perf_counter()
         scores = pred.predict(inputs)  # ends in a device->host copy
         lat.append(time.perf_counter() - t)
-        B = inputs[0].shape[0]
+        B = (inputs[0] if isinstance(inputs, tuple) else inputs).shape[0]
         if scores.shape != (B,) or not np.isfinite(scores).all() or not (
                 (scores >= 0) & (scores <= 1)).all():
             fail(f"serving: bad scores for a b{B} request: {scores}")
@@ -477,6 +706,129 @@ def phase_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
         fail("kernel routes and plain routes disagree")
 
 
+def clips(cfg, batch, dev, gen):
+    """Random NTHWC clips of the video_swin model's input shape."""
+    import torch
+
+    from deepfake_tpu_torch.models.registry import example_inputs
+
+    (zeros,) = example_inputs(cfg, batch, dev)
+    return 0.5 * torch.randn(zeros.shape, generator=gen, device=dev)
+
+
+def feature_rel_err(pa, pb, x) -> float:
+    """max |a - b| / max |b| of the per-frame features of two video_swin
+    predictors on the same clips."""
+    import torch
+
+    with torch.inference_mode():
+        fa, fb = pa.forward(x)[1].float(), pb.forward(x)[1].float()
+    return ((fa - fb).abs().max() / fb.abs().max().clamp(min=1e-6)).item()
+
+
+def phase_video_swin(cfg, cfg_plain, dev, gen, report):
+    """video_swin serving through K3 and K4 (the main path of this slice),
+    then the same requests on the plain route with the same weights."""
+    import torch
+
+    from deepfake_tpu_torch.serving import Predictor
+
+    t0 = time.perf_counter()
+    pred = Predictor(cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"video_swin: Predictor({cfg.parallel.compute_dtype}) built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in pred.model.parameters()) / 1e6:.1f} M params")
+    plain = Predictor(cfg_plain, device=dev)
+    blocks = sum(cfg.model.swin3d_depths)
+    requests = [clips(cfg, 8, dev, gen) for _ in range(3)] + [clips(cfg, 1, dev, gen)]
+    for p in (pred, plain):  # warm-up at both batch sizes
+        serve(p, [requests[0], requests[-1]])
+    torch.cuda.synchronize()
+    reset_counts()  # the main path's run starts here
+    lat, per_req, scores = [], [], []
+    for x in requests:
+        before = counts()
+        (t,), (sc,) = serve(pred, [x])
+        after = counts()
+        lat.append(t)
+        scores.append(sc)
+        per_req.append({k: after[k] - before[k] for k in after})
+    launches = counts()  # ... and ends here
+    for i, d in enumerate(per_req):
+        if (d["window_attn3d_tokens"] != blocks or d["ln_linear"] != 4 * blocks
+                or sum(d.values()) != 5 * blocks):
+            fail(f"video_swin request {i}: launches {d}, expected {blocks} of K3, "
+                 f"{4 * blocks} of K4 and no other")
+    lat_plain, scores_plain = serve(plain, requests)
+    if counts() != launches:
+        fail("video_swin: the plain route launched a kernel")
+    d_score = max(float(np.abs(a - b).max()) for a, b in zip(scores, scores_plain))
+    d_feat = feature_rel_err(pred, plain, requests[0])
+    res = dict(per_request_launches=per_req, latency_s=lat, p50_b8_s=statistics.median(lat[:3]),
+               clips_per_s_b8=8 * 3 / sum(lat[:3]), b1_latency_s=lat[3],
+               plain_latency_s=lat_plain, plain_p50_b8_s=statistics.median(lat_plain[:3]),
+               plain_clips_per_s_b8=8 * 3 / sum(lat_plain[:3]),
+               max_abs_score_diff_vs_plain_bf16=d_score, feature_rel_err_vs_plain_bf16=d_feat,
+               profile={})
+    res["profile"] = {
+        "kernel route b8": device_profile(pred, requests[0], res["p50_b8_s"] * 1e3),
+        "kernel route b1": device_profile(pred, requests[3], lat[3] * 1e3),
+        "plain route b8": device_profile(plain, requests[0], res["plain_p50_b8_s"] * 1e3)}
+    report["video_swin"] = res
+    log(f"video_swin: K3, K4 launches per request "
+        f"{[(d['window_attn3d_tokens'], d['ln_linear']) for d in per_req]}")
+    log(f"video_swin: kernel route b8 p50 {res['p50_b8_s'] * 1e3:.2f} ms, "
+        f"{res['clips_per_s_b8']:.2f} clips/s; b1 {lat[3] * 1e3:.2f} ms ({report['card']})")
+    log(f"video_swin: plain route  b8 p50 {res['plain_p50_b8_s'] * 1e3:.2f} ms, "
+        f"{res['plain_clips_per_s_b8']:.2f} clips/s; b1 {lat_plain[3] * 1e3:.2f} ms; "
+        f"vs kernel route: max |score diff| {d_score:.2e}, feature rel err {d_feat:.2e} (bf16)")
+    for name, prof in res["profile"].items():
+        log(f"video_swin: profile {name}: device busy {prof['device_busy_ms']:.2f} ms of "
+            f"{prof['wall_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}; top "
+            + json.dumps(prof["top_kernels_ms"]))
+    # bf16: four ulps of a score near 0.5, ~3x the measured 4.5e-3 on features
+    if not (d_score <= 8e-3 and d_feat <= 1.5e-2):
+        fail("video_swin: kernel and plain routes disagree in bf16")
+    del pred, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_video_swin_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
+    import torch
+
+    from deepfake_tpu_torch.serving import Predictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pk = Predictor(cfg_kernel, device=dev)
+    pp = Predictor(cfg_plain, device=dev)
+    for (n1, a), (n2, b) in zip(pk.model.state_dict().items(), pp.model.state_dict().items()):
+        if n1 != n2 or not torch.equal(a, b):
+            fail(f"video_swin parity: the two models' weights differ at {n1}")
+    x = clips(cfg_kernel, batch, dev, gen)
+    blocks = sum(cfg_kernel.model.swin3d_depths)
+    before = counts()
+    scores = [p.predict(x) for p in (pk, pp)]
+    after = counts()
+    if (after["window_attn3d_tokens"] - before["window_attn3d_tokens"] != blocks
+            or after["ln_linear"] - before["ln_linear"] != 4 * blocks):
+        fail("video_swin parity: the kernel route did not run K3 and K4 in every block")
+    d_score = float(np.abs(scores[0] - scores[1]).max())
+    rel = feature_rel_err(pk, pp, x)
+    report["video_swin_parity"] = dict(batch=batch, max_abs_score_diff=d_score,
+                                       feature_rel_err=rel, scores_kernel=scores[0].tolist(),
+                                       scores_plain=scores[1].tolist())
+    log(f"video_swin parity f32 b{batch}: max |score diff| {d_score:.3e}; per-frame feature "
+        f"rel err {rel:.2e}")
+    # f32 (TF32 off): summation order only; measured 3e-8 and 2.4e-7
+    if not (d_score <= 1e-5 and rel <= 1e-5):
+        fail("video_swin: kernel and plain routes disagree in f32")
+    del pk, pp
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -499,7 +851,7 @@ def main() -> int:
     card = smi.splitlines()[0]
     dev = torch.device("cuda", 0)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "k1": [], "k2": []}
+              "k1": [], "k2": [], "k3": [], "k4": []}
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t = time.perf_counter()
@@ -514,25 +866,33 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = [phase_k1(dev, gen, 8 * 32, report)] + phase_k2(dev, gen, 8, report)
+    kernels = ([phase_k1(dev, gen, 8 * 32, report)] + phase_k2(dev, gen, 8, report)
+               + [phase_k3(dev, gen, 8, report), phase_k4(dev, gen, 8, report)])
 
-    def config(dtype: str, kernels: bool):
-        cfg = Config()
+    def config(dtype: str, kernels: bool, preset=None):
+        cfg = Config.preset(preset) if preset else Config()
         cfg.random_seed = args.seed
         cfg.parallel.compute_dtype = dtype
         cfg.model.irv2_fused_blocks = cfg.model.swin2d_attn_kernel = kernels
+        cfg.model.swin3d_attn_kernel = kernels
         return cfg
 
     launches = phase_serving(config("bfloat16", True), config("bfloat16", False), dev, gen, report)
     kernels[0]["launches"] = launches["inception_block"]
     kernels[1]["launches"] = launches["window_attn_tokens"]
     kernels[2]["launches"] = launches["window_attn_heads"]
+    launches = phase_video_swin(config("bfloat16", True, "video_swin"),
+                                config("bfloat16", False, "video_swin"), dev, gen, report)
+    kernels[3]["launches"] = launches["window_attn3d_tokens"]
+    kernels[4]["launches"] = launches["ln_linear"]
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         log(f"kernel {k['name']}: {k['per']}: kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
             f"library_ms={lib} bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) "
             f"launches on the main path={k['launches']}")
     phase_parity(config("float32", True), config("float32", False), dev, gen, report, batch=2)
+    phase_video_swin_parity(config("float32", True, "video_swin"),
+                            config("float32", False, "video_swin"), dev, gen, report, batch=2)
 
     report["total_s"] = time.perf_counter() - t_all
     report["kernels"] = kernels

@@ -9,6 +9,9 @@ name and layout change:
   flax Conv kernel [kh, kw, cin, cout] -> Conv2d weight [cout, cin, kh, kw]
   flax Conv kernel [k, cin/g, cout]    -> Conv1d weight [cout, cin/g, k]
   Dense kernel [in, out]               -> Linear weight [out, in]
+  flax Conv kernel [*k, cin, cout] on a Linear (a stride == kernel conv
+    run as space-to-depth + GEMM, Swin3D's patch embedding)
+                                       -> Linear weight [cout, prod(k) * cin]
   Swin qkv_kernel [C, 3C]              -> qkv_weight [3C, C]
   LayerNorm / BatchNorm / GroupNorm scale -> weight
   batch_stats mean / var               -> running_mean / running_var
@@ -46,7 +49,7 @@ def _convert(owner: nn.Module, leaf: str, arr: np.ndarray, where: str) -> Tuple[
     t = torch.from_numpy(np.array(arr, dtype=np.float32))
     if leaf == "kernel":
         if isinstance(owner, nn.Linear):
-            t = t.t()
+            t = t.reshape(-1, t.shape[-1]).t()
         elif isinstance(owner, nn.Conv2d):
             t = t.permute(3, 2, 0, 1)
         elif isinstance(owner, nn.Conv1d):

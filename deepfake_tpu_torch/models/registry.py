@@ -73,6 +73,18 @@ def _paudio(cfg: Config, use_feat: bool):
                    wav_config=wav_config(cfg))
 
 
+def _video_swin(cfg: Config):
+    from deepfake_tpu_torch.models.swin3d import VideoClassifier
+
+    m, s = cfg.model, cfg.data.frame_size
+    return VideoClassifier(
+        input_size=(cfg.data.num_frames, s, s), num_classes=m.num_classes,
+        embed_dim=m.swin3d_embed_dim, depths=tuple(m.swin3d_depths),
+        num_heads=tuple(m.swin3d_heads), patch_size=tuple(m.swin3d_patch),
+        window_size=tuple(m.swin3d_window), num_hiddens=m.num_hiddens, pool=m.video_pool,
+        kernels=m.swin3d_attn_kernel)
+
+
 def build_model(cfg: Config, device=None) -> nn.Module:
     """The configured modality's model, f32, in eval mode, on ``device``,
     with random weights drawn from ``cfg.random_seed``."""
@@ -84,6 +96,8 @@ def build_model(cfg: Config, device=None) -> nn.Module:
         model = _swin(cfg, False)
     elif modality == "paudio":
         model = _paudio(cfg, False)
+    elif modality == "video_swin":
+        model = _video_swin(cfg)
     elif modality == "fused":
         from deepfake_tpu_torch.models.fusion import FusionModel
 
@@ -110,7 +124,7 @@ def example_inputs(cfg: Config, batch: int = 1, device=None) -> Tuple:
         return (z(batch, wave),)
     if modality == "audio":
         return (z(batch, a, a, 3),)
-    if modality == "video":
+    if modality in ("video", "video_swin"):
         return (z(batch, t, s, s, 3),)
     if modality == "fused":
         return ((z(batch, t, s, s, 3), z(batch, a, a, 3), z(batch, wave)),)
@@ -119,13 +133,15 @@ def example_inputs(cfg: Config, batch: int = 1, device=None) -> Tuple:
 
 def precompute_bias_cache(model: nn.Module) -> nn.Module:
     """Compute every window-attention bias ([H, N, N] f32, a function of the
-    weights only) once; inference forwards then skip the CPB-MLP and gather
-    (registry.py:128-159). Call after the weights are final."""
+    weights only) once; inference forwards then skip the CPB-MLP (2D) or
+    the table gather (3D) (registry.py:128-159). Call after the weights are
+    final."""
     from deepfake_tpu_torch.models.swin2d import WindowAttention
+    from deepfake_tpu_torch.models.swin3d import WindowAttention3D
 
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, WindowAttention):
+            if isinstance(mod, (WindowAttention, WindowAttention3D)):
                 mod.precompute_bias()
     return model
 

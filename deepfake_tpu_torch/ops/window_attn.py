@@ -1,6 +1,7 @@
-"""Windowed attention in plain PyTorch (SwinV2 cosine attention).
+"""Windowed attention in plain PyTorch: SwinV2 cosine attention and Video
+Swin scaled attention.
 
-Counterpart of deepfake_tpu/ops/window_attn.py:25-93, the JAX package's
+Counterpart of deepfake_tpu/ops/window_attn.py:25-126, the JAX package's
 einsum path. Shapes:
 
   q, k, v      [B_, H, N, D]   (B_ = batch * windows, windows batch-major)
@@ -41,3 +42,13 @@ def cosine_window_attention(q, k, v, logit_scale, bias, mask=None) -> torch.Tens
     attn = add_mask(attn * logit_scale.float() + bias.float()[None], mask)
     e = torch.exp(torch.clamp(attn - 24.0, max=60.0))
     return (e / e.sum(dim=-1, keepdim=True)).to(v.dtype) @ v
+
+
+def scaled_window_attention(q, k, v, scale: float, bias, mask=None) -> torch.Tensor:
+    """Video Swin scaled-dot attention as the JAX einsum path computes it
+    (window_attn.py:96-126): ``q * scale`` in q's type, f32 logits, plus
+    bias and mask, max-stabilised f32 softmax, the probabilities cast to
+    v's type for PV."""
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    attn = add_mask(qs.float() @ k.float().transpose(-1, -2) + bias.float()[None], mask)
+    return torch.softmax(attn, dim=-1).to(v.dtype) @ v

@@ -107,7 +107,7 @@ def _launch(q, k, v, strides, out, out_strides, *, windows, heads, n, d, bias, m
 def _on_cuda(name: str, *ts: torch.Tensor) -> bool:
     devs = {t.device for t in ts}
     if len(devs) != 1:
-        raise ValueError(f"{name}: q, k, v on different devices {devs}")
+        raise ValueError(f"{name}: inputs on different devices {devs}")
     dev = devs.pop()
     if dev.type == "cpu":
         return False

@@ -5,8 +5,10 @@
     probs = pred.predict((frames, mel, wave))   # model-ready numpy/torch inputs
 
 Inputs keep the JAX contract: frames NTHWC float32, mel image NHWC, wave
-[B, T] or a (wave, lengths) pair. Host-side feature assembly
-(``predict_raw``, ``score_file``) is not ported yet.
+[B, T] or a (wave, lengths) pair. ``video_swin`` takes NTHWC clips of the
+configured length and size; its model returns (scores, per-frame
+features), of which ``predict`` returns the scores. Host-side feature
+assembly (``predict_raw``, ``score_file``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -72,11 +74,14 @@ class Predictor:
         return self._put(inputs)
 
     @torch.inference_mode()
-    def forward(self, inputs) -> torch.Tensor:
-        """Model-ready inputs -> scores as a device tensor."""
+    def forward(self, inputs):
+        """Model-ready inputs -> the model's output on the device: scores, or
+        (scores, per-frame features) for video_swin."""
         return self.model(self._inputs(inputs))
 
     def predict(self, inputs) -> np.ndarray:
         """Model-ready inputs (a tuple for fused) -> sigmoid scores [B]."""
         out = self.forward(inputs)
+        if isinstance(out, tuple):
+            out = out[0]
         return np.atleast_1d(out.float().cpu().numpy())

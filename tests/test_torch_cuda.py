@@ -6,10 +6,17 @@ card and PyTorch alone:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
-Tolerances, on max |kernel - plain| / max(|plain|, 1): f32 with TF32 off,
-1e-4 (summation order and rsqrt rounding; K2's logits reach ~116 and
-amplify them); bf16 2e-2 (one bf16 rounding of a stored value, where the
-two sides may round apart by an ulp).
+Tolerances for K1 and K2, on max |kernel - plain| / max(|plain|, 1): f32
+with TF32 off, 1e-4 (summation order and rsqrt rounding; K2's logits reach
+~116 and amplify them); bf16 2e-2 (one bf16 rounding of a stored value,
+where the two sides may round apart by an ulp). For K3, on max |kernel -
+plain|: f32 1e-5; bf16 two bf16 ulps of the largest output (the weights
+are rounded to bf16 for PV on both sides, and a weight whose f32 value
+sits at a rounding boundary may round apart). For K4, on max |kernel -
+plain| / max(|plain|, 1): f32 1e-5 (summation order); bf16 two bf16 ulps of
+the largest output (each of the LayerNorm output, the product, the GELU and
+the residual sum is rounded to bf16 on both sides and may round apart by an
+ulp).
 """
 
 import math
@@ -21,6 +28,11 @@ from deepfake_tpu_torch.models import inception_resnet_v2 as irv2
 from deepfake_tpu_torch.models.layers import BatchNorm, init_weights
 from deepfake_tpu_torch.models.swin2d import shift_attn_mask
 from deepfake_tpu_torch.ops.inception_block import inception_block, inception_block_plain
+from deepfake_tpu_torch.models.swin3d import compute_mask_3d
+from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, ln_linear_plain
+from deepfake_tpu_torch.ops.window_attn3d_kernel import (
+    window_attn3d_tokens, window_attn3d_tokens_plain,
+)
 from deepfake_tpu_torch.ops.window_attn_kernel import (
     window_attention_heads, window_attention_heads_plain, window_attention_tokens,
     window_attention_tokens_plain,
@@ -115,3 +127,91 @@ def test_k2_raises_for_windows_it_does_not_take(cuda_device):
     q = torch.zeros(1, 1, 392, 32, device=cuda_device)
     with pytest.raises(ValueError, match="N <= 64"):
         window_attention_heads(q, q, q, bias=torch.zeros(1, 392, 392), logit_scale=torch.ones(1))
+
+
+def k3_tolerance(want: torch.Tensor) -> float:
+    """1e-5 in f32; in bf16 two ulps of the largest |output|."""
+    if want.dtype == torch.float32:
+        return 1e-5
+    return 2.0 * 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B_,H,masked,N", [
+    (256, 3, True, 392), (64, 12, False, 392), (16, 24, True, 392), (8, 2, True, 196),
+    (3, 1, False, 512)], ids=["stage0_shifted", "stage2", "stage3_shifted", "clamped_196",
+                              "n512"])
+def test_k3_tokens_kernel_matches_plain(cuda_device, B_, H, masked, N, dtype):
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    C = 32 * H
+    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=cuda_device).to(dtype)
+    bias = 0.5 * torch.randn(H, N, N, generator=gen, device=cuda_device)
+    mask = None
+    if masked:
+        grid = {392: (16, 14, 14), 196: (4, 14, 14)}[N]
+        ws = (8, 7, 7) if N == 392 else (4, 7, 7)
+        mask = torch.from_numpy(compute_mask_3d(*grid, ws, (4, 3, 3))).to(cuda_device)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    kw = dict(num_heads=H, bias=bias, mask=mask, scale=32 ** -0.5)
+    before = window_attn3d_tokens.launches
+    got = window_attn3d_tokens(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert window_attn3d_tokens.launches == before + 1
+    want = window_attn3d_tokens_plain(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert math.isfinite(err) and err <= k3_tolerance(want), err
+
+
+@pytest.mark.cuda
+def test_k3_raises_for_windows_it_does_not_take(cuda_device):
+    q = torch.zeros(1, 640, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="N <= 512"):
+        window_attn3d_tokens(q, q, q, num_heads=1, bias=torch.zeros(1, 640, 640), scale=0.2)
+
+
+def k4_tolerance(want: torch.Tensor) -> float:
+    """1e-5 of max(|plain|, 1) in f32; in bf16 two ulps of the largest |output|."""
+    big = want.float().abs().max().item()
+    if want.dtype == torch.float32:
+        return 1e-5 * max(big, 1.0)
+    return 2.0 * 2.0 ** (math.floor(math.log2(big)) - 7)
+
+
+# (rows, K, N, role): Video Swin-S stage 0 and stage 3 widths; the row counts
+# are not multiples of the 128-row tile
+K4_CASES = [(4100, 96, 288, "ln_qkv"), (4100, 96, 96, "proj"), (4100, 96, 384, "sum_ln_fc1_gelu"),
+            (4100, 384, 96, "fc2_residual_pair"), (1000, 768, 2304, "ln_qkv"),
+            (1000, 3072, 768, "fc2_residual_pair")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N,role", K4_CASES,
+                         ids=[f"{r}_{m}x{k}x{n}" for m, k, n, r in K4_CASES])
+def test_k4_kernel_matches_plain(cuda_device, M, K, N, role, dtype):
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    rnd = lambda *s, scale=1.0: (scale * torch.randn(*s, generator=gen, device=cuda_device)).to(dtype)
+    x = rnd(M, K)
+    w, b = rnd(N, K, scale=K ** -0.5), rnd(N, scale=0.5)
+    kw = {}
+    if role in ("ln_qkv", "sum_ln_fc1_gelu"):
+        kw["ln"] = (1 + rnd(K, scale=0.2), rnd(K, scale=0.5), 1e-6)
+    if role == "sum_ln_fc1_gelu":
+        kw.update(x2=rnd(M, K), gelu=True)
+    if role == "fc2_residual_pair":
+        kw.update(res=rnd(M, N), res2=rnd(M, N))
+    before = ln_linear.launches
+    got = ln_linear(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert ln_linear.launches == before + 1
+    want = ln_linear_plain(x, w, b, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert math.isfinite(err) and err <= k4_tolerance(want), err
+
+
+@pytest.mark.cuda
+def test_k4_raises_for_shapes_it_does_not_take(cuda_device):
+    x = torch.zeros(4, 12, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ln_linear(x, torch.zeros(8, 12, device=cuda_device, dtype=torch.bfloat16))

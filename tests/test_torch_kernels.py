@@ -1,8 +1,10 @@
 """The port's kernel modules against the JAX package's Pallas kernels.
 
-K1 (deepfake_tpu_torch/ops/inception_block.py) and K2
-(deepfake_tpu_torch/ops/window_attn_kernel.py) run here, on the CPU,
-through their plain versions; the Pallas kernels run in interpret mode, as
+K1 (deepfake_tpu_torch/ops/inception_block.py), K2
+(deepfake_tpu_torch/ops/window_attn_kernel.py), K3
+(deepfake_tpu_torch/ops/window_attn3d_kernel.py) and K4
+(deepfake_tpu_torch/ops/ln_linear_kernel.py) run here, on the CPU, through
+their plain versions; the Pallas kernels run in interpret mode, as
 tests/test_pallas_inception.py and tests/test_pallas_kernels.py run them.
 Weights go across with load_jax_variables. All f32.
 
@@ -18,12 +20,17 @@ import jax.numpy as jnp
 
 from deepfake_tpu.models import inception_resnet_v2 as jirv2
 from deepfake_tpu.models.swin2d import shift_attn_mask
+from deepfake_tpu.models.swin3d import compute_mask_3d
+from deepfake_tpu.ops.pallas_mlp import fused_mlp_tail
 from deepfake_tpu.ops.pallas_window_attn import (
-    pallas_window_attention, pallas_window_attention_nhc_packed,
+    pallas_window_attention, pallas_window_attention_nhc, pallas_window_attention_nhc_packed,
+    pallas_window_attention_nhc_qkv,
 )
 from deepfake_tpu_torch.io.jax_weights import load_jax_variables
 from deepfake_tpu_torch.models import inception_resnet_v2 as tirv2
 from deepfake_tpu_torch.models.layers import as_nchw, as_nhwc
+from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, mlp_tail
+from deepfake_tpu_torch.ops.window_attn3d_kernel import window_attn3d_tokens
 from deepfake_tpu_torch.ops.window_attn_kernel import (
     window_attention_heads, window_attention_tokens,
 )
@@ -152,3 +159,170 @@ def test_k2_wrapper_takes_the_plain_version_for_cpu_tensors_only():
     q = torch.zeros(2, 1, 49, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device meta"):
         window_attention_heads(q, q, q, bias=torch.zeros(1, 49, 49), logit_scale=torch.ones(1))
+
+
+def _attn3d_inputs(B_, H, seed, masked):
+    """N = 392 ((8,7,7) windows), D = 32; the shift mask of an 8x14x14
+    token grid (4 windows) shifted by (4,3,3)."""
+    N, D = 392, 32
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)
+    q, k, v = mk(B_, H, N, D), mk(B_, H, N, D), mk(B_, H, N, D)
+    bias = 0.5 * mk(H, N, N)
+    mask = compute_mask_3d(8, 14, 14, (8, 7, 7), (4, 3, 3)) if masked else None
+    return q, k, v, bias, mask
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["shifted_nW4", "unshifted"])
+def test_k3_plain_tokens_matches_pallas_nhc(masked):
+    """Token-major K3 (plain on the CPU) == pallas_window_attention_nhc
+    (interpret mode; static-shift softmax, deferred 1/rowsum) at N=392,
+    B_=4, H=4, q, k, v as column slices of one qkv tensor: max abs error
+    <= 2e-5."""
+    B_, H, N, D = 4, 4, 392, 32
+    q, k, v, bias, mask = _attn3d_inputs(B_, H, 30, masked)
+    tok = lambda a: a.transpose(0, 2, 1, 3).reshape(B_, N, H * D)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    want = np.asarray(pallas_window_attention_nhc(
+        j(tok(q)), j(tok(k)), j(tok(v)), num_heads=H, bias=j(bias), mask=j(mask),
+        scale=D ** -0.5))
+    qkv = torch.from_numpy(np.concatenate([tok(q), tok(k), tok(v)], axis=-1))
+    C = H * D
+    got = window_attn3d_tokens(
+        qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], num_heads=H,
+        bias=torch.from_numpy(bias), mask=None if mask is None else torch.from_numpy(mask),
+        scale=D ** -0.5)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+def test_k3_rejects_what_it_does_not_take():
+    """The CUDA wrapper raises before any launch for N > 512, a head dim
+    other than 32, a non-contiguous head dim and a mask that does not tile
+    the windows."""
+    from deepfake_tpu_torch.ops.window_attn3d_kernel import _launch
+
+    def launch(q, n, d, mask=None, windows=1):
+        _launch(q, q, q, (0, 0, 0), q, (0, 0, 0), windows=windows, heads=1, n=n, d=d,
+                bias=torch.zeros(1, n, n), mask=mask, scale=1.0)
+
+    with pytest.raises(ValueError, match="N <= 512"):
+        launch(torch.zeros(1, 640, 32), 640, 32)
+    with pytest.raises(ValueError, match="D == 32"):
+        launch(torch.zeros(1, 392, 64), 392, 64)
+    with pytest.raises(ValueError, match="head dim contiguous"):
+        launch(torch.zeros(1, 32, 392).transpose(1, 2), 392, 32)
+    with pytest.raises(ValueError, match="does not tile 3 windows"):
+        launch(torch.zeros(3, 392, 32), 392, 32, mask=torch.zeros(2, 392, 392), windows=3)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        launch(torch.zeros(1, 392, 32, dtype=torch.float16), 392, 32)
+
+
+def test_k3_wrapper_takes_the_plain_version_for_cpu_tensors_only():
+    """A CPU tensor selects the plain version and counts no launch; any
+    other device that is not CUDA raises rather than running the plain path."""
+    q = torch.zeros(2, 392, 32)
+    before = window_attn3d_tokens.launches
+    out = window_attn3d_tokens(q, q, q, num_heads=1, bias=torch.zeros(1, 392, 392), scale=0.2)
+    assert out.shape == q.shape and window_attn3d_tokens.launches == before
+    m = torch.zeros(2, 392, 32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        window_attn3d_tokens(m, m, m, num_heads=1, bias=torch.zeros(1, 392, 392), scale=0.2)
+
+
+def _dense(rng, cin, cout):
+    """A JAX Dense kernel [cin, cout] and bias, lecun-normal and ~0.1."""
+    w = (rng.standard_normal((cin, cout)) / np.sqrt(cin)).astype(np.float32)
+    return w, (0.1 * rng.standard_normal(cout)).astype(np.float32)
+
+
+def _norm(rng, c):
+    return ((1 + 0.2 * rng.standard_normal(c)).astype(np.float32),
+            (0.1 * rng.standard_normal(c)).astype(np.float32))
+
+
+@pytest.mark.parametrize("C,H,masked", [(64, 2, True), (256, 8, False)],
+                         ids=["one_group_ln_proj_shifted", "two_groups_ln_unshifted"])
+def test_k4_k3_plain_match_pallas_qkv_fused(C, H, masked):
+    """pallas_window_attention_nhc_qkv (interpret mode; LayerNorm, qkv,
+    attention and, for a single head group, proj in one kernel) == K4's
+    LayerNorm + qkv launch, K3, and K4's proj launch (plain versions on the
+    CPU) at N=392, B_=4: max abs error <= 2e-5. At H=8 the Pallas kernel
+    runs two head groups and leaves proj to its caller, so the attention
+    output is compared before proj."""
+    B_, N, D = 4, 392, 32
+    rng = np.random.default_rng(33)
+    x = rng.standard_normal((B_, N, C)).astype(np.float32)
+    (lw, lb), (wq, bq), (wp, bp) = _norm(rng, C), _dense(rng, C, 3 * C), _dense(rng, C, C)
+    bias = (0.5 * rng.standard_normal((H, N, N))).astype(np.float32)
+    mask = compute_mask_3d(8, 14, 14, (8, 7, 7), (4, 3, 3)) if masked else None
+    j = jnp.asarray
+    want, projected = pallas_window_attention_nhc_qkv(
+        j(x), j(wq), j(bq), num_heads=H, bias=j(bias), mask=None if mask is None else j(mask),
+        scale=D ** -0.5, ln=(j(lw), j(lb)), proj=(j(wp), j(bp)))
+    assert projected == (H == 2)
+    t = torch.from_numpy
+    qkv = ln_linear(t(x), t(wq.T.copy()), t(bq), ln=(t(lw), t(lb), 1e-6))
+    got = window_attn3d_tokens(qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], num_heads=H,
+                               bias=t(bias), mask=None if mask is None else t(mask),
+                               scale=D ** -0.5)
+    if projected:
+        got = ln_linear(got, t(wp.T.copy()), t(bp))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("L,C", [(256, 64), (96, 96)], ids=["L256_C64", "L96_C96"])
+def test_k4_plain_mlp_tail_matches_pallas(L, C):
+    """fused_mlp_tail (interpret mode: a + b, LayerNorm, fc1, exact GELU,
+    fc2, + (a + b)) == mlp_tail, two launches of K4 (plain versions on the
+    CPU): max abs error <= 2e-5."""
+    rng = np.random.default_rng(34)
+    a, b = (rng.standard_normal((L, C)).astype(np.float32) for _ in range(2))
+    (lw, lb), (w1, b1), (w2, b2) = _norm(rng, C), _dense(rng, C, 4 * C), _dense(rng, 4 * C, C)
+    j = jnp.asarray
+    want = fused_mlp_tail(j(a), j(b), j(lw), j(lb), j(w1), j(b1), j(w2), j(b2))
+    t = torch.from_numpy
+    got = mlp_tail(t(a), t(b), (t(lw), t(lb), 1e-6), t(w1.T.copy()), t(b1), t(w2.T.copy()),
+                   t(b2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+def test_k4_rejects_what_it_does_not_take():
+    """The CUDA wrapper's checks raise before any launch: a type it does not
+    take, mixed types, a weight that does not fit, partners of different
+    strides, bf16 widths that are not multiples of 8, and a bf16 prologue
+    over a K that is not a multiple of 32."""
+    from deepfake_tpu_torch.ops.ln_linear_kernel import _check
+
+    x, w = torch.zeros(4, 16), torch.zeros(8, 16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        _check(x.half(), w.half(), None, None, None, None, None)
+    with pytest.raises(ValueError, match="one type"):
+        _check(x, w.bfloat16(), None, None, None, None, None)
+    with pytest.raises(ValueError, match="columns, expected 16"):
+        _check(torch.zeros(4, 12), w, None, None, None, None, None)
+    with pytest.raises(ValueError, match="bias"):
+        _check(x, w, torch.zeros(7), None, None, None, None)
+    with pytest.raises(ValueError, match="shape and strides"):
+        _check(x, w, None, torch.zeros(4, 32)[:, :16], None, None, None)
+    with pytest.raises(ValueError, match="contiguous columns"):
+        _check(x, w, None, torch.zeros(16, 4).t(), None, None, None)
+    with pytest.raises(ValueError, match="res has 3 rows"):
+        _check(x, w, None, None, None, torch.zeros(3, 8), None)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _check(torch.zeros(4, 12).bfloat16(), torch.zeros(8, 12).bfloat16(), None, None, None,
+               None, None)
+    xb = torch.zeros(4, 48).bfloat16()
+    with pytest.raises(ValueError, match="multiple of 32"):
+        _check(xb, torch.zeros(8, 48).bfloat16(), None, xb, None, None, None)
+
+
+def test_k4_wrapper_takes_the_plain_version_for_cpu_tensors_only():
+    """A CPU tensor selects the plain version and counts no launch; any
+    other device that is not CUDA raises rather than running the plain path."""
+    x, w = torch.ones(3, 5, 16), torch.ones(8, 16)
+    before = ln_linear.launches
+    out = ln_linear(x, w, torch.zeros(8), gelu=True)
+    assert out.shape == (3, 5, 8) and ln_linear.launches == before
+    m = torch.zeros(3, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        ln_linear(m, torch.zeros(8, 16, device="meta"))

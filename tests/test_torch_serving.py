@@ -105,14 +105,18 @@ def test_single_modality_predictor_matches_jax(modality):
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    """Importing every module of deepfake_tpu_torch loads no jax* module and
-    nothing of deepfake_tpu."""
+    """Importing every module of deepfake_tpu_torch (the Swin3D model and
+    the K3 and K4 wrappers among them) loads no jax* module and nothing of
+    deepfake_tpu."""
     code = (
         "import importlib, pkgutil, sys, deepfake_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')\n"
         "             or m == 'deepfake_tpu' or m.startswith('deepfake_tpu.'))\n"
+        "need = {'deepfake_tpu_torch.models.swin3d', 'deepfake_tpu_torch.ops.window_attn3d_kernel',\n"
+        "        'deepfake_tpu_torch.ops.ln_linear_kernel'}\n"
+        "bad += sorted(need - set(sys.modules))\n"
         "print(len([m for m in sys.modules if m.startswith('deepfake_tpu_torch.')]), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -1,0 +1,216 @@
+"""The port's Video Swin 3D (deepfake_tpu_torch/models/swin3d.py) and
+``video_swin`` serving against the JAX package's swin3d.py, weights carried
+across with load_jax_variables. All f32 on the CPU.
+
+The JAX side runs one of three routes: its default Pallas routes (interpret
+mode), where ``pallas_window_attention_nhc_qkv`` computes LayerNorm, qkv,
+attention and proj and ``fused_mlp_tail`` the MLP half (its minimum token
+count set to 0, so that the small test shapes take it); its ``nhc`` route,
+where ``pallas_window_attention_nhc`` computes the attention alone; or its
+einsum route (``use_pallas=False``). The port runs the plain versions of K3
+and K4 (its kernel route, the same for the first two) or its own plain
+route.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from deepfake_tpu_torch.io.jax_weights import load_jax_variables
+from deepfake_tpu_torch.models.registry import precompute_bias_cache
+
+from tests.torch_port_helpers import both_configs, random_variables
+
+SMALL_VIDEO_SWIN = {
+    # stage 0: 8 x 14 x 14 tokens, four (8,7,7) windows of N = 392 per clip
+    "data.modality": "video_swin",
+    "data.num_frames": 16,
+    "data.frame_size": 56,
+    "model.swin3d_embed_dim": 32,
+    "model.swin3d_depths": (2, 2),
+    "model.swin3d_heads": (1, 2),
+    "model.swin3d_window": (8, 7, 7),
+    "model.num_hiddens": 16,
+    "parallel.compute_dtype": "float32",
+}
+
+
+def jax_routes(monkeypatch, routes: str):
+    """Pallas in interpret mode, and for ``"nhc"`` QKV fusion and the MLP
+    tail off, so WindowAttention3D takes the ``nhc`` route
+    (swin3d.py:531-547); for ``"fused"`` the default routes, with the MLP
+    tail's minimum token count at 0."""
+    monkeypatch.setenv("DEEPFAKE_TPU_PALLAS_INTERPRET", "1")
+    if routes == "nhc":
+        monkeypatch.setenv("DEEPFAKE_TPU_NO_QKV_FUSE", "1")
+        monkeypatch.setenv("DEEPFAKE_TPU_NO_MLP_TAIL", "1")
+    else:
+        monkeypatch.setenv("DEEPFAKE_TPU_MLP_TAIL_MINL", "0")
+
+
+def count_calls(monkeypatch, calls, module, names):
+    """Count in ``calls`` the calls of ``module.<name>`` for each name (the
+    JAX model imports them from the module at call time)."""
+    calls.update(dict.fromkeys(names, 0))
+    for name in names:
+        fn = getattr(module, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(module, name, spy)
+
+
+@pytest.fixture
+def nhc_route(monkeypatch):
+    jax_routes(monkeypatch, "nhc")
+
+
+@pytest.fixture
+def fused_routes(monkeypatch):
+    """The JAX default routes, with a count of the calls of the QKV-fused
+    attention and MLP-tail kernels."""
+    from deepfake_tpu.ops import pallas_mlp, pallas_window_attn
+
+    jax_routes(monkeypatch, "fused")
+    calls = {}
+    count_calls(monkeypatch, calls, pallas_window_attn, ["pallas_window_attention_nhc_qkv"])
+    count_calls(monkeypatch, calls, pallas_mlp, ["fused_mlp_tail"])
+    return calls
+
+
+@pytest.mark.parametrize("shape,shift", [
+    ((2, 8, 14, 14, 64), (0, 0, 0)),
+    ((2, 8, 14, 14, 64), (4, 3, 3)),
+    ((1, 8, 10, 10, 64), (4, 3, 3)),  # H, W padded to 14 before the roll
+], ids=["unshifted", "shifted", "padded_shifted"])
+def test_swin_block3d_matches_jax_nhc(nhc_route, shape, shift):
+    """SwinBlock3D, attention through K3's plain token-major version, against
+    the JAX block on its nhc route: max abs error <= 2e-5."""
+    from deepfake_tpu.models.swin3d import SwinBlock3D as J
+    from deepfake_tpu_torch.models.swin3d import SwinBlock3D as T
+
+    x = np.random.default_rng(20).standard_normal(shape).astype(np.float32)
+    jblock = J(dim=64, num_heads=2, window_size=(8, 7, 7), shift_size=shift, use_pallas=True)
+    variables = random_variables(jblock, jnp.asarray(x), seed=21, deterministic=True)
+    want = np.asarray(jblock.apply(variables, jnp.asarray(x), deterministic=True))
+    tblock = T(64, shape[1:4], 2, (8, 7, 7), shift, kernels=True)
+    load_jax_variables(tblock, variables)
+    precompute_bias_cache(tblock)
+    with torch.inference_mode():
+        got = tblock(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape,shift", [
+    ((2, 8, 14, 14, 64), (0, 0, 0)),
+    ((2, 8, 14, 14, 64), (4, 3, 3)),
+    ((1, 8, 10, 10, 64), (4, 3, 3)),  # padded: the JAX kernel and K4 take a normed input
+], ids=["unshifted", "shifted", "padded_shifted"])
+def test_swin_block3d_matches_jax_fused_routes(fused_routes, shape, shift):
+    """SwinBlock3D on its kernel route (K4's and K3's plain versions) against
+    the JAX block on its default routes, where the QKV-fused attention
+    kernel and the MLP-tail kernel each run once: max abs error <= 2e-5."""
+    from deepfake_tpu.models.swin3d import SwinBlock3D as J
+    from deepfake_tpu_torch.models.swin3d import SwinBlock3D as T
+
+    x = np.random.default_rng(24).standard_normal(shape).astype(np.float32)
+    jblock = J(dim=64, num_heads=2, window_size=(8, 7, 7), shift_size=shift, use_pallas=True)
+    variables = random_variables(jblock, jnp.asarray(x), seed=25, deterministic=True)
+    fused_routes.update(dict.fromkeys(fused_routes, 0))
+    want = np.asarray(jblock.apply(variables, jnp.asarray(x), deterministic=True))
+    assert fused_routes == {"pallas_window_attention_nhc_qkv": 1, "fused_mlp_tail": 1}
+    tblock = T(64, shape[1:4], 2, (8, 7, 7), shift, kernels=True)
+    load_jax_variables(tblock, variables)
+    precompute_bias_cache(tblock)
+    with torch.inference_mode():
+        got = tblock(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+def _classifier_case(frames: int, jax_pallas: bool):
+    from deepfake_tpu.models.registry import build_model
+
+    jcfg, tcfg = both_configs(dict(SMALL_VIDEO_SWIN, **{"data.num_frames": frames}))
+    jcfg.model.swin3d_pallas_attn = jax_pallas
+    model = build_model(jcfg)
+    x = np.random.default_rng(22).standard_normal((2, frames, 56, 56, 3)).astype(np.float32)
+    variables = random_variables(model, jnp.asarray(x), seed=23, deterministic=True)
+    return model, variables, tcfg, x
+
+
+@pytest.mark.parametrize("frames,routes", [
+    (16, "nhc"), (16, "einsum"), (8, "nhc"), (16, "fused"), (8, "fused"),
+], ids=["16f_k3_vs_nhc", "16f_plain_vs_einsum", "8f_clamped_k3_vs_nhc",
+        "16f_kernels_vs_fused", "8f_clamped_kernels_vs_fused"])
+def test_video_classifier_matches_jax(monkeypatch, frames, routes):
+    """VideoClassifier at small width (embed 32, depths 2/2, heads 1/2,
+    window (8,7,7), 56x56): scores and per-frame features within 1e-4 of
+    the JAX model. The port's kernel route (K3's and K4's plain versions)
+    faces the JAX nhc route and the JAX default (QKV-fused, MLP-tail)
+    routes, the port's plain route the JAX einsum route. 8 frames give 4
+    tokens in time, so the window clamps to (4,7,7) and the bias takes the
+    [:N, :N] slice of the (8,7,7) index."""
+    from deepfake_tpu_torch.models.registry import build_model as tbuild
+
+    jax_routes(monkeypatch, routes)
+    kernel = routes != "einsum"
+    model, variables, tcfg, x = _classifier_case(frames, jax_pallas=kernel)
+    want_p, want_f = model.apply(variables, jnp.asarray(x), deterministic=True)
+    cfg = copy.deepcopy(tcfg)
+    cfg.model.swin3d_attn_kernel = kernel
+    tmodel = tbuild(cfg, "cpu")
+    if frames == 8:
+        assert tmodel.videoSwinT.layers_0_blocks_1.ws == (4, 7, 7)
+    load_jax_variables(tmodel, variables)
+    precompute_bias_cache(tmodel)
+    with torch.inference_mode():
+        got_p, got_f = tmodel(torch.from_numpy(x))
+    assert got_f.shape == want_f.shape
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), atol=1e-4, rtol=0)
+
+
+def test_video_swin_predictor_matches_jax(fused_routes):
+    """``Predictor(device="cpu")`` for video_swin, JAX variables loaded,
+    against the JAX VideoClassifier on its default routes: scores within
+    1e-4, and the JAX model's tree loads strictly (no leaf left over or
+    missing)."""
+    from deepfake_tpu_torch.serving import Predictor
+
+    model, variables, tcfg, x = _classifier_case(16, jax_pallas=True)
+    want = np.asarray(jax.jit(lambda v, a: model.apply(v, a, deterministic=True)[0])(
+        variables, jnp.asarray(x)))
+    assert fused_routes["pallas_window_attention_nhc_qkv"] and fused_routes["fused_mlp_tail"]
+    pred = Predictor(tcfg, variables, device="cpu")
+    got = pred.predict(x)
+    assert got.shape == (2,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    bias = pred.model.videoSwinT.layers_0_blocks_0.attn.bias_cache
+    assert bias is not None and bias.shape == (1, 392, 392)
+
+
+def test_video_swin_preset_and_inputs():
+    """The video_swin preset and example_inputs give the full-width shapes:
+    32 frames of 224x224, num_hiddens 256, mean pooling, K3 and K4 on."""
+    from deepfake_tpu_torch.config import Config
+    from deepfake_tpu_torch.models.registry import example_inputs
+
+    cfg = Config.preset("video_swin")
+    assert cfg.data.modality == "video_swin" and cfg.model.num_hiddens == 256
+    assert cfg.model.swin3d_attn_kernel and cfg.model.video_pool == "mean"
+    (x,) = example_inputs(cfg, batch=2, device="cpu")
+    assert tuple(x.shape) == (2, 32, 224, 224, 3)
+
+
+def test_attention_pooling_is_not_ported():
+    from deepfake_tpu_torch.models.swin3d import PoolingMLP
+
+    with pytest.raises(NotImplementedError, match="mean pooling"):
+        PoolingMLP(64, 16, 1, pool="Attention")
