@@ -7,11 +7,12 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. the card's name and power limit; build every CUDA kernel from csrc/
      (one nvcc per source, all at once).
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes serving gives it (fused: b8 x 32 frames at 224, SwinV2-B at 224;
-     video_swin: the four Video Swin-S stages at b8 x 32 frames of 224, K3's
-     attention and K4's four launches of a block), f32 with TF32 off and
-     bf16; kernel, plain, library and bound times per shape and per b8
-     request.
+     shapes its path gives it (fused: b8 x 32 frames at 224, SwinV2-B at
+     224; video_swin: the four Video Swin-S stages at b8 x 32 frames of 224,
+     K3's attention and K4's four launches of a block in serving, K5's
+     forward and backward in training), f32 with TF32 off and bf16; kernel,
+     plain, library and bound times per shape and per b8 request or
+     micro-batch.
   3. fused serving at full width (IRv2 + NeXtVLAD, SwinV2-B, wav2vec2-base,
      fusion head; random weights from --seed) in bf16: three b8 requests
      and one b1 request, with the launch counters showing that the
@@ -26,6 +27,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      (scores and per-frame features). In f32 every kernel runs its SIMT
      parity kernel, not the tensor-core kernel that serves bf16; phase 2
      holds the tensor-core kernels.
+  6. video_swin training at full width (the preset: micro-batch 8 x accum
+     4, 32 clips of 32 x 224^2 a step, bf16 compute, f32 masters, seeded
+     random clips and labels): three optimizer steps on the K5 route (96 K5
+     forward and 96 backward launches a step) and Trainer.eval of one batch
+     (K3 and K4 on the trained f32 masters), then the same steps from the
+     same weights on the plain route; step ms, clips/s, peak memory, losses,
+     one step under torch.profiler. K5 itself is held against its plain
+     versions in phase 2 (the four stage shapes of a b8 micro-batch).
+  7. f32 parity of training: one b1 micro-batch, every gradient of the K5
+     route against the plain route.
 The last two lines are {"kernels": [...]} and {"ok": true, "device": ...};
 --report writes every measurement and check as JSON to PATH. Imports
 nothing of JAX.
@@ -60,6 +71,11 @@ K4_SRC = "deepfake_tpu_torch/csrc/ln_linear.cu"
 K4_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:548 pallas_window_attention_nhc_qkv "
                "(LayerNorm, qkv and proj; with K3); deepfake_tpu/ops/pallas_mlp.py:101 "
                "fused_mlp_tail")
+K5_SRC = "deepfake_tpu_torch/csrc/window_attn3d_train.cu"
+K5_FWD_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:1074 "
+                   "pallas_window_attention_nhc_train (forward: _run_nhc :320)")
+K5_BWD_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:1074 "
+                   "pallas_window_attention_nhc_train (backward: _run_nhc_bwd :966)")
 
 
 def log(*a):
@@ -505,6 +521,136 @@ def phase_k4(dev, gen, batch: int, report):
                     "bf16; library_ms is F.linear, the product and bias alone")
 
 
+# ---------------------------------------------------------------- phase 2: K5
+
+def k5_check(got, want, what: str, dbias: bool = False):
+    """Max abs error of K5 against its plain version: f32 1e-5 of
+    max(|plain|, 1); bf16 two bf16 ulps of the largest |output| for out, dq,
+    dk, dv, and 1e-2 of the largest |value| for the f32 dbias."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    big = want.float().abs().max().item()
+    if dbias:
+        tol = 1e-2 * big
+    elif want.dtype == torch.float32:
+        tol = 1e-5 * max(big, 1.0)
+    else:
+        tol = 2.0 * 2.0 ** (math.floor(math.log2(big)) - 7)
+    if not (math.isfinite(err) and err <= tol):
+        fail(f"K5 {what}: max abs err {err:.3e} > {tol:.3e}")
+    return err, tol
+
+
+def k5_flops_bytes(B_, H, C, n_masks):
+    """bf16; forward: q, k, v in, out written, the f32 bias and the bf16 mask
+    read, 4 B_ H N^2 D operations. Backward: q, k, v, dO in, dq, dk, dv
+    out, the bias (bf16, its cast point) and mask read, the f32 dbias
+    written, 10 B_ H N^2 D operations (S, dP, dV, dQ, dK)."""
+    tok = B_ * N3 * C * 2.0
+    nn_ = N3 * N3
+    fwd = (4.0 * B_ * H * nn_ * (C // H), 4 * tok + 4.0 * H * nn_ + 2.0 * n_masks * nn_)
+    bwd = (10.0 * B_ * H * nn_ * (C // H),
+           7 * tok + 2.0 * H * nn_ + 2.0 * n_masks * nn_ + 4.0 * H * nn_)
+    return fwd, bwd
+
+
+def phase_k5(dev, gen, batch: int, report):
+    import torch
+    import torch.nn.functional as F
+
+    from deepfake_tpu_torch.models.swin3d import compute_mask_3d, get_window_size
+    from deepfake_tpu_torch.ops import window_attn3d_train as k5
+
+    acc = {d: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+               "bytes": 0.0} for d in ("fwd", "bwd")}
+    errs = {(d, t): 0.0 for d in ("fwd", "bwd") for t in ("float32", "bfloat16")}
+    for grid, H, C, depth in SWIN3D_STAGES:
+        ws, ss = get_window_size(grid, (8, 7, 7), (4, 3, 3))
+        nW = math.prod(n // w for n, w in zip(grid, ws))
+        B_ = batch * nW
+        mask3 = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(dev, torch.bfloat16)
+        for mask, count in ((None, (depth + 1) // 2), (mask3, depth // 2)):
+            name = f"stage {grid} B_={B_} H={H} C={C}" + (" shifted" if mask is not None else "")
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[1]
+                qkv = torch.randn(B_, N3, 3 * C, generator=gen, device=dev).to(dtype)
+                dout = torch.randn(B_, N3, C, generator=gen, device=dev).to(dtype)
+                bias = 0.5 * torch.randn(H, N3, N3, generator=gen, device=dev)
+                q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+                kw = dict(num_heads=H, bias=bias, mask=mask, scale=(C // H) ** -0.5)
+                run_f = lambda: k5.window_attn3d_train_fwd(qkv, **kw)
+                run_b = lambda: k5.window_attn3d_train_bwd(qkv, dout, **kw)
+                plain_f = lambda: k5.window_attn3d_train_fwd_plain(q, k, v, **kw)
+                plain_b = lambda: k5.window_attn3d_train_bwd_plain(q, k, v, dout, **kw)
+                out = run_f()
+                dqkv, dbias = run_b()
+                torch.cuda.synchronize()
+                e_f, _ = k5_check(out, plain_f(), f"fwd {name} {dname}")
+                want = plain_b()
+                e_b = max(k5_check(a, b, f"bwd {n} {name} {dname}",
+                                   dbias=n == "dbias" and dtype == torch.bfloat16)[0]
+                          for n, a, b in zip(("dq", "dk", "dv", "dbias"),
+                                             (*dqkv.split(C, dim=-1), dbias), want))
+                del out, dqkv, dbias, want
+                errs["fwd", dname] = max(errs["fwd", dname], e_f)
+                errs["bwd", dname] = max(errs["bwd", dname], e_b)
+                row = dict(kernel="window_attn3d_train", case=name, dtype=dname,
+                           max_abs_err_fwd=e_f, max_abs_err_bwd=e_b, blocks_per_microbatch=count)
+                if dtype == torch.bfloat16:
+                    ms_f, ms_b = cuda_time_ms(run_f, iters=10), cuda_time_ms(run_b, iters=10)
+                    pms_f, pms_b = cuda_time_ms(plain_f, iters=3), cuda_time_ms(plain_b, iters=3)
+                    # SDPA forward, and its backward alone, with bias + mask as one
+                    # grad-requiring [B_, H, N, N] attn_mask
+                    hq, hk, hv = (t.reshape(B_, N3, H, C // H).transpose(1, 2).contiguous()
+                                  .requires_grad_() for t in (q, k, v))
+                    am = sdpa_mask(bias, mask, B_, dtype).contiguous().requires_grad_()
+                    sdpa = lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am,
+                                                                  scale=kw["scale"])
+                    lib_f = cuda_time_ms(sdpa, iters=10)
+                    o = sdpa()
+                    do_h = dout.reshape(B_, N3, H, C // H).transpose(1, 2).contiguous()
+                    lib_b = cuda_time_ms(lambda: torch.autograd.grad(
+                        o, (hq, hk, hv, am), do_h, retain_graph=True), iters=10)
+                    del hq, hk, hv, am, o, do_h
+                    n_masks = 0 if mask is None else mask.shape[0]
+                    for d, ms, pms, lib, (flops, nbytes) in (
+                            ("fwd", ms_f, pms_f, lib_f, k5_flops_bytes(B_, H, C, n_masks)[0]),
+                            ("bwd", ms_b, pms_b, lib_b, k5_flops_bytes(B_, H, C, n_masks)[1])):
+                        b, by = bound_ms(flops, nbytes, dname)
+                        row[d] = dict(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b, bound_by=by,
+                                      gflop=flops / 1e9, mbytes=nbytes / 1e6)
+                        log(f"K5 {d} {name:42s} {dname} kernel_ms={ms:.4f} plain_ms={pms:.3f} "
+                            f"sdpa_ms={lib:.4f} bound_ms={b:.4f} ({by})")
+                        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lib),
+                                         ("bound_ms", b), ("flops", flops), ("bytes", nbytes)):
+                            acc[d][key] += count * val
+                    log(f"K5 {name:46s} {dname} err fwd={e_f:.2e} bwd={e_b:.2e}")
+                else:
+                    row["ms_fwd"] = cuda_time_ms(run_f, iters=3)
+                    row["ms_bwd"] = cuda_time_ms(run_b, iters=3)
+                    log(f"K5 {name:46s} {dname} fwd_ms={row['ms_fwd']:.4f} "
+                        f"bwd_ms={row['ms_bwd']:.4f} err fwd={e_f:.2e} bwd={e_b:.2e}")
+                report["k5"].append(row)
+                del qkv, dout, bias, q, k, v
+            torch.cuda.empty_cache()
+    k5.window_attn3d_train_fwd.launches = 0
+    k5.window_attn3d_train_bwd.launches = 0
+    rows = []
+    for d, rep, what in (("fwd", K5_FWD_REPLACES, "forward"), ("bwd", K5_BWD_REPLACES, "backward")):
+        a = acc[d]
+        _, by = bound_ms(a["flops"], a["bytes"], "bfloat16")
+        rows.append(dict(
+            name=f"window_attn3d_train_{d} (K5)", route="cuda", source=K5_SRC, replaces=rep,
+            launches=None, max_abs_err=errs[d, "bfloat16"], max_abs_err_f32=errs[d, "float32"],
+            ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"], bound_by=by,
+            library_ms=a["library_ms"],
+            per=f"one video_swin b8 training micro-batch: the {what} of 24 Video Swin-S blocks, "
+                "bf16; library_ms is SDPA's " + what + " with bias + mask as a grad-requiring "
+                "attn_mask"))
+    return rows
+
+
 # ---------------------------------------------------------------- phases 3 and 4
 
 def fused_inputs(cfg, batch, dev, gen):
@@ -523,13 +669,18 @@ def wrappers():
     from deepfake_tpu_torch.ops.inception_block import inception_block
     from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear
     from deepfake_tpu_torch.ops.window_attn3d_kernel import window_attn3d_tokens
+    from deepfake_tpu_torch.ops.window_attn3d_train import (
+        window_attn3d_train_bwd, window_attn3d_train_fwd,
+    )
     from deepfake_tpu_torch.ops.window_attn_kernel import (
         window_attention_heads, window_attention_tokens,
     )
 
     return {"inception_block": inception_block, "window_attn_tokens": window_attention_tokens,
             "window_attn_heads": window_attention_heads,
-            "window_attn3d_tokens": window_attn3d_tokens, "ln_linear": ln_linear}
+            "window_attn3d_tokens": window_attn3d_tokens, "ln_linear": ln_linear,
+            "window_attn3d_train_fwd": window_attn3d_train_fwd,
+            "window_attn3d_train_bwd": window_attn3d_train_bwd}
 
 
 def counts():
@@ -573,10 +724,10 @@ def serve(pred, requests):
     return lat, out
 
 
-def device_profile(pred, inputs, wall_ms: float):
-    """One request under torch.profiler: the device's busy time (the sum of
-    its kernels' durations; one stream, so they do not overlap), its idle
-    share of ``wall_ms`` (the request's unprofiled latency), and the kernels
+def profile_call(fn, wall_ms: float):
+    """One call of ``fn`` under torch.profiler: the device's busy time (the
+    sum of its kernels' durations; one stream, so they do not overlap), its
+    idle share of ``wall_ms`` (the call's unprofiled time), and the kernels
     that take the most device time."""
     import torch
     from torch.autograd import DeviceType
@@ -584,7 +735,8 @@ def device_profile(pred, inputs, wall_ms: float):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pred.predict(inputs)
+        fn()
+        torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -657,9 +809,11 @@ def phase_serving(cfg, cfg_plain, dev, gen, report):
                branch_ms_b8=branch_times(pred, requests[0]),
                plain_branch_ms_b8=branch_times(plain, requests[0]))
     res["profile"] = {
-        "kernel routes b8": device_profile(pred, requests[0], res["p50_b8_s"] * 1e3),
-        "kernel routes b1": device_profile(pred, requests[3], lat[3] * 1e3),
-        "plain routes b8": device_profile(plain, requests[0], res["plain_p50_b8_s"] * 1e3)}
+        "kernel routes b8": profile_call(lambda: pred.predict(requests[0]),
+                                         res["p50_b8_s"] * 1e3),
+        "kernel routes b1": profile_call(lambda: pred.predict(requests[3]), lat[3] * 1e3),
+        "plain routes b8": profile_call(lambda: plain.predict(requests[0]),
+                                        res["plain_p50_b8_s"] * 1e3)}
     report["serving"] = res
     log(f"serving: launches per request {per_req}")
     log(f"serving: kernel routes b8 p50 {res['p50_b8_s'] * 1e3:.1f} ms, "
@@ -772,9 +926,11 @@ def phase_video_swin(cfg, cfg_plain, dev, gen, report):
                max_abs_score_diff_vs_plain_bf16=d_score, feature_rel_err_vs_plain_bf16=d_feat,
                profile={})
     res["profile"] = {
-        "kernel route b8": device_profile(pred, requests[0], res["p50_b8_s"] * 1e3),
-        "kernel route b1": device_profile(pred, requests[3], lat[3] * 1e3),
-        "plain route b8": device_profile(plain, requests[0], res["plain_p50_b8_s"] * 1e3)}
+        "kernel route b8": profile_call(lambda: pred.predict(requests[0]),
+                                        res["p50_b8_s"] * 1e3),
+        "kernel route b1": profile_call(lambda: pred.predict(requests[3]), lat[3] * 1e3),
+        "plain route b8": profile_call(lambda: plain.predict(requests[0]),
+                                       res["plain_p50_b8_s"] * 1e3)}
     report["video_swin"] = res
     log(f"video_swin: K3, K4 launches per request "
         f"{[(d['window_attn3d_tokens'], d['ln_linear']) for d in per_req]}")
@@ -829,6 +985,178 @@ def phase_video_swin_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int)
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phases 6 and 7
+
+class ClipData:
+    """``steps`` loader yields of ``rows`` seeded random clips (bf16, on the
+    card) and 0/1 labels: the Trainer's train_loader contract."""
+
+    def __init__(self, cfg, rows: int, steps: int, dev, gen):
+        import torch
+
+        self.batches = []
+        for _ in range(steps):
+            x = clips(cfg, rows, dev, gen).to(torch.bfloat16)
+            y = (torch.rand(rows, generator=gen, device=dev) < 0.5).float()
+            self.batches.append((x, y))
+
+    def train_loader(self):
+        return self.batches
+
+
+def train_route(trainer, data, blocks: int, kernels: bool):
+    """Three counted optimizer steps, then one more under torch.profiler."""
+    import torch
+
+    from deepfake_tpu_torch.train.losses import bce_with_logits
+
+    m, mb = trainer.model, trainer.cfg.optim.batch_size
+    # warm-up: one micro-batch forward and backward, its gradients dropped
+    # (cuBLAS plans, the allocator); no optimizer step, so no weight moves
+    x0, y0 = data.batches[0]
+    bce_with_logits(m(x0[:mb], return_logits=True)[0], y0[:mb]).backward()
+    for p in m.parameters():
+        p.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path's run starts here
+    step_s, losses, per_step = [], [], []
+    for x, y in data.train_loader():
+        before = counts()
+        t = time.perf_counter()
+        metrics = trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        after = counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(float(metrics["loss"]))
+    launches = counts()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    accum = trainer.accum
+    for i, d in enumerate(per_step):
+        want = accum * blocks if kernels else 0
+        k5 = (d["window_attn3d_train_fwd"], d["window_attn3d_train_bwd"])
+        if k5 != (want, want) or sum(d.values()) != 2 * want:
+            fail(f"video_swin train step {i} ({'K5' if kernels else 'plain'} route): launches "
+                 f"{d}, expected {want} K5 forward and {want} backward ({accum} micro-batches x "
+                 f"{blocks} blocks) and no other")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"video_swin train: non-finite losses {losses}")
+    wall = statistics.median(step_s) * 1e3
+    prof = profile_call(lambda: trainer.train_step(*data.batches[0]), wall)
+    rows = len(data.batches[0][1])
+    return dict(step_ms=[t * 1e3 for t in step_s], p50_step_ms=wall,
+                clips_per_s=rows * len(step_s) / sum(step_s), losses=losses,
+                max_memory_allocated_gb=peak / 1e9, per_step_launches=per_step,
+                profile=prof), launches
+
+
+def phase_video_swin_train(cfg, cfg_plain, dev, gen, report):
+    """video_swin training at full width through K5 (the main path of this
+    slice), then from the same weights on the plain route."""
+    import torch
+
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    o = cfg.optim
+    rows = o.batch_size * o.accum_step
+    data = ClipData(cfg, rows, 3, dev, gen)
+    blocks = sum(cfg.model.swin3d_depths)
+    quiet = lambda line: None
+    t0 = time.perf_counter()
+    tk = Trainer(None, cfg, data, logger=quiet, device=dev)
+    init = {k: v.clone() for k, v in tk.model.state_dict().items()}
+    log(f"video_swin train: Trainer({cfg.parallel.compute_dtype} compute, "
+        f"{cfg.parallel.param_dtype} masters, {o.batch_size} x {o.accum_step}) built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in tk.model.parameters()) / 1e6:.1f} M params")
+    res_k, launches = train_route(tk, data, blocks, kernels=True)
+    # Trainer.eval on the trained f32 masters: the serving kernels (K3, K4)
+    # with the weights cast to bf16 at use
+    before = counts()
+    val = tk.eval(data.train_loader()[:1])
+    after = counts()
+    ran = (after["window_attn3d_tokens"] - before["window_attn3d_tokens"],
+           after["ln_linear"] - before["ln_linear"])
+    if ran != (blocks, 4 * blocks) or not (math.isfinite(val["loss"]) and 0 <= val["acc"] <= 1):
+        fail(f"video_swin train: Trainer.eval gave {val} with K3, K4 launches {ran}")
+    res_k["eval"] = dict(val, k3_k4_launches=ran)
+    log(f"video_swin train: Trainer.eval of {rows} clips after the steps: {val}, "
+        f"K3 and K4 launches {ran}")
+    del tk
+    torch.cuda.empty_cache()
+    tp = Trainer(None, cfg_plain, data, logger=quiet, device=dev)
+    tp.model.load_state_dict(init)
+    res_p, launches_p = train_route(tp, data, blocks, kernels=False)
+    if any(launches_p.values()):
+        fail(f"video_swin train: the plain route launched a kernel: {launches_p}")
+    del tp, init, data
+    torch.cuda.empty_cache()
+    d_loss = abs(res_k["losses"][0] - res_p["losses"][0])
+    report["video_swin_train"] = {"K5 route": res_k, "plain route": res_p,
+                                  "first_step_loss_diff": d_loss}
+    for name, r in (("K5 route", res_k), ("plain route", res_p)):
+        prof = r["profile"]
+        log(f"video_swin train {name:11s}: steps {[round(t, 1) for t in r['step_ms']]} ms, "
+            f"{r['clips_per_s']:.2f} clips/s ({rows} clips a step), peak "
+            f"{r['max_memory_allocated_gb']:.2f} GB, losses {r['losses']} ({report['card']})")
+        log(f"video_swin train {name:11s}: profile of one step: device busy "
+            f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms, idle share "
+            f"{prof['device_idle_share']:.3f}; top " + json.dumps(prof["top_kernels_ms"]))
+    k5 = [(d["window_attn3d_train_fwd"], d["window_attn3d_train_bwd"])
+          for d in res_k["per_step_launches"]]
+    log(f"video_swin train: K5 launches per step {k5}; "
+        f"first-step loss K5 {res_k['losses'][0]:.5f} vs plain {res_p['losses'][0]:.5f}")
+    # the first step's loss is a forward of the same weights on the same
+    # clips: bf16 noise only, ~8 bf16 ulps of a loss near 0.69
+    if not d_loss <= 2e-2:
+        fail(f"video_swin train: first-step losses differ by {d_loss:.3e}")
+    return launches
+
+
+def phase_video_swin_train_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
+    """f32 (TF32 off): every parameter gradient of one micro-batch on the K5
+    route against the plain route, same weights and the same DropPath and
+    dropout masks (each model's own dropout stream from the same seed)."""
+    import torch
+
+    from deepfake_tpu_torch.models.registry import build_model
+    from deepfake_tpu_torch.train.losses import bce_with_logits
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mk = build_model(cfg_kernel, dev, train=True)
+    mp = build_model(cfg_plain, dev, train=True)
+    mp.load_state_dict(mk.state_dict())
+    x = clips(cfg_kernel, batch, dev, gen)
+    y = (torch.rand(batch, generator=gen, device=dev) < 0.5).float()
+    blocks = sum(cfg_kernel.model.swin3d_depths)
+    before = counts()
+    losses = []
+    for m in (mk, mp):
+        loss = bce_with_logits(m(x, return_logits=True)[0], y)
+        loss.backward()
+        losses.append(loss.item())
+    after = counts()
+    if (after["window_attn3d_train_fwd"] - before["window_attn3d_train_fwd"] != blocks
+            or after["window_attn3d_train_bwd"] - before["window_attn3d_train_bwd"] != blocks):
+        fail("video_swin train parity: the K5 route did not run K5 in every block")
+    worst, worst_name = 0.0, ""
+    for (name, a), (_, b) in zip(mk.named_parameters(), mp.named_parameters()):
+        rel = ((a.grad - b.grad).abs().max() / b.grad.abs().max().clamp(min=1e-12)).item()
+        if not rel <= worst:
+            worst, worst_name = rel, name
+    report["video_swin_train_parity"] = dict(batch=batch, losses=losses,
+                                             max_grad_rel_err=worst, at=worst_name)
+    log(f"video_swin train parity f32 b{batch}: losses {losses[0]:.7f} / {losses[1]:.7f}; "
+        f"max |grad diff| / max |grad| {worst:.2e} ({worst_name})")
+    # f32 (TF32 off), summation order only
+    if not (math.isfinite(worst) and worst <= 1e-4):
+        fail("video_swin train: K5 and plain route gradients disagree in f32")
+    del mk, mp
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -851,7 +1179,7 @@ def main() -> int:
     card = smi.splitlines()[0]
     dev = torch.device("cuda", 0)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "k1": [], "k2": [], "k3": [], "k4": []}
+              "k1": [], "k2": [], "k3": [], "k4": [], "k5": []}
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t = time.perf_counter()
@@ -867,7 +1195,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = ([phase_k1(dev, gen, 8 * 32, report)] + phase_k2(dev, gen, 8, report)
-               + [phase_k3(dev, gen, 8, report), phase_k4(dev, gen, 8, report)])
+               + [phase_k3(dev, gen, 8, report), phase_k4(dev, gen, 8, report)]
+               + phase_k5(dev, gen, 8, report))
 
     def config(dtype: str, kernels: bool, preset=None):
         cfg = Config.preset(preset) if preset else Config()
@@ -885,6 +1214,10 @@ def main() -> int:
                                 config("bfloat16", False, "video_swin"), dev, gen, report)
     kernels[3]["launches"] = launches["window_attn3d_tokens"]
     kernels[4]["launches"] = launches["ln_linear"]
+    launches = phase_video_swin_train(config("bfloat16", True, "video_swin"),
+                                      config("bfloat16", False, "video_swin"), dev, gen, report)
+    kernels[5]["launches"] = launches["window_attn3d_train_fwd"]
+    kernels[6]["launches"] = launches["window_attn3d_train_bwd"]
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         log(f"kernel {k['name']}: {k['per']}: kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
@@ -893,6 +1226,9 @@ def main() -> int:
     phase_parity(config("float32", True), config("float32", False), dev, gen, report, batch=2)
     phase_video_swin_parity(config("float32", True, "video_swin"),
                             config("float32", False, "video_swin"), dev, gen, report, batch=2)
+    phase_video_swin_train_parity(config("float32", True, "video_swin"),
+                                  config("float32", False, "video_swin"), dev, gen, report,
+                                  batch=1)
 
     report["total_s"] = time.perf_counter() - t_all
     report["kernels"] = kernels

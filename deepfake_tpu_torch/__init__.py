@@ -6,7 +6,8 @@ there are copied (``config.py``) or rewritten. Public inputs keep the JAX
 contract (NTHWC frames, NHWC mel images, ``[B, T]`` waves) so one numpy array
 feeds both packages.
 
-Every Pallas kernel on the serving path has a hand-written CUDA kernel here
+Every Pallas kernel on the ported paths (serving, and video_swin training)
+has a hand-written CUDA kernel here
 (``csrc/``), built with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/build.py``) and called through ``ctypes``.
 """

@@ -9,7 +9,7 @@ return the input's type, as flax's do.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -61,16 +61,71 @@ class BatchNorm(nn.Module):
         return (x.float() * s.view(shape) + t.view(shape)).to(x.dtype)
 
 
-class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2 (reference: src/utils.py:242-260)."""
-
-    def __init__(self, in_features: int, hidden: int, out_features: int):
-        super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden)
-        self.fc2 = nn.Linear(hidden, out_features)
+class Linear(nn.Linear):
+    """nn.Linear that casts its parameters to the input's type at use, as
+    the JAX package's dense layers do (swin3d.py:369-375): f32 masters train
+    in bf16 and their gradients reach the f32 leaves; weights stored in the
+    compute type (serving) cast to nothing."""
 
     def forward(self, x):
-        return self.fc2(gelu_exact(self.fc1(x)))
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), in training only. The mask comes from
+    ``generator`` (set_dropout_generator), never from a global stream."""
+
+    def __init__(self, rate: float = 0.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def _keep(self, x, shape):
+        if self.generator is None:
+            raise RuntimeError(f"{type(self).__name__}({self.rate}) in training needs a "
+                               "generator (set_dropout_generator)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        return self._keep(x, x.shape)
+
+
+class DropPath(Dropout):
+    """Per-sample stochastic depth (layers.py:112-126): one keep draw per
+    sample (the leading axis), x / keep where kept, in training only."""
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        return self._keep(x, (x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Give every Dropout and DropPath of ``model`` the stream they draw from."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator
+    return model
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU -> dropout -> fc2 -> dropout (reference:
+    src/utils.py:242-260)."""
+
+    def __init__(self, in_features: int, hidden: int, out_features: int, drop: float = 0.0):
+        super().__init__()
+        self.fc1 = Linear(in_features, hidden)
+        self.fc2 = Linear(hidden, out_features)
+        self.drop = Dropout(drop)
+
+    def forward(self, x):
+        return self.drop(self.fc2(self.drop(gelu_exact(self.fc1(x)))))
 
 
 Padding = Union[int, Sequence[int], str]

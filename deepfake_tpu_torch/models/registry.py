@@ -2,9 +2,12 @@
 
 ``build_model(cfg, device=None)`` returns the modality's module in f32 on
 ``device`` (the card unless the caller asks for the CPU), with seeded
-random weights; ``example_inputs`` gives zero inputs of the canonical
-shapes; ``precompute_bias_cache`` and ``pack_block_weights`` fill the
-inference caches once the weights are final.
+random weights, in eval mode; ``build_model(cfg, device, train=True)`` the
+``video_swin`` model in train mode, its parameters in
+``parallel.param_dtype``, its drop rates from the config and its dropout
+masks drawn from the seed's dropout stream. ``example_inputs`` gives zero
+inputs of the canonical shapes; ``precompute_bias_cache`` and
+``pack_block_weights`` fill the inference caches once the weights are final.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 from torch import nn
 
 from deepfake_tpu_torch.config import Config
-from deepfake_tpu_torch.models.layers import init_weights
+from deepfake_tpu_torch.models.layers import init_weights, set_dropout_generator
+from deepfake_tpu_torch.utils.seeding import make_generators
 
 
 def resolve_device(device=None) -> torch.device:
@@ -33,8 +37,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def compute_dtype(cfg: Config) -> torch.dtype:
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.parallel.compute_dtype]
+    return _DTYPES[cfg.parallel.compute_dtype]
 
 
 def wav_config(cfg: Config):
@@ -82,14 +89,19 @@ def _video_swin(cfg: Config):
         embed_dim=m.swin3d_embed_dim, depths=tuple(m.swin3d_depths),
         num_heads=tuple(m.swin3d_heads), patch_size=tuple(m.swin3d_patch),
         window_size=tuple(m.swin3d_window), num_hiddens=m.num_hiddens, pool=m.video_pool,
-        kernels=m.swin3d_attn_kernel)
+        kernels=m.swin3d_attn_kernel, drop_path_rate=m.swin3d_drop_path,
+        classify_drop=m.classify_drop)
 
 
-def build_model(cfg: Config, device=None) -> nn.Module:
-    """The configured modality's model, f32, in eval mode, on ``device``,
-    with random weights drawn from ``cfg.random_seed``."""
+def build_model(cfg: Config, device=None, train: bool = False) -> nn.Module:
+    """The configured modality's model on ``device`` with random weights
+    drawn from ``cfg.random_seed``: f32 in eval mode, or with ``train``
+    (video_swin only: fused training is not ported) in train mode with
+    ``parallel.param_dtype`` parameters and seeded dropout."""
     dev = resolve_device(device)
     modality = cfg.data.modality
+    if train and modality != "video_swin":
+        raise NotImplementedError(f"training is ported for video_swin only, not {modality}")
     if modality == "video":
         model = _video(cfg, False)
     elif modality == "audio":
@@ -109,8 +121,15 @@ def build_model(cfg: Config, device=None) -> nn.Module:
     else:
         raise ValueError(f"unknown modality: {modality}")
     model = model.to(dev).eval()
-    gen = torch.Generator(dev).manual_seed(cfg.random_seed)
-    return init_weights(model, gen)
+    gens = make_generators(cfg.random_seed, dev)
+    init_weights(model, gens.init)
+    if train:
+        set_dropout_generator(model, gens.dropout)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.data = p.data.to(_DTYPES[cfg.parallel.param_dtype])
+        model.train()
+    return model
 
 
 def example_inputs(cfg: Config, batch: int = 1, device=None) -> Tuple:

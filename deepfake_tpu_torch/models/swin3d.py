@@ -1,6 +1,6 @@
-"""Video Swin Transformer (3D) and its mean-pooling classifier, inference only
-(deepfake_tpu/models/swin3d.py:438-1214; reference topology embed 96, depths
-2/2/18/2, heads 3/6/12/24, patch (2,4,4), window (8,7,7)).
+"""Video Swin Transformer (3D) and its mean-pooling classifier, for serving
+and training (deepfake_tpu/models/swin3d.py:438-1214; reference topology
+embed 96, depths 2/2/18/2, heads 3/6/12/24, patch (2,4,4), window (8,7,7)).
 
 Pre-norm blocks with scaled-dot window attention and a learned 3D
 relative-position bias table; (D, H, W) padded to window multiples, a 3D
@@ -29,8 +29,19 @@ window attention. That covers the JAX package's QKV-fused route
 JAX package picks among those per block by TPU memory and grid-step gates
 (pallas_window_attn.py:534-545, :664-706; pallas_mlp.py:59-73) that change
 no number; the port runs the one fused route in every block. Without
-``kernels`` the block runs plain PyTorch: LayerNorm, nn.Linear and
+``kernels`` the block runs plain PyTorch: LayerNorm, Linear and
 ``ops/window_attn.scaled_window_attention`` (the JAX einsum route).
+
+The modules are built in eval mode, the mode serving runs them in. In
+training (``model.train()``) a block runs LayerNorm, the linear layers and
+the MLP in PyTorch under autograd, as the JAX block does outside the
+``deterministic`` kernel routes (swin3d.py:502, :612-616, :674), with
+DropPath on both residual branches; its window attention goes through K5
+(ops/window_attn3d_train.py, forward and backward, the JAX ``nhc_train``
+route) with ``kernels``, else through the plain route. The [H, N, N] bias
+is gathered from the table on every training forward, so its gradient
+reaches the table. Linear layers cast their parameters to the activations'
+type at use, so f32 masters train in bf16.
 """
 
 from __future__ import annotations
@@ -43,10 +54,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepfake_tpu_torch.models.layers import LayerNorm, Mlp
+from deepfake_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp
 from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, mlp_tail
 from deepfake_tpu_torch.ops.window_attn import scaled_window_attention
 from deepfake_tpu_torch.ops.window_attn3d_kernel import window_attn3d_tokens
+from deepfake_tpu_torch.ops.window_attn3d_train import window_attn3d_train
 
 Dims = Tuple[int, int, int]
 
@@ -120,8 +132,8 @@ class WindowAttention3D(nn.Module):
         wd, wh, ww = table_window
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * wd - 1) * (2 * wh - 1) * (2 * ww - 1), num_heads))
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
         N = math.prod(window_size)
         index = relative_position_index_3d(table_window)[:N, :N].reshape(-1)
         self.register_buffer("rel_index", torch.from_numpy(index), persistent=False)
@@ -143,18 +155,25 @@ class WindowAttention3D(nn.Module):
         self.bias_cache = self.relative_bias()
 
     def forward(self, x, mask: Optional[torch.Tensor] = None, norm: Optional[LayerNorm] = None):
-        """``norm``, on the kernel route only: the pre-norm LayerNorm, applied
-        to the window tokens inside K4's qkv launch."""
+        """``norm``, on the serving kernel route only: the pre-norm LayerNorm,
+        applied to the window tokens inside K4's qkv launch."""
         B_, N, C = x.shape
         H = self.num_heads
-        bias = self.bias_cache if self.bias_cache is not None else self.relative_bias()
         scale = (C // H) ** -0.5
+        if self.training and self.bias_cache is not None:
+            raise RuntimeError("bias_cache is an inference cache; a model in training "
+                               "gathers its bias from the table (drop_inference_caches)")
+        bias = self.bias_cache if self.bias_cache is not None else self.relative_bias()
+        if self.kernels and self.training:
+            return self.proj(window_attn3d_train(self.qkv(x), num_heads=H, bias=bias, mask=mask,
+                                                 scale=scale))
         if self.kernels:
-            ln = None if norm is None else (norm.weight, norm.bias, norm.eps)
-            qkv = ln_linear(x, self.qkv.weight, self.qkv.bias, ln=ln)  # [B_, N, 3C], q|k|v
+            dt = x.dtype  # f32 masters (a trainer's eval) cast to nothing when serving
+            ln = None if norm is None else (norm.weight.to(dt), norm.bias.to(dt), norm.eps)
+            qkv = ln_linear(x, self.qkv.weight.to(dt), self.qkv.bias.to(dt), ln=ln)  # q|k|v
             out = window_attn3d_tokens(qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:],
                                        num_heads=H, bias=bias, mask=mask, scale=scale)
-            return ln_linear(out, self.proj.weight, self.proj.bias)
+            return ln_linear(out, self.proj.weight.to(dt), self.proj.bias.to(dt))
         qkv = self.qkv(x)
         q, k, v = qkv.view(B_, N, 3, H, C // H).permute(2, 0, 3, 1, 4).unbind(0)
         out = scaled_window_attention(q, k, v, scale, bias, mask)
@@ -163,11 +182,12 @@ class WindowAttention3D(nn.Module):
 
 class SwinBlock3D(nn.Module):
     """Pre-norm 3D Swin block on [B, D, H, W, C] of the fixed
-    ``input_resolution`` (swin3d.py:589-688)."""
+    ``input_resolution`` (swin3d.py:589-688). ``drop_path``: the DropPath
+    rate of both residual branches, in training."""
 
     def __init__(self, dim: int, input_resolution: Dims, num_heads: int,
                  window_size: Dims = (8, 7, 7), shift_size: Dims = (0, 0, 0),
-                 mlp_ratio: float = 4.0, kernels: bool = False):
+                 mlp_ratio: float = 4.0, kernels: bool = False, drop_path: float = 0.0):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
         ws, ss = get_window_size(self.input_resolution, window_size, shift_size)
@@ -178,21 +198,24 @@ class SwinBlock3D(nn.Module):
         self.attn = WindowAttention3D(dim, ws, num_heads, tuple(window_size), kernels)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.drop_path = DropPath(drop_path)
         mask = None
         if any(s > 0 for s in ss):
             Dp, Hp, Wp = (n + p for n, p in zip(self.input_resolution, self.pads))
             # {0, -100} is exact in bf16, the type K3's serving route reads
             mask = torch.from_numpy(compute_mask_3d(Dp, Hp, Wp, ws, ss)).to(torch.bfloat16)
         self.register_buffer("attn_mask", mask, persistent=False)
+        self.eval()
 
     def forward(self, x):
         B, D, H, W, C = x.shape
         ws, ss = self.ws, self.ss
         pd, ph, pw = self.pads
-        # the kernel route norms the window tokens inside K4, unless there is
-        # padding: padded tokens must stay zero after the norm (the reference
-        # norms before padding, swin3d.py:602-616)
-        norm_in_kernel = self.kernels and not any(self.pads)
+        # serving on the kernel route norms the window tokens inside K4,
+        # unless there is padding: padded tokens must stay zero after the norm
+        # (the reference norms before padding, swin3d.py:602-616)
+        fused = self.kernels and not self.training
+        norm_in_kernel = fused and not any(self.pads)
         h = x if norm_in_kernel else self.norm1(x)
         if any(self.pads):
             h = F.pad(h, (0, 0, 0, pw, 0, ph, 0, pd))
@@ -206,12 +229,13 @@ class SwinBlock3D(nn.Module):
         if shifted:
             h = torch.roll(h, ss, dims=(1, 2, 3))
         h = h[:, :D, :H, :W]
-        if self.kernels:
-            mlp = self.mlp
-            return mlp_tail(x, h, (self.norm2.weight, self.norm2.bias, self.norm2.eps),
-                            mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias)
-        x = x + h
-        return x + self.mlp(self.norm2(x))
+        if fused:
+            mlp, n2, dt = self.mlp, self.norm2, x.dtype
+            cast = lambda *ts: [t.to(dt) for t in ts]
+            return mlp_tail(x, h, (*cast(n2.weight, n2.bias), n2.eps),
+                            *cast(mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias))
+        x = x + self.drop_path(h)
+        return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
 class PatchMerging3D(nn.Module):
@@ -220,7 +244,7 @@ class PatchMerging3D(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.norm = LayerNorm(4 * dim)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x):
         H, W = x.shape[2:4]
@@ -239,7 +263,7 @@ class PatchEmbed3D(nn.Module):
     def __init__(self, patch_size: Dims = (2, 4, 4), embed_dim: int = 96, in_chans: int = 3):
         super().__init__()
         self.patch_size = tuple(patch_size)
-        self.proj = nn.Linear(math.prod(patch_size) * in_chans, embed_dim)
+        self.proj = Linear(math.prod(patch_size) * in_chans, embed_dim)
         self.norm = LayerNorm(embed_dim)
 
     def forward(self, x):
@@ -253,17 +277,20 @@ class PatchEmbed3D(nn.Module):
 
 
 class SwinTransformer3D(nn.Module):
-    """Clips [B, T, H, W, 3] of ``input_size`` -> [B, D', H', W', num_features]."""
+    """Clips [B, T, H, W, 3] of ``input_size`` -> [B, D', H', W', num_features].
+    Block i of all the blocks has DropPath rate linspace(0, drop_path_rate,
+    #blocks)[i] (swin3d.py:926)."""
 
     def __init__(self, input_size: Dims, patch_size: Dims = (2, 4, 4), embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2), num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_size: Dims = (8, 7, 7), mlp_ratio: float = 4.0,
-                 kernels: bool = False):
+                 kernels: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         self.input_size = tuple(input_size)
         self.patch_embed = PatchEmbed3D(patch_size, embed_dim)
         res = tuple(-(-n // p) for n, p in zip(input_size, patch_size))
         shift = tuple(w // 2 for w in window_size)
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.stages = []
         for i, depth in enumerate(depths):
             dim = embed_dim * 2 ** i
@@ -271,7 +298,8 @@ class SwinTransformer3D(nn.Module):
                 name = f"layers_{i}_blocks_{j}"
                 self.add_module(name, SwinBlock3D(
                     dim, res, num_heads[i], tuple(window_size),
-                    (0, 0, 0) if j % 2 == 0 else shift, mlp_ratio, kernels))
+                    (0, 0, 0) if j % 2 == 0 else shift, mlp_ratio, kernels,
+                    dpr[sum(depths[:i]) + j]))
                 self.stages.append(name)
             if i < len(depths) - 1:
                 name = f"layers_{i}_downsample"
@@ -279,6 +307,7 @@ class SwinTransformer3D(nn.Module):
                 self.stages.append(name)
                 res = (res[0], -(-res[1] // 2), -(-res[2] // 2))
         self.norm = LayerNorm(embed_dim * 2 ** (len(depths) - 1))
+        self.eval()
 
     def forward(self, x):
         if tuple(x.shape[1:4]) != self.input_size:
@@ -292,15 +321,16 @@ class SwinTransformer3D(nn.Module):
 
 class PoolingMLP(nn.Module):
     """Mean pooling head (swin3d.py:1075-1127): the clip mean into
-    Mlp(in, hidden, classes), and the per-frame spatial mean as a feature."""
+    Mlp(in, hidden, classes) with dropout ``classify_drop``, and the
+    per-frame spatial mean as a feature."""
 
     def __init__(self, in_feature: int = 768, num_hidden: int = 128, num_classes: int = 1,
-                 pool: str = "mean"):
+                 pool: str = "mean", classify_drop: float = 0.0):
         super().__init__()
         if pool != "mean":
             raise NotImplementedError(f"pool={pool!r}: only mean pooling is ported")
         self.num_classes = num_classes
-        self.mlp = Mlp(in_feature, num_hidden, num_classes)
+        self.mlp = Mlp(in_feature, num_hidden, num_classes, drop=classify_drop)
 
     def forward(self, x):
         xf = x.float()
@@ -311,17 +341,21 @@ class PoolingMLP(nn.Module):
 
 class VideoClassifier(nn.Module):
     """Video Swin backbone + PoolingMLP: clips [B, T, H, W, 3] ->
-    (sigmoid score [B], per-frame feature [B, D', C]) (swin3d.py:1166-1214)."""
+    (sigmoid score [B], per-frame feature [B, D', C]) (swin3d.py:1166-1214).
+    The drop rates act in training only."""
 
     def __init__(self, input_size: Dims, num_classes: int = 1, embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 18, 2), num_heads: Sequence[int] = (3, 6, 12, 24),
                  patch_size: Dims = (2, 4, 4), window_size: Dims = (8, 7, 7),
-                 num_hiddens: int = 128, pool: str = "mean", kernels: bool = False):
+                 num_hiddens: int = 128, pool: str = "mean", kernels: bool = False,
+                 drop_path_rate: float = 0.0, classify_drop: float = 0.0):
         super().__init__()
         self.videoSwinT = SwinTransformer3D(input_size, patch_size, embed_dim, depths, num_heads,
-                                            window_size, kernels=kernels)
+                                            window_size, kernels=kernels,
+                                            drop_path_rate=drop_path_rate)
         self.classifier = PoolingMLP(embed_dim * 2 ** (len(depths) - 1), num_hiddens,
-                                     num_classes, pool)
+                                     num_classes, pool, classify_drop)
+        self.eval()
 
     def forward(self, x, return_logits: bool = False):
         logits, feat = self.classifier(self.videoSwinT(x))

@@ -34,7 +34,7 @@ import torch
 
 from deepfake_tpu_torch.kernels import build
 from deepfake_tpu_torch.models.layers import gelu_exact
-from deepfake_tpu_torch.ops.window_attn_kernel import _on_cuda
+from deepfake_tpu_torch.ops.window_attn_kernel import _no_autograd, _on_cuda
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_PANEL_K = 1024  # csrc/ln_linear.cu tc::MAX_PANEL_K
@@ -133,7 +133,10 @@ def ln_linear(x, weight, bias=None, *, x2=None, ln: Optional[LN] = None, gelu: b
     """x (+ x2) [..., K] -> [..., N]: the optional LayerNorm ``ln`` =
     (scale, bias, eps), the product with ``weight`` [N, K] plus ``bias``,
     the optional GELU and the optional residual ``res`` (+ ``res2``)
-    [..., N]. x2 and res2 must share the strides of x and res."""
+    [..., N]. x2 and res2 must share the strides of x and res. It has no
+    backward, so it raises under autograd (the training route is plain
+    PyTorch)."""
+    _no_autograd("ln_linear", x, weight, bias, x2, res, res2, *(ln[:2] if ln is not None else ()))
     if not _on_cuda("ln_linear", x, weight):
         return ln_linear_plain(x, weight, bias, x2=x2, ln=ln, gelu=gelu, res=res, res2=res2)
     a, a2, r, r2 = _check(x, weight, bias, x2, ln, res, res2)

@@ -23,7 +23,7 @@ import torch
 
 from deepfake_tpu_torch.kernels import build
 from deepfake_tpu_torch.ops.window_attn import add_mask
-from deepfake_tpu_torch.ops.window_attn_kernel import _on_cuda
+from deepfake_tpu_torch.ops.window_attn_kernel import _no_autograd, _on_cuda
 
 MAX_TOKENS = 512
 HEAD_DIM = 32
@@ -97,7 +97,9 @@ def _launch(q, k, v, strides, out, out_strides, *, windows, heads, n, d, bias, m
 def window_attn3d_tokens(q, k, v, *, num_heads: int, bias, mask=None, scale: float):
     """Token-major q, k, v [B_, N, C] -> [B_, N, C] (#7). q, k, v may be
     column slices of one [B_, N, 3C] qkv tensor: they must share strides and
-    keep channels contiguous."""
+    keep channels contiguous. It has no backward, so it raises under
+    autograd (training takes K5, ops/window_attn3d_train.py)."""
+    _no_autograd("window_attn3d_tokens", q, k, v, bias)
     if not _on_cuda("window_attn3d_tokens", q, k, v):
         return window_attn3d_tokens_plain(q, k, v, num_heads=num_heads, bias=bias, mask=mask,
                                           scale=scale)

@@ -104,6 +104,14 @@ def _launch(q, k, v, strides, out, out_strides, *, windows, heads, n, d, bias, m
     build.check(status, lib.k2_error_string, "k2_window_attn")
 
 
+def _no_autograd(name: str, *ts) -> None:
+    """Raise when a kernel without a backward is called under autograd with
+    an input that requires grad: its output would carry no gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts):
+        raise RuntimeError(f"{name} has no backward: call it under torch.no_grad() or "
+                           "torch.inference_mode()")
+
+
 def _on_cuda(name: str, *ts: torch.Tensor) -> bool:
     devs = {t.device for t in ts}
     if len(devs) != 1:

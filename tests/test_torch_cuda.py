@@ -16,7 +16,11 @@ sits at a rounding boundary may round apart). For K4, on max |kernel -
 plain| / max(|plain|, 1): f32 1e-5 (summation order); bf16 two bf16 ulps of
 the largest output (each of the LayerNorm output, the product, the GELU and
 the residual sum is rounded to bf16 on both sides and may round apart by an
-ulp).
+ulp). For K5, forward and backward: f32 1e-5 of max(|plain|, 1) (summation
+order; dk, dv and dbias are summed with atomics in the SIMT route); bf16 out,
+dq, dk and dv within two bf16 ulps of the largest |output| (the kernel feeds
+P and dS to the tensor cores in bf16, the plain version keeps them f32);
+dbias (f32) within 1e-2 of its largest |value|.
 """
 
 import math
@@ -28,10 +32,14 @@ from deepfake_tpu_torch.models import inception_resnet_v2 as irv2
 from deepfake_tpu_torch.models.layers import BatchNorm, init_weights
 from deepfake_tpu_torch.models.swin2d import shift_attn_mask
 from deepfake_tpu_torch.ops.inception_block import inception_block, inception_block_plain
-from deepfake_tpu_torch.models.swin3d import compute_mask_3d
+from deepfake_tpu_torch.models.swin3d import compute_mask_3d, get_window_size
 from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, ln_linear_plain
 from deepfake_tpu_torch.ops.window_attn3d_kernel import (
     window_attn3d_tokens, window_attn3d_tokens_plain,
+)
+from deepfake_tpu_torch.ops.window_attn3d_train import (
+    window_attn3d_train, window_attn3d_train_bwd, window_attn3d_train_bwd_plain,
+    window_attn3d_train_fwd, window_attn3d_train_fwd_plain,
 )
 from deepfake_tpu_torch.ops.window_attn_kernel import (
     window_attention_heads, window_attention_heads_plain, window_attention_tokens,
@@ -215,3 +223,77 @@ def test_k4_raises_for_shapes_it_does_not_take(cuda_device):
     x = torch.zeros(4, 12, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
         ln_linear(x, torch.zeros(8, 12, device=cuda_device, dtype=torch.bfloat16))
+
+
+def k5_tolerance(want: torch.Tensor, dbias: bool = False) -> float:
+    big = want.float().abs().max().item()
+    if dbias:
+        return 1e-2 * big
+    if want.dtype == torch.float32:
+        return 1e-5 * max(big, 1.0)
+    return 2.0 * 2.0 ** (math.floor(math.log2(big)) - 7)
+
+
+# (B_, H, N, token grid or None): the Video Swin-S stages at b8 x 32 frames of
+# 224 (grid (16, 56 / 2^i, 56 / 2^i)), a clamped 196-token window, N = 512
+K5_CASES = [(1024, 3, 392, (16, 56, 56)), (1024, 3, 392, None), (256, 6, 392, (16, 28, 28)),
+            (64, 12, 392, None), (64, 12, 392, (16, 14, 14)), (16, 24, 392, (16, 7, 7)),
+            (8, 2, 196, (4, 14, 14)), (3, 1, 512, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B_,H,N,grid", K5_CASES, ids=[
+    "stage0_shifted", "stage0", "stage1_shifted", "stage2", "stage2_shifted", "stage3_shifted",
+    "clamped_196", "n512"])
+def test_k5_kernel_matches_plain(cuda_device, B_, H, N, grid, dtype):
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    C = 32 * H
+    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=cuda_device).to(dtype)
+    dout = torch.randn(B_, N, C, generator=gen, device=cuda_device).to(dtype)
+    bias = 0.5 * torch.randn(H, N, N, generator=gen, device=cuda_device)
+    mask = None
+    if grid is not None:
+        ws, ss = get_window_size(grid, (8, 7, 7), (4, 3, 3))
+        mask = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(cuda_device, torch.bfloat16)
+        assert B_ % mask.shape[0] == 0 and ws[0] * ws[1] * ws[2] == N
+    kw = dict(num_heads=H, bias=bias, mask=mask, scale=32 ** -0.5)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    before = window_attn3d_train_fwd.launches, window_attn3d_train_bwd.launches
+    out = window_attn3d_train_fwd(qkv, **kw)
+    dqkv, dbias = window_attn3d_train_bwd(qkv, dout, **kw)
+    torch.cuda.synchronize()
+    assert (window_attn3d_train_fwd.launches, window_attn3d_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = [window_attn3d_train_fwd_plain(q, k, v, **kw),
+            *window_attn3d_train_bwd_plain(q, k, v, dout, **kw)]
+    got = [out, *dqkv.split(C, dim=-1), dbias]
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        tol = k5_tolerance(b, dbias=name == "dbias" and dtype == torch.bfloat16)
+        assert math.isfinite(err) and err <= tol, (name, err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k5_autograd_function_launches_the_kernels(cuda_device, dtype):
+    """Through the autograd Function a CUDA tensor runs K5 both ways, and the
+    gradients are the kernels' own: dq | dk | dv in one tensor, dbias f32."""
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    B_, H, N = 16, 2, 392
+    C = 32 * H
+    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=cuda_device).to(dtype)
+    bias = 0.5 * torch.randn(H, N, N, generator=gen, device=cuda_device)
+    dout = torch.randn(B_, N, C, generator=gen, device=cuda_device).to(dtype)
+    kw = dict(num_heads=H, mask=None, scale=32 ** -0.5)
+    before = window_attn3d_train_fwd.launches, window_attn3d_train_bwd.launches
+    x, b = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+    window_attn3d_train(x, bias=b, **kw).backward(dout)
+    torch.cuda.synchronize()
+    assert (window_attn3d_train_fwd.launches, window_attn3d_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    dqkv, dbias = window_attn3d_train_bwd(qkv, dout, bias=bias, **kw)
+    assert x.grad.shape == qkv.shape and b.grad.dtype == torch.float32
+    big = dqkv.float().abs().max().item()
+    assert torch.allclose(x.grad.float(), dqkv.float(), rtol=0, atol=1e-5 * big)
+    assert (b.grad - dbias).abs().max().item() <= 1e-5 * dbias.abs().max().item()

@@ -2,11 +2,12 @@
 
 K1 (deepfake_tpu_torch/ops/inception_block.py), K2
 (deepfake_tpu_torch/ops/window_attn_kernel.py), K3
-(deepfake_tpu_torch/ops/window_attn3d_kernel.py) and K4
-(deepfake_tpu_torch/ops/ln_linear_kernel.py) run here, on the CPU, through
+(deepfake_tpu_torch/ops/window_attn3d_kernel.py), K4
+(deepfake_tpu_torch/ops/ln_linear_kernel.py) and K5
+(deepfake_tpu_torch/ops/window_attn3d_train.py) run here, on the CPU, through
 their plain versions; the Pallas kernels run in interpret mode, as
 tests/test_pallas_inception.py and tests/test_pallas_kernels.py run them.
-Weights go across with load_jax_variables. All f32.
+Weights go across with load_jax_variables. All f32, and K5 in bf16 too.
 
 tests/test_torch_cuda.py holds the CUDA kernels against these plain
 versions on the card.
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deepfake_tpu.models import inception_resnet_v2 as jirv2
@@ -24,13 +26,14 @@ from deepfake_tpu.models.swin3d import compute_mask_3d
 from deepfake_tpu.ops.pallas_mlp import fused_mlp_tail
 from deepfake_tpu.ops.pallas_window_attn import (
     pallas_window_attention, pallas_window_attention_nhc, pallas_window_attention_nhc_packed,
-    pallas_window_attention_nhc_qkv,
+    pallas_window_attention_nhc_qkv, pallas_window_attention_nhc_train,
 )
 from deepfake_tpu_torch.io.jax_weights import load_jax_variables
 from deepfake_tpu_torch.models import inception_resnet_v2 as tirv2
 from deepfake_tpu_torch.models.layers import as_nchw, as_nhwc
 from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, mlp_tail
 from deepfake_tpu_torch.ops.window_attn3d_kernel import window_attn3d_tokens
+from deepfake_tpu_torch.ops.window_attn3d_train import window_attn3d_train
 from deepfake_tpu_torch.ops.window_attn_kernel import (
     window_attention_heads, window_attention_tokens,
 )
@@ -227,6 +230,57 @@ def test_k3_wrapper_takes_the_plain_version_for_cpu_tensors_only():
     m = torch.zeros(2, 392, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device meta"):
         window_attn3d_tokens(m, m, m, num_heads=1, bias=torch.zeros(1, 392, 392), scale=0.2)
+
+
+def _two_bf16_ulps(want: np.ndarray) -> float:
+    """Two bf16 ulps of the largest |value| of ``want``."""
+    return 2.0 * 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [True, False], ids=["shifted_nW4", "unshifted"])
+def test_k5_plain_fwd_bwd_match_pallas_nhc_train(masked, dtype):
+    """K5's autograd Function (plain forward and backward on the CPU) ==
+    pallas_window_attention_nhc_train under jax.vjp (interpret mode: the
+    token-major forward with the max-stabilised softmax, the Pallas
+    backward) at N=392, B_=4, H=2, on one output gradient: out, dq, dk, dv
+    and dbias within atol 2e-4 / rtol 1e-4 in f32. In bf16, out, dq, dk and
+    dv within two bf16 ulps of each tensor's largest |value|; dbias, f32 on
+    both sides and summed from the same bf16 inputs, within rtol 1e-4 (atol
+    1e-5 of its largest |value|), which holds the backward to the bias
+    rounded to bf16 where the forward reads it in f32."""
+    B_, H, N, D = 4, 2, 392, 32
+    C = H * D
+    q, k, v, bias, mask = _attn3d_inputs(B_, H, 31, masked)
+    tok = lambda a: a.transpose(0, 2, 1, 3).reshape(B_, N, C)
+    g = np.random.default_rng(32).standard_normal((B_, N, C)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def attn(q, k, v, b):
+        return pallas_window_attention_nhc_train(q, k, v, num_heads=H, bias=b, mask=jmask,
+                                                 scale=D ** -0.5)
+
+    out, vjp = jax.vjp(attn, *(jnp.asarray(tok(a), jdt) for a in (q, k, v)), jnp.asarray(bias))
+    want = [out, *vjp(jnp.asarray(g, jdt))]
+
+    tdt = getattr(torch, dtype)
+    qkv = torch.from_numpy(np.concatenate([tok(q), tok(k), tok(v)], -1)).to(tdt).requires_grad_()
+    tbias = torch.from_numpy(bias).requires_grad_()
+    got_out = window_attn3d_train(qkv, num_heads=H, bias=tbias, scale=D ** -0.5,
+                                  mask=None if mask is None else torch.from_numpy(mask))
+    got_out.backward(torch.from_numpy(g).to(tdt))
+    got = [got_out, *qkv.grad.split(C, dim=-1), tbias.grad]
+    assert tbias.grad.dtype == torch.float32
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        a, b = a.detach().float().numpy(), np.asarray(b, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(a, b, atol=2e-4, rtol=1e-4, err_msg=name)
+        elif name == "dbias":
+            np.testing.assert_allclose(a, b, atol=1e-5 * np.abs(b).max(), rtol=1e-4)
+        else:
+            err = np.abs(a - b).max()
+            assert err <= _two_bf16_ulps(b), (name, err, _two_bf16_ulps(b))
 
 
 def _dense(rng, cin, cout):

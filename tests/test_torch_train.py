@@ -1,0 +1,324 @@
+"""The port's ``video_swin`` training path against the JAX package's, on the
+CPU: a Swin3D block's gradients, two optimizer steps of the Trainer, and the
+pieces around them (DropPath, the cosine schedule and SGD, the entry points
+that refuse to run without a card).
+
+The JAX side runs its training route through ``pallas_window_attention_nhc_train``
+in interpret mode (``DEEPFAKE_TPU_PALLAS_INTERPRET=1``), with
+``DEEPFAKE_TPU_TRAIN_PROFIT_STEPS=1`` so that the small shapes take it; the
+port runs K5's plain forward and backward through its autograd Function.
+Weights go across with load_jax_variables. All f32.
+"""
+
+import copy
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from deepfake_tpu_torch.io.jax_weights import load_jax_variables
+from deepfake_tpu_torch.models.layers import DropPath
+
+from tests.test_torch_swin3d import SMALL_VIDEO_SWIN
+from tests.torch_port_helpers import both_configs, random_variables
+
+
+@pytest.fixture
+def jax_train_kernel(monkeypatch):
+    """The JAX training route through the nhc_train Pallas kernel
+    (swin3d.py:500-513) at the tests' small shapes."""
+    monkeypatch.setenv("DEEPFAKE_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("DEEPFAKE_TPU_TRAIN_PROFIT_STEPS", "1")
+
+
+def _spy_nhc_train(monkeypatch):
+    """Count the calls of the JAX training kernel."""
+    from deepfake_tpu.ops import pallas_window_attn as P
+
+    calls = [0]
+    fn = P.pallas_window_attention_nhc_train
+
+    def spy(*a, **kw):
+        calls[0] += 1
+        return fn(*a, **kw)
+
+    monkeypatch.setattr(P, "pallas_window_attention_nhc_train", spy)
+    return calls
+
+
+def _assert_grads_close(tmodel, grads, tol: float):
+    """Every parameter gradient of ``tmodel`` against the JAX gradient tree
+    (carried into the port's layout by load_jax_variables): max |diff| <=
+    tol * max |JAX grad|."""
+    ref = copy.deepcopy(tmodel)
+    load_jax_variables(ref, {"params": jax.device_get(grads)})
+    want = dict(ref.named_parameters())
+    n = 0
+    for name, p in tmodel.named_parameters():
+        g, w = p.grad, want[name].detach()
+        big = w.abs().max().item()
+        assert g is not None and big > 0, name
+        err = (g - w).abs().max().item()
+        assert err <= tol * big, (name, err, big)
+        n += 1
+    assert n == len(want)
+
+
+@pytest.mark.parametrize("route", ["k5", "plain"])
+def test_swin_block3d_train_grads_match_jax(monkeypatch, jax_train_kernel, route):
+    """One shifted SwinBlock3D in train mode (drop_path 0): every parameter
+    gradient of mean(out^2) within 1e-4 of its largest |value| of the JAX
+    block's, and the loss within 1e-5 relative. ``k5``: K5's plain versions
+    against the JAX nhc_train kernel route (one call); ``plain``: the port's
+    plain route against the JAX einsum route (after
+    tests/test_pallas_kernels.py:270-299)."""
+    from deepfake_tpu.models.swin3d import SwinBlock3D as J
+    from deepfake_tpu_torch.models.swin3d import SwinBlock3D as T
+
+    kernel = route == "k5"
+    calls = _spy_nhc_train(monkeypatch)
+    x = (0.5 * np.random.default_rng(40).standard_normal((1, 8, 14, 14, 64))).astype(np.float32)
+    jblock = J(dim=64, num_heads=2, window_size=(8, 7, 7), shift_size=(4, 3, 3), drop_path=0.0,
+               use_pallas=kernel)
+    variables = random_variables(jblock, jnp.asarray(x), seed=41, deterministic=True)
+
+    def loss(p):
+        out = jblock.apply({"params": p}, jnp.asarray(x), False,
+                           rngs={"dropout": jax.random.PRNGKey(2)})
+        return jnp.mean(out ** 2)
+
+    want_loss, grads = jax.value_and_grad(loss)(variables["params"])
+    assert calls[0] == (1 if kernel else 0)
+
+    tblock = T(64, (8, 14, 14), 2, (8, 7, 7), (4, 3, 3), kernels=kernel).train()
+    load_jax_variables(tblock, variables)
+    got_loss = (tblock(torch.from_numpy(x)) ** 2).mean()
+    got_loss.backward()
+    np.testing.assert_allclose(got_loss.item(), float(want_loss), rtol=1e-5)
+    _assert_grads_close(tblock, grads, 1e-4)
+
+
+class _Batches:
+    """One loader yield per epoch: ``x`` clips and ``y`` labels."""
+
+    def __init__(self, x, y):
+        self.x, self.y = x, y
+
+    def train_loader(self):
+        return [(self.x, self.y)]
+
+    def val_loader(self):
+        return [(self.x, self.y)]
+
+
+def test_trainer_two_steps_match_jax_trainer(monkeypatch, jax_train_kernel):
+    """Two optimizer steps of the port's Trainer against the JAX Trainer on
+    the small video_swin geometry (N = 392 at stage 0), batch 2 x accum 2,
+    f32, drop rates 0, lr 0.1 and t_max 3 (the cosine and the momentum both
+    act), from the same weights (random, with the JAX tree's shapes, set into
+    the JAX trainer's state and carried across with load_jax_variables): the
+    losses within 1e-5 relative, and every parameter's update (new - old)
+    within 1e-4 of its largest |update|. The JAX step runs its nhc_train
+    kernel in every block; the port's runs K5's plain versions."""
+    from deepfake_tpu.models.registry import build_model as jbuild
+    from deepfake_tpu.parallel.mesh import make_mesh
+    from deepfake_tpu.train.trainer import Trainer as JTrainer
+    from deepfake_tpu.utils.logging import Logger as JLogger
+    from deepfake_tpu_torch.models.registry import build_model
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    calls = _spy_nhc_train(monkeypatch)
+    jcfg, tcfg = both_configs(dict(SMALL_VIDEO_SWIN, **{
+        "model.swin3d_drop_path": 0.0, "model.classify_drop": 0.0, "optim.batch_size": 2,
+        "optim.accum_step": 2, "optim.learning_rate": 0.1, "optim.epochs": 3}))
+    rng = np.random.default_rng(42)
+    x = rng.standard_normal((4, 16, 56, 56, 3)).astype(np.float32)
+    y = np.asarray([0.0, 1.0, 1.0, 0.0], np.float32)
+    data = _Batches(x, y)
+
+    jmodel = jbuild(jcfg)
+    jt = JTrainer(jmodel, jcfg, data, logger=JLogger(None),
+                  mesh=make_mesh(devices=jax.devices()[:1]))
+    assert jt.t_max == 3
+    params0 = random_variables(jmodel, jnp.asarray(x[:1]), seed=43, deterministic=True)["params"]
+    jt.state = jt.state.replace(params=jax.tree.map(jnp.asarray, params0))
+    want = []
+    for i in range(2):
+        inputs, labels = jt._put_batch(x, y)
+        jt.state, metrics = jt._train_step(jt.state, inputs, labels, jax.random.PRNGKey(i))
+        want.append(float(metrics["loss"]))
+    params2 = jax.device_get(jt.state.params)
+    assert calls[0] > 0
+
+    def port_model(params):
+        m = build_model(tcfg, "cpu", train=True)
+        return load_jax_variables(m, {"params": params})
+
+    tt = Trainer(port_model(params0), tcfg, data, logger=lambda line: None, device="cpu")
+    assert tt.t_max == 3
+    got = [float(tt.train_step(x, y)["loss"]) for _ in range(2)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+    old = dict(port_model(params0).named_parameters())
+    ref = dict(port_model(params2).named_parameters())
+    for name, p in tt.model.named_parameters():
+        upd, want_upd = (p - old[name]).detach(), (ref[name] - old[name]).detach()
+        big = want_upd.abs().max().item()
+        assert big > 0, name
+        assert (upd - want_upd).abs().max().item() <= 1e-4 * big, name
+
+
+def test_trainer_eval_and_train_loop_run():
+    """The Trainer's eval (per-sample loss, accuracy, AUC) and its epoch
+    loop with log lines run on the CPU."""
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    _, tcfg = both_configs(dict(SMALL_VIDEO_SWIN, **{
+        "optim.batch_size": 2, "optim.accum_step": 1, "optim.epochs": 0, "log.log_step": 1}))
+    rng = np.random.default_rng(44)
+    x = rng.standard_normal((2, 16, 56, 56, 3)).astype(np.float32)
+    y = np.asarray([0.0, 1.0], np.float32)
+    lines = []
+    tt = Trainer(None, tcfg, _Batches(x, y), logger=lines.append, device="cpu")
+    res = tt.eval([(x, y)])
+    assert np.isfinite(res["loss"]) and res["acc"] in (0.0, 0.5, 1.0) and res["auc"] in (0.0, 1.0)
+    tt.train()
+    assert tt.step == 1 and tt.model.training
+    assert any("Train Loss Avg" in s for s in lines) and any("AUC" in s for s in lines)
+
+
+def test_drop_path_draws_one_mask_per_sample():
+    """DropPath keeps or drops whole samples with probability 1 - rate,
+    scales the kept ones by 1 / (1 - rate), draws from its generator, and
+    is the identity in eval mode."""
+    rate = 0.25
+    dp = DropPath(rate, torch.Generator().manual_seed(0)).train()
+    x = torch.ones(4000, 3, 5)
+    y = dp(x)
+    per_sample = y.reshape(4000, -1)
+    kept = per_sample[:, 0] != 0
+    assert torch.all(per_sample == per_sample[:, :1])  # one draw per sample
+    assert torch.allclose(per_sample[kept], torch.full_like(per_sample[kept], 1 / (1 - rate)))
+    assert abs(kept.float().mean().item() - (1 - rate)) < 0.03
+    again = DropPath(rate, torch.Generator().manual_seed(0)).train()(x)
+    assert torch.equal(again, y)
+    assert dp.eval()(x) is x
+    with pytest.raises(RuntimeError, match="generator"):
+        DropPath(rate).train()(x)
+
+
+def test_cosine_schedule_and_sgd_two_steps():
+    """cosine_annealing holds at eta_min past t_max; SGD with momentum and
+    coupled weight decay, at lr(0) then lr(1), against the update computed
+    by hand: d = g + wd * p; buf = d, then m * buf + d; p -= lr * buf."""
+    from deepfake_tpu_torch.train.schedule import cosine_annealing, make_optimizer
+
+    lr0, t_max, m, wd = 0.1, 3, 0.9, 0.05
+    sched = cosine_annealing(lr0, t_max)
+    assert sched(0) == lr0 and abs(sched(3)) < 1e-12 and sched(7) == sched(3)
+    assert abs(sched(1) - lr0 * 0.5 * (1 + math.cos(math.pi / 3))) < 1e-12
+    p0 = np.asarray([1.0, -2.0, 0.5])
+    gs = [np.asarray([0.3, 0.1, -0.2]), np.asarray([-0.4, 0.2, 0.6])]
+    w = torch.nn.Parameter(torch.tensor(p0, dtype=torch.float64))
+    opt = make_optimizer([w], lr0, m, wd)
+    p, buf = p0.copy(), None
+    for t, g in enumerate(gs):
+        w.grad = torch.tensor(g)
+        for group in opt.param_groups:
+            group["lr"] = sched(t)
+        opt.step()
+        d = g + wd * p
+        buf = d if buf is None else m * buf + d
+        p = p - sched(t) * buf
+        np.testing.assert_allclose(w.detach().numpy(), p, rtol=1e-12)
+
+
+def test_bce_with_logits_matches_jax():
+    from deepfake_tpu.train.losses import bce_with_logits as jbce
+    from deepfake_tpu_torch.train.losses import bce_with_logits
+
+    rng = np.random.default_rng(45)
+    logits = (3 * rng.standard_normal(16)).astype(np.float32)
+    labels = (rng.random(16) > 0.5).astype(np.float32)
+    got = bce_with_logits(torch.from_numpy(logits), torch.from_numpy(labels)).item()
+    np.testing.assert_allclose(got, float(jbce(jnp.asarray(logits), jnp.asarray(labels))),
+                               rtol=1e-6)
+
+
+def test_roc_auc_matches_jax():
+    from deepfake_tpu.utils.metrics import roc_auc as jauc
+    from deepfake_tpu_torch.utils.metrics import roc_auc
+
+    rng = np.random.default_rng(46)
+    s = np.round(rng.random(50), 1)  # ties
+    lab = (rng.random(50) > 0.4).astype(np.float32)
+    assert roc_auc(s, lab) == pytest.approx(jauc(s, lab), abs=1e-12)
+    assert math.isnan(roc_auc(s, np.ones(50)))
+
+
+def test_trainer_without_cuda_raises_unless_cpu_asked(monkeypatch):
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = both_configs(SMALL_VIDEO_SWIN)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(None, tcfg, _Batches(None, None))
+
+
+def test_build_model_train_mode():
+    """build_model(train=True): train mode, f32 parameters, the drop rates
+    of the config (linspace(0, drop_path, blocks)), seeded dropout; fused
+    training is not ported."""
+    from deepfake_tpu_torch.models.registry import build_model
+
+    _, tcfg = both_configs(dict(SMALL_VIDEO_SWIN, **{"model.swin3d_drop_path": 0.3,
+                                                     "parallel.compute_dtype": "bfloat16"}))
+    m = build_model(tcfg, "cpu", train=True)
+    assert m.training and all(p.dtype == torch.float32 for p in m.parameters())
+    rates = [b.drop_path.rate for b in m.videoSwinT.modules() if hasattr(b, "drop_path")]
+    np.testing.assert_allclose(rates, np.linspace(0, 0.3, 4))
+    assert m.classifier.mlp.drop.rate == tcfg.model.classify_drop
+    assert m.classifier.mlp.drop.generator is not None
+    with pytest.raises(NotImplementedError, match="video_swin only"):
+        build_model(both_configs({"data.modality": "fused"})[1], "cpu", train=True)
+
+
+def test_kernels_without_backward_raise_under_autograd():
+    """K4's and K3's wrappers refuse an input that requires grad while
+    autograd records (they have no backward); under no_grad they run."""
+    from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear
+    from deepfake_tpu_torch.ops.window_attn3d_kernel import window_attn3d_tokens
+
+    x, w = torch.ones(3, 16, requires_grad=True), torch.ones(8, 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ln_linear(x, w)
+    q = torch.zeros(1, 392, 32, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        window_attn3d_tokens(q, q, q, num_heads=1, bias=torch.zeros(1, 392, 392), scale=0.2)
+    with torch.no_grad():
+        assert ln_linear(x, w).shape == (3, 8)
+
+
+def test_k5_rejects_what_it_does_not_take():
+    """K5's checks raise before any launch: N > 512, a head dim other than
+    32, a mask that does not tile the windows, a type it does not take; a
+    model in train mode refuses an inference bias cache."""
+    from deepfake_tpu_torch.models.swin3d import WindowAttention3D
+    from deepfake_tpu_torch.ops.window_attn3d_train import _check
+
+    with pytest.raises(ValueError, match="N <= 512"):
+        _check(torch.zeros(1, 640, 96), 1, torch.zeros(1, 640, 640), None)
+    with pytest.raises(ValueError, match="D == 32"):
+        _check(torch.zeros(1, 392, 192), 1, torch.zeros(1, 392, 392), None)
+    with pytest.raises(ValueError, match="does not tile 3 windows"):
+        _check(torch.zeros(3, 392, 96), 1, torch.zeros(1, 392, 392), torch.zeros(2, 392, 392))
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        _check(torch.zeros(1, 392, 96, dtype=torch.float16), 1, torch.zeros(1, 392, 392), None)
+    attn = WindowAttention3D(32, (8, 7, 7), 1, (8, 7, 7), kernels=True)
+    attn.precompute_bias()
+    with pytest.raises(RuntimeError, match="inference cache"):
+        attn.train()(torch.zeros(1, 392, 32))
