@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      shapes its path gives it (fused: b8 x 32 frames at 224, SwinV2-B at
      224; video_swin: the four Video Swin-S stages at b8 x 32 frames of 224,
      K3's attention and K4's four launches of a block in serving, K5's
-     forward and backward in training), f32 with TF32 off and bf16; kernel,
+     forward and backward in training; audio: K6 at the three window-16
+     stages of SwinV2-B at 256^2, b8, shifted and not, logit scales up to
+     100, and one scaled N = 392 case), f32 with TF32 off and bf16; kernel,
      plain, library and bound times per shape and per b8 request or
      micro-batch.
   3. fused serving at full width (IRv2 + NeXtVLAD, SwinV2-B, wav2vec2-base,
@@ -18,7 +20,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      and one b1 request, with the launch counters showing that the
      requests went through every kernel; then the same requests on the
      plain routes (kernels off, same weights) for the end-to-end
-     comparison, and each branch's device time on both.
+     comparison, and each branch's device time on both; then one b8
+     request from raw inputs (uint8 frames, 16 kHz PCM) through predict_raw.
   4. the same for video_swin serving (Video Swin-S 3D, 32 frames of 224):
      three b8 and one b1 request through K3 and K4 (24 and 96 launches
      each), then on the plain route.
@@ -37,6 +40,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      versions in phase 2 (the four stage shapes of a b8 micro-batch).
   7. f32 parity of training: one b1 micro-batch, every gradient of the K5
      route against the plain route.
+  8. audio serving from raw PCM (SwinV2-B at its published window-16, 256^2
+     geometry; 4 s buckets of 16 kHz PCM, valid 2.5-4 s): three b8 and one
+     b1 request through predict_raw (resample, mel image, then 22 K6 and 2
+     K2 launches each), then on the plain route; latency, clips/s, idle
+     share, top kernels, the front end's device time apart.
+  9. f32 parity of audio: b2 scores, kernel route against plain route.
 The last two lines are {"kernels": [...]} and {"ok": true, "device": ...};
 --report writes every measurement and check as JSON to PATH. Imports
 nothing of JAX.
@@ -76,6 +85,9 @@ K5_FWD_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:1074 "
                    "pallas_window_attention_nhc_train (forward: _run_nhc :320)")
 K5_BWD_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:1074 "
                    "pallas_window_attention_nhc_train (backward: _run_nhc_bwd :966)")
+K6_SRC = "deepfake_tpu_torch/csrc/window_attn_multihead.cu"
+K6_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:179 _run_multihead "
+               "(pallas_window_attention :1127, N >= 128)")
 
 
 def log(*a):
@@ -98,6 +110,25 @@ def cuda_time_ms(fn, iters: int = 3, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters: int = 10) -> float:
+    """The device's own time per call of ``fn`` (the summed durations of the
+    kernels it launches, torch.profiler), after one warm-up call: unlike
+    cuda_time_ms it leaves out the gaps while the host issues the calls,
+    which set the event time of launches shorter than their host work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def errors(got, want):
@@ -651,6 +682,128 @@ def phase_k5(dev, gen, batch: int, report):
     return rows
 
 
+# ---------------------------------------------------------------- phase 2: K6
+
+# (resolution, heads, C, depth) of SwinV2-B's stages at window 16, 256^2:
+# windows of 16 x 16 = 256 tokens in stages 0-2 (stage 2's 16^2 grid is one
+# unshifted window); stage 3 (8^2, window 8) is K2's
+SWIN_B_W16_STAGES = [(64, 4, 128, 2), (32, 8, 256, 2), (16, 16, 512, 18)]
+N6 = 256
+
+
+def k6_check(got, want, what: str):
+    """Max abs error of K6 against its plain version: f32 1e-5 of
+    max(|plain|, 1) (summation order, amplified by logit scales up to 100);
+    bf16 two bf16 ulps of the largest |output| (the weights are rounded to
+    bf16 for P V, and the output once)."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    big = want.float().abs().max().item()
+    if want.dtype == torch.float32:
+        tol = 1e-5 * max(big, 1.0)
+    else:
+        tol = 2.0 * 2.0 ** (math.floor(math.log2(big)) - 7)
+    if not (math.isfinite(err) and err <= tol):
+        fail(f"K6 {what}: max abs err {err:.3e} > {tol:.3e}")
+    return err, tol
+
+
+def k6_flops_bytes(B_, H, C, N, n_masks, elt):
+    """q, k, v read and out written once, the f32 bias and the f32 masks
+    read once; 4 B_ H N^2 D operations (Q K^T and P V)."""
+    flops = 4.0 * B_ * H * N * N * (C // H)
+    nbytes = 4.0 * B_ * N * C * elt + 4.0 * H * N * N + 4.0 * n_masks * N * N
+    return flops, nbytes
+
+
+def phase_k6(dev, gen, batch: int, report):
+    import torch
+    import torch.nn.functional as F
+
+    from deepfake_tpu_torch.models.swin2d import shift_attn_mask
+    from deepfake_tpu_torch.ops import window_attn_multihead as k6
+    from deepfake_tpu_torch.ops.window_attn import l2_normalize
+
+    acc = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "flops": 0.0, "bytes": 0.0}
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    cases = []  # name, B_, H, C, N, mask, cosine, blocks per request
+    for res, H, C, depth in SWIN_B_W16_STAGES:
+        B_ = batch * (res // 16) ** 2
+        if res > 16:
+            mask = torch.from_numpy(shift_attn_mask(res, res, 16, 8)).to(dev)
+            cases.append((f"stage res {res}", B_, H, C, N6, None, True, (depth + 1) // 2))
+            cases.append((f"stage res {res} shifted", B_, H, C, N6, mask, True, depth // 2))
+        else:
+            cases.append((f"stage res {res}", B_, H, C, N6, None, True, depth))
+    # the scaled form at N = 392 (a Video Swin-S stage-2 b8 shape), as the
+    # JAX tests drive this route; on no model path
+    cases.append(("scaled N=392", 64, 12, 384, 392, None, False, 0))
+    for name, B_, H, C, N, mask, cosine, count in cases:
+        D = C // H
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            qkv = torch.randn(B_, N, 3 * C, generator=gen, device=dev).to(dtype)
+            q, k, v = qkv.view(B_, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+            if cosine:
+                bias = 16 * torch.sigmoid(torch.randn(H, N, N, generator=gen, device=dev))
+                # logit scales drawn up to the clamp: 10 .. 100, the last head at 100
+                ls = torch.exp(torch.linspace(math.log(10.0), math.log(100.0), H, device=dev)
+                               ).reshape(H, 1, 1)
+                kw = dict(bias=bias, mask=mask, logit_scale=ls)
+            else:
+                bias = 0.5 * torch.randn(H, N, N, generator=gen, device=dev)
+                kw = dict(bias=bias, mask=None, scale=D ** -0.5, cosine=False)
+            run = lambda: k6.window_attention_multihead(q, k, v, **kw)
+            plain = lambda: k6.window_attention_heads_plain(q, k, v, **kw)
+            got = run()
+            torch.cuda.synchronize()
+            err, tol = k6_check(got, plain(), f"{name} B_={B_} H={H} {dname}")
+            errs[dname] = max(errs[dname], err)
+            row = dict(kernel="window_attention_multihead", case=f"{name} [{B_},{H},{N},{D}]",
+                       dtype=dname, max_abs_err=err, tol=tol, blocks_per_request=count)
+            ms = cuda_time_ms(run, iters=10)
+            dms = device_time_ms(run) if dtype == torch.bfloat16 else None
+            pms = cuda_time_ms(plain, iters=3)
+            hq, hk, hv = (t.contiguous() for t in (q, k, v))
+            if cosine:
+                hq = (l2_normalize(hq.float()) * kw["logit_scale"]).to(dtype)
+                hk = l2_normalize(hk.float()).to(dtype)
+            am = sdpa_mask(bias, mask, B_, dtype)
+            lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                hq, hk, hv, attn_mask=am, scale=1.0 if cosine else D ** -0.5), iters=10)
+            del hq, hk, hv, am
+            flops, nbytes = k6_flops_bytes(B_, H, C, N, 0 if mask is None else mask.shape[0],
+                                           qkv.element_size())
+            b, by = bound_ms(flops, nbytes, dname)
+            row.update(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib, bound_ms=b,
+                       bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            log(f"K6 {name:22s} [{B_},{H},{N},{D}] {dname:8s} kernel_ms={ms:.4f} "
+                + ("" if dms is None else f"device_ms={dms:.4f} ")
+                + f"plain_ms={pms:.4f} sdpa_ms={lib:.4f} bound_ms={b:.4f} ({by}) "
+                f"err={err:.2e} (tol {tol:.2e})")
+            if dtype == torch.bfloat16:
+                for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                                 ("library_ms", lib), ("bound_ms", b), ("flops", flops),
+                                 ("bytes", nbytes)):
+                    acc[key] += count * val
+            report["k6"].append(row)
+            del qkv, q, k, v, bias, got
+        torch.cuda.empty_cache()
+    k6.window_attention_multihead.launches = 0
+    _, by = bound_ms(acc["flops"], acc["bytes"], "bfloat16")
+    return dict(name="window_attention_multihead (K6)", route="cuda", source=K6_SRC,
+                replaces=K6_REPLACES, launches=None, max_abs_err=errs["bfloat16"],
+                max_abs_err_f32=errs["float32"], ms=acc["ms"], plain_ms=acc["plain_ms"],
+                bound_ms=acc["bound_ms"], bound_by=by, library_ms=acc["library_ms"],
+                device_ms=acc["device_ms"],
+                per="one audio b8 request (SwinV2-B window 16, 256^2): the 22 blocks of stages "
+                    "0-2, bf16; library_ms is SDPA with bias + mask as attn_mask on "
+                    "pre-normalised q and k; device_ms is the kernel's own device time "
+                    "(torch.profiler), ms the CUDA-event time of back-to-back calls")
+
+
 # ---------------------------------------------------------------- phases 3 and 4
 
 def fused_inputs(cfg, batch, dev, gen):
@@ -675,12 +828,14 @@ def wrappers():
     from deepfake_tpu_torch.ops.window_attn_kernel import (
         window_attention_heads, window_attention_tokens,
     )
+    from deepfake_tpu_torch.ops.window_attn_multihead import window_attention_multihead
 
     return {"inception_block": inception_block, "window_attn_tokens": window_attention_tokens,
             "window_attn_heads": window_attention_heads,
             "window_attn3d_tokens": window_attn3d_tokens, "ln_linear": ln_linear,
             "window_attn3d_train_fwd": window_attn3d_train_fwd,
-            "window_attn3d_train_bwd": window_attn3d_train_bwd}
+            "window_attn3d_train_bwd": window_attn3d_train_bwd,
+            "window_attention_multihead": window_attention_multihead}
 
 
 def counts():
@@ -708,15 +863,23 @@ def branch_times(pred, inputs):
         return {name: cuda_time_ms(fn, iters=3) for name, fn in parts.items()}
 
 
+def batch_of(inputs) -> int:
+    if isinstance(inputs, dict):
+        return next(iter(inputs.values())).shape[0]
+    return (inputs[0] if isinstance(inputs, tuple) else inputs).shape[0]
+
+
 def serve(pred, requests):
-    """Answer each request; returns (latencies in s, scores), each score
-    checked finite and in [0, 1]."""
+    """Answer each request (model-ready inputs through ``predict``, a raw
+    feature dict through ``predict_raw``); returns (latencies in s,
+    scores), each score checked finite and in [0, 1]."""
     lat, out = [], []
     for inputs in requests:
         t = time.perf_counter()
-        scores = pred.predict(inputs)  # ends in a device->host copy
+        # ends in a device->host copy
+        scores = pred.predict_raw(inputs) if isinstance(inputs, dict) else pred.predict(inputs)
         lat.append(time.perf_counter() - t)
-        B = (inputs[0] if isinstance(inputs, tuple) else inputs).shape[0]
+        B = batch_of(inputs)
         if scores.shape != (B,) or not np.isfinite(scores).all() or not (
                 (scores >= 0) & (scores <= 1)).all():
             fail(f"serving: bad scores for a b{B} request: {scores}")
@@ -759,6 +922,30 @@ def branch_rel_err(pa, pb, inputs):
             for a, b in zip(fa, fb)]
 
 
+def pcm_batch(cfg, batch, dev, gen):
+    """Seeded bucket-padded 16 kHz PCM on the card: the first bucket (4 s),
+    valid lengths drawn in [2.5 s, 4 s], zeros past each."""
+    import torch
+
+    sr = cfg.data.wave_sample_rate
+    T = int(cfg.data.wave_seconds_buckets[0] * sr)
+    lengths = torch.randint(int(2.5 * sr), T + 1, (batch,), generator=gen, device=dev)
+    wave = 0.1 * torch.randn(batch, T, generator=gen, device=dev)
+    return wave * (torch.arange(T, device=dev)[None] < lengths[:, None]), lengths
+
+
+def fused_raw(cfg, batch, dev, gen):
+    """A raw fused request: uint8 frames of the model's clip shape and one
+    PCM clip each for the mel image and the waveform."""
+    import torch
+
+    t, s = cfg.data.num_frames, cfg.data.frame_size
+    wave, lengths = pcm_batch(cfg, batch, dev, gen)
+    return {"video": torch.randint(0, 256, (batch, t, s, s, 3), generator=gen, device=dev,
+                                   dtype=torch.uint8),
+            "audio_wave": wave, "audio_len": lengths, "paudio_wave": wave, "paudio_len": lengths}
+
+
 def phase_serving(cfg, cfg_plain, dev, gen, report):
     """Fused serving on the kernel routes (the main path), then the same
     requests on the plain routes (cuDNN convs, plain attention) with the
@@ -796,9 +983,21 @@ def phase_serving(cfg, cfg_plain, dev, gen, report):
             fail(f"b8 request {i}: K2 launches {d}")
         if not b8 and d["window_attn_heads"] == 0:
             fail(f"b1 request: no head-major K2 launch: {d}")
+        if d["window_attention_multihead"]:
+            fail(f"request {i}: K6 ran at window 7: {d}")
     lat_plain, scores_plain = serve(plain, requests)
     if counts() != launches:
         fail("the plain routes launched a kernel")
+    # one b8 request from raw inputs (uint8 frames, 16 kHz PCM) through
+    # predict_raw: FeatureAssembler feeds the same kernels
+    raw = fused_raw(cfg, 8, dev, gen)
+    before = counts()
+    (t_first, t_raw), _ = serve(pred, [raw, raw])  # the first builds the front end's tables
+    after = counts()
+    d_raw = {k: (after[k] - before[k]) // 2 for k in after}
+    if d_raw["inception_block"] != 40 or d_raw["window_attn_tokens"] == 0:
+        fail(f"fused predict_raw b8: launches {d_raw}")
+    fe_ms = cuda_time_ms(lambda: pred._assemble(raw, np.zeros(1, np.float32)), iters=3)
     d_score = max(float(np.abs(a - b).max()) for a, b in zip(scores, scores_plain))
     d_feat = branch_rel_err(pred, plain, requests[0])
     res = dict(per_request_launches=per_req, latency_s=lat, p50_b8_s=statistics.median(lat[:3]),
@@ -807,7 +1006,9 @@ def phase_serving(cfg, cfg_plain, dev, gen, report):
                plain_clips_per_s_b8=8 * 3 / sum(lat_plain[:3]),
                max_abs_score_diff_vs_plain_bf16=d_score, branch_rel_err_vs_plain_bf16=d_feat,
                branch_ms_b8=branch_times(pred, requests[0]),
-               plain_branch_ms_b8=branch_times(plain, requests[0]))
+               plain_branch_ms_b8=branch_times(plain, requests[0]),
+               predict_raw_b8=dict(latency_s=t_raw, first_call_s=t_first, launches=d_raw,
+                                   frontend_ms=fe_ms))
     res["profile"] = {
         "kernel routes b8": profile_call(lambda: pred.predict(requests[0]),
                                          res["p50_b8_s"] * 1e3),
@@ -822,6 +1023,9 @@ def phase_serving(cfg, cfg_plain, dev, gen, report):
         f"{res['plain_clips_per_s_b8']:.2f} clips/s; b1 {lat_plain[3] * 1e3:.1f} ms; "
         f"vs kernel routes: max |score diff| {d_score:.2e}, branch feature rel err "
         f"{', '.join(f'{e:.2e}' for e in d_feat)} (bf16)")
+    log(f"serving: one b8 request through predict_raw (uint8 frames, 4 s PCM): "
+        f"{t_raw * 1e3:.1f} ms (first call {t_first * 1e3:.1f} ms), front end {fe_ms:.2f} ms "
+        f"(CUDA events), launches per call {d_raw}")
     log("serving: b8 branch times (ms), kernel routes " + json.dumps(res["branch_ms_b8"]))
     log("serving: b8 branch times (ms), plain routes  " + json.dumps(res["plain_branch_ms_b8"]))
     for name, prof in res["profile"].items():
@@ -981,6 +1185,137 @@ def phase_video_swin_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int)
     # f32 (TF32 off): summation order only; measured 3e-8 and 2.4e-7
     if not (d_score <= 1e-5 and rel <= 1e-5):
         fail("video_swin: kernel and plain routes disagree in f32")
+    del pk, pp
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phases 8 and 9
+
+def audio_request(cfg, batch, dev, gen):
+    wave, lengths = pcm_batch(cfg, batch, dev, gen)
+    return {"audio_wave": wave, "audio_len": lengths}
+
+
+def phase_audio(cfg, cfg_plain, dev, gen, report):
+    """``audio`` serving from raw 16 kHz PCM at SwinV2-B's window-16 256^2
+    geometry through predict_raw (the main path of this slice): K6 in the
+    22 blocks of stages 0-2, K2 in stage 3; then the same requests on the
+    plain route with the same weights."""
+    import torch
+
+    from deepfake_tpu_torch.serving import Predictor
+
+    t0 = time.perf_counter()
+    pred = Predictor(cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"audio: Predictor(SwinV2-B window {cfg.model.swin2d_window}, "
+        f"{cfg.data.audio_size}^2, {cfg.parallel.compute_dtype}) built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in pred.model.parameters()) / 1e6:.1f} M params")
+    plain = Predictor(cfg_plain, device=dev)
+    depths = cfg.model.swin2d_depths
+    k6_blocks, k2_blocks = sum(depths[:-1]), depths[-1]
+    requests = [audio_request(cfg, 8, dev, gen) for _ in range(3)] + [
+        audio_request(cfg, 1, dev, gen)]
+    for p in (pred, plain):  # warm-up at both batch sizes
+        serve(p, [requests[0], requests[-1]])
+    torch.cuda.synchronize()
+    reset_counts()  # the main path's run starts here
+    lat, per_req, scores = [], [], []
+    for x in requests:
+        before = counts()
+        (t,), (sc,) = serve(pred, [x])
+        after = counts()
+        lat.append(t)
+        scores.append(sc)
+        per_req.append({k: after[k] - before[k] for k in after})
+    launches = counts()  # ... and ends here
+    for i, d in enumerate(per_req):
+        k2 = "window_attn_tokens" if i < 3 else "window_attn_heads"
+        if (d["window_attention_multihead"] != k6_blocks or d[k2] != k2_blocks
+                or sum(d.values()) != k6_blocks + k2_blocks):
+            fail(f"audio request {i}: launches {d}, expected {k6_blocks} of K6, {k2_blocks} of "
+                 f"K2 ({k2}) and no other")
+    lat_plain, scores_plain = serve(plain, requests)
+    if counts() != launches:
+        fail("audio: the plain route launched a kernel")
+    d_score = max(float(np.abs(a - b).max()) for a, b in zip(scores, scores_plain))
+    zeros = np.zeros(1, np.float32)
+    with torch.inference_mode():
+        inputs, _ = pred._assemble(requests[0], zeros)
+    if inputs.dtype != torch.float32 or tuple(inputs.shape) != (8, cfg.data.audio_size,
+                                                               cfg.data.audio_size, 3):
+        fail(f"audio: the front end gave {inputs.dtype} {tuple(inputs.shape)}")
+    fe_ms = cuda_time_ms(lambda: pred._assemble(requests[0], zeros), iters=5)
+    model_ms = cuda_time_ms(lambda: pred.forward(inputs), iters=5)
+    res = dict(per_request_launches=per_req, latency_s=lat, p50_b8_s=statistics.median(lat[:3]),
+               clips_per_s_b8=8 * 3 / sum(lat[:3]), b1_latency_s=lat[3],
+               plain_latency_s=lat_plain, plain_p50_b8_s=statistics.median(lat_plain[:3]),
+               plain_clips_per_s_b8=8 * 3 / sum(lat_plain[:3]),
+               max_abs_score_diff_vs_plain_bf16=d_score, frontend_ms_b8=fe_ms,
+               model_ms_b8=model_ms)
+    res["profile"] = {
+        "kernel route b8": profile_call(lambda: pred.predict_raw(requests[0]),
+                                        res["p50_b8_s"] * 1e3),
+        "kernel route b1": profile_call(lambda: pred.predict_raw(requests[3]), lat[3] * 1e3),
+        "plain route b8": profile_call(lambda: plain.predict_raw(requests[0]),
+                                       res["plain_p50_b8_s"] * 1e3)}
+    report["audio"] = res
+    log(f"audio: K6, K2 launches per request "
+        f"{[(d['window_attention_multihead'], d['window_attn_tokens'] + d['window_attn_heads']) for d in per_req]}")
+    log(f"audio: kernel route b8 p50 {res['p50_b8_s'] * 1e3:.2f} ms, "
+        f"{res['clips_per_s_b8']:.2f} clips/s; b1 {lat[3] * 1e3:.2f} ms ({report['card']})")
+    log(f"audio: plain route  b8 p50 {res['plain_p50_b8_s'] * 1e3:.2f} ms, "
+        f"{res['plain_clips_per_s_b8']:.2f} clips/s; b1 {lat_plain[3] * 1e3:.2f} ms; "
+        f"vs kernel route: max |score diff| {d_score:.2e} (bf16)")
+    log(f"audio: b8 device time: front end (resample, mel image, f32) {fe_ms:.3f} ms, "
+        f"model {model_ms:.3f} ms (CUDA events)")
+    for name, prof in res["profile"].items():
+        log(f"audio: profile {name}: device busy {prof['device_busy_ms']:.2f} ms of "
+            f"{prof['wall_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}; top "
+            + json.dumps(prof["top_kernels_ms"]))
+    # bf16 through 24 blocks of random weights, as the fused serving bound
+    if not d_score <= 2e-2:
+        fail("audio: kernel and plain routes disagree in bf16")
+    del pred, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_audio_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
+    """f32 (TF32 off): audio scores from the same PCM on the kernel route
+    (K6's and K2's SIMT parity kernels) against the plain route."""
+    import torch
+
+    from deepfake_tpu_torch.serving import Predictor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pk = Predictor(cfg_kernel, device=dev)
+    pp = Predictor(cfg_plain, device=dev)
+    for (n1, a), (n2, b) in zip(pk.model.state_dict().items(), pp.model.state_dict().items()):
+        if n1 != n2 or not torch.equal(a, b):
+            fail(f"audio parity: the two models' weights differ at {n1}")
+    x = audio_request(cfg_kernel, batch, dev, gen)
+    before = counts()
+    scores = [p.predict_raw(x) for p in (pk, pp)]
+    after = counts()
+    if after["window_attention_multihead"] - before["window_attention_multihead"] != sum(
+            cfg_kernel.model.swin2d_depths[:-1]):
+        fail("audio parity: the kernel route did not run K6 in every window-16 block")
+    d_score = float(np.abs(scores[0] - scores[1]).max())
+    with torch.inference_mode():
+        mel, _ = pk._assemble(x, np.zeros(1, np.float32))
+        lk, lp = (p.model(mel, return_logits=True).float() for p in (pk, pp))
+    d_logit = ((lk - lp).abs().max() / lp.abs().max().clamp(min=1e-6)).item()
+    report["audio_parity"] = dict(batch=batch, max_abs_score_diff=d_score,
+                                  logit_rel_err=d_logit, scores_kernel=scores[0].tolist(),
+                                  scores_plain=scores[1].tolist())
+    log(f"audio parity f32 b{batch}: max |score diff| {d_score:.3e}; logit rel err "
+        f"{d_logit:.2e}")
+    # f32 (TF32 off): summation order and the two softmax forms only
+    if not (d_score <= 1e-4 and d_logit <= 1e-4):
+        fail("audio: kernel and plain routes disagree in f32")
     del pk, pp
     torch.cuda.empty_cache()
 
@@ -1179,7 +1514,7 @@ def main() -> int:
     card = smi.splitlines()[0]
     dev = torch.device("cuda", 0)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "k1": [], "k2": [], "k3": [], "k4": [], "k5": []}
+              "k1": [], "k2": [], "k3": [], "k4": [], "k5": [], "k6": []}
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t = time.perf_counter()
@@ -1196,7 +1531,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kernels = ([phase_k1(dev, gen, 8 * 32, report)] + phase_k2(dev, gen, 8, report)
                + [phase_k3(dev, gen, 8, report), phase_k4(dev, gen, 8, report)]
-               + phase_k5(dev, gen, 8, report))
+               + phase_k5(dev, gen, 8, report) + [phase_k6(dev, gen, 8, report)])
 
     def config(dtype: str, kernels: bool, preset=None):
         cfg = Config.preset(preset) if preset else Config()
@@ -1204,6 +1539,12 @@ def main() -> int:
         cfg.parallel.compute_dtype = dtype
         cfg.model.irv2_fused_blocks = cfg.model.swin2d_attn_kernel = kernels
         cfg.model.swin3d_attn_kernel = kernels
+        if preset == "audio":
+            # SwinV2-B at its published window-16, 256^2 geometry
+            # (configs/swinv2/swinv2_base_patch4_window16_256.yaml)
+            cfg.data.audio_size = 256
+            cfg.model.swin2d_window = 16
+            cfg.model.swin2d_pretrained_windows = (0, 0, 0, 0)
         return cfg
 
     launches = phase_serving(config("bfloat16", True), config("bfloat16", False), dev, gen, report)
@@ -1218,6 +1559,9 @@ def main() -> int:
                                       config("bfloat16", False, "video_swin"), dev, gen, report)
     kernels[5]["launches"] = launches["window_attn3d_train_fwd"]
     kernels[6]["launches"] = launches["window_attn3d_train_bwd"]
+    launches = phase_audio(config("bfloat16", True, "audio"), config("bfloat16", False, "audio"),
+                           dev, gen, report)
+    kernels[7]["launches"] = launches["window_attention_multihead"]
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         log(f"kernel {k['name']}: {k['per']}: kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
@@ -1229,6 +1573,8 @@ def main() -> int:
     phase_video_swin_train_parity(config("float32", True, "video_swin"),
                                   config("float32", False, "video_swin"), dev, gen, report,
                                   batch=1)
+    phase_audio_parity(config("float32", True, "audio"), config("float32", False, "audio"), dev,
+                       gen, report, batch=2)
 
     report["total_s"] = time.perf_counter() - t_all
     report["kernels"] = kernels

@@ -1,17 +1,20 @@
-"""Typed configuration tree: the port's own copy of the fields that fused
-and ``video_swin`` serving and ``video_swin`` training read
-(deepfake_tpu/config.py:18-256). Field names and defaults match the JAX
-package, so one set of dotted overrides configures both.
+"""Typed configuration tree: the port's own copy of the fields that fused,
+``audio`` and ``video_swin`` serving (raw-input feature assembly included)
+and ``video_swin`` training read (deepfake_tpu/config.py:18-256). Field
+names and defaults match the JAX package, so one set of dotted overrides
+configures both.
 
 The three kernel switches are on by default and renamed without "pallas":
 ``model.irv2_fused_blocks`` (deepfake_tpu: ``irv2_pallas_blocks``),
 ``model.swin2d_attn_kernel`` (``swin2d_pallas_attn``) and
 ``model.swin3d_attn_kernel`` (``swin3d_pallas_attn``). Off selects the plain
-PyTorch path on purpose; it is never a fallback. Like ``swin3d_pallas_attn``,
-which routes a Video Swin block through all three of its Pallas kernels
-(attention, QKV-fused attention, MLP tail), ``swin3d_attn_kernel`` routes it
-through K3 and K4 when serving, and through K5 (forward and backward) in
-training.
+PyTorch path on purpose; it is never a fallback. ``swin2d_attn_kernel``
+routes SwinV2's window attention through K2 for windows of N <= 64 tokens
+and through K6 for N >= 128, as ``swin2d_pallas_attn`` picks the Pallas
+routes by N. Like ``swin3d_pallas_attn``, which routes a Video Swin block
+through all three of its Pallas kernels (attention, QKV-fused attention,
+MLP tail), ``swin3d_attn_kernel`` routes it through K3 and K4 when serving,
+and through K5 (forward and backward) in training.
 """
 
 from __future__ import annotations
@@ -28,6 +31,26 @@ class DataConfig:
     audio_size: int = 224  # mel-spectrogram image side
     wave_seconds_buckets: Tuple[float, ...] = (4.0, 8.0, 16.0)
     wave_sample_rate: int = 16000
+    # waveform normalisation of the paudio input: "batch_longest" (the
+    # reference processor's statistics over the batch-longest length), "hf"
+    # (over the full bucket row) or "masked" (over the valid prefix only)
+    wave_norm: str = "batch_longest"
+
+
+@dataclass
+class MelConfig:
+    """The device log-mel image (deepfake_tpu/config.py:55-67). As in the
+    JAX front end, FeatureAssembler reads the rate, n_fft, hop and n_mels;
+    fmin, fmax and top_db are carried so that one override set configures
+    both packages (the mel image keeps librosa's 0, sr / 2 and 80 dB)."""
+
+    sample_rate: int = 22050  # the PCM is resampled to this rate first
+    n_fft: int = 2048
+    hop_length: int = 512
+    n_mels: int = 128
+    fmin: float = 0.0
+    fmax: Optional[float] = None  # sr / 2
+    top_db: float = 80.0
 
 
 @dataclass
@@ -42,7 +65,9 @@ class ModelConfig:
     swin2d_heads: Tuple[int, ...] = (4, 8, 16, 32)
     swin2d_window: int = 7
     swin2d_pretrained_windows: Tuple[int, ...] = (16, 16, 16, 16)
-    # cosine window attention through the CUDA kernel (csrc/window_attn.cu)
+    # cosine window attention through the CUDA kernels: K2
+    # (csrc/window_attn.cu) for N <= 64, K6 (csrc/window_attn_multihead.cu)
+    # for N >= 128
     swin2d_attn_kernel: bool = True
     # Video Swin 3D (the video_swin modality)
     swin3d_embed_dim: int = 96
@@ -95,6 +120,8 @@ class LogConfig:
 
 # Named override sets (deepfake_tpu/config.py PRESETS)
 PRESETS = {
+    # SwinV2-B on the mel image (deepfake_tpu/config.py:231)
+    "audio": {"data.modality": "audio", "optim.batch_size": 48, "optim.epochs": 12},
     # Video Swin 3D as the reference's shell script runs it: 32 frames, batch
     # 8 x accum 4, mean pooling, num_hiddens 256 (deepfake_tpu/config.py:246-255)
     "video_swin": {
@@ -113,6 +140,7 @@ PRESETS = {
 @dataclass
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
+    mel: MelConfig = field(default_factory=MelConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)

@@ -1,0 +1,185 @@
+"""Feature assembly on the device (deepfake_tpu/data/pipeline.py:36-257):
+raw batches (uint8 frames, bucket-padded 16 kHz PCM with valid lengths)
+become model inputs. Frames and mel JPEG images are ImageNet-normalised;
+PCM becomes the mel image (``mel_image_masked``) for the ``audio`` input
+and a normalised waveform for the ``paudio`` input. Everything runs in f32
+on the assembler's device; the caller casts the result to its compute type.
+
+Evaluation only: the train-time augmentation and the device prefetch queue
+are not ported. ``video_swin`` clips stay NTHWC (the JAX package's
+channel-folded and pre-windowed host feeds are TPU layout work).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from deepfake_tpu_torch.config import Config
+from deepfake_tpu_torch.ops.image import normalize_imagenet
+from deepfake_tpu_torch.ops.mel import (
+    IMAGENET_MEAN, IMAGENET_STD, full_f32_matmul, mel_filterbank, stft_power,
+)
+from deepfake_tpu_torch.ops.resample import resample, resampled_length
+
+
+def hf_wave_normalize(wave: torch.Tensor) -> torch.Tensor:
+    """Wav2Vec2Processor statistics over the FULL padded row (zeros included)."""
+    mean = wave.mean(dim=1, keepdim=True)
+    var = wave.var(dim=1, keepdim=True, correction=0)
+    return (wave - mean) / torch.sqrt(var + 1e-7)
+
+
+def batch_longest_wave_normalize(wave: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """The reference processor's statistics: each row as if padded to the
+    batch's longest valid length L (the zeros between a row's length and L
+    count, the bucket's padding past L does not); every position normalised."""
+    L = length.max().to(wave.dtype)
+    mask = (torch.arange(wave.shape[1], device=wave.device)[None] < length[:, None]).to(wave.dtype)
+    n = length[:, None].to(wave.dtype)
+    mean = (wave * mask).sum(dim=1, keepdim=True) / L
+    sq = (mask * (wave - mean) ** 2).sum(dim=1, keepdim=True) + (L - n) * mean ** 2
+    return (wave - mean) / torch.sqrt(sq / L + 1e-7)
+
+
+def masked_wave_normalize(wave: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """Statistics over the valid prefix only, zeros beyond it."""
+    mask = (torch.arange(wave.shape[1], device=wave.device)[None] < length[:, None]).to(wave.dtype)
+    n = torch.clamp(length.to(wave.dtype), min=1.0)[:, None]
+    mean = (wave * mask).sum(dim=1, keepdim=True) / n
+    var = (mask * (wave - mean) ** 2).sum(dim=1, keepdim=True) / n
+    return mask * (wave - mean) / torch.sqrt(var + 1e-7)
+
+
+@functools.lru_cache(maxsize=4)
+def _mel_matrix(sr: int, n_fft: int, n_mels: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(mel_filterbank(sr, n_fft, n_mels)).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _resize_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """[n_out, n_in] f32 weights of jax.image.resize(..., "linear") along one
+    axis: a triangle kernel at half-pixel centres, widened by n_in / n_out
+    when downsampling (antialiasing), each column normalised."""
+    inv = np.float32(1.0 / (n_out / n_in))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / max(inv, 1.0)
+    w = np.maximum(np.float32(0.0), 1 - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0)
+    return torch.from_numpy(np.ascontiguousarray(w.T, dtype=np.float32)).to(device)
+
+
+def _resize_axis_dynamic(img: torch.Tensor, valid: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Linear resize of each row's valid prefix [0, valid) of the last axis
+    to ``out_len`` (half-pixel centres): img [B, R, n], valid [B]."""
+    B, R, n = img.shape
+    v = valid.to(torch.float32)[:, None]
+    src = (torch.arange(out_len, dtype=torch.float32, device=img.device)[None] + 0.5) * (
+        v / out_len) - 0.5
+    src = torch.minimum(torch.clamp(src, min=0.0), v - 1.0)
+    lo = torch.clamp(torch.floor(src).long(), 0, n - 1)
+    hi = torch.clamp(lo + 1, 0, n - 1)
+    w = (src - lo.to(torch.float32))[:, None, :]
+    take = lambda i: torch.gather(img, 2, i[:, None, :].expand(B, R, out_len))
+    return take(lo) * (1 - w) + take(hi) * w
+
+
+def mel_image_masked(wave: torch.Tensor, length: torch.Tensor, sr: int = 22050,
+                     n_fft: int = 2048, hop: int = 512, n_mels: int = 128, size: int = 224,
+                     wave_sr: Optional[int] = None, raw_uint8: bool = False) -> torch.Tensor:
+    """[B, T] padded PCM and valid lengths [B] -> [B, size, size, 3] mel
+    images over each clip's valid region (or, with ``raw_uint8``, the
+    [B, size, size] uint8 image before normalisation).
+
+    PCM at ``wave_sr`` is resampled to ``sr`` first. Per clip: reflect
+    padding of n_fft / 2 around the valid region (the right reflection
+    bounces at ln - 1), the windowed power spectrum, the mel filterbank,
+    dB against the max over the valid frames with the 80 dB floor, min-max
+    over the valid frames to [0, 255] and rounded, the mel axis resized to
+    ``size``, the valid frames resized to ``size``, rounded; then /255,
+    three channels and ImageNet normalisation."""
+    wave = wave.float()
+    length = length.long()
+    if wave_sr is not None and wave_sr != sr:
+        length = resampled_length(length, wave_sr, sr)
+        wave = resample(wave, wave_sr, sr)
+    B, T = wave.shape
+    dev = wave.device
+    pad = n_fft // 2
+    ln = length[:, None]
+    idx = (torch.arange(T + 2 * pad, device=dev) - pad).abs()[None]
+    idx = torch.where(idx >= ln, torch.clamp(2 * ln - 2 - idx, min=0), idx).clamp(0, T - 1)
+    frames = torch.gather(wave, 1, idx).unfold(1, n_fft, hop)  # [B, frames, n_fft]
+    spec = stft_power(frames, n_fft)
+    with full_f32_matmul():
+        S = _mel_matrix(sr, n_fft, n_mels, dev) @ spec.transpose(1, 2)
+    n_frames = 1 + length // hop  # librosa's center=True frame count
+    fmask = (torch.arange(S.shape[2], device=dev)[None] < n_frames[:, None])[:, None, :]
+    amin = 1e-10
+    ref = torch.clamp((S * fmask).amax(dim=(1, 2), keepdim=True), min=amin)
+    db = 10.0 * torch.log10(torch.clamp(S, min=amin)) - 10.0 * torch.log10(ref)
+    top = torch.where(fmask, db, -torch.inf).amax(dim=(1, 2), keepdim=True)
+    db = torch.maximum(db, top - 80.0)
+    lo = torch.where(fmask, db, torch.inf).amin(dim=(1, 2), keepdim=True)
+    img = torch.clamp(torch.round((db - lo) * (255.0 / torch.clamp(top - lo, min=1e-12))), 0, 255)
+    with full_f32_matmul():
+        img = _resize_matrix(n_mels, size, dev) @ img
+    img = torch.clamp(torch.round(_resize_axis_dynamic(img, n_frames, size)), 0, 255)
+    if raw_uint8:
+        return img.to(torch.uint8)
+    img = (img / 255.0)[..., None].expand(B, size, size, 3)
+    return (img - torch.from_numpy(IMAGENET_MEAN).to(dev)) / torch.from_numpy(IMAGENET_STD).to(dev)
+
+
+class FeatureAssembler:
+    """Raw batch dict -> model inputs on ``device`` (the card unless the
+    caller names one), evaluation only. Keys as the JAX package's dataset
+    gives them: ``video`` (uint8 NTHWC), ``audio_image`` (uint8 NHWC),
+    ``audio_wave`` / ``audio_len`` and ``paudio_wave`` / ``paudio_len``
+    (padded PCM and valid lengths). Returns (inputs, labels): a tuple in the
+    fused order (video, audio, paudio) for ``fused``, else the one input."""
+
+    def __init__(self, cfg: Config, train: bool = False, device=None):
+        from deepfake_tpu_torch.models.registry import resolve_device
+
+        if train:
+            raise NotImplementedError("train-time feature assembly (augmentation) is not ported")
+        self.cfg = cfg
+        self.modality = cfg.data.modality
+        self.device = resolve_device(device)
+
+    def _get(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+        return t.to(self.device, dtype)
+
+    def __call__(self, feats, labels):
+        cfg = self.cfg
+        out = []
+        if "video" in feats:
+            out.append(normalize_imagenet(self._get(feats["video"])))
+        if "audio_image" in feats:
+            out.append(normalize_imagenet(self._get(feats["audio_image"])))
+        if "audio_wave" in feats:
+            m = cfg.mel
+            out.append(mel_image_masked(
+                self._get(feats["audio_wave"], torch.float32),
+                self._get(feats["audio_len"], torch.long), sr=m.sample_rate, n_fft=m.n_fft,
+                hop=m.hop_length, n_mels=m.n_mels, size=cfg.data.audio_size,
+                wave_sr=cfg.data.wave_sample_rate))
+        if "paudio_wave" in feats:
+            wave = self._get(feats["paudio_wave"], torch.float32)
+            if cfg.data.wave_norm == "masked":
+                out.append(masked_wave_normalize(wave, self._get(feats["paudio_len"], torch.long)))
+            elif cfg.data.wave_norm == "batch_longest":
+                lengths = self._get(feats["paudio_len"], torch.long)
+                out.append((batch_longest_wave_normalize(wave, lengths), lengths))
+            else:  # "hf"
+                out.append(hf_wave_normalize(wave))
+        inputs = tuple(out) if self.modality == "fused" else out[0]
+        return inputs, self._get(labels)

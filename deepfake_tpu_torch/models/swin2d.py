@@ -8,10 +8,14 @@ roll -> partition -> attention -> reverse -> roll; the JAX package's
 window-resident permutations (swin2d.py:466-546) are a TPU relayout trick
 that computes the same thing.
 
-With ``attn_kernel`` the attention runs through kernel K2
-(ops/window_attn_kernel.py): token-major for B_ >= 2 windows, head-major for
-B_ == 1, as swin2d.py:181-249 routes to its Pallas kernels; otherwise it runs
-the plain path ``ops/window_attn.cosine_window_attention``.
+With ``attn_kernel`` the attention runs through the kernels as
+swin2d.py:181-249 routes to its Pallas kernels: windows of N < 128 tokens
+with B_ >= 2 through K2 token-major (ops/window_attn_kernel.py; the Pallas
+``pallas_window_attention_nhc_packed``), every other call head-major, through
+K2 for N < 128 (``pallas_window_attention``'s ``_run``) and K6 for N >= 128
+(ops/window_attn_multihead.py; its ``_run_multihead``). Otherwise it runs
+the plain path ``ops/window_attn.cosine_window_attention``. K2 itself takes
+N <= 64 (window 8 and below).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from deepfake_tpu_torch.ops.window_attn import cosine_window_attention
 from deepfake_tpu_torch.ops.window_attn_kernel import (
     window_attention_heads, window_attention_tokens,
 )
+from deepfake_tpu_torch.ops.window_attn_multihead import window_attention_multihead
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -134,16 +139,21 @@ class WindowAttention(nn.Module):
         if bias is None or bias.device != x.device:
             bias = self.relative_bias()
         scale = torch.exp(torch.clamp(self.logit_scale.float(), max=math.log(100.0)))
-        if self.attn_kernel and B_ >= 2:
+        if self.attn_kernel and N < 128 and B_ >= 2:
             out = window_attention_tokens(
                 qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], num_heads=H, bias=bias,
                 mask=mask, logit_scale=scale)
         else:
-            q, k, v = qkv.view(B_, N, 3, H, C // H).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-            if self.attn_kernel:
-                out = window_attention_heads(q, k, v, bias=bias, mask=mask, logit_scale=scale)
+            heads = qkv.view(B_, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+            if self.attn_kernel and N >= 128:
+                # K6 reads q, k, v out of qkv by strides and writes [B_, N, C]
+                out = window_attention_multihead(*heads.unbind(0), bias=bias, mask=mask,
+                                                 logit_scale=scale)
+            elif self.attn_kernel:
+                out = window_attention_heads(*heads.contiguous().unbind(0), bias=bias, mask=mask,
+                                             logit_scale=scale)
             else:
-                out = cosine_window_attention(q, k, v, scale, bias, mask)
+                out = cosine_window_attention(*heads.contiguous().unbind(0), scale, bias, mask)
             out = out.transpose(1, 2).reshape(B_, N, C)
         return self.proj(out)
 

@@ -3,12 +3,15 @@
     pred = Predictor(cfg)                       # seeded random weights, on the card
     pred = Predictor(cfg, variables)            # weights from the JAX package's tree
     probs = pred.predict((frames, mel, wave))   # model-ready numpy/torch inputs
+    probs = pred.predict_raw({"audio_wave": pcm, "audio_len": lengths})  # raw inputs
 
 Inputs keep the JAX contract: frames NTHWC float32, mel image NHWC, wave
 [B, T] or a (wave, lengths) pair. ``video_swin`` takes NTHWC clips of the
 configured length and size; its model returns (scores, per-frame
-features), of which ``predict`` returns the scores. Host-side feature
-assembly (``predict_raw``, ``score_file``) is not ported yet.
+features), of which ``predict`` returns the scores. ``predict_raw`` takes
+the dataset's raw dict (uint8 frames, bucket-padded 16 kHz PCM and valid
+lengths) and assembles the model inputs on the Predictor's device
+(data/pipeline.py::FeatureAssembler). ``score_file`` waits for video decode.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from deepfake_tpu_torch.config import Config
+from deepfake_tpu_torch.data.pipeline import FeatureAssembler
 from deepfake_tpu_torch.models.registry import (
     build_model, compute_dtype, pack_block_weights, precompute_bias_cache, resolve_device,
 )
@@ -53,6 +57,7 @@ class Predictor:
             for p in model.parameters():
                 p.data = p.data.to(self.dtype)
         self.model = model
+        self._assemble = FeatureAssembler(cfg, train=False, device=self.device)
 
     def _put(self, x):
         if isinstance(x, (tuple, list)):
@@ -85,3 +90,17 @@ class Predictor:
         if isinstance(out, tuple):
             out = out[0]
         return np.atleast_1d(out.float().cpu().numpy())
+
+    @torch.inference_mode()
+    def predict_raw(self, feats: Dict[str, Any]) -> np.ndarray:
+        """Raw batch dict (``video``, ``audio_image``, ``audio_wave`` /
+        ``audio_len``, ``paudio_wave`` / ``paudio_len``) -> sigmoid scores [B].
+        The features are assembled in f32 on the device; only the assembled
+        inputs take the compute type (a bf16 waveform would move the mel
+        image)."""
+        inputs, _ = self._assemble(feats, np.zeros(1, np.float32))
+        return self.predict(inputs)
+
+    def score_file(self, path: str) -> float:
+        """One video file end to end: needs the video decoder, not ported."""
+        raise NotImplementedError("score_file needs video decode, which is not ported")

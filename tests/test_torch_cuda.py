@@ -20,7 +20,11 @@ ulp). For K5, forward and backward: f32 1e-5 of max(|plain|, 1) (summation
 order; dk, dv and dbias are summed with atomics in the SIMT route); bf16 out,
 dq, dk and dv within two bf16 ulps of the largest |output| (the kernel feeds
 P and dS to the tensor cores in bf16, the plain version keeps them f32);
-dbias (f32) within 1e-2 of its largest |value|.
+dbias (f32) within 1e-2 of its largest |value|. For K6: f32 1e-5 of
+max(|plain|, 1) (summation order; cosine logits reach 100 x q^.k^ and
+amplify it); bf16 two bf16 ulps of the largest |output| (the weights are
+rounded to bf16 for P V on the card, not in the plain version; q^.k^ is
+taken as a split bf16 hi/lo product, so the logits keep ~16 bits).
 """
 
 import math
@@ -45,6 +49,7 @@ from deepfake_tpu_torch.ops.window_attn_kernel import (
     window_attention_heads, window_attention_heads_plain, window_attention_tokens,
     window_attention_tokens_plain,
 )
+from deepfake_tpu_torch.ops.window_attn_multihead import window_attention_multihead
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 
@@ -297,3 +302,87 @@ def test_k5_autograd_function_launches_the_kernels(cuda_device, dtype):
     big = dqkv.float().abs().max().item()
     assert torch.allclose(x.grad.float(), dqkv.float(), rtol=0, atol=1e-5 * big)
     assert (b.grad - dbias).abs().max().item() <= 1e-5 * dbias.abs().max().item()
+
+
+# (B_, H, N, mask grid side or None, cosine): SwinV2-B at window 16, 256^2, b8:
+# stage 0 (16 masks) and stage 1 (4 masks) shifted and not, stage 2 (one
+# window an image); the scaled form at N = 392
+K6_CASES = [(128, 4, 256, 64, True), (128, 4, 256, None, True), (32, 8, 256, 32, True),
+            (32, 8, 256, None, True), (8, 16, 256, None, True), (16, 3, 392, None, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B_,H,N,side,cosine", K6_CASES, ids=[
+    "stage0_shifted", "stage0", "stage1_shifted", "stage1", "stage2", "scaled_392"])
+def test_k6_kernel_matches_plain(cuda_device, B_, H, N, side, cosine, dtype):
+    """K6 on q, k, v read out of one [B_, N, 3C] qkv tensor by strides, as
+    SwinV2 passes them, with logit scales from 10 up to the clamp (100)."""
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    C = 32 * H
+    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=cuda_device).to(dtype)
+    q, k, v = qkv.view(B_, N, 3, H, 32).permute(2, 0, 3, 1, 4).unbind(0)
+    mask = None
+    if side is not None:
+        mask = torch.from_numpy(shift_attn_mask(side, side, 16, 8)).to(cuda_device)
+    if cosine:
+        kw = dict(bias=16 * torch.sigmoid(torch.randn(H, N, N, generator=gen, device=cuda_device)),
+                  mask=mask, logit_scale=torch.exp(torch.linspace(
+                      math.log(10.0), math.log(100.0), H, device=cuda_device)).reshape(H, 1, 1))
+    else:
+        kw = dict(bias=0.5 * torch.randn(H, N, N, generator=gen, device=cuda_device),
+                  scale=32 ** -0.5, cosine=False)
+    before = window_attention_multihead.launches
+    got = window_attention_multihead(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert window_attention_multihead.launches == before + 1
+    want = window_attention_heads_plain(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert math.isfinite(err) and err <= k4_tolerance(want), err
+    # the result is a head-major view of a token-major [B_, N, C] tensor
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+def test_k6_raises_for_windows_it_does_not_take(cuda_device):
+    q = torch.zeros(2, 1, 64, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="128 <= N <= 512"):
+        window_attention_multihead(q, q, q, bias=torch.zeros(1, 64, 64),
+                                   logit_scale=torch.ones(1, 1, 1))
+
+
+@pytest.mark.cuda
+def test_predict_raw_front_end_runs_in_f32_under_bf16(cuda_device):
+    """A bf16 audio Predictor at window 16 (D = 32, so K6 serves its four
+    blocks): the front end assembles the mel image in f32 on the card, equal
+    to the CPU's on >= 99.9% of values and within one uint8 level elsewhere,
+    and predict_raw is that image through predict."""
+    import numpy as np
+
+    from deepfake_tpu_torch.config import Config
+    from deepfake_tpu_torch.data.pipeline import FeatureAssembler
+    from deepfake_tpu_torch.serving import Predictor
+
+    cfg = Config.preset("audio")
+    for key, val in {"data.audio_size": 128, "model.swin2d_window": 16,
+                     "model.swin2d_pretrained_windows": (0, 0), "model.swin2d_embed_dim": 64,
+                     "model.swin2d_depths": (2, 2), "model.swin2d_heads": (2, 4),
+                     "parallel.compute_dtype": "bfloat16"}.items():
+        cfg.set(key, val)
+    pred = Predictor(cfg, device=cuda_device)
+    rng = np.random.default_rng(8)
+    wave = (0.1 * rng.standard_normal((2, 64000))).astype(np.float32)
+    lengths = np.asarray([41000, 64000])
+    wave[0, 41000:] = 0
+    feats = {"audio_wave": wave, "audio_len": lengths}
+    zeros = np.zeros(1, np.float32)
+    got, _ = pred._assemble(feats, zeros)
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    want, _ = FeatureAssembler(cfg, device="cpu")(feats, zeros)
+    d = (got.cpu() - want).abs()
+    assert (d > 1e-5).float().mean().item() <= 1e-3 and d.max().item() <= 1 / 255 / 0.224 + 1e-5
+    before = window_attention_multihead.launches
+    scores = pred.predict_raw(feats)
+    assert window_attention_multihead.launches == before + 4
+    assert scores.shape == (2,) and np.isfinite(scores).all()
+    np.testing.assert_array_equal(scores, pred.predict(got))

@@ -3,8 +3,9 @@
 K1 (deepfake_tpu_torch/ops/inception_block.py), K2
 (deepfake_tpu_torch/ops/window_attn_kernel.py), K3
 (deepfake_tpu_torch/ops/window_attn3d_kernel.py), K4
-(deepfake_tpu_torch/ops/ln_linear_kernel.py) and K5
-(deepfake_tpu_torch/ops/window_attn3d_train.py) run here, on the CPU, through
+(deepfake_tpu_torch/ops/ln_linear_kernel.py), K5
+(deepfake_tpu_torch/ops/window_attn3d_train.py) and K6
+(deepfake_tpu_torch/ops/window_attn_multihead.py) run here, on the CPU, through
 their plain versions; the Pallas kernels run in interpret mode, as
 tests/test_pallas_inception.py and tests/test_pallas_kernels.py run them.
 Weights go across with load_jax_variables. All f32, and K5 in bf16 too.
@@ -37,6 +38,7 @@ from deepfake_tpu_torch.ops.window_attn3d_train import window_attn3d_train
 from deepfake_tpu_torch.ops.window_attn_kernel import (
     window_attention_heads, window_attention_tokens,
 )
+from deepfake_tpu_torch.ops.window_attn_multihead import window_attention_multihead
 
 from tests.torch_port_helpers import random_variables
 
@@ -162,6 +164,92 @@ def test_k2_wrapper_takes_the_plain_version_for_cpu_tensors_only():
     q = torch.zeros(2, 1, 49, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device meta"):
         window_attention_heads(q, q, q, bias=torch.zeros(1, 49, 49), logit_scale=torch.ones(1))
+
+
+def _k6_inputs(B_, H, N, seed, masked):
+    """D = 32; cosine inputs as SwinV2 makes them: bias 16 sigmoid(.), logit
+    scales around SwinV2's initial 10 (clamped at 100, as the K2 test draws
+    them); the mask of a 32x32 token grid in 16x16 windows shifted by 8
+    (4 windows, N = 256)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)
+    q, k, v = mk(B_, H, N, 32), mk(B_, H, N, 32), mk(B_, H, N, 32)
+    bias = (16.0 / (1.0 + np.exp(-mk(H, N, N)))).astype(np.float32)
+    mask = shift_attn_mask(32, 32, 16, 8) if masked else None
+    logit_scale = np.exp(np.minimum(mk(H, 1, 1) * 0.5 + np.log(10.0), np.log(100.0)))
+    return q, k, v, bias, mask, logit_scale.astype(np.float32)
+
+
+@pytest.mark.parametrize("N,cosine,masked", [(256, True, True), (392, False, False)],
+                         ids=["cosine_N256_shifted_nW4", "scaled_N392"])
+def test_k6_plain_matches_pallas_multihead(N, cosine, masked):
+    """K6 (plain version on the CPU) == pallas_window_attention on its
+    _run_multihead route (N >= 128; interpret mode) at B_=8, H=4 (one head
+    group of 4): cosine at N=256 with 4 shift masks, scaled at N=392
+    without a mask: max abs error <= 1e-5. (At logit scales near the clamp,
+    100, both f32 computations sit ~1.5e-5 from a float64 one: the card's
+    test holds K6 there to 1e-5 of the largest |output|.)"""
+    from deepfake_tpu.ops import pallas_window_attn as P
+
+    q, k, v, bias, mask, ls = _k6_inputs(8, 4, N, 35, masked)
+    kw = dict(logit_scale=ls) if cosine else dict(scale=32 ** -0.5)
+    j = lambda a: None if a is None or np.isscalar(a) else jnp.asarray(a)
+    runs = []
+    run = P._run_multihead
+    try:
+        P._run_multihead = lambda *a, **k: runs.append(k["Gh"]) or run(*a, **k)
+        want = np.asarray(P.pallas_window_attention(
+            j(q), j(k), j(v), bias=j(bias), mask=j(mask), cosine=cosine,
+            **{n: j(a) if n == "logit_scale" else a for n, a in kw.items()}))
+    finally:
+        P._run_multihead = run
+    assert runs == [4]
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    got = window_attention_multihead(
+        t(q), t(k), t(v), bias=t(bias), mask=t(mask), cosine=cosine,
+        **{n: t(a) if n == "logit_scale" else a for n, a in kw.items()})
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_k6_rejects_what_it_does_not_take():
+    """K6's launch checks raise before any launch for N < 128, N > 512, a
+    head dim other than 32, q, k, v of different strides and a mask that
+    does not tile the windows."""
+    from deepfake_tpu_torch.ops.window_attn_multihead import _launch
+
+    def launch(n, d, mask=None, windows=1, k=None):
+        q = torch.zeros(windows, 1, n, d)
+        _launch(q, q if k is None else k, q, q, bias=torch.zeros(1, n, n), mask=mask,
+                logit_scale=torch.ones(1), scale=None, cosine=True)
+
+    with pytest.raises(ValueError, match="128 <= N <= 512"):
+        launch(64, 32)
+    with pytest.raises(ValueError, match="128 <= N <= 512"):
+        launch(640, 32)
+    with pytest.raises(ValueError, match="D == 32"):
+        launch(256, 64)
+    with pytest.raises(ValueError, match="one set of strides"):
+        launch(256, 32, k=torch.zeros(1, 256, 1, 32).transpose(1, 2))
+    with pytest.raises(ValueError, match="does not tile 3 windows"):
+        launch(256, 32, mask=torch.zeros(2, 256, 256), windows=3)
+
+
+def test_k6_wrapper_takes_the_plain_version_for_cpu_tensors_only():
+    """A CPU tensor selects the plain version and counts no launch; any
+    other device that is not CUDA raises rather than running the plain path;
+    an input that requires grad raises under autograd (K6 has no backward)."""
+    q = torch.zeros(2, 1, 256, 32)
+    kw = dict(bias=torch.zeros(1, 256, 256), logit_scale=torch.ones(1, 1, 1))
+    before = window_attention_multihead.launches
+    out = window_attention_multihead(q, q, q, **kw)
+    assert out.shape == q.shape and window_attention_multihead.launches == before
+    m = torch.zeros(2, 1, 256, 32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        window_attention_multihead(m, m, m, **kw)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        window_attention_multihead(q.clone().requires_grad_(), q, q, **kw)
+    with torch.no_grad():
+        window_attention_multihead(q.clone().requires_grad_(), q, q, **kw)
 
 
 def _attn3d_inputs(B_, H, seed, masked):

@@ -106,8 +106,8 @@ def test_single_modality_predictor_matches_jax(modality):
 
 def test_port_imports_no_jax_and_no_jax_package():
     """Importing every module of deepfake_tpu_torch (the Swin3D model, the
-    K3, K4 and K5 wrappers and the training modules among them) loads no
-    jax* module and nothing of deepfake_tpu."""
+    K3, K4, K5 and K6 wrappers, the training modules and the feature
+    assembly among them) loads no jax* module and nothing of deepfake_tpu."""
     code = (
         "import importlib, pkgutil, sys, deepfake_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -118,7 +118,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         "        'deepfake_tpu_torch.ops.ln_linear_kernel', 'deepfake_tpu_torch.ops.window_attn3d_train',\n"
         "        'deepfake_tpu_torch.train.trainer', 'deepfake_tpu_torch.train.schedule',\n"
         "        'deepfake_tpu_torch.train.losses', 'deepfake_tpu_torch.utils.seeding',\n"
-        "        'deepfake_tpu_torch.utils.metrics', 'deepfake_tpu_torch.utils.logging'}\n"
+        "        'deepfake_tpu_torch.utils.metrics', 'deepfake_tpu_torch.utils.logging',\n"
+        "        'deepfake_tpu_torch.ops.window_attn_multihead', 'deepfake_tpu_torch.ops.mel',\n"
+        "        'deepfake_tpu_torch.ops.resample', 'deepfake_tpu_torch.ops.image',\n"
+        "        'deepfake_tpu_torch.data.pipeline'}\n"
         "bad += sorted(need - set(sys.modules))\n"
         "print(len([m for m in sys.modules if m.startswith('deepfake_tpu_torch.')]), bad)\n"
         "sys.exit(1 if bad else 0)\n")
