@@ -9,10 +9,12 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it (fused: b8 x 32 frames at 224, SwinV2-B at
      224; video_swin: the four Video Swin-S stages at b8 x 32 frames of 224,
-     K3's attention and K4's four launches of a block in serving, K5's
-     forward and backward in training; audio: K6 at the three window-16
-     stages of SwinV2-B at 256^2, b8, shifted and not, logit scales up to
-     100, and one scaled N = 392 case), f32 with TF32 off and bf16; kernel,
+     K3's attention and K4's launches of a block in serving (LN1 + qkv,
+     proj, and the MLP tail: one launch at C <= 384, fc1 and fc2 at 768),
+     K5's forward and backward in training; audio: K6 at the three
+     window-16 stages of SwinV2-B at 256^2, b8, shifted and not, logit
+     scales up to 100, one scaled N = 392 case, and windows 10 and 24 (N =
+     100 and 576, off the main path)), f32 with TF32 off and bf16; kernel,
      plain, library and bound times per shape and per b8 request or
      micro-batch.
   3. fused serving at full width (IRv2 + NeXtVLAD, SwinV2-B, wav2vec2-base,
@@ -23,8 +25,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      comparison, and each branch's device time on both; then one b8
      request from raw inputs (uint8 frames, 16 kHz PCM) through predict_raw.
   4. the same for video_swin serving (Video Swin-S 3D, 32 frames of 224):
-     three b8 and one b1 request through K3 and K4 (24 and 96 launches
-     each), then on the plain route.
+     three b8 and one b1 request through K3 and K4 (24 K3 launches each;
+     K4: 3 a block at C <= 384 and 4 at 768, 74 in all), then on the plain
+     route.
   5. the kernel routes against the plain routes in f32 (TF32 off), the same
      weights: fused b2 (scores and branch features) and video_swin b2
      (scores and per-frame features). In f32 every kernel runs its SIMT
@@ -77,9 +80,9 @@ K3_TOK_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:709 pallas_window_att
                    "the attention of deepfake_tpu/ops/pallas_window_attn.py:548 "
                    "pallas_window_attention_nhc_qkv")
 K4_SRC = "deepfake_tpu_torch/csrc/ln_linear.cu"
-K4_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:548 pallas_window_attention_nhc_qkv "
-               "(LayerNorm, qkv and proj; with K3); deepfake_tpu/ops/pallas_mlp.py:101 "
-               "fused_mlp_tail")
+K4_QKV_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:548 pallas_window_attention_nhc_qkv "
+                   "(LayerNorm, qkv and proj; with K3)")
+K4_MLP_REPLACES = "deepfake_tpu/ops/pallas_mlp.py:101 fused_mlp_tail"
 K5_SRC = "deepfake_tpu_torch/csrc/window_attn3d_train.cu"
 K5_FWD_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:1074 "
                    "pallas_window_attention_nhc_train (forward: _run_nhc :320)")
@@ -87,7 +90,8 @@ K5_BWD_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:1074 "
                    "pallas_window_attention_nhc_train (backward: _run_nhc_bwd :966)")
 K6_SRC = "deepfake_tpu_torch/csrc/window_attn_multihead.cu"
 K6_REPLACES = ("deepfake_tpu/ops/pallas_window_attn.py:179 _run_multihead "
-               "(pallas_window_attention :1127, N >= 128)")
+               "(pallas_window_attention :1127, N >= 128); for 64 < N < 128 its _run :51 "
+               "and _run_packed :126 and pallas_window_attention_nhc_packed :847")
 
 
 def log(*a):
@@ -457,10 +461,9 @@ def phase_k3(dev, gen, batch: int, report):
 
 # ---------------------------------------------------------------- phase 2: K4
 
-# K4's launches in one Swin3D block at channel width C: (role, K / C, N / C, options)
-K4_ROLES = [("LN1 + qkv", 1, 3, dict(ln=True)), ("proj", 1, 1, {}),
-            ("x + attn, LN2, fc1, GELU", 1, 4, dict(ln=True, x2=True, gelu=True)),
-            ("fc2 + (x + attn)", 4, 1, dict(res=2))]
+# K4's linear layers of the attention half of a Swin3D block at channel width
+# C: (role, K / C, N / C, options); the MLP half is mlp_tail's
+K4_ROLES = [("LN1 + qkv", 1, 3, dict(ln=True)), ("proj", 1, 1, {})]
 
 
 def k4_check(got, want, what: str):
@@ -480,19 +483,40 @@ def k4_check(got, want, what: str):
     return err, tol
 
 
+def k4_launches(cfg):
+    """(ln_linear, mlp_tail) launches of one bf16 video_swin request: LN1 +
+    qkv and proj in every block; the MLP tail as one mlp_tail launch at the
+    widths it takes, else as two ln_linear launches (fc1, fc2)."""
+    from deepfake_tpu_torch.ops.ln_linear_kernel import MLP_TAIL_WIDTHS
+
+    m = cfg.model
+    fused = sum(d for i, d in enumerate(m.swin3d_depths)
+                if m.swin3d_embed_dim * 2 ** i in MLP_TAIL_WIDTHS)
+    blocks = sum(m.swin3d_depths)
+    return 2 * blocks + 2 * (blocks - fused), fused
+
+
 def phase_k4(dev, gen, batch: int, report):
+    """K4 at the four stage shapes of a video_swin b8 request: LN1 + qkv and
+    proj (ln_linear), and the MLP tail (mlp_tail: one launch at C <= 384,
+    fc1 and fc2 launches at 768), f32 and bf16. Bounds count each function's
+    own inputs and output (the MLP tail's hidden tensor stays on chip);
+    library_ms is F.linear on the same products."""
     import torch
     import torch.nn.functional as F
 
-    from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, ln_linear_plain
+    from deepfake_tpu_torch.ops.ln_linear_kernel import (
+        ln_linear, ln_linear_plain, mlp_tail, mlp_tail_plain,
+    )
 
-    acc = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
-           "bytes": 0.0}
-    errs = {"float32": 0.0, "bfloat16": 0.0}
+    acc = {part: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+                  "bytes": 0.0} for part in ("attn", "mlp")}
+    errs = {(part, d): 0.0 for part in ("attn", "mlp") for d in ("float32", "bfloat16")}
     for grid, H, C, depth in SWIN3D_STAGES:
         M = batch * math.prod(grid)
-        for role, kf, nf, opt in K4_ROLES:
+        for role, kf, nf, opt in K4_ROLES + [("MLP tail", 1, 1, dict(mlp=True))]:
             K, N = kf * C, nf * C
+            part = "mlp" if opt.get("mlp") else "attn"
             name = f"C={C} {role} [{M}x{K}] -> {N}"
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype).split(".")[1]
@@ -500,56 +524,76 @@ def phase_k4(dev, gen, batch: int, report):
                 def rnd(*shape, sc=1.0):
                     return (sc * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
 
-                x, w, b = rnd(M, K), rnd(N, K, sc=K ** -0.5), rnd(N, sc=0.5)
-                kw = {}
-                if opt.get("ln"):
-                    kw["ln"] = (1 + rnd(K, sc=0.2), rnd(K, sc=0.5), 1e-6)
-                if opt.get("x2"):
-                    kw["x2"] = rnd(M, K)
-                if opt.get("gelu"):
-                    kw["gelu"] = True
-                if opt.get("res"):
-                    kw.update(res=rnd(M, N), res2=rnd(M, N))
-                run = lambda: ln_linear(x, w, b, **kw)
-                plain = lambda: ln_linear_plain(x, w, b, **kw)
+                x = rnd(M, K)
+                if part == "mlp":
+                    h = rnd(M, C)
+                    args = ((1 + rnd(C, sc=0.2), rnd(C, sc=0.5), 1e-6), rnd(4 * C, C, sc=C ** -0.5),
+                            rnd(4 * C, sc=0.5), rnd(C, 4 * C, sc=(4 * C) ** -0.5), rnd(C, sc=0.5))
+                    run = lambda: mlp_tail(x, h, *args)
+                    plain = lambda: mlp_tail_plain(x, h, *args)
+                    w1, b1, w2, b2 = args[1:]
+                    lib_fn = lambda: F.linear(F.linear(x, w1, b1), w2, b2)
+                    flops = 2.0 * M * C * 4 * C * 2
+                    nbytes = 2.0 * (3 * M * C + 8 * C * C + 4 * C + 3 * C)
+                else:
+                    w, b = rnd(N, K, sc=K ** -0.5), rnd(N, sc=0.5)
+                    kw = {}
+                    if opt.get("ln"):
+                        kw["ln"] = (1 + rnd(K, sc=0.2), rnd(K, sc=0.5), 1e-6)
+                    run = lambda: ln_linear(x, w, b, **kw)
+                    plain = lambda: ln_linear_plain(x, w, b, **kw)
+                    lib_fn = lambda: F.linear(x, w, b)
+                    flops = 2.0 * M * K * N
+                    nbytes = 2.0 * (M * K + N * K + N + (2 * K if opt.get("ln") else 0) + M * N)
+                before = ln_linear.launches, mlp_tail.launches
                 got = run()
                 torch.cuda.synchronize()
+                ran = (ln_linear.launches - before[0], mlp_tail.launches - before[1])
                 err, tol = k4_check(got, plain(), f"{name} {dname}")
-                errs[dname] = max(errs[dname], err)
-                row = dict(kernel="ln_linear", case=name, dtype=dname, max_abs_err=err, tol=tol,
-                           blocks_per_request=depth)
+                errs[part, dname] = max(errs[part, dname], err)
+                row = dict(kernel="mlp_tail" if part == "mlp" else "ln_linear", case=name,
+                           dtype=dname, max_abs_err=err, tol=tol, blocks_per_request=depth,
+                           launches_ln_linear_mlp_tail=list(ran))
                 if dtype == torch.bfloat16:
                     ms = cuda_time_ms(run, iters=10)
                     pms = cuda_time_ms(plain, iters=3)
-                    lib = cuda_time_ms(lambda: F.linear(x, w, b), iters=10)
-                    flops = 2.0 * M * K * N
-                    nbytes = 2.0 * (M * K * (2 if opt.get("x2") else 1) + N * K + N
-                                    + (2 * K if opt.get("ln") else 0)
-                                    + M * N * (1 + opt.get("res", 0)))
+                    lib = cuda_time_ms(lib_fn, iters=10)
                     bnd, by = bound_ms(flops, nbytes, dname)
                     row.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=bnd, bound_by=by,
                                gflop=flops / 1e9, mbytes=nbytes / 1e6)
                     log(f"K4 {name:46s} {dname} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
                         f"F.linear_ms={lib:.4f} bound_ms={bnd:.4f} ({by}) err={err:.2e} "
-                        f"(tol {tol:.2e})")
+                        f"(tol {tol:.2e}) launches (ln_linear, mlp_tail)={ran}")
                     for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lib),
                                      ("bound_ms", bnd), ("flops", flops), ("bytes", nbytes)):
-                        acc[key] += depth * val
+                        acc[part][key] += depth * val
                 else:
                     row["ms"] = cuda_time_ms(run, iters=3)
                     log(f"K4 {name:46s} {dname} kernel_ms={row['ms']:.4f} err={err:.2e} "
-                        f"(tol {tol:.2e})")
+                        f"(tol {tol:.2e}) launches (ln_linear, mlp_tail)={ran}")
                 report["k4"].append(row)
-                del x, w, b, kw, got
+                del x, got
             torch.cuda.empty_cache()
-    ln_linear.launches = 0
-    _, by = bound_ms(acc["flops"], acc["bytes"], "bfloat16")
-    return dict(name="ln_linear (K4)", route="cuda", source=K4_SRC, replaces=K4_REPLACES,
-                launches=None, max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
-                ms=acc["ms"], plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"], bound_by=by,
-                library_ms=acc["library_ms"],
-                per="one video_swin b8 request: 4 launches in each of 24 Video Swin-S blocks, "
-                    "bf16; library_ms is F.linear, the product and bias alone")
+    ln_linear.launches = mlp_tail.launches = 0
+    rows = []
+    for part, name, rep, per in (
+            ("attn", "ln_linear (K4: LN1 + qkv, proj)", K4_QKV_REPLACES,
+             "one video_swin b8 request: LN1 + qkv and proj in each of 24 Video Swin-S blocks, "
+             "bf16; its launches also count stage 3's fc1 and fc2 (the MLP tail at C = 768); "
+             "library_ms is F.linear, the product and bias alone"),
+            ("mlp", "mlp_tail (K4: the MLP tail in one launch)", K4_MLP_REPLACES,
+             "one video_swin b8 request: the MLP tail of 24 Video Swin-S blocks (one mlp_tail "
+             "launch each at C <= 384, fc1 and fc2 ln_linear launches at 768), bf16; the bound "
+             "counts the function's own inputs and output, the hidden tensor on chip; "
+             "library_ms is F.linear on fc1 and fc2")):
+        a = acc[part]
+        _, by = bound_ms(a["flops"], a["bytes"], "bfloat16")
+        rows.append(dict(name=name, route="cuda", source=K4_SRC, replaces=rep, launches=None,
+                         max_abs_err=errs[part, "bfloat16"],
+                         max_abs_err_f32=errs[part, "float32"], ms=a["ms"],
+                         plain_ms=a["plain_ms"], bound_ms=a["bound_ms"], bound_by=by,
+                         library_ms=a["library_ms"], per=per))
+    return rows
 
 
 # ---------------------------------------------------------------- phase 2: K5
@@ -740,6 +784,11 @@ def phase_k6(dev, gen, batch: int, report):
     # the scaled form at N = 392 (a Video Swin-S stage-2 b8 shape), as the
     # JAX tests drive this route; on no model path
     cases.append(("scaled N=392", 64, 12, 384, 392, None, False, 0))
+    # SwinV2-B stage 0 at windows 10 (N = 100) and 24 (N = 576, the 384^2
+    # fine-tunes), b8 of a 2x2-window grid, shifted; on no path of this run
+    for ws in (10, 24):
+        mask = torch.from_numpy(shift_attn_mask(2 * ws, 2 * ws, ws, ws // 2)).to(dev)
+        cases.append((f"window {ws} shifted", 4 * batch, 4, 128, ws * ws, mask, True, 0))
     for name, B_, H, C, N, mask, cosine, count in cases:
         D = C // H
         for dtype in (torch.float32, torch.bfloat16):
@@ -820,7 +869,7 @@ def fused_inputs(cfg, batch, dev, gen):
 def wrappers():
     """Every kernel wrapper, by the name its launches are reported under."""
     from deepfake_tpu_torch.ops.inception_block import inception_block
-    from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear
+    from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, mlp_tail
     from deepfake_tpu_torch.ops.window_attn3d_kernel import window_attn3d_tokens
     from deepfake_tpu_torch.ops.window_attn3d_train import (
         window_attn3d_train_bwd, window_attn3d_train_fwd,
@@ -833,6 +882,7 @@ def wrappers():
     return {"inception_block": inception_block, "window_attn_tokens": window_attention_tokens,
             "window_attn_heads": window_attention_heads,
             "window_attn3d_tokens": window_attn3d_tokens, "ln_linear": ln_linear,
+            "mlp_tail": mlp_tail,
             "window_attn3d_train_fwd": window_attn3d_train_fwd,
             "window_attn3d_train_bwd": window_attn3d_train_bwd,
             "window_attention_multihead": window_attention_multihead}
@@ -1099,6 +1149,7 @@ def phase_video_swin(cfg, cfg_plain, dev, gen, report):
         f"{sum(p.numel() for p in pred.model.parameters()) / 1e6:.1f} M params")
     plain = Predictor(cfg_plain, device=dev)
     blocks = sum(cfg.model.swin3d_depths)
+    n_lin, n_mlp = k4_launches(cfg)
     requests = [clips(cfg, 8, dev, gen) for _ in range(3)] + [clips(cfg, 1, dev, gen)]
     for p in (pred, plain):  # warm-up at both batch sizes
         serve(p, [requests[0], requests[-1]])
@@ -1114,10 +1165,10 @@ def phase_video_swin(cfg, cfg_plain, dev, gen, report):
         per_req.append({k: after[k] - before[k] for k in after})
     launches = counts()  # ... and ends here
     for i, d in enumerate(per_req):
-        if (d["window_attn3d_tokens"] != blocks or d["ln_linear"] != 4 * blocks
-                or sum(d.values()) != 5 * blocks):
+        if (d["window_attn3d_tokens"] != blocks or d["ln_linear"] != n_lin
+                or d["mlp_tail"] != n_mlp or sum(d.values()) != blocks + n_lin + n_mlp):
             fail(f"video_swin request {i}: launches {d}, expected {blocks} of K3, "
-                 f"{4 * blocks} of K4 and no other")
+                 f"{n_lin} of K4's ln_linear, {n_mlp} of K4's mlp_tail and no other")
     lat_plain, scores_plain = serve(plain, requests)
     if counts() != launches:
         fail("video_swin: the plain route launched a kernel")
@@ -1136,8 +1187,8 @@ def phase_video_swin(cfg, cfg_plain, dev, gen, report):
         "plain route b8": profile_call(lambda: plain.predict(requests[0]),
                                        res["plain_p50_b8_s"] * 1e3)}
     report["video_swin"] = res
-    log(f"video_swin: K3, K4 launches per request "
-        f"{[(d['window_attn3d_tokens'], d['ln_linear']) for d in per_req]}")
+    log(f"video_swin: K3, K4 (ln_linear, mlp_tail) launches per request "
+        f"{[(d['window_attn3d_tokens'], d['ln_linear'], d['mlp_tail']) for d in per_req]}")
     log(f"video_swin: kernel route b8 p50 {res['p50_b8_s'] * 1e3:.2f} ms, "
         f"{res['clips_per_s_b8']:.2f} clips/s; b1 {lat[3] * 1e3:.2f} ms ({report['card']})")
     log(f"video_swin: plain route  b8 p50 {res['plain_p50_b8_s'] * 1e3:.2f} ms, "
@@ -1172,8 +1223,10 @@ def phase_video_swin_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int)
     before = counts()
     scores = [p.predict(x) for p in (pk, pp)]
     after = counts()
+    # f32: K4's SIMT route, the MLP tail as two ln_linear launches
     if (after["window_attn3d_tokens"] - before["window_attn3d_tokens"] != blocks
-            or after["ln_linear"] - before["ln_linear"] != 4 * blocks):
+            or after["ln_linear"] - before["ln_linear"] != 4 * blocks
+            or after["mlp_tail"] != before["mlp_tail"]):
         fail("video_swin parity: the kernel route did not run K3 and K4 in every block")
     d_score = float(np.abs(scores[0] - scores[1]).max())
     rel = feature_rel_err(pk, pp, x)
@@ -1411,13 +1464,13 @@ def phase_video_swin_train(cfg, cfg_plain, dev, gen, report):
     before = counts()
     val = tk.eval(data.train_loader()[:1])
     after = counts()
-    ran = (after["window_attn3d_tokens"] - before["window_attn3d_tokens"],
-           after["ln_linear"] - before["ln_linear"])
-    if ran != (blocks, 4 * blocks) or not (math.isfinite(val["loss"]) and 0 <= val["acc"] <= 1):
+    ran = tuple(after[k] - before[k] for k in ("window_attn3d_tokens", "ln_linear", "mlp_tail"))
+    if ran != (blocks, *k4_launches(cfg)) or not (
+            math.isfinite(val["loss"]) and 0 <= val["acc"] <= 1):
         fail(f"video_swin train: Trainer.eval gave {val} with K3, K4 launches {ran}")
     res_k["eval"] = dict(val, k3_k4_launches=ran)
     log(f"video_swin train: Trainer.eval of {rows} clips after the steps: {val}, "
-        f"K3 and K4 launches {ran}")
+        f"K3 and K4 (ln_linear, mlp_tail) launches {ran}")
     del tk
     torch.cuda.empty_cache()
     tp = Trainer(None, cfg_plain, data, logger=quiet, device=dev)
@@ -1530,7 +1583,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = ([phase_k1(dev, gen, 8 * 32, report)] + phase_k2(dev, gen, 8, report)
-               + [phase_k3(dev, gen, 8, report), phase_k4(dev, gen, 8, report)]
+               + [phase_k3(dev, gen, 8, report)] + phase_k4(dev, gen, 8, report)
                + phase_k5(dev, gen, 8, report) + [phase_k6(dev, gen, 8, report)])
 
     def config(dtype: str, kernels: bool, preset=None):
@@ -1555,13 +1608,14 @@ def main() -> int:
                                 config("bfloat16", False, "video_swin"), dev, gen, report)
     kernels[3]["launches"] = launches["window_attn3d_tokens"]
     kernels[4]["launches"] = launches["ln_linear"]
+    kernels[5]["launches"] = launches["mlp_tail"]
     launches = phase_video_swin_train(config("bfloat16", True, "video_swin"),
                                       config("bfloat16", False, "video_swin"), dev, gen, report)
-    kernels[5]["launches"] = launches["window_attn3d_train_fwd"]
-    kernels[6]["launches"] = launches["window_attn3d_train_bwd"]
+    kernels[6]["launches"] = launches["window_attn3d_train_fwd"]
+    kernels[7]["launches"] = launches["window_attn3d_train_bwd"]
     launches = phase_audio(config("bfloat16", True, "audio"), config("bfloat16", False, "audio"),
                            dev, gen, report)
-    kernels[7]["launches"] = launches["window_attention_multihead"]
+    kernels[8]["launches"] = launches["window_attention_multihead"]
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         log(f"kernel {k['name']}: {k['per']}: kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "

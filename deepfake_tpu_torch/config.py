@@ -10,8 +10,8 @@ The three kernel switches are on by default and renamed without "pallas":
 ``model.swin3d_attn_kernel`` (``swin3d_pallas_attn``). Off selects the plain
 PyTorch path on purpose; it is never a fallback. ``swin2d_attn_kernel``
 routes SwinV2's window attention through K2 for windows of N <= 64 tokens
-and through K6 for N >= 128, as ``swin2d_pallas_attn`` picks the Pallas
-routes by N. Like ``swin3d_pallas_attn``, which routes a Video Swin block
+and through K6 for every larger window, which together take every N that
+``swin2d_pallas_attn``'s Pallas routes take. Like ``swin3d_pallas_attn``, which routes a Video Swin block
 through all three of its Pallas kernels (attention, QKV-fused attention,
 MLP tail), ``swin3d_attn_kernel`` routes it through K3 and K4 when serving,
 and through K5 (forward and backward) in training.
@@ -67,7 +67,7 @@ class ModelConfig:
     swin2d_pretrained_windows: Tuple[int, ...] = (16, 16, 16, 16)
     # cosine window attention through the CUDA kernels: K2
     # (csrc/window_attn.cu) for N <= 64, K6 (csrc/window_attn_multihead.cu)
-    # for N >= 128
+    # for N > 64
     swin2d_attn_kernel: bool = True
     # Video Swin 3D (the video_swin modality)
     swin3d_embed_dim: int = 96

@@ -1,4 +1,5 @@
-// K4: one linear layer of a Video Swin block with what surrounds it fused in:
+// K4: the linear layers of a Video Swin block with what surrounds them fused
+// in. One layer (k4_ln_linear):
 //
 //   s   = a (+ a2)                                   (rounded to T)
 //   s   = LayerNorm(s) over the k columns            (optional; rounded to T)
@@ -6,8 +7,11 @@
 //   y   = T(GELU(y))                                 (optional)
 //   out = T((r (+ r2)) + y)                          (optional residual)
 //
-// with W the [n, k] nn.Linear weight. A Swin3D block runs it four times:
-// LN1 -> qkv, proj, (x + attn) -> LN2 -> fc1 -> GELU, fc2 + (x + attn).
+// with W the [n, k] nn.Linear weight; and the MLP half of the block in one
+// launch (k4_mlp_tail): out = s + fc2(GELU(fc1(LayerNorm(s)))), s = a + a2,
+// at the same cast points. A Swin3D block runs three launches at widths up
+// to 384 (LN1 -> qkv, proj, the MLP tail) and four at 768 (the MLP tail as
+// fc1 and fc2 launches of k4_ln_linear: see below).
 //
 // Replaces, with K3 (window_attn3d.cu) for the attention between qkv and
 // proj, the Pallas kernels
@@ -19,33 +23,59 @@
 // variance max(E[x^2] - E[x]^2, 0) and the (x - mu) * (rsqrt(var + eps) *
 // scale) + bias order, each dense step's f32 sum plus bias rounded once to T,
 // GELU on the rounded value (tanh form in bf16, erf in f32, as the JAX
-// package's gelu_exact), the residual s + y in T. bias and the LayerNorm
-// weights are read in T and widened to f32.
+// package's gelu_exact; the bf16 route takes tanh from the SFU, ~2^-11
+// relative, inside the bf16 rounding that follows), the residual s + y in T.
+// bias and the LayerNorm weights are read in T and widened to f32.
 //
-// What bounds it on the H100: memory at stages 0-1, about even at 2-3. The
-// layers are thin (k and n are 96 .. 3072 against 401,408 rows at video_swin
-// b8 stage 0): stage 0's fc1 moves ~460 MB for 30 GFLOP. So the design fuses
-// everything that would otherwise be a pass of its own over device memory:
-// the a + a2 sum and the LayerNorm are formed in shared memory, and bias,
-// GELU and the residual are applied to the accumulators before the one
-// store. The qkv tensor and the
-// MLP's hidden tensor still go through device memory between launches; fusing
-// them away (qkv into K3's prologue, fc1 -> fc2 through shared memory) is the
-// next step.
-//   - bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate) on 32 x 32 warp
-//     tiles, k in steps of 64, W tiles through a three-stage cp.async ring.
-//     With a LayerNorm or a sum in the prologue (ln_panel_bf16), a block
-//     holds its 64 rows of A for the whole of k in shared memory, summed and
-//     normalised once, and walks 128-wide column tiles against them: no
-//     element of A is read or normalised twice. Without (linear_bf16),
-//     128 x 64 output tiles with A in the same ring, as K1.
-//   - f32 (parity): the same tiling as SIMT f32 FMA, 8 x 4 outputs a thread.
+// What bounds it on the H100 (3.35 TB/s, 989 TFLOP/s bf16): memory at stage
+// 0, operations from stage 1 on. The layers are thin (k, n = 96 .. 3072
+// against 401,408 rows at video_swin b8 stage 0), so every pass over device
+// memory that can be fused is: the a + a2 sum and the LayerNorm are formed in
+// shared memory, bias, GELU and the residual are applied to the
+// accumulators before the one store, and the MLP's [rows, 4C] hidden tensor
+// stays in shared memory at C <= 384 (a video_swin b8 request then moves
+// ~4.6 GB less). What the bound does not count is W: a 64-row tile reads the
+// whole W of its layer, from L2 unless it fits in shared memory. On the card
+// neither that traffic nor occupancy set the time; the steps each tile runs
+// in turn did (prologue, MMA, epilogue: see PERF.md), so those keep their
+// global loads ahead of their stores and their k steps unconditional.
+//
+// Routes:
+//   - bf16 (serving), Hopper: persistent blocks of two consumer warpgroups
+//     and one producer warp. The producer's lane 0 streams W (and A, where
+//     there is no panel) by TMA (cp.async.bulk.tensor, 128-byte swizzle)
+//     through a ring of stages with full/empty mbarriers; its lane 1 loads
+//     each 64-row tile's A panel [64, k] by TMA. The consumers run
+//     wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate) from shared memory.
+//     Where the layer's W fits the ring it is loaded once per block and kept
+//     (stage 0: W_qkv, W_proj, and W_fc1 with W_fc2). The prologue (a + a2,
+//     LayerNorm) runs once per tile on the panel, in place, in the swizzled
+//     layout wgmma reads. The epilogue applies bias, GELU and the residual
+//     to the accumulators, stages the tile in shared memory and writes it,
+//     and reads the residual, in 16-byte rows.
+//       linear_bf16: each 64-row tile's columns in tiles of 2 W (W = 96 where
+//       n is a multiple of 192, else 48), each warpgroup W of them; with
+//       k > 1024 (fc2 at C = 768) and no prologue, A and W share the ring
+//       stages.
+//       mlp_tail_bf16: fc1 makes the hidden tensor 64 columns at a time (each
+//       warpgroup 32), + b1, round, GELU, round, into shared memory; fc2
+//       takes each chunk at once into the [64, C] f32 accumulator (each
+//       warpgroup C / 2 columns) and runs on while the next chunk's fc1 is
+//       issued. At C = 768 that accumulator would need 384 registers a
+//       thread (192 with the columns split), more than a thread has beside
+//       everything else, so stage 3 keeps two launches, the hidden tensor
+//       through device memory.
+//   - f32 (parity): SIMT f32 FMA, 8 x 4 outputs a thread; the MLP tail as
+//     two launches.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -203,51 +233,191 @@ __global__ void __launch_bounds__(THREADS) ln_linear_f32(Args g) {
 
 }  // namespace simt
 
-// ------------------------------------------------------ bf16: tensor cores
+// ------------------------------------------------------ bf16: Hopper
 
-namespace tc {
+namespace hop {
 
-constexpr int BK = 64, STAGES = 3;
-constexpr int LD = BK + 8;  // smem row stride in elements (144 bytes): the 8 row
-                            // addresses of an ldmatrix fall on distinct banks
-// linear_bf16: 128 x 64 output tiles, 4 x 2 warps of 32 x 32
-constexpr int BM = 128, BN = 64, THREADS = 256;
-constexpr size_t linear_smem = sizeof(uint16_t) * STAGES * (BM + BN) * LD;
+typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+// A tile is BM = 64 rows (one wgmma M). Operands sit in shared memory in the
+// 128-byte-swizzled K-major layout that TMA writes and wgmma reads: an atom
+// is [rows][64 k] of bf16, 128 bytes a row, 1024 bytes per 8 rows.
+constexpr int BM = 64, KC = 64, ATOM = BM * KC * 2;  // ATOM: [64 rows][64 k], 8 KB
+constexpr int CONSUMERS = 2;                          // consumer warpgroups
+constexpr int THREADS = 128 * CONSUMERS + 32;         // + one producer warp
+constexpr int PRODUCER_WARP = 4 * CONSUMERS;
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
+constexpr int MAX_PANEL_K = 1024;
+constexpr int MAX_STAGES = 8;
+
+// ---- shared memory, barriers, TMA, wgmma (inline PTX)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-// 16-byte async copy; with valid == false nothing is read and the 16 bytes
-// are zero-filled (src-size 0)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0) : "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// returns once the phase of parity `parity` has completed; a wait of more
+// than 10 s is a fault in the schedule, so it traps (the launch fails)
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done, spins = 0;
+  uint64_t t0 = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (!done && (++spins & 255) == 0) {
+      if (!t0) t0 = global_ns();
+      else if (global_ns() - t0 > 10000000000ull) __trap();
+    }
+  } while (!done);
+}
+// one 2D box of the tensor map at (x = column, y = row) into dst; completion
+// (its bytes) is counted on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                         int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// generic-proxy writes to shared memory become visible to wgmma and TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+// keeps the compiler from moving accumulator reads above a wgmma wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
+// wgmma descriptor of a K-major, 128-byte-swizzled operand at p (inside a
+// 1024-aligned atom): stride between 8-row groups 1024 bytes; a step of 16 k
+// inside the atom is p + 32 bytes
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// byte offset of the 16-byte chunk (row r, k chunk g of 8) in a swizzled atom
+__device__ __forceinline__ int swz(int r, int g) { return r * 128 + ((g ^ (r & 7)) << 4); }
+
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A and B from shared memory
+// (K-major both); acc == 0 overwrites d
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<32> {
+  __device__ static __forceinline__ void mma(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  __device__ static __forceinline__ void mma(float (&d)[24], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  __device__ static __forceinline__ void mma(float (&d)[48], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  __device__ static __forceinline__ void mma(float (&d)[96], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
 
 __device__ __forceinline__ void unpack8(const uint4& v, float (&x)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -257,289 +427,707 @@ __device__ __forceinline__ void unpack8(const uint4& v, float (&x)[8]) {
     x[2 * j + 1] = __high2float(h[j]);
   }
 }
-
+__device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
+  return v;
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// GELU's tanh form, tanh by the SFU (tanh.approx.f32, ~2^-11 relative): the
+// result is rounded to bf16 (2^-8) right after
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float inner = 0.79788456080286536f * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.f + tanhf(inner));
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(inner));
+  return 0.5f * x * (1.f + t);
 }
 
-// the epilogue of outputs (rr, nn) and (rr, nn + 1) from their f32 sums, with
-// paired loads: + bias, round; GELU, round; (r + r2 rounded) + y
-__device__ __forceinline__ __nv_bfloat162 finish2(const Args& g, int rr, int nn, float a0,
-                                                  float a1) {
-  using bf16 = __nv_bfloat16;
-  float y0 = a0, y1 = a1;
-  if (g.bias) {
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        static_cast<const bf16*>(g.bias) + nn));
-    y0 += b.x;
-    y1 += b.y;
-  }
-  y0 = rnd_bf16(y0);
-  y1 = rnd_bf16(y1);
-  if (g.gelu) {
-    y0 = rnd_bf16(gelu_tanh(y0));
-    y1 = rnd_bf16(gelu_tanh(y1));
-  }
-  if (g.r) {
-    const int64_t o = (int64_t)rr * g.ldr + nn;
-    float2 r = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(g.r) + o));
-    if (g.r2) {
-      const float2 r2 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(g.r2) + o));
-      r.x = rnd_bf16(r.x + r2.x);
-      r.y = rnd_bf16(r.y + r2.y);
-    }
-    y0 = r.x + y0;
-    y1 = r.y + y1;
-  }
-  return __floats2bfloat162_rn(y0, y1);
-}
-
-// ldmatrix fragments of a 32 x 32 warp tile from A [row][k] (row stride
-// lda_s) and W [n][k] (row stride LD), k in [kk, kk + 16), into acc
-__device__ __forceinline__ void mma_step(float (&acc)[2][4][4], const uint16_t* as, int lda_s,
-                                         const uint16_t* bs, int kk, int lane) {
-  uint32_t af[2][4], bf[4][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-    ldmatrix_x4(af[mi], as + (mi * 16 + (lane & 15)) * lda_s + kk + (lane >> 4) * 8);
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-    ldmatrix_x2(bf[ni], bs + (ni * 8 + (lane & 7)) * LD + kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
-}
-
-// the epilogue of a warp's 32 x 32 tile at (r0, c0)
-__device__ __forceinline__ void store_tile(const Args& g, float (&acc)[2][4][4], int r0, int c0,
-                                           int lane) {
-  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(g.out);
-  // accumulator fragment: rows lane/4 and lane/4 + 8, columns 2 (lane%4) + {0, 1}
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int nn = c0 + ni * 8 + (lane & 3) * 2;
-      if (nn >= g.n) continue;  // n % 8 == 0: nn + 1 < n too
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rr = r0 + mi * 16 + (lane >> 2) + 8 * h;
-        if (rr >= g.m) continue;
-        *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)rr * g.ldo + nn) =
-            finish2(g, rr, nn, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-}
-
-// No prologue (proj, fc2): a 128 x 64 output tile per block, 8 warps of
-// 32 x 32, A and W both by cp.async through a ring of STAGES, as K1. Needs
-// k, n, lda, ldr and ldo multiples of 8 and a, w, bias 16-byte aligned (the
-// host checks): every 16-byte chunk of a tile is then wholly inside or
-// wholly outside the matrix.
-__global__ void __launch_bounds__(THREADS) linear_bf16(Args g) {
-  extern __shared__ __align__(16) uint16_t sml[];
-  uint16_t* As = sml;                      // [STAGES][BM][LD], [row][k]
-  uint16_t* Bs = As + STAGES * BM * LD;    // [STAGES][BN][LD], [n][k]: W's own layout
-
-  using bf16 = __nv_bfloat16;
-  const bf16* A = static_cast<const bf16*>(g.a);
-  const bf16* W = static_cast<const bf16*>(g.w);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps of 32 x 32
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-
-  auto load = [&](int stage, int k0) {
-    uint16_t* as = As + stage * BM * LD;
-    uint16_t* bs = Bs + stage * BN * LD;
-#pragma unroll
-    for (int i = 0; i < BM * BK / 8 / THREADS; ++i) {  // A: 16-byte chunks (8 k)
-      const int c = tid + i * THREADS, r = row0 + (c >> 3), kk = k0 + (c & 7) * 8;
-      const bool ok = r < g.m && kk < g.k;
-      cp_async16(as + (c >> 3) * LD + (c & 7) * 8, ok ? A + (int64_t)r * g.lda + kk : A, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < BN * BK / 8 / THREADS; ++i) {  // W
-      const int c = tid + i * THREADS, nn = col0 + (c >> 3), kk = k0 + (c & 7) * 8;
-      const bool ok = nn < g.n && kk < g.k;
-      cp_async16(bs + (c >> 3) * LD + (c & 7) * 8, ok ? W + (int64_t)nn * g.k + kk : W, ok);
-    }
-  };
-
-  float acc[2][4][4];
-  zero(acc);
-  const int ktiles = (g.k + BK - 1) / BK;
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < ktiles) load(st, st * BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();  // step kt has landed (this thread's copies)
-    __syncthreads();              // ... everyone's, and stage (kt - 1) is free
-    const int next = kt + STAGES - 1;
-    if (next < ktiles) load(next % STAGES, next * BK);
-    cp_async_commit();
-    const int st = kt % STAGES;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16)
-      mma_step(acc, As + (st * BM + wm * 32) * LD, LD, Bs + (st * BN + wn * 32) * LD, kk, lane);
-  }
-  cp_async_wait<0>();
-  store_tile(g, acc, row0 + wm * 32, col0 + wn * 32, lane);
-}
-
-// With a prologue (LayerNorm and/or a + a2): the block's PBM rows of A are
-// summed, normalised and held in shared memory for the whole of k, so each
-// element of A is read from device memory, summed and normalised once; the
-// block then walks its column tiles (128 wide, 2 x 4 warps of 32 x 32), W
-// tiles streaming through a cp.async ring over (column tile, k step) without
-// a break between tiles. grid = (row blocks, column groups): with few row
-// blocks the columns are split between groups, each of which builds the
-// panel itself. Needs k a multiple of 32 up to MAX_PANEL_K and 16-byte
-// aligned ln_w, ln_b too.
-constexpr int PBM = 64, PBN = 128, PTHREADS = 256, MAX_PANEL_K = 1024;
-
-__host__ __device__ constexpr size_t panel_smem(int k) {
-  return sizeof(uint16_t) * (PBM * (k + 8) + STAGES * PBN * LD) + sizeof(float) * 2 * PBM;
-}
-
-__global__ void __launch_bounds__(PTHREADS) ln_panel_bf16(Args g, int tiles_per_group) {
-  extern __shared__ __align__(16) uint16_t smp[];
-  using bf16 = __nv_bfloat16;
-  const int K = g.k, PLD = K + 8, chunks = K / 8;  // panel row stride: +16 bytes, off bank conflicts
-  uint16_t* P = smp;                   // [PBM][PLD]
-  uint16_t* Bs = P + PBM * PLD;        // [STAGES][PBN][LD]
-  float* mu_s = reinterpret_cast<float*>(Bs + STAGES * PBN * LD);
-  float* rs_s = mu_s + PBM;
-
-  const bf16* A = static_cast<const bf16*>(g.a);
+// The prologue on a [64, K] panel that TMA has filled (k chunks of ATOM;
+// columns past K and rows past m are zero): s = a (+ a2) rounded to bf16,
+// then, with ln_w, the LayerNorm with the row statistics of s in f32; the
+// result overwrites the panel in the layout wgmma reads. A lane takes 8
+// columns at a time, U times (K <= 256 U), and holds their LayerNorm
+// weights for all its rows; warp cw of nwarps takes rows cw, cw + nwarps,
+// ..., RB at a time with all their loads issued first, so that the rows'
+// latencies overlap.
+template <int U>
+__device__ void prologue(const Args& g, uint8_t* panel, int row0, int cw, int nwarps, int lane) {
+  constexpr int RB = U == 1 ? 8 : U == 2 ? 2 : 1;  // rows at once
   const bf16* A2 = static_cast<const bf16*>(g.a2);
-  const bf16* W = static_cast<const bf16*>(g.w);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 32 x 32
-  const int row0 = blockIdx.x * PBM;
-  const int ntiles = (g.n + PBN - 1) / PBN;
-  const int t0 = blockIdx.y * tiles_per_group, t1 = min(t0 + tiles_per_group, ntiles);
-  const int ktiles = (K + BK - 1) / BK;
-  const int steps = (t1 - t0) * ktiles;
-
-  // W of (column tile t0 + s / ktiles, k step s % ktiles), in 16-byte chunks
-  auto load_b = [&](int s) {
-    uint16_t* bs = Bs + (s % STAGES) * PBN * LD;
-    const int col0 = (t0 + s / ktiles) * PBN, k0 = (s % ktiles) * BK;
+  const int units = g.k / 8;
+  uint4 lwv[U], lbv[U];
 #pragma unroll
-    for (int i = 0; i < PBN * BK / 8 / PTHREADS; ++i) {
-      const int c = tid + i * PTHREADS, nn = col0 + (c >> 3), kk = k0 + (c & 7) * 8;
-      const bool ok = nn < g.n && kk < K;
-      cp_async16(bs + (c >> 3) * LD + (c & 7) * 8, ok ? W + (int64_t)nn * K + kk : W, ok);
+  for (int u = 0; u < U; ++u) {
+    const int unit = lane + 32 * u;
+    if (g.ln_w && unit < units) {
+      lwv[u] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.ln_w) + unit * 8);
+      lbv[u] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.ln_b) + unit * 8);
     }
-  };
-  // the first W tiles are in flight while the panel is built
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load_b(s);
-    cp_async_commit();
   }
-
-  // the panel: s = a (+ a2) in bf16, rows past m zero
-#pragma unroll 4
-  for (int c = tid; c < PBM * chunks; c += PTHREADS) {
-    const int i = c / chunks, kk = (c - i * chunks) * 8, r = row0 + i;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < g.m) {
-      const int64_t o = (int64_t)r * g.lda + kk;
-      v = *reinterpret_cast<const uint4*>(A + o);
-      if (A2) {
-        float x[8], x2[8];
-        unpack8(v, x);
-        unpack8(*reinterpret_cast<const uint4*>(A2 + o), x2);
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+  for (int i0 = cw; i0 < BM; i0 += RB * nwarps) {
+    uint4 v[RB][U], v2[RB][U];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(x[2 * j] + x2[2 * j],
-                                                                 x[2 * j + 1] + x2[2 * j + 1]);
+    for (int r = 0; r < RB; ++r) {
+      const int i = i0 + r * nwarps, row = row0 + i;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int unit = lane + 32 * u;
+        if (unit < units) {
+          v[r][u] = *reinterpret_cast<const uint4*>(panel + (unit >> 3) * ATOM + swz(i, unit & 7));
+          if (A2 && row < g.m)
+            v2[r][u] = *reinterpret_cast<const uint4*>(A2 + (int64_t)row * g.lda + unit * 8);
+        }
       }
     }
-    *reinterpret_cast<uint4*>(P + i * PLD + kk) = v;
-  }
-  if (g.ln_w) {
-    __syncthreads();
-    // row statistics from the panel, one warp per row
-    for (int i = warp; i < PBM; i += PTHREADS / 32) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int i = i0 + r * nwarps, row = row0 + i;
+      float x[U][8];
       float s1 = 0.f, s2 = 0.f;
-      for (int kk = 2 * lane; kk < K; kk += 64) {
-        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(P + i * PLD + kk));
-        s1 += x.x + x.y;
-        s2 += x.x * x.x + x.y * x.y;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (lane + 32 * u >= units) break;
+        unpack8(v[r][u], x[u]);
+        if (A2 && row < g.m) {
+          float x2[8];
+          unpack8(v2[r][u], x2);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) x[u][e] = rnd_bf16(x[u][e] + x2[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          s1 += x[u][e];
+          s2 += x[u][e] * x[u][e];
+        }
       }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      if (lane == 0) ln_stats(g, s1, s2, mu_s + i, rs_s + i);
-    }
-    __syncthreads();
-    // normalise in place
-    for (int c = tid; c < PBM * chunks; c += PTHREADS) {
-      const int i = c / chunks, kk = (c - i * chunks) * 8;
-      if (row0 + i >= g.m) continue;
-      uint4* at = reinterpret_cast<uint4*>(P + i * PLD + kk);
-      float x[8], lw[8], lb[8];
-      unpack8(*at, x);
-      unpack8(*reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.ln_w) + kk), lw);
-      unpack8(*reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.ln_b) + kk), lb);
-      const float mu = mu_s[i], rs = rs_s[i];
-      uint4 v;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+      float mu = 0.f, rs = 0.f;
+      if (g.ln_w) ln_stats(g, warp_sum(s1), warp_sum(s2), &mu, &rs);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        h[j] = __floats2bfloat162_rn(
-            __fadd_rn(__fmul_rn(x[2 * j] - mu, rs * lw[2 * j]), lb[2 * j]),
-            __fadd_rn(__fmul_rn(x[2 * j + 1] - mu, rs * lw[2 * j + 1]), lb[2 * j + 1]));
-      *at = v;
+      for (int u = 0; u < U; ++u) {
+        const int unit = lane + 32 * u;
+        if (unit >= units) break;
+        if (g.ln_w) {
+          float lw[8], lb[8];
+          unpack8(lwv[u], lw);
+          unpack8(lbv[u], lb);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            x[u][e] = __fadd_rn(__fmul_rn(x[u][e] - mu, rs * lw[e]), lb[e]);
+        }
+        *reinterpret_cast<uint4*>(panel + (unit >> 3) * ATOM + swz(i, unit & 7)) = pack8(x[u]);
+      }
     }
   }
-
-  float acc[2][4][4];
-  zero(acc);
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<STAGES - 2>();  // W of step s has landed (this thread's copies)
-    __syncthreads();              // ... everyone's; the panel is built; stage (s - 1) is free
-    if (s + STAGES - 1 < steps) load_b(s + STAGES - 1);
-    cp_async_commit();
-    const int kt = s % ktiles;
-    const uint16_t* bs = Bs + ((s % STAGES) * PBN + wn * 32) * LD;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16)  // k is a multiple of 32, not always of BK
-      if (kt * BK + kk < K) mma_step(acc, P + wm * 32 * PLD + kt * BK, PLD, bs, kk, lane);
-    if (kt == ktiles - 1) {
-      store_tile(g, acc, row0 + wm * 32, (t0 + s / ktiles) * PBN + wn * 32, lane);
-      zero(acc);
-    }
-  }
-  cp_async_wait<0>();
+  fence_async_smem();  // the panel is read by wgmma next
 }
 
-}  // namespace tc
+// The epilogue of one consumer warpgroup's [64, W] f32 tile (wgmma's
+// accumulator layout: element 4 j + 2 h + e is row 16 warp + lane / 4 + 8 h,
+// column 8 j + 2 (lane % 4) + e) at (row0, col0): + bias (from its copy in
+// shared memory, bias_s), round; GELU, round; staged in shared memory st
+// [64][W + 8], then written in 16-byte rows with the residual pair added:
+// out = T(T(r + r2) + y).
+template <int W>
+__device__ void epilogue(const Args& g, float (&acc)[W / 2], const bf16* bias_s, bf16* st,
+                         int row0, int col0, int t128, int wg) {
+  constexpr int SP = W + 8, CH = W / 8;
+  const int lane = t128 & 31, ra = (t128 >> 5) * 16 + (lane >> 2);
+  named_sync(2 + wg, 128);  // the previous tile's stores are done with st
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3), n = col0 + c;
+    const float2 b = g.bias && n < g.n
+                         ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias_s + n))
+                         : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float y0 = rnd_bf16(acc[4 * j + 2 * h] + b.x), y1 = rnd_bf16(acc[4 * j + 2 * h + 1] + b.y);
+      if (g.gelu) {
+        y0 = gelu_tanh(y0);
+        y1 = gelu_tanh(y1);
+      }
+      *reinterpret_cast<uint32_t*>(st + (ra + 8 * h) * SP + c) = pack2(y0, y1);
+    }
+  }
+  named_sync(2 + wg, 128);
+  const bf16* R = static_cast<const bf16*>(g.r);
+  const bf16* R2 = static_cast<const bf16*>(g.r2);
+  bf16* O = static_cast<bf16*>(g.out);
+  for (int idx = t128; idx < BM * CH; idx += 128) {
+    const int r = idx / CH, cc = idx - r * CH, row = row0 + r, col = col0 + cc * 8;
+    if (row >= g.m || col >= g.n) continue;
+    uint4 v = *reinterpret_cast<const uint4*>(st + r * SP + cc * 8);
+    if (R) {
+      float y[8], s[8];
+      unpack8(v, y);
+      unpack8(*reinterpret_cast<const uint4*>(R + (int64_t)row * g.ldr + col), s);
+      if (R2) {
+        float s2[8];
+        unpack8(*reinterpret_cast<const uint4*>(R2 + (int64_t)row * g.ldr + col), s2);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[e] = rnd_bf16(s[e] + s2[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = s[e] + y[e];
+      v = pack8(y);
+    }
+    *reinterpret_cast<uint4*>(O + (int64_t)row * g.ldo + col) = v;
+  }
+}
+
+// ---- one linear layer: ln_linear's bf16 route
+
+// The schedule of a launch, set by the host. A unit of work is a 64-row tile
+// and a group of `per` column tiles of BN = 2 W columns, each consumer
+// warpgroup W of them; the blocks are persistent and walk the units. With
+// panels > 0 the unit's A rows sit in a panel [64, K] for all its column
+// tiles (a prologue, if any, runs once on it) and the ring holds W tiles
+// [BN, 64 k]; with panels == 0 (K too large for a panel, no prologue) each
+// ring stage holds an A atom [64, 64 k] and a W tile. resident: W fits the
+// ring whole, so it is loaded once per block and kept.
+struct Plan {
+  int kc;                  // k chunks of 64 (k rounded up, zeros past k)
+  int ntiles, groups, per, units;
+  int stages, panels, resident;
+  int stage_bytes, panel_bytes;
+};
+
+template <int W, int U>
+__global__ void __launch_bounds__(THREADS, 1)
+    linear_bf16(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
+                Args g, Plan p) {
+  constexpr int SP = W + 8, BN = CONSUMERS * W;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint8_t* panel0 = base;
+  uint8_t* ring = panel0 + p.panels * p.panel_bytes;
+  bf16* staging = reinterpret_cast<bf16*>(ring + p.stages * p.stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + CONSUMERS * BM * SP);
+  uint64_t* empty = full + p.stages;
+  uint64_t* pfull = empty + p.stages;
+  uint64_t* pempty = pfull + 2;
+  bf16* bias_s = reinterpret_cast<bf16*>(pempty + 2);  // [n], 16-byte aligned
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (g.bias)
+    for (int i = threadIdx.x; i < g.n / 8; i += THREADS)
+      reinterpret_cast<uint4*>(bias_s)[i] = reinterpret_cast<const uint4*>(g.bias)[i];
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, CONSUMERS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(pfull + i, 1);
+      mbar_init(pempty + i, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const bool prologue_on = g.a2 || g.ln_w;
+  const int w_bytes = BN * KC * 2;  // [BN][64 k] of W
+
+  if (warp == PRODUCER_WARP) {
+    // lane 0 streams the W tiles (and, without panels, the A atoms), lane 1
+    // the panels, each on its own barriers: the next unit's W tiles stream
+    // in while the block finishes a unit, and its panel follows as soon as
+    // that unit releases its panel
+    if (lane == 0) {
+      int pos = 0;
+      for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+        const int row0 = (u / p.groups) * BM, t0 = (u % p.groups) * p.per;
+        const int t1 = min(t0 + p.per, p.ntiles);
+        if (p.resident) {  // once: every unit of this block has the same column tiles
+          for (int t = t0; t < t1; ++t)
+            for (int c = 0; c < p.kc; ++c) {
+              const int sl = (t - t0) * p.kc + c;
+              mbar_expect_tx(full + sl, w_bytes);
+              tma_load(ring + sl * p.stage_bytes, &tm_w, full + sl, c * KC, t * BN);
+            }
+          break;
+        }
+        for (int t = t0; t < t1; ++t)
+          for (int c = 0; c < p.kc; ++c, ++pos) {
+            const int sl = pos % p.stages;
+            mbar_wait(empty + sl, ((pos / p.stages) & 1) ^ 1);
+            uint8_t* st = ring + sl * p.stage_bytes;
+            mbar_expect_tx(full + sl, w_bytes + (p.panels ? 0 : ATOM));
+            if (!p.panels) {
+              tma_load(st, &tm_a, full + sl, c * KC, row0);
+              st += ATOM;
+            }
+            tma_load(st, &tm_w, full + sl, c * KC, t * BN);
+          }
+      }
+    } else if (lane == 1 && p.panels) {
+      int ppos = 0;
+      for (int u = blockIdx.x; u < p.units; u += gridDim.x, ++ppos) {
+        const int sl = ppos % p.panels;
+        mbar_wait(pempty + sl, ((ppos / p.panels) & 1) ^ 1);
+        mbar_expect_tx(pfull + sl, p.kc * ATOM);
+        for (int c = 0; c < p.kc; ++c)
+          tma_load(panel0 + sl * p.panel_bytes + c * ATOM, &tm_a, pfull + sl, c * KC,
+                   (u / p.groups) * BM);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg computes columns [wg W, wg W + W) of each tile
+  const int wg = threadIdx.x >> 7, t128 = threadIdx.x & 127;
+  bf16* st = staging + wg * BM * SP;
+  int pos = 0, ppos = 0;
+  float acc[W / 2];
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const int row0 = (u / p.groups) * BM, t0 = (u % p.groups) * p.per;
+    const int t1 = min(t0 + p.per, p.ntiles);
+    uint8_t* panel = nullptr;
+    int psl = 0;
+    if (p.panels) {
+      psl = ppos % p.panels;
+      panel = panel0 + psl * p.panel_bytes;
+      mbar_wait(pfull + psl, (ppos / p.panels) & 1);
+      ++ppos;
+      if (prologue_on) {
+        prologue<U>(g, panel, row0, warp, 4 * CONSUMERS, lane);
+        named_sync(1, 128 * CONSUMERS);
+      }
+    }
+    for (int t = t0; t < t1; ++t) {
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+      wgmma_fence();
+      int prev = -1;
+      for (int c = 0; c < p.kc; ++c) {
+        int sl;
+        if (p.resident) {
+          sl = (t - t0) * p.kc + c;
+          mbar_wait(full + sl, 0);
+        } else {
+          sl = pos % p.stages;
+          mbar_wait(full + sl, (pos / p.stages) & 1);
+          ++pos;
+        }
+        const uint8_t* as = p.panels ? panel + c * ATOM : ring + sl * p.stage_bytes;
+        const uint8_t* ws = ring + sl * p.stage_bytes + (p.panels ? 0 : ATOM) + wg * (W / 8) * 1024;
+        // all four k steps of the chunk: past k, A and W are zeros (TMA)
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk)
+          Wgmma<W>::mma(acc, desc_sw128(as + kk * 32), desc_sw128(ws + kk * 32), 1);
+        wgmma_commit();
+        if (!p.resident) {
+          wgmma_wait<1>();  // the previous k chunk's products are done: free its stage
+          if (prev >= 0 && t128 == 0) mbar_arrive(empty + prev);
+          prev = sl;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (prev >= 0 && t128 == 0) mbar_arrive(empty + prev);
+      epilogue<W>(g, acc, bias_s, st, row0, t * BN + wg * W, t128, wg);
+    }
+    if (p.panels) {
+      if (t128 == 0) mbar_arrive(pempty + psl);
+    }
+  }
+}
+
+// ---- the MLP tail in one launch: mlp_tail's bf16 route at C <= 384
+
+// out = s + fc2(GELU(fc1(LayerNorm(s)))), s = a + a2, for 64-row tiles:
+//   - the panel [64, C] (TMA) becomes LayerNorm(s) in place (prologue);
+//   - the hidden [64, 4C] is made and consumed in chunks of HC = 64 columns:
+//     fc1 on chunk j (each warpgroup 32 of its columns, m64n32), + b1, round,
+//     GELU, round, into H[j % 2] (bf16, swizzled as wgmma's A); then fc2
+//     takes the chunk at once into the [64, C] f32 accumulator (each
+//     warpgroup C / 2 of the columns, m64n(C/2)); the hidden tensor never
+//     leaves shared memory;
+//   - at the end + b2, round, and the residual s, through the staging area
+//     (the panel and H, free by then) in 16-byte rows.
+// W1 chunk j ([64 hidden rows, C], K-major) and W2 chunk j ([C rows, 64
+// hidden], K-major: W2's own layout) alternate in a ring of equal slots;
+// when the ring holds all of W1 and W2 (C = 96: 12 slots of 16 KB), they are
+// loaded once per block and kept.
+constexpr int HC = 64;
+
+struct MlpArgs {
+  const void* a; const void* a2; int64_t lda;  // s = a + a2, [m, C]
+  const void* ln_w; const void* ln_b; float eps;
+  const void* b1; const void* b2;              // [4C], [C]
+  void* out; int64_t ldo;                       // [m, C]
+  int m;
+};
+
+struct MlpPlan {
+  int units, stages, resident, slot_bytes;
+};
+
+template <int C>
+struct MlpShape {
+  static constexpr int kc = (C + KC - 1) / KC;                 // panel / W1 chunk atoms
+  static constexpr int chunks = 4 * C / HC;
+  static constexpr int panel_bytes = kc * ATOM;
+  static constexpr int w1_bytes = kc * ATOM;                   // [64, kc * 64]
+  static constexpr int w2_bytes = C * KC * 2;                  // [C, 64]
+  static constexpr int w2_box = C <= 256 ? C : C / 2;          // TMA box rows
+  static constexpr int slot_bytes = w1_bytes > w2_bytes ? w1_bytes : w2_bytes;
+  static constexpr int h_bytes = 2 * BM * HC * 2;              // H[2]
+  static constexpr int SP = C + 8;                             // staging row stride
+  static_assert(BM * SP * 2 <= panel_bytes + h_bytes, "the staging area is the panel and H");
+  static_assert(C % 32 == 0 && C / 2 <= 256, "fc2's columns are split in two wgmma widths");
+};
+
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+    mlp_tail_bf16(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w1,
+                  const __grid_constant__ CUtensorMap tm_w2, MlpArgs q, MlpPlan p) {
+  using S = MlpShape<C>;
+  constexpr int WO = C / 2;  // fc2 columns of a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint8_t* panel = base;
+  uint8_t* hbuf = panel + S::panel_bytes;  // H[2]: [64 rows][64 hidden], swizzled
+  uint8_t* ring = hbuf + S::h_bytes;
+  bf16* staging = reinterpret_cast<bf16*>(panel);  // [64][SP], once the tile's products are done
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * p.slot_bytes);
+  uint64_t* empty = full + p.stages;
+  uint64_t* pfull = empty + p.stages;
+  uint64_t* pempty = pfull + 1;
+  bf16* bias_s = reinterpret_cast<bf16*>(pempty + 1);  // b1 [4C] | b2 [C] (16-byte aligned)
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, CONSUMERS);
+    }
+    mbar_init(pfull, 1);
+    mbar_init(pempty, CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int seq = 2 * S::chunks;  // ring entries per tile: W1_0, W2_0, W1_1, ...
+
+  if (warp == PRODUCER_WARP) {
+    // lane 0 streams W1 and W2, lane 1 the panels (as linear_bf16)
+    if (lane == 0) {
+      int pos = 0;
+      for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+        for (int e = 0; e < seq; ++e) {
+          int sl = e;
+          if (!p.resident) {
+            sl = pos % p.stages;
+            mbar_wait(empty + sl, ((pos / p.stages) & 1) ^ 1);
+            ++pos;
+          }
+          uint8_t* dst = ring + sl * p.slot_bytes;
+          const int j = e >> 1;
+          if (!(e & 1)) {  // W1 rows [64 j, 64 j + 64), all C columns
+            mbar_expect_tx(full + sl, S::w1_bytes);
+            for (int c = 0; c < S::kc; ++c)
+              tma_load(dst + c * ATOM, &tm_w1, full + sl, c * KC, j * HC);
+          } else {         // W2 columns [64 j, 64 j + 64), all C rows
+            mbar_expect_tx(full + sl, S::w2_bytes);
+            for (int r = 0; r < C; r += S::w2_box)
+              tma_load(dst + r * KC * 2, &tm_w2, full + sl, j * HC, r);
+          }
+        }
+        if (p.resident) break;  // loaded once, kept for every tile
+      }
+    } else if (lane == 1) {
+      int ppos = 0;
+      for (int u = blockIdx.x; u < p.units; u += gridDim.x, ++ppos) {
+        mbar_wait(pempty, (ppos & 1) ^ 1);
+        mbar_expect_tx(pfull, S::panel_bytes);
+        for (int c = 0; c < S::kc; ++c) tma_load(panel + c * ATOM, &tm_a, pfull, c * KC, u * BM);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7, t128 = threadIdx.x & 127;
+  const int ra = (t128 >> 5) * 16 + (lane >> 2);  // this thread's accumulator rows ra, ra + 8
+  // b1 and b2 in shared memory, once per block
+  for (int i = threadIdx.x; i < 5 * C / 8; i += 128 * CONSUMERS)
+    reinterpret_cast<uint4*>(bias_s)[i] = i < C / 2
+        ? reinterpret_cast<const uint4*>(q.b1)[i]
+        : reinterpret_cast<const uint4*>(q.b2)[i - C / 2];
+  named_sync(1, 128 * CONSUMERS);
+  const bf16* b1s = bias_s;
+  const bf16* b2s = bias_s + 4 * C;
+  Args g{};  // the prologue's view of the launch
+  g.a2 = q.a2; g.lda = q.lda; g.ln_w = q.ln_w; g.ln_b = q.ln_b; g.eps = q.eps;
+  g.m = q.m; g.k = C;
+  int pos = 0, ppos = 0;  // ring position at the start of the tile; panels taken
+  float o[WO / 2];
+  float h[16];            // fc1 of a chunk, this warpgroup's 32 columns
+  // ring slot and barrier parity of W1_j (w2 = 0) or W2_j (w2 = 1)
+  auto slot = [&](int j, int w2) { return p.resident ? 2 * j + w2 : (pos + 2 * j + w2) % p.stages; };
+  auto parity = [&](int j, int w2) {
+    return p.resident ? 0 : ((pos + 2 * j + w2) / p.stages) & 1;
+  };
+
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const int row0 = u * BM;
+    mbar_wait(pfull, ppos & 1);
+    ++ppos;
+    prologue<(C + 255) / 256>(g, panel, row0, warp, 4 * CONSUMERS, lane);
+    named_sync(1, 128 * CONSUMERS);
+#pragma unroll
+    for (int i = 0; i < WO / 2; ++i) o[i] = 0.f;
+    for (int j = 0; j < S::chunks; ++j) {
+      // fc1: hidden columns [64 j + 32 wg, + 32) of the 64 rows; fc2 of
+      // chunk j - 1 may still run
+      const int s1 = slot(j, 0), s2 = slot(j, 1);
+      mbar_wait(full + s1, parity(j, 0));
+#pragma unroll
+      for (int i = 0; i < 16; ++i) h[i] = 0.f;
+      wgmma_fence();
+      const uint8_t* w1 = ring + s1 * p.slot_bytes + wg * (32 / 8) * 1024;
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        Wgmma<32>::mma(h, desc_sw128(panel + (kk >> 2) * ATOM + (kk & 3) * 32),
+                       desc_sw128(w1 + (kk >> 2) * ATOM + (kk & 3) * 32), 1);
+      wgmma_commit();
+      wgmma_wait<0>();  // fc1 of chunk j and fc2 of chunk j - 1 are done
+      fence_regs(h);
+      fence_regs(o);
+      if (t128 == 0 && !p.resident) {
+        mbar_arrive(empty + s1);
+        if (j > 0) mbar_arrive(empty + slot(j - 1, 1));
+      }
+      // + b1, round, GELU, round, into H[j % 2]
+      uint8_t* hbuf_j = hbuf + (j & 1) * BM * HC * 2;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = wg * 32 + 8 * jj + 2 * (lane & 3);
+        const float2 b =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b1s + j * HC + c));
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = ra + 8 * hh;
+          const float y0 = gelu_tanh(rnd_bf16(h[4 * jj + 2 * hh] + b.x));
+          const float y1 = gelu_tanh(rnd_bf16(h[4 * jj + 2 * hh + 1] + b.y));
+          *reinterpret_cast<uint32_t*>(hbuf_j + swz(r, c >> 3) + (c & 7) * 2) = pack2(y0, y1);
+        }
+      }
+      fence_async_smem();
+      named_sync(1, 128 * CONSUMERS);  // the whole chunk is in H
+      // fc2: output columns [wg C / 2, + C / 2) += H_j . W2_j^T, left running
+      mbar_wait(full + s2, parity(j, 1));
+      wgmma_fence();
+      const uint8_t* w2 = ring + s2 * p.slot_bytes + wg * (WO / 8) * 1024;
+#pragma unroll
+      for (int kk = 0; kk < HC / 16; ++kk)
+        Wgmma<WO>::mma(o, desc_sw128(hbuf_j + kk * 32), desc_sw128(w2 + kk * 32), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (t128 == 0 && !p.resident) mbar_arrive(empty + slot(S::chunks - 1, 1));
+    if (!p.resident) pos += seq;
+    named_sync(1, 128 * CONSUMERS);  // both warpgroups' products are done: the panel and H are free
+    // + b2, round, staged [64][SP]
+#pragma unroll
+    for (int jj = 0; jj < WO / 8; ++jj) {
+      const int c = wg * WO + 8 * jj + 2 * (lane & 3);
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b2s + c));
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(staging + (ra + 8 * hh) * S::SP + c) =
+            pack2(o[4 * jj + 2 * hh] + b.x, o[4 * jj + 2 * hh + 1] + b.y);
+    }
+    named_sync(1, 128 * CONSUMERS);
+    // out = T(T(a + a2) + y), 16-byte rows, NB rows of loads in flight a thread
+    const bf16* A = static_cast<const bf16*>(q.a);
+    const bf16* A2 = static_cast<const bf16*>(q.a2);
+    bf16* O = static_cast<bf16*>(q.out);
+    constexpr int CH = C / 8, ITER = BM * CH / (128 * CONSUMERS);
+    constexpr int NB = ITER % 3 == 0 ? 3 : ITER % 4 == 0 ? 4 : 1;
+    static_assert(ITER % NB == 0, "the store loop runs in batches of NB");
+    for (int i0 = 0; i0 < ITER; i0 += NB) {
+      uint4 va[NB], vb[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int idx = threadIdx.x + (i0 + i) * 128 * CONSUMERS;
+        const int r = idx / CH, cc = idx - r * CH, row = min(row0 + r, q.m - 1);
+        va[i] = *reinterpret_cast<const uint4*>(A + (int64_t)row * q.lda + cc * 8);
+        vb[i] = *reinterpret_cast<const uint4*>(A2 + (int64_t)row * q.lda + cc * 8);
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int idx = threadIdx.x + (i0 + i) * 128 * CONSUMERS;
+        const int r = idx / CH, cc = idx - r * CH, row = row0 + r;
+        if (row >= q.m) continue;
+        float y[8], s[8], s2[8];
+        unpack8(*reinterpret_cast<const uint4*>(staging + r * S::SP + cc * 8), y);
+        unpack8(va[i], s);
+        unpack8(vb[i], s2);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) y[e] = rnd_bf16(s[e] + s2[e]) + y[e];
+        *reinterpret_cast<uint4*>(O + (int64_t)row * q.ldo + cc * 8) = pack8(y);
+      }
+    }
+    fence_async_smem();  // the next tile's TMA writes where these reads were
+    named_sync(1, 128 * CONSUMERS);
+    if (t128 == 0) mbar_arrive(pempty);
+  }
+}
+
+}  // namespace hop
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// ---- host: tensor maps and schedules
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, so that the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// the bf16 matrix [rows, cols] (row stride ld elements) in boxes of
+// [box_rows, 64], 128-byte swizzled; reads past the edges are zeros
+bool tensor_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t cols, int64_t ld,
+                int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)hop::KC, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dim, stride, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+// persistent blocks: as many as fit on the card at once, no more than units
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int smem, int units, int* grid) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, hop::THREADS, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *grid = std::min(units, per_sm * sm_count());
+  return cudaSuccess;
+}
+
+// U: 16-byte units of a panel row a lane takes in the prologue (k <= 256 U)
+template <int W, int U>
+cudaError_t launch_linear(const Args& g, cudaStream_t s) {
+  using namespace hop;
+  constexpr int BN = CONSUMERS * W;
+  Plan p{};
+  p.kc = (g.k + KC - 1) / KC;
+  p.ntiles = (g.n + BN - 1) / BN;
+  const int row_tiles = (g.m + BM - 1) / BM;
+  // column groups when the row tiles alone would leave SMs idle
+  const int groups = std::min(p.ntiles, std::max(1, (sm_count() + row_tiles - 1) / row_tiles));
+  p.per = (p.ntiles + groups - 1) / groups;
+  p.groups = (p.ntiles + p.per - 1) / p.per;
+  p.units = row_tiles * p.groups;
+  const int w_bytes = BN * KC * 2;
+  const int staging = CONSUMERS * BM * (W + 8) * 2;
+  // less alignment, barriers and the bias
+  const int avail = SMEM_MAX - 1024 - staging - 1024 - (g.bias ? g.n * 2 : 0);
+  if (g.k <= MAX_PANEL_K) {
+    p.panel_bytes = p.kc * ATOM;
+    p.stage_bytes = w_bytes;
+    const int T = p.per * p.kc;
+    if (p.groups == 1 && p.panel_bytes + T * w_bytes <= avail) {
+      p.resident = 1;
+      p.stages = T;
+      p.panels = 2 * p.panel_bytes + T * w_bytes <= avail ? 2 : 1;
+    } else {
+      p.panels = 2 * p.panel_bytes + 4 * w_bytes <= avail ? 2 : 1;
+      p.stages = std::min(MAX_STAGES, (avail - p.panels * p.panel_bytes) / w_bytes);
+    }
+  } else if (!g.a2 && !g.ln_w) {
+    p.stage_bytes = w_bytes + ATOM;
+    p.stages = std::min(MAX_STAGES, avail / p.stage_bytes);
+  }
+  if (p.stages < 2 && !p.resident) return cudaErrorInvalidValue;
+  const int smem = 1024 + p.panels * p.panel_bytes + p.stages * p.stage_bytes + staging +
+                   (2 * p.stages + 4) * 8 + (g.bias ? g.n * 2 : 0);
+  CUtensorMap tm_a, tm_w;
+  if (!tensor_map(&tm_a, g.a, g.m, g.k, g.lda, BM) || !tensor_map(&tm_w, g.w, g.n, g.k, g.k, BN))
+    return cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t e = persistent_grid(linear_bf16<W, U>, smem, p.units, &grid);
+  if (e != cudaSuccess) return e;
+  linear_bf16<W, U><<<grid, THREADS, smem, s>>>(tm_a, tm_w, g, p);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_mlp(const hop::MlpArgs& q, const void* w1, const void* w2, cudaStream_t s) {
+  using namespace hop;
+  using S = MlpShape<C>;
+  MlpPlan p{};
+  p.units = (q.m + BM - 1) / BM;
+  p.slot_bytes = S::slot_bytes;
+  const int seq = 2 * S::chunks;
+  const int avail = SMEM_MAX - 1024 - S::panel_bytes - S::h_bytes - 512 - 5 * C * 2;
+  p.stages = avail / S::slot_bytes;
+  if (p.stages >= seq) {
+    p.stages = seq;
+    p.resident = 1;
+  }
+  if (p.stages < 2) return cudaErrorInvalidValue;
+  const int smem = 1024 + S::panel_bytes + S::h_bytes + p.stages * S::slot_bytes +
+                   (2 * p.stages + 2) * 8 + 5 * C * 2;
+  CUtensorMap tm_a, tm_w1, tm_w2;
+  if (!tensor_map(&tm_a, q.a, q.m, C, q.lda, BM) || !tensor_map(&tm_w1, w1, 4 * C, C, C, HC) ||
+      !tensor_map(&tm_w2, w2, C, 4 * C, 4 * C, S::w2_box))
+    return cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t e = persistent_grid(mlp_tail_bf16<C>, smem, p.units, &grid);
+  if (e != cudaSuccess) return e;
+  mlp_tail_bf16<C><<<grid, THREADS, smem, s>>>(tm_a, tm_w1, tm_w2, q, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 float32 (SIMT), 1 bfloat16 (tensor cores); every pointer holds that
-// type. a2, ln_w (with ln_b), bias, r and r2 may be null. Launches on
-// `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue for shapes,
-// strides or pointers the kernels do not take.
+// dtype: 0 float32 (SIMT), 1 bfloat16 (Hopper: wgmma and TMA); every
+// pointer holds that type. a2, ln_w (with ln_b), bias, r and r2 may be
+// null. Launches on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for shapes, strides or pointers the kernels do not
+// take.
 extern "C" int k4_ln_linear(
     int dtype, const void* a, const void* a2, int64_t lda, const void* ln_w, const void* ln_b,
     float eps, const void* w, const void* bias, int m, int k, int n, int gelu,
@@ -554,36 +1142,48 @@ extern "C" int k4_ln_linear(
     if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
     dim3 grid((n + simt::BN - 1) / simt::BN, rows);
     simt::ln_linear_f32<<<grid, simt::THREADS, 0, s>>>(g);
-  } else if (dtype == 1) {
-    const int rows = (m + tc::BM - 1) / tc::BM;
-    if (rows > 65535 || k % 8 || n % 8 || lda % 8 || ldo % 8 || (r && ldr % 8) ||
-        !aligned16(a) || !aligned16(w) || !aligned16(out) || (a2 && !aligned16(a2)) ||
-        (ln_w && !(aligned16(ln_w) && aligned16(ln_b))) || (bias && !aligned16(bias)))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (a2 || ln_w) {
-      if (k > tc::MAX_PANEL_K || k % 32) return static_cast<int>(cudaErrorInvalidValue);
-      // enough blocks for two waves over the 132 SMs, splitting the columns
-      // when the rows are few
-      const int row_blocks = (m + tc::PBM - 1) / tc::PBM, ntiles = (n + tc::PBN - 1) / tc::PBN;
-      const int groups = std::min(ntiles, std::max(1, (264 + row_blocks - 1) / row_blocks));
-      const int per = (ntiles + groups - 1) / groups;
-      const size_t smem = tc::panel_smem(k);
-      const cudaError_t e = cudaFuncSetAttribute(
-          tc::ln_panel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      tc::ln_panel_bf16<<<dim3(row_blocks, (ntiles + per - 1) / per), tc::PTHREADS, smem, s>>>(
-          g, per);
-    } else {
-      const cudaError_t e = cudaFuncSetAttribute(
-          tc::linear_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc::linear_smem);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      dim3 grid((n + tc::BN - 1) / tc::BN, rows);
-      tc::linear_bf16<<<grid, tc::THREADS, tc::linear_smem, s>>>(g);
-    }
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != 1 || k % 8 || n % 8 || lda % 8 || ldo % 8 || (r && ldr % 8) || !aligned16(a) ||
+      !aligned16(w) || !aligned16(out) || (a2 && !aligned16(a2)) ||
+      (ln_w && !(aligned16(ln_w) && aligned16(ln_b))) || (bias && !aligned16(bias)) ||
+      (r && !aligned16(r)) || (r2 && !aligned16(r2)) ||
+      ((a2 || ln_w) && k > hop::MAX_PANEL_K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return k <= 256 ? launch_linear<W, 1>(g, s) : k <= 512 ? launch_linear<W, 2>(g, s)
+                                                            : launch_linear<W, 4>(g, s);
+  };
+  const cudaError_t e = n % 192 == 0 ? launch(std::integral_constant<int, 96>())
+                                     : launch(std::integral_constant<int, 48>());
+  return static_cast<int>(e);
+}
+
+// The MLP tail of a Swin block in one launch (bf16):
+//   out = s + fc2(GELU(fc1(LayerNorm(s)))),  s = a + a2,  a, a2, out [m, c]
+// with w1 [4c, c], b1 [4c], w2 [c, 4c], b2 [c] (nn.Linear's layouts) and the
+// cast points of k4_ln_linear's two launches. c in {96, 192, 384}: Video
+// Swin-S's stages 0-2.
+extern "C" int k4_mlp_tail(const void* a, const void* a2, int64_t lda, const void* ln_w,
+                           const void* ln_b, float eps, const void* w1, const void* b1,
+                           const void* w2, const void* b2, int m, int c, void* out, int64_t ldo,
+                           void* stream) {
+  if (m < 1 || lda < c || ldo < c || lda % 8 || ldo % 8 || !a2 || !ln_w || !ln_b || !b1 ||
+      !b2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* p : {a, a2, ln_w, ln_b, w1, b1, w2, b2, static_cast<const void*>(out)})
+    if (!aligned16(p)) return static_cast<int>(cudaErrorInvalidValue);
+  const hop::MlpArgs q{a, a2, lda, ln_w, ln_b, eps, b1, b2, out, ldo, m};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (c) {
+    case 96: e = launch_mlp<96>(q, w1, w2, s); break;
+    case 192: e = launch_mlp<192>(q, w1, w2, s); break;
+    case 384: e = launch_mlp<384>(q, w1, w2, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }
 
 extern "C" const char* k4_error_string(int err) {

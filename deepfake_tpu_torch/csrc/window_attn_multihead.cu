@@ -1,5 +1,6 @@
-// K6: window attention for large windows (128 <= N <= 512 tokens), head dim
-// 32, cosine (SwinV2) or scaled. For each (window w, head h):
+// K6: window attention for the windows above K2's range (N >= 65 tokens, any
+// N above that), head dim 32, cosine (SwinV2) or scaled. For each (window w,
+// head h):
 //
 //   cosine: out = softmax_rows(scales[h] (q^ . k^T^) + bias[h] + mask[w % n_masks]) . v
 //           q^ = q / max(|q|, 1e-12), k^ likewise, per row
@@ -10,14 +11,17 @@
 // Replaces the Pallas kernel
 //   deepfake_tpu/ops/pallas_window_attn.py:1127 pallas_window_attention,
 //     route _run_multihead :179 (_multihead_kernel :149, call :192), taken for
-//     N >= 128 (:1155-1164).
-// SwinV2 reaches it at window 16 (N = 256): SwinV2-B at 256^2 runs it in the
-// 22 blocks of stages 0-2. The caller passes element strides for the window,
-// head and token axes (the head dim is contiguous), so q, k and v are read
-// straight out of the [B_, N, 3C] qkv tensor and out is written as [B_, N, C]
-// (or any head-major layout): no split or merge copy. The TPU kernel's head
-// grouping (Gh heads whose bias fits ~2.5 MB of VMEM) is MXU/VMEM tiling and
-// is not copied.
+//     N >= 128 (:1155-1164), and, for 64 < N < 128, the routes _run :51 and
+//     _run_packed :126 of the same entry and pallas_window_attention_nhc_packed
+//     :847 (the same function; K2 takes N <= 64).
+// SwinV2 reaches it at windows 9-11 (N = 81-121), 16 (N = 256: SwinV2-B at
+// 256^2 runs it in the 22 blocks of stages 0-2) and 24 (N = 576, the
+// published 384^2 fine-tunes). The caller passes element strides for the
+// window, head and token axes (the head dim is contiguous), so q, k and v are
+// read straight out of the [B_, N, 3C] qkv tensor and out is written as
+// [B_, N, C] (or any head-major layout): no split or merge copy, in either
+// of SwinV2's layouts. The TPU kernel's head grouping (Gh heads whose bias
+// fits ~2.5 MB of VMEM) is MXU/VMEM tiling and is not copied.
 //
 // Cast points (the Pallas kernel's): q, k, v read as f32; the cosine rows
 // normalised in f32; logits, bias, mask, softmax and P V in f32; the output
@@ -34,23 +38,27 @@
 //
 // Routes:
 //   - bf16 (serving): tensor cores, mma.sync m16n8k16 with f32 accumulation.
-//     One block of 8 warps per (window, 128-query-row slab, head); K and V
-//     (N x 32, keys padded to a multiple of 16 with zero rows) sit in shared
-//     memory; each warp takes 16 query rows and streams the keys 16 at a time
-//     with an online row max (K5's forward), the weights rounded to bf16 for
-//     P V. Cosine logits reach |scale| = 100, and rounding q^ and k^ to bf16
-//     would move a logit by ~100 x 2^-9 x |q^ . k^|, several percent of a
-//     weight; so q^ and k^ are split into bf16 hi + lo parts and
-//     q^ . k^ = hi.hi + hi.lo + lo.hi (three products, ~2^-16 relative):
-//     the K tile is held twice (hi, lo), the q fragments twice. Scaled logits
-//     take the bf16 q and k as they are (exact products) and scale after.
-//     Keys are permuted within a step (key_of, as K3) so that a thread's four
-//     weights of a row are four consecutive keys: their f32 bias and mask are
-//     one 16-byte load each, issued a step ahead. The grid runs every window
-//     of a head before the next head, so the head's bias stays in L2.
+//     One block of 8 warps per (window, 128-query-row slab, head); each warp
+//     takes 16 query rows (a warp whose rows all lie past N only helps load).
+//     K and V stream through shared memory in tiles of up to KT = 256 keys
+//     (N x 32, keys padded to a multiple of 16 with zero rows), so N has no
+//     upper limit; a window of up to 256 tokens is one tile. Each warp walks
+//     the keys 16 at a time with an online row max (K5's forward), the
+//     weights rounded to bf16 for P V. Cosine logits reach |scale| = 100, and
+//     rounding q^ and k^ to bf16 would move a logit by ~100 x 2^-9 x
+//     |q^ . k^|, several percent of a weight; so q^ and k^ are split into
+//     bf16 hi + lo parts and q^ . k^ = hi.hi + hi.lo + lo.hi (three products,
+//     ~2^-16 relative): the K tile is held twice (hi, lo), the q fragments
+//     twice. Scaled logits take the bf16 q and k as they are (exact products)
+//     and scale after. Keys are permuted within a step (key_of, as K3) so
+//     that a thread's four weights of a row are four consecutive keys: their
+//     f32 bias and mask are one 16-byte load each, issued a step ahead. The
+//     grid runs every window of a head before the next head, so the head's
+//     bias stays in L2.
 //   - f32 (parity runs only; a different kernel from the one that serves):
-//     one block per (32-query tile, window, head), SIMT f32 FMA, K, V and the
-//     [32, N] logit tile in shared memory.
+//     one block per (32-query tile, window, head), SIMT f32 FMA; K and V
+//     stream through shared memory in tiles of 128 keys with an online row
+//     max, the [32, 128] logit tile in shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,9 +66,8 @@
 
 namespace {
 
-constexpr int D = 32;       // head dim
-constexpr int MIN_N = 128;  // the TPU route's threshold; smaller windows are K2's
-constexpr int MAX_N = 512;
+constexpr int D = 32;      // head dim
+constexpr int MIN_N = 65;  // windows of N <= 64 are K2's
 typedef __nv_bfloat16 bf16;
 
 struct Args {
@@ -99,20 +106,21 @@ __device__ __forceinline__ float norm_div(float ss) { return fmaxf(sqrtf(ss), 1e
 
 namespace simt {
 
-constexpr int MQ = 32, THREADS = 256, DP = D + 1;  // +1 pads off bank conflicts
+constexpr int MQ = 32, KT = 128, THREADS = 256, DP = D + 1;  // +1 pads off bank conflicts
+constexpr int ROWS_PER_WARP = MQ / (THREADS / 32);
 
-__host__ __device__ constexpr size_t smem_bytes(int n) {
-  return sizeof(float) * (2 * n * DP + MQ * DP + MQ * (n + 1));
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) * (2 * KT * DP + MQ * DP + MQ * (KT + 1));
 }
 
 template <bool COSINE>
 __global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
   extern __shared__ float sm[];
-  const int N = g.n, NP = N + 1;
-  float* ks = sm;              // [N][DP]
-  float* vs = ks + N * DP;     // [N][DP]
-  float* qs = vs + N * DP;     // [MQ][DP]
-  float* ps = qs + MQ * DP;    // [MQ][NP] logits, then weights
+  const int N = g.n, NP = KT + 1;
+  float* ks = sm;              // [KT][DP]
+  float* vs = ks + KT * DP;    // [KT][DP]
+  float* qs = vs + KT * DP;    // [MQ][DP]
+  float* ps = qs + MQ * DP;    // [MQ][NP] logits, then weights, of one key tile
 
   const int w = blockIdx.x, q0 = blockIdx.y * MQ, h = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -123,63 +131,92 @@ __global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
   const float* V = static_cast<const float*>(g.v) + base;
   const float scale = g.scales[h];
 
-  for (int idx = tid; idx < N * D; idx += THREADS) {
-    const int j = idx / D, c = idx % D;
-    const int64_t off = (int64_t)j * g.s_n + c;
-    ks[j * DP + c] = K[off];
-    vs[j * DP + c] = V[off];
-  }
   for (int idx = tid; idx < MQ * D; idx += THREADS) {
     const int i = idx / D, c = idx % D;
     const float x = i < rows ? Q[(int64_t)(q0 + i) * g.s_n + c] : 0.f;
     qs[i * DP + c] = COSINE ? x : x * scale;
   }
-  __syncthreads();
   if (COSINE) {
-    // one warp per row of K, then of q (D == 32: a lane per element)
-    for (int r = warp; r < N + rows; r += THREADS / 32) {
-      float* x = r < N ? ks + r * DP : qs + (r - N) * DP;
-      const float val = x[lane];
-      x[lane] = val / norm_div(warp_sum(val * val));
-    }
     __syncthreads();
+    for (int r = warp; r < rows; r += THREADS / 32) {  // a lane per element (D == 32)
+      const float val = qs[r * DP + lane];
+      qs[r * DP + lane] = val / norm_div(warp_sum(val * val));
+    }
   }
 
   const float* bias = g.bias + (int64_t)h * N * N;
   const float* mask = g.mask ? g.mask + (int64_t)(w % g.n_masks) * N * N : nullptr;
-  for (int idx = tid; idx < rows * N; idx += THREADS) {
-    const int i = idx / N, j = idx - i * N;
-    const float* qi = qs + i * DP;
-    const float* kj = ks + j * DP;
-    float s = 0.f;
+  // the online softmax of rows warp + 8 i: running max, sum, and lane c's
+  // column of the unnormalised P V
+  float m[ROWS_PER_WARP], l[ROWS_PER_WARP], o[ROWS_PER_WARP];
 #pragma unroll
-    for (int c = 0; c < D; ++c) s = fmaf(qi[c], kj[c], s);
-    if (COSINE) s *= scale;
-    const int64_t at = (int64_t)(q0 + i) * N + j;
-    s += bias[at];
-    if (mask) s += mask[at];
-    ps[i * NP + j] = s;
+  for (int i = 0; i < ROWS_PER_WARP; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    o[i] = 0.f;
   }
-  __syncthreads();
+  for (int t0 = 0; t0 < N; t0 += KT) {
+    const int nt = min(KT, N - t0);
+    __syncthreads();  // the previous tile is consumed (and q is ready)
+    for (int idx = tid; idx < nt * D; idx += THREADS) {
+      const int j = idx / D, c = idx % D;
+      const int64_t off = (int64_t)(t0 + j) * g.s_n + c;
+      ks[j * DP + c] = K[off];
+      vs[j * DP + c] = V[off];
+    }
+    if (COSINE) {
+      __syncthreads();
+      for (int r = warp; r < nt; r += THREADS / 32) {
+        const float val = ks[r * DP + lane];
+        ks[r * DP + lane] = val / norm_div(warp_sum(val * val));
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < rows * nt; idx += THREADS) {
+      const int i = idx / nt, j = idx - i * nt;
+      const float* qi = qs + i * DP;
+      const float* kj = ks + j * DP;
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < D; ++c) s = fmaf(qi[c], kj[c], s);
+      if (COSINE) s *= scale;
+      const int64_t at = (int64_t)(q0 + i) * N + t0 + j;
+      s += bias[at];
+      if (mask) s += mask[at];
+      ps[i * NP + j] = s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ri = 0; ri < ROWS_PER_WARP; ++ri) {
+      const int i = warp + ri * (THREADS / 32);
+      if (i >= rows) continue;
+      float* p = ps + i * NP;
+      float mt = -INFINITY;
+      for (int j = lane; j < nt; j += 32) mt = fmaxf(mt, p[j]);
+      const float mn = fmaxf(m[ri], warp_max(mt));
+      const float base_ = mn == -INFINITY ? 0.f : mn;
+      const float alpha = expf(m[ri] - base_);  // m = -inf: 0
+      float sum = 0.f;
+      for (int j = lane; j < nt; j += 32) {
+        const float e = expf(p[j] - base_);
+        p[j] = e;
+        sum += e;
+      }
+      l[ri] = l[ri] * alpha + warp_sum(sum);
+      __syncwarp();
+      // P V: lane c accumulates column c of the row (D == 32)
+      float acc = 0.f;
+      for (int j = 0; j < nt; ++j) acc = fmaf(p[j], vs[j * DP + lane], acc);
+      o[ri] = o[ri] * alpha + acc;
+      m[ri] = mn;
+    }
+  }
 
   float* O = static_cast<float*>(g.out) + (int64_t)w * g.o_w + (int64_t)h * g.o_h;
-  for (int i = warp; i < rows; i += THREADS / 32) {
-    float* p = ps + i * NP;
-    float m = -INFINITY;
-    for (int j = lane; j < N; j += 32) m = fmaxf(m, p[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(p[j] - m);
-      p[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-    // P V: lane c accumulates column c of the row (D == 32)
-    float o = 0.f;
-    for (int j = 0; j < N; ++j) o = fmaf(p[j], vs[j * DP + lane], o);
-    O[(int64_t)(q0 + i) * g.o_n + lane] = o / sum;
+#pragma unroll
+  for (int ri = 0; ri < ROWS_PER_WARP; ++ri) {
+    const int i = warp + ri * (THREADS / 32);
+    if (i < rows) O[(int64_t)(q0 + i) * g.o_n + lane] = o[ri] / l[ri];
   }
 }
 
@@ -191,13 +228,14 @@ namespace tc {
 
 constexpr int WARPS = 8, THREADS = 32 * WARPS;
 constexpr int SLAB = 16 * WARPS;  // query rows per block
+constexpr int KT = 256;           // keys per shared-memory tile
 constexpr int LD = D + 8;  // smem row stride in bf16 (80 bytes): the 8 rows of a
                            // fragment load fall on distinct banks
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
-// K (hi, and lo for cosine) and V tiles
+// K (hi, and lo for cosine) and V tiles of min(pad16(n), KT) keys
 __host__ __device__ constexpr size_t smem_bytes(int n, bool cosine) {
-  return sizeof(uint16_t) * (cosine ? 3 : 2) * pad16(n) * LD;
+  return sizeof(uint16_t) * (cosine ? 3 : 2) * (pad16(n) < KT ? pad16(n) : KT) * LD;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -321,20 +359,21 @@ __device__ __forceinline__ float online_max(float& m, float step_max, float& bas
 template <bool COSINE>
 __global__ void __launch_bounds__(THREADS, 2) attn_bf16(Args g) {
   extern __shared__ __align__(16) uint16_t smb[];
-  const int N = g.n, NK = pad16(N);
-  uint16_t* khi = smb;               // [NK][LD]; read in key_of order within a step
-  uint16_t* vs = khi + NK * LD;      // [NK][LD]
-  uint16_t* klo = vs + NK * LD;      // [NK][LD], cosine only
+  const int N = g.n, NK = pad16(N), TK = min(NK, KT);
+  uint16_t* khi = smb;               // [TK][LD]; read in key_of order within a step
+  uint16_t* vs = khi + TK * LD;      // [TK][LD]
+  uint16_t* klo = vs + TK * LD;      // [TK][LD], cosine only
 
   const int w = blockIdx.x, h = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t base = (int64_t)w * g.s_w + (int64_t)h * g.s_h;
-  load_k<COSINE>(khi, klo, static_cast<const bf16*>(g.k) + base, g.s_n, N, NK, tid);
-  load_v(vs, static_cast<const bf16*>(g.v) + base, g.s_n, N, NK, tid);
-  __syncthreads();
+  const bf16* K = static_cast<const bf16*>(g.k) + base;
+  const bf16* V = static_cast<const bf16*>(g.v) + base;
 
+  // a warp whose 16 rows all lie past N computes nothing but loads its share
+  // of every key tile
   const int r0 = blockIdx.y * SLAB + warp * 16;
-  if (r0 >= N) return;
+  const bool active = r0 < N;
   const float scale = g.scales[h];
   const int g8 = lane >> 2, t4 = lane & 3;
   const int row_a = r0 + g8, row_b = row_a + 8;
@@ -394,81 +433,90 @@ __global__ void __launch_bounds__(THREADS, 2) attn_bf16(Args g) {
   load_add(ba, brow_a, mrow_a, ok_a, 4 * t4, N, vec);
   load_add(bb, brow_b, mrow_b, ok_b, 4 * t4, N, vec);
 
-  for (int j0 = 0; j0 < NK; j0 += 16) {
-    // the next step's bias and mask are in flight while this step computes
-    float nba[4], nbb[4];
-    const int k4 = j0 + 16 + 4 * t4;
-    load_add(nba, brow_a, mrow_a, ok_a, k4, N, vec);
-    load_add(nbb, brow_b, mrow_b, ok_b, k4, N, vec);
+  for (int t0 = 0; t0 < NK; t0 += TK) {
+    const int nt = min(TK, NK - t0);
+    if (t0) __syncthreads();  // every warp is done with the previous tile
+    load_k<COSINE>(khi, klo, K + (int64_t)t0 * g.s_n, g.s_n, N - t0, nt, tid);
+    load_v(vs, V + (int64_t)t0 * g.s_n, g.s_n, N - t0, nt, tid);
+    __syncthreads();
+    if (!active) continue;
+    for (int j0 = 0; j0 < nt; j0 += 16) {
+      // the next step's bias and mask are in flight while this step computes
+      float nba[4], nbb[4];
+      const int k4 = t0 + j0 + 16 + 4 * t4;
+      load_add(nba, brow_a, mrow_a, ok_a, k4, N, vec);
+      load_add(nbb, brow_b, mrow_b, ok_b, k4, N, vec);
 
-    // S for this step's 16 keys, as two n8 tiles; cosine: the small
-    // products first, then hi . hi
-    float s[2][4];
+      // S for this step's 16 keys, as two n8 tiles; cosine: the small
+      // products first, then hi . hi
+      float s[2][4];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
+      for (int nt8 = 0; nt8 < 2; ++nt8) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const int kr = (j0 + (nt ? kb1 : kb0)) * LD;
+        for (int e = 0; e < 4; ++e) s[nt8][e] = 0.f;
+        const int kr = (j0 + (nt8 ? kb1 : kb0)) * LD;
 #pragma unroll
-      for (int st = 0; st < 2; ++st) {
-        const int c0 = kr + st * 16 + 2 * t4;
-        const uint32_t bh[2] = {ld32(khi + c0), ld32(khi + c0 + 8)};
-        if (COSINE) {
-          const uint32_t bl[2] = {ld32(klo + c0), ld32(klo + c0 + 8)};
-          mma_bf16(s[nt], ql[st], bh);
-          mma_bf16(s[nt], qa[st], bl);
+        for (int st = 0; st < 2; ++st) {
+          const int c0 = kr + st * 16 + 2 * t4;
+          const uint32_t bh[2] = {ld32(khi + c0), ld32(khi + c0 + 8)};
+          if (COSINE) {
+            const uint32_t bl[2] = {ld32(klo + c0), ld32(klo + c0 + 8)};
+            mma_bf16(s[nt8], ql[st], bh);
+            mma_bf16(s[nt8], qa[st], bl);
+          }
+          mma_bf16(s[nt8], qa[st], bh);
         }
-        mma_bf16(s[nt], qa[st], bh);
       }
-    }
-    // logits (q.k) scale + bias + mask; tile nt, element i of row a is key
-    // 4 t4 + 2 nt + i
-    float xa[4], xb[4];
+      // logits (q.k) scale + bias + mask; tile nt8, element i of row a is key
+      // 4 t4 + 2 nt8 + i
+      float xa[4], xb[4];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int nt8 = 0; nt8 < 2; ++nt8)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int c = 2 * nt + i;
-        xa[c] = s[nt][i] * scale + ba[c];
-        xb[c] = s[nt][2 + i] * scale + bb[c];
+        for (int i = 0; i < 2; ++i) {
+          const int c = 2 * nt8 + i;
+          xa[c] = s[nt8][i] * scale + ba[c];
+          xb[c] = s[nt8][2 + i] * scale + bb[c];
+        }
+      float base_a, base_b;
+      const float al_a = online_max(m_a, fmaxf(fmaxf(xa[0], xa[1]), fmaxf(xa[2], xa[3])), base_a);
+      const float al_b = online_max(m_b, fmaxf(fmaxf(xb[0], xb[1]), fmaxf(xb[2], xb[3])), base_b);
+      sum_a *= al_a;
+      sum_b *= al_b;
+#pragma unroll
+      for (int dn = 0; dn < 4; ++dn) {
+        o[dn][0] *= al_a; o[dn][1] *= al_a;
+        o[dn][2] *= al_b; o[dn][3] *= al_b;
       }
-    float base_a, base_b;
-    const float al_a = online_max(m_a, fmaxf(fmaxf(xa[0], xa[1]), fmaxf(xa[2], xa[3])), base_a);
-    const float al_b = online_max(m_b, fmaxf(fmaxf(xb[0], xb[1]), fmaxf(xb[2], xb[3])), base_b);
-    sum_a *= al_a;
-    sum_b *= al_b;
+      uint32_t pa[4];
 #pragma unroll
-    for (int dn = 0; dn < 4; ++dn) {
-      o[dn][0] *= al_a; o[dn][1] *= al_a;
-      o[dn][2] *= al_b; o[dn][3] *= al_b;
-    }
-    uint32_t pa[4];
+      for (int nt8 = 0; nt8 < 2; ++nt8) {
+        float p[4];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int c = 2 * nt + i;
-        p[i] = __expf(xa[c] - base_a);
-        p[2 + i] = __expf(xb[c] - base_b);
+        for (int i = 0; i < 2; ++i) {
+          const int c = 2 * nt8 + i;
+          p[i] = __expf(xa[c] - base_a);
+          p[2 + i] = __expf(xb[c] - base_b);
+        }
+        sum_a += p[0] + p[1];
+        sum_b += p[2] + p[3];
+        pa[nt8 * 2] = pack_bf16(p[0], p[1]);
+        pa[nt8 * 2 + 1] = pack_bf16(p[2], p[3]);
       }
-      sum_a += p[0] + p[1];
-      sum_b += p[2] + p[3];
-      pa[nt * 2] = pack_bf16(p[0], p[1]);
-      pa[nt * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
 #pragma unroll
-    for (int dn = 0; dn < 4; ++dn) {
-      uint32_t vb[2];
-      ldmatrix_x2_trans(vb, vs + (j0 + kv_row) * LD + dn * 8);
-      mma_bf16(o[dn], pa, vb);
-    }
+      for (int dn = 0; dn < 4; ++dn) {
+        uint32_t vb[2];
+        ldmatrix_x2_trans(vb, vs + (j0 + kv_row) * LD + dn * 8);
+        mma_bf16(o[dn], pa, vb);
+      }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      ba[c] = nba[c];
-      bb[c] = nbb[c];
+      for (int c = 0; c < 4; ++c) {
+        ba[c] = nba[c];
+        bb[c] = nbb[c];
+      }
     }
   }
+  if (!active) return;
 
   const float sa = quad_sum(sum_a), sb = quad_sum(sum_b);
   bf16* O = static_cast<bf16*>(g.out) + (int64_t)w * g.o_w + (int64_t)h * g.o_h;
@@ -510,7 +558,7 @@ extern "C" int k6_window_attn(int dtype, int cosine, const void* q, const void* 
                               int64_t o_h, int64_t o_n, const float* bias, const float* mask,
                               int n_masks, const float* scales, int windows, int heads, int n,
                               int d, void* stream) {
-  if (n < MIN_N || n > MAX_N || d != D || windows < 1 || heads < 1 || heads > 65535 ||
+  if (n < MIN_N || d != D || windows < 1 || heads < 1 || heads > 65535 ||
       (mask && (n_masks < 1 || windows % n_masks)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args g{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask, mask ? n_masks : 1, scales, n};
@@ -527,7 +575,7 @@ extern "C" int k6_window_attn(int dtype, int cosine, const void* q, const void* 
                  : launch(tc::attn_bf16<false>, grid, tc::THREADS, smem, s, g);
   } else if (dtype == 0) {
     const dim3 grid(windows, (n + simt::MQ - 1) / simt::MQ, heads);
-    const size_t smem = simt::smem_bytes(n);
+    const size_t smem = simt::smem_bytes();
     err = cosine ? launch(simt::attn_f32<true>, grid, simt::THREADS, smem, s, g)
                  : launch(simt::attn_f32<false>, grid, simt::THREADS, smem, s, g);
   } else {

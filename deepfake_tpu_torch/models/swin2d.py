@@ -8,14 +8,16 @@ roll -> partition -> attention -> reverse -> roll; the JAX package's
 window-resident permutations (swin2d.py:466-546) are a TPU relayout trick
 that computes the same thing.
 
-With ``attn_kernel`` the attention runs through the kernels as
-swin2d.py:181-249 routes to its Pallas kernels: windows of N < 128 tokens
-with B_ >= 2 through K2 token-major (ops/window_attn_kernel.py; the Pallas
-``pallas_window_attention_nhc_packed``), every other call head-major, through
-K2 for N < 128 (``pallas_window_attention``'s ``_run``) and K6 for N >= 128
-(ops/window_attn_multihead.py; its ``_run_multihead``). Otherwise it runs
-the plain path ``ops/window_attn.cosine_window_attention``. K2 itself takes
-N <= 64 (window 8 and below).
+With ``attn_kernel`` the attention runs through the kernels, which together
+take every window the Pallas routes of swin2d.py:181-249 take. Windows of
+N <= 64 tokens (window 8 and below) go to K2 (ops/window_attn_kernel.py):
+token-major for B_ >= 2 (the Pallas ``pallas_window_attention_nhc_packed``),
+head-major otherwise (``pallas_window_attention``'s ``_run``). Every larger
+window goes to K6 (ops/window_attn_multihead.py), which reads q, k and v out
+of the qkv tensor by strides in either layout: the Pallas routes' 64 < N <
+128 cases (windows 9-11) and ``_run_multihead`` for N >= 128 (window 16 at
+256^2, window 24 at 384^2). Otherwise it runs the plain path
+``ops/window_attn.cosine_window_attention``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from torch import nn
 
 from deepfake_tpu_torch.models.layers import LayerNorm, Mlp, as_nchw
 from deepfake_tpu_torch.ops.window_attn import cosine_window_attention
+from deepfake_tpu_torch.ops.window_attn_kernel import MAX_TOKENS as K2_MAX_TOKENS
 from deepfake_tpu_torch.ops.window_attn_kernel import (
     window_attention_heads, window_attention_tokens,
 )
@@ -139,13 +142,13 @@ class WindowAttention(nn.Module):
         if bias is None or bias.device != x.device:
             bias = self.relative_bias()
         scale = torch.exp(torch.clamp(self.logit_scale.float(), max=math.log(100.0)))
-        if self.attn_kernel and N < 128 and B_ >= 2:
+        if self.attn_kernel and N <= K2_MAX_TOKENS and B_ >= 2:
             out = window_attention_tokens(
                 qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], num_heads=H, bias=bias,
                 mask=mask, logit_scale=scale)
         else:
             heads = qkv.view(B_, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
-            if self.attn_kernel and N >= 128:
+            if self.attn_kernel and N > K2_MAX_TOKENS:
                 # K6 reads q, k, v out of qkv by strides and writes [B_, N, C]
                 out = window_attention_multihead(*heads.unbind(0), bias=bias, mask=mask,
                                                  logit_scale=scale)

@@ -13,10 +13,14 @@ kernels of deepfake_tpu:
       ``ln_linear(x, W_qkv, b_qkv, ln=...)`` -> K3 -> ``ln_linear(o, W_proj, b_proj)``
   ops/pallas_mlp.py:101 ``fused_mlp_tail``
       ((a + b) -> LayerNorm -> fc1 -> GELU -> fc2 -> + (a + b)): ``mlp_tail``,
-      two launches.
+      one launch in bf16 at the widths in ``MLP_TAIL_WIDTHS`` (the hidden
+      tensor stays in shared memory), else two launches of ``ln_linear``.
 
-The wrapper takes its plain version for a CPU tensor and launches the kernel
-for a CUDA tensor, or raises; ``ln_linear.launches`` counts kernel launches.
+Each wrapper takes its plain version for a CPU tensor and launches the
+kernel for a CUDA tensor, or raises; ``ln_linear.launches`` and
+``mlp_tail.launches`` count the launches of each entry point (``mlp_tail``
+counts its one-launch route only; its two-launch route counts two
+``ln_linear`` launches).
 The plain version keeps the Pallas kernels' cast points: s = x + x2 in the
 input type; LayerNorm statistics in f32 with the fast variance
 max(E[s^2] - E[s]^2, 0), (s - mu) * (rsqrt(var + eps) * scale) + bias rounded
@@ -37,7 +41,11 @@ from deepfake_tpu_torch.models.layers import gelu_exact
 from deepfake_tpu_torch.ops.window_attn_kernel import _no_autograd, _on_cuda
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_PANEL_K = 1024  # csrc/ln_linear.cu tc::MAX_PANEL_K
+MAX_PANEL_K = 1024  # csrc/ln_linear.cu hop::MAX_PANEL_K
+# the channel widths k4_mlp_tail takes in one launch (csrc/ln_linear.cu):
+# Video Swin-S's stages 0-2; at 768 its [64, C] f32 accumulator would not
+# fit in registers
+MLP_TAIL_WIDTHS = (96, 192, 384)
 # (scale, bias, eps) of a LayerNorm over the input's last axis
 LN = Tuple[torch.Tensor, torch.Tensor, float]
 
@@ -74,6 +82,8 @@ def _lib():
         lib.k4_ln_linear.argtypes = [
             i, p, p, i64, p, p, ctypes.c_float, p, p, i, i, i, i, p, p, i64, p, i64, p]
         lib.k4_ln_linear.restype = i
+        lib.k4_mlp_tail.argtypes = [p, p, i64, p, p, ctypes.c_float, p, p, p, p, i, i, p, i64, p]
+        lib.k4_mlp_tail.restype = i
         lib.k4_error_string.argtypes = [i]
         lib.k4_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -115,12 +125,13 @@ def _check(x, weight, bias, x2, ln, res, res2):
         raise ValueError(f"K4: res has {r.shape[0]} rows, x has {a.shape[0]}")
     if res2 is not None and res is None:
         raise ValueError("K4: res2 needs res")
-    aligned = [a, weight, a2, bias] + (list(ln[:2]) if ln is not None else [])
+    aligned = [a, weight, a2, bias, r, r2] + (list(ln[:2]) if ln is not None else [])
     if dt == torch.bfloat16 and (
             K % 8 or N % 8 or a.stride(0) % 8 or (r is not None and r.stride(0) % 8)
             or any(t is not None and t.data_ptr() % 16 for t in aligned)):
         raise ValueError("K4's bf16 route needs K, N and row strides that are multiples of 8 "
-                         "and 16-byte aligned x, x2, weight, bias and LayerNorm weights")
+                         "and 16-byte aligned x, x2, weight, bias, res, res2 and LayerNorm "
+                         "weights")
     if dt == torch.bfloat16 and (x2 is not None or ln is not None) and (
             K % 32 or K > MAX_PANEL_K):
         raise ValueError(f"K4's bf16 route with a sum or a LayerNorm holds x in shared memory: "
@@ -159,12 +170,49 @@ def ln_linear(x, weight, bias=None, *, x2=None, ln: Optional[LN] = None, gelu: b
 ln_linear.launches = 0
 
 
-def mlp_tail(x, h, ln: LN, w1, b1, w2, b2):
-    """s + fc2(GELU(fc1(LayerNorm(s)))) with s = x + h, x and h [..., C]:
-    the MLP half of a Swin block (``fused_mlp_tail``) as two launches of K4.
-    s is formed in both launches and never stored; only the [rows, 4C]
-    hidden tensor goes through device memory."""
+def mlp_tail_plain(x, h, ln: LN, w1, b1, w2, b2):
+    """The plain version of ``mlp_tail``: s + fc2(GELU(fc1(LayerNorm(s)))),
+    s = x + h, at K4's cast points."""
     C = x.shape[-1]
     a, b = x.reshape(-1, C), h.reshape(-1, C)
-    hid = ln_linear(a, w1, b1, x2=b, ln=ln, gelu=True)
-    return ln_linear(hid, w2, b2, res=a, res2=b).view(x.shape)
+    hid = ln_linear_plain(a, w1, b1, x2=b, ln=ln, gelu=True)
+    return ln_linear_plain(hid, w2, b2, res=a, res2=b).view(x.shape)
+
+
+def mlp_tail(x, h, ln: LN, w1, b1, w2, b2):
+    """s + fc2(GELU(fc1(LayerNorm(s)))) with s = x + h, x and h [..., C]:
+    the MLP half of a Swin block (``fused_mlp_tail``). On the card, in bf16
+    at a width in ``MLP_TAIL_WIDTHS``, one launch of ``k4_mlp_tail`` that
+    keeps the [rows, 4C] hidden tensor in shared memory; otherwise (f32, or
+    C = 768) two launches of K4's ``ln_linear``, the hidden tensor through
+    device memory. s is formed in the kernels and never stored."""
+    C = x.shape[-1]
+    _no_autograd("mlp_tail", x, h, w1, b1, w2, b2, *ln[:2])
+    a, b = x.reshape(-1, C), h.reshape(-1, C)
+    if not _on_cuda("mlp_tail", x, h) or x.dtype != torch.bfloat16 or C not in MLP_TAIL_WIDTHS:
+        hid = ln_linear(a, w1, b1, x2=b, ln=ln, gelu=True)
+        return ln_linear(hid, w2, b2, res=a, res2=b).view(x.shape)
+    a, b = a.contiguous(), b.contiguous()
+    tensors = (b, *ln[:2], w1, b1, w2, b2)
+    if any(t.dtype != x.dtype for t in tensors):
+        raise ValueError(f"K4's MLP tail takes every tensor in one type ({x.dtype})")
+    if (w1.shape != (4 * C, C) or w2.shape != (C, 4 * C) or b1.shape != (4 * C,)
+            or b2.shape != (C,) or ln[0].shape != (C,) or ln[1].shape != (C,)):
+        raise ValueError(f"K4's MLP tail needs w1 [4C, C], b1 [4C], w2 [C, 4C], b2 [C] and "
+                         f"LayerNorm weights [C] at C = {C}")
+    if not all(t.is_contiguous() for t in (a, b, *tensors)) or any(
+            t.data_ptr() % 16 for t in (a, b, *tensors)):
+        raise ValueError("K4's MLP tail needs contiguous, 16-byte aligned tensors")
+    M = a.shape[0]
+    out = torch.empty(M, C, dtype=x.dtype, device=x.device)
+    lib = _lib()
+    status = lib.k4_mlp_tail(
+        a.data_ptr(), b.data_ptr(), C, ln[0].data_ptr(), ln[1].data_ptr(), float(ln[2]),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), M, C, out.data_ptr(), C,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, lib.k4_error_string, "k4_mlp_tail")
+    mlp_tail.launches += 1
+    return out.view(x.shape)
+
+
+mlp_tail.launches = 0

@@ -2,16 +2,20 @@
 
 Counterpart of the ``_run_multihead`` route of deepfake_tpu/ops/
 pallas_window_attn.py ``pallas_window_attention`` (:179, taken for windows of
-N >= 128 tokens): head-major q, k, v [B_, H, N, D], cosine (L2-normalised q
+N >= 128 tokens), and of its ``_run``/``_run_packed`` routes and
+``pallas_window_attention_nhc_packed`` for 64 < N < 128, above K2's range:
+head-major q, k, v [B_, H, N, D], cosine (L2-normalised q
 and k, logits times the per-head ``logit_scale``) or scaled (q times
 ``scale``), plus bias [H, N, N] and mask [nW, N, N] (window i uses mask
 i % nW), the max-stabilised f32 softmax, f32 P V, one rounding to the input
-type. SwinV2 takes it for windows of 16 x 16 tokens.
+type. SwinV2 takes it for every window of more than 64 tokens (9 x 9 and up:
+16 x 16 at 256^2, 24 x 24 in the 384^2 fine-tunes).
 
 ``window_attention_multihead`` takes the plain version for CPU tensors
 (``window_attention_heads_plain``, K2's, which computes this function at any
 N) and launches K6 for CUDA tensors, or raises; ``.launches`` counts the
-launches. K6 takes 128 <= N <= 512 and head dim 32 (every SwinV2-B head).
+launches. K6 takes N >= 65, with no upper limit (K and V stream through
+shared memory in key tiles), and head dim 32 (every SwinV2-B head).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from deepfake_tpu_torch.ops.window_attn_kernel import (
     _no_autograd, _on_cuda, window_attention_heads_plain,
 )
 
-MIN_TOKENS, MAX_TOKENS, HEAD_DIM = 128, 512, 32
+MIN_TOKENS, HEAD_DIM = 65, 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -50,9 +54,8 @@ def _launch(q, k, v, out, *, bias, mask, logit_scale, scale, cosine):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"K6 takes f32 or bf16 q/k/v, got {q.dtype}")
     B_, H, N, D = q.shape
-    if not (MIN_TOKENS <= N <= MAX_TOKENS) or D != HEAD_DIM:
-        raise ValueError(f"K6 takes {MIN_TOKENS} <= N <= {MAX_TOKENS} and D == {HEAD_DIM}, "
-                         f"got N={N}, D={D}")
+    if N < MIN_TOKENS or D != HEAD_DIM:
+        raise ValueError(f"K6 takes N >= {MIN_TOKENS} and D == {HEAD_DIM}, got N={N}, D={D}")
     if not (q.stride() == k.stride() == v.stride()) or q.stride(-1) != 1 or out.stride(-1) != 1:
         raise ValueError("K6 needs q, k, v with one set of strides and the head dim contiguous")
     dev = q.device

@@ -203,13 +203,17 @@ def test_swin_v2_window16_matches_jax_multihead(kernel, batch):
 
 @pytest.mark.parametrize("res,ws,batch,route", [
     (32, 16, 2, "multihead"), (16, 16, 2, "multihead"), (16, 16, 1, "multihead"),
-    (14, 7, 2, "tokens"), (7, 7, 1, "heads")],
-    ids=["N256_B8_shifted", "N256_B2", "N256_B1", "N49_B8", "N49_B1"])
+    (14, 7, 2, "tokens"), (7, 7, 1, "heads"), (20, 10, 2, "multihead"),
+    (48, 24, 1, "multihead")],
+    ids=["N256_B8_shifted", "N256_B2", "N256_B1", "N49_B8", "N49_B1", "N100_B8_shifted",
+         "N576_B4_shifted"])
 def test_swin_block_routes_attention_by_window(monkeypatch, res, ws, batch, route):
-    """With the kernels on, a SwinV2 block sends windows of N >= 128 tokens
-    to K6 whatever B_ is, and N < 128 to K2 (token-major for B_ >= 2,
-    head-major for B_ == 1), as swin2d.py:181-249 routes the Pallas kernels;
-    exactly one attention call per block."""
+    """With the kernels on, a SwinV2 block sends windows of N <= 64 tokens to
+    K2 (token-major for B_ >= 2, head-major for B_ == 1, as swin2d.py:181-249
+    routes the Pallas kernels) and every larger window to K6 whatever B_ is:
+    window 10 (N = 100, which the Pallas routes send to _run) and window 24
+    (N = 576, the 384^2 fine-tunes) included; exactly one attention call per
+    block."""
     from deepfake_tpu_torch.models import swin2d
 
     calls = {"multihead": 0, "tokens": 0, "heads": 0}
@@ -295,6 +299,21 @@ def test_predict_raw_fused_is_assembly_then_predict():
     assert got.shape == (2,) and np.isfinite(got).all()
     inputs, _ = pred._assemble(feats, np.zeros(1, np.float32))
     np.testing.assert_array_equal(got, pred.predict(inputs))
+
+
+def test_predict_raw_fused_matches_jax():
+    """``fused`` predict_raw from uint8 frames and 16 kHz PCM (the mel image
+    and the waveform) against the JAX fused Predictor's raw path, at the
+    small fused geometry of tests/test_torch_serving.py with the same
+    weights, both on their kernel routes (the JAX side's Pallas kernels in
+    interpret mode): f32 scores within 1e-4."""
+    wave, lengths = _pcm(2, 16000, 63)
+    feats = {"video": np.random.default_rng(64).integers(0, 256, (2, 2, 96, 96, 3), np.uint8),
+             "audio_wave": wave, "audio_len": lengths, "paudio_wave": wave,
+             "paudio_len": lengths}
+    want, got = _raw_case(SMALL_FUSED, feats, 65)
+    assert got.shape == (2,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 def test_score_file_is_not_ported():

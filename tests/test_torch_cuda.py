@@ -37,7 +37,9 @@ from deepfake_tpu_torch.models.layers import BatchNorm, init_weights
 from deepfake_tpu_torch.models.swin2d import shift_attn_mask
 from deepfake_tpu_torch.ops.inception_block import inception_block, inception_block_plain
 from deepfake_tpu_torch.models.swin3d import compute_mask_3d, get_window_size
-from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, ln_linear_plain
+from deepfake_tpu_torch.ops.ln_linear_kernel import (
+    MLP_TAIL_WIDTHS, ln_linear, ln_linear_plain, mlp_tail, mlp_tail_plain,
+)
 from deepfake_tpu_torch.ops.window_attn3d_kernel import (
     window_attn3d_tokens, window_attn3d_tokens_plain,
 )
@@ -191,11 +193,14 @@ def k4_tolerance(want: torch.Tensor) -> float:
     return 2.0 * 2.0 ** (math.floor(math.log2(big)) - 7)
 
 
-# (rows, K, N, role): Video Swin-S stage 0 and stage 3 widths; the row counts
-# are not multiples of the 128-row tile
+# (rows, K, N, role): Video Swin-S stage 0 and stage 3 widths, and the whole
+# MLP tail (mlp_tail: one launch at C <= 384, two at 768) at the four stage
+# widths; the row counts are not multiples of the 64-row tile
 K4_CASES = [(4100, 96, 288, "ln_qkv"), (4100, 96, 96, "proj"), (4100, 96, 384, "sum_ln_fc1_gelu"),
             (4100, 384, 96, "fc2_residual_pair"), (1000, 768, 2304, "ln_qkv"),
-            (1000, 3072, 768, "fc2_residual_pair")]
+            (1000, 3072, 768, "fc2_residual_pair"), (4100, 96, 96, "mlp_tail"),
+            (2050, 192, 192, "mlp_tail"), (1000, 384, 384, "mlp_tail"),
+            (1000, 768, 768, "mlp_tail")]
 
 
 @pytest.mark.cuda
@@ -206,6 +211,21 @@ def test_k4_kernel_matches_plain(cuda_device, M, K, N, role, dtype):
     gen = torch.Generator(cuda_device).manual_seed(4)
     rnd = lambda *s, scale=1.0: (scale * torch.randn(*s, generator=gen, device=cuda_device)).to(dtype)
     x = rnd(M, K)
+    if role == "mlp_tail":
+        C = K
+        h = rnd(M, C)
+        args = ((1 + rnd(C, scale=0.2), rnd(C, scale=0.5), 1e-6), rnd(4 * C, C, scale=C ** -0.5),
+                rnd(4 * C, scale=0.5), rnd(C, 4 * C, scale=(4 * C) ** -0.5), rnd(C, scale=0.5))
+        one = dtype == torch.bfloat16 and C in MLP_TAIL_WIDTHS
+        before = mlp_tail.launches, ln_linear.launches
+        got = mlp_tail(x, h, *args)
+        torch.cuda.synchronize()
+        assert (mlp_tail.launches, ln_linear.launches) == (
+            before[0] + one, before[1] + 2 * (not one))
+        want = mlp_tail_plain(x, h, *args)
+        err = (got.float() - want.float()).abs().max().item()
+        assert math.isfinite(err) and err <= k4_tolerance(want), err
+        return
     w, b = rnd(N, K, scale=K ** -0.5), rnd(N, scale=0.5)
     kw = {}
     if role in ("ln_qkv", "sum_ln_fc1_gelu"):
@@ -343,12 +363,55 @@ def test_k6_kernel_matches_plain(cuda_device, B_, H, N, side, cosine, dtype):
     assert got.transpose(1, 2).is_contiguous()
 
 
+# (window side, windows B_, heads): SwinV2's windows above K2's range that the
+# kernels took only once K6 was widened: windows 9-11 (N = 81-121), window 24
+# (N = 576, the 384^2 fine-tunes) and window 32 (N = 1024, four key tiles)
+K6_RANGE_CASES = [(9, 8, 4), (10, 8, 4), (11, 8, 4), (24, 8, 2), (32, 4, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["tokens", "heads"])
+@pytest.mark.parametrize("ws,B_,H", K6_RANGE_CASES,
+                         ids=[f"N{ws * ws}" for ws, _, _ in K6_RANGE_CASES])
+def test_k6_range_matches_plain(cuda_device, ws, B_, H, layout, dtype):
+    """K6 at N = 81, 100, 121, 576 and 1024, cosine with the shift masks of
+    a 2x2-window grid and logit scales from 10 up to the clamp, in both of
+    SwinV2's layouts: q, k, v read out of one [B_, N, 3C] qkv tensor by
+    strides (token-major) and contiguous head-major tensors."""
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    N, C = ws * ws, 32 * H
+    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=cuda_device).to(dtype)
+    q, k, v = qkv.view(B_, N, 3, H, 32).permute(2, 0, 3, 1, 4).unbind(0)
+    if layout == "heads":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    mask = torch.from_numpy(shift_attn_mask(2 * ws, 2 * ws, ws, ws // 2)).to(cuda_device)
+    kw = dict(bias=16 * torch.sigmoid(torch.randn(H, N, N, generator=gen, device=cuda_device)),
+              mask=mask, logit_scale=torch.exp(torch.linspace(
+                  math.log(10.0), math.log(100.0), H, device=cuda_device)).reshape(H, 1, 1))
+    before = window_attention_multihead.launches
+    got = window_attention_multihead(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert window_attention_multihead.launches == before + 1
+    want = window_attention_heads_plain(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert math.isfinite(err) and err <= k4_tolerance(want), err
+
+
 @pytest.mark.cuda
 def test_k6_raises_for_windows_it_does_not_take(cuda_device):
+    """K2's windows (N <= 64) and head dims other than 32 raise before any
+    launch; nothing falls back to the plain version."""
+    before = window_attention_multihead.launches
     q = torch.zeros(2, 1, 64, 32, device=cuda_device)
-    with pytest.raises(ValueError, match="128 <= N <= 512"):
+    with pytest.raises(ValueError, match="N >= 65"):
         window_attention_multihead(q, q, q, bias=torch.zeros(1, 64, 64),
                                    logit_scale=torch.ones(1, 1, 1))
+    q = torch.zeros(2, 1, 100, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="D == 32"):
+        window_attention_multihead(q, q, q, bias=torch.zeros(1, 100, 100),
+                                   logit_scale=torch.ones(1, 1, 1))
+    assert window_attention_multihead.launches == before
 
 
 @pytest.mark.cuda

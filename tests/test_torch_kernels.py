@@ -211,27 +211,70 @@ def test_k6_plain_matches_pallas_multihead(N, cosine, masked):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
-def test_k6_rejects_what_it_does_not_take():
-    """K6's launch checks raise before any launch for N < 128, N > 512, a
-    head dim other than 32, q, k, v of different strides and a mask that
-    does not tile the windows."""
-    from deepfake_tpu_torch.ops.window_attn_multihead import _launch
+@pytest.mark.parametrize("N,side,ws,route", [(100, 20, 10, "_run"), (576, 48, 24, "_run_multihead")],
+                         ids=["window10_N100", "window24_N576"])
+def test_k6_plain_matches_pallas_above_k2_range(N, side, ws, route):
+    """K6's range above K2's (plain version on the CPU) against
+    pallas_window_attention in interpret mode at the two window sizes the
+    port took no kernel for before: window 10 (N = 100, the Pallas ``_run``
+    route) and window 24 (N = 576, ``_run_multihead``), cosine with the
+    shift masks of a 2x2-window grid, B_ = 4, H = 2: max abs error <= 1e-5."""
+    from deepfake_tpu.ops import pallas_window_attn as P
+
+    rng = np.random.default_rng(36)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)
+    q, k, v = mk(4, 2, N, 32), mk(4, 2, N, 32), mk(4, 2, N, 32)
+    bias = (16.0 / (1.0 + np.exp(-mk(2, N, N)))).astype(np.float32)
+    mask = shift_attn_mask(side, side, ws, ws // 2)
+    ls = np.exp(np.minimum(mk(2, 1, 1) * 0.5 + np.log(10.0), np.log(100.0))).astype(np.float32)
+    assert mask.shape == (4, N, N)
+    runs = []
+    run = getattr(P, route)
+    try:
+        setattr(P, route, lambda *a, **kw: runs.append(route) or run(*a, **kw))
+        want = np.asarray(P.pallas_window_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), bias=jnp.asarray(bias),
+            mask=jnp.asarray(mask), logit_scale=jnp.asarray(ls), cosine=True))
+    finally:
+        setattr(P, route, run)
+    assert runs == [route]
+    t = torch.from_numpy
+    got = window_attention_multihead(t(q), t(k), t(v), bias=t(bias), mask=t(mask),
+                                     logit_scale=t(ls))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_k6_rejects_what_it_does_not_take(monkeypatch):
+    """K6's launch checks raise before any launch for N <= 64 (K2's
+    windows), a head dim other than 32, q, k, v of different strides and a
+    mask that does not tile the windows; windows of 65 to 1024 tokens pass
+    every check and reach the kernel library (no upper limit on N)."""
+    from deepfake_tpu_torch.ops import window_attn_multihead as k6
+
+    class Reached(Exception):
+        pass
+
+    def library():
+        raise Reached
+
+    monkeypatch.setattr(k6, "_lib", library)
 
     def launch(n, d, mask=None, windows=1, k=None):
         q = torch.zeros(windows, 1, n, d)
-        _launch(q, q if k is None else k, q, q, bias=torch.zeros(1, n, n), mask=mask,
-                logit_scale=torch.ones(1), scale=None, cosine=True)
+        k6._launch(q, q if k is None else k, q, q, bias=torch.zeros(1, n, n), mask=mask,
+                   logit_scale=torch.ones(1), scale=None, cosine=True)
 
-    with pytest.raises(ValueError, match="128 <= N <= 512"):
+    with pytest.raises(ValueError, match="N >= 65"):
         launch(64, 32)
-    with pytest.raises(ValueError, match="128 <= N <= 512"):
-        launch(640, 32)
     with pytest.raises(ValueError, match="D == 32"):
         launch(256, 64)
     with pytest.raises(ValueError, match="one set of strides"):
         launch(256, 32, k=torch.zeros(1, 256, 1, 32).transpose(1, 2))
     with pytest.raises(ValueError, match="does not tile 3 windows"):
         launch(256, 32, mask=torch.zeros(2, 256, 256), windows=3)
+    for n in (65, 81, 121, 640, 1024):
+        with pytest.raises(Reached):
+            launch(n, 32)
 
 
 def test_k6_wrapper_takes_the_plain_version_for_cpu_tensors_only():
