@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it (fused: b8 x 32 frames at 224, SwinV2-B at
      224; video_swin: the four Video Swin-S stages at b8 x 32 frames of 224,
-     K3's attention and K4's launches of a block in serving (LN1 + qkv,
+     K3's attention (at b1 too, with the L2 bytes its design reads and the
+     exponentials' floor) and K4's launches of a block in serving (LN1 + qkv,
      proj, and the MLP tail: one launch at C <= 384, fc1 and fc2 at 768),
      K5's forward and backward in training; audio: K6 at the three
      window-16 stages of SwinV2-B at 256^2, b8, shifted and not, logit
@@ -376,6 +377,29 @@ def k3_flops_bytes(B_, H, C, n_masks, elt, mask_elt):
     return flops, nbytes
 
 
+# special-function (ex2) throughput of the H100 SXM: ~3.9 T/s (FlashAttention-3,
+# Shah et al. 2024, section 3); an assumed rate, not measured here, so the floor
+# it gives stays out of the kernels line
+EXP_PER_S = 3.9e12
+
+
+def k3_l2_bytes(B_, H, n_masks, windows_per_block):
+    """What the bf16 design reads from L2 (and writes) in one launch: each
+    block's bias (+ mask) tile, N rows of [N] f32 (+ bf16) over a group's
+    query tiles; each (window, head, query tile) its K and V; each (window,
+    head) its q and its out, 64 bytes a token. Against it, the first design
+    (one block per (window, head)) read each head's bias and its window's
+    mask once per (window, head). A model of the design, not a reading: no
+    counter measures L2 here, so it stays out of the kernels line."""
+    masked = n_masks > 0
+    groups = (n_masks if masked else 1) * math.ceil(B_ // max(n_masks, 1) / windows_per_block)
+    q_tiles = math.ceil(N3 / 64)
+    tiles = H * groups * N3 * N3 * (4 + 2 * masked)
+    tokens = B_ * H * N3 * 64 * (2 * q_tiles + 2)
+    first = B_ * H * (N3 * N3 * (4 + 2 * masked) + 4 * N3 * 64)
+    return tiles + tokens, first
+
+
 def sdpa_mask(bias, mask, B_, dtype):
     """bias [H, N, N] plus the window's mask, as one [B_, H, N, N] attn_mask."""
     H, N, _ = bias.shape
@@ -388,75 +412,114 @@ def sdpa_mask(bias, mask, B_, dtype):
 
 
 def phase_k3(dev, gen, batch: int, report):
+    """K3 at the four Video Swin-S stage shapes, shifted and not, of a b8 and
+    a b1 request; the kernel line's numbers are per b8 request, with b1's
+    beside them."""
     import torch
     import torch.nn.functional as F
 
     from deepfake_tpu_torch.models.swin3d import compute_mask_3d, get_window_size
     from deepfake_tpu_torch.ops import window_attn3d_kernel as k3
 
-    acc = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
-           "bytes": 0.0}
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms",
+            "flops", "bytes", "l2_bytes", "l2_bytes_first", "exp_floor_ms")
+    per_batch = {b: dict.fromkeys(keys, 0.0) for b in (batch, 1)}
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    for grid, H, C, depth in SWIN3D_STAGES:
-        ws, ss = get_window_size(grid, (8, 7, 7), (4, 3, 3))
-        nW = math.prod(n // w for n, w in zip(grid, ws))
-        B_ = batch * nW
-        # the model's shift mask buffer: bf16, [nW, N, N]
-        mask3 = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(dev, torch.bfloat16)
-        for mask, count in ((None, (depth + 1) // 2), (mask3, depth // 2)):
-            name = f"stage {grid} B_={B_} H={H} C={C}" + (" shifted" if mask is not None else "")
-            scale = (C // H) ** -0.5
-            for dtype in (torch.float32, torch.bfloat16):
-                dname = str(dtype).split(".")[1]
-                qkv = torch.randn(B_, N3, 3 * C, generator=gen, device=dev).to(dtype)
-                # large enough that a wrong bias or mask index moves the output
-                # well past the tolerance
-                bias = 0.5 * torch.randn(H, N3, N3, generator=gen, device=dev)
-                q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-                kw = dict(num_heads=H, bias=bias, mask=mask, scale=scale)
-                run = lambda: k3.window_attn3d_tokens(q, k, v, **kw)
-                plain = lambda: k3.window_attn3d_tokens_plain(q, k, v, **kw)
-                got = run()
-                torch.cuda.synchronize()
-                err, tol = k3_check(got, plain(), f"tokens {name} {dname}")
-                errs[dname] = max(errs[dname], err)
-                row = dict(kernel="window_attn3d_tokens", case=name, dtype=dname,
-                           max_abs_err=err, tol=tol, blocks_per_request=count)
-                if dtype == torch.bfloat16:
-                    ms = cuda_time_ms(run, iters=10)
-                    pms = cuda_time_ms(plain, iters=3)
-                    hq, hk, hv = (t.reshape(B_, N3, H, C // H).transpose(1, 2).contiguous()
-                                  for t in (q, k, v))
-                    am = sdpa_mask(bias, mask, B_, dtype)
-                    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                        hq, hk, hv, attn_mask=am, scale=scale), iters=10)
-                    del hq, hk, hv, am
-                    n_masks = 0 if mask is None else mask.shape[0]
-                    flops, nbytes = k3_flops_bytes(B_, H, C, n_masks, 2, 2)
-                    b, by = bound_ms(flops, nbytes, dname)
-                    row.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b, bound_by=by,
-                               gflop=flops / 1e9, mbytes=nbytes / 1e6)
-                    log(f"K3 tokens {name:42s} {dname} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
-                        f"library_ms={lib:.4f} bound_ms={b:.4f} ({by}) err={err:.2e} "
-                        f"(tol {tol:.2e})")
-                    for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lib),
-                                     ("bound_ms", b), ("flops", flops), ("bytes", nbytes)):
-                        acc[key] += count * val
-                else:
-                    row["ms"] = cuda_time_ms(run, iters=3)
-                    log(f"K3 tokens {name:42s} {dname} kernel_ms={row['ms']:.4f} "
-                        f"err={err:.2e} (tol {tol:.0e})")
-                report["k3"].append(row)
-                del qkv, bias, q, k, v, got
-            torch.cuda.empty_cache()
+    for b_req, acc in per_batch.items():
+        for grid, H, C, depth in SWIN3D_STAGES:
+            ws, ss = get_window_size(grid, (8, 7, 7), (4, 3, 3))
+            nW = math.prod(n // w for n, w in zip(grid, ws))
+            B_ = b_req * nW
+            # the model's shift mask buffer: bf16, [nW, N, N]
+            mask3 = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(dev, torch.bfloat16)
+            for mask, count in ((None, (depth + 1) // 2), (mask3, depth // 2)):
+                name = (f"b{b_req} stage {grid} B_={B_} H={H} C={C}"
+                        + (" shifted" if mask is not None else ""))
+                scale = (C // H) ** -0.5
+                for dtype in (torch.float32, torch.bfloat16):
+                    dname = str(dtype).split(".")[1]
+                    qkv = torch.randn(B_, N3, 3 * C, generator=gen, device=dev).to(dtype)
+                    # large enough that a wrong bias or mask index moves the
+                    # output well past the tolerance
+                    bias = 0.5 * torch.randn(H, N3, N3, generator=gen, device=dev)
+                    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+                    kw = dict(num_heads=H, bias=bias, mask=mask, scale=scale)
+                    run = lambda: k3.window_attn3d_tokens(q, k, v, **kw)
+                    plain = lambda: k3.window_attn3d_tokens_plain(q, k, v, **kw)
+                    got = run()
+                    torch.cuda.synchronize()
+                    err, tol = k3_check(got, plain(), f"tokens {name} {dname}")
+                    errs[dname] = max(errs[dname], err)
+                    row = dict(kernel="window_attn3d_tokens", case=name, dtype=dname,
+                               max_abs_err=err, tol=tol, blocks_per_request=count)
+                    if dtype == torch.bfloat16:
+                        # events time back-to-back calls, which at b1 also
+                        # counts the host's ~30-40 us a call; the profiler's
+                        # device time does not
+                        ms = cuda_time_ms(run, iters=10)
+                        dms = device_time_ms(run)
+                        pms = cuda_time_ms(plain, iters=3)
+                        hq, hk, hv = (t.reshape(B_, N3, H, C // H).transpose(1, 2).contiguous()
+                                      for t in (q, k, v))
+                        am = sdpa_mask(bias, mask, B_, dtype)
+                        sdpa = lambda: F.scaled_dot_product_attention(
+                            hq, hk, hv, attn_mask=am, scale=scale)
+                        lib = cuda_time_ms(sdpa, iters=10)
+                        lib_dms = device_time_ms(sdpa)
+                        del hq, hk, hv, am, sdpa
+                        n_masks = 0 if mask is None else mask.shape[0]
+                        flops, nbytes = k3_flops_bytes(B_, H, C, n_masks, 2, 2)
+                        b, by = bound_ms(flops, nbytes, dname)
+                        g = k3.windows_per_block(B_, H, N3, max(n_masks, 1), mask is not None)
+                        l2, l2_first = k3_l2_bytes(B_, H, n_masks, g)
+                        floor = B_ * H * N3 * N3 / EXP_PER_S * 1e3
+                        row.update(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib,
+                                   library_device_ms=lib_dms, bound_ms=b, bound_by=by,
+                                   gflop=flops / 1e9, mbytes=nbytes / 1e6, windows_per_block=g,
+                                   # not measured: the design's count and an
+                                   # assumed exp rate, beside the measured ms
+                                   l2_mbytes_model=l2 / 1e6,
+                                   l2_mbytes_model_first=l2_first / 1e6,
+                                   exp_floor_ms_assumed_rate=floor)
+                        log(f"K3 tokens {name:45s} {dname} kernel_ms={ms:.4f} device_ms={dms:.4f} "
+                            f"plain_ms={pms:.4f} library_ms={lib:.4f} (device {lib_dms:.4f}) "
+                            f"bound_ms={b:.4f} ({by}) err={err:.2e} (tol {tol:.2e}); "
+                            f"not measured: exp_floor_ms at an assumed 3.9 T/s={floor:.4f} "
+                            f"G={g} modelled l2_MB={l2 / 1e6:.1f} (first design "
+                            f"{l2_first / 1e6:.1f})")
+                        for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                                         ("library_ms", lib), ("library_device_ms", lib_dms),
+                                         ("bound_ms", b), ("flops", flops), ("bytes", nbytes),
+                                         ("l2_bytes", l2), ("l2_bytes_first", l2_first),
+                                         ("exp_floor_ms", floor)):
+                            acc[key] += count * val
+                    else:
+                        row["ms"] = cuda_time_ms(run, iters=3)
+                        log(f"K3 tokens {name:45s} {dname} kernel_ms={row['ms']:.4f} "
+                            f"err={err:.2e} (tol {tol:.0e})")
+                    report["k3"].append(row)
+                    del qkv, bias, q, k, v, got
+                torch.cuda.empty_cache()
 
     k3.window_attn3d_tokens.launches = 0
+    acc, acc1 = per_batch[batch], per_batch[1]
     _, by = bound_ms(acc["flops"], acc["bytes"], "bfloat16")
+    for b_req, a in per_batch.items():
+        log(f"K3 per b{b_req} request: kernel_ms={a['ms']:.4f} device_ms={a['device_ms']:.4f} "
+            f"library_ms={a['library_ms']:.4f} (device {a['library_device_ms']:.4f}) "
+            f"plain_ms={a['plain_ms']:.4f} bound_ms={a['bound_ms']:.4f}; not measured: "
+            f"exp_floor_ms at an assumed 3.9 T/s={a['exp_floor_ms']:.4f} modelled l2_GB="
+            f"{a['l2_bytes'] / 1e9:.3f} (first design {a['l2_bytes_first'] / 1e9:.3f})")
     return dict(name="window_attn3d_tokens (K3)", route="cuda", source=K3_SRC,
                 replaces=K3_TOK_REPLACES, launches=None, max_abs_err=errs["bfloat16"],
                 max_abs_err_f32=errs["float32"], ms=acc["ms"], plain_ms=acc["plain_ms"],
                 bound_ms=acc["bound_ms"], bound_by=by, library_ms=acc["library_ms"],
-                per="one video_swin b8 request: 24 Video Swin-S blocks, bf16")
+                device_ms=acc["device_ms"], library_device_ms=acc["library_device_ms"],
+                ms_b1=acc1["ms"], device_ms_b1=acc1["device_ms"], plain_ms_b1=acc1["plain_ms"],
+                library_ms_b1=acc1["library_ms"], library_device_ms_b1=acc1["library_device_ms"],
+                bound_ms_b1=acc1["bound_ms"],
+                per=f"one video_swin b{batch} request (b1 in the _b1 keys): 24 Video Swin-S "
+                    "blocks, bf16")
 
 
 # ---------------------------------------------------------------- phase 2: K4

@@ -73,6 +73,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 #include <algorithm>
 #include <initializer_list>
 #include <type_traits>
@@ -250,81 +252,10 @@ constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
 constexpr int MAX_PANEL_K = 1024;
 constexpr int MAX_STAGES = 8;
 
-// ---- shared memory, barriers, TMA, wgmma (inline PTX)
+// ---- shared memory, barriers, TMA, wgmma: hopper.cuh
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-// returns once the phase of parity `parity` has completed; a wait of more
-// than 10 s is a fault in the schedule, so it traps (the launch fails)
-// instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done, spins = 0;
-  uint64_t t0 = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (!done && (++spins & 255) == 0) {
-      if (!t0) t0 = global_ns();
-      else if (global_ns() - t0 > 10000000000ull) __trap();
-    }
-  } while (!done);
-}
-// one 2D box of the tensor map at (x = column, y = row) into dst; completion
-// (its bytes) is counted on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
-                                         int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
-      : "memory");
-}
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-// generic-proxy writes to shared memory become visible to wgmma and TMA
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads above a wgmma wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using namespace hopper;
+
 // wgmma descriptor of a K-major, 128-byte-swizzled operand at p (inside a
 // 1024-aligned atom): stride between 8-row groups 1024 bytes; a step of 16 k
 // inside the atom is p + 32 bytes
@@ -987,51 +918,17 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 // ---- host: tensor maps and schedules
 
-// cuTensorMapEncodeTiled, from the driver through the runtime, so that the
-// library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
 // the bf16 matrix [rows, cols] (row stride ld elements) in boxes of
 // [box_rows, 64], 128-byte swizzled; reads past the edges are zeros
 bool tensor_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t cols, int64_t ld,
                 int box_rows) {
-  const EncodeTiled enc = encoder();
-  if (!enc) return false;
   const cuuint64_t dim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t stride[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {(cuuint32_t)hop::KC, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dim, stride, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::encode_bf16(map, ptr, 2, dim, stride, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
-}
+using hopper::sm_count;
 
 // persistent blocks: as many as fit on the card at once, no more than units
 template <typename Kernel>

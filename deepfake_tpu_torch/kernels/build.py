@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``deepfake_tpu_torch/_build/lib<name>-<hash>.so``; the hash covers the
-source and the flags, so an edited source never loads a stale library.
+source, the headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source or header never loads a stale library.
 No PyTorch header is included, so a build takes seconds. ``build_all``
 starts one ``nvcc`` per source at once and waits for all of them.
 
@@ -44,9 +45,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    # the source and every header beside it (csrc/*.cuh), which it may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:

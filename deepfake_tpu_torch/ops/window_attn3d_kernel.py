@@ -7,12 +7,15 @@ channel slices), and, between K4's qkv and proj launches
 ``pallas_window_attention_nhc_qkv`` (:548). Windows of up to 512 tokens, head
 dim 32.
 
-The wrapper takes its plain version for a CPU tensor and launches the kernel
-for a CUDA tensor, or raises; ``window_attn3d_tokens.launches`` counts kernel
-launches. The plain version keeps the Pallas kernel's cast points: q *
-bf16(scale) in q's type, f32 logits, + bias + mask, the static-shift softmax
-exp(min(x - 24, 60)) with 1/rowsum deferred to the PV output, the weights
-cast to q's type for PV.
+On the card, bf16 runs on Hopper's wgmma and TMA: one block per (head, group
+of windows that read one mask index, query tile of 64 rows), the group
+sharing one bias + mask tile in shared memory (see the source's note); f32
+runs the SIMT parity kernel. The wrapper takes its plain version for a CPU
+tensor and launches the kernel for a CUDA tensor, or raises;
+``window_attn3d_tokens.launches`` counts kernel launches. The plain version
+keeps the Pallas kernel's cast points: q * bf16(scale) in q's type, f32
+logits, + bias + mask, the static-shift softmax exp(min(x - 24, 60)) with
+1/rowsum deferred to the PV output, the weights cast to q's type for PV.
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ def _lib():
         lib.k3_window_attn.argtypes = [
             i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i, ctypes.c_float, i, i, i, i, p]
         lib.k3_window_attn.restype = i
+        lib.k3_windows_per_block.argtypes = [i, i, i, i, i]
+        lib.k3_windows_per_block.restype = i
         lib.k3_error_string.argtypes = [i]
         lib.k3_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -92,6 +97,15 @@ def _launch(q, k, v, strides, out, out_strides, *, windows, heads, n, d, bias, m
         mask.data_ptr() if mask is not None else None, n_masks, float(scale),
         windows, heads, n, d, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, lib.k3_error_string, "k3_window_attn")
+
+
+def windows_per_block(windows: int, heads: int, n: int, n_masks: int, masked: bool) -> int:
+    """G: the windows one block of the bf16 route takes for a launch of these
+    arguments (windows that share a mask index, or any windows without a
+    mask), as the kernel's host code chooses it for this card. A diagnostic:
+    chip_smoke.py's modelled L2 reads and the card tests read it; the
+    launch path does not."""
+    return _lib().k3_windows_per_block(windows, heads, n, n_masks, int(masked))
 
 
 def window_attn3d_tokens(q, k, v, *, num_heads: int, bias, mask=None, scale: float):

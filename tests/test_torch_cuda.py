@@ -41,7 +41,7 @@ from deepfake_tpu_torch.ops.ln_linear_kernel import (
     MLP_TAIL_WIDTHS, ln_linear, ln_linear_plain, mlp_tail, mlp_tail_plain,
 )
 from deepfake_tpu_torch.ops.window_attn3d_kernel import (
-    window_attn3d_tokens, window_attn3d_tokens_plain,
+    window_attn3d_tokens, window_attn3d_tokens_plain, windows_per_block,
 )
 from deepfake_tpu_torch.ops.window_attn3d_train import (
     window_attn3d_train, window_attn3d_train_bwd, window_attn3d_train_bwd_plain,
@@ -151,24 +151,42 @@ def k3_tolerance(want: torch.Tensor) -> float:
     return 2.0 * 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B_,H,masked,N", [
-    (256, 3, True, 392), (64, 12, False, 392), (16, 24, True, 392), (8, 2, True, 196),
-    (3, 1, False, 512)], ids=["stage0_shifted", "stage2", "stage3_shifted", "clamped_196",
-                              "n512"])
-def test_k3_tokens_kernel_matches_plain(cuda_device, B_, H, masked, N, dtype):
-    gen = torch.Generator(cuda_device).manual_seed(2)
+def _k3_case(dev, B_, H, masked, N, dtype):
+    """q, k, v as column slices of one qkv tensor, bias [H, N, N], and the
+    shift mask of a 16x14x14 (N = 392: 8 windows) or 4x14x14 (N = 196: 4
+    windows) token grid, or None."""
+    gen = torch.Generator(dev).manual_seed(2)
     C = 32 * H
-    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=cuda_device).to(dtype)
-    bias = 0.5 * torch.randn(H, N, N, generator=gen, device=cuda_device)
+    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=dev).to(dtype)
+    bias = 0.5 * torch.randn(H, N, N, generator=gen, device=dev)
     mask = None
     if masked:
         grid = {392: (16, 14, 14), 196: (4, 14, 14)}[N]
         ws = (8, 7, 7) if N == 392 else (4, 7, 7)
-        mask = torch.from_numpy(compute_mask_3d(*grid, ws, (4, 3, 3))).to(cuda_device)
+        mask = torch.from_numpy(compute_mask_3d(*grid, ws, (4, 3, 3))).to(dev)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-    kw = dict(num_heads=H, bias=bias, mask=mask, scale=32 ** -0.5)
+    return q, k, v, dict(num_heads=H, bias=bias, mask=mask, scale=32 ** -0.5)
+
+
+# (B_, H, masked, N): Video Swin-S stage shapes (the mask has 8 windows at N =
+# 392, so stage0_shifted groups 32 windows a mask index and b1 one); b3 an
+# odd batch; ungrouped an unmasked launch whose B_ (prime) is not a multiple
+# of the windows a block takes; N = 196 and 512 through the same schedule
+# (N = 512 with one ring stage)
+K3_CASES = {"stage0_shifted": (256, 3, True, 392), "stage2": (64, 12, False, 392),
+            "stage3_shifted": (16, 24, True, 392), "clamped_196": (8, 2, True, 196),
+            "n512": (3, 1, False, 512), "stage2_shifted_b1": (8, 12, True, 392),
+            "stage2_shifted_b3": (24, 12, True, 392), "ungrouped": (1021, 3, False, 392)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B_,H,masked,N", list(K3_CASES.values()), ids=list(K3_CASES))
+def test_k3_tokens_kernel_matches_plain(cuda_device, B_, H, masked, N, dtype):
+    q, k, v, kw = _k3_case(cuda_device, B_, H, masked, N, dtype)
+    if B_ == 1021:
+        g = windows_per_block(B_, H, N, 1, False)
+        assert g > 1 and B_ % g, g
     before = window_attn3d_tokens.launches
     got = window_attn3d_tokens(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -176,6 +194,18 @@ def test_k3_tokens_kernel_matches_plain(cuda_device, B_, H, masked, N, dtype):
     want = window_attn3d_tokens_plain(q, k, v, **kw)
     err = (got.float() - want.float()).abs().max().item()
     assert math.isfinite(err) and err <= k3_tolerance(want), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k3_is_deterministic(cuda_device, dtype):
+    """K3 has no atomics: two calls on the same inputs give the same bits."""
+    q, k, v, kw = _k3_case(cuda_device, *K3_CASES["stage0_shifted"], dtype)
+    a = window_attn3d_tokens(q, k, v, **kw)
+    b = window_attn3d_tokens(q, k, v, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(a.view(bits), b.view(bits))
 
 
 @pytest.mark.cuda

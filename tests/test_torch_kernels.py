@@ -307,13 +307,15 @@ def _attn3d_inputs(B_, H, seed, masked):
     return q, k, v, bias, mask
 
 
-@pytest.mark.parametrize("masked", [True, False], ids=["shifted_nW4", "unshifted"])
-def test_k3_plain_tokens_matches_pallas_nhc(masked):
+@pytest.mark.parametrize("masked,B_", [(True, 4), (False, 4), (True, 8), (True, 12)],
+                         ids=["shifted_nW4", "unshifted", "shifted_b2", "shifted_b3"])
+def test_k3_plain_tokens_matches_pallas_nhc(masked, B_):
     """Token-major K3 (plain on the CPU) == pallas_window_attention_nhc
-    (interpret mode; static-shift softmax, deferred 1/rowsum) at N=392,
-    B_=4, H=4, q, k, v as column slices of one qkv tensor: max abs error
-    <= 2e-5."""
-    B_, H, N, D = 4, 4, 392, 32
+    (interpret mode; static-shift softmax, deferred 1/rowsum) at N=392, H=4,
+    q, k, v as column slices of one qkv tensor: max abs error <= 2e-5. The
+    batch layouts the kernel's window groups rely on: b1 (B_ = nW = 4), b2
+    and an odd batch (B_ = 3 nW), window w reading mask w % nW."""
+    H, N, D = 4, 392, 32
     q, k, v, bias, mask = _attn3d_inputs(B_, H, 30, masked)
     tok = lambda a: a.transpose(0, 2, 1, 3).reshape(B_, N, H * D)
     j = lambda a: None if a is None else jnp.asarray(a)
