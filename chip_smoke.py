@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      K3's attention (at b1 too, with the L2 bytes its design reads and the
      exponentials' floor) and K4's launches of a block in serving (LN1 + qkv,
      proj, and the MLP tail: one launch at C <= 384, fc1 and fc2 at 768),
-     K5's forward and backward in training; audio: K6 at the three
+     K5's forward and backward in training, with device times by
+     torch.profiler (the backward's two launches apart) beside SDPA's
+     forward and backward; audio: K6 at the three
      window-16 stages of SwinV2-B at 256^2, b8, shifted and not, logit
      scales up to 100, one scaled N = 392 case, and windows 10 and 24 (N =
      100 and 576, off the main path)), f32 with TF32 off and bf16; kernel,
@@ -117,11 +119,10 @@ def cuda_time_ms(fn, iters: int = 3, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters: int = 10) -> float:
-    """The device's own time per call of ``fn`` (the summed durations of the
-    kernels it launches, torch.profiler), after one warm-up call: unlike
-    cuda_time_ms it leaves out the gaps while the host issues the calls,
-    which set the event time of launches shorter than their host work."""
+def device_kernel_ms(fn, iters: int = 10) -> dict:
+    """The device's own time per call of ``fn`` by kernel name (the summed
+    durations of each kernel it launches, torch.profiler), after one warm-up
+    call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -132,8 +133,19 @@ def device_time_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return by_name
+
+
+def device_time_ms(fn, iters: int = 10) -> float:
+    """The device's own time per call of ``fn`` (every kernel it launches):
+    unlike cuda_time_ms it leaves out the gaps while the host issues the
+    calls, which set the event time of launches shorter than their host
+    work."""
+    return sum(device_kernel_ms(fn, iters).values())
 
 
 def errors(got, want):
@@ -700,8 +712,9 @@ def phase_k5(dev, gen, batch: int, report):
     from deepfake_tpu_torch.models.swin3d import compute_mask_3d, get_window_size
     from deepfake_tpu_torch.ops import window_attn3d_train as k5
 
-    acc = {d: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
-               "bytes": 0.0} for d in ("fwd", "bwd")}
+    acc = {d: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "library_device_ms": 0.0, "flops": 0.0, "bytes": 0.0} for d in ("fwd", "bwd")}
+    acc["bwd"].update(device_ms_launch1=0.0, device_ms_launch2=0.0)
     errs = {(d, t): 0.0 for d in ("fwd", "bwd") for t in ("float32", "bfloat16")}
     for grid, H, C, depth in SWIN3D_STAGES:
         ws, ss = get_window_size(grid, (8, 7, 7), (4, 3, 3))
@@ -737,6 +750,16 @@ def phase_k5(dev, gen, batch: int, report):
                            max_abs_err_fwd=e_f, max_abs_err_bwd=e_b, blocks_per_microbatch=count)
                 if dtype == torch.bfloat16:
                     ms_f, ms_b = cuda_time_ms(run_f, iters=10), cuda_time_ms(run_b, iters=10)
+                    dms_f = device_time_ms(run_f)
+                    # the backward's device time by launch: launch 1 (dq,
+                    # dbias) and launch 2 (dk, dv); the rest is the
+                    # wrapper's copies and zero fills
+                    by_name = device_kernel_ms(run_b)
+                    dms_b = sum(by_name.values())
+                    l1 = sum(v for k, v in by_name.items() if "dq_bf16" in k)
+                    l2 = sum(v for k, v in by_name.items() if "dkdv_bf16" in k)
+                    if not (l1 > 0 and l2 > 0):
+                        fail(f"K5 bwd {name}: the profile shows no launch 1 or 2: {by_name}")
                     pms_f, pms_b = cuda_time_ms(plain_f, iters=3), cuda_time_ms(plain_b, iters=3)
                     # SDPA forward, and its backward alone, with bias + mask as one
                     # grad-requiring [B_, H, N, N] attn_mask
@@ -746,23 +769,36 @@ def phase_k5(dev, gen, batch: int, report):
                     sdpa = lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am,
                                                                   scale=kw["scale"])
                     lib_f = cuda_time_ms(sdpa, iters=10)
+                    lib_dms_f = device_time_ms(sdpa)
                     o = sdpa()
                     do_h = dout.reshape(B_, N3, H, C // H).transpose(1, 2).contiguous()
-                    lib_b = cuda_time_ms(lambda: torch.autograd.grad(
-                        o, (hq, hk, hv, am), do_h, retain_graph=True), iters=10)
-                    del hq, hk, hv, am, o, do_h
+                    sdpa_b = lambda: torch.autograd.grad(o, (hq, hk, hv, am), do_h,
+                                                         retain_graph=True)
+                    lib_b = cuda_time_ms(sdpa_b, iters=10)
+                    lib_dms_b = device_time_ms(sdpa_b)
+                    del hq, hk, hv, am, o, do_h, sdpa_b
                     n_masks = 0 if mask is None else mask.shape[0]
-                    for d, ms, pms, lib, (flops, nbytes) in (
-                            ("fwd", ms_f, pms_f, lib_f, k5_flops_bytes(B_, H, C, n_masks)[0]),
-                            ("bwd", ms_b, pms_b, lib_b, k5_flops_bytes(B_, H, C, n_masks)[1])):
+                    for d, ms, dms, pms, lib, lib_dms, (flops, nbytes) in (
+                            ("fwd", ms_f, dms_f, pms_f, lib_f, lib_dms_f,
+                             k5_flops_bytes(B_, H, C, n_masks)[0]),
+                            ("bwd", ms_b, dms_b, pms_b, lib_b, lib_dms_b,
+                             k5_flops_bytes(B_, H, C, n_masks)[1])):
                         b, by = bound_ms(flops, nbytes, dname)
-                        row[d] = dict(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b, bound_by=by,
+                        row[d] = dict(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib,
+                                      library_device_ms=lib_dms, bound_ms=b, bound_by=by,
                                       gflop=flops / 1e9, mbytes=nbytes / 1e6)
-                        log(f"K5 {d} {name:42s} {dname} kernel_ms={ms:.4f} plain_ms={pms:.3f} "
-                            f"sdpa_ms={lib:.4f} bound_ms={b:.4f} ({by})")
-                        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lib),
+                        split = (f" (launch 1 {l1:.4f}, launch 2 {l2:.4f})" if d == "bwd"
+                                 else "")
+                        log(f"K5 {d} {name:42s} {dname} kernel_ms={ms:.4f} device_ms={dms:.4f}"
+                            f"{split} plain_ms={pms:.3f} sdpa_ms={lib:.4f} (device "
+                            f"{lib_dms:.4f}) bound_ms={b:.4f} ({by})")
+                        for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                                         ("library_ms", lib), ("library_device_ms", lib_dms),
                                          ("bound_ms", b), ("flops", flops), ("bytes", nbytes)):
                             acc[d][key] += count * val
+                    row["bwd"].update(device_ms_launch1=l1, device_ms_launch2=l2)
+                    acc["bwd"]["device_ms_launch1"] += count * l1
+                    acc["bwd"]["device_ms_launch2"] += count * l2
                     log(f"K5 {name:46s} {dname} err fwd={e_f:.2e} bwd={e_b:.2e}")
                 else:
                     row["ms_fwd"] = cuda_time_ms(run_f, iters=3)
@@ -778,14 +814,24 @@ def phase_k5(dev, gen, batch: int, report):
     for d, rep, what in (("fwd", K5_FWD_REPLACES, "forward"), ("bwd", K5_BWD_REPLACES, "backward")):
         a = acc[d]
         _, by = bound_ms(a["flops"], a["bytes"], "bfloat16")
-        rows.append(dict(
+        row = dict(
             name=f"window_attn3d_train_{d} (K5)", route="cuda", source=K5_SRC, replaces=rep,
             launches=None, max_abs_err=errs[d, "bfloat16"], max_abs_err_f32=errs[d, "float32"],
             ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"], bound_by=by,
-            library_ms=a["library_ms"],
+            library_ms=a["library_ms"], device_ms=a["device_ms"],
+            library_device_ms=a["library_device_ms"],
             per=f"one video_swin b8 training micro-batch: the {what} of 24 Video Swin-S blocks, "
                 "bf16; library_ms is SDPA's " + what + " with bias + mask as a grad-requiring "
-                "attn_mask"))
+                "attn_mask")
+        if d == "bwd":
+            row.update(device_ms_launch1=a["device_ms_launch1"],
+                       device_ms_launch2=a["device_ms_launch2"])
+        log(f"K5 {what} per b8 micro-batch: kernel_ms={a['ms']:.4f} device_ms={a['device_ms']:.4f}"
+            + (f" (launch 1 {a['device_ms_launch1']:.4f}, launch 2 {a['device_ms_launch2']:.4f})"
+               if d == "bwd" else "")
+            + f" plain_ms={a['plain_ms']:.4f} sdpa_ms={a['library_ms']:.4f} (device "
+            f"{a['library_device_ms']:.4f}) bound_ms={a['bound_ms']:.4f}")
+        rows.append(row)
     return rows
 
 

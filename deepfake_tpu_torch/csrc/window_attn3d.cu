@@ -224,78 +224,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 // the static-shift weight exp(min(x - 24, 60)) of a logit x = s + (bias +
 // mask), with the tile holding b = (bias + mask) log2 e - 24 log2 e:
 // 2^min(s log2 e + b, 60 log2 e)
 __device__ __forceinline__ float weight(float s, float b) {
   return ex2(fminf(fmaf(s, LOG2E, b), 60.f * LOG2E));
 }
-
-// wgmma descriptor of an operand in the 64-byte-swizzled layout TMA writes
-// for rows of 32 bf16 (64 bytes; 8-row groups 512 bytes apart). K-major (K
-// for S: the head dim contiguous) ignores lbo; for V, read MN-major (the
-// head dim, wgmma's N, contiguous), lbo and sbo are both 512 bytes.
-__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
-}
-
-// wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A from registers (the
-// mma.m16n8k16 A fragment of each warp's 16 rows), B from shared memory;
-// TRANS_B 0: B K-major, 1: MN-major; acc == 0 overwrites d
-template <int N, int TRANS_B>
-struct WgmmaRS;
-
-template <>
-struct WgmmaRS<64, 0> {
-  __device__ static __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                             int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-  }
-};
-
-template <>
-struct WgmmaRS<16, 0> {
-  __device__ static __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
-                                             int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-  }
-};
-
-template <>
-struct WgmmaRS<32, 1> {
-  __device__ static __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
-                                             int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-  }
-};
 
 // One chunk of W keys from key kc on: S = (q s) K^T, the weights against
 // the bias tile (ta: this thread's row a at key 2 (lane % 4); row b = a + 8

@@ -31,49 +31,86 @@
 // operations, ~1.18 ms). Both are bound by bytes.
 //
 // Routes:
-//   - bf16 (training): tensor cores, mma.sync m16n8k16 with bf16 inputs and
-//     f32 accumulation; exponentials by the fast __expf (relative error
-//     ~1e-6, far below the bf16 rounding of P and dS). q k^T and dO v^T take
-//     the bf16 q, k, v, dO as they are, so their products are exact. P and
-//     dS, f32 in the Pallas kernel, are rounded to bf16 where they feed P V,
-//     P^T dO, dS K and dS^T Q (the JAX package's opt-in
-//     DEEPFAKE_TPU_TRAIN_MXU_BF16=1 discipline, :1113);
-//     the softmax, its statistics, dS itself and the dbias sums stay f32.
-//     * forward: one block of 8 warps per (window, head), as K3, with an
-//       online row max: K and V in shared memory, each warp streams keys 16
-//       at a time over 16 query rows; nothing of [N, N] leaves registers.
-//     * backward, launch 1 (dq and dbias): one block of 16 warps per (32-row
-//       query slab, head, group of G windows): two row groups of 16 rows x
-//       eight key groups (every eighth step of 16 keys). A first sweep
-//       recomputes the row max, the row sum and rowsum(dP o P) (online, like
-//       the forward); the key groups' partials meet in shared memory and are
-//       saved as [B_, H, 3, NS] f32 for launch 2. A second sweep forms P, dP
-//       and dS, adds dS into the block's f32 [32, N] dbias slab in shared
-//       memory and accumulates dq, whose key-group partials are summed in
-//       shared memory. The slab's bias rows sit in shared memory for the whole
-//       group and the window's mask rows for the window, so the inner loops
-//       read nothing from device memory. After its G windows the block adds
-//       its slab into dbias with one atomic add per element, so the L2
-//       reductions are 1/G of adding every window's dS (G = 16 at stages
-//       0-1). The atomics make the order of that sum vary from run to run
-//       (f32 rounding only).
-//     * backward, launch 2 (dk, dv): one block of 8 warps per (window, head),
-//       Q and dO and the row statistics in shared memory; each warp owns 16
-//       keys and streams the queries (S^T = K Q^T, from the transposed bias
-//       and mask the caller passes), accumulating dK and dV in registers.
-//     Both backward launches take keys (launch 1) or queries (launch 2) in
-//     K3's key_of order, so a thread's four logits of a row are consecutive
-//     columns: one 8-byte bias load, one 8-byte mask load, one 16-byte dbias
-//     add.
+//   - bf16 forward (training): tensor cores, mma.sync m16n8k16 with bf16
+//     inputs and f32 accumulation, exponentials by the fast __expf; one
+//     block of 8 warps per (window, head), as K3's first design, with an
+//     online row max: K and V in shared memory, each warp streams keys 16 at
+//     a time over 16 query rows; nothing of [N, N] leaves registers.
+//   - bf16 backward, Hopper (namespace hop): wgmma for every product, TMA
+//     for q, k, v and dO, two launches. As in K3, the windows that read one
+//     mask index (window w reads mask w % nW, windows come batch-major) share
+//     one bias + mask tile per head, built once per block in shared memory,
+//     and an unmasked launch groups any G windows (G from the host,
+//     window_group in ops/window_attn3d_train.py, to fill the SMs' waves).
+//     The tile is bf16 in launch 1: the bias is bf16 at this cast point, so
+//     the tile is exact where the mask is 0; where it is -100 the weight is
+//     below 1e-40 in either rounding. The tiles, the dbias slab and the row
+//     statistics keep each run of 16 columns in the order of the wgmma
+//     accumulator (pos_of), so a thread reads its 4 values of a row at once.
+//     A weight is P = 2^((s scale + tile) log2 e - lse), lse the row's
+//     log-sum-exp in base 2: two FMAs and one ex2.approx.
+//     * launch 1 (dq, dbias, the row statistics): one block per (head,
+//       group, 64-row query tile), three warpgroups and no producer warp
+//       (so a thread may keep 168 registers; a producer warp beside them
+//       would cap it at 128). Thread 0 streams each window's q and dO tiles
+//       and its whole K and V by TMA (3D tensor maps over the column slices
+//       of qkv and dout, 64-byte swizzle, rows past N zero-filled) into a
+//       ring of stages: one at N = 392, where the tile (51 KB) and the f32
+//       dbias slab (102 KB) leave room for one window's K and V, two where
+//       they fit. The warpgroups split the keys in chunks of 64. Sweep 1
+//       forms S = q K^T and dP = dO V^T (wgmma m64n64k16, q and dO as
+//       register A fragments) for the online row max, row sum and
+//       rowsum(e dP); the warpgroups combine them through shared
+//       memory and save (lse, rowsum(dP P)) for launch 2. Sweep 2 forms S
+//       and dP again, then P and dS = P (dP - rowsum(dP P)) in f32, adds dS
+//       into the block's f32 [64, N] dbias slab, and re-packs dS in registers
+//       as the bf16 A operand of dq += dS K (K read MN-major). Holding S and
+//       dP of the tile instead (205 KB) does not fit beside the tile, the
+//       slab and K and V; the second sweep repeats two products and one pass
+//       of exponentials (PERF.md, K5 backward's Step 0). The other
+//       warpgroups hand their dq to the first, which refills the stage (the
+//       next window's loads start), then adds and stores. After its windows
+//       the block adds its slab into dbias with one atomic add per element
+//       (the order of that sum varies from run to run: f32 rounding only).
+//       Where the slab does not fit (N > ~440) dS is added into dbias per
+//       window instead.
+//     * launch 2 (dk, dv): one block per (head, group, 64-key tile), two
+//       warpgroups and no producer warp: thread 0 streams each window's K
+//       and V tiles, its whole q and dO and its row statistics (a bulk copy)
+//       into a two-stage ring as stages free up, so that no SM sub-partition
+//       holds three warps and a thread may keep ~200 registers (with a
+//       producer warp ptxas capped them at 168 and spilled: 8% slower). The
+//       block builds the transposed bias + mask tile [64 keys, N queries]
+//       once from the untransposed bias and mask. The warpgroups split the
+//       queries in chunks of 64: S^T = K q^T, dP^T = V dO^T, P^T and dS^T,
+//       then dV += P^T dO and dK += dS^T q from the re-packed registers. dK
+//       and dV of the block's keys are complete after each window: no
+//       atomics.
+//     What sets its time (PERF.md, K5 backward findings, diagnostic
+//     builds): neither bytes nor the exponentials. In launch 2 the products
+//     dV and dK (8 wgmma m64n32k16 a chunk, B read MN-major) take half the
+//     time, twice what S^T and dP^T take for the same operations; in
+//     launch 1 the two sweeps' products, the tile reads and the window's
+//     exposed load share it with the elementwise work.
+//     Every mbarrier wait traps after 10 s (csrc/hopper.cuh), so a fault in
+//     the schedule is a failed launch, not a hang.
+//     The cast points are those of the JAX package's opt-in
+//     DEEPFAKE_TPU_TRAIN_MXU_BF16=1 discipline (:1113): P and dS, f32 in
+//     the Pallas kernel, are rounded to bf16 where they feed P V, P^T dO,
+//     dS K and dS^T Q; the softmax, its statistics, dP, dS itself and the
+//     dbias sums stay f32.
 //   - f32 (parity runs only; a different kernel from the one that trains):
 //     SIMT FMA. Forward as K3's f32 route with the row max; backward one
 //     block per (16-row query tile, window, head) holding the [16, N] P and
 //     dP tiles in shared memory, adding dK, dV and dbias with atomics into
 //     zeroed f32 outputs.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -98,9 +135,8 @@ struct BwdArgs {
   void* dq; void* dk; void* dv;    // share the strides g_*
   int64_t g_w, g_h, g_n;
   const void* bias;                // [heads, n, n] in the compute type
-  const void* bias_t;              // its transpose per head (tensor-core route)
-  const bf16* mask; const bf16* mask_t; int n_masks;
-  float* stats;                    // [windows, heads, 3, ns] (tensor-core route)
+  const bf16* mask; int n_masks;
+  float* stats;                    // [windows, heads, 2, ns] (Hopper route)
   float* dbias;                    // [heads, n, n] f32, zeroed by the caller
   float scale;
   int n, ns, heads, windows, group;
@@ -326,37 +362,10 @@ namespace tc {
 constexpr int WARPS = 8, THREADS = 32 * WARPS;
 constexpr int LD = D + 8;  // smem row stride in bf16 (80 bytes): the 8 rows of a
                            // fragment load fall on distinct banks
-// backward launch 1: DQ_ROWS row groups of 16 query rows x DQ_KEYS key groups
-constexpr int DQ_ROWS = 2, DQ_KEYS = 8, DQ_THREADS = 32 * DQ_ROWS * DQ_KEYS, SLAB = 16 * DQ_ROWS;
-
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
-// the least x >= n with x % m == r
-__host__ __device__ constexpr int at_least(int n, int m, int r) {
-  return n <= r ? r : (n - r + m - 1) / m * m + r;
-}
-// row strides of launch 1's shared slabs. bf16 bias and mask rows: == 16
-// (mod 64) elements, so a warp's 8-byte reads (8 rows x 4 key quads) fall on
-// distinct banks per half-warp; the f32 dbias rows: == 16 (mod 32), so its
-// 16-byte adds fall on distinct banks per quarter-warp
-__host__ __device__ constexpr int bslab_ld(int n) { return at_least(n, 64, 16); }
-__host__ __device__ constexpr int dslab_ld(int n) { return at_least(n, 32, 16); }
-// the window's mask rows, then (after sweep 2) the key groups' dq partials
-__host__ __device__ constexpr size_t dq_region(int n) {
-  return sizeof(uint16_t) * SLAB * bslab_ld(n) > sizeof(float) * DQ_KEYS * SLAB * D
-             ? sizeof(uint16_t) * SLAB * bslab_ld(n)
-             : sizeof(float) * DQ_KEYS * SLAB * D;
-}
 __host__ __device__ constexpr size_t fwd_smem(int n) {
   return sizeof(uint16_t) * 2 * pad16(n) * LD;
 }
-__host__ __device__ constexpr size_t dq_smem(int n) {
-  return sizeof(uint16_t) * 2 * pad16(n) * LD + sizeof(float) * SLAB * dslab_ld(n) +
-         sizeof(uint16_t) * SLAB * bslab_ld(n) + dq_region(n) + sizeof(float) * DQ_KEYS * SLAB * 3;
-}
-__host__ __device__ constexpr size_t dkdv_smem(int n) {
-  return sizeof(uint16_t) * 2 * pad16(n) * LD + sizeof(float) * 3 * pad16(n);
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -404,37 +413,6 @@ __device__ __forceinline__ void load_rows(uint16_t* dst, const bf16* X, int64_t 
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (j < n) val = *reinterpret_cast<const uint4*>(X + (int64_t)j * sn + part);
     *reinterpret_cast<uint4*>(dst + j * LD + part) = val;
-  }
-}
-
-// the two n8 tiles of (16 rows) x (16 smem rows from j0): acc[nt] = A B^T,
-// with B rows j0 + rb[nt] of a [*, LD] tile (rb: this lane's row of each
-// n8 tile, in key_of order)
-__device__ __forceinline__ void mma_rows(float (&acc)[2][4], const uint32_t (&a)[2][4],
-                                         const uint16_t* tile, int j0, int rb0, int rb1,
-                                         int t4) {
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    const uint16_t* r = tile + (j0 + (nt ? rb1 : rb0)) * LD;
-#pragma unroll
-    for (int st = 0; st < 2; ++st) {
-      const uint32_t b[2] = {ld32(r + st * 16 + 2 * t4), ld32(r + st * 16 + 8 + 2 * t4)};
-      mma_bf16(acc[nt], a[st], b);
-    }
-  }
-}
-
-// acc[dn] += A (16 x 16, k over tile rows j0 + key_of(0 .. 15)) *
-// tile[those rows][dn * 8 ..]; kv_row = key_of(lane & 15)
-__device__ __forceinline__ void mma_cols(float (&acc)[4][4], const uint32_t (&a)[4],
-                                         const uint16_t* tile, int j0, int kv_row) {
-#pragma unroll
-  for (int dn = 0; dn < 4; ++dn) {
-    uint32_t b[2];
-    ldmatrix_x2_trans(b, tile + (j0 + kv_row) * LD + dn * 8);
-    mma_bf16(acc[dn], a, b);
   }
 }
 
@@ -617,363 +595,710 @@ __global__ void __launch_bounds__(THREADS, 2) fwd_bf16(FwdArgs g) {
   }
 }
 
-// four consecutive bf16 values row[k4 .. k4 + 3] as f32; entries at or past
-// n read as 0 (8-byte loads where vec: the caller knows the alignment)
-__device__ __forceinline__ void load4(float (&v)[4], const uint16_t* row, int k4, int n,
-                                      bool vec) {
-  if (vec && k4 + 3 < n) {
-    const uint2 u = *reinterpret_cast<const uint2*>(row + k4);
-    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-    v[0] = __low2float(lo); v[1] = __high2float(lo);
-    v[2] = __low2float(hi); v[3] = __high2float(hi);
-    return;
-  }
+}  // namespace tc
+
+// ------------------------------------------------ bf16 backward: Hopper
+
+namespace hop {
+
+using namespace hopper;
+
+constexpr int BM = 64;                      // rows of a block: queries (launch 1), keys (launch 2)
+constexpr int KCH = 64;                     // columns of a chunk (wgmma N of S and S^T)
+constexpr int ROW_BYTES = D * 2;            // a token's head slice: 64 bytes
+constexpr int TILE_BYTES = BM * ROW_BYTES;  // 64 rows of q, dO, K or V: 4 KB
+// warpgroups of launch 1 and launch 2; each issues its loads from thread 0
+constexpr int C1 = 3, THREADS1 = 128 * C1;
+constexpr int C2 = 2, THREADS2 = 128 * C2;
+constexpr int SMEM_MAX = 232448;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// what the host decides for a launch
+struct Plan {
+  int nk;           // tokens padded to a multiple of 16
+  int ns;           // the row statistics' stride: tiles x 64
+  int kbox, nbox;   // a window's [N, 32] rows come in nbox TMA boxes of kbox rows
+  int rows_bytes;   // those rows in shared memory
+  int stage_bytes;  // one stage of the ring
+  int stages;       // 2, or 1 where two do not fit
+  int slab;         // launch 1: dS sums in a shared f32 slab (else added to dbias per window)
+  int tiles;        // ceil(N / 64)
+  int n_groups;     // mask indices (1 without a mask)
+  int per_group;    // windows that read one mask index (B_ / n_groups)
+  int g;            // windows a block takes (G)
+  int splits;       // blocks a group's windows are split over: ceil(per_group / G)
+  int heads;
+  int bpitch;       // bf16 elements a bias tile row: the least >= nk that is 16 mod 32
+  int dpitch;       // floats a dbias slab row: the least >= nk that is 16 mod 32
+};
+
+// The tiles, the dbias slab and the row statistics keep each run of 16
+// columns (keys, or queries in launch 2) in the order of the wgmma
+// accumulator: the 4 values a thread holds of a row for two consecutive
+// 8-column steps (columns 2 t + {0, 1} and 8 + 2 t + {0, 1}, t = lane % 4)
+// sit at positions 4 t .. 4 t + 3, so it reads them with one 8-byte load
+// (16 for the f32 slab and statistics). pos_of: a column's position within
+// its run; col_of: the inverse.
+__device__ __forceinline__ int pos_of(int c) {
+  return 4 * ((c >> 1) & 3) + 2 * ((c >> 3) & 1) + (c & 1);
+}
+__device__ __forceinline__ int col_of(int p) {
+  return 8 * ((p >> 1) & 1) + 2 * ((p >> 2) & 3) + (p & 1);
+}
+// four bf16 (positions 4 t .. 4 t + 3 of a run) as f32
+__device__ __forceinline__ float4 bf4(const uint16_t* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ uint8_t* align512(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 511) &
+                                    ~static_cast<uintptr_t>(511));
+}
+
+// this thread's wgmma A fragments (rows 16 (warp % 4) + lane / 4 and + 8,
+// two k steps of 16) of a [64, 32] bf16 tile that TMA wrote with the 64-byte
+// swizzle
+__device__ __forceinline__ void frag_a(uint32_t (&a)[2][4], const uint8_t* tile, int warp,
+                                       int lane) {
+#pragma unroll
+  for (int ks16 = 0; ks16 < 2; ++ks16)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * (warp & 3) + (lane >> 2) + 8 * (e & 1);
+      const int c = 16 * ks16 + 8 * (e >> 1) + 2 * (lane & 3);
+      const int off = r * ROW_BYTES + ((((c >> 3) ^ (r >> 1)) & 3) << 4) + (c & 7) * 2;
+      a[ks16][e] = *reinterpret_cast<const uint32_t*>(tile + off);
+    }
+}
+
+// eight bf16 of a uint4 as f32, and back (round to nearest)
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const uint16_t u = k4 + i < n ? row[k4 + i] : uint16_t(0);
-    v[i] = __bfloat162float(*reinterpret_cast<const bf16*>(&u));
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
   }
 }
 
-// logits x[nt][e] = s[nt][e] * scale + bias + mask of rows a (e < 2) and b
-// (e >= 2) at column k4 + 2 nt + (e & 1) (the key_of order), from bf16 rows
-// (mask rows may be null); columns at or past n are -inf
-__device__ __forceinline__ void logits4(float (&x)[2][4], const float (&s)[2][4], float scale,
-                                        const uint16_t* brow_a, const uint16_t* brow_b,
-                                        const uint16_t* mrow_a, const uint16_t* mrow_b, int k4,
-                                        int n, bool vec) {
-  float ba[4], bb[4], ma[4] = {0.f, 0.f, 0.f, 0.f}, mb[4] = {0.f, 0.f, 0.f, 0.f};
-  load4(ba, brow_a, k4, n, vec);
-  load4(bb, brow_b, k4, n, vec);
-  if (mrow_a) {
-    load4(ma, mrow_a, k4, n, vec);
-    load4(mb, mrow_b, k4, n, vec);
+// n bf16 of bias (+ mask) at `at` as f32 (16-byte loads; the caller checks
+// alignment)
+template <int F>
+__device__ __forceinline__ void load_sum(const bf16* bias, const bf16* mask, int64_t at,
+                                         float* f) {
+#pragma unroll
+  for (int i = 0; i < F; i += 8) unpack8(*reinterpret_cast<const uint4*>(bias + at + i), f + i);
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < F; i += 8) {
+      float m[8];
+      unpack8(*reinterpret_cast<const uint4*>(mask + at + i), m);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) f[i + c] += m[c];
+    }
+  }
+}
+
+// A tile fill in batches: load(u, f) for FILL_U units, then store(u, f) for
+// each, so that a batch's global loads are in flight together
+template <int F, class Load, class Store>
+__device__ __forceinline__ void fill_batched(int units, int tid, int threads, Load&& load,
+                                             Store&& store) {
+  constexpr int FILL_U = 4;
+  for (int u0 = tid; u0 < units; u0 += FILL_U * threads) {
+    float f[FILL_U][F];
+#pragma unroll
+    for (int i = 0; i < FILL_U; ++i)
+      if (u0 + i * threads < units) load(u0 + i * threads, f[i]);
+#pragma unroll
+    for (int i = 0; i < FILL_U; ++i)
+      if (u0 + i * threads < units) store(u0 + i * threads, f[i]);
+  }
+}
+
+// Launch 1's tile: row r (query q0 + r), key k < pitch holds bias + mask
+// rounded to bf16 for q, k < N; -inf for k >= N (weight 0); 0 for a row past
+// N (its dO is zero, so its dS is 0); keys in the accumulator order of each
+// run of 16 (pos_of). The bias is bf16 at this cast point, so the tile is
+// exact where the mask is 0; where it is -100 the weight is below 1e-40 in
+// either rounding. A unit is a run of 16 keys of a row.
+__device__ __forceinline__ void fill_rows(uint16_t* tile, const bf16* bias, const bf16* mask,
+                                          int q0, int n, int pitch, int tid, int threads) {
+  const int runs = pitch / 16;
+  const bool vec = n % 8 == 0;
+  fill_batched<16>(
+      BM * runs, tid, threads,
+      [&](int u, float* f) {
+        const int r = u / runs, k = 16 * (u - r * runs), q = q0 + r;
+        const int64_t at = (int64_t)q * n + k;
+        if (q < n && vec && k + 15 < n) {
+          load_sum<16>(bias, mask, at, f);
+          return;
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          f[i] = k + i >= n ? -INFINITY
+                 : q >= n   ? 0.f
+                            : __bfloat162float(bias[at + i]) +
+                                (mask ? __bfloat162float(mask[at + i]) : 0.f);
+      },
+      [&](int u, const float* f) {
+        const int r = u / runs, k = 16 * (u - r * runs);
+        uint32_t o[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[i] = tc::pack_bf16(f[col_of(2 * i)], f[col_of(2 * i + 1)]);
+        uint4* dst = reinterpret_cast<uint4*>(tile + r * pitch + k);
+        dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+        dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+      });
+}
+
+// Launch 2's transposed tile: row kl (key k0 + kl), query q < pitch (at
+// its position in the accumulator order, pos_of) holds bias[q][k0 + kl] +
+// mask[q][k0 + kl] rounded to bf16 for q, key < N, else -inf (weight 0). A
+// unit is 8 keys of one query row (16 bytes), written down a column;
+// consecutive threads take consecutive queries.
+__device__ __forceinline__ void fill_cols(uint16_t* tile, const bf16* bias, const bf16* mask,
+                                          int k0, int n, int pitch, int tid, int threads) {
+  const bool vec = n % 8 == 0;
+  fill_batched<8>(
+      (BM / 8) * pitch, tid, threads,
+      [&](int u, float* f) {
+        const int kr = u / pitch, q = u - kr * pitch, k = k0 + 8 * kr;
+        const int64_t at = (int64_t)q * n + k;
+        if (q < n && vec && k + 7 < n) {
+          load_sum<8>(bias, mask, at, f);
+          return;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          f[i] = q < n && k + i < n ? __bfloat162float(bias[at + i]) +
+                                          (mask ? __bfloat162float(mask[at + i]) : 0.f)
+                                    : -INFINITY;
+      },
+      [&](int u, const float* f) {
+        const int kr = u / pitch, q = u - kr * pitch;
+        uint16_t* col = tile + 8 * kr * pitch + (q & ~15) + pos_of(q & 15);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const bf16 b = __float2bfloat16_rn(f[i]);
+          col[i * pitch] = *reinterpret_cast<const uint16_t*>(&b);
+        }
+      });
+}
+
+// S = q K^T and dP = dO V^T of one chunk of W keys from kc, for this
+// warpgroup's 64 rows: accumulator element 4 j + 2 h + e is row 16 (warp % 4)
+// + lane / 4 + 8 h, key kc + 8 j + 2 (lane % 4) + e
+template <int W>
+__device__ __forceinline__ void s_dp(float (&s)[W / 2], float (&dp)[W / 2],
+                                     const uint32_t (&a)[2][4], const uint32_t (&b)[2][4],
+                                     const uint8_t* xs, const uint8_t* ys, int kc) {
+  wgmma_fence();
+  WgmmaRS<W, 0>::mma(s, a[0], desc_sw64(xs + kc * ROW_BYTES, 16), 0);
+  WgmmaRS<W, 0>::mma(s, a[1], desc_sw64(xs + kc * ROW_BYTES + 32, 16), 1);
+  WgmmaRS<W, 0>::mma(dp, b[0], desc_sw64(ys + kc * ROW_BYTES, 16), 0);
+  WgmmaRS<W, 0>::mma(dp, b[1], desc_sw64(ys + kc * ROW_BYTES + 32, 16), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+}
+
+// launch 1, sweep 1: one chunk's logits x = s scale + tile and the online
+// row max m, row sum l = sum e and c = sum e dP, e = 2^((x - m) log2 e) (rows
+// a and b); ta: this thread's tile row a at position 4 (lane % 4)
+template <int W>
+__device__ __forceinline__ void stats_chunk(const uint32_t (&qa)[2][4], const uint32_t (&oa)[2][4],
+                                            const uint8_t* ks, const uint8_t* vs, int kc,
+                                            const uint16_t* ta, int bpitch, float scale,
+                                            float (&m)[2], float (&l)[2], float (&c)[2]) {
+  float s[W / 2], dp[W / 2];
+  s_dp<W>(s, dp, qa, oa, ks, vs, kc);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int u = 0; u < W / 16; ++u) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 t = bf4(ta + h * 8 * bpitch + kc + 16 * u);
+      const int a = 8 * u + 2 * h, b = a + 4;  // steps j = 2 u and 2 u + 1
+      s[a] = fmaf(s[a], scale, t.x);
+      s[a + 1] = fmaf(s[a + 1], scale, t.y);
+      s[b] = fmaf(s[b], scale, t.z);
+      s[b + 1] = fmaf(s[b + 1], scale, t.w);
+      mx[h] = fmaxf(mx[h], fmaxf(fmaxf(s[a], s[a + 1]), fmaxf(s[b], s[b + 1])));
+    }
+  }
+  float nb[2];  // -(the new max) log2 e
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(m[h], quad_max(mx[h]));
+    nb[h] = mn == -INFINITY ? 0.f : -mn * LOG2E;
+    const float alpha = ex2(fmaf(m[h], LOG2E, nb[h]));  // m = -inf: 0
+    m[h] = mn;
+    l[h] *= alpha;
+    c[h] *= alpha;
   }
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
+  for (int j = 0; j < W / 8; ++j)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = 2 * nt + i;
-      const bool ok = k4 + c < n;
-      x[nt][i] = ok ? (s[nt][i] * scale + ba[c]) + ma[c] : -INFINITY;
-      x[nt][2 + i] = ok ? (s[nt][2 + i] * scale + bb[c]) + mb[c] : -INFINITY;
+    for (int i = 0; i < 4; ++i) {
+      const int h = i >> 1;
+      const float e = ex2(fmaf(s[4 * j + i], LOG2E, nb[h]));
+      l[h] += e;
+      c[h] += e * dp[4 * j + i];
     }
 }
 
-// rows [0, SLAB) x columns [0, n) of a bf16 [*, n] matrix from row r0 into a
-// shared [SLAB][ld] slab; rows at or past n are 0
-__device__ __forceinline__ void load_slab(uint16_t* dst, const bf16* src, int r0, int n, int ld,
-                                          int tid) {
-  const uint16_t* s = reinterpret_cast<const uint16_t*>(src);
-  if (n % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
-    for (int i = tid; i < SLAB * (n / 8); i += DQ_THREADS) {
-      const int r = i / (n / 8), c = (i % (n / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < n) v = *reinterpret_cast<const uint4*>(s + (int64_t)(r0 + r) * n + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+// launch 1, sweep 2: one chunk's P = 2^(x log2 e - lse) (lse = (m log2 e +
+// log2 l), the row's log-sum-exp in base 2) and dS = P (dP - D) (D =
+// rowsum(dP P)); dS into the dbias slab (sa: this thread's slab row a at
+// position 4 (lane % 4)) or, without a slab, into dbias (dg: row a of dbias
+// at key 2 (lane % 4); rows or keys past n skipped); dq += dS K with dS in
+// bf16. The product is left in flight: the next chunk's wait covers it.
+template <int W, bool SLAB>
+__device__ __forceinline__ void ds_chunk(const uint32_t (&qa)[2][4], const uint32_t (&oa)[2][4],
+                                         const uint8_t* ks, const uint8_t* vs, int kc,
+                                         const uint16_t* ta, int bpitch, float scale,
+                                         const float (&lse)[2],
+                                         const float (&di)[2], float (&dq)[16], float* sa,
+                                         int dpitch, float* dg, int n, int key0, bool ok_a,
+                                         bool ok_b) {
+  float s[W / 2], dp[W / 2];
+  s_dp<W>(s, dp, qa, oa, ks, vs, kc);
+  uint32_t da[W / 16][4];
+#pragma unroll
+  for (int u = 0; u < W / 16; ++u) {
+    float ds[8];  // 4 j' + 2 h + e: step j = 2 u + j', row h, column e
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 t = bf4(ta + h * 8 * bpitch + kc + 16 * u);
+      const float tv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // q = 2 j' + e, the position's order
+        const int i = 4 * (q >> 1) + 2 * h + (q & 1);
+        const float p = ex2(fmaf(fmaf(s[8 * u + i], scale, tv[q]), LOG2E, -lse[h]));
+        ds[i] = p * (dp[8 * u + i] - di[h]);
+      }
+      if (SLAB) {
+        float4* x = reinterpret_cast<float4*>(sa + h * 8 * dpitch + kc + 16 * u);
+        float4 v = *x;
+        v.x += ds[2 * h];
+        v.y += ds[2 * h + 1];
+        v.z += ds[4 + 2 * h];
+        v.w += ds[4 + 2 * h + 1];
+        *x = v;
+      } else if (h ? ok_b : ok_a) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int dk = 8 * (q >> 1) + (q & 1), key = key0 + kc + 16 * u + dk;
+          if (key < n)
+            atomicAdd(dg + h * 8 * n + kc + 16 * u + dk, ds[4 * (q >> 1) + 2 * h + (q & 1)]);
+        }
+      }
     }
-    return;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      da[u][2 * jj] = tc::pack_bf16(ds[4 * jj], ds[4 * jj + 1]);
+      da[u][2 * jj + 1] = tc::pack_bf16(ds[4 * jj + 2], ds[4 * jj + 3]);
+    }
   }
-  for (int i = tid; i < SLAB * n; i += DQ_THREADS) {
-    const int r = i / n, c = i - r * n;
-    dst[r * ld + c] = r0 + r < n ? s[(int64_t)(r0 + r) * n + c] : uint16_t(0);
-  }
+  wgmma_fence();
+#pragma unroll
+  for (int st = 0; st < W / 16; ++st)
+    WgmmaRS<32, 1>::mma(dq, da[st], desc_sw64(ks + (kc + 16 * st) * ROW_BYTES, 512), 1);
+  wgmma_commit();
 }
 
-// backward launch 1: grid (query slabs of SLAB rows, heads, window groups of
-// g.group). Warp (rg, kg) owns query rows rg * 16 .. + 15 of the slab and the
-// key steps kg, kg + DQ_KEYS, ...; the key groups' row statistics and dq
-// partials meet in shared memory. The slab's bias rows stay in shared memory
-// for the whole group, the window's mask rows for the window; dS of the
-// group's windows sums in the f32 dbias slab, added to dbias once at the end.
-__global__ void __launch_bounds__(DQ_THREADS) bwd_dq_bf16(BwdArgs g) {
-  extern __shared__ __align__(16) uint16_t smb[];
-  const int N = g.n, NK = pad16(N), SL = dslab_ld(N), BL = bslab_ld(N);
-  uint16_t* ks = smb;                                         // [NK][LD]
-  uint16_t* vs = ks + NK * LD;                                // [NK][LD]
-  float* dbs = reinterpret_cast<float*>(vs + NK * LD);        // [SLAB][SL] dbias slab
-  uint16_t* bsl = reinterpret_cast<uint16_t*>(dbs + SLAB * SL);  // [SLAB][BL] bias rows
-  uint16_t* msl = bsl + SLAB * BL;                            // [SLAB][BL] mask rows, then
-  float* dqp = reinterpret_cast<float*>(msl);                 // [DQ_KEYS][SLAB][D] dq partials
-  float* stp = reinterpret_cast<float*>(reinterpret_cast<char*>(msl) + dq_region(N));
-                                                              // [DQ_KEYS][SLAB][3] m, l, c
-  const int h = blockIdx.y;
-  const int w0 = blockIdx.z * g.group, w1 = min(w0 + g.group, g.windows);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rg = warp % DQ_ROWS, kg = warp / DQ_ROWS;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const int kb0 = key_of(g8), kb1 = key_of(8 + g8), kv_row = key_of(lane & 15);
-  const int slab0 = blockIdx.x * SLAB, r0 = slab0 + rg * 16;
-  const int lr_a = rg * 16 + g8, lr_b = lr_a + 8;  // rows within the slab
-  const int row_a = slab0 + lr_a, row_b = slab0 + lr_b;
-  const bool ok_a = row_a < N, ok_b = row_b < N, active = r0 < N;
-  const int steps = NK / 16;
+// Launch 1 (dq, dbias, the row statistics): one block per (head, group of
+// windows that read one mask index, query tile of 64 rows). Thread 0 streams
+// each window's q and dO tiles and its whole K and V by TMA; C1 warpgroups
+// split the keys in chunks of 64 (warpgroup c % C1 takes chunk c). Sweep 1
+// forms S and dP for the row statistics, which the warpgroups combine
+// through shared memory; sweep 2 forms them again, then P, dS, the slab's dS
+// sums and dq. See the note at the top.
+template <bool SLAB>
+__global__ void __launch_bounds__(THREADS1, 1)
+    dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_o,
+            const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+            BwdArgs g, Plan p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* ring = align512(smem_raw);  // stages x [q | dO | K rows | V rows]
+  uint16_t* tile = reinterpret_cast<uint16_t*>(ring + p.stages * p.stage_bytes);  // [64][bpitch]
+  float* slab = reinterpret_cast<float*>(tile + BM * p.bpitch);  // [64][dpitch] (SLAB)
+  // [stages][C1][64][m, l, c]: with two stages a warpgroup may write the
+  // next window's before the others have read this one's; with one, the
+  // next window's loads wait for every warpgroup
+  float* stx_all = slab + (SLAB ? BM * p.dpitch : 0);
+  float* dqx = stx_all + p.stages * C1 * BM * 3;                 // [C1 - 1][16][128] dq hand-over
+  uint64_t* full = reinterpret_cast<uint64_t*>(dqx + (C1 - 1) * 16 * 128);
 
-  for (int i = tid; i < SLAB * SL; i += DQ_THREADS) dbs[i] = 0.f;
-  load_slab(bsl, static_cast<const bf16*>(g.bias) + (int64_t)h * N * N, slab0, N, BL, tid);
-  const uint16_t* brow_a = bsl + lr_a * BL;
-  const uint16_t* brow_b = bsl + lr_b * BL;
-  const uint16_t* mrow_a = g.mask ? msl + lr_a * BL : nullptr;
-  const uint16_t* mrow_b = g.mask ? msl + lr_b * BL : nullptr;
+  // block x = tile + tiles (head + heads group), as K3: a group's heads run
+  // together, so a mask slice is read from device memory once for all heads
+  const int N = g.n;
+  const int q0 = BM * (blockIdx.x % p.tiles), h = (blockIdx.x / p.tiles) % p.heads;
+  const int grp = blockIdx.x / p.tiles / p.heads;
+  const int mi = grp % p.n_groups, split = grp / p.n_groups;
+  const int b0 = split * p.g, nw = min(p.g, p.per_group - b0);  // windows mi + b n_groups
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  for (int w = w0; w < w1; ++w) {
-    const int64_t base = (int64_t)w * g.s_w + (int64_t)h * g.s_h;
-    __syncthreads();  // the previous window is done with ks, vs and msl / dqp
-    load_rows(ks, static_cast<const bf16*>(g.k) + base, g.s_n, N, NK, tid, DQ_THREADS);
-    load_rows(vs, static_cast<const bf16*>(g.v) + base, g.s_n, N, NK, tid, DQ_THREADS);
-    if (g.mask) load_slab(msl, g.mask + (int64_t)(w % g.n_masks) * N * N, slab0, N, BL, tid);
-    __syncthreads();
+  // window it's q and dO tiles and whole K and V into stage it % stages;
+  // thread 0 issues them once the stage is free (no producer warp: with
+  // three warps on each SM sub-partition a thread may have 168 registers)
+  auto load = [&](int it) {
+    const int sl = it % p.stages, x = h * D, w = mi + (b0 + it) * p.n_groups;
+    uint8_t* st = ring + sl * p.stage_bytes;
+    mbar_expect_tx(full + sl, 2 * TILE_BYTES + 2 * p.nbox * p.kbox * ROW_BYTES);
+    tma_load_3d(st, &tm_q, full + sl, x, q0, w);
+    tma_load_3d(st + TILE_BYTES, &tm_o, full + sl, x, q0, w);
+    for (int b = 0; b < p.nbox; ++b) {
+      uint8_t* r = st + 2 * TILE_BYTES + b * p.kbox * ROW_BYTES;
+      tma_load_3d(r, &tm_k, full + sl, x, b * p.kbox, w);
+      tma_load_3d(r + p.rows_bytes, &tm_v, full + sl, x, b * p.kbox, w);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int it = 0; it < p.stages && it < nw; ++it) load(it);
+  }
+  __syncthreads();
 
+  constexpr int CT = 128 * C1;  // every thread
+  fill_rows(tile, static_cast<const bf16*>(g.bias) + (int64_t)h * N * N,
+            g.mask ? g.mask + (int64_t)mi * N * N : nullptr, q0, N, p.bpitch, threadIdx.x, CT);
+  if (SLAB)
+    for (int i = threadIdx.x; i < BM * p.dpitch; i += CT) slab[i] = 0.f;
+  named_sync(1, CT);
+
+  const int wg = warp >> 2, t = threadIdx.x & 127, t4 = lane & 3;
+  const int ra = 16 * (warp & 3) + (lane >> 2);  // this thread's row a in the tile; b = a + 8
+  const bool ok_a = q0 + ra < N, ok_b = q0 + ra + 8 < N;
+  const uint16_t* ta = tile + ra * p.bpitch + 4 * t4;
+  float* sa = slab + ra * p.dpitch + 4 * t4;
+  float* dg = g.dbias + (int64_t)h * N * N + (int64_t)(q0 + ra) * N + 2 * t4;
+  const int n_chunks = (p.nk + KCH - 1) / KCH;
+
+  for (int it = 0; it < nw; ++it) {
+    const int sl = it % p.stages;
+    uint8_t* st = ring + sl * p.stage_bytes;
+    const uint8_t* ks = st + 2 * TILE_BYTES;
+    const uint8_t* vs = ks + p.rows_bytes;
+    const int w = mi + (b0 + it) * p.n_groups;
+    mbar_wait(full + sl, (it / p.stages) & 1);
     uint32_t qa[2][4], oa[2][4];
-    if (active) {
-      load_a(qa, static_cast<const bf16*>(g.q) + base, g.s_n, r0, N, g8, t4);
-      load_a(oa, static_cast<const bf16*>(g.dout) + (int64_t)w * g.d_w + (int64_t)h * g.d_h,
-             g.d_n, r0, N, g8, t4);
-      // sweep 1 over this warp's keys: row max m, row sum l and sum(e dP)
-      // c, online
-      float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f, c_a = 0.f, c_b = 0.f;
-      for (int st = kg; st < steps; st += DQ_KEYS) {
-        const int j0 = st * 16;
-        float sc[2][4], dp[2][4], x[2][4];
-        mma_rows(sc, qa, ks, j0, kb0, kb1, t4);
-        mma_rows(dp, oa, vs, j0, kb0, kb1, t4);
-        logits4(x, sc, g.scale, brow_a, brow_b, mrow_a, mrow_b, j0 + 4 * t4, N, true);
-        float base_a, base_b;
-        const float al_a = online_max(
-            m_a, fmaxf(fmaxf(x[0][0], x[0][1]), fmaxf(x[1][0], x[1][1])), base_a);
-        const float al_b = online_max(
-            m_b, fmaxf(fmaxf(x[0][2], x[0][3]), fmaxf(x[1][2], x[1][3])), base_b);
-        l_a *= al_a; c_a *= al_a;
-        l_b *= al_b; c_b *= al_b;
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const float ea = __expf(x[nt][i] - base_a), eb = __expf(x[nt][2 + i] - base_b);
-            l_a += ea; c_a += ea * dp[nt][i];
-            l_b += eb; c_b += eb * dp[nt][2 + i];
-          }
+    frag_a(qa, st, warp, lane);
+    frag_a(oa, st + TILE_BYTES, warp, lane);
+    float* stx = stx_all + (it % p.stages) * C1 * BM * 3;
+
+    // sweep 1: this warpgroup's keys
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, c[2] = {0.f, 0.f};
+    for (int ch = wg; ch < n_chunks; ch += C1) {
+      const int kc = ch * KCH;
+      if (kc + KCH <= p.nk) {
+        stats_chunk<KCH>(qa, oa, ks, vs, kc, ta, p.bpitch, g.scale, m, l, c);
+      } else {
+        for (int k16 = kc; k16 < p.nk; k16 += 16)
+          stats_chunk<16>(qa, oa, ks, vs, k16, ta, p.bpitch, g.scale, m, l, c);
       }
-      l_a = quad_sum(l_a); c_a = quad_sum(c_a);
-      l_b = quad_sum(l_b); c_b = quad_sum(c_b);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] = quad_sum(l[hh]);
+      c[hh] = quad_sum(c[hh]);
       if (t4 == 0) {
-        float* pa = stp + (kg * SLAB + lr_a) * 3;
-        float* pb = stp + (kg * SLAB + lr_b) * 3;
-        pa[0] = m_a; pa[1] = l_a; pa[2] = c_a;
-        pb[0] = m_b; pb[1] = l_b; pb[2] = c_b;
+        float* x = stx + (wg * BM + ra + 8 * hh) * 3;
+        x[0] = m[hh];
+        x[1] = l[hh];
+        x[2] = c[hh];
       }
     }
-    __syncthreads();
+    named_sync(1, CT);
+    // the warpgroups' statistics combined: the log-sum-exp in base 2 and
+    // rowsum(dP P)
+    float lse[2], di[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = ra + 8 * hh;
+      float mm = -INFINITY, ll = 0.f, cc = 0.f;
+#pragma unroll
+      for (int k = 0; k < C1; ++k) mm = fmaxf(mm, stx[(k * BM + r) * 3]);
+#pragma unroll
+      for (int k = 0; k < C1; ++k) {
+        const float* x = stx + (k * BM + r) * 3;
+        const float f = ex2((x[0] - mm) * LOG2E);  // a warpgroup without keys: -inf, 0
+        ll += x[1] * f;
+        cc += x[2] * f;
+      }
+      lse[hh] = fmaf(mm, LOG2E, __log2f(ll));
+      di[hh] = cc / ll;
+    }
+    if (wg == 0 && t4 == 0) {  // for launch 2: every row of the tile (< ns), in pos_of order
+      float* sg = g.stats + ((int64_t)w * p.heads + h) * 2 * p.ns + q0 + (ra & ~15);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int at = pos_of((ra + 8 * hh) & 15);
+        sg[at] = lse[hh];
+        sg[p.ns + at] = di[hh];
+      }
+    }
 
-    float dq[4][4];
+    // sweep 2
+    float dq[16];
 #pragma unroll
-    for (int dn = 0; dn < 4; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[dn][e] = 0.f;
-    if (active) {
-      // the key groups' statistics of rows a and b combined
-      float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-      for (int k = 0; k < DQ_KEYS; ++k) {
-        mx_a = fmaxf(mx_a, stp[(k * SLAB + lr_a) * 3]);
-        mx_b = fmaxf(mx_b, stp[(k * SLAB + lr_b) * 3]);
-      }
-      float l_a = 0.f, l_b = 0.f, c_a = 0.f, c_b = 0.f;
-#pragma unroll
-      for (int k = 0; k < DQ_KEYS; ++k) {
-        const float* pa = stp + (k * SLAB + lr_a) * 3;
-        const float* pb = stp + (k * SLAB + lr_b) * 3;
-        const float fa = __expf(pa[0] - mx_a), fb = __expf(pb[0] - mx_b);  // -inf: 0
-        l_a += pa[1] * fa; c_a += pa[2] * fa;
-        l_b += pb[1] * fb; c_b += pb[2] * fb;
-      }
-      const float il_a = 1.f / l_a, il_b = 1.f / l_b;
-      const float di_a = c_a * il_a, di_b = c_b * il_b;
-      if (kg == 0 && t4 == 0) {
-        float* st = g.stats + ((int64_t)w * g.heads + h) * 3 * g.ns;
-        if (ok_a) { st[row_a] = mx_a; st[g.ns + row_a] = il_a; st[2 * g.ns + row_a] = di_a; }
-        if (ok_b) { st[row_b] = mx_b; st[g.ns + row_b] = il_b; st[2 * g.ns + row_b] = di_b; }
-      }
-
-      // sweep 2: P, dS; the dbias slab += dS; dq += dS K
-      for (int st = kg; st < steps; st += DQ_KEYS) {
-        const int j0 = st * 16, k4 = j0 + 4 * t4;
-        float sc[2][4], dp[2][4], x[2][4], ds[2][4];
-        mma_rows(sc, qa, ks, j0, kb0, kb1, t4);
-        mma_rows(dp, oa, vs, j0, kb0, kb1, t4);
-        logits4(x, sc, g.scale, brow_a, brow_b, mrow_a, mrow_b, k4, N, true);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            ds[nt][i] = __expf(x[nt][i] - mx_a) * il_a * (dp[nt][i] - di_a);
-            ds[nt][2 + i] = __expf(x[nt][2 + i] - mx_b) * il_b * (dp[nt][2 + i] - di_b);
-          }
-        float* da4 = dbs + lr_a * SL + k4;
-        float* db4 = dbs + lr_b * SL + k4;
-        if (k4 + 3 < N) {
-          float4 va = *reinterpret_cast<float4*>(da4), vb = *reinterpret_cast<float4*>(db4);
-          va.x += ds[0][0]; va.y += ds[0][1]; va.z += ds[1][0]; va.w += ds[1][1];
-          vb.x += ds[0][2]; vb.y += ds[0][3]; vb.z += ds[1][2]; vb.w += ds[1][3];
-          *reinterpret_cast<float4*>(da4) = va;
-          *reinterpret_cast<float4*>(db4) = vb;
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (k4 + c < N) {
-              da4[c] += ds[c >> 1][c & 1];
-              db4[c] += ds[c >> 1][2 + (c & 1)];
-            }
-        }
-        uint32_t da[4];
-        pack_a(da, ds);
-        mma_cols(dq, da, ks, j0, kv_row);
+    for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+    for (int ch = wg; ch < n_chunks; ch += C1) {
+      const int kc = ch * KCH;
+      if (kc + KCH <= p.nk) {
+        ds_chunk<KCH, SLAB>(qa, oa, ks, vs, kc, ta, p.bpitch, g.scale, lse, di, dq, sa, p.dpitch,
+                            dg, N, 2 * t4, ok_a, ok_b);
+      } else {
+        for (int k16 = kc; k16 < p.nk; k16 += 16)
+          ds_chunk<16, SLAB>(qa, oa, ks, vs, k16, ta, p.bpitch, g.scale, lse, di, dq, sa,
+                             p.dpitch, dg, N, 2 * t4, ok_a, ok_b);
       }
     }
-    __syncthreads();  // every warp is done with msl: it becomes the dq partials
-    if (active) {
+    wgmma_wait<0>();
+    fence_regs(dq);
+    // the other warpgroups, done with this stage's K and V, hand their dq to
+    // the first (barrier 3), which refills the stage, then adds and stores
+    if (wg > 0) {
+      float* x = dqx + (wg - 1) * 16 * 128 + t;
 #pragma unroll
-      for (int dn = 0; dn < 4; ++dn) {
-        const int c = dn * 8 + 2 * t4;
-        *reinterpret_cast<float2*>(dqp + (kg * SLAB + lr_a) * D + c) =
-            make_float2(dq[dn][0], dq[dn][1]);
-        *reinterpret_cast<float2*>(dqp + (kg * SLAB + lr_b) * D + c) =
-            make_float2(dq[dn][2], dq[dn][3]);
-      }
+      for (int i = 0; i < 16; ++i) x[i * 128] = dq[i];
+      named_arrive(3, CT);
+      continue;
     }
-    __syncthreads();
+    named_sync(3, CT);
+    if (threadIdx.x == 0 && it + p.stages < nw) load(it + p.stages);
+#pragma unroll
+    for (int k = 0; k < C1 - 1; ++k) {
+      const float* x = dqx + k * 16 * 128 + t;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dq[i] += x[i * 128];
+    }
     bf16* dQ = static_cast<bf16*>(g.dq) + (int64_t)w * g.g_w + (int64_t)h * g.g_h;
-    for (int i = tid; i < SLAB * D / 2; i += DQ_THREADS) {
-      const int r = i / (D / 2), c = (i % (D / 2)) * 2;
-      if (slab0 + r >= N) continue;
-      float2 sum = make_float2(0.f, 0.f);
 #pragma unroll
-      for (int k = 0; k < DQ_KEYS; ++k) {
-        const float2 v = *reinterpret_cast<const float2*>(dqp + (k * SLAB + r) * D + c);
-        sum.x += v.x;
-        sum.y += v.y;
-      }
-      *reinterpret_cast<__nv_bfloat162*>(dQ + (int64_t)(slab0 + r) * g.g_n + c) =
-          __floats2bfloat162_rn(sum.x * g.scale, sum.y * g.scale);
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (ok_a)
+        *reinterpret_cast<__nv_bfloat162*>(dQ + (int64_t)(q0 + ra) * g.g_n + col) =
+            __floats2bfloat162_rn(dq[4 * j] * g.scale, dq[4 * j + 1] * g.scale);
+      if (ok_b)
+        *reinterpret_cast<__nv_bfloat162*>(dQ + (int64_t)(q0 + ra + 8) * g.g_n + col) =
+            __floats2bfloat162_rn(dq[4 * j + 2] * g.scale, dq[4 * j + 3] * g.scale);
     }
   }
-  __syncthreads();
-  float* dbias = g.dbias + (int64_t)h * N * N;
-  const int rows = min(SLAB, N - slab0);
-  for (int i = tid; i < rows * N; i += DQ_THREADS) {
-    const int r = i / N, c = i - r * N;
-    atomicAdd(dbias + (int64_t)(slab0 + r) * N + c, dbs[r * SL + c]);
+
+  if (SLAB) {
+    named_sync(2, CT);  // every warpgroup's slab adds are done
+    float* dbias = g.dbias + (int64_t)h * N * N;
+    const int rows = min(BM, N - q0);
+    for (int i = threadIdx.x; i < rows * p.nk; i += CT) {
+      const int r = i / p.nk, at = i - r * p.nk, k = (at & ~15) + col_of(at & 15);
+      if (k < N) atomicAdd(dbias + (int64_t)(q0 + r) * N + k, slab[r * p.dpitch + at]);
+    }
   }
 }
 
-// backward launch 2: one block per (window, head); Q, dO and the row
-// statistics in shared memory; each warp owns 16 keys at a time and streams
-// the queries 16 at a time (in key_of order, so a thread's four queries of a
-// key are consecutive: their transposed bias and mask are one 8-byte load,
-// their statistics one 16-byte load each): S^T = K Q^T, P^T, dP^T = V dO^T,
-// dS^T; dV += P^T dO, dK += dS^T Q.
-__global__ void __launch_bounds__(THREADS, 2) bwd_dkdv_bf16(BwdArgs g) {
-  extern __shared__ __align__(16) uint16_t smb[];
-  const int N = g.n, NQ = pad16(N);
-  uint16_t* qs = smb;                                   // [NQ][LD]
-  uint16_t* os = qs + NQ * LD;                          // [NQ][LD] dO
-  float* sm_m = reinterpret_cast<float*>(os + NQ * LD);  // [NQ] row max
-  float* sm_il = sm_m + NQ;                             // [NQ] 1 / rowsum
-  float* sm_di = sm_il + NQ;                            // [NQ] rowsum(dP P)
+// launch 2, one chunk of W queries from qc for this warpgroup's 64 keys,
+// from S^T = K q^T and dP^T = V dO^T: P^T and dS^T in bf16 as the A operands
+// of dV and dK, from the statistics of launch 1 (sts: this thread's position
+// 4 (lane % 4) of [lse | D], ns apart) and the transposed tile (tt: row a at
+// the same position)
+template <int W>
+__device__ __forceinline__ void dkdv_weights(const float (&s)[W / 2], const float (&dp)[W / 2],
+                                             int qc, const uint16_t* tt, int bpitch,
+                                             const float* sts, int ns, float scale,
+                                             uint32_t (&pa)[W / 16][4], uint32_t (&da)[W / 16][4]) {
+#pragma unroll
+  for (int u = 0; u < W / 16; ++u) {
+    const int q0 = qc + 16 * u;
+    const float4 lse4 = *reinterpret_cast<const float4*>(sts + q0);
+    const float4 di4 = *reinterpret_cast<const float4*>(sts + ns + q0);
+    const float lse[4] = {lse4.x, lse4.y, lse4.z, lse4.w}, di[4] = {di4.x, di4.y, di4.z, di4.w};
+    float pv[8], ds[8];  // 4 j' + 2 h + e: step j = 2 u + j', row h, column e
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 t = bf4(tt + h * 8 * bpitch + q0);
+      const float tv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // q = 2 j' + e, the position's order
+        const int i = 4 * (q >> 1) + 2 * h + (q & 1);
+        pv[i] = ex2(fmaf(fmaf(s[8 * u + i], scale, tv[q]), LOG2E, -lse[q]));
+        ds[i] = pv[i] * (dp[8 * u + i] - di[q]);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      pa[u][2 * jj] = tc::pack_bf16(pv[4 * jj], pv[4 * jj + 1]);
+      pa[u][2 * jj + 1] = tc::pack_bf16(pv[4 * jj + 2], pv[4 * jj + 3]);
+      da[u][2 * jj] = tc::pack_bf16(ds[4 * jj], ds[4 * jj + 1]);
+      da[u][2 * jj + 1] = tc::pack_bf16(ds[4 * jj + 2], ds[4 * jj + 3]);
+    }
+  }
+}
 
-  const int w = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const int kb0 = key_of(g8), kb1 = key_of(8 + g8), kv_row = key_of(lane & 15);
-  const int64_t base = (int64_t)w * g.s_w + (int64_t)h * g.s_h;
-  load_rows(qs, static_cast<const bf16*>(g.q) + base, g.s_n, N, NQ, tid, THREADS);
-  load_rows(os, static_cast<const bf16*>(g.dout) + (int64_t)w * g.d_w + (int64_t)h * g.d_h,
-            g.d_n, N, NQ, tid, THREADS);
-  const float* st = g.stats + ((int64_t)w * g.heads + h) * 3 * g.ns;
-  for (int i = tid; i < NQ; i += THREADS) {
-    const bool ok = i < N;
-    sm_m[i] = ok ? st[i] : 0.f;
-    sm_il[i] = ok ? st[g.ns + i] : 0.f;
-    sm_di[i] = ok ? st[2 * g.ns + i] : 0.f;
+// issues dV += P^T dO and dK += dS^T q for the chunk of W queries from qc
+// (one commit group, left in flight)
+template <int W>
+__device__ __forceinline__ void issue_dkdv(const uint32_t (&pa)[W / 16][4],
+                                           const uint32_t (&da)[W / 16][4], const uint8_t* qs,
+                                           const uint8_t* os, int qc, float (&dk)[16],
+                                           float (&dv)[16]) {
+  wgmma_fence();
+#pragma unroll
+  for (int st = 0; st < W / 16; ++st) {
+    WgmmaRS<32, 1>::mma(dv, pa[st], desc_sw64(os + (qc + 16 * st) * ROW_BYTES, 512), 1);
+    WgmmaRS<32, 1>::mma(dk, da[st], desc_sw64(qs + (qc + 16 * st) * ROW_BYTES, 512), 1);
+  }
+  wgmma_commit();
+}
+
+// Launch 2 (dk, dv): one block per (head, group of windows that read one
+// mask index, key tile of 64). Thread 0 streams each window's K and V tiles,
+// its whole q and dO and its row statistics (a bulk copy) by TMA; C2
+// warpgroups split the queries in chunks of 64. dK and dV of the block's
+// keys are complete at the end of a window: no atomics.
+__global__ void __launch_bounds__(THREADS2, 1)
+    dkdv_bf16(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+              const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_o,
+              BwdArgs g, Plan p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* ring = align512(smem_raw);  // stages x [K | V | q rows | dO rows | statistics]
+  uint16_t* tile = reinterpret_cast<uint16_t*>(ring + p.stages * p.stage_bytes);  // [64][bpitch]
+  float* xchg = reinterpret_cast<float*>(tile + BM * p.bpitch);  // [C2 - 1][32][128] dK, dV
+  uint64_t* full = reinterpret_cast<uint64_t*>(xchg + (C2 - 1) * 32 * 128);
+
+  const int N = g.n;
+  const int k0 = BM * (blockIdx.x % p.tiles), h = (blockIdx.x / p.tiles) % p.heads;
+  const int grp = blockIdx.x / p.tiles / p.heads;
+  const int mi = grp % p.n_groups, split = grp / p.n_groups;
+  const int b0 = split * p.g, nw = min(p.g, p.per_group - b0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stats_off = 2 * TILE_BYTES + 2 * p.rows_bytes;
+
+  // window it's K and V tiles, q and dO rows and statistics into stage it %
+  // stages; thread 0 issues them once the stage is free (no producer warp:
+  // with 8 warps a block, no SM sub-partition holds 3, so each thread may
+  // have up to 255 registers)
+  const uint32_t sbytes = 2 * p.ns * 4;
+  auto load = [&](int it) {
+    const int sl = it % p.stages, x = h * D, w = mi + (b0 + it) * p.n_groups;
+    uint8_t* st = ring + sl * p.stage_bytes;
+    mbar_expect_tx(full + sl, 2 * TILE_BYTES + 2 * p.nbox * p.kbox * ROW_BYTES + sbytes);
+    tma_load_3d(st, &tm_k, full + sl, x, k0, w);
+    tma_load_3d(st + TILE_BYTES, &tm_v, full + sl, x, k0, w);
+    for (int b = 0; b < p.nbox; ++b) {
+      uint8_t* r = st + 2 * TILE_BYTES + b * p.kbox * ROW_BYTES;
+      tma_load_3d(r, &tm_q, full + sl, x, b * p.kbox, w);
+      tma_load_3d(r + p.rows_bytes, &tm_o, full + sl, x, b * p.kbox, w);
+    }
+    bulk_load(st + stats_off, g.stats + ((int64_t)w * p.heads + h) * 2 * p.ns, sbytes,
+              full + sl);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int it = 0; it < p.stages && it < nw; ++it) load(it);
   }
   __syncthreads();
 
-  const uint16_t* bias_t = static_cast<const uint16_t*>(g.bias_t) + (int64_t)h * N * N;
-  const uint16_t* mask_t = g.mask_t ? reinterpret_cast<const uint16_t*>(g.mask_t) +
-                                          (int64_t)(w % g.n_masks) * N * N
-                                    : nullptr;
-  const bool vec = N % 4 == 0;
-  const bf16* K = static_cast<const bf16*>(g.k) + base;
-  const bf16* V = static_cast<const bf16*>(g.v) + base;
-  const int64_t gb = (int64_t)w * g.g_w + (int64_t)h * g.g_h;
+  constexpr int CT = 128 * C2;
+  fill_cols(tile, static_cast<const bf16*>(g.bias) + (int64_t)h * N * N,
+            g.mask ? g.mask + (int64_t)mi * N * N : nullptr, k0, N, p.bpitch, threadIdx.x, CT);
+  named_sync(1, CT);
 
-  for (int j0 = warp * 16; j0 < N; j0 += WARPS * 16) {
-    const int key_a = j0 + g8, key_b = key_a + 8;
-    const bool ok_a = key_a < N, ok_b = key_b < N;
+  const int wg = warp >> 2, t = threadIdx.x & 127, t4 = lane & 3;
+  const int ra = 16 * (warp & 3) + (lane >> 2);  // this thread's key a in the tile; b = a + 8
+  const uint16_t* tt = tile + ra * p.bpitch + 4 * t4;
+
+  for (int it = 0; it < nw; ++it) {
+    const int sl = it % p.stages;
+    uint8_t* st = ring + sl * p.stage_bytes;
+    const uint8_t* qs = st + 2 * TILE_BYTES;
+    const uint8_t* os = qs + p.rows_bytes;
+    const float* sts = reinterpret_cast<const float*>(st + stats_off) + 4 * t4;
+    const int w = mi + (b0 + it) * p.n_groups;
+    mbar_wait(full + sl, (it / p.stages) & 1);
     uint32_t ka[2][4], va[2][4];
-    load_a(ka, K, g.s_n, j0, N, g8, t4);
-    load_a(va, V, g.s_n, j0, N, g8, t4);
-    const uint16_t* brow_a = bias_t + (int64_t)(ok_a ? key_a : 0) * N;
-    const uint16_t* brow_b = bias_t + (int64_t)(ok_b ? key_b : 0) * N;
-    const uint16_t* mrow_a = mask_t ? mask_t + (int64_t)(ok_a ? key_a : 0) * N : nullptr;
-    const uint16_t* mrow_b = mask_t ? mask_t + (int64_t)(ok_b ? key_b : 0) * N : nullptr;
-    float dk[4][4], dv[4][4];
-#pragma unroll
-    for (int dn = 0; dn < 4; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
+    frag_a(ka, st, warp, lane);
+    frag_a(va, st + TILE_BYTES, warp, lane);
 
-    for (int i0 = 0; i0 < NQ; i0 += 16) {
-      const int q4 = i0 + 4 * t4;
-      float sc[2][4], dp[2][4], x[2][4];
-      mma_rows(sc, ka, qs, i0, kb0, kb1, t4);
-      mma_rows(dp, va, os, i0, kb0, kb1, t4);
-      logits4(x, sc, g.scale, brow_a, brow_b, mrow_a, mrow_b, q4, N, vec);
-      const float4 m4 = *reinterpret_cast<const float4*>(sm_m + q4);
-      const float4 il4 = *reinterpret_cast<const float4*>(sm_il + q4);
-      const float4 di4 = *reinterpret_cast<const float4*>(sm_di + q4);
-      const float mq[4] = {m4.x, m4.y, m4.z, m4.w}, ilq[4] = {il4.x, il4.y, il4.z, il4.w};
-      const float diq[4] = {di4.x, di4.y, di4.z, di4.w};
-      float p[2][4], ds[2][4];
+    float dk[16], dv[16];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 2 * nt + (e & 1);
-          const bool ok = (e < 2 ? ok_a : ok_b) && q4 + c < N;
-          const float pv = ok ? __expf(x[nt][e] - mq[c]) * ilq[c] : 0.f;
-          p[nt][e] = pv;
-          ds[nt][e] = pv * (dp[nt][e] - diq[c]);
+    for (int i = 0; i < 16; ++i) dk[i] = dv[i] = 0.f;
+    // this warpgroup's chunks c = wg, wg + C2, ... of 64 queries (the
+    // 16-query runs of a last partial chunk one at a time); dV and dK of a
+    // chunk are left in flight: the next chunk's wait covers them
+    for (int ch = wg; KCH * ch < p.nk; ch += C2) {
+      const int qc = KCH * ch;
+      if (qc + KCH <= p.nk) {
+        float s[32], dp[32];
+        uint32_t pa[4][4], da[4][4];
+        s_dp<KCH>(s, dp, ka, va, qs, os, qc);
+        dkdv_weights<KCH>(s, dp, qc, tt, p.bpitch, sts, p.ns, g.scale, pa, da);
+        issue_dkdv<KCH>(pa, da, qs, os, qc, dk, dv);
+      } else {
+        for (int q16 = qc; q16 < p.nk; q16 += 16) {
+          float s[8], dp[8];
+          uint32_t pa[1][4], da[1][4];
+          s_dp<16>(s, dp, ka, va, qs, os, q16);
+          dkdv_weights<16>(s, dp, q16, tt, p.bpitch, sts, p.ns, g.scale, pa, da);
+          issue_dkdv<16>(pa, da, qs, os, q16, dk, dv);
         }
-      uint32_t pa[4], da[4];
-      pack_a(pa, p);
-      pack_a(da, ds);
-      mma_cols(dv, pa, os, i0, kv_row);
-      mma_cols(dk, da, qs, i0, kv_row);
+      }
     }
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    // every warpgroup is done with this stage: it takes the window after
+    // next; the others hand their dK and dV to the first
+    named_sync(2, CT);
+    if (threadIdx.x == 0 && it + p.stages < nw) load(it + p.stages);
+    if (wg > 0) {
+      float* x = xchg + (wg - 1) * 32 * 128 + t;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        x[i * 128] = dk[i];
+        x[(16 + i) * 128] = dv[i];
+      }
+      named_arrive(3, CT);
+      continue;
+    }
+    named_sync(3, CT);
+#pragma unroll
+    for (int k = 0; k < C2 - 1; ++k) {
+      const float* x = xchg + k * 32 * 128 + t;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        dk[i] += x[i * 128];
+        dv[i] += x[(16 + i) * 128];
+      }
+    }
+    const int64_t gb = (int64_t)w * g.g_w + (int64_t)h * g.g_h;
     bf16* dK = static_cast<bf16*>(g.dk) + gb;
     bf16* dV = static_cast<bf16*>(g.dv) + gb;
 #pragma unroll
-    for (int dn = 0; dn < 4; ++dn) {
-      const int c = dn * 8 + 2 * t4;
-      if (ok_a) {
-        *reinterpret_cast<__nv_bfloat162*>(dK + (int64_t)key_a * g.g_n + c) =
-            __floats2bfloat162_rn(dk[dn][0] * g.scale, dk[dn][1] * g.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dV + (int64_t)key_a * g.g_n + c) =
-            __floats2bfloat162_rn(dv[dn][0], dv[dn][1]);
-      }
-      if (ok_b) {
-        *reinterpret_cast<__nv_bfloat162*>(dK + (int64_t)key_b * g.g_n + c) =
-            __floats2bfloat162_rn(dk[dn][2] * g.scale, dk[dn][3] * g.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dV + (int64_t)key_b * g.g_n + c) =
-            __floats2bfloat162_rn(dv[dn][2], dv[dn][3]);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = k0 + ra + 8 * hh;
+      if (key >= N) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * t4, i = 4 * j + 2 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(dK + (int64_t)key * g.g_n + col) =
+            __floats2bfloat162_rn(dk[i] * g.scale, dk[i + 1] * g.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dV + (int64_t)key * g.g_n + col) =
+            __floats2bfloat162_rn(dv[i], dv[i + 1]);
       }
     }
   }
 }
 
-}  // namespace tc
+}  // namespace hop
 
 template <typename Kernel, typename Args>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
@@ -992,6 +1317,108 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 bool bad_shape(int n, int d, int windows, int heads, const void* mask, int n_masks) {
   return n < 1 || n > MAX_N || d != D || windows < 1 || windows > 65535 || heads < 1 ||
          heads > 65535 || (mask && (n_masks < 1 || windows % n_masks));
+}
+
+// the least x >= n with x % m == r (r < m)
+constexpr int at_least(int n, int m, int r) { return n + ((r - n % m) % m + m) % m; }
+
+// the shared memory of a plan: the slack that aligns the ring to the
+// swizzle's 512 bytes, the ring, the bias tile, launch 1's slab and
+// statistics hand-over, the barriers
+int smem_bytes(const hop::Plan& p, int launch) {
+  using namespace hop;
+  int bytes = 512 + p.stages * p.stage_bytes + BM * p.bpitch * 2 + 2 * p.stages * 8;
+  if (launch == 1)
+    bytes += (p.slab ? BM * p.dpitch * 4 : 0) + p.stages * C1 * BM * 3 * 4 +
+             (C1 - 1) * 16 * 128 * 4;
+  else
+    bytes += (C2 - 1) * 32 * 128 * 4;
+  return bytes;
+}
+
+// The schedule of a bf16 backward launch (1: dq, 2: dk and dv). Windows w =
+// i + b n_groups share mask i (every window shares the bias without a mask);
+// a block takes G = group of them (the host's choice, window_group in
+// ops/window_attn3d_train.py). Launch 1 keeps its dbias slab in shared memory
+// where it fits beside one stage (N <= ~440), else adds dS to dbias per window.
+hop::Plan plan_bwd(int windows, int heads, int n, int n_masks, bool masked, int group,
+                   int launch) {
+  using namespace hop;
+  Plan p{};
+  p.nk = tc::pad16(n);
+  p.tiles = (n + BM - 1) / BM;
+  p.ns = p.tiles * BM;
+  p.nbox = (p.nk + 255) / 256;
+  p.kbox = ((p.nk + p.nbox - 1) / p.nbox + 7) & ~7;
+  p.rows_bytes = (p.nbox * p.kbox * ROW_BYTES + 511) & ~511;
+  p.bpitch = at_least(p.nk, 32, 16);
+  p.dpitch = at_least(p.nk, 32, 16);
+  p.n_groups = masked ? n_masks : 1;
+  p.per_group = windows / p.n_groups;
+  p.heads = heads;
+  p.g = group < p.per_group ? group : p.per_group;
+  p.splits = (p.per_group + p.g - 1) / p.g;
+  p.stage_bytes = 2 * TILE_BYTES + 2 * p.rows_bytes;
+  if (launch == 2) p.stage_bytes += (2 * p.ns * 4 + 511) & ~511;
+  p.slab = launch == 1;
+  for (;;) {  // two stages, then one; launch 1: with the slab first
+    for (p.stages = 2; p.stages >= 1; --p.stages)
+      if (smem_bytes(p, launch) <= SMEM_MAX) return p;
+    if (!p.slab) break;
+    p.slab = 0;
+  }
+  p.stages = 0;  // does not fit: refused by the caller
+  return p;
+}
+
+// q, k, v (or dO) of every window: dims (head columns, tokens, windows),
+// boxes of [rows, 32] at (h * 32, token, window), 64-byte swizzled; tokens
+// past n read as zeros
+bool rows_map(CUtensorMap* map, const void* ptr, int64_t cols, int n, int windows, int64_t s_n,
+              int64_t s_w, int box_rows) {
+  const cuuint64_t dim[3] = {(cuuint64_t)cols, (cuuint64_t)n, (cuuint64_t)windows};
+  const cuuint64_t stride[2] = {(cuuint64_t)s_n * 2, (cuuint64_t)s_w * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1};
+  return hopper::encode_bf16(map, ptr, 3, dim, stride, box, CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+cudaError_t launch_bwd_bf16(const BwdArgs& g, cudaStream_t s) {
+  const bool masked = g.mask != nullptr;
+  const hop::Plan p1 = plan_bwd(g.windows, g.heads, g.n, g.n_masks, masked, g.group, 1);
+  const hop::Plan p2 = plan_bwd(g.windows, g.heads, g.n, g.n_masks, masked, g.group, 2);
+  if (!p1.stages || !p2.stages) return cudaErrorInvalidValue;
+  const int64_t cols = (int64_t)g.heads * g.s_h;
+  CUtensorMap q64, o64, kr, vr, k64, v64, qr, orow;
+  if (!rows_map(&q64, g.q, cols, g.n, g.windows, g.s_n, g.s_w, hop::BM) ||
+      !rows_map(&o64, g.dout, cols, g.n, g.windows, g.d_n, g.d_w, hop::BM) ||
+      !rows_map(&kr, g.k, cols, g.n, g.windows, g.s_n, g.s_w, p1.kbox) ||
+      !rows_map(&vr, g.v, cols, g.n, g.windows, g.s_n, g.s_w, p1.kbox) ||
+      !rows_map(&k64, g.k, cols, g.n, g.windows, g.s_n, g.s_w, hop::BM) ||
+      !rows_map(&v64, g.v, cols, g.n, g.windows, g.s_n, g.s_w, hop::BM) ||
+      !rows_map(&qr, g.q, cols, g.n, g.windows, g.s_n, g.s_w, p2.kbox) ||
+      !rows_map(&orow, g.dout, cols, g.n, g.windows, g.d_n, g.d_w, p2.kbox))
+    return cudaErrorInvalidValue;
+  const int64_t blocks = (int64_t)p1.tiles * g.heads * p1.n_groups * p1.splits;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const int smem1 = smem_bytes(p1, 1), smem2 = smem_bytes(p2, 2);
+  cudaError_t e;
+  if (p1.slab) {
+    e = cudaFuncSetAttribute(hop::dq_bf16<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem1);
+    if (e != cudaSuccess) return e;
+    hop::dq_bf16<true><<<(unsigned)blocks, hop::THREADS1, smem1, s>>>(q64, o64, kr, vr, g, p1);
+  } else {
+    e = cudaFuncSetAttribute(hop::dq_bf16<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem1);
+    if (e != cudaSuccess) return e;
+    hop::dq_bf16<false><<<(unsigned)blocks, hop::THREADS1, smem1, s>>>(q64, o64, kr, vr, g, p1);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(hop::dkdv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
+  if (e != cudaSuccess) return e;
+  hop::dkdv_bf16<<<(unsigned)blocks, hop::THREADS2, smem2, s>>>(k64, v64, qr, orow, g, p2);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1024,37 +1451,32 @@ extern "C" int k5_fwd(int dtype, const void* q, const void* k, const void* v, in
 }
 
 // The row-statistics stride the bf16 backward needs: stats holds
-// windows * heads * 3 * k5_stats_stride(n) floats.
-extern "C" int k5_stats_stride(int n) { return tc::pad16(n); }
+// windows * heads * 2 * k5_stats_stride(n) floats.
+extern "C" int k5_stats_stride(int n) { return (n + hop::BM - 1) / hop::BM * hop::BM; }
 
-// bias (and bias_t, its per-head transpose, bf16 only) in the compute type;
-// mask and mask_t bf16 or null; dbias zeroed; for f32, dk and dv zeroed too
-// (the SIMT route adds into them). group: windows per block of launch 1.
+// bias in the compute type; mask bf16 or null; dbias zeroed; for f32, dk and
+// dv zeroed too (the SIMT route adds into them). group: windows a bf16 block
+// takes (G).
 extern "C" int k5_bwd(int dtype, const void* q, const void* k, const void* v, int64_t s_w,
                       int64_t s_h, int64_t s_n, const void* dout, int64_t d_w, int64_t d_h,
                       int64_t d_n, void* dq, void* dk, void* dv, int64_t g_w, int64_t g_h,
-                      int64_t g_n, const void* bias, const void* bias_t, const void* mask,
-                      const void* mask_t, int n_masks, float* stats, float* dbias, float scale,
-                      int windows, int heads, int n, int d, int group, void* stream) {
+                      int64_t g_n, const void* bias, const void* mask, int n_masks, float* stats,
+                      float* dbias, float scale, int windows, int heads, int n, int d, int group,
+                      void* stream) {
   if (bad_shape(n, d, windows, heads, mask, n_masks) || group < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs g{q, k, v, s_w, s_h, s_n, dout, d_w, d_h, d_n, dq, dk, dv, g_w, g_h, g_n, bias, bias_t,
-            static_cast<const bf16*>(mask), static_cast<const bf16*>(mask_t), mask ? n_masks : 1,
-            stats, dbias, scale, n, tc::pad16(n), heads, windows, group};
+  BwdArgs g{q, k, v, s_w, s_h, s_n, dout, d_w, d_h, d_n, dq, dk, dv, g_w, g_h, g_n, bias,
+            static_cast<const bf16*>(mask), mask ? n_masks : 1, stats, dbias, scale, n,
+            k5_stats_stride(n), heads, windows, group};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) || !bias_t ||
-        !stats || (mask && !mask_t) || (s_w | s_h | s_n | d_w | d_h | d_n) % 8 ||
-        (g_w | g_h | g_n) % 2 || reinterpret_cast<uintptr_t>(dq) % 4 ||
-        reinterpret_cast<uintptr_t>(dk) % 4 || reinterpret_cast<uintptr_t>(dv) % 4)
+    if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(bias) &&
+          aligned16(mask) && aligned16(stats)) ||
+        s_h != D || d_h != D || (s_w | s_n | d_w | d_n) % 8 || (g_w | g_h | g_n) % 2 ||
+        reinterpret_cast<uintptr_t>(dq) % 4 || reinterpret_cast<uintptr_t>(dk) % 4 ||
+        reinterpret_cast<uintptr_t>(dv) % 4)
       return static_cast<int>(cudaErrorInvalidValue);
-    const int groups = (windows + group - 1) / group;
-    if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = launch(tc::bwd_dq_bf16, dim3((n + tc::SLAB - 1) / tc::SLAB, heads, groups),
-                             tc::DQ_THREADS, tc::dq_smem(n), s, g);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(
-        launch(tc::bwd_dkdv_bf16, dim3(windows, heads), tc::THREADS, tc::dkdv_smem(n), s, g));
+    return static_cast<int>(launch_bwd_bf16(g, s));
   }
   if (dtype == 0)
     return static_cast<int>(launch(simt::bwd_f32,

@@ -26,6 +26,7 @@ in f32; dq, dk, dv are cast to q's type and dbias stays f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,10 +37,7 @@ from deepfake_tpu_torch.ops.window_attn_kernel import _on_cuda
 MAX_TOKENS = 512
 HEAD_DIM = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# launch 1 of the bf16 backward adds one dbias slab per group of windows;
-# groups of up to 16 windows, and about this many blocks in the grid
-_MAX_GROUP, _TARGET_BLOCKS = 16, 1024
-_SLAB = 32  # csrc/window_attn3d_train.cu tc::SLAB
+_TILE = 64  # rows of a bf16 backward block, queries or keys (csrc/window_attn3d_train.cu hop::BM)
 
 
 # ---------------------------------------------------------------- plain versions
@@ -90,8 +88,8 @@ def _lib():
             i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i, ctypes.c_float, i, i, i, i, p]
         lib.k5_fwd.restype = i
         lib.k5_bwd.argtypes = [
-            i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, p, i64, i64, i64, p, p, p, p, i,
-            p, p, ctypes.c_float, i, i, i, i, i, p]
+            i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, p, i64, i64, i64, p, p, i, p, p,
+            ctypes.c_float, i, i, i, i, i, p]
         lib.k5_bwd.restype = i
         lib.k5_stats_stride.argtypes = [i]
         lib.k5_stats_stride.restype = i
@@ -149,11 +147,48 @@ def window_attn3d_train_fwd(qkv, *, num_heads: int, bias, mask=None, scale: floa
 window_attn3d_train_fwd.launches = 0
 
 
-def window_group(windows: int, heads: int, n: int) -> int:
-    """Windows per block of the bf16 backward's first launch: as many as
-    keep about _TARGET_BLOCKS blocks in its grid, at most _MAX_GROUP."""
-    slabs = -(-n // _SLAB)
-    return max(1, min(_MAX_GROUP, windows * heads * slabs // _TARGET_BLOCKS))
+@functools.lru_cache(maxsize=None)
+def window_group(windows: int, heads: int, n: int, n_masks: int, masked: bool, sms: int) -> int:
+    """G, the windows a block of the bf16 backward takes. Window w reads mask
+    w % n_masks, so a masked launch has n_masks groups of windows that share
+    one bias + mask tile, and an unmasked one a single group; a group's
+    windows are split over ceil(per_group / G) blocks, each of which builds
+    its tile once. The cost of a choice is waves x (G + 1), the tile counted
+    as one window (K3's planner, on ``sms`` SMs)."""
+    per_group = windows // (n_masks if masked else 1)
+    units = heads * -(-n // _TILE) * (n_masks if masked else 1)
+    best, group = None, 1
+    for g in range(1, per_group + 1):
+        splits = -(-per_group // g)
+        if g > 1 and splits == -(-per_group // (g - 1)):
+            continue  # the same split count as G - 1
+        cost = -(-units * splits // sms) * (g + 1)
+        if best is None or cost < best:
+            best, group = cost, g
+    return group
+
+
+def block_windows(windows: int, heads: int, n: int, n_masks: int, masked: bool, group: int):
+    """The blocks of either bf16 backward launch, in the kernels' order
+    (block x = tile + tiles (head + heads (mask index + n_groups split))):
+    a list of (head, tile, windows of the block). Every block of a masked
+    launch takes windows of one mask index."""
+    n_groups = n_masks if masked else 1
+    per_group = windows // n_groups
+    g = min(group, per_group)
+    tiles = -(-n // _TILE)
+    blocks = []
+    for x in range(tiles * heads * n_groups * -(-per_group // g)):
+        tile, h, grp = x % tiles, (x // tiles) % heads, x // tiles // heads
+        mi, split = grp % n_groups, grp // n_groups
+        b0 = split * g
+        blocks.append((h, tile, [mi + b * n_groups for b in range(b0, min(b0 + g, per_group))]))
+    return blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def window_attn3d_train_bwd(qkv, dout, *, num_heads: int, bias, mask=None, scale: float):
@@ -162,32 +197,32 @@ def window_attn3d_train_bwd(qkv, dout, *, num_heads: int, bias, mask=None, scale
     B_, N, C, D, mask = _check(qkv, num_heads, bias, mask)
     dev = qkv.device
     dt = qkv.dtype
-    bf16 = dt == torch.bfloat16
     dout = dout.to(dt).contiguous()
     # the Pallas backward's cast point: the bias in the compute type
     bias_c = bias.detach().to(dev, dt).contiguous()
     dbias = torch.zeros(num_heads, N, N, dtype=torch.float32, device=dev)
+    n_masks = mask.shape[0] if mask is not None else 1
     lib = _lib()
-    if bf16:
+    group = 1
+    if dt == torch.bfloat16:
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-        bias_t = bias_c.transpose(1, 2).contiguous()
-        mask_t = mask.transpose(1, 2).contiguous() if mask is not None else None
-        stats = torch.empty(B_ * num_heads * 3 * lib.k5_stats_stride(N), dtype=torch.float32,
+        stats = torch.empty(B_ * num_heads * 2 * lib.k5_stats_stride(N), dtype=torch.float32,
                             device=dev)
-        if dout.data_ptr() % 16 or qkv.data_ptr() % 16:
-            raise ValueError("K5's bf16 backward needs 16-byte aligned qkv and dout")
+        if dout.data_ptr() % 16:
+            raise ValueError("K5's bf16 backward needs a 16-byte aligned dout")
+        group = window_group(B_, num_heads, N, n_masks, mask is not None,
+                             _sm_count(dev.index if dev.index is not None else
+                                       torch.cuda.current_device()))
     else:
         dqkv = torch.zeros(qkv.shape, dtype=dt, device=dev)  # the f32 route adds dk, dv
-        bias_t = mask_t = stats = None
-    ptr = lambda t: None if t is None else t.data_ptr()
+        stats = None
     status = lib.k5_bwd(
         _DTYPES[dt], qkv.data_ptr(), qkv[..., C:].data_ptr(), qkv[..., 2 * C:].data_ptr(),
         qkv.stride(0), D, qkv.stride(1), dout.data_ptr(), N * C, D, C,
         dqkv.data_ptr(), dqkv[..., C:].data_ptr(), dqkv[..., 2 * C:].data_ptr(), N * 3 * C, D,
-        3 * C, bias_c.data_ptr(), ptr(bias_t), ptr(mask), ptr(mask_t),
-        mask.shape[0] if mask is not None else 1, ptr(stats), dbias.data_ptr(), float(scale),
-        B_, num_heads, N, D, window_group(B_, num_heads, N),
-        torch.cuda.current_stream(dev).cuda_stream)
+        3 * C, bias_c.data_ptr(), mask.data_ptr() if mask is not None else None, n_masks,
+        stats.data_ptr() if stats is not None else None, dbias.data_ptr(), float(scale),
+        B_, num_heads, N, D, group, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, lib.k5_error_string, "k5_bwd")
     window_attn3d_train_bwd.launches += 1
     return dqkv, dbias

@@ -290,16 +290,22 @@ def k5_tolerance(want: torch.Tensor, dbias: bool = False) -> float:
 
 
 # (B_, H, N, token grid or None): the Video Swin-S stages at b8 x 32 frames of
-# 224 (grid (16, 56 / 2^i, 56 / 2^i)), a clamped 196-token window, N = 512
+# 224 (grid (16, 56 / 2^i, 56 / 2^i)), shifted and not; b1 (B_ = nW: one
+# window per mask index, so a group shares nothing); an odd batch (B_ = 3 nW);
+# an unmasked prime B_ that no window group divides; a clamped 196-token
+# window; N = 512 (launch 1 without its dbias slab)
 K5_CASES = [(1024, 3, 392, (16, 56, 56)), (1024, 3, 392, None), (256, 6, 392, (16, 28, 28)),
-            (64, 12, 392, None), (64, 12, 392, (16, 14, 14)), (16, 24, 392, (16, 7, 7)),
-            (8, 2, 196, (4, 14, 14)), (3, 1, 512, None)]
+            (256, 6, 392, None), (64, 12, 392, None), (64, 12, 392, (16, 14, 14)),
+            (16, 24, 392, (16, 7, 7)), (16, 24, 392, None), (128, 3, 392, (16, 56, 56)),
+            (24, 12, 392, (16, 14, 14)), (1021, 3, 392, None), (8, 2, 196, (4, 14, 14)),
+            (3, 1, 512, None)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B_,H,N,grid", K5_CASES, ids=[
-    "stage0_shifted", "stage0", "stage1_shifted", "stage2", "stage2_shifted", "stage3_shifted",
+    "stage0_shifted", "stage0", "stage1_shifted", "stage1", "stage2", "stage2_shifted",
+    "stage3_shifted", "stage3", "b1_stage0_shifted", "b3_stage2_shifted", "ungrouped_1021",
     "clamped_196", "n512"])
 def test_k5_kernel_matches_plain(cuda_device, B_, H, N, grid, dtype):
     gen = torch.Generator(cuda_device).manual_seed(5)

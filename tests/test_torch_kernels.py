@@ -371,18 +371,22 @@ def _two_bf16_ulps(want: np.ndarray) -> float:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("masked", [True, False], ids=["shifted_nW4", "unshifted"])
-def test_k5_plain_fwd_bwd_match_pallas_nhc_train(masked, dtype):
+@pytest.mark.parametrize("masked,B_", [(True, 4), (False, 4), (True, 8), (True, 12)],
+                         ids=["shifted_nW4", "unshifted", "shifted_b2", "shifted_b3"])
+def test_k5_plain_fwd_bwd_match_pallas_nhc_train(masked, B_, dtype):
     """K5's autograd Function (plain forward and backward on the CPU) ==
     pallas_window_attention_nhc_train under jax.vjp (interpret mode: the
     token-major forward with the max-stabilised softmax, the Pallas
-    backward) at N=392, B_=4, H=2, on one output gradient: out, dq, dk, dv
-    and dbias within atol 2e-4 / rtol 1e-4 in f32. In bf16, out, dq, dk and
-    dv within two bf16 ulps of each tensor's largest |value|; dbias, f32 on
+    backward) at N=392, H=2, on one output gradient: out, dq, dk, dv and
+    dbias within atol 2e-4 / rtol 1e-4 in f32. In bf16, out, dq, dk and dv
+    within two bf16 ulps of each tensor's largest |value|; dbias, f32 on
     both sides and summed from the same bf16 inputs, within rtol 1e-4 (atol
     1e-5 of its largest |value|), which holds the backward to the bias
-    rounded to bf16 where the forward reads it in f32."""
-    B_, H, N, D = 4, 2, 392, 32
+    rounded to bf16 where the forward reads it in f32. The batch layouts the
+    bf16 backward's window groups rely on: b1 (B_ = nW = 4), b2 and an odd
+    batch (B_ = 3 nW), window w reading mask w % nW, and dbias summed over
+    every window."""
+    H, N, D = 2, 392, 32
     C = H * D
     q, k, v, bias, mask = _attn3d_inputs(B_, H, 31, masked)
     tok = lambda a: a.transpose(0, 2, 1, 3).reshape(B_, N, C)

@@ -322,3 +322,31 @@ def test_k5_rejects_what_it_does_not_take():
     attn.precompute_bias()
     with pytest.raises(RuntimeError, match="inference cache"):
         attn.train()(torch.zeros(1, 392, 32))
+
+
+@pytest.mark.parametrize("B_,H,N,n_masks,masked", [
+    (1024, 3, 392, 128, True), (1024, 3, 392, 128, False), (128, 3, 392, 128, True),
+    (24, 12, 392, 8, True), (1021, 3, 392, 1, False), (16, 24, 392, 8, True),
+    (8, 2, 196, 4, True), (3, 1, 512, 1, False)],
+    ids=["stage0_shifted", "stage0", "b1_stage0_shifted", "b3_stage2_shifted", "ungrouped_1021",
+         "stage3_shifted", "clamped_196", "n512"])
+def test_k5_window_groups_cover_every_window_once(B_, H, N, n_masks, masked):
+    """The bf16 backward's schedule (both launches): every (window, head,
+    64-row tile) falls in exactly one block, a block takes at most G windows,
+    and a masked block only windows that read one mask index (w % n_masks),
+    so they can share its bias + mask tile."""
+    from collections import Counter
+
+    from deepfake_tpu_torch.ops.window_attn3d_train import block_windows, window_group
+
+    g = window_group(B_, H, N, n_masks, masked, 132)
+    blocks = block_windows(B_, H, N, n_masks, masked, g)
+    seen = Counter((w, h, tile) for h, tile, ws in blocks for w in ws)
+    tiles = -(-N // 64)
+    assert set(seen) == {(w, h, t) for w in range(B_) for h in range(H) for t in range(tiles)}
+    assert max(seen.values()) == 1
+    assert all(0 < len(ws) <= g for _, _, ws in blocks)
+    if masked:
+        assert all(len({w % n_masks for w in ws}) == 1 for _, _, ws in blocks)
+    if B_ == 1021:  # a prime: the last block of the group takes fewer windows
+        assert g > 1 and B_ % g
