@@ -189,6 +189,38 @@ def k1_flops_bytes(blk, rows: int, C: int, elt: int):
     return 2.0 * rows * macs, 2.0 * rows * C * elt + weights
 
 
+def k1_yardstick(blk, x):
+    """One block's convs as library calls on inputs of their shapes: cuBLAS
+    torch.matmul [R, K] x [K, n] for each 1 x 1 conv (the product alone),
+    cuDNN F.conv2d (channels_last, zero padding) for each tap conv. A
+    yardstick made of several calls, not one call for the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    Fn, H, W, C = x.shape
+    R, dev, dt = Fn * H * W, x.device, x.dtype
+    n_cat = blk.w_out.shape[0]
+    calls = [(x.view(R, C), blk.w_in)]
+    taps = []
+    for chain in blk.chains:
+        for conv in chain:
+            _, cin, cout = conv.w.shape
+            inp = torch.randn(Fn, cin, H, W, device=dev).to(dt).contiguous(
+                memory_format=torch.channels_last)
+            wt = conv.w.reshape(conv.kh, conv.kw, cin, cout).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            taps.append((inp, wt, (conv.kh // 2, conv.kw // 2)))
+    cat = torch.randn(R, n_cat, device=dev).to(dt)
+    calls.append((cat, blk.w_out))
+
+    def run():
+        for a, w in calls:
+            torch.matmul(a, w)
+        for inp, wt, pad in taps:
+            F.conv2d(inp, wt, padding=pad)
+    return run
+
+
 def phase_k1(dev, gen, frames: int, report):
     import torch
 
@@ -202,7 +234,8 @@ def phase_k1(dev, gen, frames: int, report):
         ("C", irv2.BlockC(0.20, True, True), 5, 9),
         ("c_9", irv2.BlockC(1.0, False, True), 5, 1),
     ]
-    per_request = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    per_request = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "yardstick_device_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     errs = {"float32": 0.0, "bfloat16": 0.0}
     for name, block, side, count in cases:
         block = init_weights(block.to(dev), gen)
@@ -226,22 +259,36 @@ def phase_k1(dev, gen, frames: int, report):
                        dtype=dname, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                        gflop=flops / 1e9, mbytes=nbytes / 1e6, max_rel_err=rel,
                        max_abs_err=err)
-            report["k1"].append(row)
-            log(f"K1 {name:4s} {dname:8s} kernel_ms={ms:.3f} plain_ms={plain:.3f} "
-                f"bound_ms={b:.4f} ({by}) GFLOP={flops / 1e9:.1f} rel_err={rel:.2e} (tol {tol})")
             if dtype == torch.bfloat16:
-                for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", b),
-                             ("flops", flops), ("bytes", nbytes)):
+                # the device's own time, and the convs as library calls (a
+                # yardstick of several calls: no one call is this function)
+                dms = device_time_ms(lambda: inception_block(x, blk))
+                yard = device_time_ms(k1_yardstick(blk, x))
+                row.update(device_ms=dms, yardstick_device_ms=yard)
+                for k, v in (("ms", ms), ("device_ms", dms), ("plain_ms", plain),
+                             ("bound_ms", b), ("yardstick_device_ms", yard), ("flops", flops),
+                             ("bytes", nbytes)):
                     per_request[k] += count * v
+            report["k1"].append(row)
+            log(f"K1 {name:4s} {dname:8s} kernel_ms={ms:.3f} "
+                + (f"device_ms={row['device_ms']:.3f} conv-by-conv cuBLAS/cuDNN device_ms="
+                   f"{row['yardstick_device_ms']:.3f} (several calls) " if "device_ms" in row else "")
+                + f"plain_ms={plain:.3f} bound_ms={b:.4f} ({by}) GFLOP={flops / 1e9:.1f} "
+                f"rel_err={rel:.2e} (tol {tol})")
             del x, got
         del block
     torch.cuda.empty_cache()
     inception_block.launches = 0
     _, by = bound_ms(per_request["flops"], per_request["bytes"], "bfloat16")
+    log(f"K1 per b8 request: kernel_ms={per_request['ms']:.3f} device_ms="
+        f"{per_request['device_ms']:.3f} bound_ms={per_request['bound_ms']:.4f}; conv-by-conv "
+        f"cuBLAS/cuDNN device_ms={per_request['yardstick_device_ms']:.3f} (a yardstick of "
+        "several calls, not a library call for the same function)")
     return dict(name="inception_block (K1)", route="cuda", source=K1_SRC, replaces=K1_REPLACES,
                 launches=None, max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"],
-                ms=per_request["ms"], plain_ms=per_request["plain_ms"],
-                bound_ms=per_request["bound_ms"], bound_by=by, library_ms=None,
+                ms=per_request["ms"], device_ms=per_request["device_ms"],
+                plain_ms=per_request["plain_ms"], bound_ms=per_request["bound_ms"], bound_by=by,
+                library_ms=None,
                 per="one fused b8 request: 10 A + 20 B + 10 C blocks, bf16")
 
 
@@ -278,7 +325,8 @@ def phase_k2(dev, gen, batch: int, report):
     from deepfake_tpu_torch.ops import window_attn_kernel as k2
     from deepfake_tpu_torch.ops.window_attn import l2_normalize
 
-    tok = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+    tok = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "library_device_ms": 0.0, "library_norm_device_ms": 0.0, "flops": 0.0,
            "bytes": 0.0, "err": 0.0, "err32": 0.0}
     head = dict(tok)
     cases = []
@@ -326,17 +374,31 @@ def phase_k2(dev, gen, batch: int, report):
                             B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
                     qn = (l2_normalize(hq.float()) * ls).to(dtype)
                     kn = l2_normalize(hk.float()).to(dtype)
-                    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                        qn, kn, hv, attn_mask=am, scale=1.0), iters=10)
+                    sdpa = lambda: F.scaled_dot_product_attention(
+                        qn, kn, hv, attn_mask=am, scale=1.0)
+                    lib = cuda_time_ms(sdpa, iters=10)
+                    # device times (events over launches this short time the
+                    # host too); SDPA also with the normalisation of q and k
+                    # that K2 does inside
+                    dms, lib_dms = device_time_ms(run), device_time_ms(sdpa)
+                    lib_norm_dms = device_time_ms(lambda: F.scaled_dot_product_attention(
+                        (l2_normalize(hq.float()) * ls).to(dtype),
+                        l2_normalize(hk.float()).to(dtype), hv, attn_mask=am, scale=1.0))
                     flops, nbytes = k2_flops_bytes(B_, H, C, 0 if mask is None else mask.shape[0],
                                                    qkv.element_size())
                     b, by = bound_ms(flops, nbytes, dname)
-                    row.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b, bound_by=by)
+                    row.update(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib,
+                               library_device_ms=lib_dms, library_norm_device_ms=lib_norm_dms,
+                               bound_ms=b, bound_by=by)
                     log(f"K2 {layout:6s} {name:24s} B_={B_:4d} H={H:2d} {dname:8s} "
-                        f"kernel_ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib:.4f} "
-                        f"bound_ms={b:.4f} ({by}) rel_err={rel:.2e} (tol {tol})")
+                        f"kernel_ms={ms:.4f} device_ms={dms:.4f} plain_ms={pms:.4f} "
+                        f"library_ms={lib:.4f} (device {lib_dms:.4f}, with q, k normalised "
+                        f"{lib_norm_dms:.4f}) bound_ms={b:.4f} ({by}) rel_err={rel:.2e} "
+                        f"(tol {tol})")
                     if dtype == torch.bfloat16:
-                        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lib),
+                        for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                                         ("library_ms", lib), ("library_device_ms", lib_dms),
+                                         ("library_norm_device_ms", lib_norm_dms),
                                          ("bound_ms", b), ("flops", flops), ("bytes", nbytes)):
                             acc[key] += count * val
                 acc["err" if dtype == torch.bfloat16 else "err32"] = max(
@@ -351,10 +413,15 @@ def phase_k2(dev, gen, batch: int, report):
             ("window_attn_heads (K2, head-major)", head, K2_HEAD_REPLACES,
              "one fused b1 request: the 2 stage-3 blocks at B_=1, bf16")):
         _, by = bound_ms(acc["flops"], acc["bytes"], "bfloat16")
+        log(f"K2 {name} per request: kernel_ms={acc['ms']:.4f} device_ms={acc['device_ms']:.4f} "
+            f"library_ms={acc['library_ms']:.4f} (device {acc['library_device_ms']:.4f}, with q, "
+            f"k normalised {acc['library_norm_device_ms']:.4f}) bound_ms={acc['bound_ms']:.4f}")
         out.append(dict(name=name, route="cuda", source=K2_SRC, replaces=rep, launches=None,
                         max_abs_err=acc["err"], max_abs_err_f32=acc["err32"], ms=acc["ms"],
-                        plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"], bound_by=by,
-                        library_ms=acc["library_ms"], per=per))
+                        device_ms=acc["device_ms"], plain_ms=acc["plain_ms"],
+                        bound_ms=acc["bound_ms"], bound_by=by, library_ms=acc["library_ms"],
+                        library_device_ms=acc["library_device_ms"],
+                        library_norm_device_ms=acc["library_norm_device_ms"], per=per))
     return out
 
 

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the kernels that run on TMA and wgmma
-// (ln_linear.cu: K4, window_attn3d.cu: K3, window_attn3d_train.cu: K5's
-// backward): shared-memory addresses, mbarriers, TMA and bulk loads, wgmma
-// fences, waits, descriptors and the register-A products of the window
-// attention kernels, and, on the host, the tensor-map encoding.
+// (inception_block.cu: K1, window_attn.cu: K2, window_attn3d.cu: K3,
+// ln_linear.cu: K4, window_attn3d_train.cu: K5's backward): shared-memory
+// addresses, mbarriers, TMA loads and stores and bulk loads, wgmma fences,
+// waits, descriptors and the register-A products of the window attention
+// kernels, and, on the host, the tensor-map encoding.
 // cuTensorMapEncodeTiled is taken from the driver through the runtime
 // (cudaGetDriverEntryPoint*), so no library needs -lcuda.
 // Each source that includes this header is compiled into a library of its
@@ -79,6 +80,39 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
       : "memory");
 }
+// one 4D box at (x, y, z, t); elements outside the tensor (negative
+// coordinates included) are written as zeros
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y, int z, int t) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z), "r"(t)
+      : "memory");
+}
+// a 2D box of shared memory src out to the tensor map at (x, y), by the
+// bulk-copy engine (elements outside the tensor are not written); the
+// stores a thread issued complete as one bulk group at its commit
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int x,
+                                             int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(x), "r"(y)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the thread's committed bulk stores have read their shared memory (it may
+// be written again)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... and are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -129,6 +163,18 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// wgmma descriptor of a K-major operand in the 128-byte-swizzled layout
+// (rows of 64 bf16, 128 bytes; 8-row groups 1024 bytes apart; p inside a
+// 1024-aligned atom): a step of 16 k inside the atom is p + 32 bytes
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// byte offset of element c (< 64) of row r in that layout
+__device__ __forceinline__ int sw128_offset(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
 }
 
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A from registers (the
@@ -215,7 +261,7 @@ inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank, const cuuin
                         CUtensorMapSwizzle swizzle) {
   const EncodeTiled enc = encoder();
   if (!enc) return false;
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dim, stride,
              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

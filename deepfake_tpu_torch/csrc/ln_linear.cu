@@ -252,17 +252,11 @@ constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
 constexpr int MAX_PANEL_K = 1024;
 constexpr int MAX_STAGES = 8;
 
-// ---- shared memory, barriers, TMA, wgmma: hopper.cuh
+// ---- shared memory, barriers, TMA, wgmma, the 128-byte-swizzle descriptor:
+// hopper.cuh
 
 using namespace hopper;
 
-// wgmma descriptor of a K-major, 128-byte-swizzled operand at p (inside a
-// 1024-aligned atom): stride between 8-row groups 1024 bytes; a step of 16 k
-// inside the atom is p + 32 bytes
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
 // byte offset of the 16-byte chunk (row r, k chunk g of 8) in a swizzled atom
 __device__ __forceinline__ int swz(int r, int g) { return r * 128 + ((g ^ (r & 7)) << 4); }
 

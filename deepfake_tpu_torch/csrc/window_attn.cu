@@ -1,5 +1,5 @@
-// K2: cosine (or scaled) window attention, one thread block per
-// (window, head), for windows of up to 64 tokens and heads up to 64 wide.
+// K2: cosine (or scaled) window attention for windows of up to 64 tokens
+// and heads up to 64 wide.
 //
 // Replaces the Pallas kernels
 //   deepfake_tpu/ops/pallas_window_attn.py:1127 pallas_window_attention,
@@ -11,24 +11,58 @@
 // [B_, H, N, D] and token-major [B_, N, C] (heads in channel slices, q/k/v
 // read straight out of one [B_, N, 3C] qkv tensor) are the same code.
 //
-// Per block: load q, k, v [N, D] into shared memory as f32; L2-normalise the
-// rows of q and k (x * rsqrt(max(|x|^2, 1e-24)), pallas_window_attn.py:34-35)
-// and scale the logits by the head's logit_scale, or (cosine = 0) scale q by
-// a scalar; add bias[h] and mask[w % n_masks]; max-stabilised f32 softmax
-// with the [N, N] logits held in shared memory (9.8 KB at N = 49); PV; store
-// in the input type.
+// For each (window w, head h): L2-normalise the rows of q and k (x *
+// rsqrt(max(|x|^2, 1e-24)), pallas_window_attn.py:34-35) and scale the
+// logits by the head's logit_scale, or (cosine = 0) scale the logits by a
+// scalar; add bias[h] and mask[w % n_masks]; max-stabilised f32 softmax;
+// PV; store in the input type.
 //
-// What bounds it on the H100: memory. Each block reads 3 * N * D inputs and
-// writes N * D outputs, and does ~4 * N^2 * D flops (~0.3 MFLOP at N = 49,
-// D = 32) against 25 KB of q/k/v/out in f32: ~12 flop/byte, far under the
-// card's ridge. The design keeps the logits out of device memory and reads
-// q/k/v once. The TPU kernels' block-diagonal window packing was for the
-// 128-wide MXU and is not copied: SIMT dot products need no padding to a
-// tile, so a block simply takes one (window, head).
+// What bounds it on the H100: memory. A launch reads q, k, v and writes out
+// once, and reads the f32 bias [H, N, N] and mask [nW, N, N] once; it does
+// ~4 B_ H N^2 D flops (~12 per byte at N = 49, D = 32), far under the
+// card's ridge. A fused b8 request's 24 launches need ~0.06 ms by bytes.
+//
+// Routes:
+//   - bf16 (serving), Hopper. One block (one warpgroup) per (head, group of
+//     windows that read one mask index): window w reads mask w % nW and
+//     windows come batch-major, so windows i + b nW share bias[h] and
+//     mask[i]; an unmasked launch groups G consecutive windows. G is chosen
+//     on the host (ops/window_attn_kernel.py::window_group). The block adds
+//     bias[h] and mask[i] once into an f32 [64, 64] tile in shared memory,
+//     in log2 units (keys past N hold -inf, so padded keys get no weight),
+//     and every window of the group reads it there. A window's 49 rows are
+//     padded to one 64-row wgmma tile. q, k and v come by TMA (a 4D map per
+//     tensor over (head dim, and the head, token and window axes in stride
+//     order), box [64 tokens, D]: tokens past N are zero-filled) through a
+//     ring of two stages, the next window's loads in flight while this one
+//     computes; where D or a stride is not a multiple of 8 elements (no
+//     tensor map), the threads load them instead. The threads normalise q
+//     and k in f32 and split q^ and k^ into bf16 hi + lo parts: cosine
+//     logits reach |scale| = 100, where rounding q^ and k^ to bf16 alone
+//     would move a weight by several percent, so q^.k^ = hi.hi + hi.lo +
+//     lo.hi (K6's split, ~2^-16 relative). k^ (hi, lo) and V^T go into
+//     128-byte-swizzled K-major tiles, q^ into registers as wgmma's A;
+//     S = q^ k^T is three wgmma m64n64k16 products per 16 channels (one for
+//     scaled logits, which take the bf16 q and k as they are and scale
+//     after), f32 accumulation. D is padded to a multiple of 16 with zeros.
+//     The softmax is max-stabilised in f32 with ex2, the logit scale folded
+//     into the exponent: 2^(s scale log2 e + (bias + mask) log2 e - m). The
+//     weights, rounded to bf16, are wgmma's A for P V (m64n64k16, V^T from
+//     shared memory); the output is divided by the row sum in f32 and
+//     rounded once to bf16 at the store.
+//   - f32 (the parity route only; a different kernel from the one that
+//     serves): one block per (window, head); q, k, v as f32 in padded
+//     shared memory, SIMT dot products for the logits (the [N, N] logits
+//     held in shared memory, 9.8 KB at N = 49) and for PV, expf softmax.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -146,16 +180,369 @@ __global__ void __launch_bounds__(THREADS) window_attn(Args g) {
   }
 }
 
+
+// ------------------------------------------------------ bf16: Hopper
+
+namespace hop {
+
+using namespace hopper;
+typedef __nv_bfloat16 bf16;
+
+constexpr int THREADS = 128;          // one warpgroup
+constexpr int BM = 64;                // a window's rows (one wgmma M) and keys (one wgmma N)
+constexpr int OPND = BM * 128;        // a [64, 64] bf16 operand, 128-byte swizzled: 8 KB
+constexpr int TP = BM + 8;            // f32 tile pitch: the 8 rows a warp reads fall on distinct banks
+constexpr int STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// what the host decides for a launch
+struct Plan {
+  int g;           // windows a block takes (G)
+  int n_groups;    // mask indices (1 without a mask)
+  int per_group;   // windows that read one mask index
+  int heads;
+  int tma;         // q, k, v by TMA (else by the threads)
+  int land;        // bytes of one landed [64, D] operand, a multiple of 128
+  int ax_h, ax_w;  // the tensor maps' dims 1-3 that are the head and window axes
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float ld_bf(const uint8_t* tile, int i) {
+  return __bfloat162float(reinterpret_cast<const bf16*>(tile)[i]);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One block per (head, group of windows that read one mask index); see the
+// note at the top. Block x = h + heads (mask index + n_groups split): the
+// heads of a group run together, so a mask slice is read from device memory
+// once for all of them.
+__global__ void __launch_bounds__(THREADS)
+    attn_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, Args g, Plan p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* khi = base;                  // k^ hi [key][channel], swizzled
+  uint8_t* klo = base + OPND;           // k^ lo
+  uint8_t* vt = base + 2 * OPND;        // V^T [channel][key], swizzled
+  float* tile = reinterpret_cast<float*>(base + 3 * OPND);  // [64][TP], log2 units
+  uint8_t* land = reinterpret_cast<uint8_t*>(tile + BM * TP);  // STAGES x [q | k | v] [64][D]
+  uint64_t* full = reinterpret_cast<uint64_t*>(land + STAGES * 3 * p.land);
+
+  const int N = g.n, D = g.d;
+  const int h = blockIdx.x % p.heads, grp = blockIdx.x / p.heads;
+  const int mi = grp % p.n_groups, b0 = (grp / p.n_groups) * p.g;
+  const int nw = min(p.g, p.per_group - b0);  // windows mi + (b0 + it) n_groups
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31, g8 = lane >> 2, t4 = lane & 3;
+
+  // one window's q, k and v into a stage: TMA boxes [64 tokens, D]
+  auto issue = [&](int it) {
+    const int sl = it % STAGES, w = mi + (b0 + it) * p.n_groups;
+    int c[4] = {0, 0, 0, 0};
+    c[1 + p.ax_h] = h;
+    c[1 + p.ax_w] = w;
+    uint8_t* st = land + sl * 3 * p.land;
+    mbar_expect_tx(full + sl, 3 * BM * D * 2);
+    tma_load_4d(st, &tm_q, full + sl, c[0], c[1], c[2], c[3]);
+    tma_load_4d(st + p.land, &tm_k, full + sl, c[0], c[1], c[2], c[3]);
+    tma_load_4d(st + 2 * p.land, &tm_v, full + sl, c[0], c[1], c[2], c[3]);
+  };
+
+  if (t == 0) {
+    for (int i = 0; i < STAGES; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // channels past D of k^ and rows past D of V^T are never written below:
+  // zero them once (k^'s feed the products as zeros; V^T's give output
+  // columns that are not stored)
+  for (int i = t; i < 3 * OPND / 16; i += THREADS)
+    reinterpret_cast<uint4*>(base)[i] = make_uint4(0, 0, 0, 0);
+  fence_async_smem();
+  __syncthreads();
+  if (p.tma && t == 0)
+    for (int it = 0; it < min(STAGES, nw); ++it) issue(it);
+
+  // the bias + mask tile: row r, key j < N holds (bias + mask) log2 e (0 in
+  // rows past N, whose outputs are not stored); keys past N hold -inf. A
+  // thread's FILL loads are issued before any is used, so their latencies
+  // overlap.
+  {
+    constexpr int FILL = 8;
+    const float* bias = g.bias + (int64_t)h * N * N;
+    const float* mask = g.mask ? g.mask + (int64_t)mi * N * N : nullptr;
+    for (int i0 = t; i0 < BM * BM; i0 += FILL * THREADS) {
+      float b[FILL], m[FILL];
+#pragma unroll
+      for (int u = 0; u < FILL; ++u) {
+        const int i = i0 + u * THREADS, r = i >> 6, j = i & 63;
+        const bool in = r < N && j < N;
+        b[u] = in ? bias[r * N + j] : 0.f;
+        m[u] = in && mask ? mask[r * N + j] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < FILL; ++u) {
+        const int i = i0 + u * THREADS, r = i >> 6, j = i & 63;
+        tile[r * TP + j] = j < N ? (b[u] + m[u]) * LOG2E : __int_as_float(0xff800000);  // -inf
+      }
+    }
+  }
+  __syncthreads();
+
+  const float lsc = g.scales[h] * LOG2E;  // the logit scale, folded into the exponent
+  const int nks = (D + 15) >> 4;          // 16-channel steps of S
+  const int row = t >> 1, half = t & 1;   // the row (token) this thread normalises and copies
+  const int hd = (D + 1) >> 1, c_lo = half ? hd : 0, c_hi = half ? D : hd;
+  const int ra = 16 * warp + g8, rb = ra + 8;  // this thread's accumulator rows
+  const float* ta = tile + ra * TP + 2 * t4;
+
+  for (int it = 0; it < nw; ++it) {
+    const int sl = it % STAGES;
+    const uint8_t* lq = land + sl * 3 * p.land;
+    const uint8_t* lk = lq + p.land;
+    const uint8_t* lv = lk + p.land;
+    const int w = mi + (b0 + it) * p.n_groups;
+    if (p.tma) {
+      mbar_wait(full + sl, (it / STAGES) & 1);
+    } else {
+      const int64_t wb = (int64_t)w * g.s_w + (int64_t)h * g.s_h;
+      for (int i = t; i < 3 * BM * D; i += THREADS) {
+        const int which = i / (BM * D), e = i - which * BM * D, r = e / D, c = e - r * D;
+        const bf16* src = static_cast<const bf16*>(which == 0 ? g.q : which == 1 ? g.k : g.v);
+        reinterpret_cast<bf16*>(land + sl * 3 * p.land + which * p.land)[e] =
+            r < N ? src[wb + (int64_t)r * g.s_n + c] : __float2bfloat16(0.f);
+      }
+      named_sync(1, THREADS);
+    }
+
+    // the row norms of q and k (a row's two threads are lanes 2 r' and
+    // 2 r' + 1 of the warp whose accumulator rows hold r')
+    float iq = 1.f, ik = 1.f;
+    if (g.cosine) {
+      float sq = 0.f, sk = 0.f;
+      for (int c = c_lo; c < c_hi; ++c) {
+        const float a = ld_bf(lq, row * D + c), b = ld_bf(lk, row * D + c);
+        sq = fmaf(a, a, sq);
+        sk = fmaf(b, b, sk);
+      }
+      sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+      sk += __shfl_xor_sync(0xffffffffu, sk, 1);
+      iq = rsqrtf(fmaxf(sq, 1e-24f));
+      ik = rsqrtf(fmaxf(sk, 1e-24f));
+    }
+    // q^ as wgmma's A, hi and lo, for each 16-channel step: rows ra, rb;
+    // channels 16 ks + 8 (e >> 1) + 2 t4 + {0, 1}
+    const float ia = __shfl_sync(0xffffffffu, iq, (2 * g8) & 31);
+    const float ib = __shfl_sync(0xffffffffu, iq, (2 * g8 + 16) & 31);
+    uint32_t qh[4][4], ql[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = (e & 1) ? rb : ra, c = 16 * ks + 8 * (e >> 1) + 2 * t4;
+        const float sc = (e & 1) ? ib : ia;
+        const float x0 = c < D ? ld_bf(lq, r * D + c) * sc : 0.f;
+        const float x1 = c + 1 < D ? ld_bf(lq, r * D + c + 1) * sc : 0.f;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        qh[ks][e] = *reinterpret_cast<const uint32_t*>(&hi);
+        ql[ks][e] = pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
+      }
+    // the previous window's products are done with k^ and V^T
+    named_sync(1, THREADS);
+    for (int c = c_lo; c < c_hi; ++c) {
+      const float x = ld_bf(lk, row * D + c) * ik;
+      const bf16 hi = __float2bfloat16(x);
+      *reinterpret_cast<bf16*>(khi + sw128_offset(row, c)) = hi;
+      if (g.cosine)
+        *reinterpret_cast<bf16*>(klo + sw128_offset(row, c)) =
+            __float2bfloat16(x - __bfloat162float(hi));
+      *reinterpret_cast<bf16*>(vt + sw128_offset(c, row)) =
+          reinterpret_cast<const bf16*>(lv)[row * D + c];
+    }
+    fence_async_smem();  // the tiles are read by wgmma next
+    named_sync(1, THREADS);  // ... and this stage's landed rows are read
+    if (p.tma && t == 0 && it + STAGES < nw) issue(it + STAGES);
+
+    // S = q^ k^T (hi.hi + hi.lo + lo.hi), f32
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      if (ks < nks) WgmmaRS<64, 0>::mma(s, qh[ks], desc_sw128(khi + 32 * ks), ks > 0);
+    if (g.cosine) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        if (ks < nks) WgmmaRS<64, 0>::mma(s, qh[ks], desc_sw128(klo + 32 * ks), 1);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        if (ks < nks) WgmmaRS<64, 0>::mma(s, ql[ks], desc_sw128(khi + 32 * ks), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // the logits in log2 units, their row max, the weights and row sums;
+    // element 4 j + 2 hh + e is row ra + 8 hh, key 8 j + 2 t4 + e
+    float ma = __int_as_float(0xff800000), mb = ma;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 ba = *reinterpret_cast<const float2*>(ta + 8 * j);
+      const float2 bb = *reinterpret_cast<const float2*>(ta + 8 * TP + 8 * j);
+      s[4 * j] = fmaf(s[4 * j], lsc, ba.x);
+      s[4 * j + 1] = fmaf(s[4 * j + 1], lsc, ba.y);
+      s[4 * j + 2] = fmaf(s[4 * j + 2], lsc, bb.x);
+      s[4 * j + 3] = fmaf(s[4 * j + 3], lsc, bb.y);
+      ma = fmaxf(ma, fmaxf(s[4 * j], s[4 * j + 1]));
+      mb = fmaxf(mb, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    ma = quad_max(ma);
+    mb = quad_max(mb);
+    float suma = 0.f, sumb = 0.f;
+    uint32_t pa[4][4];  // the weights as P V's A, one 16-key step each
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float e0 = ex2(s[4 * j] - ma), e1 = ex2(s[4 * j + 1] - ma);
+      const float e2 = ex2(s[4 * j + 2] - mb), e3 = ex2(s[4 * j + 3] - mb);
+      suma += e0 + e1;
+      sumb += e2 + e3;
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(e0, e1);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(e2, e3);
+    }
+    suma = quad_sum(suma);
+    sumb = quad_sum(sumb);
+
+    float o[32];
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < 4; ++st)
+      WgmmaRS<64, 0>::mma(o, pa[st], desc_sw128(vt + 32 * st), st > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+
+    const float inva = 1.f / suma, invb = 1.f / sumb;
+    bf16* O = static_cast<bf16*>(g.out) + (int64_t)w * g.o_w + (int64_t)h * g.o_h;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      if (c >= D) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = hh ? rb : ra;
+        if (r >= N) continue;
+        const float inv = hh ? invb : inva;
+        bf16* at = O + (int64_t)r * g.o_n + c;
+        const float y0 = o[4 * j + 2 * hh] * inv, y1 = o[4 * j + 2 * hh + 1] * inv;
+        if (c + 1 < D && !(D & 1)) {
+          *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(y0, y1);
+        } else {
+          at[0] = __float2bfloat16(y0);
+          if (c + 1 < D) at[1] = __float2bfloat16(y1);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace hop
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// q, k or v of every (window, head): dims (head dim, then the head, token
+// and window axes in the order of their strides, as TMA wants them), box
+// [64 tokens, D], no swizzle; tokens past N are zeros
+bool qkv_map(CUtensorMap* map, const void* ptr, const Args& g, int heads, int windows,
+             int order[3]) {
+  const int64_t st[3] = {g.s_h, g.s_n, g.s_w};
+  const int64_t ext[3] = {heads, g.n, windows};
+  const int64_t box[3] = {1, hop::BM, 1};
+  cuuint64_t dim[4] = {(cuuint64_t)g.d, 0, 0, 0}, stride[3];
+  cuuint32_t b[4] = {(cuuint32_t)g.d, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int a = order[i];
+    dim[1 + i] = (cuuint64_t)ext[a];
+    stride[i] = (cuuint64_t)st[a] * 2;
+    b[1 + i] = (cuuint32_t)box[a];
+  }
+  return hopper::encode_bf16(map, ptr, 4, dim, stride, b, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// one landed [64, D] operand, in bytes (a multiple of 128, as TMA writes it)
+int land_bytes(int d) { return (hop::BM * d * 2 + 127) & ~127; }
+// the alignment slack, the operand tiles, the bias tile, the landing ring
+// and its barriers
+int smem_bytes(int land) {
+  return 1024 + 3 * hop::OPND + hop::BM * hop::TP * 4 + hop::STAGES * (3 * land + 8);
+}
+
+cudaError_t launch_bf16(const Args& g, int windows, int heads, int group, cudaStream_t s) {
+  hop::Plan p{};
+  p.n_groups = g.mask ? g.n_masks : 1;
+  p.per_group = windows / p.n_groups;
+  p.g = group < 1 ? 1 : (group > p.per_group ? p.per_group : group);
+  p.heads = heads;
+  p.land = land_bytes(g.d);
+  p.tma = g.d % 8 == 0 && (g.s_w | g.s_h | g.s_n) % 8 == 0 && aligned16(g.q) &&
+          aligned16(g.k) && aligned16(g.v);
+  // the three outer axes (0 head, 1 token, 2 window) by stride
+  int order[3] = {0, 1, 2};
+  const int64_t st[3] = {g.s_h, g.s_n, g.s_w};
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (st[order[j]] < st[order[i]]) {
+        const int x = order[i];
+        order[i] = order[j];
+        order[j] = x;
+      }
+  for (int i = 0; i < 3; ++i) {
+    if (order[i] == 0) p.ax_h = i;
+    if (order[i] == 2) p.ax_w = i;
+  }
+  CUtensorMap tq{}, tk{}, tv{};
+  if (p.tma && !(qkv_map(&tq, g.q, g, heads, windows, order) &&
+                 qkv_map(&tk, g.k, g, heads, windows, order) &&
+                 qkv_map(&tv, g.v, g, heads, windows, order)))
+    return cudaErrorInvalidValue;
+  const int smem = smem_bytes(p.land);
+  static std::atomic<bool> done[hopper::MAX_DEVICES];
+  const int slot = hopper::device_slot();
+  if (slot < 0 || !done[slot].load(std::memory_order_acquire)) {
+    // once per device, for the widest head (D = 64)
+    const cudaError_t e = cudaFuncSetAttribute(
+        hop::attn_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(land_bytes(64)));
+    if (e != cudaSuccess) return e;
+    if (slot >= 0) done[slot].store(true, std::memory_order_release);
+  }
+  const int64_t blocks = (int64_t)heads * p.n_groups * ((p.per_group + p.g - 1) / p.g);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  hop::attn_bf16<<<(unsigned)blocks, hop::THREADS, smem, s>>>(tq, tk, tv, g, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. grid = (windows, heads). Returns cudaGetLastError().
+// dtype: 0 float32 (SIMT, grid (windows, heads)), 1 bfloat16 (Hopper: wgmma
+// and TMA, one block per head and group of `group` windows that read one
+// mask index). Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// arguments the kernels do not take.
 extern "C" int k2_window_attn(
     int dtype, const void* q, const void* k, const void* v,
     int64_t s_w, int64_t s_h, int64_t s_n,
     void* out, int64_t o_w, int64_t o_h, int64_t o_n,
     const float* bias, const float* mask, int n_masks, const float* scales,
-    int cosine, int windows, int heads, int n, int d, void* stream) {
-  if (n < 1 || n > 64 || d < 1 || d > 64) return static_cast<int>(cudaErrorInvalidValue);
+    int cosine, int windows, int heads, int n, int d, int group, void* stream) {
+  if (n < 1 || n > 64 || d < 1 || d > 64 || windows < 1 || heads < 1 ||
+      (mask && (n_masks < 1 || windows % n_masks)))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args g{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask, n_masks, scales, cosine, n, d};
   const size_t smem = sizeof(float) * (3 * n * (d + 1) + n * (n + 1));
   dim3 grid(windows, heads);
@@ -165,10 +552,8 @@ extern "C" int k2_window_attn(
       cudaFuncSetAttribute(window_attn<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     window_attn<float><<<grid, THREADS, smem, s>>>(g);
   } else if (dtype == 1) {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(window_attn<__nv_bfloat16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-    window_attn<__nv_bfloat16><<<grid, THREADS, smem, s>>>(g);
+    const cudaError_t e = launch_bf16(g, windows, heads, group, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,15 +12,22 @@ holds one block's weights folded and laid out for the kernel;
 ``inception_block`` runs it: on a CPU tensor through the plain version
 (``inception_block_plain``), on a CUDA tensor through the CUDA kernel in
 ``csrc/inception_block.cu`` (one shifted-GEMM launch per conv; f32 on SIMT
-FMAs, bf16 on the tensor cores) and nowhere else. Intermediates are stored in the input type between launches, which
-is where the Pallas kernel casts them (``.astype(d)`` before each dot).
+FMAs, bf16 on Hopper's wgmma with TMA loads) and nowhere else.
+Intermediates are stored in the input type between launches, which is where
+the Pallas kernel casts them (``.astype(d)`` before each dot).
+
+The bf16 launches are planned here: ``n_tile`` gives a conv's column tile,
+``row_tile`` the box of output pixels a row tile covers (the frame halo of
+a tap comes from the tensor map's zero fill, so a tile is whole rows of
+pixels of one or more frames).
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
-from typing import List, Tuple
+import functools
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +44,9 @@ class TapConv:
     affine: torch.Tensor
     kh: int
     kw: int
+    # the bf16 kernel's K-major copy of w, [kh * kw * cout, cin]: made at
+    # the first bf16 launch on the card
+    w_kmajor: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
 
 
 @dataclass
@@ -58,6 +68,9 @@ class BlockWeights:
     b_out: torch.Tensor
     res_scale: float
     relu: bool
+    # K-major copies of w_in and w_out for the bf16 kernel (as TapConv's)
+    w_in_kmajor: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
+    w_out_kmajor: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
 
 
 def fold_bn(scale, bias, mean, var, eps: float) -> torch.Tensor:
@@ -108,49 +121,142 @@ def inception_block_plain(x: torch.Tensor, blk: BlockWeights) -> torch.Tensor:
     return out.to(d)
 
 
+# ---------------------------------------------------------------- bf16 planning
+
+# the column tile widths the bf16 kernel is built for (csrc/wgmma_ss.cuh);
+# none above 224: a thread holds BN / 2 accumulators, and beside a producer
+# warp ptxas gives it at most 168 registers (at 256 it spilled)
+N_TILES = (16, 32, 48, 64, 96, 128, 136, 160, 192, 208, 224)
+TILE_ROWS = 128  # rows of a row tile: two wgmma M of 64
+
+
+@functools.lru_cache(maxsize=None)
+def n_tile(n: int, widest: int = max(N_TILES)) -> int:
+    """The column tile of a conv with n outputs: n itself up to ``widest``
+    (the least built width >= n where n is not one), else the widest built
+    width that splits n into equal tiles (256 = 2 x 128, 320 = 2 x 160, 1088
+    = 8 x 136, 2080 = 10 x 208), else the widest built width with a ragged
+    last tile."""
+    if n <= widest:
+        return min(w for w in N_TILES if w >= n)
+    for count in range(-(-n // widest), n // 8 + 1):
+        if n % count == 0 and n // count in N_TILES and n // count <= widest:
+            return n // count
+    return max(w for w in N_TILES if w <= widest)
+
+
+@functools.lru_cache(maxsize=None)
+def row_tile(frames: int, h: int, w: int, kh: int, kw: int):
+    """(geometry, box) of a conv's row tiles: the rows are read as
+    ``geometry`` = (frames, rows, columns) of pixels, a tile is a ``box`` =
+    (bf, bh, bw) of them, bf bh bw <= 128. A 1 x 1 conv reads its rows flat
+    (1, 1, R) in tiles of 128; a tap conv reads whole frames in tiles of
+    whole pixel rows (a row wider than 128 in equal parts), and of the boxes
+    of bh rows of bf frames it takes the one that needs the fewest tiles
+    (the most rows of work used)."""
+    if kh == 1 and kw == 1:
+        rows = frames * h * w
+        return (1, 1, rows), (1, 1, min(TILE_ROWS, rows))
+    bw = -(-w // -(-w // TILE_ROWS))  # whole rows, or a row in equal parts above 128
+    best = None
+    for bh in range(1, min(h, TILE_ROWS // bw) + 1):
+        bf = min(frames, TILE_ROWS // (bw * bh))
+        tiles = -(-frames // bf) * -(-h // bh) * -(-w // bw)
+        if best is None or tiles < best[0]:
+            best = (tiles, (bf, bh, bw))
+    return (frames, h, w), best[1]
+
+
 # ---------------------------------------------------------------- CUDA kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib():
-    lib = build.library("inception_block")
+    return bind(build.library("inception_block"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument types on a loaded K1 library."""
     if not getattr(lib, "_typed", False):
         p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
         lib.k1_shifted_gemm.argtypes = [
             i, p, i64, i, p, i, i, i, i, i, i, i, p, p, p, i64, f, i, p, i64, i, p, i64, p]
         lib.k1_shifted_gemm.restype = i
+        lib.k1_conv_bf16.argtypes = [
+            p, i64, i, p, i, i, i, i, i, i, i, i, i, i, i, i, p, p, p, i64, f, i, p, i64, i, p,
+            i64, p]
+        lib.k1_conv_bf16.restype = i
         lib.k1_error_string.argtypes = [i]
         lib.k1_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _ptr(t: torch.Tensor, col: int = 0) -> int:
     return t.data_ptr() + col * t.element_size()
 
 
+def _kmajor(w: torch.Tensor) -> torch.Tensor:
+    """[taps, cin, cout] -> [taps * cout, cin]: the layout the bf16 kernel's
+    weight tiles are loaded from."""
+    taps, cin, cout = w.shape
+    return w.transpose(1, 2).reshape(taps * cout, cin).contiguous()
+
+
 def _launch(lib, stream, dt, a, a_col, k, w, kh, kw, rows, hw: Tuple[int, int], n, *,
-            affine=None, bias=None, x=None, res_scale=0.0, relu=False,
+            w_kmajor=None, affine=None, bias=None, x=None, res_scale=0.0, relu=False,
             out0, out0_col=0, nsplit=None, out1=None):
     """One shifted-GEMM launch. ``a``/``out*`` are 2-D row-major buffers
-    read or written from column ``*_col``; the row stride is their width."""
+    read or written from column ``*_col``; the row stride is their width.
+    ``w_kmajor``: the bf16 kernel's copy of ``w`` (``_kmajor``)."""
     mode = 0 if affine is not None else 1
-    if dt == _DTYPES[torch.bfloat16] and (
-            k % 8 or n % 8 or a.shape[1] % 8 or _ptr(a, a_col) % 16 or w.data_ptr() % 16):
-        # the tensor-core path copies 16-byte chunks of 8 channels
-        raise ValueError(f"inception_block (bf16): k={k}, n={n}, the row width "
-                         f"{a.shape[1]} and the column offset {a_col} must be multiples of 8")
+    nsplit = n if nsplit is None else nsplit
+    if dt == _DTYPES[torch.bfloat16]:
+        if (k % 8 or n % 8 or a.shape[1] % 8 or _ptr(a, a_col) % 16 or w.data_ptr() % 16
+                or out0.shape[1] % 8 or _ptr(out0, out0_col) % 16 or (nsplit < n and nsplit % 8)):
+            # TMA reads rows in 16-byte runs; the epilogue writes 8 columns at once
+            raise ValueError(f"inception_block (bf16): k={k}, n={n}, the row width "
+                             f"{a.shape[1]} and the column offset {a_col} must be multiples of 8")
+        geom, box = row_tile(rows // (hw[0] * hw[1]), hw[0], hw[1], kh, kw)
+        wt = _kmajor(w) if w_kmajor is None else w_kmajor
+        index = a.device.index if a.device.index is not None else torch.cuda.current_device()
+        status = lib.k1_conv_bf16(
+            _ptr(a, a_col), a.shape[1], k, wt.data_ptr(), kh, kw, *geom, *box, n, n_tile(n),
+            _sm_count(index), mode, affine[0].data_ptr() if mode == 0 else None,
+            affine[1].data_ptr() if mode == 0 else bias.data_ptr(),
+            x.data_ptr() if x is not None else None, x.shape[-1] if x is not None else 0,
+            float(res_scale), int(relu), _ptr(out0, out0_col), out0.shape[1], nsplit,
+            out1.data_ptr() if out1 is not None else None,
+            out1.shape[1] if out1 is not None else 0, stream)
+        build.check(status, lib.k1_error_string, "k1_conv_bf16")
+        return
     status = lib.k1_shifted_gemm(
         dt, _ptr(a, a_col), a.shape[1], k, w.data_ptr(), kh, kw, rows, hw[0], hw[1], n, mode,
         affine[0].data_ptr() if mode == 0 else None,
         affine[1].data_ptr() if mode == 0 else bias.data_ptr(),
         x.data_ptr() if x is not None else None, x.shape[-1] if x is not None else 0,
         float(res_scale), int(relu),
-        _ptr(out0, out0_col), out0.shape[1], n if nsplit is None else nsplit,
+        _ptr(out0, out0_col), out0.shape[1], nsplit,
         out1.data_ptr() if out1 is not None else None, out1.shape[1] if out1 is not None else 0,
         stream)
     build.check(status, lib.k1_error_string, "k1_shifted_gemm")
+
+
+def _kmajor_weights(blk: BlockWeights) -> None:
+    """Make the bf16 kernel's K-major weight copies once per BlockWeights."""
+    if blk.w_in_kmajor is None:
+        blk.w_in_kmajor = _kmajor(blk.w_in[None])
+        blk.w_out_kmajor = _kmajor(blk.w_out[None])
+    for chain in blk.chains:
+        for conv in chain:
+            if conv.w_kmajor is None:
+                conv.w_kmajor = _kmajor(conv.w)
 
 
 def _check_weights(blk: BlockWeights, x: torch.Tensor) -> None:
@@ -183,6 +289,9 @@ def inception_block(x: torch.Tensor, blk: BlockWeights) -> torch.Tensor:
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     dt = _DTYPES[x.dtype]
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        _kmajor_weights(blk)
     Fn, H, W, C = x.shape
     R = Fn * H * W
     hw = (H, W)
@@ -190,7 +299,8 @@ def inception_block(x: torch.Tensor, blk: BlockWeights) -> torch.Tensor:
     n_in, n_cat = blk.w_in.shape[1], blk.w_out.shape[0]
     cat = torch.empty(R, n_cat, dtype=x.dtype, device=x.device)
     heads = torch.empty(R, n_in - blk.n_direct, dtype=x.dtype, device=x.device)
-    _launch(lib, stream, dt, xr, 0, C, blk.w_in, 1, 1, R, hw, n_in, affine=blk.a_in,
+    _launch(lib, stream, dt, xr, 0, C, blk.w_in, 1, 1, R, hw, n_in,
+            w_kmajor=blk.w_in_kmajor if bf16 else None, affine=blk.a_in,
             out0=cat, nsplit=blk.n_direct, out1=heads)
     col_in, col_out = 0, blk.n_direct
     for chain in blk.chains:
@@ -203,12 +313,14 @@ def inception_block(x: torch.Tensor, blk: BlockWeights) -> torch.Tensor:
             else:
                 dst, dst_col = torch.empty(R, cout, dtype=x.dtype, device=x.device), 0
             _launch(lib, stream, dt, src, src_col, cin, conv.w, conv.kh, conv.kw, R, hw, cout,
-                    affine=conv.affine, out0=dst, out0_col=dst_col)
+                    w_kmajor=conv.w_kmajor if bf16 else None, affine=conv.affine, out0=dst,
+                    out0_col=dst_col)
             src, src_col = dst, dst_col
         col_out += chain[-1].w.shape[2]
     out = torch.empty_like(x)
-    _launch(lib, stream, dt, cat, 0, n_cat, blk.w_out, 1, 1, R, hw, C, bias=blk.b_out,
-            x=xr, res_scale=blk.res_scale, relu=blk.relu, out0=out.view(R, C))
+    _launch(lib, stream, dt, cat, 0, n_cat, blk.w_out, 1, 1, R, hw, C,
+            w_kmajor=blk.w_out_kmajor if bf16 else None, bias=blk.b_out, x=xr,
+            res_scale=blk.res_scale, relu=blk.relu, out0=out.view(R, C))
     inception_block.launches += 1
     return out
 

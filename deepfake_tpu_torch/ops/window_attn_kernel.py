@@ -9,15 +9,20 @@ serves both: the wrappers pass it the layout's strides.
 Each wrapper takes its plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, or raises; ``<wrapper>.launches`` counts kernel
 launches. The plain versions compute what the kernel computes, at the
-kernel's (and the Pallas kernels') cast points: q, k, v read as f32,
-max-stabilised f32 softmax, f32 PV, one rounding to the input type at the
-store.
+Pallas kernels' cast points: q, k, v read as f32, max-stabilised f32
+softmax, f32 PV, one rounding to the input type at the store (the bf16
+kernel rounds the weights to bf16 for PV on the tensor cores).
+
+The bf16 kernel takes, per block, one head and a group of windows that read
+one mask index (``window_group`` chooses how many; ``block_windows`` lists
+the blocks).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -27,6 +32,51 @@ from deepfake_tpu_torch.ops.window_attn import add_mask, l2_normalize
 MAX_TOKENS = 64
 MAX_HEAD_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# bf16 blocks resident on one SM (shared memory: ~67 KB a block at D = 32)
+BLOCKS_PER_SM = 3
+
+
+@functools.lru_cache(maxsize=None)
+def window_group(windows: int, heads: int, n_masks: int, masked: bool, slots: int) -> int:
+    """G, the windows a block of the bf16 kernel takes. Window w reads mask
+    w % n_masks, so a masked launch has n_masks groups of windows that share
+    one bias + mask tile, and an unmasked one a single group; a group's
+    windows are split over ceil(per_group / G) blocks, each of which fills
+    its tile once. The cost of a choice is waves x (G + 1), the tile counted
+    as one window, with ``slots`` blocks resident at once (K3's planner)."""
+    n_groups = n_masks if masked else 1
+    per_group = windows // n_groups
+    units = heads * n_groups
+    best, group = None, 1
+    for g in range(1, per_group + 1):
+        splits = -(-per_group // g)
+        if g > 1 and splits == -(-per_group // (g - 1)):
+            continue  # the same split count as G - 1
+        cost = -(-units * splits // slots) * (g + 1)
+        if best is None or cost < best:
+            best, group = cost, g
+    return group
+
+
+def block_windows(windows: int, heads: int, n_masks: int, masked: bool,
+                  group: int) -> List[Tuple[int, List[int]]]:
+    """The bf16 kernel's blocks in its order (block x = head + heads (mask
+    index + n_groups split)): a list of (head, windows of the block). Every
+    block of a masked launch takes windows of one mask index."""
+    n_groups = n_masks if masked else 1
+    per_group = windows // n_groups
+    g = min(group, per_group)
+    blocks = []
+    for x in range(heads * n_groups * -(-per_group // g)):
+        h, grp = x % heads, x // heads
+        mi, b0 = grp % n_groups, (grp // n_groups) * g
+        blocks.append((h, [mi + b * n_groups for b in range(b0, min(b0 + g, per_group))]))
+    return blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ---------------------------------------------------------------- plain versions
@@ -63,7 +113,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.k2_window_attn.argtypes = [
-            i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i, p, i, i, i, i, i, p]
+            i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i, p, i, i, i, i, i, i, p]
         lib.k2_window_attn.restype = i
         lib.k2_error_string.argtypes = [i]
         lib.k2_error_string.restype = ctypes.c_char_p
@@ -95,12 +145,17 @@ def _launch(q, k, v, strides, out, out_strides, *, windows, heads, n, d, bias, m
         scales = logit_scale.to(dev, torch.float32).reshape(heads).contiguous()
     else:
         scales = torch.full((heads,), float(scale), dtype=torch.float32, device=dev)
+    group = 1
+    if q.dtype == torch.bfloat16:
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        group = window_group(windows, heads, n_masks, mask is not None,
+                             BLOCKS_PER_SM * _sm_count(index))
     lib = _lib()
     status = lib.k2_window_attn(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides,
         out.data_ptr(), *out_strides, bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, n_masks, scales.data_ptr(),
-        int(cosine), windows, heads, n, d, torch.cuda.current_stream(dev).cuda_stream)
+        int(cosine), windows, heads, n, d, group, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, lib.k2_error_string, "k2_window_attn")
 
 

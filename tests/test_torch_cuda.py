@@ -9,7 +9,8 @@ card and PyTorch alone:
 Tolerances for K1 and K2, on max |kernel - plain| / max(|plain|, 1): f32
 with TF32 off, 1e-4 (summation order and rsqrt rounding; K2's logits reach
 ~116 and amplify them); bf16 2e-2 (one bf16 rounding of a stored value,
-where the two sides may round apart by an ulp). For K3, on max |kernel -
+where the two sides may round apart by an ulp; K2 also rounds its weights
+to bf16 for P V on the tensor cores, ~2^-9 of each). For K3, on max |kernel -
 plain|: f32 1e-5; bf16 two bf16 ulps of the largest output (the weights
 are rounded to bf16 for PV on both sides, and a weight whose f32 value
 sits at a rounding boundary may round apart). For K4, on max |kernel -
@@ -86,16 +87,34 @@ def _block(kind, dev, gen):
     return block
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("kind,S", [("A", 9), ("B", 4), ("C", 5), ("c9", 5), ("A", 25)],
-                         ids=["A_S9", "B_S4", "C_S5", "c9_S5", "A_S25"])
-def test_k1_kernel_matches_plain(cuda_device, kind, S, dtype, tol):
-    gen = torch.Generator(cuda_device).manual_seed(0)
-    block = _block(kind, cuda_device, gen)
+# (block, side, frames): small frames; the fused path's sides (A 25, B 12,
+# C 5) at 33 frames, which leave a partial last row tile in every conv (the
+# bf16 tap convs' boxes take 1 x 5 x 25, 5 x 2 x 12 and 5 x 5 x 5 pixels, the
+# 1 x 1 convs 128 flat rows); block A's second branch reads its input from
+# a column slice (channels 32-63) of the in-conv's second output, and every
+# branch's last conv writes a column slice of the concat buffer
+K1_CASES = {
+    "A_S9": ("A", 9, 6), "B_S4": ("B", 4, 6), "C_S5": ("C", 5, 6), "c9_S5": ("c9", 5, 6),
+    "A_S25": ("A", 25, 6), "A_S25_F33": ("A", 25, 33), "B_S12_F33": ("B", 12, 33),
+    "C_S5_F33": ("C", 5, 33), "c9_S5_F33": ("c9", 5, 33),
+    "A_S130_wide": ("A", 130, 2),  # pixel rows wider than a tile, split in two
+}
+
+
+def _k1_case(dev, kind, S, frames, dtype):
+    gen = torch.Generator(dev).manual_seed(0)
+    block = _block(kind, dev, gen)
     blk = block.pack_weights(dtype)
     C = block.conv.out_channels
-    x = (0.5 * torch.randn(6, S, S, C, generator=gen, device=cuda_device)).to(dtype)
+    x = (0.5 * torch.randn(frames, S, S, C, generator=gen, device=dev)).to(dtype)
+    return x, blk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,S,frames", list(K1_CASES.values()), ids=list(K1_CASES))
+def test_k1_kernel_matches_plain(cuda_device, kind, S, frames, dtype, tol):
+    x, blk = _k1_case(cuda_device, kind, S, frames, dtype)
     before = inception_block.launches
     got = inception_block(x, blk).float()
     torch.cuda.synchronize()
@@ -106,20 +125,63 @@ def test_k1_kernel_matches_plain(cuda_device, kind, S, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("B_,H,masked", [(8, 4, True), (32, 16, False), (1, 32, False)],
-                         ids=["shifted_nW4", "stage2", "single_window"])
-def test_k2_kernel_matches_plain(cuda_device, B_, H, masked, dtype, tol):
-    gen = torch.Generator(cuda_device).manual_seed(1)
-    N, D = 49, 32
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k1_is_deterministic(cuda_device, dtype):
+    """K1 has no atomics: two calls on the same inputs give the same bits."""
+    x, blk = _k1_case(cuda_device, *K1_CASES["B_S12_F33"], dtype)
+    a = inception_block(x, blk)
+    b = inception_block(x, blk)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(a.view(bits), b.view(bits))
+
+
+# (B_, H, shift mask (side, window, shift) or None, N, D, cosine): SwinV2-B's
+# stage shapes at window 7, b1's single window (head-major only), K2's range
+# (N = 16 and 64, D = 12, 16, 48 and 64; D = 12 is no multiple of 8, so the
+# kernel loads q, k, v with its threads, not by TMA), the audio preset's
+# stage 3 (window 8, N = 64, H = 32), batches that are no multiple of the
+# window group, and scaled logits
+K2_CASES = {
+    "shifted_nW4": (8, 4, (14, 7, 3), 49, 32, True),
+    "stage2": (32, 16, None, 49, 32, True),
+    "single_window": (1, 32, None, 49, 32, True),
+    "n16_shifted": (12, 4, (8, 4, 2), 16, 32, True),
+    "n64_shifted_d64": (8, 2, (16, 8, 4), 64, 64, True),
+    "audio_stage3": (8, 32, None, 64, 32, True),
+    "odd_batch": (13, 4, None, 49, 32, True),
+    "d16": (7, 3, None, 49, 16, True),
+    "d48_n36": (5, 2, None, 36, 48, True),
+    "d12_thread_loads": (6, 2, None, 49, 12, True),
+    "scaled_shifted": (8, 4, (14, 7, 3), 49, 32, False),
+    "scaled_n64": (6, 8, None, 64, 32, False),
+}
+
+
+def _k2_case(dev, B_, H, mask_spec, N, D, cosine, dtype, seed=1):
+    gen = torch.Generator(dev).manual_seed(seed)
     C = H * D
-    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=cuda_device).to(dtype)
-    bias = 16 * torch.sigmoid(torch.randn(H, N, N, generator=gen, device=cuda_device))
-    mask = (torch.from_numpy(shift_attn_mask(14, 14, 7, 3)).to(cuda_device)
-            if masked else None)
-    ls = torch.exp(torch.clamp(math.log(10.0) + 0.3 * torch.randn(
-        H, 1, 1, generator=gen, device=cuda_device), max=math.log(100.0)))
-    kw = dict(bias=bias, mask=mask, logit_scale=ls)
+    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=dev).to(dtype)
+    bias = 16 * torch.sigmoid(torch.randn(H, N, N, generator=gen, device=dev))
+    mask = None
+    if mask_spec:
+        side, ws, shift = mask_spec
+        mask = torch.from_numpy(shift_attn_mask(side, side, ws, shift)).to(dev)
+    if cosine:
+        ls = torch.exp(torch.clamp(math.log(10.0) + 0.3 * torch.randn(
+            H, 1, 1, generator=gen, device=dev), max=math.log(100.0)))
+        kw = dict(bias=bias, mask=mask, logit_scale=ls)
+    else:
+        kw = dict(bias=bias, mask=mask, scale=D ** -0.5, cosine=False)
+    return qkv, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B_,H,mask_spec,N,D,cosine", list(K2_CASES.values()), ids=list(K2_CASES))
+def test_k2_kernel_matches_plain(cuda_device, B_, H, mask_spec, N, D, cosine, dtype, tol):
+    qkv, kw = _k2_case(cuda_device, B_, H, mask_spec, N, D, cosine, dtype)
+    C = H * D
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     if B_ > 1:
         before = window_attention_tokens.launches
@@ -135,6 +197,19 @@ def test_k2_kernel_matches_plain(cuda_device, B_, H, masked, dtype, tol):
     assert window_attention_heads.launches == before + 1
     want = window_attention_heads_plain(hq, hk, hv, **kw)
     assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k2_is_deterministic(cuda_device, dtype):
+    """K2 has no atomics: two calls on the same inputs give the same bits."""
+    qkv, kw = _k2_case(cuda_device, *K2_CASES["shifted_nW4"], dtype)
+    q, k, v = qkv[..., :128], qkv[..., 128:256], qkv[..., 256:]
+    a = window_attention_tokens(q, k, v, num_heads=4, **kw)
+    b = window_attention_tokens(q, k, v, num_heads=4, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(a.view(bits), b.view(bits))
 
 
 @pytest.mark.cuda

@@ -146,6 +146,98 @@ def test_k1_bf16_rejects_channels_it_cannot_chunk():
                 affine=torch.zeros(2, 8), out0=torch.zeros(16, 8, dtype=torch.bfloat16))
 
 
+# the fused path's IRv2 blocks (kind, frame side) and the frame counts of a
+# b8 request (256) and of one that leaves partial row tiles (33)
+K1_FUSED = [("A", 25), ("B", 12), ("C", 5), ("c9", 5)]
+
+
+def _k1_convs(kind):
+    """(kh, kw, cin, cout) of every conv of a block, in launch order, and
+    the in-conv's split column."""
+    block = {"A": lambda: tirv2.BlockA(0.17, True), "B": lambda: tirv2.BlockB(0.10, True),
+             "C": lambda: tirv2.BlockC(0.20, True, True),
+             "c9": lambda: tirv2.BlockC(1.0, False, True)}[kind]()
+    blk = block.pack_weights(torch.bfloat16)
+    C, n_in = blk.w_in.shape
+    convs = [(1, 1, C, n_in)]
+    convs += [(c.kh, c.kw, c.w.shape[1], c.w.shape[2]) for ch in blk.chains for c in ch]
+    convs.append((1, 1, blk.w_out.shape[0], C))
+    return convs, blk.n_direct
+
+
+@pytest.mark.parametrize("kind,side", K1_FUSED, ids=[k for k, _ in K1_FUSED])
+def test_k1_column_tiles_cover_every_conv(kind, side):
+    """Every conv of blocks A, B, C and c_9 gets column tiles that cover its
+    n outputs exactly, each a built width (a multiple of 8, <= 256: a wgmma
+    N and a TMA box dimension); the in-conv's split column falls on an
+    8-column run, as the epilogue writes 8 columns at once."""
+    from deepfake_tpu_torch.ops.inception_block import N_TILES, n_tile
+
+    convs, n_direct = _k1_convs(kind)
+    for kh, kw, cin, n in convs:
+        bn = n_tile(n)
+        assert bn in N_TILES and bn % 8 == 0 and bn <= 256, (kh, kw, n, bn)
+        assert n % bn == 0, (kh, kw, n, bn)
+    assert n_direct % 8 == 0
+    assert n_tile(1088) == 136 and n_tile(2080) == 208 and n_tile(320) == 160
+
+
+@pytest.mark.parametrize("frames", [256, 33])
+@pytest.mark.parametrize("kind,side", K1_FUSED, ids=[k for k, _ in K1_FUSED])
+def test_k1_row_tiles_are_tma_boxes_that_cover_the_frames(kind, side, frames):
+    """Every conv's row tile is a TMA box within 256 elements a dimension
+    whose inner extent (64 channels of bf16) is a 16-byte multiple, at most
+    128 rows (two wgmma M of 64); the tiles cover every output pixel once;
+    a tap conv's tiles are whole pixel rows."""
+    from deepfake_tpu_torch.ops.inception_block import n_tile, row_tile
+
+    convs, _ = _k1_convs(kind)
+    for kh, kw, cin, n in convs:
+        (fr, hh, ww), (bf, bh, bw) = row_tile(frames, side, side, kh, kw)
+        assert fr * hh * ww == frames * side * side
+        box = (64, bw, bh, bf)
+        assert all(1 <= d <= 256 for d in box) and box[0] * 2 % 16 == 0
+        assert bf * bh * bw <= 128
+        assert n_tile(n) * 2 % 16 == 0  # the weights' and the residual's boxes
+        if (kh, kw) != (1, 1):
+            assert (fr, hh, ww) == (frames, side, side) and bw == side
+        covered = np.zeros((fr, hh, ww), np.int32)
+        for f0 in range(0, fr, bf):
+            for i0 in range(0, hh, bh):
+                for j0 in range(0, ww, bw):
+                    covered[f0:f0 + bf, i0:i0 + bh, j0:j0 + bw] += 1
+        assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("batch", [8, 1, 3])
+def test_k2_window_groups_cover_every_window_once(batch):
+    """The bf16 K2 launch's blocks (window_group, block_windows) at every
+    SwinV2-B stage of a window-7 request, shifted and not, and at the audio
+    preset's window-8 stage: every (window, head) is taken by one block,
+    and a masked block's windows all read one mask index."""
+    from deepfake_tpu_torch.ops.window_attn_kernel import block_windows, window_group
+
+    stages = [(56, 4), (28, 8), (14, 16), (7, 32)]  # (resolution, heads) at 224
+    cases = []
+    for res, H in stages:
+        nW = (res // 7) ** 2
+        cases.append((batch * nW, H, nW, False))
+        if res > 7:
+            cases.append((batch * nW, H, nW, True))
+    cases.append((batch, 32, 1, False))  # audio stage 3: one 8 x 8 window an image
+    for windows, heads, n_masks, masked in cases:
+        group = window_group(windows, heads, n_masks, masked, 3 * 132)
+        assert 1 <= group <= windows
+        seen = np.zeros((windows, heads), np.int32)
+        for h, ws in block_windows(windows, heads, n_masks, masked, group):
+            assert 1 <= len(ws) <= group
+            if masked:
+                assert len({w % n_masks for w in ws}) == 1
+            for w in ws:
+                seen[w, h] += 1
+        assert (seen == 1).all(), (windows, heads, masked)
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No compiler, no kernel: the build raises instead of handing back a
     plain path."""
