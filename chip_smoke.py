@@ -14,7 +14,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      proj, and the MLP tail: one launch at C <= 384, fc1 and fc2 at 768),
      K5's forward and backward in training, with device times by
      torch.profiler (the backward's two launches apart) beside SDPA's
-     forward and backward; audio: K6 at the three
+     forward and backward; audio: K6 (device times beside SDPA's) at the three
      window-16 stages of SwinV2-B at 256^2, b8, shifted and not, logit
      scales up to 100, one scaled N = 392 case, and windows 10 and 24 (N =
      100 and 576, off the main path)), f32 with TF32 off and bf16; kernel,
@@ -946,7 +946,7 @@ def phase_k6(dev, gen, batch: int, report):
     from deepfake_tpu_torch.ops.window_attn import l2_normalize
 
     acc = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "flops": 0.0, "bytes": 0.0}
+           "library_device_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     errs = {"float32": 0.0, "bfloat16": 0.0}
     cases = []  # name, B_, H, C, N, mask, cosine, blocks per request
     for res, H, C, depth in SWIN_B_W16_STAGES:
@@ -996,37 +996,46 @@ def phase_k6(dev, gen, batch: int, report):
                 hq = (l2_normalize(hq.float()) * kw["logit_scale"]).to(dtype)
                 hk = l2_normalize(hk.float()).to(dtype)
             am = sdpa_mask(bias, mask, B_, dtype)
-            lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                hq, hk, hv, attn_mask=am, scale=1.0 if cosine else D ** -0.5), iters=10)
-            del hq, hk, hv, am
+            sdpa = lambda: F.scaled_dot_product_attention(
+                hq, hk, hv, attn_mask=am, scale=1.0 if cosine else D ** -0.5)
+            lib = cuda_time_ms(sdpa, iters=10)
+            lib_dms = device_time_ms(sdpa) if dtype == torch.bfloat16 else None
+            del hq, hk, hv, am, sdpa
             flops, nbytes = k6_flops_bytes(B_, H, C, N, 0 if mask is None else mask.shape[0],
                                            qkv.element_size())
             b, by = bound_ms(flops, nbytes, dname)
-            row.update(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib, bound_ms=b,
-                       bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            row.update(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib,
+                       library_device_ms=lib_dms, bound_ms=b, bound_by=by, gflop=flops / 1e9,
+                       mbytes=nbytes / 1e6)
             log(f"K6 {name:22s} [{B_},{H},{N},{D}] {dname:8s} kernel_ms={ms:.4f} "
                 + ("" if dms is None else f"device_ms={dms:.4f} ")
-                + f"plain_ms={pms:.4f} sdpa_ms={lib:.4f} bound_ms={b:.4f} ({by}) "
-                f"err={err:.2e} (tol {tol:.2e})")
+                + f"plain_ms={pms:.4f} sdpa_ms={lib:.4f} "
+                + ("" if lib_dms is None else f"(device {lib_dms:.4f}) ")
+                + f"bound_ms={b:.4f} ({by}) err={err:.2e} (tol {tol:.2e})")
             if dtype == torch.bfloat16:
                 for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
-                                 ("library_ms", lib), ("bound_ms", b), ("flops", flops),
-                                 ("bytes", nbytes)):
+                                 ("library_ms", lib), ("library_device_ms", lib_dms),
+                                 ("bound_ms", b), ("flops", flops), ("bytes", nbytes)):
                     acc[key] += count * val
             report["k6"].append(row)
             del qkv, q, k, v, bias, got
         torch.cuda.empty_cache()
     k6.window_attention_multihead.launches = 0
     _, by = bound_ms(acc["flops"], acc["bytes"], "bfloat16")
+    log(f"K6 per audio b{batch} request: kernel_ms={acc['ms']:.4f} "
+        f"device_ms={acc['device_ms']:.4f} plain_ms={acc['plain_ms']:.4f} "
+        f"sdpa_ms={acc['library_ms']:.4f} (device {acc['library_device_ms']:.4f}) "
+        f"bound_ms={acc['bound_ms']:.4f}")
     return dict(name="window_attention_multihead (K6)", route="cuda", source=K6_SRC,
                 replaces=K6_REPLACES, launches=None, max_abs_err=errs["bfloat16"],
                 max_abs_err_f32=errs["float32"], ms=acc["ms"], plain_ms=acc["plain_ms"],
                 bound_ms=acc["bound_ms"], bound_by=by, library_ms=acc["library_ms"],
-                device_ms=acc["device_ms"],
+                device_ms=acc["device_ms"], library_device_ms=acc["library_device_ms"],
                 per="one audio b8 request (SwinV2-B window 16, 256^2): the 22 blocks of stages "
                     "0-2, bf16; library_ms is SDPA with bias + mask as attn_mask on "
-                    "pre-normalised q and k; device_ms is the kernel's own device time "
-                    "(torch.profiler), ms the CUDA-event time of back-to-back calls")
+                    "pre-normalised q and k; device_ms (library_device_ms) is the kernel's "
+                    "(SDPA's) own device time (torch.profiler), ms the CUDA-event time of "
+                    "back-to-back calls")
 
 
 # ---------------------------------------------------------------- phases 3 and 4

@@ -31,11 +31,22 @@
 // operations, ~1.18 ms). Both are bound by bytes.
 //
 // Routes:
-//   - bf16 forward (training): tensor cores, mma.sync m16n8k16 with bf16
-//     inputs and f32 accumulation, exponentials by the fast __expf; one
-//     block of 8 warps per (window, head), as K3's first design, with an
-//     online row max: K and V in shared memory, each warp streams keys 16 at
-//     a time over 16 query rows; nothing of [N, N] leaves registers.
+//   - bf16 forward (training), Hopper: window_attn_tile.cuh's kernel in its
+//     MAX_STABLE form (shared with K3). One block per (head, group of G
+//     windows that read one mask index, 64-row query tile; G from the host,
+//     window_group in ops/window_attn3d_train.py) builds its [64, N] slice
+//     of bias[h] + mask[i] once, in log2 units, in an f32 tile in shared
+//     memory that every window of the group reads; a producer warp streams
+//     q, K and V by TMA; three consumer warpgroups split the keys in chunks
+//     of 64 (wgmma for S and P V), each with an online row max, and the
+//     first adds the others' parts, each rescaled by 2^(m_c - m). A logit in
+//     log2 units is one FMA, s (scale log2 e) + tile, the scale applied in
+//     f32 after the bf16 product (the Pallas kernel's cast point), and a
+//     weight ex2.approx of it less the row max; the weights are rounded to
+//     bf16 for P V. The first design (one block per (window, head),
+//     mma.sync, bias and mask read from device memory in the inner loop)
+//     spent 38% of a micro-batch's launches on the mask's loads
+//     (tools/k5f_step0.py, PERF.md).
 //   - bf16 backward, Hopper (namespace hop): wgmma for every product, TMA
 //     for q, k, v and dO, two launches. As in K3, the windows that read one
 //     mask index (window w reads mask w % nW, windows come batch-major) share
@@ -110,7 +121,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "window_attn_tile.cuh"
 
 namespace {
 
@@ -355,248 +366,6 @@ __global__ void __launch_bounds__(THREADS) bwd_f32(BwdArgs g) {
 
 }  // namespace simt
 
-// ------------------------------------------------------ bf16: tensor cores
-
-namespace tc {
-
-constexpr int WARPS = 8, THREADS = 32 * WARPS;
-constexpr int LD = D + 8;  // smem row stride in bf16 (80 bytes): the 8 rows of a
-                           // fragment load fall on distinct banks
-__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
-__host__ __device__ constexpr size_t fwd_smem(int n) {
-  return sizeof(uint16_t) * 2 * pad16(n) * LD;
-}
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragments (16 rows x 32 columns, two k steps) of rows r0 + g8 and
-// r0 + g8 + 8 of a bf16 [rows, 32] view with row stride sn; rows >= n are 0
-__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const bf16* X, int64_t sn, int r0,
-                                       int n, int g8, int t4) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = r0 + g8 + ((e & 1) ? 8 : 0);
-      const int col = s * 16 + (e >> 1) * 8 + 2 * t4;
-      a[s][e] = row < n ? *reinterpret_cast<const uint32_t*>(X + (int64_t)row * sn + col) : 0u;
-    }
-}
-
-// rows [0, nk) of a bf16 [*, 32] view into shared memory [nk][LD], rows >= n
-// zero; 16-byte loads (the host checks alignment)
-__device__ __forceinline__ void load_rows(uint16_t* dst, const bf16* X, int64_t sn, int n, int nk,
-                                          int tid, int threads) {
-  for (int c = tid; c < nk * (D / 8); c += threads) {
-    const int j = c / (D / 8), part = (c % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (j < n) val = *reinterpret_cast<const uint4*>(X + (int64_t)j * sn + part);
-    *reinterpret_cast<uint4*>(dst + j * LD + part) = val;
-  }
-}
-
-// S/dP accumulator layout -> the A fragment of the next product (k over the
-// 16 columns): tile nt, element i of rows a (i < 2) and b (i >= 2)
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[2][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    a[nt * 2] = pack_bf16(x[nt][0], x[nt][1]);
-    a[nt * 2 + 1] = pack_bf16(x[nt][2], x[nt][3]);
-  }
-}
-
-// Key offset, within a step of 16 keys, of k-position p of the mma tiles
-// (as K3): thread t4's four weights of a row become the consecutive keys
-// 4 t4 .. 4 t4 + 3, so their f32 bias is one 16-byte load and their mask one
-// 8-byte load. K rows (for S) and V rows (for P V) are read in the same order.
-__device__ __forceinline__ int key_of(int p) {
-  const int q = p & 7;
-  return 4 * (q >> 1) + (q & 1) + ((p >> 3) << 1);
-}
-
-// bias and mask of one row at keys k4 .. k4 + 3; a key past n, or a row past
-// n, gets bias -inf and so weight 0
-__device__ __forceinline__ void load_add(float (&b)[4], float (&m)[4], const float* brow,
-                                         const bf16* mrow, bool row_ok, int k4, int n, bool vec) {
-  if (row_ok && vec && k4 + 3 < n) {
-    const float4 v = *reinterpret_cast<const float4*>(brow + k4);
-    b[0] = v.x; b[1] = v.y; b[2] = v.z; b[3] = v.w;
-    if (mrow) {
-      const uint2 u = *reinterpret_cast<const uint2*>(mrow + k4);
-      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-      m[0] = __low2float(lo); m[1] = __high2float(lo);
-      m[2] = __low2float(hi); m[3] = __high2float(hi);
-    } else {
-      m[0] = m[1] = m[2] = m[3] = 0.f;
-    }
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool ok = row_ok && k4 + i < n;
-    b[i] = ok ? brow[k4 + i] : -INFINITY;
-    m[i] = ok && mrow ? __bfloat162float(mrow[k4 + i]) : 0.f;
-  }
-}
-
-// One running (max, scale) update of the online softmax for one row: the
-// new max of the row's logits so far and the factor that rescales what was
-// summed under the old max. A row that has seen only -inf keeps base 0.
-__device__ __forceinline__ float online_max(float& m, float step_max, float& base) {
-  const float mn = fmaxf(m, quad_max(step_max));
-  base = mn == -INFINITY ? 0.f : mn;
-  const float alpha = __expf(m - base);  // m = -inf: 0
-  m = mn;
-  return alpha;
-}
-
-// forward: one block per (window, head); K and V in shared memory; each warp
-// takes groups of 16 query rows. Needs q, k, v, out, bias and mask 16-byte
-// aligned and every stride a multiple of 8 elements (the host checks).
-__global__ void __launch_bounds__(THREADS, 2) fwd_bf16(FwdArgs g) {
-  extern __shared__ __align__(16) uint16_t smb[];
-  const int N = g.n, NK = pad16(N);
-  uint16_t* ks = smb;           // [NK][LD]; read in key_of order within a step
-  uint16_t* vs = ks + NK * LD;  // [NK][LD]
-
-  const int w = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t base = (int64_t)w * g.s_w + (int64_t)h * g.s_h;
-  const bf16* Q = static_cast<const bf16*>(g.q) + base;
-  load_rows(ks, static_cast<const bf16*>(g.k) + base, g.s_n, N, NK, tid, THREADS);
-  load_rows(vs, static_cast<const bf16*>(g.v) + base, g.s_n, N, NK, tid, THREADS);
-  __syncthreads();
-
-  const float* bias = g.bias + (int64_t)h * N * N;
-  const bf16* mask = g.mask ? g.mask + (int64_t)(w % g.n_masks) * N * N : nullptr;
-  const bool vec = N % 4 == 0;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const int kb0 = key_of(g8), kb1 = key_of(8 + g8);
-  const int kv_row = key_of(lane & 15);
-  bf16* O = static_cast<bf16*>(g.out) + (int64_t)w * g.o_w + (int64_t)h * g.o_h;
-
-  for (int r0 = warp * 16; r0 < N; r0 += WARPS * 16) {
-    const int row_a = r0 + g8, row_b = row_a + 8;
-    const bool ok_a = row_a < N, ok_b = row_b < N;
-    uint32_t qa[2][4];
-    load_a(qa, Q, g.s_n, r0, N, g8, t4);
-    const float* brow_a = bias + (int64_t)(ok_a ? row_a : 0) * N;
-    const float* brow_b = bias + (int64_t)(ok_b ? row_b : 0) * N;
-    const bf16* mrow_a = mask ? mask + (int64_t)(ok_a ? row_a : 0) * N : nullptr;
-    const bf16* mrow_b = mask ? mask + (int64_t)(ok_b ? row_b : 0) * N : nullptr;
-
-    float o[4][4];
-#pragma unroll
-    for (int dn = 0; dn < 4; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-    float m_a = -INFINITY, m_b = -INFINITY, sum_a = 0.f, sum_b = 0.f;
-    float ba[4], ma[4], bb[4], mb[4];
-    load_add(ba, ma, brow_a, mrow_a, ok_a, 4 * t4, N, vec);
-    load_add(bb, mb, brow_b, mrow_b, ok_b, 4 * t4, N, vec);
-
-    for (int j0 = 0; j0 < NK; j0 += 16) {
-      float nba[4], nma[4], nbb[4], nmb[4];
-      const int k4 = j0 + 16 + 4 * t4;
-      load_add(nba, nma, brow_a, mrow_a, ok_a, k4, N, vec);
-      load_add(nbb, nmb, brow_b, mrow_b, ok_b, k4, N, vec);
-
-      float s[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-        const uint16_t* kr = ks + (j0 + (nt ? kb1 : kb0)) * LD;
-#pragma unroll
-        for (int st = 0; st < 2; ++st) {
-          const uint32_t b[2] = {ld32(kr + st * 16 + 2 * t4), ld32(kr + st * 16 + 8 + 2 * t4)};
-          mma_bf16(s[nt], qa[st], b);
-        }
-      }
-      // logits (q.k) s + bias + mask; tile nt, element i of row a is key
-      // 4 t4 + 2 nt + i
-      float xa[4], xb[4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int c = 2 * nt + i;
-          xa[c] = (s[nt][i] * g.scale + ba[c]) + ma[c];
-          xb[c] = (s[nt][2 + i] * g.scale + bb[c]) + mb[c];
-        }
-      float base_a, base_b;
-      const float al_a = online_max(m_a, fmaxf(fmaxf(xa[0], xa[1]), fmaxf(xa[2], xa[3])), base_a);
-      const float al_b = online_max(m_b, fmaxf(fmaxf(xb[0], xb[1]), fmaxf(xb[2], xb[3])), base_b);
-      sum_a *= al_a;
-      sum_b *= al_b;
-#pragma unroll
-      for (int dn = 0; dn < 4; ++dn) {
-        o[dn][0] *= al_a; o[dn][1] *= al_a;
-        o[dn][2] *= al_b; o[dn][3] *= al_b;
-      }
-      float p[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int c = 2 * nt + i;
-          p[nt][i] = __expf(xa[c] - base_a);
-          p[nt][2 + i] = __expf(xb[c] - base_b);
-          sum_a += p[nt][i];
-          sum_b += p[nt][2 + i];
-        }
-      uint32_t pa[4];
-      pack_a(pa, p);
-#pragma unroll
-      for (int dn = 0; dn < 4; ++dn) {
-        uint32_t vb[2];
-        ldmatrix_x2_trans(vb, vs + (j0 + kv_row) * LD + dn * 8);
-        mma_bf16(o[dn], pa, vb);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        ba[c] = nba[c]; ma[c] = nma[c]; bb[c] = nbb[c]; mb[c] = nmb[c];
-      }
-    }
-
-    const float ra = 1.f / quad_sum(sum_a), rb = 1.f / quad_sum(sum_b);
-#pragma unroll
-    for (int dn = 0; dn < 4; ++dn) {
-      const int c = dn * 8 + 2 * t4;
-      if (ok_a)
-        *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)row_a * g.o_n + c) =
-            __floats2bfloat162_rn(o[dn][0] * ra, o[dn][1] * ra);
-      if (ok_b)
-        *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)row_b * g.o_n + c) =
-            __floats2bfloat162_rn(o[dn][2] * rb, o[dn][3] * rb);
-    }
-  }
-}
-
-}  // namespace tc
-
 // ------------------------------------------------ bf16 backward: Hopper
 
 namespace hop {
@@ -749,7 +518,7 @@ __device__ __forceinline__ void fill_rows(uint16_t* tile, const bf16* bias, cons
         const int r = u / runs, k = 16 * (u - r * runs);
         uint32_t o[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) o[i] = tc::pack_bf16(f[col_of(2 * i)], f[col_of(2 * i + 1)]);
+        for (int i = 0; i < 8; ++i) o[i] = wtile::pack_bf16(f[col_of(2 * i)], f[col_of(2 * i + 1)]);
         uint4* dst = reinterpret_cast<uint4*>(tile + r * pitch + k);
         dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
         dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
@@ -902,8 +671,8 @@ __device__ __forceinline__ void ds_chunk(const uint32_t (&qa)[2][4], const uint3
     }
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
-      da[u][2 * jj] = tc::pack_bf16(ds[4 * jj], ds[4 * jj + 1]);
-      da[u][2 * jj + 1] = tc::pack_bf16(ds[4 * jj + 2], ds[4 * jj + 3]);
+      da[u][2 * jj] = wtile::pack_bf16(ds[4 * jj], ds[4 * jj + 1]);
+      da[u][2 * jj + 1] = wtile::pack_bf16(ds[4 * jj + 2], ds[4 * jj + 3]);
     }
   }
   wgmma_fence();
@@ -1134,10 +903,10 @@ __device__ __forceinline__ void dkdv_weights(const float (&s)[W / 2], const floa
     }
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
-      pa[u][2 * jj] = tc::pack_bf16(pv[4 * jj], pv[4 * jj + 1]);
-      pa[u][2 * jj + 1] = tc::pack_bf16(pv[4 * jj + 2], pv[4 * jj + 3]);
-      da[u][2 * jj] = tc::pack_bf16(ds[4 * jj], ds[4 * jj + 1]);
-      da[u][2 * jj + 1] = tc::pack_bf16(ds[4 * jj + 2], ds[4 * jj + 3]);
+      pa[u][2 * jj] = wtile::pack_bf16(pv[4 * jj], pv[4 * jj + 1]);
+      pa[u][2 * jj + 1] = wtile::pack_bf16(pv[4 * jj + 2], pv[4 * jj + 3]);
+      da[u][2 * jj] = wtile::pack_bf16(ds[4 * jj], ds[4 * jj + 1]);
+      da[u][2 * jj + 1] = wtile::pack_bf16(ds[4 * jj + 2], ds[4 * jj + 3]);
     }
   }
 }
@@ -1345,7 +1114,7 @@ hop::Plan plan_bwd(int windows, int heads, int n, int n_masks, bool masked, int 
                    int launch) {
   using namespace hop;
   Plan p{};
-  p.nk = tc::pad16(n);
+  p.nk = ((n + 15) & ~15);
   p.tiles = (n + BM - 1) / BM;
   p.ns = p.tiles * BM;
   p.nbox = (p.nk + 255) / 256;
@@ -1429,7 +1198,7 @@ cudaError_t launch_bwd_bf16(const BwdArgs& g, cudaStream_t s) {
 extern "C" int k5_fwd(int dtype, const void* q, const void* k, const void* v, int64_t s_w,
                       int64_t s_h, int64_t s_n, void* out, int64_t o_w, int64_t o_h, int64_t o_n,
                       const float* bias, const void* mask, int n_masks, float scale, int windows,
-                      int heads, int n, int d, void* stream) {
+                      int heads, int n, int d, int group, void* stream) {
   if (bad_shape(n, d, windows, heads, mask, n_masks))
     return static_cast<int>(cudaErrorInvalidValue);
   FwdArgs g{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, static_cast<const bf16*>(mask),
@@ -1438,10 +1207,11 @@ extern "C" int k5_fwd(int dtype, const void* q, const void* k, const void* v, in
   if (dtype == 1) {
     if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && aligned16(bias) &&
           aligned16(mask)) ||
-        (s_w | s_h | s_n | o_w | o_h | o_n) % 8)
+        (s_w | s_h | s_n | o_w | o_h | o_n) % 8 || group < 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(
-        launch(tc::fwd_bf16, dim3(windows, heads), tc::THREADS, tc::fwd_smem(n), s, g));
+    const wtile::Args a{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask,
+                        mask ? n_masks : 1, scale, n};
+    return static_cast<int>(wtile::launch<wtile::MAX_STABLE>(a, windows, heads, group, s));
   }
   if (dtype == 0)
     return static_cast<int>(launch(simt::fwd_f32,

@@ -29,40 +29,61 @@
 //
 // What bounds it on the H100 (3.35 TB/s, 989 TFLOP/s bf16): bytes. A launch
 // reads q, k, v and writes out once (bf16), reads the f32 bias [H, N, N] and
-// the f32 mask [nW, N, N] once, and does 4 B_ H N^2 D operations (8 with the
+// the f32 mask [nW, N, N] once, and does 4 B_ H N^2 D operations (6 with the
 // cosine split below). At SwinV2-B window 16, 256^2, b8, stage 0 (B_ = 128,
-// H = 4, 16 masks) moves ~39 MB, ~12 us, against ~9 us of tensor-core work
-// with the split; the 22 launches of a request need ~0.10 ms by bytes. The
-// cost that the bound does not count is the bias and mask rows that every
-// (window, head) block reads from L2: B_ H N^2 x 8 bytes a launch.
+// H = 4, 16 masks) moves ~39 MB, ~12 us, against ~7 us of tensor-core work
+// with the split; the 22 launches of a request need ~0.10 ms by bytes.
 //
 // Routes:
-//   - bf16 (serving): tensor cores, mma.sync m16n8k16 with f32 accumulation.
-//     One block of 8 warps per (window, 128-query-row slab, head); each warp
-//     takes 16 query rows (a warp whose rows all lie past N only helps load).
-//     K and V stream through shared memory in tiles of up to KT = 256 keys
-//     (N x 32, keys padded to a multiple of 16 with zero rows), so N has no
-//     upper limit; a window of up to 256 tokens is one tile. Each warp walks
-//     the keys 16 at a time with an online row max (K5's forward), the
-//     weights rounded to bf16 for P V. Cosine logits reach |scale| = 100, and
-//     rounding q^ and k^ to bf16 would move a logit by ~100 x 2^-9 x
-//     |q^ . k^|, several percent of a weight; so q^ and k^ are split into
-//     bf16 hi + lo parts and q^ . k^ = hi.hi + hi.lo + lo.hi (three products,
-//     ~2^-16 relative): the K tile is held twice (hi, lo), the q fragments
-//     twice. Scaled logits take the bf16 q and k as they are (exact products)
-//     and scale after. Keys are permuted within a step (key_of, as K3) so
-//     that a thread's four weights of a row are four consecutive keys: their
-//     f32 bias and mask are one 16-byte load each, issued a step ahead. The
-//     grid runs every window of a head before the next head, so the head's
-//     bias stays in L2.
+//   - bf16 (serving), Hopper (namespace hop): K2's design past 64 tokens,
+//     on window_attn_tile.cuh's chunk (the online-max softmax of K5's
+//     forward). The first design (one block per (window, 128-row slab,
+//     head), mma.sync, bias and mask read from device memory in the inner
+//     loop) spent ~19% of an audio request's launches on those loads and
+//     6% on the two extra products of its split (tools/k6_step0.py,
+//     PERF.md). Now one block per (head, group of G windows that read one
+//     mask index, 64-row query tile; G from the host, window_group in
+//     ops/window_attn3d_train.py with the block's warpgroups counted) builds
+//     its [64, N] slice of bias[h] + mask[i] once, in log2 units, in an f32
+//     tile in shared memory (the bias stays f32: SwinV2's runs up to 16, and
+//     a bf16 bias would move a weight by several percent), and every window
+//     of the group reads it there. The group's windows are dealt out to the
+//     block's warpgroups (4 at N = 256, fewer where the tile leaves less
+//     room): each takes whole windows, every key, so no warpgroup hands
+//     anything to another. Each warpgroup's thread 0 streams its windows'
+//     q tile [64, 32] and K and V in key tiles of at most 256 keys by TMA
+//     through its own ring (4D tensor maps over the head, token and window
+//     axes in stride order, so head-major and token-major views are the same
+//     code; 64-byte swizzle; tokens past N zero-filled). Cosine logits reach
+//     |scale| = 100, where rounding q^ to bf16 would move a logit by ~100 x
+//     2^-9 x |q^ . k|, several percent of a weight: so q^ = q / max(|q|,
+//     1e-12) is formed in f32 and split into bf16 hi + lo, S = hi k^T +
+//     lo k^T takes two wgmma products (~2^-16 relative), and k, exact in
+//     bf16, is not rounded at all: its row norm is applied per key in f32
+//     after the product, as the factor scale log2 e / max(|k|, 1e-12) of a
+//     logit in log2 units (the design's third product, hi.lo of K2, is not
+//     needed). Scaled logits take the bf16 q and k as they are (one product)
+//     and scale after. A logit in log2 units is one FMA (S factor + tile),
+//     a weight ex2.approx of it less the online row max; the weights are
+//     rounded to bf16 for P V (wgmma, V from shared memory); the output is
+//     divided by the row sum in f32 and rounded once. Where no tile of N
+//     columns fits beside the rings (N > ~700, off every model path), one
+//     warpgroup a block refills a tile of one key tile's columns before each
+//     key tile, which shares nothing. Every mbarrier wait traps after 10 s
+//     (hopper.cuh), so a fault in the schedule is a failed launch.
 //   - f32 (parity runs only; a different kernel from the one that serves):
 //     one block per (32-query tile, window, head), SIMT f32 FMA; K and V
 //     stream through shared memory in tiles of 128 keys with an online row
 //     max, the [32, 128] logit tile in shared memory.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "window_attn_tile.cuh"
 
 namespace {
 
@@ -90,11 +111,8 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
-// max / sum over the 4 threads of a quad (the threads that share an mma row)
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
+// the sum over the 4 threads of a quad (the threads that share a row of a
+// wgmma accumulator)
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
@@ -222,317 +240,255 @@ __global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
 
 }  // namespace simt
 
-// ------------------------------------------------------ bf16: tensor cores
+// ------------------------------------------------------ bf16: Hopper
 
-namespace tc {
+namespace hop {
 
-constexpr int WARPS = 8, THREADS = 32 * WARPS;
-constexpr int SLAB = 16 * WARPS;  // query rows per block
-constexpr int KT = 256;           // keys per shared-memory tile
-constexpr int LD = D + 8;  // smem row stride in bf16 (80 bytes): the 8 rows of a
-                           // fragment load fall on distinct banks
+using namespace hopper;
+using wtile::BM;
+using wtile::KCH;
+using wtile::LOG2E;
+using wtile::Q_BYTES;
+using wtile::ROW_BYTES;
+using wtile::SMEM_MAX;
 
-__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
-// K (hi, and lo for cosine) and V tiles of min(pad16(n), KT) keys
-__host__ __device__ constexpr size_t smem_bytes(int n, bool cosine) {
-  return sizeof(uint16_t) * (cosine ? 3 : 2) * (pad16(n) < KT ? pad16(n) : KT) * LD;
-}
+constexpr int MAX_CONSUMERS = 4;  // warpgroups a block
+constexpr int MAX_KT = 256;       // keys of a key tile (one TMA box)
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-// x (f32) as bf16 hi + lo, packed pairwise: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  hi = pack_bf16(a, b);
-  const float2 h = unpack_bf16(hi);
-  lo = pack_bf16(a - h.x, b - h.y);
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// what the host decides for a launch
+struct Plan {
+  int kt, n_kt;          // keys of a key tile (a multiple of 16) and key tiles a window
+  int stage_bytes;       // q tile + K tile + V tile, a multiple of 512
+  int stages;            // a warpgroup's ring: 2, or 1 where two do not fit
+  int consumers;         // warpgroups: 4, 2 or 1
+  int sliced;            // the tile holds the current key tile's columns only (1 warpgroup)
+  int pitch;             // floats a tile row: 8 mod 32, so a warp's 8 rows fall on distinct banks
+  int q_tiles;           // ceil(N / 64)
+  int n_groups;          // mask indices (1 without a mask)
+  int per_group;         // windows that read one mask index (B_ / n_groups)
+  int g;                 // windows a block takes (G)
+  int splits;            // blocks a group's windows are split over: ceil(per_group / G)
+  int heads;
+  int ax_h, ax_n, ax_w;  // the tensor maps' dims (1-3) that are the head, token and window axes
+};
 
-// Rows [0, nk) of K into shared memory [nk][LD] (rows >= n zero), with 16-byte
-// loads; for cosine each row is L2-normalised in f32 and stored as bf16 hi
-// (khi) and lo (klo) parts. The 4 threads of a row are consecutive lanes.
-template <bool COSINE>
-__device__ __forceinline__ void load_k(uint16_t* khi, uint16_t* klo, const bf16* K, int64_t sn,
-                                       int n, int nk, int tid) {
-  for (int c = tid; c < nk * (D / 8); c += THREADS) {
-    const int j = c / (D / 8), part = (c % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (j < n) val = *reinterpret_cast<const uint4*>(K + (int64_t)j * sn + part);
-    if (!COSINE) {
-      *reinterpret_cast<uint4*>(khi + j * LD + part) = val;
-      continue;
-    }
-    const uint32_t u[4] = {val.x, val.y, val.z, val.w};
-    float2 x[4];
-    float ss = 0.f;
+// Rows [0, min(64, n - q0)) of the tile: column c < pitch holds
+// (bias + mask)[q0 + r][k0 + c] log2 e (0 past n: the chunks weight those
+// keys 0); rows past n are not filled (their outputs are not stored). A
+// thread takes runs of 4 columns (16-byte loads where n % 4 == 0), FILL_U
+// at once so that their loads are in flight together.
+__device__ __forceinline__ void fill(float* tile, int pitch, const float* bias, const float* mask,
+                                     int q0, int k0, int n, int tid, int threads) {
+  constexpr int FILL_U = 4;
+  const int runs = pitch / 4, units = min(BM, n - q0) * runs;
+  const bool vec = n % 4 == 0;
+  for (int u0 = tid; u0 < units; u0 += FILL_U * threads) {
+    float v[FILL_U][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[i] = unpack_bf16(u[i]);
-      ss += x[i].x * x[i].x + x[i].y * x[i].y;
-    }
-    const float dv = norm_div(quad_sum(ss));  // nk * 4 is a multiple of 64: whole warps
-    uint32_t hi[4], lo[4];
+    for (int i = 0; i < FILL_U; ++i) {
+      const int u = min(u0 + i * threads, units - 1);
+      const int rl = u / runs, k = k0 + 4 * (u - rl * runs);
+      const int64_t at = (int64_t)(q0 + rl) * n + k;
+      if (vec && k + 3 < n) {
+        const float4 b = *reinterpret_cast<const float4*>(bias + at);
+        v[i][0] = b.x; v[i][1] = b.y; v[i][2] = b.z; v[i][3] = b.w;
+        if (mask) {
+          const float4 m = *reinterpret_cast<const float4*>(mask + at);
+          v[i][0] += m.x; v[i][1] += m.y; v[i][2] += m.z; v[i][3] += m.w;
+        }
+      } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split_bf16(x[i].x / dv, x[i].y / dv, hi[i], lo[i]);
-    *reinterpret_cast<uint4*>(khi + j * LD + part) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(klo + j * LD + part) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  }
-}
-
-// rows [0, nk) of V into shared memory [nk][LD], rows >= n zero
-__device__ __forceinline__ void load_v(uint16_t* dst, const bf16* V, int64_t sn, int n, int nk,
-                                       int tid) {
-  for (int c = tid; c < nk * (D / 8); c += THREADS) {
-    const int j = c / (D / 8), part = (c % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (j < n) val = *reinterpret_cast<const uint4*>(V + (int64_t)j * sn + part);
-    *reinterpret_cast<uint4*>(dst + j * LD + part) = val;
-  }
-}
-
-// Key offset, within a step of 16 keys, of k-position p of the mma tiles
-// (as K3): thread t4's four weights of a row become the consecutive keys
-// 4 t4 .. 4 t4 + 3. K rows (for S) and V rows (for P V) are read in the same
-// order, so the sum is unchanged.
-__device__ __forceinline__ int key_of(int p) {
-  const int q = p & 7;
-  return 4 * (q >> 1) + (q & 1) + ((p >> 3) << 1);
-}
-
-// f32 bias + mask of one row at keys k4 .. k4 + 3 (float4 loads where vec);
-// a key past n, or a row past n, gets -inf and so weight 0
-__device__ __forceinline__ void load_add(float (&a)[4], const float* brow, const float* mrow,
-                                         bool row_ok, int k4, int n, bool vec) {
-  if (row_ok && vec && k4 + 3 < n) {
-    const float4 b = *reinterpret_cast<const float4*>(brow + k4);
-    a[0] = b.x; a[1] = b.y; a[2] = b.z; a[3] = b.w;
-    if (mrow) {
-      const float4 m = *reinterpret_cast<const float4*>(mrow + k4);
-      a[0] += m.x; a[1] += m.y; a[2] += m.z; a[3] += m.w;
-    }
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool ok = row_ok && k4 + i < n;
-    a[i] = ok ? brow[k4 + i] + (mrow ? mrow[k4 + i] : 0.f) : -INFINITY;
-  }
-}
-
-// One running (max, scale) update of the online softmax for one row: the
-// new max of the row's logits so far and the factor that rescales what was
-// summed under the old max. A row that has seen only -inf keeps base 0.
-__device__ __forceinline__ float online_max(float& m, float step_max, float& base) {
-  const float mn = fmaxf(m, quad_max(step_max));
-  base = mn == -INFINITY ? 0.f : mn;
-  const float alpha = __expf(m - base);  // m = -inf: 0
-  m = mn;
-  return alpha;
-}
-
-// grid (windows, query slabs of SLAB rows, heads). Needs q, k, v, out, bias
-// and mask 16-byte aligned and every stride a multiple of 8 elements (the
-// host checks).
-template <bool COSINE>
-__global__ void __launch_bounds__(THREADS, 2) attn_bf16(Args g) {
-  extern __shared__ __align__(16) uint16_t smb[];
-  const int N = g.n, NK = pad16(N), TK = min(NK, KT);
-  uint16_t* khi = smb;               // [TK][LD]; read in key_of order within a step
-  uint16_t* vs = khi + TK * LD;      // [TK][LD]
-  uint16_t* klo = vs + TK * LD;      // [TK][LD], cosine only
-
-  const int w = blockIdx.x, h = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t base = (int64_t)w * g.s_w + (int64_t)h * g.s_h;
-  const bf16* K = static_cast<const bf16*>(g.k) + base;
-  const bf16* V = static_cast<const bf16*>(g.v) + base;
-
-  // a warp whose 16 rows all lie past N computes nothing but loads its share
-  // of every key tile
-  const int r0 = blockIdx.y * SLAB + warp * 16;
-  const bool active = r0 < N;
-  const float scale = g.scales[h];
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const int row_a = r0 + g8, row_b = row_a + 8;
-  const bool ok_a = row_a < N, ok_b = row_b < N;
-
-  // q A fragments of rows a, b (two k steps of 16); element e of step s is
-  // row (e & 1 ? b : a), columns s * 16 + (e >> 1) * 8 + 2 t4 + {0, 1}
-  const bf16* Q = static_cast<const bf16*>(g.q) + base;
-  uint32_t qa[2][4], ql[2][4];
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = (e & 1) ? row_b : row_a;
-      const int col = s * 16 + (e >> 1) * 8 + 2 * t4;
-      qa[s][e] = ((e & 1) ? ok_b : ok_a)
-                     ? *reinterpret_cast<const uint32_t*>(Q + (int64_t)row * g.s_n + col)
-                     : 0u;
-    }
-  if (COSINE) {
-    float ss_a = 0.f, ss_b = 0.f;
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 x = unpack_bf16(qa[s][e]);
-        (e & 1 ? ss_b : ss_a) += x.x * x.x + x.y * x.y;
+        for (int c = 0; c < 4; ++c)
+          v[i][c] = k + c < n ? bias[at + c] + (mask ? mask[at + c] : 0.f) : 0.f;
       }
-    const float dv_a = norm_div(quad_sum(ss_a)), dv_b = norm_div(quad_sum(ss_b));
+    }
 #pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 x = unpack_bf16(qa[s][e]);
-        const float dv = (e & 1) ? dv_b : dv_a;
-        split_bf16(x.x / dv, x.y / dv, qa[s][e], ql[s][e]);
-      }
+    for (int i = 0; i < FILL_U; ++i) {
+      const int u = u0 + i * threads;
+      if (u >= units) break;
+      const int rl = u / runs, c = 4 * (u - rl * runs);
+      *reinterpret_cast<float4*>(tile + rl * pitch + c) =
+          make_float4(v[i][0] * LOG2E, v[i][1] * LOG2E, v[i][2] * LOG2E, v[i][3] * LOG2E);
+    }
   }
+}
 
+// One block per (head, group of windows that read one mask index, query
+// tile of 64 rows); see the note at the top. Warpgroup c takes the group's
+// windows c, c + consumers, ..., each over every key tile, through its own
+// ring, whose loads its thread 0 issues. Needs q, k, v 16-byte aligned with
+// strides that are multiples of 8 elements (the tensor maps), and out, bias
+// and mask as the host checks.
+template <bool COSINE>
+__global__ void __launch_bounds__(128 * MAX_CONSUMERS, 1)
+    attn_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, Args g, Plan p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* rings = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 511) & ~static_cast<uintptr_t>(511));
+  // consumers x stages x [q | K | V], the tile [64][pitch] (and 16 floats
+  // that the last row's last chunk may read past its end), the per-key
+  // factors (consumers x stages x [kt]), the barriers (consumers x stages)
+  float* tile = reinterpret_cast<float*>(rings + p.consumers * p.stages * p.stage_bytes);
+  float* factors = tile + BM * p.pitch + 16;
+  uint64_t* full = reinterpret_cast<uint64_t*>(factors + p.consumers * p.stages * p.kt);
+
+  const int N = g.n;
+  const int qt = blockIdx.x % p.q_tiles, h = (blockIdx.x / p.q_tiles) % p.heads;
+  const int grp = blockIdx.x / p.q_tiles / p.heads;
+  const int mi = grp % p.n_groups, b0 = (grp / p.n_groups) * p.g;
+  const int nw = min(p.g, p.per_group - b0);  // windows mi + (b0 + j) n_groups
+  const int q0 = qt * BM;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, t4 = lane & 3;
+  // this warpgroup's windows j = wg, wg + consumers, ... < nw; iteration it
+  // is key tile it % n_kt of its window it / n_kt
+  const int mine = nw > wg ? (nw - wg + p.consumers - 1) / p.consumers : 0;
+  const int total = mine * p.n_kt;
+  uint8_t* ring = rings + wg * p.stages * p.stage_bytes;
+  uint64_t* fb = full + wg * p.stages;
+  float* fk = factors + wg * p.stages * p.kt;
+  auto window = [&](int it) { return mi + (b0 + wg + (it / p.n_kt) * p.consumers) * p.n_groups; };
+
+  // iteration it's q tile and K and V tiles into stage it % stages
+  auto load = [&](int it) {
+    const int sl = it % p.stages;
+    uint8_t* st = ring + sl * p.stage_bytes;
+    int c[4] = {0, 0, 0, 0};
+    c[1 + p.ax_h] = h;
+    c[1 + p.ax_w] = window(it);
+    mbar_expect_tx(fb + sl, Q_BYTES + 2 * p.kt * ROW_BYTES);
+    c[1 + p.ax_n] = q0;
+    tma_load_4d(st, &tm_q, fb + sl, c[0], c[1], c[2], c[3]);
+    c[1 + p.ax_n] = (it % p.n_kt) * p.kt;
+    tma_load_4d(st + Q_BYTES, &tm_k, fb + sl, c[0], c[1], c[2], c[3]);
+    tma_load_4d(st + Q_BYTES + p.kt * ROW_BYTES, &tm_v, fb + sl, c[0], c[1], c[2], c[3]);
+  };
+  if (t == 0) {
+    for (int i = 0; i < p.stages; ++i) mbar_init(fb + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int it = 0; it < p.stages && it < total; ++it) load(it);
+  }
   const float* bias = g.bias + (int64_t)h * N * N;
-  const float* mask = g.mask ? g.mask + (int64_t)(w % g.n_masks) * N * N : nullptr;
-  const bool vec = N % 4 == 0;
-  const int kb0 = key_of(g8), kb1 = key_of(8 + g8);  // K rows of this lane's S columns
-  const int kv_row = key_of(lane & 15);             // V row this lane addresses for ldmatrix
-  const float* brow_a = bias + (int64_t)(ok_a ? row_a : 0) * N;
-  const float* brow_b = bias + (int64_t)(ok_b ? row_b : 0) * N;
-  const float* mrow_a = mask ? mask + (int64_t)(ok_a ? row_a : 0) * N : nullptr;
-  const float* mrow_b = mask ? mask + (int64_t)(ok_b ? row_b : 0) * N : nullptr;
+  const float* mask = g.mask ? g.mask + (int64_t)mi * N * N : nullptr;
+  if (!p.sliced) fill(tile, p.pitch, bias, mask, q0, 0, N, threadIdx.x, 128 * p.consumers);
+  __syncthreads();
 
-  float o[4][4];
+  const float lsc = g.scales[h] * LOG2E;  // the logit scale (or the scale) in log2 units
+  const int ra = 16 * (warp & 3) + g8;    // this thread's rows a = ra, b = ra + 8 of the tile
+  uint32_t qa[2][4], ql[2][4];
+  for (int j = 0; j < mine; ++j) {
+    wtile::State st;
 #pragma unroll
-  for (int dn = 0; dn < 4; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, sum_a = 0.f, sum_b = 0.f;
-  float ba[4], bb[4];  // this step's bias + mask, rows a and b
-  load_add(ba, brow_a, mrow_a, ok_a, 4 * t4, N, vec);
-  load_add(bb, brow_b, mrow_b, ok_b, 4 * t4, N, vec);
+    for (int i = 0; i < 16; ++i) st.o[i] = 0.f;
+    st.sum_a = st.sum_b = 0.f;
+    st.m_a = st.m_b = -INFINITY;
+    for (int kt = 0; kt < p.n_kt; ++kt) {
+      const int it = j * p.n_kt + kt, sl = it % p.stages, k0 = kt * p.kt;
+      const uint8_t* stg = ring + sl * p.stage_bytes;
+      const uint8_t* ks = stg + Q_BYTES;
+      const uint8_t* vs = ks + p.kt * ROW_BYTES;
+      if (p.sliced) {  // one warpgroup: the tile takes this key tile's columns
+        fill(tile, p.pitch, bias, mask, q0, k0, N, t, 128);
+        named_sync(2 + wg, 128);
+      }
+      mbar_wait(fb + sl, (it / p.stages) & 1);
 
-  for (int t0 = 0; t0 < NK; t0 += TK) {
-    const int nt = min(TK, NK - t0);
-    if (t0) __syncthreads();  // every warp is done with the previous tile
-    load_k<COSINE>(khi, klo, K + (int64_t)t0 * g.s_n, g.s_n, N - t0, nt, tid);
-    load_v(vs, V + (int64_t)t0 * g.s_n, g.s_n, N - t0, nt, tid);
-    __syncthreads();
-    if (!active) continue;
-    for (int j0 = 0; j0 < nt; j0 += 16) {
-      // the next step's bias and mask are in flight while this step computes
-      float nba[4], nbb[4];
-      const int k4 = t0 + j0 + 16 + 4 * t4;
-      load_add(nba, brow_a, mrow_a, ok_a, k4, N, vec);
-      load_add(nbb, brow_b, mrow_b, ok_b, k4, N, vec);
-
-      // S for this step's 16 keys, as two n8 tiles; cosine: the small
-      // products first, then hi . hi
-      float s[2][4];
+      if (kt == 0) {
+        // this thread's A fragments of q (rows a, b; head dims 2 t4 + {0, 1}
+        // and + 8, for each k step of 16), read through the 64-byte
+        // swizzle; cosine: q^ = q / max(|q|, 1e-12) in f32, split into bf16
+        // hi + lo
+        float x[2][4][2];
+        float ss_a = 0.f, ss_b = 0.f;
 #pragma unroll
-      for (int nt8 = 0; nt8 < 2; ++nt8) {
+        for (int k16 = 0; k16 < 2; ++k16)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt8][e] = 0.f;
-        const int kr = (j0 + (nt8 ? kb1 : kb0)) * LD;
-#pragma unroll
-        for (int st = 0; st < 2; ++st) {
-          const int c0 = kr + st * 16 + 2 * t4;
-          const uint32_t bh[2] = {ld32(khi + c0), ld32(khi + c0 + 8)};
-          if (COSINE) {
-            const uint32_t bl[2] = {ld32(klo + c0), ld32(klo + c0 + 8)};
-            mma_bf16(s[nt8], ql[st], bh);
-            mma_bf16(s[nt8], qa[st], bl);
+          for (int e = 0; e < 4; ++e) {
+            const int r = ra + 8 * (e & 1), c = 16 * k16 + 8 * (e >> 1) + 2 * t4;
+            const int off = r * ROW_BYTES + ((((c >> 3) ^ (r >> 1)) & 3) << 4) + (c & 7) * 2;
+            qa[k16][e] = *reinterpret_cast<const uint32_t*>(stg + off);
+            const float2 f =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[k16][e]));
+            x[k16][e][0] = f.x;
+            x[k16][e][1] = f.y;
+            (e & 1 ? ss_b : ss_a) += f.x * f.x + f.y * f.y;
           }
-          mma_bf16(s[nt8], qa[st], bh);
+        if (COSINE) {
+          const float ia = 1.f / norm_div(quad_sum(ss_a)), ib = 1.f / norm_div(quad_sum(ss_b));
+#pragma unroll
+          for (int k16 = 0; k16 < 2; ++k16)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float inv = e & 1 ? ib : ia;
+              const float y0 = x[k16][e][0] * inv, y1 = x[k16][e][1] * inv;
+              qa[k16][e] = wtile::pack_bf16(y0, y1);
+              const float2 hi =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[k16][e]));
+              ql[k16][e] = wtile::pack_bf16(y0 - hi.x, y1 - hi.y);
+            }
         }
       }
-      // logits (q.k) scale + bias + mask; tile nt8, element i of row a is key
-      // 4 t4 + 2 nt8 + i
-      float xa[4], xb[4];
+      if (COSINE) {
+        // each key's factor lsc / max(|k|, 1e-12) (keys past N are zeros:
+        // their factor is finite and their weight 0); the 4 threads of a
+        // quad read one key's 64 bytes (the swizzle only permutes them)
+        for (int key = t >> 2; key < p.kt; key += 32) {
+          const uint4 u = reinterpret_cast<const uint4*>(ks + key * ROW_BYTES)[t & 3];
+          const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+          float ss = 0.f;
 #pragma unroll
-      for (int nt8 = 0; nt8 < 2; ++nt8)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int c = 2 * nt8 + i;
-          xa[c] = s[nt8][i] * scale + ba[c];
-          xb[c] = s[nt8][2 + i] * scale + bb[c];
+          for (int i = 0; i < 4; ++i) {
+            const float2 f =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w4[i]));
+            ss = fmaf(f.x, f.x, fmaf(f.y, f.y, ss));
+          }
+          ss = quad_sum(ss);
+          if ((t & 3) == 0) fk[sl * p.kt + key] = lsc / norm_div(ss);
         }
-      float base_a, base_b;
-      const float al_a = online_max(m_a, fmaxf(fmaxf(xa[0], xa[1]), fmaxf(xa[2], xa[3])), base_a);
-      const float al_b = online_max(m_b, fmaxf(fmaxf(xb[0], xb[1]), fmaxf(xb[2], xb[3])), base_b);
-      sum_a *= al_a;
-      sum_b *= al_b;
-#pragma unroll
-      for (int dn = 0; dn < 4; ++dn) {
-        o[dn][0] *= al_a; o[dn][1] *= al_a;
-        o[dn][2] *= al_b; o[dn][3] *= al_b;
+        named_sync(2 + wg, 128);
       }
-      uint32_t pa[4];
-#pragma unroll
-      for (int nt8 = 0; nt8 < 2; ++nt8) {
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int c = 2 * nt8 + i;
-          p[i] = __expf(xa[c] - base_a);
-          p[2 + i] = __expf(xb[c] - base_b);
-        }
-        sum_a += p[0] + p[1];
-        sum_b += p[2] + p[3];
-        pa[nt8 * 2] = pack_bf16(p[0], p[1]);
-        pa[nt8 * 2 + 1] = pack_bf16(p[2], p[3]);
-      }
-#pragma unroll
-      for (int dn = 0; dn < 4; ++dn) {
-        uint32_t vb[2];
-        ldmatrix_x2_trans(vb, vs + (j0 + kv_row) * LD + dn * 8);
-        mma_bf16(o[dn], pa, vb);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        ba[c] = nba[c];
-        bb[c] = nbb[c];
-      }
-    }
-  }
-  if (!active) return;
 
-  const float sa = quad_sum(sum_a), sb = quad_sum(sum_b);
-  bf16* O = static_cast<bf16*>(g.out) + (int64_t)w * g.o_w + (int64_t)h * g.o_h;
+      // this key tile's keys, in chunks of 64 (the last ones 16 at a time)
+      const int nv = N - k0;  // keys of this tile before N (more than kt but in the last)
+      const int nkt = min(p.kt, (nv + 15) & ~15);
+      const float* ta = tile + ra * p.pitch + 2 * t4 + (p.sliced ? 0 : k0);
+      const float* xk = fk + sl * p.kt + 2 * t4;
+      for (int kc = 0; kc < nkt; kc += KCH) {
+        if (kc + KCH <= nkt) {
+          wtile::chunk<KCH, wtile::MAX_STABLE, COSINE>(qa, ql, ks, vs, kc, ta, p.pitch, nv, t4,
+                                                       lsc, xk, st);
+        } else {
+          for (int k16 = kc; k16 < nkt; k16 += 16)
+            wtile::chunk<16, wtile::MAX_STABLE, COSINE>(qa, ql, ks, vs, k16, ta, p.pitch, nv,
+                                                        t4, lsc, xk, st);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(st.o);
+      named_sync(2 + wg, 128);  // the warpgroup is done with the stage (and the tile's slice)
+      if (t == 0 && it + p.stages < total) load(it + p.stages);
+    }
+
+    // the window's output: O divided by the row sums in f32, rounded once
+    const float sa = quad_sum(st.sum_a), sb = quad_sum(st.sum_b);
+    const int row_a = q0 + ra, row_b = row_a + 8;
+    bf16* O = static_cast<bf16*>(g.out) + (int64_t)window(j * p.n_kt) * g.o_w +
+              (int64_t)h * g.o_h;
 #pragma unroll
-  for (int dn = 0; dn < 4; ++dn) {
-    const int c = dn * 8 + 2 * t4;
-    if (ok_a)
-      *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)row_a * g.o_n + c) =
-          __floats2bfloat162_rn(o[dn][0] / sa, o[dn][1] / sa);
-    if (ok_b)
-      *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)row_b * g.o_n + c) =
-          __floats2bfloat162_rn(o[dn][2] / sb, o[dn][3] / sb);
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int c = 8 * jj + 2 * t4;
+      if (row_a < N)
+        *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)row_a * g.o_n + c) =
+            __floats2bfloat162_rn(st.o[4 * jj] / sa, st.o[4 * jj + 1] / sa);
+      if (row_b < N)
+        *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)row_b * g.o_n + c) =
+            __floats2bfloat162_rn(st.o[4 * jj + 2] / sb, st.o[4 * jj + 3] / sb);
+    }
   }
 }
 
-}  // namespace tc
+}  // namespace hop
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
@@ -548,16 +504,116 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStrea
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// the least x >= n with x % 32 == 8
+constexpr int pitch_of(int n) { return n + ((8 - n % 32) % 32 + 32) % 32; }
+
+// the alignment slack, the rings, the tile and its slack, the per-key
+// factors and the barriers
+int smem_bytes(const hop::Plan& p) {
+  const int slots = p.consumers * p.stages;
+  return 512 + slots * p.stage_bytes + (hop::BM * p.pitch + 16) * 4 + slots * p.kt * 4 + slots * 8;
+}
+
+// The schedule of a bf16 launch, but for the tensor maps' axes. Keys come
+// in key tiles of at most 256 (one TMA box each). The tile holds every key's
+// column where it fits beside the rings; the most warpgroups (4, 2, 1) and
+// stages (2, 1) that fit are taken. Where no tile of N columns fits (N >
+// ~700), one warpgroup a block refills a tile of one key tile's columns
+// before each key tile: nothing is shared then.
+hop::Plan plan_bf16(int windows, int heads, int n, int n_masks, bool masked, int group) {
+  hop::Plan p{};
+  const int nk = (n + 15) & ~15;
+  p.n_kt = (nk + hop::MAX_KT - 1) / hop::MAX_KT;
+  p.kt = ((nk + p.n_kt - 1) / p.n_kt + 15) & ~15;
+  p.stage_bytes = (hop::Q_BYTES + 2 * p.kt * hop::ROW_BYTES + 511) & ~511;
+  p.q_tiles = (n + hop::BM - 1) / hop::BM;
+  p.n_groups = masked ? n_masks : 1;
+  p.per_group = windows / p.n_groups;
+  p.heads = heads;
+  p.g = group < 1 ? 1 : group > p.per_group ? p.per_group : group;
+  p.splits = (p.per_group + p.g - 1) / p.g;
+  for (p.sliced = 0; p.sliced <= 1; ++p.sliced) {
+    p.pitch = pitch_of(p.sliced ? p.kt : n);
+    for (p.consumers = p.sliced ? 1 : hop::MAX_CONSUMERS; p.consumers >= 1; p.consumers /= 2)
+      for (p.stages = 2; p.stages >= 1; --p.stages)
+        if (smem_bytes(p) <= hop::SMEM_MAX) return p;
+  }
+  p.stages = 0;  // does not fit: refused by the caller
+  return p;
+}
+
+// q, k or v of every (window, head): dims (head dim, then the head, token
+// and window axes in the order of their strides, order[]), boxes of [rows
+// tokens, 32] at (0, head, token, window) in that order, 64-byte swizzled
+// (the layout wgmma reads, desc_sw64); tokens past N read as zeros
+bool qkv_map(CUtensorMap* map, const void* ptr, const Args& g, int heads, int windows,
+             const int order[3], int rows) {
+  const int64_t st[3] = {g.s_h, g.s_n, g.s_w};
+  const int64_t ext[3] = {heads, g.n, windows};
+  const int64_t box[3] = {1, rows, 1};
+  cuuint64_t dim[4] = {(cuuint64_t)D, 0, 0, 0}, stride[3];
+  cuuint32_t b[4] = {(cuuint32_t)D, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int a = order[i];
+    dim[1 + i] = (cuuint64_t)ext[a];
+    stride[i] = (cuuint64_t)st[a] * 2;
+    b[1 + i] = (cuuint32_t)box[a];
+  }
+  return hopper::encode_bf16(map, ptr, 4, dim, stride, b, CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+template <bool COSINE>
+cudaError_t launch_bf16(const Args& g, int windows, int heads, int group, cudaStream_t s) {
+  hop::Plan p = plan_bf16(windows, heads, g.n, g.n_masks, g.mask != nullptr, group);
+  if (!p.stages) return cudaErrorInvalidValue;
+  // the three outer axes (0 head, 1 token, 2 window) by stride
+  int order[3] = {0, 1, 2};
+  const int64_t st[3] = {g.s_h, g.s_n, g.s_w};
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (st[order[j]] < st[order[i]]) {
+        const int x = order[i];
+        order[i] = order[j];
+        order[j] = x;
+      }
+  for (int i = 0; i < 3; ++i) {
+    if (order[i] == 0) p.ax_h = i;
+    if (order[i] == 1) p.ax_n = i;
+    if (order[i] == 2) p.ax_w = i;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!qkv_map(&tq, g.q, g, heads, windows, order, hop::BM) ||
+      !qkv_map(&tk, g.k, g, heads, windows, order, p.kt) ||
+      !qkv_map(&tv, g.v, g, heads, windows, order, p.kt))
+    return cudaErrorInvalidValue;
+  // the kernel may take up to SMEM_MAX bytes of dynamic shared memory: set
+  // once per device
+  static std::atomic<bool> done[hopper::MAX_DEVICES];
+  const int slot = hopper::device_slot();
+  if (slot < 0 || !done[slot].load(std::memory_order_acquire)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        hop::attn_bf16<COSINE>, cudaFuncAttributeMaxDynamicSharedMemorySize, hop::SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    if (slot >= 0) done[slot].store(true, std::memory_order_release);
+  }
+  const int64_t blocks = (int64_t)p.q_tiles * heads * p.n_groups * p.splits;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  hop::attn_bf16<COSINE><<<(unsigned)blocks, 128 * p.consumers, smem_bytes(p), s>>>(tq, tk, tv,
+                                                                                  g, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 float32 (SIMT), 1 bfloat16 (tensor cores); cosine: 1 cosine, 0
-// scaled. Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments
-// the kernels do not take.
+// dtype: 0 float32 (SIMT), 1 bfloat16 (Hopper: wgmma and TMA, one block per
+// head, query tile and group of `group` windows that read one mask index);
+// cosine: 1 cosine, 0 scaled. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int k6_window_attn(int dtype, int cosine, const void* q, const void* k, const void* v,
                               int64_t s_w, int64_t s_h, int64_t s_n, void* out, int64_t o_w,
                               int64_t o_h, int64_t o_n, const float* bias, const float* mask,
                               int n_masks, const float* scales, int windows, int heads, int n,
-                              int d, void* stream) {
+                              int d, int group, void* stream) {
   if (n < MIN_N || d != D || windows < 1 || heads < 1 || heads > 65535 ||
       (mask && (n_masks < 1 || windows % n_masks)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -569,10 +625,8 @@ extern "C" int k6_window_attn(int dtype, int cosine, const void* q, const void* 
           aligned16(mask)) ||
         (s_w | s_h | s_n | o_w | o_h | o_n) % 8)
       return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(windows, (n + tc::SLAB - 1) / tc::SLAB, heads);
-    const size_t smem = tc::smem_bytes(n, cosine != 0);
-    err = cosine ? launch(tc::attn_bf16<true>, grid, tc::THREADS, smem, s, g)
-                 : launch(tc::attn_bf16<false>, grid, tc::THREADS, smem, s, g);
+    err = cosine ? launch_bf16<true>(g, windows, heads, group, s)
+                 : launch_bf16<false>(g, windows, heads, group, s);
   } else if (dtype == 0) {
     const dim3 grid(windows, (n + simt::MQ - 1) / simt::MQ, heads);
     const size_t smem = simt::smem_bytes();
@@ -583,6 +637,10 @@ extern "C" int k6_window_attn(int dtype, int cosine, const void* q, const void* 
   }
   return static_cast<int>(err);
 }
+
+// The warpgroups a bf16 block of a launch at n tokens runs (the windows of
+// its group are dealt out to them), for the host's choice of the group
+extern "C" int k6_consumers(int n) { return plan_bf16(1, 1, n, 1, false, 1).consumers; }
 
 extern "C" const char* k6_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

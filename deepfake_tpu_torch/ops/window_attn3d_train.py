@@ -37,7 +37,7 @@ from deepfake_tpu_torch.ops.window_attn_kernel import _on_cuda
 MAX_TOKENS = 512
 HEAD_DIM = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 64  # rows of a bf16 backward block, queries or keys (csrc/window_attn3d_train.cu hop::BM)
+_TILE = 64  # rows of a bf16 block, queries or keys (hop::BM, csrc/window_attn_tile.cuh wtile::BM)
 
 
 # ---------------------------------------------------------------- plain versions
@@ -85,7 +85,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.k5_fwd.argtypes = [
-            i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i, ctypes.c_float, i, i, i, i, p]
+            i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i, ctypes.c_float, i, i, i, i, i, p]
         lib.k5_fwd.restype = i
         lib.k5_bwd.argtypes = [
             i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, p, i64, i64, i64, p, p, i, p, p,
@@ -132,13 +132,14 @@ def window_attn3d_train_fwd(qkv, *, num_heads: int, bias, mask=None, scale: floa
     dev = qkv.device
     out = torch.empty(B_, N, C, dtype=qkv.dtype, device=dev)
     bias = bias.detach().to(dev, torch.float32).contiguous()
+    n_masks = mask.shape[0] if mask is not None else 1
+    group = _group(qkv, num_heads, N, n_masks, mask is not None)
     lib = _lib()
     status = lib.k5_fwd(
         _DTYPES[qkv.dtype], qkv.data_ptr(), qkv[..., C:].data_ptr(), qkv[..., 2 * C:].data_ptr(),
         qkv.stride(0), D, qkv.stride(1), out.data_ptr(), N * C, D, C, bias.data_ptr(),
-        mask.data_ptr() if mask is not None else None,
-        mask.shape[0] if mask is not None else 1, float(scale), B_, num_heads, N, D,
-        torch.cuda.current_stream(dev).cuda_stream)
+        mask.data_ptr() if mask is not None else None, n_masks, float(scale), B_, num_heads, N,
+        D, group, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, lib.k5_error_string, "k5_fwd")
     window_attn3d_train_fwd.launches += 1
     return out
@@ -148,13 +149,16 @@ window_attn3d_train_fwd.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def window_group(windows: int, heads: int, n: int, n_masks: int, masked: bool, sms: int) -> int:
-    """G, the windows a block of the bf16 backward takes. Window w reads mask
-    w % n_masks, so a masked launch has n_masks groups of windows that share
-    one bias + mask tile, and an unmasked one a single group; a group's
-    windows are split over ceil(per_group / G) blocks, each of which builds
-    its tile once. The cost of a choice is waves x (G + 1), the tile counted
-    as one window (K3's planner, on ``sms`` SMs)."""
+def window_group(windows: int, heads: int, n: int, n_masks: int, masked: bool, sms: int,
+                 consumers: int = 1) -> int:
+    """G, the windows a block of a bf16 launch takes (K5's forward and both
+    launches of its backward; K6, whose block deals its windows out to
+    ``consumers`` warpgroups). Window w reads mask w % n_masks, so a masked
+    launch has n_masks groups of windows that share one bias + mask tile,
+    and an unmasked one a single group; a group's windows are split over
+    ceil(per_group / G) blocks, each of which builds its tile once. The cost
+    of a choice is waves x (ceil(G / consumers) + 1), the tile counted as
+    one window (K3's planner, on ``sms`` SMs)."""
     per_group = windows // (n_masks if masked else 1)
     units = heads * -(-n // _TILE) * (n_masks if masked else 1)
     best, group = None, 1
@@ -162,17 +166,17 @@ def window_group(windows: int, heads: int, n: int, n_masks: int, masked: bool, s
         splits = -(-per_group // g)
         if g > 1 and splits == -(-per_group // (g - 1)):
             continue  # the same split count as G - 1
-        cost = -(-units * splits // sms) * (g + 1)
+        cost = -(-units * splits // sms) * (-(-g // consumers) + 1)
         if best is None or cost < best:
             best, group = cost, g
     return group
 
 
 def block_windows(windows: int, heads: int, n: int, n_masks: int, masked: bool, group: int):
-    """The blocks of either bf16 backward launch, in the kernels' order
-    (block x = tile + tiles (head + heads (mask index + n_groups split))):
-    a list of (head, tile, windows of the block). Every block of a masked
-    launch takes windows of one mask index."""
+    """The blocks of the bf16 forward and of either bf16 backward launch (and
+    of K6's), in the kernels' order (block x = tile + tiles (head + heads
+    (mask index + n_groups split))): a list of (head, tile, windows of the
+    block). Every block of a masked launch takes windows of one mask index."""
     n_groups = n_masks if masked else 1
     per_group = windows // n_groups
     g = min(group, per_group)
@@ -191,6 +195,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _group(qkv, num_heads: int, n: int, n_masks: int, masked: bool) -> int:
+    """G for a bf16 launch on qkv's card (1 for f32, whose SIMT kernels take
+    one window a block)."""
+    if qkv.dtype != torch.bfloat16:
+        return 1
+    dev = qkv.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return window_group(qkv.shape[0], num_heads, n, n_masks, masked, _sm_count(index))
+
+
 def window_attn3d_train_bwd(qkv, dout, *, num_heads: int, bias, mask=None, scale: float):
     """K5's backward on the card: (dqkv [B_, N, 3C] in qkv's type, dbias
     [H, N, N] f32)."""
@@ -203,16 +217,13 @@ def window_attn3d_train_bwd(qkv, dout, *, num_heads: int, bias, mask=None, scale
     dbias = torch.zeros(num_heads, N, N, dtype=torch.float32, device=dev)
     n_masks = mask.shape[0] if mask is not None else 1
     lib = _lib()
-    group = 1
+    group = _group(qkv, num_heads, N, n_masks, mask is not None)
     if dt == torch.bfloat16:
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
         stats = torch.empty(B_ * num_heads * 2 * lib.k5_stats_stride(N), dtype=torch.float32,
                             device=dev)
         if dout.data_ptr() % 16:
             raise ValueError("K5's bf16 backward needs a 16-byte aligned dout")
-        group = window_group(B_, num_heads, N, n_masks, mask is not None,
-                             _sm_count(dev.index if dev.index is not None else
-                                       torch.cuda.current_device()))
     else:
         dqkv = torch.zeros(qkv.shape, dtype=dt, device=dev)  # the f32 route adds dk, dv
         stats = None

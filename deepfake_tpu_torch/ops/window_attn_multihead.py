@@ -15,19 +15,25 @@ type. SwinV2 takes it for every window of more than 64 tokens (9 x 9 and up:
 (``window_attention_heads_plain``, K2's, which computes this function at any
 N) and launches K6 for CUDA tensors, or raises; ``.launches`` counts the
 launches. K6 takes N >= 65, with no upper limit (K and V stream through
-shared memory in key tiles), and head dim 32 (every SwinV2-B head).
+shared memory in key tiles), and head dim 32 (every SwinV2-B head). Its bf16
+kernel takes, per block, one head, one 64-row query tile and a group of
+windows that read one mask index, which share a bias + mask tile
+(``window_group`` chooses how many, ``block_windows`` lists the blocks: both
+are K5's, in ops/window_attn3d_train.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from deepfake_tpu_torch.kernels import build
+from deepfake_tpu_torch.ops.window_attn3d_train import window_group
 from deepfake_tpu_torch.ops.window_attn_kernel import (
-    _no_autograd, _on_cuda, window_attention_heads_plain,
+    _no_autograd, _on_cuda, _sm_count, window_attention_heads_plain,
 )
 
 MIN_TOKENS, HEAD_DIM = 65, 32
@@ -39,12 +45,22 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.k6_window_attn.argtypes = [
-            i, i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i, p, i, i, i, i, p]
+            i, i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i, p, i, i, i, i, i, p]
         lib.k6_window_attn.restype = i
+        lib.k6_consumers.argtypes = [i]
+        lib.k6_consumers.restype = i
         lib.k6_error_string.argtypes = [i]
         lib.k6_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def consumers(n: int) -> int:
+    """The warpgroups of a bf16 block at n tokens (4 at SwinV2's windows up
+    to 16; fewer where the bias tile leaves less room), among which the
+    kernel deals out the windows of the block's group."""
+    return _lib().k6_consumers(n)
 
 
 def _launch(q, k, v, out, *, bias, mask, logit_scale, scale, cosine):
@@ -76,12 +92,17 @@ def _launch(q, k, v, out, *, bias, mask, logit_scale, scale, cosine):
         scales = logit_scale.to(dev, torch.float32).reshape(H).contiguous()
     else:
         scales = torch.full((H,), float(scale), dtype=torch.float32, device=dev)
+    group = 1
+    if q.dtype == torch.bfloat16:
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        group = window_group(B_, H, N, n_masks, mask is not None, _sm_count(index),
+                             consumers(N))
     lib = _lib()
     status = lib.k6_window_attn(
         _DTYPES[q.dtype], int(cosine), q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
         out.data_ptr(), *out.stride()[:3], bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, n_masks, scales.data_ptr(), B_, H, N, D,
-        torch.cuda.current_stream(dev).cuda_stream)
+        group, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, lib.k6_error_string, "k6_window_attn")
 
 

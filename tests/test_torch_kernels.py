@@ -238,6 +238,50 @@ def test_k2_window_groups_cover_every_window_once(batch):
         assert (seen == 1).all(), (windows, heads, masked)
 
 
+# (windows B_, heads, N, masks, masked): K6's launches on SwinV2-B's audio
+# path at window 16, 256^2 (b8 stages 0-2, shifted and not, and b1), and off
+# it at windows 9-11, 24 and 32 (b8 of a 2x2-window grid, shifted)
+K6_SCHEDULES = {
+    "b8_stage0_shifted": (128, 4, 256, 16, True), "b8_stage0": (128, 4, 256, 16, False),
+    "b8_stage1_shifted": (32, 8, 256, 4, True), "b8_stage1": (32, 8, 256, 4, False),
+    "b8_stage2": (8, 16, 256, 1, False), "b1_stage0_shifted": (16, 4, 256, 16, True),
+    "b1_stage2": (1, 16, 256, 1, False), "w9": (32, 4, 81, 4, True), "w10": (32, 4, 100, 4, True),
+    "w11": (32, 4, 121, 4, True), "w24": (32, 4, 576, 4, True), "w32": (32, 4, 1024, 4, True),
+}
+
+
+@pytest.mark.parametrize("consumers", [4, 2, 1])
+@pytest.mark.parametrize("B_,H,N,n_masks,masked", list(K6_SCHEDULES.values()),
+                         ids=list(K6_SCHEDULES))
+def test_k6_window_groups_cover_every_window_once(B_, H, N, n_masks, masked, consumers):
+    """K6's bf16 schedule: with G from window_group for a block of
+    ``consumers`` warpgroups, every (window, head, 64-row query tile) falls in
+    exactly one block, a masked block takes only windows of one mask index
+    (they share its bias + mask tile), and the kernel's deal-out of a block's
+    windows to its warpgroups (warpgroup c takes windows c, c + consumers,
+    ...: ceil((nw - c) / consumers) of them) gives each window to one."""
+    from collections import Counter
+
+    from deepfake_tpu_torch.ops.window_attn3d_train import block_windows, window_group
+
+    g = window_group(B_, H, N, n_masks, masked, 132, consumers)
+    blocks = block_windows(B_, H, N, n_masks, masked, g)
+    seen = Counter((w, h, tile) for h, tile, ws in blocks for w in ws)
+    tiles = -(-N // 64)
+    assert set(seen) == {(w, h, t) for w in range(B_) for h in range(H) for t in range(tiles)}
+    assert max(seen.values()) == 1
+    for _, _, ws in blocks:
+        assert 0 < len(ws) <= g
+        if masked:
+            assert len({w % n_masks for w in ws}) == 1
+        nw = len(ws)
+        dealt = Counter()
+        for c in range(consumers):
+            mine = (nw - c + consumers - 1) // consumers if nw > c else 0
+            dealt.update(ws[c + j * consumers] for j in range(mine))
+        assert dealt == Counter(ws)
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No compiler, no kernel: the build raises instead of handing back a
     plain path."""

@@ -327,14 +327,19 @@ def test_k5_rejects_what_it_does_not_take():
 @pytest.mark.parametrize("B_,H,N,n_masks,masked", [
     (1024, 3, 392, 128, True), (1024, 3, 392, 128, False), (128, 3, 392, 128, True),
     (24, 12, 392, 8, True), (1021, 3, 392, 1, False), (16, 24, 392, 8, True),
-    (8, 2, 196, 4, True), (3, 1, 512, 1, False)],
+    (8, 2, 196, 4, True), (3, 1, 512, 1, False),
+    (256, 6, 392, 32, True), (64, 12, 392, 8, True), (64, 12, 392, 8, False),
+    (128, 3, 392, 128, False), (32, 6, 392, 32, True), (8, 12, 392, 8, True),
+    (2, 24, 392, 2, True), (8, 2, 98, 4, True)],
     ids=["stage0_shifted", "stage0", "b1_stage0_shifted", "b3_stage2_shifted", "ungrouped_1021",
-         "stage3_shifted", "clamped_196", "n512"])
+         "stage3_shifted", "clamped_196", "n512",
+         "stage1_shifted", "stage2_shifted", "stage2", "b1_stage0", "b1_stage1_shifted",
+         "b1_stage2_shifted", "b1_stage3_shifted", "clamped_98"])
 def test_k5_window_groups_cover_every_window_once(B_, H, N, n_masks, masked):
-    """The bf16 backward's schedule (both launches): every (window, head,
-    64-row tile) falls in exactly one block, a block takes at most G windows,
-    and a masked block only windows that read one mask index (w % n_masks),
-    so they can share its bias + mask tile."""
+    """The bf16 schedule of K5's forward and of both backward launches:
+    every (window, head, 64-row tile) falls in exactly one block, a block
+    takes at most G windows, and a masked block only windows that read one
+    mask index (w % n_masks), so they can share its bias + mask tile."""
     from collections import Counter
 
     from deepfake_tpu_torch.ops.window_attn3d_train import block_windows, window_group
