@@ -19,7 +19,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      scales up to 100, one scaled N = 392 case, and windows 10 and 24 (N =
      100 and 576, off the main path)), f32 with TF32 off and bf16; kernel,
      plain, library and bound times per shape and per b8 request or
-     micro-batch.
+     micro-batch; then K3 and K5 (forward and backward) again at the four
+     stages of Video Swin-B at its (16,7,7) window (N = 784, streamed).
   3. fused serving at full width (IRv2 + NeXtVLAD, SwinV2-B, wav2vec2-base,
      fusion head; random weights from --seed) in bf16: three b8 requests
      and one b1 request, with the launch counters showing that the
@@ -27,6 +28,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      plain routes (kernels off, same weights) for the end-to-end
      comparison, and each branch's device time on both; then one b8
      request from raw inputs (uint8 frames, 16 kHz PCM) through predict_raw.
+     Phases 3, 4, 8 and 10 serve each request on the eager route
+     (compiled=False) and as CUDA graphs (the default on the card): per
+     route latency, clips/s and the device's idle share, the graphs' pool
+     bytes, graph scores and logits against the eager route's (equal to the
+     bit; two requests' logits differ), each graph's captured launches
+     against the eager route's, and one replay's hand-written kernels
+     against one eager call's (torch.profiler, by name; each traced call
+     sits between two sentinel kernels after a warm-up call, and is
+     traced again where the profiler did not record both). A kernel's
+     "launches" count the eager requests of its path's run; its
+     "graph_launches" the timed replays of the same requests.
   4. the same for video_swin serving (Video Swin-S 3D, 32 frames of 224):
      three b8 and one b1 request through K3 and K4 (24 K3 launches each;
      K4: 3 a block at C <= 384 and 4 at 768, 74 in all), then on the plain
@@ -52,6 +64,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      K2 launches each), then on the plain route; latency, clips/s, idle
      share, top kernels, the front end's device time apart.
   9. f32 parity of audio: b2 scores, kernel route against plain route.
+ 10. Video Swin-B at its Something-Something v2 window (16,7,7) on 32
+     frames of 224 (embed 128, heads 4/8/16/32, depths 2/2/18/2; N = 784
+     in every stage): serving as phase 4 (three b8 and one b1 request, K3
+     and K4 at C = 128-1024), two training steps of 8 x 4 on the K5 route
+     (step ms, clips/s, peak memory), f32 b1 parity of scores (graph
+     against eager too) and of one micro-batch's gradients. Phases 5 and 9
+     hold the f32 graphs against the eager route as well (to the bit).
 The last two lines are {"kernels": [...]} and {"ok": true, "device": ...};
 --report writes every measurement and check as JSON to PATH. Imports
 nothing of JAX.
@@ -60,9 +79,11 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -119,24 +140,60 @@ def cuda_time_ms(fn, iters: int = 3, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_kernel_ms(fn, iters: int = 10) -> dict:
-    """The device's own time per call of ``fn`` by kernel name (the summed
-    durations of each kernel it launches, torch.profiler), after one warm-up
-    call."""
+# torch.cuda._sleep's kernel, launched before and after each traced call
+SENTINEL = "spin_kernel"
+TRACES = collections.Counter()  # traced calls, and tries traced again
+
+
+def traced(fn, warm=None, tries: int = 5) -> list:
+    """The device kernels of one call of ``fn`` under torch.profiler, as
+    (name, ms) pairs in order, between two sentinel kernels. On an H100 the
+    profiler dropped the first kernels it should have recorded in some
+    windows (in eager calls and graph replays alike; late in a long run,
+    in every window, however long the host waited before launching
+    them). So one call of ``warm`` (default:
+    ``fn``) runs first in the window, then the sentinels and the call; a
+    window that did not record both sentinels is traced again, and one that
+    never does fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    TRACES["calls"] += 1
+    seen = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            (warm or fn)()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000)
+            fn()
+            torch.cuda._sleep(1_000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if SENTINEL in e.name]
+        if len(marks) == 2:
+            return [(e.name, e.time_range.elapsed_us() / 1e3)
+                    for e in events[marks[0] + 1:marks[1]]]
+        TRACES["traced again"] += 1
+        seen.append(f"{len(events)} kernels, sentinels at {marks}, first "
+                    f"{[e.name[:60] for e in events[:2]]}, last {[e.name[:60] for e in events[-2:]]}")
+    fail(f"torch.profiler recorded the sentinel kernels of none of {tries} traces: "
+         + "; ".join(seen))
+
+
+def device_kernel_ms(fn, iters: int = 10) -> dict:
+    """The device's own time per call of ``fn`` by kernel name (the summed
+    durations of each kernel it launches, torch.profiler), after one warm-up
+    call."""
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
+
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    for name, ms in traced(calls, warm=fn):
+        by_name[name] = by_name.get(name, 0.0) + ms / iters
     return by_name
 
 
@@ -432,6 +489,16 @@ def phase_k2(dev, gen, batch: int, report):
 SWIN3D_STAGES = [((16, 56, 56), 3, 96, 2), ((16, 28, 28), 6, 192, 2),
                  ((16, 14, 14), 12, 384, 18), ((16, 7, 7), 24, 768, 2)]
 N3 = 392
+# the same of Video Swin-B at Something-Something v2's window (16,7,7) on 32
+# frames (Liu et al. 2022, configs/recognition/swin/
+# swin_base_patch244_window1677_sthv2.py: embed 128, heads 4/8/16/32, depths
+# 2/2/18/2): the 16 temporal tokens fill the window, so its temporal shift
+# clamps to 0; 784 tokens per window in every stage, stage 3 one unshifted
+# window a clip
+SWIN3D_B16_STAGES = [((16, 56, 56), 4, 128, 2), ((16, 28, 28), 8, 256, 2),
+                     ((16, 14, 14), 16, 512, 18), ((16, 7, 7), 32, 1024, 2)]
+WINDOW_B16 = (16, 7, 7)
+N3_B16 = 784
 
 
 def k3_check(got, want, what: str):
@@ -449,10 +516,10 @@ def k3_check(got, want, what: str):
     return err, tol
 
 
-def k3_flops_bytes(B_, H, C, n_masks, elt, mask_elt):
+def k3_flops_bytes(B_, H, C, n_masks, elt, mask_elt, n=N3):
     """q, k, v read and out written once, the f32 bias and the mask read once."""
-    flops = 4.0 * B_ * H * N3 * N3 * (C // H)
-    nbytes = 4.0 * B_ * N3 * C * elt + 4.0 * H * N3 * N3 + mask_elt * n_masks * N3 * N3
+    flops = 4.0 * B_ * H * n * n * (C // H)
+    nbytes = 4.0 * B_ * n * C * elt + 4.0 * H * n * n + mask_elt * n_masks * n * n
     return flops, nbytes
 
 
@@ -462,7 +529,7 @@ def k3_flops_bytes(B_, H, C, n_masks, elt, mask_elt):
 EXP_PER_S = 3.9e12
 
 
-def k3_l2_bytes(B_, H, n_masks, windows_per_block):
+def k3_l2_bytes(B_, H, n_masks, windows_per_block, n=N3):
     """What the bf16 design reads from L2 (and writes) in one launch: each
     block's bias (+ mask) tile, N rows of [N] f32 (+ bf16) over a group's
     query tiles; each (window, head, query tile) its K and V; each (window,
@@ -472,10 +539,12 @@ def k3_l2_bytes(B_, H, n_masks, windows_per_block):
     counter measures L2 here, so it stays out of the kernels line."""
     masked = n_masks > 0
     groups = (n_masks if masked else 1) * math.ceil(B_ // max(n_masks, 1) / windows_per_block)
-    q_tiles = math.ceil(N3 / 64)
-    tiles = H * groups * N3 * N3 * (4 + 2 * masked)
-    tokens = B_ * H * N3 * 64 * (2 * q_tiles + 2)
-    first = B_ * H * (N3 * N3 * (4 + 2 * masked) + 4 * N3 * 64)
+    if n > 512:  # streamed: each window reads its own tile slices
+        groups = B_
+    q_tiles = math.ceil(n / 64)
+    tiles = H * groups * n * n * (4 + 2 * masked)
+    tokens = B_ * H * n * 64 * (2 * q_tiles + 2)
+    first = B_ * H * (n * n * (4 + 2 * masked) + 4 * n * 64)
     return tiles + tokens, first
 
 
@@ -490,10 +559,11 @@ def sdpa_mask(bias, mask, B_, dtype):
     return am.expand(B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
 
 
-def phase_k3(dev, gen, batch: int, report):
-    """K3 at the four Video Swin-S stage shapes, shifted and not, of a b8 and
-    a b1 request; the kernel line's numbers are per b8 request, with b1's
-    beside them."""
+def phase_k3(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7), n=N3,
+             b1: bool = True, label: str = "Video Swin-S"):
+    """K3 at the four stage shapes (``stages``, ``window``: Video Swin-S's
+    by default), shifted and not, of a b8 and (``b1``) a b1 request; the
+    kernel line's numbers are per b8 request, with b1's beside them."""
     import torch
     import torch.nn.functional as F
 
@@ -502,25 +572,26 @@ def phase_k3(dev, gen, batch: int, report):
 
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms",
             "flops", "bytes", "l2_bytes", "l2_bytes_first", "exp_floor_ms")
-    per_batch = {b: dict.fromkeys(keys, 0.0) for b in (batch, 1)}
+    per_batch = {b: dict.fromkeys(keys, 0.0) for b in ((batch, 1) if b1 else (batch,))}
     errs = {"float32": 0.0, "bfloat16": 0.0}
+    shift = tuple(w // 2 for w in window)
     for b_req, acc in per_batch.items():
-        for grid, H, C, depth in SWIN3D_STAGES:
-            ws, ss = get_window_size(grid, (8, 7, 7), (4, 3, 3))
+        for grid, H, C, depth in stages:
+            ws, ss = get_window_size(grid, window, shift)
             nW = math.prod(n // w for n, w in zip(grid, ws))
             B_ = b_req * nW
             # the model's shift mask buffer: bf16, [nW, N, N]
             mask3 = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(dev, torch.bfloat16)
             for mask, count in ((None, (depth + 1) // 2), (mask3, depth // 2)):
-                name = (f"b{b_req} stage {grid} B_={B_} H={H} C={C}"
+                name = (f"b{b_req} N={n} stage {grid} B_={B_} H={H} C={C}"
                         + (" shifted" if mask is not None else ""))
                 scale = (C // H) ** -0.5
                 for dtype in (torch.float32, torch.bfloat16):
                     dname = str(dtype).split(".")[1]
-                    qkv = torch.randn(B_, N3, 3 * C, generator=gen, device=dev).to(dtype)
+                    qkv = torch.randn(B_, n, 3 * C, generator=gen, device=dev).to(dtype)
                     # large enough that a wrong bias or mask index moves the
                     # output well past the tolerance
-                    bias = 0.5 * torch.randn(H, N3, N3, generator=gen, device=dev)
+                    bias = 0.5 * torch.randn(H, n, n, generator=gen, device=dev)
                     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
                     kw = dict(num_heads=H, bias=bias, mask=mask, scale=scale)
                     run = lambda: k3.window_attn3d_tokens(q, k, v, **kw)
@@ -538,7 +609,7 @@ def phase_k3(dev, gen, batch: int, report):
                         ms = cuda_time_ms(run, iters=10)
                         dms = device_time_ms(run)
                         pms = cuda_time_ms(plain, iters=3)
-                        hq, hk, hv = (t.reshape(B_, N3, H, C // H).transpose(1, 2).contiguous()
+                        hq, hk, hv = (t.reshape(B_, n, H, C // H).transpose(1, 2).contiguous()
                                       for t in (q, k, v))
                         am = sdpa_mask(bias, mask, B_, dtype)
                         sdpa = lambda: F.scaled_dot_product_attention(
@@ -547,11 +618,11 @@ def phase_k3(dev, gen, batch: int, report):
                         lib_dms = device_time_ms(sdpa)
                         del hq, hk, hv, am, sdpa
                         n_masks = 0 if mask is None else mask.shape[0]
-                        flops, nbytes = k3_flops_bytes(B_, H, C, n_masks, 2, 2)
+                        flops, nbytes = k3_flops_bytes(B_, H, C, n_masks, 2, 2, n)
                         b, by = bound_ms(flops, nbytes, dname)
-                        g = k3.windows_per_block(B_, H, N3, max(n_masks, 1), mask is not None)
-                        l2, l2_first = k3_l2_bytes(B_, H, n_masks, g)
-                        floor = B_ * H * N3 * N3 / EXP_PER_S * 1e3
+                        g = k3.windows_per_block(B_, H, n, max(n_masks, 1), mask is not None)
+                        l2, l2_first = k3_l2_bytes(B_, H, n_masks, g, n)
+                        floor = B_ * H * n * n / EXP_PER_S * 1e3
                         row.update(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib,
                                    library_device_ms=lib_dms, bound_ms=b, bound_by=by,
                                    gflop=flops / 1e9, mbytes=nbytes / 1e6, windows_per_block=g,
@@ -560,7 +631,7 @@ def phase_k3(dev, gen, batch: int, report):
                                    l2_mbytes_model=l2 / 1e6,
                                    l2_mbytes_model_first=l2_first / 1e6,
                                    exp_floor_ms_assumed_rate=floor)
-                        log(f"K3 tokens {name:45s} {dname} kernel_ms={ms:.4f} device_ms={dms:.4f} "
+                        log(f"K3 tokens {name:51s} {dname} kernel_ms={ms:.4f} device_ms={dms:.4f} "
                             f"plain_ms={pms:.4f} library_ms={lib:.4f} (device {lib_dms:.4f}) "
                             f"bound_ms={b:.4f} ({by}) err={err:.2e} (tol {tol:.2e}); "
                             f"not measured: exp_floor_ms at an assumed 3.9 T/s={floor:.4f} "
@@ -574,31 +645,36 @@ def phase_k3(dev, gen, batch: int, report):
                             acc[key] += count * val
                     else:
                         row["ms"] = cuda_time_ms(run, iters=3)
-                        log(f"K3 tokens {name:45s} {dname} kernel_ms={row['ms']:.4f} "
+                        log(f"K3 tokens {name:51s} {dname} kernel_ms={row['ms']:.4f} "
                             f"err={err:.2e} (tol {tol:.0e})")
                     report["k3"].append(row)
                     del qkv, bias, q, k, v, got
                 torch.cuda.empty_cache()
 
     k3.window_attn3d_tokens.launches = 0
-    acc, acc1 = per_batch[batch], per_batch[1]
+    acc = per_batch[batch]
     _, by = bound_ms(acc["flops"], acc["bytes"], "bfloat16")
     for b_req, a in per_batch.items():
-        log(f"K3 per b{b_req} request: kernel_ms={a['ms']:.4f} device_ms={a['device_ms']:.4f} "
+        log(f"K3 N={n} per b{b_req} request: kernel_ms={a['ms']:.4f} "
+            f"device_ms={a['device_ms']:.4f} "
             f"library_ms={a['library_ms']:.4f} (device {a['library_device_ms']:.4f}) "
             f"plain_ms={a['plain_ms']:.4f} bound_ms={a['bound_ms']:.4f}; not measured: "
             f"exp_floor_ms at an assumed 3.9 T/s={a['exp_floor_ms']:.4f} modelled l2_GB="
             f"{a['l2_bytes'] / 1e9:.3f} (first design {a['l2_bytes_first'] / 1e9:.3f})")
-    return dict(name="window_attn3d_tokens (K3)", route="cuda", source=K3_SRC,
-                replaces=K3_TOK_REPLACES, launches=None, max_abs_err=errs["bfloat16"],
-                max_abs_err_f32=errs["float32"], ms=acc["ms"], plain_ms=acc["plain_ms"],
-                bound_ms=acc["bound_ms"], bound_by=by, library_ms=acc["library_ms"],
-                device_ms=acc["device_ms"], library_device_ms=acc["library_device_ms"],
-                ms_b1=acc1["ms"], device_ms_b1=acc1["device_ms"], plain_ms_b1=acc1["plain_ms"],
-                library_ms_b1=acc1["library_ms"], library_device_ms_b1=acc1["library_device_ms"],
-                bound_ms_b1=acc1["bound_ms"],
-                per=f"one video_swin b{batch} request (b1 in the _b1 keys): 24 Video Swin-S "
-                    "blocks, bf16")
+    row = dict(name="window_attn3d_tokens (K3)" + (f" N={n}" if n != N3 else ""), route="cuda",
+               source=K3_SRC, replaces=K3_TOK_REPLACES, launches=None,
+               max_abs_err=errs["bfloat16"], max_abs_err_f32=errs["float32"], ms=acc["ms"],
+               plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"], bound_by=by,
+               library_ms=acc["library_ms"], device_ms=acc["device_ms"],
+               library_device_ms=acc["library_device_ms"],
+               per=f"one video_swin b{batch} request" + (" (b1 in the _b1 keys)" if b1 else "")
+                   + f": 24 {label} blocks at window {window}, bf16")
+    if b1:
+        acc1 = per_batch[1]
+        row.update(ms_b1=acc1["ms"], device_ms_b1=acc1["device_ms"],
+                   plain_ms_b1=acc1["plain_ms"], library_ms_b1=acc1["library_ms"],
+                   library_device_ms_b1=acc1["library_device_ms"], bound_ms_b1=acc1["bound_ms"])
+    return row
 
 
 # ---------------------------------------------------------------- phase 2: K4
@@ -759,20 +835,23 @@ def k5_check(got, want, what: str, dbias: bool = False):
     return err, tol
 
 
-def k5_flops_bytes(B_, H, C, n_masks):
+def k5_flops_bytes(B_, H, C, n_masks, n=N3):
     """bf16; forward: q, k, v in, out written, the f32 bias and the bf16 mask
     read, 4 B_ H N^2 D operations. Backward: q, k, v, dO in, dq, dk, dv
     out, the bias (bf16, its cast point) and mask read, the f32 dbias
     written, 10 B_ H N^2 D operations (S, dP, dV, dQ, dK)."""
-    tok = B_ * N3 * C * 2.0
-    nn_ = N3 * N3
+    tok = B_ * n * C * 2.0
+    nn_ = n * n
     fwd = (4.0 * B_ * H * nn_ * (C // H), 4 * tok + 4.0 * H * nn_ + 2.0 * n_masks * nn_)
     bwd = (10.0 * B_ * H * nn_ * (C // H),
            7 * tok + 2.0 * H * nn_ + 2.0 * n_masks * nn_ + 4.0 * H * nn_)
     return fwd, bwd
 
 
-def phase_k5(dev, gen, batch: int, report):
+def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7), n=N3,
+             label: str = "Video Swin-S"):
+    """K5's forward and backward at the four stage shapes of a b8 training
+    micro-batch (Video Swin-S's by default), shifted and not."""
     import torch
     import torch.nn.functional as F
 
@@ -783,18 +862,19 @@ def phase_k5(dev, gen, batch: int, report):
                "library_device_ms": 0.0, "flops": 0.0, "bytes": 0.0} for d in ("fwd", "bwd")}
     acc["bwd"].update(device_ms_launch1=0.0, device_ms_launch2=0.0)
     errs = {(d, t): 0.0 for d in ("fwd", "bwd") for t in ("float32", "bfloat16")}
-    for grid, H, C, depth in SWIN3D_STAGES:
-        ws, ss = get_window_size(grid, (8, 7, 7), (4, 3, 3))
+    for grid, H, C, depth in stages:
+        ws, ss = get_window_size(grid, window, tuple(w // 2 for w in window))
         nW = math.prod(n // w for n, w in zip(grid, ws))
         B_ = batch * nW
         mask3 = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(dev, torch.bfloat16)
         for mask, count in ((None, (depth + 1) // 2), (mask3, depth // 2)):
-            name = f"stage {grid} B_={B_} H={H} C={C}" + (" shifted" if mask is not None else "")
+            name = (f"N={n} stage {grid} B_={B_} H={H} C={C}"
+                    + (" shifted" if mask is not None else ""))
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype).split(".")[1]
-                qkv = torch.randn(B_, N3, 3 * C, generator=gen, device=dev).to(dtype)
-                dout = torch.randn(B_, N3, C, generator=gen, device=dev).to(dtype)
-                bias = 0.5 * torch.randn(H, N3, N3, generator=gen, device=dev)
+                qkv = torch.randn(B_, n, 3 * C, generator=gen, device=dev).to(dtype)
+                dout = torch.randn(B_, n, C, generator=gen, device=dev).to(dtype)
+                bias = 0.5 * torch.randn(H, n, n, generator=gen, device=dev)
                 q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
                 kw = dict(num_heads=H, bias=bias, mask=mask, scale=(C // H) ** -0.5)
                 run_f = lambda: k5.window_attn3d_train_fwd(qkv, **kw)
@@ -819,18 +899,19 @@ def phase_k5(dev, gen, batch: int, report):
                     ms_f, ms_b = cuda_time_ms(run_f, iters=10), cuda_time_ms(run_b, iters=10)
                     dms_f = device_time_ms(run_f)
                     # the backward's device time by launch: launch 1 (dq,
-                    # dbias) and launch 2 (dk, dv); the rest is the
-                    # wrapper's copies and zero fills
+                    # dbias) and launch 2 (dk, dv), streamed above 512
+                    # tokens; the rest is the wrapper's copies and zero fills
                     by_name = device_kernel_ms(run_b)
                     dms_b = sum(by_name.values())
-                    l1 = sum(v for k, v in by_name.items() if "dq_bf16" in k)
-                    l2 = sum(v for k, v in by_name.items() if "dkdv_bf16" in k)
+                    l1 = sum(v for k, v in by_name.items() if "dq_bf16" in k or "dq_stream" in k)
+                    l2 = sum(v for k, v in by_name.items()
+                             if "dkdv_bf16" in k or "dkdv_stream" in k)
                     if not (l1 > 0 and l2 > 0):
                         fail(f"K5 bwd {name}: the profile shows no launch 1 or 2: {by_name}")
                     pms_f, pms_b = cuda_time_ms(plain_f, iters=3), cuda_time_ms(plain_b, iters=3)
                     # SDPA forward, and its backward alone, with bias + mask as one
                     # grad-requiring [B_, H, N, N] attn_mask
-                    hq, hk, hv = (t.reshape(B_, N3, H, C // H).transpose(1, 2).contiguous()
+                    hq, hk, hv = (t.reshape(B_, n, H, C // H).transpose(1, 2).contiguous()
                                   .requires_grad_() for t in (q, k, v))
                     am = sdpa_mask(bias, mask, B_, dtype).contiguous().requires_grad_()
                     sdpa = lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am,
@@ -838,7 +919,7 @@ def phase_k5(dev, gen, batch: int, report):
                     lib_f = cuda_time_ms(sdpa, iters=10)
                     lib_dms_f = device_time_ms(sdpa)
                     o = sdpa()
-                    do_h = dout.reshape(B_, N3, H, C // H).transpose(1, 2).contiguous()
+                    do_h = dout.reshape(B_, n, H, C // H).transpose(1, 2).contiguous()
                     sdpa_b = lambda: torch.autograd.grad(o, (hq, hk, hv, am), do_h,
                                                          retain_graph=True)
                     lib_b = cuda_time_ms(sdpa_b, iters=10)
@@ -847,16 +928,16 @@ def phase_k5(dev, gen, batch: int, report):
                     n_masks = 0 if mask is None else mask.shape[0]
                     for d, ms, dms, pms, lib, lib_dms, (flops, nbytes) in (
                             ("fwd", ms_f, dms_f, pms_f, lib_f, lib_dms_f,
-                             k5_flops_bytes(B_, H, C, n_masks)[0]),
+                             k5_flops_bytes(B_, H, C, n_masks, n)[0]),
                             ("bwd", ms_b, dms_b, pms_b, lib_b, lib_dms_b,
-                             k5_flops_bytes(B_, H, C, n_masks)[1])):
+                             k5_flops_bytes(B_, H, C, n_masks, n)[1])):
                         b, by = bound_ms(flops, nbytes, dname)
                         row[d] = dict(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib,
                                       library_device_ms=lib_dms, bound_ms=b, bound_by=by,
                                       gflop=flops / 1e9, mbytes=nbytes / 1e6)
                         split = (f" (launch 1 {l1:.4f}, launch 2 {l2:.4f})" if d == "bwd"
                                  else "")
-                        log(f"K5 {d} {name:42s} {dname} kernel_ms={ms:.4f} device_ms={dms:.4f}"
+                        log(f"K5 {d} {name:48s} {dname} kernel_ms={ms:.4f} device_ms={dms:.4f}"
                             f"{split} plain_ms={pms:.3f} sdpa_ms={lib:.4f} (device "
                             f"{lib_dms:.4f}) bound_ms={b:.4f} ({by})")
                         for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
@@ -866,11 +947,11 @@ def phase_k5(dev, gen, batch: int, report):
                     row["bwd"].update(device_ms_launch1=l1, device_ms_launch2=l2)
                     acc["bwd"]["device_ms_launch1"] += count * l1
                     acc["bwd"]["device_ms_launch2"] += count * l2
-                    log(f"K5 {name:46s} {dname} err fwd={e_f:.2e} bwd={e_b:.2e}")
+                    log(f"K5 {name:52s} {dname} err fwd={e_f:.2e} bwd={e_b:.2e}")
                 else:
                     row["ms_fwd"] = cuda_time_ms(run_f, iters=3)
                     row["ms_bwd"] = cuda_time_ms(run_b, iters=3)
-                    log(f"K5 {name:46s} {dname} fwd_ms={row['ms_fwd']:.4f} "
+                    log(f"K5 {name:52s} {dname} fwd_ms={row['ms_fwd']:.4f} "
                         f"bwd_ms={row['ms_bwd']:.4f} err fwd={e_f:.2e} bwd={e_b:.2e}")
                 report["k5"].append(row)
                 del qkv, dout, bias, q, k, v
@@ -882,18 +963,20 @@ def phase_k5(dev, gen, batch: int, report):
         a = acc[d]
         _, by = bound_ms(a["flops"], a["bytes"], "bfloat16")
         row = dict(
-            name=f"window_attn3d_train_{d} (K5)", route="cuda", source=K5_SRC, replaces=rep,
+            name=f"window_attn3d_train_{d} (K5)" + (f" N={n}" if n != N3 else ""), route="cuda",
+            source=K5_SRC, replaces=rep,
             launches=None, max_abs_err=errs[d, "bfloat16"], max_abs_err_f32=errs[d, "float32"],
             ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"], bound_by=by,
             library_ms=a["library_ms"], device_ms=a["device_ms"],
             library_device_ms=a["library_device_ms"],
-            per=f"one video_swin b8 training micro-batch: the {what} of 24 Video Swin-S blocks, "
-                "bf16; library_ms is SDPA's " + what + " with bias + mask as a grad-requiring "
-                "attn_mask")
+            per=f"one video_swin b8 training micro-batch: the {what} of 24 {label} blocks at "
+                f"window {window}, bf16; library_ms is SDPA's " + what + " with bias + mask as a "
+                "grad-requiring attn_mask")
         if d == "bwd":
             row.update(device_ms_launch1=a["device_ms_launch1"],
                        device_ms_launch2=a["device_ms_launch2"])
-        log(f"K5 {what} per b8 micro-batch: kernel_ms={a['ms']:.4f} device_ms={a['device_ms']:.4f}"
+        log(f"K5 N={n} {what} per b8 micro-batch: kernel_ms={a['ms']:.4f} "
+            f"device_ms={a['device_ms']:.4f}"
             + (f" (launch 1 {a['device_ms_launch1']:.4f}, launch 2 {a['device_ms_launch2']:.4f})"
                if d == "bwd" else "")
             + f" plain_ms={a['plain_ms']:.4f} sdpa_ms={a['library_ms']:.4f} (device "
@@ -1053,24 +1136,9 @@ def fused_inputs(cfg, batch, dev, gen):
 
 def wrappers():
     """Every kernel wrapper, by the name its launches are reported under."""
-    from deepfake_tpu_torch.ops.inception_block import inception_block
-    from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, mlp_tail
-    from deepfake_tpu_torch.ops.window_attn3d_kernel import window_attn3d_tokens
-    from deepfake_tpu_torch.ops.window_attn3d_train import (
-        window_attn3d_train_bwd, window_attn3d_train_fwd,
-    )
-    from deepfake_tpu_torch.ops.window_attn_kernel import (
-        window_attention_heads, window_attention_tokens,
-    )
-    from deepfake_tpu_torch.ops.window_attn_multihead import window_attention_multihead
+    from deepfake_tpu_torch.ops import kernel_wrappers
 
-    return {"inception_block": inception_block, "window_attn_tokens": window_attention_tokens,
-            "window_attn_heads": window_attention_heads,
-            "window_attn3d_tokens": window_attn3d_tokens, "ln_linear": ln_linear,
-            "mlp_tail": mlp_tail,
-            "window_attn3d_train_fwd": window_attn3d_train_fwd,
-            "window_attn3d_train_bwd": window_attn3d_train_bwd,
-            "window_attention_multihead": window_attention_multihead}
+    return kernel_wrappers()
 
 
 def counts():
@@ -1127,22 +1195,120 @@ def profile_call(fn, wall_ms: float):
     sum of its kernels' durations; one stream, so they do not overlap), its
     idle share of ``wall_ms`` (the call's unprofiled time), and the kernels
     that take the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, ms in traced(fn):
+        by_name[name] = by_name.get(name, 0.0) + ms
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(wall_ms=wall_ms, device_busy_ms=busy, device_idle_share=1.0 - busy / wall_ms,
                 kernel_names=len(by_name), top_kernels_ms=[[n[:90], t] for n, t in top])
+
+
+# the hand-written kernels' names as the profiler reports them: every
+# __global__ function of csrc/ sits in namespace hop, simt or wtile
+KERNEL_NAME = re.compile(r"(?:^|[^A-Za-z0-9_])(?:hop|simt|wtile)::")
+
+
+def handwritten_kernels(fn) -> collections.Counter:
+    """The hand-written kernels that one call of ``fn`` runs on the card, by
+    name (torch.profiler)."""
+    return collections.Counter(name for name, _ in traced(fn) if KERNEL_NAME.search(name))
+
+
+def graph_equals_eager(pred, eager, r, what: str):
+    """The logits (and video_swin's per-frame features) of request ``r``
+    through ``pred``'s graph against the eager route's: the same kernels in
+    the same order, so equal to the bit. Returns the graph's logits."""
+    raw = isinstance(r, dict)
+    got, want = (p.forward(r, return_logits=True, raw=raw) for p in (pred, eager))
+    got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
+    for a, b in zip(got, want):
+        if not torch_equal(a, b):
+            fail(f"{what} b{batch_of(r)}: graph and eager outputs differ by "
+                 f"{(a.float() - b.float()).abs().max().item():.3e}")
+    return got[0]
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def graph_route(pred, eager, requests, scores_eager, per_req_eager, what: str):
+    """The graph route of a serving phase (``pred``, compiled; ``eager``,
+    the same weights on the eager route): the first request of each shape
+    captures its graph (two eager warm-up runs, then the capture, each
+    counted by the wrappers), then every request replays, timed; the
+    launches of that timed run are each graph's captured launches times its
+    replays. Each graph's captured launches must be the eager route's
+    launches for that request, one replay must launch exactly the
+    hand-written kernels of one eager call (torch.profiler, by kernel name),
+    every score must equal the eager route's, and so must the logits of the
+    first and last requests, while two requests' logits differ (a stale
+    input buffer would give the first request's logits again)."""
+    import torch
+
+    from deepfake_tpu_torch.compiled import signature
+    from deepfake_tpu_torch.ops import launch_counts
+
+    first = {}
+    for r in (requests[0], requests[-1]):
+        t = time.perf_counter()
+        serve(pred, [r])
+        first[f"b{batch_of(r)}"] = time.perf_counter() - t
+    replays = {k: g.replays for k, g in pred.graphs.graphs.items()}
+    lat, scores = serve(pred, requests)
+    launches = collections.Counter()
+    for k, g in pred.graphs.graphs.items():
+        for name, n in g.launches.items():
+            launches[name] += n * (g.replays - replays[k])
+    d_score = max(float(np.abs(a - b).max()) for a, b in zip(scores, scores_eager))
+    graphs = {}
+    for i in (0, len(requests) - 1):
+        r = requests[i]
+        route = "raw" if isinstance(r, dict) else "predict"
+        g = pred.graphs.graphs[signature(route, pred.cfg.data.modality, r)]
+        want = {k: v for k, v in per_req_eager[i].items() if v}
+        if g.launches != want:
+            fail(f"{what} b{batch_of(r)}: the graph's capture counted {g.launches}, the eager "
+                 f"route launches {want}")
+        call = (lambda r=r: eager.predict_raw(r)) if route == "raw" else (
+            lambda r=r: eager.predict(r))
+        with torch.inference_mode():
+            k_eager = handwritten_kernels(call)
+            counted = launch_counts()
+            k_graph = handwritten_kernels(g.graph.replay)
+        if k_graph != k_eager or not k_graph or launch_counts() != counted:
+            fail(f"{what} b{batch_of(r)}: one replay launched {dict(k_graph)}, one eager call "
+                 f"{dict(k_eager)}")
+        graphs[f"b{batch_of(r)}"] = dict(launches=g.launches, pool_bytes=g.pool_bytes,
+                                         kernels_per_replay=sum(k_graph.values()),
+                                         kernel_names=len(k_graph))
+    logits = [graph_equals_eager(pred, eager, r, what) for r in requests[:2]]
+    graph_equals_eager(pred, eager, requests[-1], what)
+    if torch_equal(*logits):
+        fail(f"{what}: two different requests gave the same logits through one graph")
+    p50 = statistics.median(lat[:-1])
+    res = dict(latency_s=lat, p50_b8_s=p50, clips_per_s_b8=8 * (len(lat) - 1) / sum(lat[:-1]),
+               b1_latency_s=lat[-1], first_call_s=first, graphs=graphs, launches=dict(launches),
+               pool_bytes=pred.graphs.pool_bytes(), max_abs_score_diff_vs_eager=d_score)
+    res["profile"] = {
+        "graph route b8": profile_call(lambda: serve(pred, [requests[0]]), p50 * 1e3),
+        "graph route b1": profile_call(lambda: serve(pred, [requests[-1]]), lat[-1] * 1e3)}
+    log(f"{what}: graph route b8 p50 {p50 * 1e3:.2f} ms, {res['clips_per_s_b8']:.2f} clips/s; "
+        f"b1 {lat[-1] * 1e3:.2f} ms; first calls (capture) "
+        + ", ".join(f"{k} {v * 1e3:.0f} ms" for k, v in first.items())
+        + f"; pool {res['pool_bytes'] / 2**20:.0f} MiB; max |score - eager| {d_score:.2e}; "
+        f"hand-written kernels a replay " + json.dumps({k: v["kernels_per_replay"]
+                                                      for k, v in graphs.items()})
+        + "; launches of the timed replays " + json.dumps(res["launches"]))
+    for name, prof in res["profile"].items():
+        log(f"{what}: profile {name}: device busy {prof['device_busy_ms']:.2f} ms of "
+            f"{prof['wall_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}")
+    if d_score != 0:
+        fail(f"{what}: graph and eager scores differ by {d_score:.3e}")
+    return res
 
 
 def branch_rel_err(pa, pb, inputs):
@@ -1190,12 +1356,13 @@ def phase_serving(cfg, cfg_plain, dev, gen, report):
     from deepfake_tpu_torch.serving import Predictor
 
     t0 = time.perf_counter()
-    pred = Predictor(cfg, device=dev)
+    pred = Predictor(cfg, device=dev, compiled=False)
     torch.cuda.synchronize()
     log(f"serving: Predictor(fused, {cfg.parallel.compute_dtype}) built in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in pred.model.parameters()) / 1e6:.1f} M params")
-    plain = Predictor(cfg_plain, device=dev)
+    plain = Predictor(cfg_plain, device=dev, compiled=False)
+    graph = Predictor(cfg, device=dev)  # the default on the card: CUDA graphs
     requests = [fused_inputs(cfg, 8, dev, gen) for _ in range(3)] + [fused_inputs(cfg, 1, dev, gen)]
     for p in (pred, plain):  # warm-up at both batch sizes: cuDNN plans, allocator
         serve(p, [requests[0], requests[-1]])
@@ -1223,15 +1390,20 @@ def phase_serving(cfg, cfg_plain, dev, gen, report):
     lat_plain, scores_plain = serve(plain, requests)
     if counts() != launches:
         fail("the plain routes launched a kernel")
+    res_graph = graph_route(graph, pred, requests, scores, per_req, "serving")
     # one b8 request from raw inputs (uint8 frames, 16 kHz PCM) through
-    # predict_raw: FeatureAssembler feeds the same kernels
+    # predict_raw: FeatureAssembler feeds the same kernels; then through the
+    # graph of the front end and the model
     raw = fused_raw(cfg, 8, dev, gen)
     before = counts()
-    (t_first, t_raw), _ = serve(pred, [raw, raw])  # the first builds the front end's tables
+    (t_first, t_raw), (sc_raw, _) = serve(pred, [raw, raw])  # the first builds the tables
     after = counts()
     d_raw = {k: (after[k] - before[k]) // 2 for k in after}
     if d_raw["inception_block"] != 40 or d_raw["window_attn_tokens"] == 0:
         fail(f"fused predict_raw b8: launches {d_raw}")
+    (t_raw_capture, t_raw_graph), (sc_raw_graph, _) = serve(graph, [raw, raw])
+    d_raw_graph = float(np.abs(sc_raw_graph - sc_raw).max())
+    graph_equals_eager(graph, pred, raw, "serving predict_raw")
     fe_ms = cuda_time_ms(lambda: pred._assemble(raw, np.zeros(1, np.float32)), iters=3)
     d_score = max(float(np.abs(a - b).max()) for a, b in zip(scores, scores_plain))
     d_feat = branch_rel_err(pred, plain, requests[0])
@@ -1243,7 +1415,10 @@ def phase_serving(cfg, cfg_plain, dev, gen, report):
                branch_ms_b8=branch_times(pred, requests[0]),
                plain_branch_ms_b8=branch_times(plain, requests[0]),
                predict_raw_b8=dict(latency_s=t_raw, first_call_s=t_first, launches=d_raw,
-                                   frontend_ms=fe_ms))
+                                   frontend_ms=fe_ms, graph_latency_s=t_raw_graph,
+                                   graph_capture_call_s=t_raw_capture,
+                                   graph_max_abs_score_diff_vs_eager=d_raw_graph),
+               graph_route=res_graph)
     res["profile"] = {
         "kernel routes b8": profile_call(lambda: pred.predict(requests[0]),
                                          res["p50_b8_s"] * 1e3),
@@ -1260,7 +1435,8 @@ def phase_serving(cfg, cfg_plain, dev, gen, report):
         f"{', '.join(f'{e:.2e}' for e in d_feat)} (bf16)")
     log(f"serving: one b8 request through predict_raw (uint8 frames, 4 s PCM): "
         f"{t_raw * 1e3:.1f} ms (first call {t_first * 1e3:.1f} ms), front end {fe_ms:.2f} ms "
-        f"(CUDA events), launches per call {d_raw}")
+        f"(CUDA events), launches per call {d_raw}; graph route {t_raw_graph * 1e3:.1f} ms "
+        f"(capture call {t_raw_capture * 1e3:.0f} ms), max |score - eager| {d_raw_graph:.2e}")
     log("serving: b8 branch times (ms), kernel routes " + json.dumps(res["branch_ms_b8"]))
     log("serving: b8 branch times (ms), plain routes  " + json.dumps(res["plain_branch_ms_b8"]))
     for name, prof in res["profile"].items():
@@ -1270,9 +1446,11 @@ def phase_serving(cfg, cfg_plain, dev, gen, report):
     # bf16 end to end: ~3 significant digits through some 300 layers
     if not (d_score <= 2e-2 and max(d_feat) <= 5e-2):
         fail("serving: kernel and plain routes disagree in bf16")
-    del pred, plain
+    if d_raw_graph != 0:
+        fail(f"serving: predict_raw's graph and eager scores differ by {d_raw_graph:.3e}")
+    del pred, plain, graph
     torch.cuda.empty_cache()
-    return launches
+    return launches, res_graph["launches"]
 
 
 def phase_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
@@ -1282,8 +1460,8 @@ def phase_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pk = Predictor(cfg_kernel, device=dev)
-    pp = Predictor(cfg_plain, device=dev)
+    pk = Predictor(cfg_kernel, device=dev, compiled=False)
+    pp = Predictor(cfg_plain, device=dev, compiled=False)
     for (n1, a), (n2, b) in zip(pk.model.state_dict().items(), pp.model.state_dict().items()):
         if n1 != n2 or not torch.equal(a, b):
             fail(f"parity: the two models' weights differ at {n1}")
@@ -1292,7 +1470,9 @@ def phase_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
     d_score = float(np.abs(scores[0] - scores[1]).max())
     rel = branch_rel_err(pk, pp, inputs)
     report["parity"] = dict(batch=batch, max_abs_score_diff=d_score, branch_rel_err=rel,
-                            scores_kernel=scores[0].tolist(), scores_plain=scores[1].tolist())
+                            scores_kernel=scores[0].tolist(), scores_plain=scores[1].tolist(),
+                            graph_max_abs_score_diff_vs_eager=graph_parity(
+                                cfg_kernel, pk, inputs, False, "fused"))
     log(f"parity f32 b{batch}: max |score diff| {d_score:.3e}; branch feature rel err "
         f"video {rel[0]:.2e} audio {rel[1]:.2e} paudio {rel[2]:.2e}")
     if not (d_score <= 1e-3 and max(rel) <= 1e-3):
@@ -1319,20 +1499,25 @@ def feature_rel_err(pa, pb, x) -> float:
     return ((fa - fb).abs().max() / fb.abs().max().clamp(min=1e-6)).item()
 
 
-def phase_video_swin(cfg, cfg_plain, dev, gen, report):
+def phase_video_swin(cfg, cfg_plain, dev, gen, report, key: str = "video_swin"):
     """video_swin serving through K3 and K4 (the main path of this slice),
-    then the same requests on the plain route with the same weights."""
+    on the eager route and as CUDA graphs, then the same requests on the
+    plain route with the same weights; ``key`` names the model in the log
+    and the report."""
     import torch
 
     from deepfake_tpu_torch.serving import Predictor
 
     t0 = time.perf_counter()
-    pred = Predictor(cfg, device=dev)
+    pred = Predictor(cfg, device=dev, compiled=False)
     torch.cuda.synchronize()
-    log(f"video_swin: Predictor({cfg.parallel.compute_dtype}) built in "
+    m = cfg.model
+    log(f"{key}: Predictor({cfg.parallel.compute_dtype}, embed {m.swin3d_embed_dim}, heads "
+        f"{m.swin3d_heads}, depths {m.swin3d_depths}, window {m.swin3d_window}) built in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in pred.model.parameters()) / 1e6:.1f} M params")
-    plain = Predictor(cfg_plain, device=dev)
+    plain = Predictor(cfg_plain, device=dev, compiled=False)
+    graph = Predictor(cfg, device=dev)
     blocks = sum(cfg.model.swin3d_depths)
     n_lin, n_mlp = k4_launches(cfg)
     requests = [clips(cfg, 8, dev, gen) for _ in range(3)] + [clips(cfg, 1, dev, gen)]
@@ -1352,11 +1537,12 @@ def phase_video_swin(cfg, cfg_plain, dev, gen, report):
     for i, d in enumerate(per_req):
         if (d["window_attn3d_tokens"] != blocks or d["ln_linear"] != n_lin
                 or d["mlp_tail"] != n_mlp or sum(d.values()) != blocks + n_lin + n_mlp):
-            fail(f"video_swin request {i}: launches {d}, expected {blocks} of K3, "
+            fail(f"{key} request {i}: launches {d}, expected {blocks} of K3, "
                  f"{n_lin} of K4's ln_linear, {n_mlp} of K4's mlp_tail and no other")
     lat_plain, scores_plain = serve(plain, requests)
     if counts() != launches:
-        fail("video_swin: the plain route launched a kernel")
+        fail(f"{key}: the plain route launched a kernel")
+    res_graph = graph_route(graph, pred, requests, scores, per_req, key)
     d_score = max(float(np.abs(a - b).max()) for a, b in zip(scores, scores_plain))
     d_feat = feature_rel_err(pred, plain, requests[0])
     res = dict(per_request_launches=per_req, latency_s=lat, p50_b8_s=statistics.median(lat[:3]),
@@ -1364,42 +1550,58 @@ def phase_video_swin(cfg, cfg_plain, dev, gen, report):
                plain_latency_s=lat_plain, plain_p50_b8_s=statistics.median(lat_plain[:3]),
                plain_clips_per_s_b8=8 * 3 / sum(lat_plain[:3]),
                max_abs_score_diff_vs_plain_bf16=d_score, feature_rel_err_vs_plain_bf16=d_feat,
-               profile={})
+               profile={}, graph_route=res_graph)
     res["profile"] = {
         "kernel route b8": profile_call(lambda: pred.predict(requests[0]),
                                         res["p50_b8_s"] * 1e3),
         "kernel route b1": profile_call(lambda: pred.predict(requests[3]), lat[3] * 1e3),
         "plain route b8": profile_call(lambda: plain.predict(requests[0]),
                                        res["plain_p50_b8_s"] * 1e3)}
-    report["video_swin"] = res
+    report[key] = res
     log(f"video_swin: K3, K4 (ln_linear, mlp_tail) launches per request "
         f"{[(d['window_attn3d_tokens'], d['ln_linear'], d['mlp_tail']) for d in per_req]}")
-    log(f"video_swin: kernel route b8 p50 {res['p50_b8_s'] * 1e3:.2f} ms, "
+    log(f"{key}: kernel route b8 p50 {res['p50_b8_s'] * 1e3:.2f} ms, "
         f"{res['clips_per_s_b8']:.2f} clips/s; b1 {lat[3] * 1e3:.2f} ms ({report['card']})")
-    log(f"video_swin: plain route  b8 p50 {res['plain_p50_b8_s'] * 1e3:.2f} ms, "
+    log(f"{key}: plain route  b8 p50 {res['plain_p50_b8_s'] * 1e3:.2f} ms, "
         f"{res['plain_clips_per_s_b8']:.2f} clips/s; b1 {lat_plain[3] * 1e3:.2f} ms; "
         f"vs kernel route: max |score diff| {d_score:.2e}, feature rel err {d_feat:.2e} (bf16)")
     for name, prof in res["profile"].items():
-        log(f"video_swin: profile {name}: device busy {prof['device_busy_ms']:.2f} ms of "
+        log(f"{key}: profile {name}: device busy {prof['device_busy_ms']:.2f} ms of "
             f"{prof['wall_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}; top "
             + json.dumps(prof["top_kernels_ms"]))
     # bf16: four ulps of a score near 0.5, ~3x the measured 4.5e-3 on features
     if not (d_score <= 8e-3 and d_feat <= 1.5e-2):
-        fail("video_swin: kernel and plain routes disagree in bf16")
-    del pred, plain
+        fail(f"{key}: kernel and plain routes disagree in bf16")
+    del pred, plain, graph
     torch.cuda.empty_cache()
-    return launches
+    return launches, res_graph["launches"]
 
 
-def phase_video_swin_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
+def graph_parity(cfg_kernel, pk, x, raw: bool, what: str):
+    """f32 (TF32 off): the kernel route's scores and logits as CUDA graphs
+    against the eager route ``pk`` on the same request, equal to the bit."""
+    from deepfake_tpu_torch.serving import Predictor
+
+    pg = Predictor(cfg_kernel, device=pk.device)
+    call = (lambda p: p.predict_raw(x)) if raw else (lambda p: p.predict(x))
+    d = float(np.abs(call(pg) - call(pk)).max())
+    log(f"{what} parity f32: graph against eager route, max |score diff| {d:.3e}")
+    if d != 0:
+        fail(f"{what}: graph and eager scores differ by {d:.3e} in f32")
+    graph_equals_eager(pg, pk, x, what)
+    return d
+
+
+def phase_video_swin_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int,
+                            key: str = "video_swin_parity"):
     import torch
 
     from deepfake_tpu_torch.serving import Predictor
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pk = Predictor(cfg_kernel, device=dev)
-    pp = Predictor(cfg_plain, device=dev)
+    pk = Predictor(cfg_kernel, device=dev, compiled=False)
+    pp = Predictor(cfg_plain, device=dev, compiled=False)
     for (n1, a), (n2, b) in zip(pk.model.state_dict().items(), pp.model.state_dict().items()):
         if n1 != n2 or not torch.equal(a, b):
             fail(f"video_swin parity: the two models' weights differ at {n1}")
@@ -1412,17 +1614,18 @@ def phase_video_swin_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int)
     if (after["window_attn3d_tokens"] - before["window_attn3d_tokens"] != blocks
             or after["ln_linear"] - before["ln_linear"] != 4 * blocks
             or after["mlp_tail"] != before["mlp_tail"]):
-        fail("video_swin parity: the kernel route did not run K3 and K4 in every block")
+        fail(f"{key}: the kernel route did not run K3 and K4 in every block")
     d_score = float(np.abs(scores[0] - scores[1]).max())
     rel = feature_rel_err(pk, pp, x)
-    report["video_swin_parity"] = dict(batch=batch, max_abs_score_diff=d_score,
-                                       feature_rel_err=rel, scores_kernel=scores[0].tolist(),
-                                       scores_plain=scores[1].tolist())
-    log(f"video_swin parity f32 b{batch}: max |score diff| {d_score:.3e}; per-frame feature "
+    d_graph = graph_parity(cfg_kernel, pk, x, False, key)
+    report[key] = dict(batch=batch, max_abs_score_diff=d_score, feature_rel_err=rel,
+                       scores_kernel=scores[0].tolist(), scores_plain=scores[1].tolist(),
+                       graph_max_abs_score_diff_vs_eager=d_graph)
+    log(f"{key} f32 b{batch}: max |score diff| {d_score:.3e}; per-frame feature "
         f"rel err {rel:.2e}")
     # f32 (TF32 off): summation order only; measured 3e-8 and 2.4e-7
     if not (d_score <= 1e-5 and rel <= 1e-5):
-        fail("video_swin: kernel and plain routes disagree in f32")
+        fail(f"{key}: kernel and plain routes disagree in f32")
     del pk, pp
     torch.cuda.empty_cache()
 
@@ -1444,13 +1647,14 @@ def phase_audio(cfg, cfg_plain, dev, gen, report):
     from deepfake_tpu_torch.serving import Predictor
 
     t0 = time.perf_counter()
-    pred = Predictor(cfg, device=dev)
+    pred = Predictor(cfg, device=dev, compiled=False)
     torch.cuda.synchronize()
     log(f"audio: Predictor(SwinV2-B window {cfg.model.swin2d_window}, "
         f"{cfg.data.audio_size}^2, {cfg.parallel.compute_dtype}) built in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in pred.model.parameters()) / 1e6:.1f} M params")
-    plain = Predictor(cfg_plain, device=dev)
+    plain = Predictor(cfg_plain, device=dev, compiled=False)
+    graph = Predictor(cfg, device=dev)
     depths = cfg.model.swin2d_depths
     k6_blocks, k2_blocks = sum(depths[:-1]), depths[-1]
     requests = [audio_request(cfg, 8, dev, gen) for _ in range(3)] + [
@@ -1477,6 +1681,8 @@ def phase_audio(cfg, cfg_plain, dev, gen, report):
     lat_plain, scores_plain = serve(plain, requests)
     if counts() != launches:
         fail("audio: the plain route launched a kernel")
+    # the front end and the model, one graph a request shape
+    res_graph = graph_route(graph, pred, requests, scores, per_req, "audio")
     d_score = max(float(np.abs(a - b).max()) for a, b in zip(scores, scores_plain))
     zeros = np.zeros(1, np.float32)
     with torch.inference_mode():
@@ -1491,7 +1697,7 @@ def phase_audio(cfg, cfg_plain, dev, gen, report):
                plain_latency_s=lat_plain, plain_p50_b8_s=statistics.median(lat_plain[:3]),
                plain_clips_per_s_b8=8 * 3 / sum(lat_plain[:3]),
                max_abs_score_diff_vs_plain_bf16=d_score, frontend_ms_b8=fe_ms,
-               model_ms_b8=model_ms)
+               model_ms_b8=model_ms, graph_route=res_graph)
     res["profile"] = {
         "kernel route b8": profile_call(lambda: pred.predict_raw(requests[0]),
                                         res["p50_b8_s"] * 1e3),
@@ -1515,9 +1721,9 @@ def phase_audio(cfg, cfg_plain, dev, gen, report):
     # bf16 through 24 blocks of random weights, as the fused serving bound
     if not d_score <= 2e-2:
         fail("audio: kernel and plain routes disagree in bf16")
-    del pred, plain
+    del pred, plain, graph
     torch.cuda.empty_cache()
-    return launches
+    return launches, res_graph["launches"]
 
 
 def phase_audio_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
@@ -1529,8 +1735,8 @@ def phase_audio_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pk = Predictor(cfg_kernel, device=dev)
-    pp = Predictor(cfg_plain, device=dev)
+    pk = Predictor(cfg_kernel, device=dev, compiled=False)
+    pp = Predictor(cfg_plain, device=dev, compiled=False)
     for (n1, a), (n2, b) in zip(pk.model.state_dict().items(), pp.model.state_dict().items()):
         if n1 != n2 or not torch.equal(a, b):
             fail(f"audio parity: the two models' weights differ at {n1}")
@@ -1548,7 +1754,9 @@ def phase_audio_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
     d_logit = ((lk - lp).abs().max() / lp.abs().max().clamp(min=1e-6)).item()
     report["audio_parity"] = dict(batch=batch, max_abs_score_diff=d_score,
                                   logit_rel_err=d_logit, scores_kernel=scores[0].tolist(),
-                                  scores_plain=scores[1].tolist())
+                                  scores_plain=scores[1].tolist(),
+                                  graph_max_abs_score_diff_vs_eager=graph_parity(
+                                      cfg_kernel, pk, x, True, "audio"))
     log(f"audio parity f32 b{batch}: max |score diff| {d_score:.3e}; logit rel err "
         f"{d_logit:.2e}")
     # f32 (TF32 off): summation order and the two softmax forms only
@@ -1578,7 +1786,8 @@ class ClipData:
 
 
 def train_route(trainer, data, blocks: int, kernels: bool):
-    """Three counted optimizer steps, then one more under torch.profiler."""
+    """Three counted optimizer steps, then two more under torch.profiler
+    (the first the trace's warm-up)."""
     import torch
 
     from deepfake_tpu_torch.train.losses import bce_with_logits
@@ -1624,22 +1833,24 @@ def train_route(trainer, data, blocks: int, kernels: bool):
                 profile=prof), launches
 
 
-def phase_video_swin_train(cfg, cfg_plain, dev, gen, report):
+def phase_video_swin_train(cfg, cfg_plain, dev, gen, report, key: str = "video_swin train",
+                           steps: int = 3, plain: bool = True):
     """video_swin training at full width through K5 (the main path of this
-    slice), then from the same weights on the plain route."""
+    slice): ``steps`` optimizer steps, then (``plain``) as many from the same
+    weights on the plain route."""
     import torch
 
     from deepfake_tpu_torch.train.trainer import Trainer
 
     o = cfg.optim
     rows = o.batch_size * o.accum_step
-    data = ClipData(cfg, rows, 3, dev, gen)
+    data = ClipData(cfg, rows, steps, dev, gen)
     blocks = sum(cfg.model.swin3d_depths)
     quiet = lambda line: None
     t0 = time.perf_counter()
     tk = Trainer(None, cfg, data, logger=quiet, device=dev)
     init = {k: v.clone() for k, v in tk.model.state_dict().items()}
-    log(f"video_swin train: Trainer({cfg.parallel.compute_dtype} compute, "
+    log(f"{key}: Trainer({cfg.parallel.compute_dtype} compute, "
         f"{cfg.parallel.param_dtype} masters, {o.batch_size} x {o.accum_step}) built in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in tk.model.parameters()) / 1e6:.1f} M params")
@@ -1652,12 +1863,23 @@ def phase_video_swin_train(cfg, cfg_plain, dev, gen, report):
     ran = tuple(after[k] - before[k] for k in ("window_attn3d_tokens", "ln_linear", "mlp_tail"))
     if ran != (blocks, *k4_launches(cfg)) or not (
             math.isfinite(val["loss"]) and 0 <= val["acc"] <= 1):
-        fail(f"video_swin train: Trainer.eval gave {val} with K3, K4 launches {ran}")
+        fail(f"{key}: Trainer.eval gave {val} with K3, K4 launches {ran}")
     res_k["eval"] = dict(val, k3_k4_launches=ran)
-    log(f"video_swin train: Trainer.eval of {rows} clips after the steps: {val}, "
+    log(f"{key}: Trainer.eval of {rows} clips after the steps: {val}, "
         f"K3 and K4 (ln_linear, mlp_tail) launches {ran}")
     del tk
     torch.cuda.empty_cache()
+    if not plain:
+        report[key] = {"K5 route": res_k}
+        prof = res_k["profile"]
+        log(f"{key} K5 route: steps {[round(t, 1) for t in res_k['step_ms']]} ms, "
+            f"{res_k['clips_per_s']:.2f} clips/s ({rows} clips a step), peak "
+            f"{res_k['max_memory_allocated_gb']:.2f} GB, losses {res_k['losses']} "
+            f"({report['card']}); profile of one step: device busy "
+            f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms, idle share "
+            f"{prof['device_idle_share']:.3f}; top " + json.dumps(prof["top_kernels_ms"]))
+        del init, data
+        return launches
     tp = Trainer(None, cfg_plain, data, logger=quiet, device=dev)
     tp.model.load_state_dict(init)
     res_p, launches_p = train_route(tp, data, blocks, kernels=False)
@@ -1687,7 +1909,8 @@ def phase_video_swin_train(cfg, cfg_plain, dev, gen, report):
     return launches
 
 
-def phase_video_swin_train_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
+def phase_video_swin_train_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int,
+                                  key: str = "video_swin_train_parity"):
     """f32 (TF32 off): every parameter gradient of one micro-batch on the K5
     route against the plain route, same weights and the same DropPath and
     dropout masks (each model's own dropout stream from the same seed)."""
@@ -1713,19 +1936,18 @@ def phase_video_swin_train_parity(cfg_kernel, cfg_plain, dev, gen, report, batch
     after = counts()
     if (after["window_attn3d_train_fwd"] - before["window_attn3d_train_fwd"] != blocks
             or after["window_attn3d_train_bwd"] - before["window_attn3d_train_bwd"] != blocks):
-        fail("video_swin train parity: the K5 route did not run K5 in every block")
+        fail(f"{key}: the K5 route did not run K5 in every block")
     worst, worst_name = 0.0, ""
     for (name, a), (_, b) in zip(mk.named_parameters(), mp.named_parameters()):
         rel = ((a.grad - b.grad).abs().max() / b.grad.abs().max().clamp(min=1e-12)).item()
         if not rel <= worst:
             worst, worst_name = rel, name
-    report["video_swin_train_parity"] = dict(batch=batch, losses=losses,
-                                             max_grad_rel_err=worst, at=worst_name)
-    log(f"video_swin train parity f32 b{batch}: losses {losses[0]:.7f} / {losses[1]:.7f}; "
+    report[key] = dict(batch=batch, losses=losses, max_grad_rel_err=worst, at=worst_name)
+    log(f"{key} f32 b{batch}: losses {losses[0]:.7f} / {losses[1]:.7f}; "
         f"max |grad diff| / max |grad| {worst:.2e} ({worst_name})")
     # f32 (TF32 off), summation order only
     if not (math.isfinite(worst) and worst <= 1e-4):
-        fail("video_swin train: K5 and plain route gradients disagree in f32")
+        fail(f"{key}: K5 and plain route gradients disagree in f32")
     del mk, mp
     torch.cuda.empty_cache()
 
@@ -1770,6 +1992,11 @@ def main() -> int:
     kernels = ([phase_k1(dev, gen, 8 * 32, report)] + phase_k2(dev, gen, 8, report)
                + [phase_k3(dev, gen, 8, report)] + phase_k4(dev, gen, 8, report)
                + phase_k5(dev, gen, 8, report) + [phase_k6(dev, gen, 8, report)])
+    # K3 and K5 at Video Swin-B's (16,7,7) window, N = 784 (streamed)
+    long_window = dict(stages=SWIN3D_B16_STAGES, window=WINDOW_B16, n=N3_B16,
+                       label="Video Swin-B")
+    kernels += ([phase_k3(dev, gen, 8, report, b1=False, **long_window)]
+                + phase_k5(dev, gen, 8, report, **long_window))
 
     def config(dtype: str, kernels: bool, preset=None):
         cfg = Config.preset(preset) if preset else Config()
@@ -1785,27 +2012,53 @@ def main() -> int:
             cfg.model.swin2d_pretrained_windows = (0, 0, 0, 0)
         return cfg
 
-    launches = phase_serving(config("bfloat16", True), config("bfloat16", False), dev, gen, report)
-    kernels[0]["launches"] = launches["inception_block"]
-    kernels[1]["launches"] = launches["window_attn_tokens"]
-    kernels[2]["launches"] = launches["window_attn_heads"]
-    launches = phase_video_swin(config("bfloat16", True, "video_swin"),
-                                config("bfloat16", False, "video_swin"), dev, gen, report)
-    kernels[3]["launches"] = launches["window_attn3d_tokens"]
-    kernels[4]["launches"] = launches["ln_linear"]
-    kernels[5]["launches"] = launches["mlp_tail"]
-    launches = phase_video_swin_train(config("bfloat16", True, "video_swin"),
-                                      config("bfloat16", False, "video_swin"), dev, gen, report)
-    kernels[6]["launches"] = launches["window_attn3d_train_fwd"]
-    kernels[7]["launches"] = launches["window_attn3d_train_bwd"]
-    launches = phase_audio(config("bfloat16", True, "audio"), config("bfloat16", False, "audio"),
-                           dev, gen, report)
-    kernels[8]["launches"] = launches["window_attention_multihead"]
+    def config_b16(dtype: str, kernels: bool):
+        # Video Swin-B at its Something-Something v2 window (16,7,7) on 32
+        # frames of 224 (swin_base_patch244_window1677_sthv2.py), depths
+        # 2/2/18/2 as the preset
+        cfg = config(dtype, kernels, "video_swin")
+        cfg.model.swin3d_embed_dim = 128
+        cfg.model.swin3d_heads = (4, 8, 16, 32)
+        cfg.model.swin3d_window = WINDOW_B16
+        return cfg
+
+    # launches: the eager main path's run; graph_launches: the timed graph
+    # replays of the same requests (each graph's captured launches a replay)
+    def record(rows, counted, names):
+        for row, name in zip(rows, names):
+            row["launches"] = counted[0][name]
+            row["graph_launches"] = None if counted[1] is None else counted[1].get(name, 0)
+
+    record(kernels[0:3], phase_serving(config("bfloat16", True), config("bfloat16", False), dev,
+                                       gen, report),
+           ("inception_block", "window_attn_tokens", "window_attn_heads"))
+    record(kernels[3:6], phase_video_swin(config("bfloat16", True, "video_swin"),
+                                          config("bfloat16", False, "video_swin"), dev, gen,
+                                          report),
+           ("window_attn3d_tokens", "ln_linear", "mlp_tail"))
+    # training stays eager: no graph route
+    record(kernels[6:8], (phase_video_swin_train(config("bfloat16", True, "video_swin"),
+                                                 config("bfloat16", False, "video_swin"), dev,
+                                                 gen, report), None),
+           ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
+    record(kernels[8:9], phase_audio(config("bfloat16", True, "audio"),
+                                     config("bfloat16", False, "audio"), dev, gen, report),
+           ("window_attention_multihead",))
+    # Video Swin-B at (16,7,7): serving (K3 at N = 784, K4 at C = 128-1024),
+    # then training (K5 at N = 784) on the K5 route
+    record(kernels[9:10], phase_video_swin(config_b16("bfloat16", True),
+                                           config_b16("bfloat16", False), dev, gen, report,
+                                           key="video_swin_b16"),
+           ("window_attn3d_tokens",))
+    record(kernels[10:12], (phase_video_swin_train(config_b16("bfloat16", True), None, dev, gen,
+                                                   report, key="video_swin_b16 train", steps=2,
+                                                   plain=False), None),
+           ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         log(f"kernel {k['name']}: {k['per']}: kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
             f"library_ms={lib} bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) "
-            f"launches on the main path={k['launches']}")
+            f"launches on the main path={k['launches']} (graph route {k['graph_launches']})")
     phase_parity(config("float32", True), config("float32", False), dev, gen, report, batch=2)
     phase_video_swin_parity(config("float32", True, "video_swin"),
                             config("float32", False, "video_swin"), dev, gen, report, batch=2)
@@ -1814,7 +2067,13 @@ def main() -> int:
                                   batch=1)
     phase_audio_parity(config("float32", True, "audio"), config("float32", False, "audio"), dev,
                        gen, report, batch=2)
+    phase_video_swin_parity(config_b16("float32", True), config_b16("float32", False), dev, gen,
+                            report, batch=1, key="video_swin_b16_parity")
+    phase_video_swin_train_parity(config_b16("float32", True), config_b16("float32", False), dev,
+                                  gen, report, batch=1, key="video_swin_b16_train_parity")
 
+    report["profiler_traces"] = dict(TRACES)
+    log(f"profiler: traced calls {json.dumps(TRACES)}")
     report["total_s"] = time.perf_counter() - t_all
     report["kernels"] = kernels
     if args.report:

@@ -79,7 +79,8 @@ class ModelConfig:
     # every block through the CUDA kernels: serving K3 (csrc/window_attn3d.cu,
     # the window attention) and K4 (csrc/ln_linear.cu, LayerNorm + the linear
     # layers); training K5 (csrc/window_attn3d_train.cu, the window attention
-    # and its backward)
+    # and its backward); K3 and K5 take any window (N = 392 at (8,7,7), 784
+    # at Video Swin-B's (16,7,7)) at head dim 32
     swin3d_attn_kernel: bool = True
     # wav2vec2-base topology
     wav_layers: int = 12

@@ -253,18 +253,23 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// a bf16 tensor of `rank` dims (dim[0] innermost, contiguous; stride[i] the
+// a tensor of `type` and `rank` dims (dim[0] innermost, contiguous; stride[i] the
 // byte stride of dim i + 1) in boxes of box[]; reads past the edges are
 // zeros
-inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dim,
-                        const cuuint64_t* stride, const cuuint32_t* box,
-                        CUtensorMapSwizzle swizzle) {
+inline bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                   const cuuint64_t* dim, const cuuint64_t* stride, const cuuint32_t* box,
+                   CUtensorMapSwizzle swizzle) {
   const EncodeTiled enc = encoder();
   if (!enc) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dim, stride,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return enc(map, type, rank, const_cast<void*>(ptr), dim, stride, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+inline bool encode_bf16(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dim,
+                        const cuuint64_t* stride, const cuuint32_t* box,
+                        CUtensorMapSwizzle swizzle) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dim, stride, box, swizzle);
 }
 
 // devices past this many are served but not cached

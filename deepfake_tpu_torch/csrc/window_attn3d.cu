@@ -1,6 +1,6 @@
-// K3: window attention for Video Swin's large 3D windows (N <= 512 tokens,
-// 392 for (8,7,7) windows), head dim 32, token-major. For each (window w,
-// head h):
+// K3: window attention for Video Swin's large 3D windows (any N: 392
+// tokens for (8,7,7) windows, 784 for (16,7,7)), head dim 32, token-major.
+// For each (window w, head h):
 //
 //   out = softmax_rows(q.s . k^T + bias[h] + mask[w % n_masks]) . v
 //
@@ -52,10 +52,12 @@
 //     read them): ~1.7 GB of bias and mask tiles, ~8.4 GB of K and V (once
 //     per query tile: 7 times at N = 392) and ~1.2 GB of q and out, ~11.2 GB
 //     in all against ~20.7 GB for the first design; chip_smoke.py logs the
-//     count per launch (k3_windows_per_block gives G).
+//     count per launch (k3_windows_per_block gives G). Above 512 tokens the
+//     body streams each window's keys (window_attn_tile.cuh, attn_bf16_stream).
 //   - f32 (the parity route only; a different kernel from the one that
-//     serves): one block of 8 warps per (query tile of 32 rows, window,
-//     head), SIMT f32 FMA, K, V and the [32, N] logit tile in shared memory.
+//     serves): window_attn_tile.cuh's SIMT kernel, one block of 8 warps per
+//     (query tile of 32 rows, window, head), K and V streamed in tiles of 64
+//     keys, any N.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -67,107 +69,7 @@
 namespace {
 
 constexpr int D = wtile::D;
-constexpr int MAX_N = wtile::MAX_N;
 using wtile::Args;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// ------------------------------------------------------------- f32: SIMT
-
-namespace simt {
-
-constexpr int MQ = 32, THREADS = 256, DP = D + 1;  // +1 pads off bank conflicts
-
-__host__ __device__ constexpr size_t smem_bytes(int n) {
-  return sizeof(float) * (2 * n * DP + MQ * DP + MQ * (n + 1) + MQ);
-}
-
-__global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
-  extern __shared__ float sm[];
-  const int N = g.n, NP = N + 1;
-  float* ks = sm;              // [N][DP]
-  float* vs = ks + N * DP;     // [N][DP]
-  float* qs = vs + N * DP;     // [MQ][DP]
-  float* ps = qs + MQ * DP;    // [MQ][NP] logits, then weights
-  float* rs = ps + MQ * NP;    // [MQ] deferred 1/rowsum
-
-  const int q0 = blockIdx.x * MQ, w = blockIdx.y, h = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rows = min(MQ, N - q0);
-  const int64_t base = (int64_t)w * g.s_w + (int64_t)h * g.s_h;
-  const float* Q = static_cast<const float*>(g.q) + base;
-  const float* K = static_cast<const float*>(g.k) + base;
-  const float* V = static_cast<const float*>(g.v) + base;
-
-  for (int idx = tid; idx < N * D; idx += THREADS) {
-    const int j = idx / D, c = idx % D;
-    const int64_t off = (int64_t)j * g.s_n + c;
-    ks[j * DP + c] = K[off];
-    vs[j * DP + c] = V[off];
-  }
-  for (int idx = tid; idx < MQ * D; idx += THREADS) {
-    const int i = idx / D, c = idx % D;
-    qs[i * DP + c] = i < rows ? Q[(int64_t)(q0 + i) * g.s_n + c] * g.scale : 0.f;
-  }
-  __syncthreads();
-
-  const float* bias = g.bias + (int64_t)h * N * N;
-  const float* mask =
-      g.mask ? static_cast<const float*>(g.mask) + (int64_t)(w % g.n_masks) * N * N : nullptr;
-  for (int idx = tid; idx < rows * N; idx += THREADS) {
-    const int i = idx / N, j = idx - i * N;
-    const float* qi = qs + i * DP;
-    const float* kj = ks + j * DP;
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) s = fmaf(qi[c], kj[c], s);
-    const int64_t at = (int64_t)(q0 + i) * N + j;
-    s += bias[at];
-    if (mask) s += mask[at];
-    ps[i * NP + j] = s;
-  }
-  __syncthreads();
-
-  for (int i = warp; i < rows; i += THREADS / 32) {
-    float* p = ps + i * NP;
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(fminf(p[j] - 24.f, 60.f));
-      p[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) rs[i] = 1.f / sum;
-  }
-  __syncthreads();
-
-  float* O = static_cast<float*>(g.out) + (int64_t)w * g.o_w + (int64_t)h * g.o_h;
-  for (int idx = tid; idx < rows * D; idx += THREADS) {
-    const int i = idx / D, c = idx % D;
-    const float* pi = ps + i * NP;
-    float o = 0.f;
-    for (int j = 0; j < N; ++j) o = fmaf(pi[j], vs[j * DP + c], o);
-    O[(int64_t)(q0 + i) * g.o_n + c] = o * rs[i];
-  }
-}
-
-}  // namespace simt
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
-                   const Args& g) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, threads, smem, s>>>(g);
-  return cudaGetLastError();
-}
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -205,7 +107,7 @@ extern "C" int k3_window_attn(
     void* out, int64_t o_w, int64_t o_h, int64_t o_n,
     const float* bias, const void* mask, int n_masks, float scale,
     int windows, int heads, int n, int d, void* stream) {
-  if (n < 1 || n > MAX_N || d != D || windows < 1 || windows > 65535 || heads < 1 ||
+  if (n < 1 || n > 65535 || d != D || windows < 1 || windows > 65535 || heads < 1 ||
       heads > 65535 || (mask && (n_masks < 1 || windows % n_masks)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args g{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask, mask ? n_masks : 1,
@@ -220,8 +122,7 @@ extern "C" int k3_window_attn(
     err = wtile::launch<wtile::STATIC_SHIFT>(
         g, windows, heads, choose_group(windows, heads, n, g.n_masks, mask != nullptr), s);
   } else if (dtype == 0) {
-    dim3 grid((n + simt::MQ - 1) / simt::MQ, windows, heads);
-    err = launch(simt::attn_f32, grid, simt::THREADS, simt::smem_bytes(n), s, g);
+    err = wtile::simt::launch_f32<wtile::STATIC_SHIFT, float>(g, windows, heads, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

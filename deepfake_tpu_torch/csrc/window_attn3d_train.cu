@@ -1,6 +1,6 @@
-// K5: training window attention for Video Swin's 3D windows (N <= 512
-// tokens, 392 for (8,7,7) windows), head dim 32, token-major, with its
-// backward. For each (window w, head h), s = scale:
+// K5: training window attention for Video Swin's 3D windows (any N: 392
+// tokens for (8,7,7) windows, 784 for (16,7,7)), head dim 32, token-major,
+// with its backward. For each (window w, head h), s = scale:
 //
 //   forward:  out = softmax_rows((q s) k^T + bias[h] + mask[w % n_masks]) v
 //             (the max-stabilised f32 softmax)
@@ -103,6 +103,13 @@
 //     time, twice what S^T and dP^T take for the same operations; in
 //     launch 1 the two sweeps' products, the tile reads and the window's
 //     exposed load share it with the elementwise work.
+//     * above 512 tokens (wtile::WHOLE_N; Video Swin-B's (16,7,7) window, N
+//       = 784) neither launch holds a whole window beside its tile: dq_stream
+//       and dkdv_stream stream it in tiles of 192 keys (launch 1) or 128
+//       queries (launch 2), the block moving through (window, [sweep,] tile)
+//       items in step, a bf16 tile of the item's columns filled before each,
+//       dS into dbias by atomics (no slab), the row statistics and dq, dk,
+//       dv carried across a window's tiles.
 //     Every mbarrier wait traps after 10 s (csrc/hopper.cuh), so a fault in
 //     the schedule is a failed launch, not a hang.
 //     The cast points are those of the JAX package's opt-in
@@ -111,10 +118,11 @@
 //     dS K and dS^T Q; the softmax, its statistics, dP, dS itself and the
 //     dbias sums stay f32.
 //   - f32 (parity runs only; a different kernel from the one that trains):
-//     SIMT FMA. Forward as K3's f32 route with the row max; backward one
-//     block per (16-row query tile, window, head) holding the [16, N] P and
-//     dP tiles in shared memory, adding dK, dV and dbias with atomics into
-//     zeroed f32 outputs.
+//     SIMT FMA, any N. Forward K3's f32 kernel (window_attn_tile.cuh) with an
+//     online row max; backward one block per (16-row query tile, window,
+//     head) sweeping K and V twice in tiles of 64 keys (the row statistics,
+//     then P, dS and dq), adding dK, dV and dbias with atomics into zeroed
+//     f32 outputs.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -125,19 +133,8 @@
 
 namespace {
 
-constexpr int D = 32;       // head dim
-constexpr int MAX_N = 512;  // tokens per window
+constexpr int D = 32;  // head dim
 typedef __nv_bfloat16 bf16;
-
-struct FwdArgs {
-  const void* q; const void* k; const void* v;
-  int64_t s_w, s_h, s_n;           // q/k/v element strides (head dim contiguous)
-  void* out; int64_t o_w, o_h, o_n;
-  const float* bias;               // [heads, n, n] f32
-  const bf16* mask; int n_masks;   // [n_masks, n, n] or null
-  float scale;
-  int n;
-};
 
 struct BwdArgs {
   const void* q; const void* k; const void* v;
@@ -153,16 +150,6 @@ struct BwdArgs {
   int n, ns, heads, windows, group;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 // max / sum over the 4 threads of a quad (the threads that share an mma row)
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -180,97 +167,30 @@ __device__ __forceinline__ float mask_at(const bf16* m, int64_t at) {
 
 namespace simt {
 
-constexpr int MQ = 32, THREADS = 256, DP = D + 1;  // +1 pads off bank conflicts
+using wtile::simt::warp_max;
+using wtile::simt::warp_sum;
 
-__host__ __device__ constexpr size_t fwd_smem(int n) {
-  return sizeof(float) * (2 * n * DP + MQ * DP + MQ * (n + 1) + MQ);
+constexpr int BMQ = 16, KT = 64, THREADS = 256, DP = D + 1, PP = KT + 1;
+
+__host__ __device__ constexpr size_t bwd_smem() {
+  return sizeof(float) * (2 * BMQ * DP + 2 * KT * DP + 2 * BMQ * PP);
 }
+static_assert(bwd_smem() <= 48 * 1024, "bwd_f32 needs no shared-memory attribute");
 
-__global__ void __launch_bounds__(THREADS) fwd_f32(FwdArgs g) {
-  extern __shared__ float sm[];
-  const int N = g.n, NP = N + 1;
-  float* ks = sm;              // [N][DP]
-  float* vs = ks + N * DP;     // [N][DP]
-  float* qs = vs + N * DP;     // [MQ][DP] q * scale
-  float* ps = qs + MQ * DP;    // [MQ][NP] logits, then weights
-  float* rs = ps + MQ * NP;    // [MQ] 1 / rowsum
-
-  const int q0 = blockIdx.x * MQ, w = blockIdx.y, h = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rows = min(MQ, N - q0);
-  const int64_t base = (int64_t)w * g.s_w + (int64_t)h * g.s_h;
-  const float* Q = static_cast<const float*>(g.q) + base;
-  const float* K = static_cast<const float*>(g.k) + base;
-  const float* V = static_cast<const float*>(g.v) + base;
-
-  for (int idx = tid; idx < N * D; idx += THREADS) {
-    const int j = idx / D, c = idx % D;
-    const int64_t off = (int64_t)j * g.s_n + c;
-    ks[j * DP + c] = K[off];
-    vs[j * DP + c] = V[off];
-  }
-  for (int idx = tid; idx < MQ * D; idx += THREADS) {
-    const int i = idx / D, c = idx % D;
-    qs[i * DP + c] = i < rows ? Q[(int64_t)(q0 + i) * g.s_n + c] * g.scale : 0.f;
-  }
-  __syncthreads();
-
-  const float* bias = g.bias + (int64_t)h * N * N;
-  const bf16* mask = g.mask ? g.mask + (int64_t)(w % g.n_masks) * N * N : nullptr;
-  for (int idx = tid; idx < rows * N; idx += THREADS) {
-    const int i = idx / N, j = idx - i * N;
-    const float* qi = qs + i * DP;
-    const float* kj = ks + j * DP;
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) s = fmaf(qi[c], kj[c], s);
-    const int64_t at = (int64_t)(q0 + i) * N + j;
-    ps[i * NP + j] = (s + bias[at]) + mask_at(mask, at);
-  }
-  __syncthreads();
-
-  for (int i = warp; i < rows; i += THREADS / 32) {
-    float* p = ps + i * NP;
-    float m = -INFINITY;
-    for (int j = lane; j < N; j += 32) m = fmaxf(m, p[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(p[j] - m);
-      p[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) rs[i] = 1.f / sum;
-  }
-  __syncthreads();
-
-  float* O = static_cast<float*>(g.out) + (int64_t)w * g.o_w + (int64_t)h * g.o_h;
-  for (int idx = tid; idx < rows * D; idx += THREADS) {
-    const int i = idx / D, c = idx % D;
-    const float* pi = ps + i * NP;
-    float o = 0.f;
-    for (int j = 0; j < N; ++j) o = fmaf(pi[j], vs[j * DP + c], o);
-    O[(int64_t)(q0 + i) * g.o_n + c] = o * rs[i];
-  }
-}
-
-constexpr int BMQ = 16;  // backward query tile: its smem fits N = 512
-
-__host__ __device__ constexpr size_t bwd_smem(int n) {
-  return sizeof(float) * (2 * n * DP + 2 * BMQ * DP + 2 * BMQ * (n + 1));
-}
-
-// dq is written; dk, dv and dbias are added with atomics into zeroed outputs
+// Any N: two sweeps over K and V in tiles of 64 keys. Sweep 1 keeps each
+// row's online max m, sum l and c = sum e dP (warp w: rows w and w + 8);
+// sweep 2 forms P = e / l and dS = P (dP - c / l), adds dS into dbias and
+// dS^T (q s), P^T dO into dk, dv with atomics (zeroed outputs), and keeps
+// dq = dS K in registers until it is written.
 __global__ void __launch_bounds__(THREADS) bwd_f32(BwdArgs g) {
   extern __shared__ float sm[];
-  const int N = g.n, NP = N + 1;
-  float* ks = sm;              // [N][DP]
-  float* vs = ks + N * DP;     // [N][DP]
-  float* qs = vs + N * DP;     // [BMQ][DP] q * scale
+  const int N = g.n;
+  float* qs = sm;              // [BMQ][DP] q * scale
   float* os = qs + BMQ * DP;   // [BMQ][DP] dO
-  float* ps = os + BMQ * DP;   // [BMQ][NP] logits, then P
-  float* dps = ps + BMQ * NP;  // [BMQ][NP] dP, then dS
+  float* ks = os + BMQ * DP;   // [KT][DP]
+  float* vs = ks + KT * DP;    // [KT][DP]
+  float* ps = vs + KT * DP;    // [BMQ][PP] logits, then P
+  float* dps = ps + BMQ * PP;  // [BMQ][PP] dP, then dS
 
   const int q0 = blockIdx.x * BMQ, w = blockIdx.y, h = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -280,87 +200,104 @@ __global__ void __launch_bounds__(THREADS) bwd_f32(BwdArgs g) {
   const float* K = static_cast<const float*>(g.k) + base;
   const float* V = static_cast<const float*>(g.v) + base;
   const float* dO = static_cast<const float*>(g.dout) + (int64_t)w * g.d_w + (int64_t)h * g.d_h;
-
-  for (int idx = tid; idx < N * D; idx += THREADS) {
-    const int j = idx / D, c = idx % D;
-    const int64_t off = (int64_t)j * g.s_n + c;
-    ks[j * DP + c] = K[off];
-    vs[j * DP + c] = V[off];
-  }
   for (int idx = tid; idx < BMQ * D; idx += THREADS) {
     const int i = idx / D, c = idx % D;
     const bool ok = i < rows;
     qs[i * DP + c] = ok ? Q[(int64_t)(q0 + i) * g.s_n + c] * g.scale : 0.f;
     os[i * DP + c] = ok ? dO[(int64_t)(q0 + i) * g.d_n + c] : 0.f;
   }
-  __syncthreads();
-
   const float* bias = static_cast<const float*>(g.bias) + (int64_t)h * N * N;
   const bf16* mask = g.mask ? g.mask + (int64_t)(w % g.n_masks) * N * N : nullptr;
-  for (int idx = tid; idx < rows * N; idx += THREADS) {
-    const int i = idx / N, j = idx - i * N;
-    float s = 0.f, dp = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      s = fmaf(qs[i * DP + c], ks[j * DP + c], s);
-      dp = fmaf(os[i * DP + c], vs[j * DP + c], dp);
-    }
-    const int64_t at = (int64_t)(q0 + i) * N + j;
-    ps[i * NP + j] = (s + bias[at]) + mask_at(mask, at);
-    dps[i * NP + j] = dp;
-  }
-  __syncthreads();
-
-  // P = e / rowsum(e), e = exp(s - rowmax); dS = P (dP - rowsum(dP P))
-  for (int i = warp; i < rows; i += THREADS / 32) {
-    float* p = ps + i * NP;
-    float* dp = dps + i * NP;
-    float m = -INFINITY;
-    for (int j = lane; j < N; j += 32) m = fmaxf(m, p[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(p[j] - m);
-      p[j] = e;
-      sum += e;
-    }
-    const float r = 1.f / warp_sum(sum);
-    float di = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float pj = p[j] * r;
-      p[j] = pj;
-      di += dp[j] * pj;
-    }
-    di = warp_sum(di);
-    for (int j = lane; j < N; j += 32) dp[j] = p[j] * (dp[j] - di);
-  }
-  __syncthreads();
-
   float* dbias = g.dbias + (int64_t)h * N * N;
-  for (int idx = tid; idx < rows * N; idx += THREADS) {
-    const int i = idx / N, j = idx - i * N;
-    atomicAdd(dbias + (int64_t)(q0 + i) * N + j, dps[i * NP + j]);
-  }
   const int64_t gb = (int64_t)w * g.g_w + (int64_t)h * g.g_h;
-  float* dQ = static_cast<float*>(g.dq) + gb;
-  for (int idx = tid; idx < rows * D; idx += THREADS) {
-    const int i = idx / D, c = idx % D;
-    const float* di = dps + i * NP;
-    float a = 0.f;
-    for (int j = 0; j < N; ++j) a = fmaf(di[j], ks[j * DP + c], a);
-    dQ[(int64_t)(q0 + i) * g.g_n + c] = a * g.scale;
-  }
   float* dK = static_cast<float*>(g.dk) + gb;
   float* dV = static_cast<float*>(g.dv) + gb;
-  for (int idx = tid; idx < N * D; idx += THREADS) {
-    const int j = idx / D, c = idx % D;
-    float a = 0.f, b = 0.f;
-    for (int i = 0; i < rows; ++i) {
-      a = fmaf(dps[i * NP + j], qs[i * DP + c], a);  // dS^T (q s)
-      b = fmaf(ps[i * NP + j], os[i * DP + c], b);   // P^T dO
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};
+  float dq[BMQ * D / THREADS] = {};  // element tid + THREADS e of [BMQ][D]
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int k0 = 0; k0 < N; k0 += KT) {
+      const int kn = min(KT, N - k0);
+      __syncthreads();  // the last tile's reads are done (and q, dO are in place)
+      for (int idx = tid; idx < kn * D; idx += THREADS) {
+        const int j = idx / D, c = idx % D;
+        const int64_t off = (int64_t)(k0 + j) * g.s_n + c;
+        ks[j * DP + c] = K[off];
+        vs[j * DP + c] = V[off];
+      }
+      __syncthreads();
+      for (int idx = tid; idx < rows * kn; idx += THREADS) {
+        const int i = idx / kn, j = idx - i * kn;
+        float sv = 0.f, dp = 0.f;
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          sv = fmaf(qs[i * DP + c], ks[j * DP + c], sv);
+          dp = fmaf(os[i * DP + c], vs[j * DP + c], dp);
+        }
+        const int64_t at = (int64_t)(q0 + i) * N + k0 + j;
+        ps[i * PP + j] = (sv + bias[at]) + mask_at(mask, at);
+        dps[i * PP + j] = dp;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = warp + 8 * i;
+        if (r >= rows) break;
+        float* p = ps + r * PP;
+        float* dp = dps + r * PP;
+        if (sweep == 0) {
+          float mx = -INFINITY;
+          for (int j = lane; j < kn; j += 32) mx = fmaxf(mx, p[j]);
+          const float mn = fmaxf(m[i], warp_max(mx)), alpha = expf(m[i] - mn);  // m = -inf: 0
+          float sl = 0.f, sc = 0.f;
+          for (int j = lane; j < kn; j += 32) {
+            const float e = expf(p[j] - mn);
+            sl += e;
+            sc += e * dp[j];
+          }
+          l[i] = fmaf(l[i], alpha, warp_sum(sl));
+          cs[i] = fmaf(cs[i], alpha, warp_sum(sc));
+          m[i] = mn;
+        } else {
+          const float rl = 1.f / l[i], di = cs[i] * rl;
+          for (int j = lane; j < kn; j += 32) {
+            const float pj = expf(p[j] - m[i]) * rl;
+            p[j] = pj;
+            dp[j] = pj * (dp[j] - di);
+          }
+        }
+      }
+      if (sweep == 0) continue;
+      __syncthreads();
+      for (int idx = tid; idx < rows * kn; idx += THREADS) {
+        const int i = idx / kn, j = idx - i * kn;
+        atomicAdd(dbias + (int64_t)(q0 + i) * N + k0 + j, dps[i * PP + j]);
+      }
+#pragma unroll
+      for (int e = 0; e < BMQ * D / THREADS; ++e) {
+        const int i = (tid + THREADS * e) / D, c = (tid + THREADS * e) % D;
+        if (i >= rows) continue;
+        float a = 0.f;
+        for (int j = 0; j < kn; ++j) a = fmaf(dps[i * PP + j], ks[j * DP + c], a);
+        dq[e] += a;
+      }
+      for (int idx = tid; idx < kn * D; idx += THREADS) {
+        const int j = idx / D, c = idx % D;
+        float a = 0.f, b = 0.f;
+        for (int i = 0; i < rows; ++i) {
+          a = fmaf(dps[i * PP + j], qs[i * DP + c], a);  // dS^T (q s)
+          b = fmaf(ps[i * PP + j], os[i * DP + c], b);   // P^T dO
+        }
+        atomicAdd(dK + (int64_t)(k0 + j) * g.g_n + c, a);
+        atomicAdd(dV + (int64_t)(k0 + j) * g.g_n + c, b);
+      }
     }
-    atomicAdd(dK + (int64_t)j * g.g_n + c, a);
-    atomicAdd(dV + (int64_t)j * g.g_n + c, b);
+  }
+  float* dQ = static_cast<float*>(g.dq) + gb;
+#pragma unroll
+  for (int e = 0; e < BMQ * D / THREADS; ++e) {
+    const int i = (tid + THREADS * e) / D, c = (tid + THREADS * e) % D;
+    if (i < rows) dQ[(int64_t)(q0 + i) * g.g_n + c] = dq[e] * g.scale;
   }
 }
 
@@ -399,6 +336,8 @@ struct Plan {
   int heads;
   int bpitch;       // bf16 elements a bias tile row: the least >= nk that is 16 mod 32
   int dpitch;       // floats a dbias slab row: the least >= nk that is 16 mod 32
+  int stream;       // N > WHOLE_N: the window in tiles of kt keys (launch 1) or queries (2)
+  int kt, n_kt;     // rows a streamed tile, tiles a window
 };
 
 // The tiles, the dbias slab and the row statistics keep each run of 16
@@ -488,20 +427,21 @@ __device__ __forceinline__ void fill_batched(int units, int tid, int threads, Lo
   }
 }
 
-// Launch 1's tile: row r (query q0 + r), key k < pitch holds bias + mask
+// Launch 1's tile: row r (query q0 + r), key k0 + k (k < pitch) holds bias + mask
 // rounded to bf16 for q, k < N; -inf for k >= N (weight 0); 0 for a row past
 // N (its dO is zero, so its dS is 0); keys in the accumulator order of each
 // run of 16 (pos_of). The bias is bf16 at this cast point, so the tile is
 // exact where the mask is 0; where it is -100 the weight is below 1e-40 in
 // either rounding. A unit is a run of 16 keys of a row.
 __device__ __forceinline__ void fill_rows(uint16_t* tile, const bf16* bias, const bf16* mask,
-                                          int q0, int n, int pitch, int tid, int threads) {
+                                          int q0, int k0, int n, int pitch, int tid,
+                                          int threads) {
   const int runs = pitch / 16;
   const bool vec = n % 8 == 0;
   fill_batched<16>(
       BM * runs, tid, threads,
       [&](int u, float* f) {
-        const int r = u / runs, k = 16 * (u - r * runs), q = q0 + r;
+        const int r = u / runs, k = k0 + 16 * (u - r * runs), q = q0 + r;
         const int64_t at = (int64_t)q * n + k;
         if (q < n && vec && k + 15 < n) {
           load_sum<16>(bias, mask, at, f);
@@ -525,18 +465,19 @@ __device__ __forceinline__ void fill_rows(uint16_t* tile, const bf16* bias, cons
       });
 }
 
-// Launch 2's transposed tile: row kl (key k0 + kl), query q < pitch (at
-// its position in the accumulator order, pos_of) holds bias[q][k0 + kl] +
+// Launch 2's transposed tile: row kl (key k0 + kl), query qo + q (q < pitch,
+// qo a multiple of 16; at its position in the accumulator order, pos_of) holds bias[q][k0 + kl] +
 // mask[q][k0 + kl] rounded to bf16 for q, key < N, else -inf (weight 0). A
 // unit is 8 keys of one query row (16 bytes), written down a column;
 // consecutive threads take consecutive queries.
 __device__ __forceinline__ void fill_cols(uint16_t* tile, const bf16* bias, const bf16* mask,
-                                          int k0, int n, int pitch, int tid, int threads) {
+                                          int k0, int qo, int n, int pitch, int tid,
+                                          int threads) {
   const bool vec = n % 8 == 0;
   fill_batched<8>(
       (BM / 8) * pitch, tid, threads,
       [&](int u, float* f) {
-        const int kr = u / pitch, q = u - kr * pitch, k = k0 + 8 * kr;
+        const int kr = u / pitch, q = qo + u - kr * pitch, k = k0 + 8 * kr;
         const int64_t at = (int64_t)q * n + k;
         if (q < n && vec && k + 7 < n) {
           load_sum<8>(bias, mask, at, f);
@@ -738,7 +679,7 @@ __global__ void __launch_bounds__(THREADS1, 1)
 
   constexpr int CT = 128 * C1;  // every thread
   fill_rows(tile, static_cast<const bf16*>(g.bias) + (int64_t)h * N * N,
-            g.mask ? g.mask + (int64_t)mi * N * N : nullptr, q0, N, p.bpitch, threadIdx.x, CT);
+            g.mask ? g.mask + (int64_t)mi * N * N : nullptr, q0, 0, N, p.bpitch, threadIdx.x, CT);
   if (SLAB)
     for (int i = threadIdx.x; i < BM * p.dpitch; i += CT) slab[i] = 0.f;
   named_sync(1, CT);
@@ -978,7 +919,8 @@ __global__ void __launch_bounds__(THREADS2, 1)
 
   constexpr int CT = 128 * C2;
   fill_cols(tile, static_cast<const bf16*>(g.bias) + (int64_t)h * N * N,
-            g.mask ? g.mask + (int64_t)mi * N * N : nullptr, k0, N, p.bpitch, threadIdx.x, CT);
+            g.mask ? g.mask + (int64_t)mi * N * N : nullptr, k0, 0, N, p.bpitch, threadIdx.x,
+            CT);
   named_sync(1, CT);
 
   const int wg = warp >> 2, t = threadIdx.x & 127, t4 = lane & 3;
@@ -1067,24 +1009,327 @@ __global__ void __launch_bounds__(THREADS2, 1)
   }
 }
 
-}  // namespace hop
+// ------------------------------------------- windows of more than WHOLE_N
 
-template <typename Kernel, typename Args>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
-                   const Args& g) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+// Launch 1 for a window of more than WHOLE_N tokens (N = 784: whole K and V
+// take 100 KB, a whole tile 100 KB more): dq_bf16's arithmetic without the
+// slab (dS into dbias by atomics, as dq_bf16 above N ~440), on a window
+// streamed as key tiles of kt = 192 keys. An item is (window, sweep, key
+// tile); thread 0 loads the q and dO tiles with the key tile's K and V into
+// a ring of stages, stages - 1 items ahead. The block moves through the
+// items in step: barrier, thread 0 reloads the stage the last item freed,
+// every thread fills the key tile's bias + mask tile, barrier, then the
+// warpgroups take the tile's chunks (warpgroup c the chunk c, the same
+// chunks of a window as dq_bf16). The statistics combine after a window's
+// first sweep and dq is handed over and stored after its second, as in
+// dq_bf16.
+__global__ void __launch_bounds__(THREADS1, 1)
+    dq_stream(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_o,
+              const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+              BwdArgs g, Plan p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* ring = align512(smem_raw);  // stages x [q | dO | K tile | V tile]
+  uint16_t* tile = reinterpret_cast<uint16_t*>(ring + p.stages * p.stage_bytes);  // [64][bpitch]
+  float* stx = reinterpret_cast<float*>(tile + BM * p.bpitch);  // [C1][64][m, l, c]
+  float* dqx = stx + p.stages * C1 * BM * 3;                     // [C1 - 1][16][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(dqx + (C1 - 1) * 16 * 128);
+
+  const int N = g.n;
+  const int q0 = BM * (blockIdx.x % p.tiles), h = (blockIdx.x / p.tiles) % p.heads;
+  const int grp = blockIdx.x / p.tiles / p.heads;
+  const int mi = grp % p.n_groups, split = grp / p.n_groups;
+  const int b0 = split * p.g, nw = min(p.g, p.per_group - b0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per_win = 2 * p.n_kt, items = nw * per_win;
+
+  auto load = [&](int s) {
+    const int sl = s % p.stages, it = s / per_win, kt = (s - it * per_win) % p.n_kt;
+    const int x = h * D, w = mi + (b0 + it) * p.n_groups;
+    uint8_t* st = ring + sl * p.stage_bytes;
+    mbar_expect_tx(full + sl, 2 * TILE_BYTES + 2 * p.kt * ROW_BYTES);
+    tma_load_3d(st, &tm_q, full + sl, x, q0, w);
+    tma_load_3d(st + TILE_BYTES, &tm_o, full + sl, x, q0, w);
+    tma_load_3d(st + 2 * TILE_BYTES, &tm_k, full + sl, x, kt * p.kt, w);
+    tma_load_3d(st + 2 * TILE_BYTES + p.rows_bytes, &tm_v, full + sl, x, kt * p.kt, w);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < p.stages - 1 && s < items; ++s) load(s);
   }
-  kernel<<<grid, threads, smem, s>>>(g);
-  return cudaGetLastError();
+  __syncthreads();
+
+  constexpr int CT = 128 * C1;
+  const bf16* bias = static_cast<const bf16*>(g.bias) + (int64_t)h * N * N;
+  const bf16* mask = g.mask ? g.mask + (int64_t)mi * N * N : nullptr;
+  const int wg = warp >> 2, t = threadIdx.x & 127, t4 = lane & 3;
+  const int ra = 16 * (warp & 3) + (lane >> 2);
+  const bool ok_a = q0 + ra < N, ok_b = q0 + ra + 8 < N;
+  const uint16_t* ta = tile + ra * p.bpitch + 4 * t4;
+  float* dg = g.dbias + (int64_t)h * N * N + (int64_t)(q0 + ra) * N + 2 * t4;
+
+  uint32_t qa[2][4], oa[2][4];
+  float m[2], l[2], c[2], lse[2], di[2], dq[16];
+  for (int s = 0; s < items; ++s) {
+    const int sl = s % p.stages, it = s / per_win, sk = s - it * per_win;
+    const int sweep = sk / p.n_kt, kt = sk - sweep * p.n_kt;
+    const int k0 = kt * p.kt, len = min(p.kt, p.nk - k0);
+    named_sync(1, CT);  // item s - 1 is done with its stage and the tile
+    if (threadIdx.x == 0 && s + p.stages - 1 < items) load(s + p.stages - 1);
+    fill_rows(tile, bias, mask, q0, k0, N, p.bpitch, threadIdx.x, CT);
+    named_sync(1, CT);  // the tile is filled
+    const uint8_t* st = ring + sl * p.stage_bytes;
+    const uint8_t* ks = st + 2 * TILE_BYTES;
+    const uint8_t* vs = ks + p.rows_bytes;
+    mbar_wait(full + sl, (s / p.stages) & 1);
+    if (sk == 0) {
+      frag_a(qa, st, warp, lane);
+      frag_a(oa, st + TILE_BYTES, warp, lane);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        m[hh] = -INFINITY;
+        l[hh] = c[hh] = 0.f;
+      }
+    }
+
+    if (sweep == 0) {
+      for (int kc = wg * KCH; kc < len; kc += C1 * KCH) {
+        if (kc + KCH <= len) {
+          stats_chunk<KCH>(qa, oa, ks, vs, kc, ta, p.bpitch, g.scale, m, l, c);
+        } else {
+          for (int k16 = kc; k16 < len; k16 += 16)
+            stats_chunk<16>(qa, oa, ks, vs, k16, ta, p.bpitch, g.scale, m, l, c);
+        }
+      }
+      if (kt + 1 < p.n_kt) continue;
+      // the window's statistics, combined as in dq_bf16
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        l[hh] = quad_sum(l[hh]);
+        c[hh] = quad_sum(c[hh]);
+        if (t4 == 0) {
+          float* x = stx + (wg * BM + ra + 8 * hh) * 3;
+          x[0] = m[hh];
+          x[1] = l[hh];
+          x[2] = c[hh];
+        }
+      }
+      named_sync(1, CT);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = ra + 8 * hh;
+        float mm = -INFINITY, ll = 0.f, cc = 0.f;
+#pragma unroll
+        for (int k = 0; k < C1; ++k) mm = fmaxf(mm, stx[(k * BM + r) * 3]);
+#pragma unroll
+        for (int k = 0; k < C1; ++k) {
+          const float* x = stx + (k * BM + r) * 3;
+          const float f = ex2((x[0] - mm) * LOG2E);
+          ll += x[1] * f;
+          cc += x[2] * f;
+        }
+        lse[hh] = fmaf(mm, LOG2E, __log2f(ll));
+        di[hh] = cc / ll;
+      }
+      if (wg == 0 && t4 == 0) {
+        const int w = mi + (b0 + it) * p.n_groups;
+        float* sg = g.stats + ((int64_t)w * p.heads + h) * 2 * p.ns + q0 + (ra & ~15);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int at = pos_of((ra + 8 * hh) & 15);
+          sg[at] = lse[hh];
+          sg[p.ns + at] = di[hh];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+      continue;
+    }
+
+    // sweep 2: keys from k0 (dbias from column k0 of row a)
+    for (int kc = wg * KCH; kc < len; kc += C1 * KCH) {
+      if (kc + KCH <= len) {
+        ds_chunk<KCH, false>(qa, oa, ks, vs, kc, ta, p.bpitch, g.scale, lse, di, dq, nullptr,
+                             p.dpitch, dg + k0, N, k0 + 2 * t4, ok_a, ok_b);
+      } else {
+        for (int k16 = kc; k16 < len; k16 += 16)
+          ds_chunk<16, false>(qa, oa, ks, vs, k16, ta, p.bpitch, g.scale, lse, di, dq, nullptr,
+                              p.dpitch, dg + k0, N, k0 + 2 * t4, ok_a, ok_b);
+      }
+    }
+    wgmma_wait<0>();  // dq's products read this stage's K
+    fence_regs(dq);
+    if (kt + 1 < p.n_kt) continue;
+    if (wg > 0) {
+      float* x = dqx + (wg - 1) * 16 * 128 + t;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) x[i * 128] = dq[i];
+      named_arrive(3, CT);
+      continue;
+    }
+    named_sync(3, CT);
+#pragma unroll
+    for (int k = 0; k < C1 - 1; ++k) {
+      const float* x = dqx + k * 16 * 128 + t;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dq[i] += x[i * 128];
+    }
+    const int w = mi + (b0 + it) * p.n_groups;
+    bf16* dQ = static_cast<bf16*>(g.dq) + (int64_t)w * g.g_w + (int64_t)h * g.g_h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (ok_a)
+        *reinterpret_cast<__nv_bfloat162*>(dQ + (int64_t)(q0 + ra) * g.g_n + col) =
+            __floats2bfloat162_rn(dq[4 * j] * g.scale, dq[4 * j + 1] * g.scale);
+      if (ok_b)
+        *reinterpret_cast<__nv_bfloat162*>(dQ + (int64_t)(q0 + ra + 8) * g.g_n + col) =
+            __floats2bfloat162_rn(dq[4 * j + 2] * g.scale, dq[4 * j + 3] * g.scale);
+    }
+  }
 }
+
+// Launch 2 for a window of more than WHOLE_N tokens: dkdv_bf16's arithmetic
+// on a window streamed as query tiles of kt = 128 queries (with the block's
+// K and V tiles, and the query tile's row statistics by two bulk copies), in
+// step as dq_stream: barrier, reload, the transposed bias + mask tile of the
+// query tile, barrier, the warpgroups' chunks. dK and dV of the block's keys
+// carry across a window's query tiles and are stored after its last one.
+__global__ void __launch_bounds__(THREADS2, 1)
+    dkdv_stream(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_o,
+                BwdArgs g, Plan p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* ring = align512(smem_raw);  // stages x [K | V | q tile | dO tile | statistics]
+  uint16_t* tile = reinterpret_cast<uint16_t*>(ring + p.stages * p.stage_bytes);  // [64][bpitch]
+  float* xchg = reinterpret_cast<float*>(tile + BM * p.bpitch);  // [C2 - 1][32][128] dK, dV
+  uint64_t* full = reinterpret_cast<uint64_t*>(xchg + (C2 - 1) * 32 * 128);
+
+  const int N = g.n;
+  const int k0 = BM * (blockIdx.x % p.tiles), h = (blockIdx.x / p.tiles) % p.heads;
+  const int grp = blockIdx.x / p.tiles / p.heads;
+  const int mi = grp % p.n_groups, split = grp / p.n_groups;
+  const int b0 = split * p.g, nw = min(p.g, p.per_group - b0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stats_off = 2 * TILE_BYTES + 2 * p.rows_bytes;
+  const int items = nw * p.n_kt;
+
+  // the statistics of queries qo .. qo + kt that launch 1 wrote (rows < ns)
+  auto load = [&](int s) {
+    const int sl = s % p.stages, it = s / p.n_kt, qo = (s - it * p.n_kt) * p.kt;
+    const int x = h * D, w = mi + (b0 + it) * p.n_groups;
+    const uint32_t sb = 4 * min(p.kt, p.ns - qo);
+    uint8_t* st = ring + sl * p.stage_bytes;
+    mbar_expect_tx(full + sl, 2 * TILE_BYTES + 2 * p.kt * ROW_BYTES + 2 * sb);
+    tma_load_3d(st, &tm_k, full + sl, x, k0, w);
+    tma_load_3d(st + TILE_BYTES, &tm_v, full + sl, x, k0, w);
+    tma_load_3d(st + 2 * TILE_BYTES, &tm_q, full + sl, x, qo, w);
+    tma_load_3d(st + 2 * TILE_BYTES + p.rows_bytes, &tm_o, full + sl, x, qo, w);
+    const float* sg = g.stats + ((int64_t)w * p.heads + h) * 2 * p.ns + qo;
+    bulk_load(st + stats_off, sg, sb, full + sl);
+    bulk_load(st + stats_off + 4 * p.kt, sg + p.ns, sb, full + sl);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < p.stages - 1 && s < items; ++s) load(s);
+  }
+  __syncthreads();
+
+  constexpr int CT = 128 * C2;
+  const bf16* bias = static_cast<const bf16*>(g.bias) + (int64_t)h * N * N;
+  const bf16* mask = g.mask ? g.mask + (int64_t)mi * N * N : nullptr;
+  const int wg = warp >> 2, t = threadIdx.x & 127, t4 = lane & 3;
+  const int ra = 16 * (warp & 3) + (lane >> 2);
+  const uint16_t* tt = tile + ra * p.bpitch + 4 * t4;
+
+  uint32_t ka[2][4], va[2][4];
+  float dk[16], dv[16];
+  for (int s = 0; s < items; ++s) {
+    const int sl = s % p.stages, it = s / p.n_kt, qt = s - it * p.n_kt;
+    const int qo = qt * p.kt, len = min(p.kt, p.nk - qo);
+    named_sync(1, CT);  // item s - 1 is done with its stage and the tile
+    if (threadIdx.x == 0 && s + p.stages - 1 < items) load(s + p.stages - 1);
+    fill_cols(tile, bias, mask, k0, qo, N, p.bpitch, threadIdx.x, CT);
+    named_sync(1, CT);  // the tile is filled
+    const uint8_t* st = ring + sl * p.stage_bytes;
+    const uint8_t* qs = st + 2 * TILE_BYTES;
+    const uint8_t* os = qs + p.rows_bytes;
+    const float* sts = reinterpret_cast<const float*>(st + stats_off) + 4 * t4;
+    mbar_wait(full + sl, (s / p.stages) & 1);
+    if (qt == 0) {
+      frag_a(ka, st, warp, lane);
+      frag_a(va, st + TILE_BYTES, warp, lane);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dk[i] = dv[i] = 0.f;
+    }
+    for (int qc = wg * KCH; qc < len; qc += C2 * KCH) {
+      if (qc + KCH <= len) {
+        float sv[32], dp[32];
+        uint32_t pa[4][4], da[4][4];
+        s_dp<KCH>(sv, dp, ka, va, qs, os, qc);
+        dkdv_weights<KCH>(sv, dp, qc, tt, p.bpitch, sts, p.kt, g.scale, pa, da);
+        issue_dkdv<KCH>(pa, da, qs, os, qc, dk, dv);
+      } else {
+        for (int q16 = qc; q16 < len; q16 += 16) {
+          float sv[8], dp[8];
+          uint32_t pa[1][4], da[1][4];
+          s_dp<16>(sv, dp, ka, va, qs, os, q16);
+          dkdv_weights<16>(sv, dp, q16, tt, p.bpitch, sts, p.kt, g.scale, pa, da);
+          issue_dkdv<16>(pa, da, qs, os, q16, dk, dv);
+        }
+      }
+    }
+    wgmma_wait<0>();  // the products read this stage's q and dO
+    fence_regs(dk);
+    fence_regs(dv);
+    if (qt + 1 < p.n_kt) continue;
+    if (wg > 0) {
+      float* x = xchg + (wg - 1) * 32 * 128 + t;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        x[i * 128] = dk[i];
+        x[(16 + i) * 128] = dv[i];
+      }
+      named_arrive(3, CT);
+      continue;
+    }
+    named_sync(3, CT);
+#pragma unroll
+    for (int k = 0; k < C2 - 1; ++k) {
+      const float* x = xchg + k * 32 * 128 + t;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        dk[i] += x[i * 128];
+        dv[i] += x[(16 + i) * 128];
+      }
+    }
+    const int w = mi + (b0 + it) * p.n_groups;
+    const int64_t gb = (int64_t)w * g.g_w + (int64_t)h * g.g_h;
+    bf16* dK = static_cast<bf16*>(g.dk) + gb;
+    bf16* dV = static_cast<bf16*>(g.dv) + gb;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = k0 + ra + 8 * hh;
+      if (key >= N) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = 8 * j + 2 * t4, i = 4 * j + 2 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(dK + (int64_t)key * g.g_n + col) =
+            __floats2bfloat162_rn(dk[i] * g.scale, dk[i + 1] * g.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dV + (int64_t)key * g.g_n + col) =
+            __floats2bfloat162_rn(dv[i], dv[i + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace hop
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 bool bad_shape(int n, int d, int windows, int heads, const void* mask, int n_masks) {
-  return n < 1 || n > MAX_N || d != D || windows < 1 || windows > 65535 || heads < 1 ||
+  return n < 1 || n > 65535 || d != D || windows < 1 || windows > 65535 || heads < 1 ||
          heads > 65535 || (mask && (n_masks < 1 || windows % n_masks));
 }
 
@@ -1127,6 +1372,21 @@ hop::Plan plan_bwd(int windows, int heads, int n, int n_masks, bool masked, int 
   p.heads = heads;
   p.g = group < p.per_group ? group : p.per_group;
   p.splits = (p.per_group + p.g - 1) / p.g;
+  p.stream = n > wtile::WHOLE_N;
+  if (p.stream) {  // dq_stream, dkdv_stream: tiles of 64 rows a warpgroup, three stages
+    p.kt = (launch == 1 ? C1 : C2) * KCH;
+    p.n_kt = (p.nk + p.kt - 1) / p.kt;
+    p.nbox = 1;
+    p.kbox = p.kt;
+    p.rows_bytes = p.kt * ROW_BYTES;
+    p.bpitch = at_least(p.kt, 32, 16);
+    p.stage_bytes = 2 * TILE_BYTES + 2 * p.rows_bytes;
+    if (launch == 2) p.stage_bytes += (2 * p.kt * 4 + 511) & ~511;
+    p.slab = 0;
+    p.stages = 3;
+    if (smem_bytes(p, launch) > SMEM_MAX) p.stages = 0;
+    return p;
+  }
   p.stage_bytes = 2 * TILE_BYTES + 2 * p.rows_bytes;
   if (launch == 2) p.stage_bytes += (2 * p.ns * 4 + 511) & ~511;
   p.slab = launch == 1;
@@ -1171,6 +1431,17 @@ cudaError_t launch_bwd_bf16(const BwdArgs& g, cudaStream_t s) {
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   const int smem1 = smem_bytes(p1, 1), smem2 = smem_bytes(p2, 2);
   cudaError_t e;
+  if (p1.stream) {
+    e = cudaFuncSetAttribute(hop::dq_stream, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
+    if (e != cudaSuccess) return e;
+    hop::dq_stream<<<(unsigned)blocks, hop::THREADS1, smem1, s>>>(q64, o64, kr, vr, g, p1);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(hop::dkdv_stream, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
+    if (e != cudaSuccess) return e;
+    hop::dkdv_stream<<<(unsigned)blocks, hop::THREADS2, smem2, s>>>(k64, v64, qr, orow, g, p2);
+    return cudaGetLastError();
+  }
   if (p1.slab) {
     e = cudaFuncSetAttribute(hop::dq_bf16<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem1);
@@ -1201,22 +1472,18 @@ extern "C" int k5_fwd(int dtype, const void* q, const void* k, const void* v, in
                       int heads, int n, int d, int group, void* stream) {
   if (bad_shape(n, d, windows, heads, mask, n_masks))
     return static_cast<int>(cudaErrorInvalidValue);
-  FwdArgs g{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, static_cast<const bf16*>(mask),
-            mask ? n_masks : 1, scale, n};
+  const wtile::Args a{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask,
+                      mask ? n_masks : 1, scale, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && aligned16(bias) &&
           aligned16(mask)) ||
         (s_w | s_h | s_n | o_w | o_h | o_n) % 8 || group < 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    const wtile::Args a{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask,
-                        mask ? n_masks : 1, scale, n};
     return static_cast<int>(wtile::launch<wtile::MAX_STABLE>(a, windows, heads, group, s));
   }
   if (dtype == 0)
-    return static_cast<int>(launch(simt::fwd_f32,
-                                   dim3((n + simt::MQ - 1) / simt::MQ, windows, heads),
-                                   simt::THREADS, simt::fwd_smem(n), s, g));
+    return static_cast<int>(wtile::simt::launch_f32<wtile::MAX_STABLE, bf16>(a, windows, heads, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1248,10 +1515,11 @@ extern "C" int k5_bwd(int dtype, const void* q, const void* k, const void* v, in
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_bwd_bf16(g, s));
   }
-  if (dtype == 0)
-    return static_cast<int>(launch(simt::bwd_f32,
-                                   dim3((n + simt::BMQ - 1) / simt::BMQ, windows, heads),
-                                   simt::THREADS, simt::bwd_smem(n), s, g));
+  if (dtype == 0) {
+    simt::bwd_f32<<<dim3((n + simt::BMQ - 1) / simt::BMQ, windows, heads), simt::THREADS,
+                    simt::bwd_smem(), s>>>(g);
+    return static_cast<int>(cudaGetLastError());
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -19,10 +19,8 @@ import numpy as np
 import torch
 
 from deepfake_tpu_torch.config import Config
-from deepfake_tpu_torch.ops.image import normalize_imagenet
-from deepfake_tpu_torch.ops.mel import (
-    IMAGENET_MEAN, IMAGENET_STD, full_f32_matmul, mel_filterbank, stft_power,
-)
+from deepfake_tpu_torch.ops.image import imagenet_stats, normalize_imagenet
+from deepfake_tpu_torch.ops.mel import full_f32_matmul, mel_filterbank, stft_power
 from deepfake_tpu_torch.ops.resample import resample, resampled_length
 
 
@@ -134,7 +132,8 @@ def mel_image_masked(wave: torch.Tensor, length: torch.Tensor, sr: int = 22050,
     if raw_uint8:
         return img.to(torch.uint8)
     img = (img / 255.0)[..., None].expand(B, size, size, 3)
-    return (img - torch.from_numpy(IMAGENET_MEAN).to(dev)) / torch.from_numpy(IMAGENET_STD).to(dev)
+    mean, std = imagenet_stats(dev)
+    return (img - mean) / std
 
 
 class FeatureAssembler:

@@ -5,7 +5,9 @@ Counterpart of deepfake_tpu/ops/pallas_window_attn.py
 ``pallas_window_attention_nhc_train`` (:1074), a custom_vjp whose forward is
 the token-major kernel with the max-stabilised softmax and whose backward is
 a Pallas kernel of its own (``_nhc_bwd_kernel``). Token-major q, k, v [B_, N,
-C] with heads in channel slices, windows of up to 512 tokens, head dim 32.
+C] with heads in channel slices, windows of any size (392 tokens for (8,7,7)
+windows, 784 for (16,7,7); above 512 the bf16 kernels stream the window in
+tiles of keys or queries), head dim 32.
 
 ``window_attn3d_train(qkv, ...)`` takes the [B_, N, 3C] qkv tensor and is a
 ``torch.autograd.Function``: for a CPU tensor it runs the plain versions
@@ -34,7 +36,6 @@ from deepfake_tpu_torch.kernels import build
 from deepfake_tpu_torch.ops.window_attn import add_mask
 from deepfake_tpu_torch.ops.window_attn_kernel import _on_cuda
 
-MAX_TOKENS = 512
 HEAD_DIM = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64  # rows of a bf16 block, queries or keys (hop::BM, csrc/window_attn_tile.cuh wtile::BM)
@@ -108,8 +109,8 @@ def _check(qkv, num_heads: int, bias, mask):
         raise ValueError(f"K5: qkv width {C3} is not 3 x num_heads x head dim")
     C = C3 // 3
     D = C // num_heads
-    if N > MAX_TOKENS or D != HEAD_DIM:
-        raise ValueError(f"K5 takes N <= {MAX_TOKENS} and D == {HEAD_DIM}, got N={N}, D={D}")
+    if D != HEAD_DIM:
+        raise ValueError(f"K5 takes D == {HEAD_DIM}, got N={N}, D={D}")
     if qkv.stride(-1) != 1:
         raise ValueError("K5 needs the channels of qkv contiguous")
     if tuple(bias.shape) != (num_heads, N, N):

@@ -36,11 +36,11 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+import common  # this folder's shared helpers; it puts the checkout's root on sys.path
+
+ROOT = common.ROOT
 
 VARIANTS = {"base": [], "no_store": ["NO_STORE"], "no_residual": ["NO_RESIDUAL"],
             "no_pred": ["NO_PRED"], "bare": ["NO_STORE", "NO_RESIDUAL", "NO_PRED"]}
@@ -77,52 +77,21 @@ PATCHES = [
 
 
 def build(source: str, out_dir: str):
-    text = open(source).read()
-    for old, new in PATCHES:
-        if old not in text:
-            raise SystemExit("the source is not K1's mma.sync design (commit 622cde6): "
-                             f"missing {old[:70]!r}")
-        text = text.replace(old, new, 1)
+    text = common.patch(open(source).read(), PATCHES,
+                        "the source is not K1's mma.sync design (commit 622cde6)")
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(out_dir, "k1_step0.cu")
     with open(src, "w") as f:
         f.write(text)
-    from deepfake_tpu_torch.kernels.build import FLAGS, nvcc_path
-    procs = {}
-    for name, defs in VARIANTS.items():
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        cmd = [nvcc_path(), *FLAGS, *(f"-D{d}" for d in defs), "-o", lib, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        dll = ctypes.CDLL(lib)
+    libs = common.nvcc([(name, src, [f"-D{d}" for d in defs]) for name, defs in VARIANTS.items()],
+                       out_dir)
+    for dll in libs.values():
         p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
         dll.k1_shifted_gemm.argtypes = [
             i, p, i64, i, p, i, i, i, i, i, i, i, p, p, p, i64, f, i, p, i64, i, p, i64, p]
         dll.k1_shifted_gemm.restype = i
-        libs[name] = dll
     return libs
 
-
-def device_ms(fn, iters: int = 10) -> float:
-    """The summed device time of every kernel ``fn`` launches, per call
-    (torch.profiler), after one warm-up call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def conv_launches(blk, x):
@@ -205,8 +174,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("k1_step0: needs an NVIDIA GPU")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+    card = common.card()
     print(card, flush=True)
     libs = build(args.source, os.path.join(ROOT, "deepfake_tpu_torch", "_build", "k1_step0"))
     dev = torch.device("cuda")
@@ -239,8 +207,8 @@ def main() -> int:
                     raise SystemExit(f"{v}: launch failed: CUDA error {status}")
             row = {"block": name, "conv": label}
             for v in VARIANTS:
-                row[v] = device_ms(lambda v=v: call(v))
-            row["library"] = device_ms(lib_call)
+                row[v] = common.device_ms(lambda v=v: call(v))
+            row["library"] = common.device_ms(lib_call)
             res["launches"].append(row)
             print(f"block {name} [{args.frames}x{side}x{side}x{C}] {label:22s} "
                   + " ".join(f"{k}={row[k]:.4f}" for k in list(VARIANTS) + ["library"]),
@@ -253,10 +221,10 @@ def main() -> int:
     pack_block_weights(model, dt)
     frames = (torch.rand(args.frames, 224, 224, 3, generator=gen, device=dev) - 0.5).to(dt)
     with torch.inference_mode():
-        res["branch"]["k1_route_device_ms"] = device_ms(lambda: model(frames), iters=3)
+        res["branch"]["k1_route_device_ms"] = common.device_ms(lambda: model(frames), iters=3)
         for b in model.blocks():
             b.fused = False
-        res["branch"]["plain_route_device_ms"] = device_ms(lambda: model(frames), iters=3)
+        res["branch"]["plain_route_device_ms"] = common.device_ms(lambda: model(frames), iters=3)
     print(f"IRv2 branch, {args.frames} frames of 224^2, device ms: K1 route "
           f"{res['branch']['k1_route_device_ms']:.3f}, plain (cuDNN) route "
           f"{res['branch']['plain_route_device_ms']:.3f}", flush=True)

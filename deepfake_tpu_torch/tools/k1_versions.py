@@ -30,14 +30,13 @@ values but stores none), no_epilogue (no epilogue at all).
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+import common  # this folder's shared helpers; it puts the checkout's root on sys.path
+
+ROOT = common.ROOT
 
 BLOCKS = {"A": (25, 10), "B": (12, 20), "C": (5, 10)}  # side, blocks a fused b8 request
 
@@ -74,21 +73,11 @@ def diag_sources(source, out_dir):
 
 
 def build(versions, out_dir):
-    from deepfake_tpu_torch.kernels.build import CSRC, FLAGS, nvcc_path
     from deepfake_tpu_torch.ops.inception_block import bind
 
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, src in versions.items():
-        lib = os.path.join(out_dir, f"lib{name.replace('@', '_')}.so")
-        cmd = [nvcc_path(), *FLAGS, "-I", CSRC, "-o", lib, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+    libs = common.nvcc(list((name, src, []) for name, src in versions.items()), out_dir, show=())
+    for name, lib in libs.items():
+        log = lib.ptxas
         regs = sorted({line.split("Used ")[1].split(" registers")[0]
                        for line in log.splitlines() if "registers" in line and "Used" in line})
         spills = sum("spill stores" in line and not line.strip().startswith("0 bytes")
@@ -97,7 +86,7 @@ def build(versions, out_dir):
         print(f"{name}: built; registers per thread over its kernels: {', '.join(regs)}; "
               f"kernels that spill: {spills}; ptxas performance notes: "
               f"{', '.join('C75' + w for w in warns) or 'none'}", flush=True)
-        libs[name] = bind(ctypes.CDLL(lib))
+        libs[name] = bind(lib)
     return libs
 
 
@@ -120,8 +109,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("k1_versions: needs an NVIDIA GPU")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+    card = common.card()
     print(card, flush=True)
     versions, widest = {}, {}
     for v in args.versions:

@@ -30,32 +30,16 @@ import argparse
 import json
 import math
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+import common  # this folder's shared helpers; it puts the checkout's root on sys.path
+
+ROOT = common.ROOT
 
 # (resolution, heads, C, depth) of SwinV2-B's stages at 224, window 7
 STAGES = [(56, 4, 128, 2), (28, 8, 256, 2), (14, 16, 512, 18), (7, 32, 1024, 2)]
 N = 49
 
-
-def device_ms(fn, iters: int = 10) -> float:
-    """The summed device time of every kernel ``fn`` launches, per call
-    (torch.profiler), after one warm-up call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def event_ms(fn, iters: int = 10) -> float:
@@ -99,8 +83,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("k2_step0: needs an NVIDIA GPU")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+    card = common.card()
     print(card, flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
@@ -139,8 +122,8 @@ def main() -> int:
                 (l2_normalize(heads(q).float()) * ls).to(dt), l2_normalize(heads(k).float()).to(dt),
                 heads(v).contiguous(), attn_mask=am, scale=1.0).transpose(1, 2).reshape(B_, N, C)
             row = dict(request=f"b{batch}", case=name, B_=B_, H=H, C=C, launches=count,
-                       k2=device_ms(run), k2_events=event_ms(run), sdpa=device_ms(sdpa),
-                       sdpa_norm=device_ms(sdpa_norm), sdpa_layout=device_ms(sdpa_layout))
+                       k2=common.device_ms(run), k2_events=event_ms(run), sdpa=common.device_ms(sdpa),
+                       sdpa_norm=common.device_ms(sdpa_norm), sdpa_layout=common.device_ms(sdpa_layout))
             res["rows"].append(row)
             for key in tot:
                 tot[key] += count * row[key]

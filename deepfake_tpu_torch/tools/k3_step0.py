@@ -30,11 +30,11 @@ import ctypes
 import json
 import math
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+import common  # this folder's shared helpers; it puts the checkout's root on sys.path
+
+ROOT = common.ROOT
 
 VARIANTS = {"base": [], "bias_l1": ["BIAS_L1"], "no_mask": ["NO_MASK"],
             "bias_l1_no_mask": ["BIAS_L1", "NO_MASK"], "ex2": ["EX2"],
@@ -86,34 +86,19 @@ __device__ __forceinline__ float ex2f(float x) {
 
 
 def build(source: str, out_dir: str):
-    text = open(source).read()
-    for old, new in PATCHES:
-        if old not in text:
-            raise SystemExit("the source is not the first K3 design (commit 685f5dd): "
-                             f"missing {old[:60]!r}")
-        text = text.replace(old, new, 1)
+    text = common.patch(open(source).read(), PATCHES,
+                        "the source is not the first K3 design (commit 685f5dd)")
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(out_dir, "k3_step0.cu")
     with open(src, "w") as f:
         f.write(text)
-    from deepfake_tpu_torch.kernels.build import FLAGS, nvcc_path
-    procs = {}
-    for name, defs in VARIANTS.items():
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        cmd = [nvcc_path(), *FLAGS, *(f"-D{d}" for d in defs), "-o", lib, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        dll = ctypes.CDLL(lib)
+    libs = common.nvcc([(name, src, [f"-D{d}" for d in defs]) for name, defs in VARIANTS.items()],
+                       out_dir)
+    for dll in libs.values():
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         dll.k3_window_attn.argtypes = [i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i,
                                        ctypes.c_float, i, i, i, i, p]
         dll.k3_window_attn.restype = i
-        libs[name] = dll
     return libs
 
 
@@ -128,8 +113,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("k3_step0: needs an NVIDIA GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    print(common.card(), flush=True)
     libs = build(args.source, os.path.join(ROOT, "deepfake_tpu_torch", "_build", "step0"))
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)

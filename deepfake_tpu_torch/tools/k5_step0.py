@@ -33,18 +33,18 @@ import ctypes
 import json
 import math
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+import common  # this folder's shared helpers; it puts the checkout's root on sys.path
+
+ROOT = common.ROOT
 
 VARIANTS = {"base": [], "one_sweep": ["ONE_SWEEP"], "kv_once": ["KV_ONCE"],
             "no_mask": ["NO_MASK"], "bias_l1": ["BIAS_L1"], "no_exp": ["NO_EXP"]}
 
 # (old text, new text) pairs applied to the source, in order
 PATCHES = [
-    ("__expf(", "EXPF("),
+    ("__expf(", "EXPF(", "all"),
     ("namespace {\n", """namespace {
 #if defined(NO_EXP)
 #define EXPF(x) ((x) * 0.01f + 1.f)
@@ -135,36 +135,21 @@ extern "C" const char* k5_error_string"""),
 
 
 def build(source: str, out_dir: str):
-    text = open(source).read()
-    for old, new in PATCHES:
-        if old not in text:
-            raise SystemExit("the source is not K5's mma.sync backward (commit 0a7e6c9): "
-                             f"missing {old[:70]!r}")
-        text = text.replace(old, new) if old == "__expf(" else text.replace(old, new, 1)
+    text = common.patch(open(source).read(), PATCHES,
+                        "the source is not K5's mma.sync backward (commit 0a7e6c9)")
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(out_dir, "k5_step0.cu")
     with open(src, "w") as f:
         f.write(text)
-    from deepfake_tpu_torch.kernels.build import FLAGS, nvcc_path
-    procs = {}
-    for name, defs in VARIANTS.items():
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        cmd = [nvcc_path(), *FLAGS, *(f"-D{d}" for d in defs), "-o", lib, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        dll = ctypes.CDLL(lib)
+    libs = common.nvcc([(name, src, [f"-D{d}" for d in defs]) for name, defs in VARIANTS.items()],
+                       out_dir)
+    for dll in libs.values():
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         dll.k5_bwd.argtypes = [
             i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, p, i64, i64, i64, p, p, p, p, i,
             p, p, ctypes.c_float, i, i, i, i, i, p]
         dll.k5_bwd.restype = i
         dll.k5_step0_only.argtypes = [i]
-        libs[name] = dll
     return libs
 
 
@@ -180,8 +165,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("k5_step0: needs an NVIDIA GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    print(common.card(), flush=True)
     libs = build(args.source, os.path.join(ROOT, "deepfake_tpu_torch", "_build", "k5_step0"))
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)

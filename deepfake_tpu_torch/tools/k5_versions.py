@@ -33,16 +33,14 @@ or dP product). "--diag no_exp,no_fill" takes some of them.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import math
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+import common  # this folder's shared helpers; it puts the checkout's root on sys.path
+
+ROOT = common.ROOT
 
 N = 392
 # (name, [(old text, new text), ...]): the diagnostic patches of --diag; each
@@ -123,26 +121,10 @@ STAGES = [((16, 56, 56), 3, 96, 2), ((16, 28, 28), 6, 192, 2),
 
 
 def build(versions, out_dir):
-    from deepfake_tpu_torch.kernels.build import CSRC, FLAGS, nvcc_path
-    os.makedirs(out_dir, exist_ok=True)
-    procs = []
-    for spec in versions:
-        path, _, defs = spec.lstrip("~").partition(":")
-        tag = hashlib.sha256((open(path).read() + spec).encode()).hexdigest()[:12]
-        lib = os.path.join(out_dir, f"libk5-{tag}.so")
-        cmd = [nvcc_path(), *FLAGS, f"-I{CSRC}", *defs.split(), "-o", lib, path]
-        procs.append((spec, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for spec, lib, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {spec}:\n{log}")
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line or "warning" in line.lower():
-                print(f"  ptxas {spec}: {line.strip()}")
-        libs[spec] = ctypes.CDLL(lib)
-    return libs
+    """{spec: CDLL}: a spec is source[:-D switches], with a leading ~ for a
+    diagnostic build; a header beside the source comes before csrc/'s."""
+    return common.nvcc([(spec, spec.lstrip("~").partition(":")[0],
+                         spec.lstrip("~").partition(":")[2].split()) for spec in versions], out_dir)
 
 
 def main() -> int:
@@ -166,8 +148,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("k5_versions: needs an NVIDIA GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    print(common.card(), flush=True)
     out_dir = os.path.join(ROOT, "deepfake_tpu_torch", "_build", "k5bench")
     if args.diag:
         args.versions += diag_sources(args.versions[0].lstrip("~").partition(":")[0], out_dir,

@@ -36,11 +36,11 @@ import ctypes
 import json
 import math
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+import common  # this folder's shared helpers; it puts the checkout's root on sys.path
+
+ROOT = common.ROOT
 
 N, D = 392, 32
 STAGES = [((16, 56, 56), 3, 96, 2), ((16, 28, 28), 6, 192, 2),
@@ -51,7 +51,7 @@ VARIANTS = {"base": [], "no_bias": ["NO_BIAS"], "no_mask": ["NO_MASK"],
 # (old text, new text) pairs applied to the source, in order; "__expf(" is
 # replaced everywhere (only the tensor-core forward calls it)
 PATCHES = [
-    ("__expf(", "EXPF("),
+    ("__expf(", "EXPF(", "all"),
     ("namespace {\n", """namespace {
 #if defined(NO_EXP)
 #define EXPF(x) ((x) * 0.01f + 1.f)
@@ -94,52 +94,21 @@ PATCHES = [
 
 
 def build(source: str, out_dir: str):
-    text = open(source).read()
-    for old, new in PATCHES:
-        if old not in text:
-            raise SystemExit("the source is not K5's mma.sync forward (commit c0f8c3f): "
-                             f"missing {old[:70]!r}")
-        text = text.replace(old, new) if old == "__expf(" else text.replace(old, new, 1)
+    text = common.patch(open(source).read(), PATCHES,
+                        "the source is not K5's mma.sync forward (commit c0f8c3f)")
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(out_dir, "k5f_step0.cu")
     with open(src, "w") as f:
         f.write(text)
-    from deepfake_tpu_torch.kernels.build import CSRC, FLAGS, nvcc_path
-    procs = {}
-    for name, defs in VARIANTS.items():
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        cmd = [nvcc_path(), *FLAGS, f"-I{CSRC}", *(f"-D{d}" for d in defs), "-o", lib, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        dll = ctypes.CDLL(lib)
+    libs = common.nvcc([(name, src, [f"-D{d}" for d in defs]) for name, defs in VARIANTS.items()],
+                       out_dir)
+    for dll in libs.values():
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         dll.k5_fwd.argtypes = [i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i,
                                ctypes.c_float, i, i, i, i, p]
         dll.k5_fwd.restype = i
-        libs[name] = dll
     return libs
 
-
-def device_ms(fn, iters: int = 10) -> float:
-    """The summed device time of every kernel ``fn`` launches, per call
-    (torch.profiler), after one warm-up call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def main() -> int:
@@ -155,8 +124,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("k5f_step0: needs an NVIDIA GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    print(common.card(), flush=True)
     libs = build(args.source, os.path.join(ROOT, "deepfake_tpu_torch", "_build", "k5f_step0"))
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
@@ -182,7 +150,7 @@ def main() -> int:
                     raise SystemExit(f"launch failed: CUDA error {status}")
             times = {}
             for name in list(VARIANTS) + list(VARIANTS)[::-1]:
-                t = device_ms(lambda: call(libs[name]))
+                t = common.device_ms(lambda: call(libs[name]))
                 times[name] = min(times.get(name, t), t)
             hq, hk, hv = (t.reshape(B_, N, H, D).transpose(1, 2).contiguous()
                           for t in qkv.split(C, dim=-1))
@@ -190,7 +158,7 @@ def main() -> int:
             if mask is not None:
                 am = (am.view(1, 1, H, N, N) + mask.view(1, nW, 1, N, N)).expand(
                     8, nW, H, N, N).reshape(B_, H, N, N)
-            times["sdpa"] = device_ms(lambda: F.scaled_dot_product_attention(
+            times["sdpa"] = common.device_ms(lambda: F.scaled_dot_product_attention(
                 hq, hk, hv, attn_mask=am, scale=D ** -0.5))
             del hq, hk, hv, am
             name = f"stage {grid} B_={B_} H={H}" + (" shifted" if mask is not None else "")

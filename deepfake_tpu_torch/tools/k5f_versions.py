@@ -27,16 +27,14 @@ path; PERF.md's table of K5 forward versions was timed by it.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import math
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+import common  # this folder's shared helpers; it puts the checkout's root on sys.path
+
+ROOT = common.ROOT
 
 N, D = 392, 32
 STAGES = [((16, 56, 56), 3, 96, 2), ((16, 28, 28), 6, 192, 2),
@@ -44,48 +42,10 @@ STAGES = [((16, 56, 56), 3, 96, 2), ((16, 28, 28), 6, 192, 2),
 
 
 def build(versions, out_dir):
-    from deepfake_tpu_torch.kernels.build import CSRC, FLAGS, nvcc_path
-    os.makedirs(out_dir, exist_ok=True)
-    procs = []
-    for spec in versions:
-        path, _, defs = spec.lstrip("~").partition(":")
-        text = open(path).read()
-        for d in (os.path.dirname(os.path.abspath(path)), CSRC):
-            for h in sorted(f for f in os.listdir(d) if f.endswith(".cuh")):
-                text += open(os.path.join(d, h)).read()
-        tag = hashlib.sha256((text + spec).encode()).hexdigest()[:12]
-        lib = os.path.join(out_dir, f"libk5f-{tag}.so")
-        # the source's own directory is searched first, then csrc/
-        cmd = [nvcc_path(), *FLAGS, f"-I{CSRC}", *defs.split(), "-o", lib, path]
-        procs.append((spec, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for spec, lib, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {spec}:\n{log}")
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line or "C75" in line:
-                print(f"  ptxas {spec}: {line.strip()}")
-        libs[spec] = ctypes.CDLL(lib)
-    return libs
-
-
-def device_ms(fn, iters: int = 10) -> float:
-    """The summed device time of every kernel ``fn`` launches, per call
-    (torch.profiler), after one warm-up call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    """{spec: CDLL}: a spec is source[:-D switches], with a leading ~ for a
+    diagnostic build; a header beside the source comes before csrc/'s."""
+    return common.nvcc([(spec, spec.lstrip("~").partition(":")[0],
+                         spec.lstrip("~").partition(":")[2].split()) for spec in versions], out_dir)
 
 
 def main() -> int:
@@ -103,8 +63,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("k5f_versions: needs an NVIDIA GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    print(common.card(), flush=True)
     libs = build(args.versions, os.path.join(ROOT, "deepfake_tpu_torch", "_build", "k5fbench"))
     lib_of = k5._lib
     real = lib_of()
@@ -142,7 +101,7 @@ def main() -> int:
                 err = (got.float() - want).abs().max().item()
                 if not spec.startswith("~") and not (math.isfinite(err) and err <= tol):
                     raise SystemExit(f"{spec}: {name} err {err:.3e} > {tol:.3e}")
-                t = device_ms(lambda: k5.window_attn3d_train_fwd(qkv, **kw))
+                t = common.device_ms(lambda: k5.window_attn3d_train_fwd(qkv, **kw))
                 times[spec] = min(times.get(spec, t), t)
             k5._lib = lib_of
             hq, hk, hv = (t.reshape(B_, N, H, D).transpose(1, 2).contiguous() for t in (q, k, v))
@@ -150,7 +109,7 @@ def main() -> int:
             if mask is not None:
                 am = (am.view(1, 1, H, N, N) + mask.view(1, nW, 1, N, N)).expand(
                     8, nW, H, N, N).reshape(B_, H, N, N)
-            times["sdpa"] = device_ms(lambda: F.scaled_dot_product_attention(
+            times["sdpa"] = common.device_ms(lambda: F.scaled_dot_product_attention(
                 hq, hk, hv, attn_mask=am, scale=D ** -0.5))
             del hq, hk, hv, am
             print(name, f"x{count}", " ".join(f"[{s}]={t:.4f}" for s, t in times.items()),

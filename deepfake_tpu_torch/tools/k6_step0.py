@@ -40,11 +40,11 @@ import ctypes
 import json
 import math
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+import common  # this folder's shared helpers; it puts the checkout's root on sys.path
+
+ROOT = common.ROOT
 
 D = 32
 # (resolution, heads, C, depth) of SwinV2-B's window-16 stages at 256^2
@@ -56,7 +56,7 @@ VARIANTS = {"base": [], "no_bias": ["NO_BIAS"], "no_mask": ["NO_MASK"],
 # (old text, new text) pairs applied to the source, in order; "__expf(" is
 # replaced everywhere (only the tensor-core kernel calls it)
 PATCHES = [
-    ("__expf(", "EXPF("),
+    ("__expf(", "EXPF(", "all"),
     ("namespace {\n", """namespace {
 #if defined(NO_EXP)
 #define EXPF(x) ((x) * 0.01f + 1.f)
@@ -103,52 +103,21 @@ PATCHES = [
 
 
 def build(source: str, out_dir: str):
-    text = open(source).read()
-    for old, new in PATCHES:
-        if old not in text:
-            raise SystemExit("the source is not K6's mma.sync design (commit c0f8c3f): "
-                             f"missing {old[:70]!r}")
-        text = text.replace(old, new) if old == "__expf(" else text.replace(old, new, 1)
+    text = common.patch(open(source).read(), PATCHES,
+                        "the source is not K6's mma.sync design (commit c0f8c3f)")
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(out_dir, "k6_step0.cu")
     with open(src, "w") as f:
         f.write(text)
-    from deepfake_tpu_torch.kernels.build import CSRC, FLAGS, nvcc_path
-    procs = {}
-    for name, defs in VARIANTS.items():
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        cmd = [nvcc_path(), *FLAGS, f"-I{CSRC}", *(f"-D{d}" for d in defs), "-o", lib, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        dll = ctypes.CDLL(lib)
+    libs = common.nvcc([(name, src, [f"-D{d}" for d in defs]) for name, defs in VARIANTS.items()],
+                       out_dir)
+    for dll in libs.values():
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         dll.k6_window_attn.argtypes = [i, i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i,
                                        p, i, i, i, i, p]
         dll.k6_window_attn.restype = i
-        libs[name] = dll
     return libs
 
-
-def device_ms(fn, iters: int = 10) -> float:
-    """The summed device time of every kernel ``fn`` launches, per call
-    (torch.profiler), after one warm-up call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def main() -> int:
@@ -165,8 +134,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("k6_step0: needs an NVIDIA GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    print(common.card(), flush=True)
     libs = build(args.source, os.path.join(ROOT, "deepfake_tpu_torch", "_build", "k6_step0"))
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
@@ -203,7 +171,7 @@ def main() -> int:
                 raise SystemExit(f"launch failed: CUDA error {status}")
         times = {}
         for var in list(VARIANTS) + list(VARIANTS)[::-1]:
-            t = device_ms(lambda: call(libs[var]))
+            t = common.device_ms(lambda: call(libs[var]))
             times[var] = min(times.get(var, t), t)
         am = bias[None].to(torch.bfloat16)
         if mask is not None:
@@ -214,9 +182,9 @@ def main() -> int:
         norm = lambda: ((l2_normalize(q.float()) * ls.view(H, 1, 1)).to(torch.bfloat16),
                         l2_normalize(k.float()).to(torch.bfloat16))
         hq, hk = norm()
-        times["sdpa"] = device_ms(lambda: F.scaled_dot_product_attention(
+        times["sdpa"] = common.device_ms(lambda: F.scaled_dot_product_attention(
             hq, hk, hv, attn_mask=am, scale=1.0))
-        times["sdpa_norm"] = device_ms(lambda: F.scaled_dot_product_attention(
+        times["sdpa_norm"] = common.device_ms(lambda: F.scaled_dot_product_attention(
             *norm(), hv, attn_mask=am, scale=1.0))
         del hq, hk, hv, am
         label = f"{name} [{B_},{H},{N},{D}]"

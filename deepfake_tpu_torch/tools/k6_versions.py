@@ -38,16 +38,14 @@ no_fill,no_mma" takes some of them.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import math
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
+import common  # this folder's shared helpers; it puts the checkout's root on sys.path
+
+ROOT = common.ROOT
 
 D = 32
 # (resolution, heads, C, depth) of SwinV2-B's window-16 stages at 256^2
@@ -99,48 +97,10 @@ def diag_sources(first: str, names, out_dir: str):
 
 
 def build(versions, out_dir):
-    from deepfake_tpu_torch.kernels.build import CSRC, FLAGS, nvcc_path
-    os.makedirs(out_dir, exist_ok=True)
-    procs = []
-    for spec in versions:
-        path, _, defs = spec.lstrip("~").partition(":")
-        text = open(path).read()
-        for d in (os.path.dirname(os.path.abspath(path)), CSRC):
-            for h in sorted(f for f in os.listdir(d) if f.endswith(".cuh")):
-                text += open(os.path.join(d, h)).read()
-        tag = hashlib.sha256((text + spec).encode()).hexdigest()[:12]
-        lib = os.path.join(out_dir, f"libk6-{tag}.so")
-        # the source's own directory is searched first, then csrc/
-        cmd = [nvcc_path(), *FLAGS, f"-I{CSRC}", *defs.split(), "-o", lib, path]
-        procs.append((spec, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for spec, lib, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed for {spec}:\n{log}")
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line or "C75" in line:
-                print(f"  ptxas {spec}: {line.strip()}")
-        libs[spec] = ctypes.CDLL(lib)
-    return libs
-
-
-def device_ms(fn, iters: int = 10) -> float:
-    """The summed device time of every kernel ``fn`` launches, per call
-    (torch.profiler), after one warm-up call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    """{spec: CDLL}: a spec is source[:-D switches], with a leading ~ for a
+    diagnostic build; a header beside the source comes before csrc/'s."""
+    return common.nvcc([(spec, spec.lstrip("~").partition(":")[0],
+                         spec.lstrip("~").partition(":")[2].split()) for spec in versions], out_dir)
 
 
 def main() -> int:
@@ -161,8 +121,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("k6_versions: needs an NVIDIA GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+    print(common.card(), flush=True)
     out_dir = os.path.join(ROOT, "deepfake_tpu_torch", "_build", "k6bench")
     if args.diag is not None:
         args.versions += diag_sources(args.versions[0].lstrip("~").partition(":")[0],
@@ -220,7 +179,7 @@ def main() -> int:
             err = (got.float() - want).abs().max().item()
             if not spec.startswith("~") and not (math.isfinite(err) and err <= tol):
                 raise SystemExit(f"{spec}: {label} err {err:.3e} > {tol:.3e}")
-            t = device_ms(lambda: k6.window_attention_multihead(q, k, v, **kw))
+            t = common.device_ms(lambda: k6.window_attention_multihead(q, k, v, **kw))
             times[spec] = min(times.get(spec, t), t)
         k6._lib = lib_of
         k6.consumers.cache_clear()
@@ -233,7 +192,7 @@ def main() -> int:
             nW = mask.shape[0]
             am = (am.view(1, 1, H, N, N) + mask.to(torch.bfloat16).view(1, nW, 1, N, N)).expand(
                 B_ // nW, nW, H, N, N).reshape(B_, H, N, N)
-        times["sdpa"] = device_ms(lambda: F.scaled_dot_product_attention(
+        times["sdpa"] = common.device_ms(lambda: F.scaled_dot_product_attention(
             hq, hk, hv, attn_mask=am, scale=1.0 if cosine else D ** -0.5))
         del hq, hk, hv, am
         print(label, f"x{count}", " ".join(f"[{s}]={t:.4f}" for s, t in times.items()),

@@ -283,11 +283,88 @@ def test_k3_is_deterministic(cuda_device, dtype):
     assert torch.equal(a.view(bits), b.view(bits))
 
 
+# Windows of more than 512 tokens, which K3 and K5 stream in key (or query)
+# tiles: N (token grid, window, shift): (5, 11, 11) = 605 (N % 8 != 0: K3's
+# and K5's forward fill the bias + mask slices with their threads, not by
+# TMA), (10, 8, 8) = 640, Video Swin-B's Something-Something v2 window
+# (16, 7, 7) = 784 on a 32-frame clip's 16 temporal tokens (the temporal
+# shift clamps to 0), and (16, 8, 8) = 1024; each shifted (4 masks: B_ = 8
+# is two clips) or not
+LONG_WINDOWS = {605: ((5, 22, 22), (5, 11, 11), (2, 5, 5)),
+                640: ((10, 16, 16), (10, 8, 8), (5, 4, 4)),
+                784: ((16, 14, 14), (16, 7, 7), (8, 3, 3)),
+                1024: ((16, 16, 16), (16, 8, 8), (8, 4, 4))}
+
+
+def _long_window_case(dev, N, shifted, dtype, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    B_, H = 8, 2
+    C = 32 * H
+    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=dev).to(dtype)
+    dout = torch.randn(B_, N, C, generator=gen, device=dev).to(dtype)
+    bias = 0.5 * torch.randn(H, N, N, generator=gen, device=dev)
+    mask = None
+    if shifted:
+        grid, window, shift = LONG_WINDOWS[N]
+        ws, ss = get_window_size(grid, window, shift)
+        assert ws[0] * ws[1] * ws[2] == N and ss[0] == 0 and ss[1] > 0
+        mask = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(dev)
+        assert B_ % mask.shape[0] == 0
+    return qkv, dout, dict(num_heads=H, bias=bias, mask=mask, scale=32 ** -0.5)
+
+
 @pytest.mark.cuda
-def test_k3_raises_for_windows_it_does_not_take(cuda_device):
-    q = torch.zeros(1, 640, 32, device=cuda_device)
-    with pytest.raises(ValueError, match="N <= 512"):
-        window_attn3d_tokens(q, q, q, num_heads=1, bias=torch.zeros(1, 640, 640), scale=0.2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shifted", [True, False], ids=["shifted", "unshifted"])
+@pytest.mark.parametrize("N", sorted(LONG_WINDOWS), ids=[f"n{n}" for n in sorted(LONG_WINDOWS)])
+def test_k3_k5_long_windows_match_plain(cuda_device, N, shifted, dtype):
+    """K3, K5's forward and backward, and K5 through its autograd Function at
+    N > 512, against the plain versions in the tolerances above."""
+    qkv, dout, kw = _long_window_case(cuda_device, N, shifted, dtype, seed=21)
+    C = qkv.shape[-1] // 3
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    before = (window_attn3d_tokens.launches, window_attn3d_train_fwd.launches,
+              window_attn3d_train_bwd.launches)
+    got3 = window_attn3d_tokens(q, k, v, **kw)
+    out = window_attn3d_train_fwd(qkv, **kw)
+    dqkv, dbias = window_attn3d_train_bwd(qkv, dout, **kw)
+    torch.cuda.synchronize()
+    assert (window_attn3d_tokens.launches, window_attn3d_train_fwd.launches,
+            window_attn3d_train_bwd.launches) == tuple(b + 1 for b in before)
+    want3 = window_attn3d_tokens_plain(q, k, v, **kw)
+    err = (got3.float() - want3.float()).abs().max().item()
+    assert math.isfinite(err) and err <= k3_tolerance(want3), ("k3", err)
+    want = [window_attn3d_train_fwd_plain(q, k, v, **kw),
+            *window_attn3d_train_bwd_plain(q, k, v, dout, **kw)]
+    got = [out, *dqkv.split(C, dim=-1), dbias]
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        tol = k5_tolerance(b, dbias=name == "dbias" and dtype == torch.bfloat16)
+        assert math.isfinite(err) and err <= tol, (name, err, tol)
+    x, b_ = qkv.clone().requires_grad_(), kw["bias"].clone().requires_grad_()
+    o = window_attn3d_train(x, bias=b_, num_heads=kw["num_heads"], mask=kw["mask"],
+                            scale=kw["scale"])
+    o.backward(dout)
+    torch.cuda.synchronize()
+    assert torch.equal(o.detach(), out)
+    big = dqkv.float().abs().max().item()
+    assert torch.allclose(x.grad.float(), dqkv.float(), rtol=0, atol=1e-5 * big)
+    assert (b_.grad - dbias).abs().max().item() <= 1e-5 * dbias.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k3_k5_forward_is_deterministic_n784(cuda_device, dtype):
+    """No atomics in K3 or K5's forward at N = 784 either: two calls, the
+    same bits."""
+    qkv, _, kw = _long_window_case(cuda_device, 784, True, dtype, seed=22)
+    C = qkv.shape[-1] // 3
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    a, b = window_attn3d_tokens(q, k, v, **kw), window_attn3d_tokens(q, k, v, **kw)
+    c, d = window_attn3d_train_fwd(qkv, **kw), window_attn3d_train_fwd(qkv, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(bits), b.view(bits)) and torch.equal(c.view(bits), d.view(bits))
 
 
 def k4_tolerance(want: torch.Tensor) -> float:
@@ -636,6 +713,235 @@ def test_k6_raises_for_windows_it_does_not_take(cuda_device):
     assert window_attention_multihead.launches == before
 
 
+# ------------------------------------------------------------- CUDA graphs
+
+# small geometries of the five modalities (2 frames of 96^2 for IRv2, a 56^2
+# mel image for SwinV2 at head dim 32, a 2-layer 64-wide wav2vec2, Video
+# Swin at 16 x 56^2 with head dim 32), 1 s PCM buckets
+GRAPH_BASE = {"data.num_frames": 2, "data.frame_size": 96, "data.audio_size": 56,
+              "data.wave_seconds_buckets": (1.0,), "model.swin2d_embed_dim": 64,
+              "model.swin2d_depths": (2, 2), "model.swin2d_heads": (2, 4),
+              "model.wav_layers": 2, "model.wav_hidden": 64, "model.wav_heads": 4,
+              "model.wav_intermediate": 128, "model.wav_conv_dim": 64}
+GRAPH_VIDEO_SWIN = {"data.num_frames": 16, "data.frame_size": 56,
+                    "model.swin3d_embed_dim": 64, "model.swin3d_depths": (2, 2),
+                    "model.swin3d_heads": (2, 4), "model.num_hiddens": 16}
+MODALITIES = ["fused", "video", "audio", "paudio", "video_swin"]
+
+
+def _graph_cfg(modality, dtype):
+    from deepfake_tpu_torch.config import Config
+
+    cfg = Config()
+    for k, v in dict(GRAPH_BASE, **(GRAPH_VIDEO_SWIN if modality == "video_swin" else {}),
+                     **{"data.modality": modality}).items():
+        cfg.set(k, v)
+    cfg.set("parallel.compute_dtype", "float32" if dtype == torch.float32 else "bfloat16")
+    return cfg
+
+
+def _model_request(cfg, batch, dev, seed, scale=0.5):
+    from deepfake_tpu_torch.models.registry import example_inputs
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    (zeros,) = example_inputs(cfg, batch, dev)
+    rnd = lambda z: scale * torch.randn(z.shape, generator=gen, device=dev)
+    return tuple(rnd(z) for z in zeros) if isinstance(zeros, tuple) else rnd(zeros)
+
+
+def _raw_request(cfg, batch, dev, seed):
+    """The dataset's raw dict for the modality: uint8 frames, bucket-padded
+    PCM with valid lengths drawn in the bucket's second half."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    sr = cfg.data.wave_sample_rate
+    T = int(cfg.data.wave_seconds_buckets[0] * sr)
+    lengths = torch.randint(T // 2, T + 1, (batch,), generator=gen, device=dev)
+    wave = 0.1 * torch.randn(batch, T, generator=gen, device=dev)
+    wave = wave * (torch.arange(T, device=dev)[None] < lengths[:, None])
+    t, side = cfg.data.num_frames, cfg.data.frame_size
+    video = torch.randint(0, 256, (batch, t, side, side, 3), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    m = cfg.data.modality
+    feats = {}
+    if m in ("fused", "video", "video_swin"):
+        feats["video"] = video
+    if m in ("fused", "audio"):
+        feats.update(audio_wave=wave, audio_len=lengths)
+    if m in ("fused", "paudio"):
+        feats.update(paudio_wave=wave, paudio_len=lengths)
+    return feats
+
+
+def _predictor_pair(cfg, dev):
+    from deepfake_tpu_torch.serving import Predictor
+
+    eager = Predictor(cfg, device=dev, compiled=False)
+    graph = Predictor(cfg, device=dev)
+    for (n1, a), (n2, b) in zip(eager.model.state_dict().items(),
+                                graph.model.state_dict().items()):
+        assert n1 == n2 and torch.equal(a, b), n1
+    return eager, graph
+
+
+def _outputs(pred, request, raw=False):
+    """The logits (and video_swin's per-frame features) of one request."""
+    out = pred.forward(request, return_logits=True, raw=raw)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _assert_graph_equals_eager(graph, eager, reqs, raw=False):
+    """Scores, logits and features through one graph == the eager route's,
+    to the bit (the same kernels in the same order), for each request in
+    turn; the first two requests' logits differ, so a graph that replayed a
+    stale input buffer would show."""
+    import numpy as np
+
+    call = (lambda p, r: p.predict_raw(r)) if raw else (lambda p, r: p.predict(r))
+    logits = []
+    for r in reqs:
+        got, want = call(graph, r), call(eager, r)
+        assert np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
+        outs = _outputs(graph, r, raw)
+        for g, w in zip(outs, _outputs(eager, r, raw)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        logits.append(outs[0])
+    assert not torch.equal(logits[0], logits[1])
+    assert len(graph.graphs.graphs) == 1 and eager.graphs is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [1, 8], ids=["b1", "b8"])
+@pytest.mark.parametrize("modality", MODALITIES)
+def test_graph_matches_eager(cuda_device, modality, batch, dtype):
+    """predict and forward through a CUDA graph == the eager route, to the
+    bit, for two different requests through one graph and the first again;
+    one graph for the one shape; forward's outputs are copies that the next
+    replay leaves alone. The second request is drawn at four times the
+    first's scale: the video model's logits move little with its input at
+    these random weights, and two requests of one scale can round to one
+    bf16 logit at b1."""
+    eager, graph = _predictor_pair(_graph_cfg(modality, dtype), cuda_device)
+    reqs = [_model_request(eager.cfg, batch, cuda_device, 31),
+            _model_request(eager.cfg, batch, cuda_device, 32, scale=2.0)]
+    assert graph.predict(reqs[0]).shape == (batch,)
+    _assert_graph_equals_eager(graph, eager, [*reqs, reqs[0]])
+    fwd = _outputs(graph, reqs[1])
+    first = [t.clone() for t in fwd]
+    graph.predict(reqs[0])
+    for a, b in zip(fwd, first):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("modality", ["fused", "video", "audio", "paudio", "video_swin"])
+def test_graph_predict_raw_matches_eager(cuda_device, modality, dtype):
+    """predict_raw (front end and model in one graph) == the eager route, to
+    the bit, for requests whose valid lengths differ within one PCM bucket:
+    one graph."""
+    eager, graph = _predictor_pair(_graph_cfg(modality, dtype), cuda_device)
+    reqs = [_raw_request(eager.cfg, 2, cuda_device, seed) for seed in (41, 42, 43)]
+    if "audio_len" in reqs[0] or "paudio_len" in reqs[0]:
+        key = "audio_len" if "audio_len" in reqs[0] else "paudio_len"
+        assert len({tuple(r[key].tolist()) for r in reqs}) == 3
+    assert graph.predict_raw(reqs[0]).shape == (2,)
+    _assert_graph_equals_eager(graph, eager, reqs, raw=True)
+
+
+@pytest.mark.cuda
+def test_graph_mel_image_keeps_full_f32_products(cuda_device):
+    """TF32 is on for the process here, and the mel front end turns it off
+    around its products (full_f32_matmul): the mel image from a captured
+    graph equals the eager one, so the graph recorded the f32 math mode."""
+    from deepfake_tpu_torch.compiled import GraphCache
+    from deepfake_tpu_torch.data.pipeline import FeatureAssembler
+
+    cfg = _graph_cfg("audio", torch.bfloat16)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        fa = FeatureAssembler(cfg, device=cuda_device)
+        feats = _raw_request(cfg, 2, cuda_device, 44)
+        zeros = torch.zeros(1, device=cuda_device)  # labels: no host copy under capture
+        fn = lambda f: fa(f, zeros)[0]
+        with torch.inference_mode():
+            want = fn(feats).clone()
+            got = GraphCache(cuda_device).run(("raw", "audio", 0), fn, feats).clone()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_graph_new_shape_captures_a_second_graph(cuda_device):
+    eager, graph = _predictor_pair(_graph_cfg("audio", torch.bfloat16), cuda_device)
+    for batch in (2, 3, 2):
+        graph.predict(_model_request(eager.cfg, batch, cuda_device, 51))
+    assert len(graph.graphs.graphs) == 2
+    graph.predict_raw(_raw_request(eager.cfg, 2, cuda_device, 52))
+    assert len(graph.graphs.graphs) == 3 and graph.graphs.pool_bytes() > 0
+
+
+def _handwritten_kernels(fn, tries: int = 5):
+    """The hand-written kernels that one call of ``fn`` runs, by name
+    (torch.profiler): every __global__ function of csrc/ sits in namespace
+    hop, simt or wtile. The profiler can drop the first kernels it should
+    record, so a warm-up call runs first in the window, then the call
+    between two sentinel kernels (torch.cuda._sleep's ``spin_kernel``),
+    and only the kernels between them count; a window that missed a
+    sentinel is traced again."""
+    import collections
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    name = re.compile(r"(?:^|[^A-Za-z0-9_])(?:hop|simt|wtile)::")
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000)
+            fn()
+            torch.cuda._sleep(1_000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if len(marks) == 2:
+            return collections.Counter(e.name for e in events[marks[0] + 1:marks[1]]
+                                       if name.search(e.name))
+    raise AssertionError(f"torch.profiler recorded the sentinel kernels of none of {tries} traces")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modality", MODALITIES)
+def test_graph_replay_launches_the_captured_kernels(cuda_device, modality):
+    """One replay launches exactly the hand-written kernels of one eager
+    forward (torch.profiler, by kernel name), and the capture counted the
+    wrapper launches of one eager forward: the kernels run inside the graph."""
+    from deepfake_tpu_torch.ops import launch_counts
+
+    eager, graph = _predictor_pair(_graph_cfg(modality, torch.bfloat16), cuda_device)
+    req = _model_request(eager.cfg, 8, cuda_device, 61)
+    graph.predict(req)
+    (g,) = graph.graphs.graphs.values()
+    before = launch_counts()
+    eager.predict(req)
+    after = launch_counts()
+    assert g.launches == {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    with torch.inference_mode():
+        want = _handwritten_kernels(lambda: eager.predict(req))
+        counted = launch_counts()
+        got = _handwritten_kernels(g.graph.replay)
+    assert got == want
+    # wav2vec2 (paudio) has no hand-written kernel; every other model does
+    assert (sum(got.values()) > 0 and sum(g.launches.values()) > 0) == (modality != "paudio")
+    assert launch_counts() == counted  # a replay moves no wrapper's counter
+
+
 @pytest.mark.cuda
 def test_predict_raw_front_end_runs_in_f32_under_bf16(cuda_device):
     """A bf16 audio Predictor at window 16 (D = 32, so K6 serves its four
@@ -654,7 +960,7 @@ def test_predict_raw_front_end_runs_in_f32_under_bf16(cuda_device):
                      "model.swin2d_depths": (2, 2), "model.swin2d_heads": (2, 4),
                      "parallel.compute_dtype": "bfloat16"}.items():
         cfg.set(key, val)
-    pred = Predictor(cfg, device=cuda_device)
+    pred = Predictor(cfg, device=cuda_device, compiled=False)
     rng = np.random.default_rng(8)
     wave = (0.1 * rng.standard_normal((2, 64000))).astype(np.float32)
     lengths = np.asarray([41000, 64000])

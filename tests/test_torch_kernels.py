@@ -431,28 +431,40 @@ def test_k6_wrapper_takes_the_plain_version_for_cpu_tensors_only():
         window_attention_multihead(q.clone().requires_grad_(), q, q, **kw)
 
 
-def _attn3d_inputs(B_, H, seed, masked):
-    """N = 392 ((8,7,7) windows), D = 32; the shift mask of an 8x14x14
-    token grid (4 windows) shifted by (4,3,3)."""
-    N, D = 392, 32
+# N: (token grid, window, shift) of the shift mask, 4 windows each: Video
+# Swin-S's (8,7,7) windows on an 8x14x14 grid, and Video Swin-B's (16,7,7)
+# Something-Something v2 window on 16 temporal tokens (the temporal shift
+# clamps to 0)
+ATTN3D_MASKS = {392: ((8, 14, 14), (8, 7, 7), (4, 3, 3)),
+                784: ((16, 14, 14), (16, 7, 7), (0, 3, 3))}
+
+
+def _attn3d_inputs(B_, H, seed, masked, N=392):
+    """N = 392 ((8,7,7) windows) or 784 ((16,7,7)), D = 32, and the shift
+    mask of ATTN3D_MASKS[N]."""
+    D = 32
     rng = np.random.default_rng(seed)
     mk = lambda *s: rng.standard_normal(s).astype(np.float32)
     q, k, v = mk(B_, H, N, D), mk(B_, H, N, D), mk(B_, H, N, D)
     bias = 0.5 * mk(H, N, N)
-    mask = compute_mask_3d(8, 14, 14, (8, 7, 7), (4, 3, 3)) if masked else None
+    grid, ws, ss = ATTN3D_MASKS[N]
+    mask = compute_mask_3d(*grid, ws, ss) if masked else None
     return q, k, v, bias, mask
 
 
-@pytest.mark.parametrize("masked,B_", [(True, 4), (False, 4), (True, 8), (True, 12)],
-                         ids=["shifted_nW4", "unshifted", "shifted_b2", "shifted_b3"])
-def test_k3_plain_tokens_matches_pallas_nhc(masked, B_):
+@pytest.mark.parametrize("masked,B_,N", [(True, 4, 392), (False, 4, 392), (True, 8, 392),
+                                         (True, 12, 392), (True, 4, 784), (False, 2, 784)],
+                         ids=["shifted_nW4", "unshifted", "shifted_b2", "shifted_b3",
+                              "n784_shifted_nW4", "n784_unshifted"])
+def test_k3_plain_tokens_matches_pallas_nhc(masked, B_, N):
     """Token-major K3 (plain on the CPU) == pallas_window_attention_nhc
-    (interpret mode; static-shift softmax, deferred 1/rowsum) at N=392, H=4,
-    q, k, v as column slices of one qkv tensor: max abs error <= 2e-5. The
-    batch layouts the kernel's window groups rely on: b1 (B_ = nW = 4), b2
-    and an odd batch (B_ = 3 nW), window w reading mask w % nW."""
-    H, N, D = 4, 392, 32
-    q, k, v, bias, mask = _attn3d_inputs(B_, H, 30, masked)
+    (interpret mode; static-shift softmax, deferred 1/rowsum) at N=392, H=4
+    (N=784, the (16,7,7) window: H=2), q, k, v as column slices of one qkv
+    tensor: max abs error <= 2e-5. The batch layouts the kernel's window
+    groups rely on: b1 (B_ = nW = 4), b2 and an odd batch (B_ = 3 nW),
+    window w reading mask w % nW."""
+    H, D = (4 if N == 392 else 2), 32
+    q, k, v, bias, mask = _attn3d_inputs(B_, H, 30, masked, N)
     tok = lambda a: a.transpose(0, 2, 1, 3).reshape(B_, N, H * D)
     j = lambda a: None if a is None else jnp.asarray(a)
     want = np.asarray(pallas_window_attention_nhc(
@@ -467,18 +479,35 @@ def test_k3_plain_tokens_matches_pallas_nhc(masked, B_):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
 
 
-def test_k3_rejects_what_it_does_not_take():
-    """The CUDA wrapper raises before any launch for N > 512, a head dim
-    other than 32, a non-contiguous head dim and a mask that does not tile
-    the windows."""
+def test_k3_rejects_what_it_does_not_take(monkeypatch):
+    """The CUDA wrapper raises before any launch for a head dim other than
+    32, a non-contiguous head dim and a mask that does not tile the windows;
+    a window of N = 784 passes its checks (K3 takes any N)."""
     from deepfake_tpu_torch.ops.window_attn3d_kernel import _launch
 
     def launch(q, n, d, mask=None, windows=1):
         _launch(q, q, q, (0, 0, 0), q, (0, 0, 0), windows=windows, heads=1, n=n, d=d,
                 bias=torch.zeros(1, n, n), mask=mask, scale=1.0)
 
-    with pytest.raises(ValueError, match="N <= 512"):
-        launch(torch.zeros(1, 640, 32), 640, 32)
+    # N = 784 ((16,7,7) windows) passes the checks and reaches the library
+    # (a stand-in here, which records the call)
+    from deepfake_tpu_torch.ops import window_attn3d_kernel
+
+    calls = []
+
+    class Lib:
+        k3_error_string = None
+
+        def k3_window_attn(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(window_attn3d_kernel, "_lib", Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 0}))
+    launch(torch.zeros(1, 784, 32), 784, 32)
+    assert len(calls) == 1 and calls[0][-3:-1] == (784, 32)
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="D == 32"):
         launch(torch.zeros(1, 392, 64), 392, 64)
     with pytest.raises(ValueError, match="head dim contiguous"):
@@ -507,9 +536,11 @@ def _two_bf16_ulps(want: np.ndarray) -> float:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("masked,B_", [(True, 4), (False, 4), (True, 8), (True, 12)],
-                         ids=["shifted_nW4", "unshifted", "shifted_b2", "shifted_b3"])
-def test_k5_plain_fwd_bwd_match_pallas_nhc_train(masked, B_, dtype):
+@pytest.mark.parametrize("masked,B_,N", [(True, 4, 392), (False, 4, 392), (True, 8, 392),
+                                         (True, 12, 392), (True, 4, 784), (False, 2, 784)],
+                         ids=["shifted_nW4", "unshifted", "shifted_b2", "shifted_b3",
+                              "n784_shifted_nW4", "n784_unshifted"])
+def test_k5_plain_fwd_bwd_match_pallas_nhc_train(masked, B_, N, dtype):
     """K5's autograd Function (plain forward and backward on the CPU) ==
     pallas_window_attention_nhc_train under jax.vjp (interpret mode: the
     token-major forward with the max-stabilised softmax, the Pallas
@@ -521,10 +552,10 @@ def test_k5_plain_fwd_bwd_match_pallas_nhc_train(masked, B_, dtype):
     rounded to bf16 where the forward reads it in f32. The batch layouts the
     bf16 backward's window groups rely on: b1 (B_ = nW = 4), b2 and an odd
     batch (B_ = 3 nW), window w reading mask w % nW, and dbias summed over
-    every window."""
-    H, N, D = 2, 392, 32
+    every window. The same at N = 784, Video Swin-B's (16,7,7) window."""
+    H, D = 2, 32
     C = H * D
-    q, k, v, bias, mask = _attn3d_inputs(B_, H, 31, masked)
+    q, k, v, bias, mask = _attn3d_inputs(B_, H, 31, masked, N)
     tok = lambda a: a.transpose(0, 2, 1, 3).reshape(B_, N, C)
     g = np.random.default_rng(32).standard_normal((B_, N, C)).astype(np.float32)
     jdt = jnp.dtype(dtype)

@@ -134,10 +134,11 @@ def test_swin_block3d_matches_jax_fused_routes(fused_routes, shape, shift):
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
 
 
-def _classifier_case(frames: int, jax_pallas: bool):
+def _classifier_case(frames: int, jax_pallas: bool, window=(8, 7, 7)):
     from deepfake_tpu.models.registry import build_model
 
-    jcfg, tcfg = both_configs(dict(SMALL_VIDEO_SWIN, **{"data.num_frames": frames}))
+    jcfg, tcfg = both_configs(dict(SMALL_VIDEO_SWIN, **{"data.num_frames": frames,
+                                                        "model.swin3d_window": window}))
     jcfg.model.swin3d_pallas_attn = jax_pallas
     model = build_model(jcfg)
     x = np.random.default_rng(22).standard_normal((2, frames, 56, 56, 3)).astype(np.float32)
@@ -145,29 +146,35 @@ def _classifier_case(frames: int, jax_pallas: bool):
     return model, variables, tcfg, x
 
 
-@pytest.mark.parametrize("frames,routes", [
-    (16, "nhc"), (16, "einsum"), (8, "nhc"), (16, "fused"), (8, "fused"),
+@pytest.mark.parametrize("frames,routes,window", [
+    (16, "nhc", (8, 7, 7)), (16, "einsum", (8, 7, 7)), (8, "nhc", (8, 7, 7)),
+    (16, "fused", (8, 7, 7)), (8, "fused", (8, 7, 7)), (32, "nhc", (16, 7, 7)),
 ], ids=["16f_k3_vs_nhc", "16f_plain_vs_einsum", "8f_clamped_k3_vs_nhc",
-        "16f_kernels_vs_fused", "8f_clamped_kernels_vs_fused"])
-def test_video_classifier_matches_jax(monkeypatch, frames, routes):
+        "16f_kernels_vs_fused", "8f_clamped_kernels_vs_fused", "32f_window16x7x7_k3_vs_nhc"])
+def test_video_classifier_matches_jax(monkeypatch, frames, routes, window):
     """VideoClassifier at small width (embed 32, depths 2/2, heads 1/2,
     window (8,7,7), 56x56): scores and per-frame features within 1e-4 of
     the JAX model. The port's kernel route (K3's and K4's plain versions)
     faces the JAX nhc route and the JAX default (QKV-fused, MLP-tail)
     routes, the port's plain route the JAX einsum route. 8 frames give 4
     tokens in time, so the window clamps to (4,7,7) and the bias takes the
-    [:N, :N] slice of the (8,7,7) index."""
+    [:N, :N] slice of the (8,7,7) index. 32 frames at window (16,7,7) is
+    Video Swin-B's Something-Something v2 setting: 16 tokens in time fill
+    the window (N = 784, the temporal shift clamps to 0)."""
     from deepfake_tpu_torch.models.registry import build_model as tbuild
 
     jax_routes(monkeypatch, routes)
     kernel = routes != "einsum"
-    model, variables, tcfg, x = _classifier_case(frames, jax_pallas=kernel)
+    model, variables, tcfg, x = _classifier_case(frames, jax_pallas=kernel, window=window)
     want_p, want_f = model.apply(variables, jnp.asarray(x), deterministic=True)
     cfg = copy.deepcopy(tcfg)
     cfg.model.swin3d_attn_kernel = kernel
     tmodel = tbuild(cfg, "cpu")
     if frames == 8:
         assert tmodel.videoSwinT.layers_0_blocks_1.ws == (4, 7, 7)
+    if window == (16, 7, 7):
+        blk = tmodel.videoSwinT.layers_0_blocks_1
+        assert blk.ws == (16, 7, 7) and blk.ss == (0, 3, 3) and blk.attn_mask.shape[1] == 784
     load_jax_variables(tmodel, variables)
     precompute_bias_cache(tmodel)
     with torch.inference_mode():

@@ -68,21 +68,27 @@ def _assert_grads_close(tmodel, grads, tol: float):
     assert n == len(want)
 
 
-@pytest.mark.parametrize("route", ["k5", "plain"])
-def test_swin_block3d_train_grads_match_jax(monkeypatch, jax_train_kernel, route):
+@pytest.mark.parametrize("route,window", [("k5", (8, 7, 7)), ("plain", (8, 7, 7)),
+                                          ("k5", (16, 7, 7))],
+                         ids=["k5", "plain", "k5_window16x7x7"])
+def test_swin_block3d_train_grads_match_jax(monkeypatch, jax_train_kernel, route, window):
     """One shifted SwinBlock3D in train mode (drop_path 0): every parameter
     gradient of mean(out^2) within 1e-4 of its largest |value| of the JAX
     block's, and the loss within 1e-5 relative. ``k5``: K5's plain versions
     against the JAX nhc_train kernel route (one call); ``plain``: the port's
     plain route against the JAX einsum route (after
-    tests/test_pallas_kernels.py:270-299)."""
+    tests/test_pallas_kernels.py:270-299). ``k5_window16x7x7``: Video
+    Swin-B's Something-Something v2 window (N = 784) on 16 temporal tokens,
+    where the temporal shift clamps to 0."""
     from deepfake_tpu.models.swin3d import SwinBlock3D as J
     from deepfake_tpu_torch.models.swin3d import SwinBlock3D as T
 
     kernel = route == "k5"
     calls = _spy_nhc_train(monkeypatch)
-    x = (0.5 * np.random.default_rng(40).standard_normal((1, 8, 14, 14, 64))).astype(np.float32)
-    jblock = J(dim=64, num_heads=2, window_size=(8, 7, 7), shift_size=(4, 3, 3), drop_path=0.0,
+    grid = (window[0], 14, 14)
+    shift = (window[0] // 2, 3, 3)
+    x = (0.5 * np.random.default_rng(40).standard_normal((1, *grid, 64))).astype(np.float32)
+    jblock = J(dim=64, num_heads=2, window_size=window, shift_size=shift, drop_path=0.0,
                use_pallas=kernel)
     variables = random_variables(jblock, jnp.asarray(x), seed=41, deterministic=True)
 
@@ -93,8 +99,15 @@ def test_swin_block3d_train_grads_match_jax(monkeypatch, jax_train_kernel, route
 
     want_loss, grads = jax.value_and_grad(loss)(variables["params"])
     assert calls[0] == (1 if kernel else 0)
+    if window[0] == 16:
+        # the loss of the JAX block's output averaged in f64: XLA's f32 mean
+        # on the CPU drifts by ~2e-5 of it over the 16-frame input's 200k values
+        out = jblock.apply({"params": variables["params"]}, jnp.asarray(x), False,
+                           rngs={"dropout": jax.random.PRNGKey(2)})
+        want_loss = np.mean(np.asarray(out, np.float64) ** 2)
 
-    tblock = T(64, (8, 14, 14), 2, (8, 7, 7), (4, 3, 3), kernels=kernel).train()
+    tblock = T(64, grid, 2, window, shift, kernels=kernel).train()
+    assert tblock.ws == window and tblock.ss == (0, 3, 3)  # the temporal shift clamps
     load_jax_variables(tblock, variables)
     got_loss = (tblock(torch.from_numpy(x)) ** 2).mean()
     got_loss.backward()
@@ -304,14 +317,15 @@ def test_kernels_without_backward_raise_under_autograd():
 
 
 def test_k5_rejects_what_it_does_not_take():
-    """K5's checks raise before any launch: N > 512, a head dim other than
-    32, a mask that does not tile the windows, a type it does not take; a
-    model in train mode refuses an inference bias cache."""
+    """K5's checks raise before any launch: a head dim other than 32, a mask
+    that does not tile the windows, a type it does not take; a model in
+    train mode refuses an inference bias cache. A window of N = 784 ((16,7,7))
+    passes them (K5 takes any N)."""
     from deepfake_tpu_torch.models.swin3d import WindowAttention3D
     from deepfake_tpu_torch.ops.window_attn3d_train import _check
 
-    with pytest.raises(ValueError, match="N <= 512"):
-        _check(torch.zeros(1, 640, 96), 1, torch.zeros(1, 640, 640), None)
+    assert _check(torch.zeros(4, 784, 96), 1, torch.zeros(1, 784, 784),
+                  torch.zeros(4, 784, 784))[:4] == (4, 784, 32, 32)
     with pytest.raises(ValueError, match="D == 32"):
         _check(torch.zeros(1, 392, 192), 1, torch.zeros(1, 392, 392), None)
     with pytest.raises(ValueError, match="does not tile 3 windows"):
