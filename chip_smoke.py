@@ -20,7 +20,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      100 and 576, off the main path)), f32 with TF32 off and bf16; kernel,
      plain, library and bound times per shape and per b8 request or
      micro-batch; then K3 and K5 (forward and backward) again at the four
-     stages of Video Swin-B at its (16,7,7) window (N = 784, streamed).
+     stages of Video Swin-B at its (16,7,7) window (N = 784, streamed);
+     then K2, K3, K5 (forward and backward) and K6 at head dims 16, 48, 64
+     and 128 (one shape of each path with the head dim changed; the kernel
+     line's "head_dims"), and K4 (LN1 + qkv, proj and the MLP tail) at
+     Video Swin-L's stage 3, C = 1536 (its "swin_l_stage3").
   3. fused serving at full width (IRv2 + NeXtVLAD, SwinV2-B, wav2vec2-base,
      fusion head; random weights from --seed) in bf16: three b8 requests
      and one b1 request, with the launch counters showing that the
@@ -42,20 +46,31 @@ Phases, in order; any failure exits non-zero and prints no result:
   4. the same for video_swin serving (Video Swin-S 3D, 32 frames of 224):
      three b8 and one b1 request through K3 and K4 (24 K3 launches each;
      K4: 3 a block at C <= 384 and 4 at 768, 74 in all), then on the plain
-     route.
+     route; then the same for Video Swin-L
+     (swin_large_patch244_window877: embed 192, heads 6/12/24/48; K4's
+     LayerNorm at C = 1536 in stage 3; the kernel line's
+     "launches_swin_l").
   5. the kernel routes against the plain routes in f32 (TF32 off), the same
      weights: fused b2 (scores and branch features) and video_swin b2
      (scores and per-frame features). In f32 every kernel runs its SIMT
      parity kernel, not the tensor-core kernel that serves bf16; phase 2
      holds the tensor-core kernels.
   6. video_swin training at full width (the preset: micro-batch 8 x accum
-     4, 32 clips of 32 x 224^2 a step, bf16 compute, f32 masters, seeded
-     random clips and labels): three optimizer steps on the K5 route (96 K5
-     forward and 96 backward launches a step) and Trainer.eval of one batch
-     (K3 and K4 on the trained f32 masters), then the same steps from the
-     same weights on the plain route; step ms, clips/s, peak memory, losses,
-     one step under torch.profiler. K5 itself is held against its plain
-     versions in phase 2 (the four stage shapes of a b8 micro-batch).
+     4, 32 clips of 32 x 224^2 a step, bf16 compute, f32 masters), fed by
+     the train-side FeatureAssembler (augmentation on the card) from seeded
+     random uint8 clips: three optimizer steps on the eager K5 route (96 K5
+     forward and 96 backward launches a step; the kernel line's launches)
+     and Trainer.eval of one batch (K3 and K4 on the trained f32 masters);
+     the same three steps by a second eager Trainer (the spread K5's
+     atomics give); the same three on the graph route (the default: the
+     first step captures the step graph), whose losses and weights must
+     fall within SPREAD_MULTIPLE of that spread, then two more and its
+     eval through a graph; then two steps on the plain route from the same
+     weights. Per route: step ms and p50, clips/s, the assembly's ms apart,
+     peak memory, one step under torch.profiler (idle share); the graph's
+     pool bytes and its K5 launches (captured x replays, the kernel line's
+     "graph_launches"). K5 itself is held against its plain versions in
+     phase 2 (the four stage shapes of a b8 micro-batch).
   7. f32 parity of training: one b1 micro-batch, every gradient of the K5
      route against the plain route.
   8. audio serving from raw PCM (SwinV2-B at its published window-16, 256^2
@@ -67,8 +82,8 @@ Phases, in order; any failure exits non-zero and prints no result:
  10. Video Swin-B at its Something-Something v2 window (16,7,7) on 32
      frames of 224 (embed 128, heads 4/8/16/32, depths 2/2/18/2; N = 784
      in every stage): serving as phase 4 (three b8 and one b1 request, K3
-     and K4 at C = 128-1024), two training steps of 8 x 4 on the K5 route
-     (step ms, clips/s, peak memory), f32 b1 parity of scores (graph
+     and K4 at C = 128-1024), two training steps of 8 x 4 on the eager K5
+     route (step ms, clips/s, peak memory), f32 b1 parity of scores (graph
      against eager too) and of one micro-batch's gradients. Phases 5 and 9
      hold the f32 graphs against the eager route as well (to the bit).
 The last two lines are {"kernels": [...]} and {"ok": true, "device": ...};
@@ -714,7 +729,7 @@ def k4_launches(cfg):
     return 2 * blocks + 2 * (blocks - fused), fused
 
 
-def phase_k4(dev, gen, batch: int, report):
+def phase_k4(dev, gen, batch: int, report, stages=SWIN3D_STAGES):
     """K4 at the four stage shapes of a video_swin b8 request: LN1 + qkv and
     proj (ln_linear), and the MLP tail (mlp_tail: one launch at C <= 384,
     fc1 and fc2 launches at 768), f32 and bf16. Bounds count each function's
@@ -730,7 +745,7 @@ def phase_k4(dev, gen, batch: int, report):
     acc = {part: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
                   "bytes": 0.0} for part in ("attn", "mlp")}
     errs = {(part, d): 0.0 for part in ("attn", "mlp") for d in ("float32", "bfloat16")}
-    for grid, H, C, depth in SWIN3D_STAGES:
+    for grid, H, C, depth in stages:
         M = batch * math.prod(grid)
         for role, kf, nf, opt in K4_ROLES + [("MLP tail", 1, 1, dict(mlp=True))]:
             K, N = kf * C, nf * C
@@ -983,6 +998,146 @@ def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7
             f"{a['library_device_ms']:.4f}) bound_ms={a['bound_ms']:.4f}")
         rows.append(row)
     return rows
+
+
+# ---------------------------------------------------------------- phase 2: head dims
+
+HEAD_DIMS = (16, 48, 64, 128)  # every kernel of window attention takes 8-128 in steps of 8
+# Video Swin-L (Liu et al. 2022, configs/recognition/swin/
+# swin_large_patch244_window877_kinetics400_22k.py: embed 192, heads
+# 6/12/24/48, depths 2/2/18/2, window (8,7,7)) at 32 frames of 224: stage 3
+# at C = 1536, where rows no longer fit K4's LayerNorm panel
+SWIN3D_L_STAGE3 = [((16, 7, 7), 48, 1536, 2)]
+SWIN_L = "swin_large_patch244_window877"  # the port's preset of that config
+
+
+def phase_head_dims(dev, gen, batch: int, report):
+    """K2, K3, K5 (forward and backward) and K6 at head dims 16, 48, 64 and
+    128, f32 and bf16, each at one shape of its path with the head dim
+    changed: K3 and K5 at Video Swin-S's stage-0 windows of a b8 clip batch
+    (1024 shifted windows of N = 392, 3 heads), K2 at SwinV2-B's stage 0 at
+    224 (512 shifted windows of N = 49, 4 heads, cosine), K6 at SwinV2-B's
+    stage 0 at window 16, 256^2 (128 shifted windows of N = 256, 4 heads,
+    cosine). Each against its plain version in the tolerance of D = 32;
+    bf16 timed beside its plain version, SDPA on the same bias + mask and
+    its bound. Returns {kernel: [rows]}, which main attaches to the
+    kernels line's entries as "head_dims"."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepfake_tpu_torch.models.swin2d import shift_attn_mask
+    from deepfake_tpu_torch.models.swin3d import compute_mask_3d
+    from deepfake_tpu_torch.ops import window_attn3d_kernel as k3
+    from deepfake_tpu_torch.ops import window_attn3d_train as k5
+    from deepfake_tpu_torch.ops import window_attn_kernel as k2
+    from deepfake_tpu_torch.ops import window_attn_multihead as k6
+    from deepfake_tpu_torch.ops.window_attn import l2_normalize
+
+    out = {"k2": [], "k3": [], "k5_fwd": [], "k5_bwd": [], "k6": []}
+    mask3 = torch.from_numpy(compute_mask_3d(16, 56, 56, (8, 7, 7), (4, 3, 3))).to(dev)
+    B3, H3, n3 = batch * mask3.shape[0], 3, N3
+    mask2 = torch.from_numpy(shift_attn_mask(56, 56, 7, 3)).to(dev)
+    B2, H2 = batch * mask2.shape[0], 4
+    mask6 = torch.from_numpy(shift_attn_mask(64, 64, 16, 8)).to(dev)
+    B6, H6, n6 = batch * mask6.shape[0], 4, N6
+
+    def record(key, what, D, ms, pms, lib, flops, nbytes, err, err32):
+        b, by = bound_ms(flops, nbytes, "bfloat16")
+        row = dict(head_dim=D, case=what, ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b,
+                   bound_by=by, max_abs_err=err, max_abs_err_f32=err32)
+        out[key].append(row)
+        report.setdefault("head_dims", []).append(dict(row, kernel=key))
+        log(f"head dim {D:3d} {key:6s} {what}: kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+            f"sdpa_ms={lib:.4f} bound_ms={b:.4f} ({by}) err={err:.2e} (f32 {err32:.2e})")
+
+    for D in HEAD_DIMS:
+        errs = collections.defaultdict(float)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            timed = dtype == torch.bfloat16
+            # K3 and K5 at Video Swin's stage-0 windows
+            C = H3 * D
+            qkv = torch.randn(B3, n3, 3 * C, generator=gen, device=dev).to(dtype)
+            dout = torch.randn(B3, n3, C, generator=gen, device=dev).to(dtype)
+            bias = 0.5 * torch.randn(H3, n3, n3, generator=gen, device=dev)
+            q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+            kw3 = dict(num_heads=H3, bias=bias, mask=mask3.to(torch.bfloat16), scale=D ** -0.5)
+            run3 = lambda: k3.window_attn3d_tokens(q, k, v, **kw3)
+            plain3 = lambda: k3.window_attn3d_tokens_plain(q, k, v, **kw3)
+            errs["k3", dname] = k3_check(run3(), plain3(), f"D={D} {dname}")[0]
+            run_f = lambda: k5.window_attn3d_train_fwd(qkv, **kw3)
+            run_b = lambda: k5.window_attn3d_train_bwd(qkv, dout, **kw3)
+            plain_f = lambda: k5.window_attn3d_train_fwd_plain(q, k, v, **kw3)
+            plain_b = lambda: k5.window_attn3d_train_bwd_plain(q, k, v, dout, **kw3)
+            errs["k5_fwd", dname] = k5_check(run_f(), plain_f(), f"fwd D={D} {dname}")[0]
+            dqkv, dbias = run_b()
+            errs["k5_bwd", dname] = max(
+                k5_check(a, w, f"bwd {name} D={D} {dname}", dbias=name == "dbias" and timed)[0]
+                for name, a, w in zip(("dq", "dk", "dv", "dbias"),
+                                      (*dqkv.split(C, dim=-1), dbias), plain_b()))
+            del dqkv, dbias
+            if timed:
+                hq, hk, hv = (t.reshape(B3, n3, H3, D).transpose(1, 2).contiguous()
+                              .requires_grad_() for t in (q, k, v))
+                am = sdpa_mask(bias, kw3["mask"], B3, dtype).contiguous().requires_grad_()
+                sdpa = lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am,
+                                                              scale=D ** -0.5)
+                o = sdpa()
+                do_h = dout.reshape(B3, n3, H3, D).transpose(1, 2).contiguous()
+                sdpa_b = lambda: torch.autograd.grad(o, (hq, hk, hv, am), do_h, retain_graph=True)
+                lib_f, lib_b = cuda_time_ms(sdpa, iters=5), cuda_time_ms(sdpa_b, iters=5)
+                fb3 = k3_flops_bytes(B3, H3, C, mask3.shape[0], 2, 2, n3)
+                fwd5, bwd5 = k5_flops_bytes(B3, H3, C, mask3.shape[0], n3)
+                what = f"stage 0 [{B3}, {n3}, {H3}x{D}] shifted"
+                record("k3", what, D, cuda_time_ms(run3), cuda_time_ms(plain3, iters=2), lib_f,
+                       *fb3, errs["k3", dname], errs["k3", "float32"])
+                record("k5_fwd", what, D, cuda_time_ms(run_f), cuda_time_ms(plain_f, iters=2),
+                       lib_f, *fwd5, errs["k5_fwd", dname], errs["k5_fwd", "float32"])
+                record("k5_bwd", what, D, cuda_time_ms(run_b), cuda_time_ms(plain_b, iters=2),
+                       lib_b, *bwd5, errs["k5_bwd", dname], errs["k5_bwd", "float32"])
+                del hq, hk, hv, am, o, do_h
+            del qkv, dout, bias, q, k, v
+            torch.cuda.empty_cache()
+            # K2 (token-major, N = 49) and K6 (head-major views, N = 256), cosine
+            for key, B_, H, n, mask in (("k2", B2, H2, 49, mask2), ("k6", B6, H6, n6, mask6)):
+                C = H * D
+                qkv = torch.randn(B_, n, 3 * C, generator=gen, device=dev).to(dtype)
+                bias = 16 * torch.sigmoid(torch.randn(H, n, n, generator=gen, device=dev))
+                ls = torch.exp(torch.linspace(math.log(10.0), math.log(100.0), H,
+                                              device=dev)).reshape(H, 1, 1)
+                kw = dict(bias=bias, mask=mask, logit_scale=ls)
+                hq, hk, hv = qkv.view(B_, n, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+                if key == "k2":
+                    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+                    run = lambda: k2.window_attention_tokens(q, k, v, num_heads=H, **kw)
+                    plain = lambda: k2.window_attention_tokens_plain(q, k, v, num_heads=H, **kw)
+                    got, want = run(), plain()
+                    err, rel = errors(got, want)
+                    if not (math.isfinite(rel) and rel <= (2e-2 if timed else 1e-4)):
+                        fail(f"K2 D={D} {dname}: max rel err {rel:.3e}")
+                else:
+                    run = lambda: k6.window_attention_multihead(hq, hk, hv, **kw)
+                    plain = lambda: k2.window_attention_heads_plain(hq, hk, hv, **kw)
+                    err = k6_check(run(), plain(), f"D={D} {dname}")[0]
+                errs[key, dname] = err
+                if timed:
+                    am = sdpa_mask(bias, mask, B_, dtype)
+                    qn = (l2_normalize(hq.float()) * ls).to(dtype)
+                    kn = l2_normalize(hk.float()).to(dtype)
+                    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                        qn, kn, hv, attn_mask=am, scale=1.0), iters=5)
+                    fb = (k2_flops_bytes(B_, H, C, mask.shape[0], 2) if key == "k2"
+                          else k6_flops_bytes(B_, H, C, n, mask.shape[0], 2))
+                    record(key, f"stage 0 [{B_}, {n}, {H}x{D}] shifted, cosine", D,
+                           cuda_time_ms(run), cuda_time_ms(plain, iters=2), lib, *fb,
+                           errs[key, dname], errs[key, "float32"])
+                    del am, qn, kn
+                del qkv, bias, hq, hk, hv
+                torch.cuda.empty_cache()
+    for fn in (k3.window_attn3d_tokens, k5.window_attn3d_train_fwd, k5.window_attn3d_train_bwd,
+               k2.window_attention_tokens, k6.window_attention_multihead):
+        fn.launches = 0
+    return out
 
 
 # ---------------------------------------------------------------- phase 2: K6
@@ -1768,145 +1923,288 @@ def phase_audio_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
 
 # ---------------------------------------------------------------- phases 6 and 7
 
-class ClipData:
-    """``steps`` loader yields of ``rows`` seeded random clips (bf16, on the
-    card) and 0/1 labels: the Trainer's train_loader contract."""
-
-    def __init__(self, cfg, rows: int, steps: int, dev, gen):
-        import torch
-
-        self.batches = []
-        for _ in range(steps):
-            x = clips(cfg, rows, dev, gen).to(torch.bfloat16)
-            y = (torch.rand(rows, generator=gen, device=dev) < 0.5).float()
-            self.batches.append((x, y))
-
-    def train_loader(self):
-        return self.batches
-
-
-def train_route(trainer, data, blocks: int, kernels: bool):
-    """Three counted optimizer steps, then two more under torch.profiler
-    (the first the trace's warm-up)."""
-    import torch
-
-    from deepfake_tpu_torch.train.losses import bce_with_logits
-
-    m, mb = trainer.model, trainer.cfg.optim.batch_size
-    # warm-up: one micro-batch forward and backward, its gradients dropped
-    # (cuBLAS plans, the allocator); no optimizer step, so no weight moves
-    x0, y0 = data.batches[0]
-    bce_with_logits(m(x0[:mb], return_logits=True)[0], y0[:mb]).backward()
-    for p in m.parameters():
-        p.grad = None
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()  # the main path's run starts here
-    step_s, losses, per_step = [], [], []
-    for x, y in data.train_loader():
-        before = counts()
-        t = time.perf_counter()
-        metrics = trainer.train_step(x, y)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        after = counts()
-        per_step.append({k: after[k] - before[k] for k in after})
-        losses.append(float(metrics["loss"]))
-    launches = counts()  # ... and ends here
-    peak = torch.cuda.max_memory_allocated()
-    accum = trainer.accum
-    for i, d in enumerate(per_step):
-        want = accum * blocks if kernels else 0
-        k5 = (d["window_attn3d_train_fwd"], d["window_attn3d_train_bwd"])
-        if k5 != (want, want) or sum(d.values()) != 2 * want:
-            fail(f"video_swin train step {i} ({'K5' if kernels else 'plain'} route): launches "
-                 f"{d}, expected {want} K5 forward and {want} backward ({accum} micro-batches x "
-                 f"{blocks} blocks) and no other")
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"video_swin train: non-finite losses {losses}")
-    wall = statistics.median(step_s) * 1e3
-    prof = profile_call(lambda: trainer.train_step(*data.batches[0]), wall)
-    rows = len(data.batches[0][1])
-    return dict(step_ms=[t * 1e3 for t in step_s], p50_step_ms=wall,
-                clips_per_s=rows * len(step_s) / sum(step_s), losses=losses,
-                max_memory_allocated_gb=peak / 1e9, per_step_launches=per_step,
-                profile=prof), launches
-
-
-def phase_video_swin_train(cfg, cfg_plain, dev, gen, report, key: str = "video_swin train",
-                           steps: int = 3, plain: bool = True):
-    """video_swin training at full width through K5 (the main path of this
-    slice): ``steps`` optimizer steps, then (``plain``) as many from the same
-    weights on the plain route."""
+def phase_video_swin_train(cfg, dev, gen, report, key: str, steps: int = 2):
+    """video_swin training at full width on the eager K5 route (Video
+    Swin-B at (16,7,7) in main), from the init: Trainer.eval of one batch
+    through K3 and K4, then ``steps`` optimizer steps on uint8 clips
+    through the train-side FeatureAssembler."""
     import torch
 
     from deepfake_tpu_torch.train.trainer import Trainer
 
     o = cfg.optim
     rows = o.batch_size * o.accum_step
-    data = ClipData(cfg, rows, steps, dev, gen)
+    raw = RawClips(cfg, rows, steps, dev, gen)
     blocks = sum(cfg.model.swin3d_depths)
-    quiet = lambda line: None
     t0 = time.perf_counter()
-    tk = Trainer(None, cfg, data, logger=quiet, device=dev)
-    init = {k: v.clone() for k, v in tk.model.state_dict().items()}
+    tk = Trainer(None, cfg, raw, logger=lambda line: None, device=dev, compiled=False)
     log(f"{key}: Trainer({cfg.parallel.compute_dtype} compute, "
-        f"{cfg.parallel.param_dtype} masters, {o.batch_size} x {o.accum_step}) built in "
+        f"{cfg.parallel.param_dtype} masters, {o.batch_size} x {o.accum_step}, eager) built in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in tk.model.parameters()) / 1e6:.1f} M params")
-    res_k, launches = train_route(tk, data, blocks, kernels=True)
-    # Trainer.eval on the trained f32 masters: the serving kernels (K3, K4)
-    # with the weights cast to bf16 at use
+    val = train_eval(tk, raw.batches[0], blocks, key)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path's run starts here
+    r, _, (x, y) = assembled_steps(tk, raw, steps, k5_step_launches(cfg), key)
+    launches = counts()  # ... and ends here
+    r["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["p50_step_ms"] = statistics.median(r["step_ms"])
+    r["clips_per_s"] = rows * 1e3 / r["p50_step_ms"]
+    r["profile"] = profile_call(lambda: tk.train_step(x, y), r["p50_step_ms"])
+    r["eval"] = val
+    report[key] = {"K5 route": r}
+    prof = r["profile"]
+    log(f"{key} K5 route: steps {[round(t, 1) for t in r['step_ms']]} ms (assembly "
+        f"{[round(t, 1) for t in r['assembly_ms']]} ms apart), {r['clips_per_s']:.2f} clips/s "
+        f"({rows} clips a step), peak {r['max_memory_allocated_gb']:.2f} GB, losses "
+        f"{r['losses']} ({report['card']}); profile of one step: device busy "
+        f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms, idle share "
+        f"{prof['device_idle_share']:.3f}; top " + json.dumps(prof["top_kernels_ms"]))
+    del tk, raw
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_eval(trainer, raw_batch, blocks: int, key: str):
+    """Trainer.eval of one batch of uint8 clips, assembled by the evaluation
+    FeatureAssembler, on the trainer's f32 masters: the serving kernels
+    (K3, K4) with the weights cast to bf16 at use; on the compiled route
+    through the evaluation batch's graph (its capture counts the launches:
+    two warm-up runs and the captured one). The phases run it before their
+    training steps: from the init's zero biases the steps take the weights
+    to ~1e12, where K3's static-shift softmax (the JAX Pallas kernel's
+    default form, exp(min(x - 24, 60)) with no row max) underflows a row
+    of logits near -1e12 to 0 / 0, as the kernel it ports does."""
+    from deepfake_tpu_torch.data.pipeline import FeatureAssembler
+
+    x8, y = raw_batch
+    batch = FeatureAssembler(trainer.cfg, device=trainer.device)({"video": x8}, y)
     before = counts()
-    val = tk.eval(data.train_loader()[:1])
+    val = trainer.eval([batch])
     after = counts()
     ran = tuple(after[k] - before[k] for k in ("window_attn3d_tokens", "ln_linear", "mlp_tail"))
-    if ran != (blocks, *k4_launches(cfg)) or not (
-            math.isfinite(val["loss"]) and 0 <= val["acc"] <= 1):
-        fail(f"{key}: Trainer.eval gave {val} with K3, K4 launches {ran}")
-    res_k["eval"] = dict(val, k3_k4_launches=ran)
-    log(f"{key}: Trainer.eval of {rows} clips after the steps: {val}, "
+    runs = 1 if trainer.graphs is None else 3
+    want = tuple(runs * n for n in (blocks, *k4_launches(trainer.cfg)))
+    if ran != want or not (math.isfinite(val["loss"]) and 0 <= val["acc"] <= 1):
+        fail(f"{key}: Trainer.eval gave {val} with K3, K4 launches {ran}, expected {want}")
+    log(f"{key}: Trainer.eval of {len(y)} clips from the init: {val}, "
         f"K3 and K4 (ln_linear, mlp_tail) launches {ran}")
-    del tk
+    return dict(val, k3_k4_launches=ran)
+
+
+class RawClips:
+    """``steps`` batches of ``rows`` seeded random uint8 clips [rows, T, H,
+    W, 3] on the card with 0/1 labels: what a loader hands the train-side
+    FeatureAssembler."""
+
+    def __init__(self, cfg, rows: int, steps: int, dev, gen):
+        import torch
+
+        from deepfake_tpu_torch.models.registry import example_inputs
+
+        (zeros,) = example_inputs(cfg, 1, dev)
+        shape = (rows,) + tuple(zeros.shape[1:])
+        self.batches = [(torch.randint(0, 256, shape, generator=gen, device=dev,
+                                       dtype=torch.uint8),
+                         (torch.rand(rows, generator=gen, device=dev) < 0.5).float())
+                        for _ in range(steps)]
+
+    def train_loader(self):
+        return self.batches
+
+
+def k5_step_launches(cfg):
+    """K5's launches in one eager optimizer step: a forward and a backward
+    per block and micro-batch, and no other kernel."""
+    n = cfg.optim.accum_step * sum(cfg.model.swin3d_depths)
+    return {"window_attn3d_train_fwd": n, "window_attn3d_train_bwd": n}
+
+
+def assembled_steps(trainer, raw, n: int, want=None, key: str = "video_swin train"):
+    """``n`` optimizer steps on the raw batches (cycled), each first
+    assembled by a train-side FeatureAssembler (augmentation on the card,
+    its generator seeded as the trainer's config says): per step the
+    assembly's and the step's host times apart (each ending in a
+    synchronize), losses, launches and the weights after the steps. Fails
+    on a non-finite loss or weight, or, with ``want``, on a step whose
+    launches are not ``want``."""
+    import torch
+
+    from deepfake_tpu_torch.data.pipeline import FeatureAssembler
+
+    asm = FeatureAssembler(trainer.cfg, train=True, device=trainer.device)
+    asm_ms, step_ms, losses, per_step = [], [], [], []
+    for i in range(n):
+        x8, y = raw.batches[i % len(raw.batches)]
+        t0 = time.perf_counter()
+        x, y = asm({"video": x8}, y)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        before = counts()
+        metrics = trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after = counts()
+        per_step.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        losses.append(float(metrics["loss"]))
+        asm_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+        if want is not None and per_step[-1] != want:
+            fail(f"{key} step {i}: launches {per_step[-1]}, expected {want}")
+    with torch.no_grad():
+        weights = [p.detach().clone() for p in trainer.model.parameters()]
+    bad = sum(not bool(torch.isfinite(w).all()) for w in weights)
+    if bad or not all(math.isfinite(v) for v in losses):
+        fail(f"{key}: losses {losses}, {bad} non-finite parameters after {n} steps")
+    return dict(assembly_ms=asm_ms, step_ms=step_ms, losses=losses,
+                per_step_launches=per_step), weights, (x, y)
+
+
+def max_gap(a, b) -> float:
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+
+# the graph route may differ from the eager route by this multiple of the
+# spread of two eager runs from one state (K5's backward adds dS into dbias
+# with atomics, in an order that changes from run to run), and by no less
+# than this share of the quantity's scale (two runs may agree by chance)
+SPREAD_MULTIPLE, SPREAD_FLOOR = 4.0, 1e-6
+
+
+def phase_video_swin_train_graph(cfg, cfg_plain, dev, gen, report, steps: int = 3):
+    """video_swin training at full width (Video Swin-S, micro-batch 8 x
+    accum 4, from the init) fed by the train-side FeatureAssembler from
+    uint8 clips: the eager K5 route (the kernel line's launches), a second
+    eager run from the same state (the spread K5's atomics give), the graph
+    route (the default on the card) held to the eager route within
+    SPREAD_MULTIPLE of that spread, and the plain route (kernels off) from
+    the same weights, every route ``steps`` steps. The init's zero biases keep a rotation's
+    zero-filled corners equal token to token through the first blocks, the
+    first step's gradient reaches ~1e16 (there is no clip by default) and
+    the second step's logits ~1e12 there: K5 has to hold the plain
+    version's softmax at that size (a first design of its backward read
+    NaN)."""
+    import torch
+
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    o = cfg.optim
+    rows = o.batch_size * o.accum_step
+    raw = RawClips(cfg, rows, steps, dev, gen)
+    blocks, accum = sum(cfg.model.swin3d_depths), o.accum_step
+    quiet = lambda line: None
+    key = "video_swin train"
+    res = {}
+
+    # the eager K5 route: the main path's run for the kernel line
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    te = Trainer(None, cfg, raw, logger=quiet, device=dev, compiled=False)
+    init = {k: v.clone() for k, v in te.model.state_dict().items()}
+    log(f"{key}: Trainer({cfg.parallel.compute_dtype} compute, {cfg.parallel.param_dtype} "
+        f"masters, {o.batch_size} x {accum}) built in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in te.model.parameters()) / 1e6:.1f} M params")
+    val = train_eval(te, raw.batches[0], blocks, key)
+    reset_counts()  # the main path's run starts here
+    want = k5_step_launches(cfg)
+    r, w_eager, (x, y) = assembled_steps(te, raw, steps, want, key + " eager")
+    launches = counts()  # ... and ends here
+    r["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["p50_step_ms"] = statistics.median(r["step_ms"])
+    r["profile"] = profile_call(lambda: te.train_step(x, y), r["p50_step_ms"])
+    r["eval"] = val
+    res["eager"] = r
+    init_losses = r["losses"]
+    del te
     torch.cuda.empty_cache()
-    if not plain:
-        report[key] = {"K5 route": res_k}
-        prof = res_k["profile"]
-        log(f"{key} K5 route: steps {[round(t, 1) for t in res_k['step_ms']]} ms, "
-            f"{res_k['clips_per_s']:.2f} clips/s ({rows} clips a step), peak "
-            f"{res_k['max_memory_allocated_gb']:.2f} GB, losses {res_k['losses']} "
-            f"({report['card']}); profile of one step: device busy "
-            f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms, idle share "
-            f"{prof['device_idle_share']:.3f}; top " + json.dumps(prof["top_kernels_ms"]))
-        del init, data
-        return launches
-    tp = Trainer(None, cfg_plain, data, logger=quiet, device=dev)
+
+    # the spread: a second eager run from the same seed, state and clips
+    te2 = Trainer(None, cfg, raw, logger=quiet, device=dev, compiled=False)
+    r2, w_eager2, _ = assembled_steps(te2, raw, steps, key=key + " eager 2")
+    del te2
+    torch.cuda.empty_cache()
+    loss_spread = max(abs(a - b) for a, b in zip(init_losses, r2["losses"]))
+    w_spread = max_gap(w_eager, w_eager2)
+    del w_eager2
+
+    # the graph route: the first step captures, then every step replays
+    torch.cuda.reset_peak_memory_stats()
+    tg = Trainer(None, cfg, raw, logger=quiet, device=dev)
+    val = train_eval(tg, raw.batches[0], blocks, key + " graph")
+    rg, w_graph, _ = assembled_steps(tg, raw, steps, key=key + " graph")
+    (g,) = (g for k, g in tg.graphs.graphs.items() if k[0] == "train")
+    loss_gap = max(abs(a - b) for a, b in zip(init_losses, rg["losses"]))
+    w_gap = max_gap(w_eager, w_graph)
+    loss_tol = SPREAD_MULTIPLE * loss_spread + SPREAD_FLOOR * max(abs(v) for v in init_losses)
+    w_scale = max(w.abs().max().item() for w in w_eager)
+    w_tol = SPREAD_MULTIPLE * w_spread + SPREAD_FLOOR * w_scale
+    del w_eager, w_graph
+    if g.launches != want or g.replays != steps:
+        fail(f"{key} graph: captured launches {g.launches} x {g.replays} replays, expected "
+             f"{want} x {steps}")
+    if rg["per_step_launches"][1:] != [{}] * (steps - 1):
+        fail(f"{key} graph: a replay moved the launch counters: {rg['per_step_launches']}")
+    if not (loss_gap <= loss_tol and w_gap <= w_tol):
+        fail(f"{key}: the graph route's first {steps} steps differ from the eager route's by "
+             f"{loss_gap:.3e} (losses) and {w_gap:.3e} (weights), past {SPREAD_MULTIPLE} x "
+             f"the eager spread {loss_spread:.3e} / {w_spread:.3e} (+ floor): {loss_tol:.3e} / "
+             f"{w_tol:.3e}")
+    more, _, _ = assembled_steps(tg, raw, 2, key=key + " graph")  # steady-state replays
+    rg["steady_step_ms"] = more["step_ms"]
+    rg["steady_assembly_ms"] = more["assembly_ms"]
+    rg["p50_step_ms"] = statistics.median(rg["step_ms"][1:] + more["step_ms"])
+    rg["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rg["pool_bytes"] = tg.graphs.pool_bytes()
+    rg["timed_replays"] = g.replays
+    rg["graph_launches"] = {k: v * g.replays for k, v in g.launches.items()}
+    rg["profile"] = profile_call(lambda: tg.train_step(x, y), rg["p50_step_ms"])
+    rg["eval"] = val
+    graph_launches = dict(rg["graph_launches"])
+    res["graph"] = rg
+    res["spread"] = dict(loss_spread=loss_spread, weight_spread=w_spread, loss_gap=loss_gap,
+                         weight_gap=w_gap, loss_tol=loss_tol, weight_tol=w_tol,
+                         multiple=SPREAD_MULTIPLE)
+    del tg
+    torch.cuda.empty_cache()
+
+    # the plain route (kernels off) from the same weights
+    tp = Trainer(None, cfg_plain, raw, logger=quiet, device=dev, compiled=False)
     tp.model.load_state_dict(init)
-    res_p, launches_p = train_route(tp, data, blocks, kernels=False)
-    if any(launches_p.values()):
-        fail(f"video_swin train: the plain route launched a kernel: {launches_p}")
-    del tp, init, data
+    del init
+    before = counts()
+    rp, _, _ = assembled_steps(tp, raw, steps, key=key + " plain")
+    if counts() != before:
+        fail(f"{key}: the plain route launched a kernel")
+    res["plain"] = rp
+    del tp
     torch.cuda.empty_cache()
-    d_loss = abs(res_k["losses"][0] - res_p["losses"][0])
-    report["video_swin_train"] = {"K5 route": res_k, "plain route": res_p,
-                                  "first_step_loss_diff": d_loss}
-    for name, r in (("K5 route", res_k), ("plain route", res_p)):
-        prof = r["profile"]
-        log(f"video_swin train {name:11s}: steps {[round(t, 1) for t in r['step_ms']]} ms, "
-            f"{r['clips_per_s']:.2f} clips/s ({rows} clips a step), peak "
-            f"{r['max_memory_allocated_gb']:.2f} GB, losses {r['losses']} ({report['card']})")
-        log(f"video_swin train {name:11s}: profile of one step: device busy "
+    d_loss = abs(init_losses[0] - rp["losses"][0])
+    res["first_step_loss_diff_vs_plain"] = d_loss
+    report["video_swin_train"] = res
+
+    for name, rr in (("eager", res["eager"]), ("graph", rg), ("plain", rp)):
+        log(f"{key} {name:5s}: steps {[round(t, 1) for t in rr['step_ms']]} ms"
+            + (f" (then {[round(t, 1) for t in rr['steady_step_ms']]})" if name == "graph" else "")
+            + f", assembly {[round(t, 1) for t in rr['assembly_ms']]} ms, losses "
+            f"{rr['losses']} ({report['card']})")
+    for name, rr in (("eager", res["eager"]), ("graph", rg)):
+        prof = rr["profile"]
+        log(f"{key} {name}: p50 step {rr['p50_step_ms']:.1f} ms, "
+            f"{rows * 1e3 / rr['p50_step_ms']:.2f} clips/s, peak "
+            f"{rr['max_memory_allocated_gb']:.2f} GB; one step profiled: device busy "
             f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms, idle share "
             f"{prof['device_idle_share']:.3f}; top " + json.dumps(prof["top_kernels_ms"]))
-    k5 = [(d["window_attn3d_train_fwd"], d["window_attn3d_train_bwd"])
-          for d in res_k["per_step_launches"]]
-    log(f"video_swin train: K5 launches per step {k5}; "
-        f"first-step loss K5 {res_k['losses'][0]:.5f} vs plain {res_p['losses'][0]:.5f}")
+    log(f"{key} graph: pool {rg['pool_bytes'] / 2 ** 20:.0f} MiB, K5 launches captured "
+        f"{g.launches} x {rg['timed_replays']} timed replays = {graph_launches}; vs eager: "
+        f"loss gap {loss_gap:.3e} (spread {loss_spread:.3e}), weight gap {w_gap:.3e} (spread "
+        f"{w_spread:.3e})")
     # the first step's loss is a forward of the same weights on the same
     # clips: bf16 noise only, ~8 bf16 ulps of a loss near 0.69
     if not d_loss <= 2e-2:
-        fail(f"video_swin train: first-step losses differ by {d_loss:.3e}")
-    return launches
+        fail(f"{key}: first-step losses of the K5 and plain routes differ by {d_loss:.3e}")
+    return launches, graph_launches
 
 
 def phase_video_swin_train_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int,
@@ -1997,6 +2295,16 @@ def main() -> int:
                        label="Video Swin-B")
     kernels += ([phase_k3(dev, gen, 8, report, b1=False, **long_window)]
                 + phase_k5(dev, gen, 8, report, **long_window))
+    # head dims other than 32 in every kernel of window attention
+    head_dims = phase_head_dims(dev, gen, 8, report)
+    for i, key in ((1, "k2"), (3, "k3"), (6, "k5_fwd"), (7, "k5_bwd"), (8, "k6")):
+        kernels[i]["head_dims"] = head_dims[key]
+    # K4 at Video Swin-L's stage 3 (C = 1536: rows wider than the LayerNorm
+    # panel), per b8 request's two stage-3 blocks
+    for i, row in zip((4, 5), phase_k4(dev, gen, 8, report, stages=SWIN3D_L_STAGE3)):
+        kernels[i]["swin_l_stage3"] = {k: row[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "max_abs_err_f32")}
 
     def config(dtype: str, kernels: bool, preset=None):
         cfg = Config.preset(preset) if preset else Config()
@@ -2036,10 +2344,18 @@ def main() -> int:
                                           config("bfloat16", False, "video_swin"), dev, gen,
                                           report),
            ("window_attn3d_tokens", "ln_linear", "mlp_tail"))
-    # training stays eager: no graph route
-    record(kernels[6:8], (phase_video_swin_train(config("bfloat16", True, "video_swin"),
-                                                 config("bfloat16", False, "video_swin"), dev,
-                                                 gen, report), None),
+    # Video Swin-L (swin_large_patch244_window877): serving through K3 and
+    # K4, K4's LayerNorm at C = 1536 in stage 3
+    swin_l, swin_l_graph = phase_video_swin(
+        config("bfloat16", True, SWIN_L), config("bfloat16", False, SWIN_L), dev, gen, report,
+        key="video_swin_large")
+    for i, name in ((3, "window_attn3d_tokens"), (4, "ln_linear"), (5, "mlp_tail")):
+        kernels[i]["launches_swin_l"] = swin_l[name]
+        kernels[i]["graph_launches_swin_l"] = swin_l_graph.get(name, 0)
+    # training: the eager K5 route, then the graph route (the default)
+    record(kernels[6:8], phase_video_swin_train_graph(config("bfloat16", True, "video_swin"),
+                                                      config("bfloat16", False, "video_swin"),
+                                                      dev, gen, report),
            ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
     record(kernels[8:9], phase_audio(config("bfloat16", True, "audio"),
                                      config("bfloat16", False, "audio"), dev, gen, report),
@@ -2050,9 +2366,8 @@ def main() -> int:
                                            config_b16("bfloat16", False), dev, gen, report,
                                            key="video_swin_b16"),
            ("window_attn3d_tokens",))
-    record(kernels[10:12], (phase_video_swin_train(config_b16("bfloat16", True), None, dev, gen,
-                                                   report, key="video_swin_b16 train", steps=2,
-                                                   plain=False), None),
+    record(kernels[10:12], (phase_video_swin_train(config_b16("bfloat16", True), dev, gen,
+                                                   report, key="video_swin_b16 train"), None),
            ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"

@@ -1,6 +1,8 @@
-"""Compiled serving: each request shape runs as one CUDA graph, the port's
+"""Compiled execution: each request shape runs as one CUDA graph, the port's
 counterpart of the JAX Predictor's ``jax.jit`` (deepfake_tpu/serving.py:54-56)
-and of its front end's one jitted program (deepfake_tpu/data/pipeline.py:97).
+and of its front end's one jitted program (deepfake_tpu/data/pipeline.py:97);
+the Trainer's steps and evaluation batches run through the same cache
+(train/trainer.py, the JAX Trainer's jitted step and eval step).
 
     cache = GraphCache(device)
     out = cache.run(key, fn, inputs)   # fn(static inputs) -> tensor(s) on the device
@@ -30,14 +32,19 @@ replayed: ``Graph.launches`` keeps the per-wrapper count of one capture,
 the kernels that each replay launches, and ``Graph.replays`` counts the
 replays.
 
+A CUDA generator that ``fn`` draws from is registered with its graph
+(``generators``): each replay then reads the generator's offset and
+advances it by what the capture drew, so the replays draw what eager runs
+from the same state would draw.
+
 A failed capture or replay raises: nothing here falls back to eager
 execution. On the CPU there is nothing to capture; ``serving.Predictor``
-runs eagerly there.
+and ``train.Trainer`` run eagerly there.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,7 +101,8 @@ class Graph:
     outputs, the per-wrapper kernel launches of one replay and the number of
     replays."""
 
-    def __init__(self, fn: Callable, example, device: torch.device, pool):
+    def __init__(self, fn: Callable, example, device: torch.device, pool,
+                 generators: Sequence[torch.Generator] = ()):
         self.static_in = _map(lambda x: torch.empty(
             tuple(_as_tensor(x).shape), dtype=_as_tensor(x).dtype, device=device), example)
         self.staging: Dict[int, torch.Tensor] = {}  # pinned, for inputs from the host
@@ -107,6 +115,8 @@ class Graph:
                 fn(self.static_in)
         torch.cuda.current_stream(device).wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:  # each replay draws from, and advances, its state
+            self.graph.register_generator_state(gen)
         # the capture empties the allocator's cache first; so does this, so
         # that the reserved bytes grow by the capture's own segments only
         torch.cuda.synchronize(device)
@@ -135,8 +145,11 @@ class Graph:
                 dst.copy_(stage, non_blocking=True)
         self.copied.record()
 
-    def replay(self, inputs):
-        self.copy_in(inputs)
+    def replay(self, inputs=None):
+        """Replays the graph on ``inputs`` or, when None, on what the static
+        buffers hold; returns the static outputs."""
+        if inputs is not None:
+            self.copy_in(inputs)
         self.graph.replay()
         self.replays += 1
         return self.static_out
@@ -150,15 +163,20 @@ class GraphCache:
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[Tuple, Graph] = {}
 
-    def run(self, key: Tuple, fn: Callable, inputs):
-        """``fn`` on ``inputs`` through the graph of ``key``, captured at the
-        first request of that key; returns the graph's static outputs."""
+    def graph(self, key: Tuple, fn: Callable, inputs,
+              generators: Sequence[torch.Generator] = ()) -> Graph:
+        """The graph of ``key``, captured from ``fn`` on ``inputs`` if it is
+        new; ``generators``: the CUDA generators ``fn`` draws from."""
         g = self.graphs.get(key)
         if g is None:
-            g = Graph(fn, inputs, self.device, self.pool)
-            self.graphs[key] = g
-            # the capture's own run computed nothing: the request replays
-        return g.replay(inputs)
+            g = self.graphs[key] = Graph(fn, inputs, self.device, self.pool, generators)
+        return g
+
+    def run(self, key: Tuple, fn: Callable, inputs):
+        """``fn`` on ``inputs`` through the graph of ``key``, captured at the
+        first request of that key; returns the graph's static outputs (the
+        capture's own run computed nothing: the request replays)."""
+        return self.graph(key, fn, inputs).replay(inputs)
 
     def pool_bytes(self) -> int:
         """Device memory reserved while the graphs were captured (the

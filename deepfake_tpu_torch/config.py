@@ -80,7 +80,7 @@ class ModelConfig:
     # the window attention) and K4 (csrc/ln_linear.cu, LayerNorm + the linear
     # layers); training K5 (csrc/window_attn3d_train.cu, the window attention
     # and its backward); K3 and K5 take any window (N = 392 at (8,7,7), 784
-    # at Video Swin-B's (16,7,7)) at head dim 32
+    # at Video Swin-B's (16,7,7)) and head dims 8 to 128 in steps of 8
     swin3d_attn_kernel: bool = True
     # wav2vec2-base topology
     wav_layers: int = 12
@@ -119,21 +119,34 @@ class LogConfig:
     log_step: int = 10  # a train log line every log_step optimizer steps
 
 
+# Video Swin 3D as the reference's shell script runs it: 32 frames, batch 8 x
+# accum 4, mean pooling, num_hiddens 256 (deepfake_tpu/config.py:246-255)
+_VIDEO_SWIN = {
+    "data.modality": "video_swin",
+    "data.num_frames": 32,
+    "optim.batch_size": 8,
+    "optim.accum_step": 4,
+    "optim.learning_rate": 1e-4,
+    "optim.epochs": 4,
+    "model.video_pool": "mean",
+    "model.num_hiddens": 256,
+}
+
 # Named override sets (deepfake_tpu/config.py PRESETS)
 PRESETS = {
     # SwinV2-B on the mel image (deepfake_tpu/config.py:231)
     "audio": {"data.modality": "audio", "optim.batch_size": 48, "optim.epochs": 12},
-    # Video Swin 3D as the reference's shell script runs it: 32 frames, batch
-    # 8 x accum 4, mean pooling, num_hiddens 256 (deepfake_tpu/config.py:246-255)
-    "video_swin": {
-        "data.modality": "video_swin",
-        "data.num_frames": 32,
-        "optim.batch_size": 8,
-        "optim.accum_step": 4,
-        "optim.learning_rate": 1e-4,
-        "optim.epochs": 4,
-        "model.video_pool": "mean",
-        "model.num_hiddens": 256,
+    "video_swin": _VIDEO_SWIN,
+    # Video Swin-L (Liu et al. 2022, configs/recognition/swin/
+    # swin_large_patch244_window877_kinetics400_22k.py): embed 192, depths
+    # 2/2/18/2, heads 6/12/24/48 (head dim 32), window (8,7,7), on the
+    # video_swin preset's clips and recipe; stage 3 runs at C = 1536
+    "swin_large_patch244_window877": {
+        **_VIDEO_SWIN,
+        "model.swin3d_embed_dim": 192,
+        "model.swin3d_depths": (2, 2, 18, 2),
+        "model.swin3d_heads": (6, 12, 24, 48),
+        "model.swin3d_window": (8, 7, 7),
     },
 }
 

@@ -55,8 +55,10 @@
 //     and reads the residual, in 16-byte rows.
 //       linear_bf16: each 64-row tile's columns in tiles of 2 W (W = 96 where
 //       n is a multiple of 192, else 48), each warpgroup W of them; with
-//       k > 1024 (fc2 at C = 768) and no prologue, A and W share the ring
-//       stages.
+//       k > 1024 (fc2 at C = 768; every layer of Video Swin-L's stage 3 at
+//       C = 1536) A and W share the ring stages, and a sum or a LayerNorm
+//       is applied to each A atom as it lands, in place, with the rows'
+//       statistics from a short pre-pass (one warp a row) before the launch.
 //       mlp_tail_bf16: fc1 makes the hidden tensor 64 columns at a time (each
 //       warpgroup 32), + b1, round, GELU, round, into shared memory; fc2
 //       takes each chunk at once into the [64, C] f32 accumulator (each
@@ -90,6 +92,7 @@ struct Args {
   int gelu;
   const void* r; const void* r2; int64_t ldr;    // residual [m, n] (row stride ldr), r2 alike; or null
   void* out; int64_t ldo;                        // [m, n] (row stride ldo)
+  float2* stats;  // [m] (mean, 1 / sqrt(var + eps)): bf16 LayerNorm above the panel, else null
 };
 
 // the value v takes once stored in bf16
@@ -505,6 +508,71 @@ __device__ void epilogue(const Args& g, float (&acc)[W / 2], const bf16* bias_s,
   }
 }
 
+// The LayerNorm statistics of every row of s = a (+ a2) (rounded to bf16),
+// one warp a row, for a layer whose rows are too wide for a panel: the
+// kernel then normalises each A atom as it lands
+__global__ void __launch_bounds__(256) row_stats_bf16(Args g) {
+  const int row = (int)((blockIdx.x * 256 + threadIdx.x) >> 5), lane = threadIdx.x & 31;
+  if (row >= g.m) return;
+  const bf16* A = static_cast<const bf16*>(g.a) + (int64_t)row * g.lda;
+  const bf16* A2 = g.a2 ? static_cast<const bf16*>(g.a2) + (int64_t)row * g.lda : nullptr;
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = 8 * lane; c < g.k; c += 256) {
+    float x[8];
+    unpack8(*reinterpret_cast<const uint4*>(A + c), x);
+    if (A2) {
+      float x2[8];
+      unpack8(*reinterpret_cast<const uint4*>(A2 + c), x2);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = rnd_bf16(x[e] + x2[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s1 += x[e];
+      s2 += x[e] * x[e];
+    }
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    float mu, rs;
+    ln_stats(g, s1, s2, &mu, &rs);
+    g.stats[row] = make_float2(mu, rs);
+  }
+}
+
+// The prologue on one landed A atom [64 rows, 64 k] (k chunk c) of a layer
+// without a panel: s = a (+ a2) rounded to bf16, then, with ln_w, the
+// LayerNorm with the row statistics of the pre-pass, in place; the 256
+// consumer threads take a 16-byte chunk each at a time. Columns past k and
+// rows past m stay as TMA wrote them (zeros).
+__device__ void atom_prologue(const Args& g, uint8_t* atom, int row0, int c) {
+  const bf16* A2 = static_cast<const bf16*>(g.a2);
+  for (int i = threadIdx.x; i < BM * 8; i += 128 * CONSUMERS) {
+    const int r = i >> 3, u = i & 7, row = row0 + r, col = c * KC + 8 * u;
+    if (row >= g.m || col >= g.k) continue;
+    uint4* cell = reinterpret_cast<uint4*>(atom + swz(r, u));
+    float x[8];
+    unpack8(*cell, x);
+    if (A2) {
+      float x2[8];
+      unpack8(*reinterpret_cast<const uint4*>(A2 + (int64_t)row * g.lda + col), x2);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = rnd_bf16(x[e] + x2[e]);
+    }
+    if (g.ln_w) {
+      const float2 st = g.stats[row];
+      float lw[8], lb[8];
+      unpack8(*reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.ln_w) + col), lw);
+      unpack8(*reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.ln_b) + col), lb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = __fadd_rn(__fmul_rn(x[e] - st.x, st.y * lw[e]), lb[e]);
+    }
+    *cell = pack8(x);
+  }
+  fence_async_smem();  // the atom is read by wgmma next
+}
+
 // ---- one linear layer: ln_linear's bf16 route
 
 // The schedule of a launch, set by the host. A unit of work is a 64-row tile
@@ -512,9 +580,11 @@ __device__ void epilogue(const Args& g, float (&acc)[W / 2], const bf16* bias_s,
 // warpgroup W of them; the blocks are persistent and walk the units. With
 // panels > 0 the unit's A rows sit in a panel [64, K] for all its column
 // tiles (a prologue, if any, runs once on it) and the ring holds W tiles
-// [BN, 64 k]; with panels == 0 (K too large for a panel, no prologue) each
-// ring stage holds an A atom [64, 64 k] and a W tile. resident: W fits the
-// ring whole, so it is loaded once per block and kept.
+// [BN, 64 k]; with panels == 0 (K too large for a panel) each ring stage
+// holds an A atom [64, 64 k] and a W tile, and a prologue, if any, runs on
+// each atom as it lands (atom_prologue, the LayerNorm's statistics from the
+// pre-pass row_stats_bf16). resident: W fits the ring whole, so it is
+// loaded once per block and kept.
 struct Plan {
   int kc;                  // k chunks of 64 (k rounded up, zeros past k)
   int ntiles, groups, per, units;
@@ -638,6 +708,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           sl = pos % p.stages;
           mbar_wait(full + sl, (pos / p.stages) & 1);
           ++pos;
+        }
+        if (!p.panels && prologue_on) {
+          atom_prologue(g, ring + sl * p.stage_bytes, row0, c);
+          named_sync(1, 128 * CONSUMERS);  // both warpgroups' parts of the atom are in place
         }
         const uint8_t* as = p.panels ? panel + c * ATOM : ring + sl * p.stage_bytes;
         const uint8_t* ws = ring + sl * p.stage_bytes + (p.panels ? 0 : ATOM) + wg * (W / 8) * 1024;
@@ -967,7 +1041,7 @@ cudaError_t launch_linear(const Args& g, cudaStream_t s) {
       p.panels = 2 * p.panel_bytes + 4 * w_bytes <= avail ? 2 : 1;
       p.stages = std::min(MAX_STAGES, (avail - p.panels * p.panel_bytes) / w_bytes);
     }
-  } else if (!g.a2 && !g.ln_w) {
+  } else {  // A atoms in the ring; a sum or a LayerNorm applied to each as it lands
     p.stage_bytes = w_bytes + ATOM;
     p.stages = std::min(MAX_STAGES, avail / p.stage_bytes);
   }
@@ -978,8 +1052,13 @@ cudaError_t launch_linear(const Args& g, cudaStream_t s) {
   if (!tensor_map(&tm_a, g.a, g.m, g.k, g.lda, BM) || !tensor_map(&tm_w, g.w, g.n, g.k, g.k, BN))
     return cudaErrorInvalidValue;
   int grid = 0;
-  const cudaError_t e = persistent_grid(linear_bf16<W, U>, smem, p.units, &grid);
+  cudaError_t e = persistent_grid(linear_bf16<W, U>, smem, p.units, &grid);
   if (e != cudaSuccess) return e;
+  if (!p.panels && g.ln_w) {
+    row_stats_bf16<<<(unsigned)(((int64_t)g.m * 32 + 255) / 256), 256, 0, s>>>(g);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   linear_bf16<W, U><<<grid, THREADS, smem, s>>>(tm_a, tm_w, g, p);
   return cudaGetLastError();
 }
@@ -1018,15 +1097,18 @@ cudaError_t launch_mlp(const hop::MlpArgs& q, const void* w1, const void* w2, cu
 // pointer holds that type. a2, ln_w (with ln_b), bias, r and r2 may be
 // null. Launches on `stream`; returns cudaGetLastError(), or
 // cudaErrorInvalidValue for shapes, strides or pointers the kernels do not
-// take.
+// take. stats: scratch of m float2, needed by a bf16 LayerNorm over more
+// than hop::MAX_PANEL_K columns (ops/ln_linear_kernel.py MAX_PANEL_K), else null.
 extern "C" int k4_ln_linear(
     int dtype, const void* a, const void* a2, int64_t lda, const void* ln_w, const void* ln_b,
     float eps, const void* w, const void* bias, int m, int k, int n, int gelu,
-    const void* r, const void* r2, int64_t ldr, void* out, int64_t ldo, void* stream) {
+    const void* r, const void* r2, int64_t ldr, void* out, int64_t ldo, void* stats,
+    void* stream) {
   if (m < 1 || k < 1 || n < 1 || lda < k || ldo < n || (r && ldr < n) || (ln_w && !ln_b) ||
       (r2 && !r))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args g{a, a2, lda, ln_w, ln_b, eps, w, bias, m, k, n, gelu, r, r2, ldr, out, ldo};
+  Args g{a, a2, lda, ln_w, ln_b, eps, w, bias, m, k, n, gelu, r, r2, ldr, out, ldo,
+         static_cast<float2*>(stats)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const int rows = (m + simt::BM - 1) / simt::BM;
@@ -1039,7 +1121,7 @@ extern "C" int k4_ln_linear(
       !aligned16(w) || !aligned16(out) || (a2 && !aligned16(a2)) ||
       (ln_w && !(aligned16(ln_w) && aligned16(ln_b))) || (bias && !aligned16(bias)) ||
       (r && !aligned16(r)) || (r2 && !aligned16(r2)) ||
-      ((a2 || ln_w) && k > hop::MAX_PANEL_K))
+      (ln_w && k > hop::MAX_PANEL_K && (!stats || reinterpret_cast<uintptr_t>(stats) % 8)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto launch = [&](auto w) {
     constexpr int W = decltype(w)::value;

@@ -1,5 +1,5 @@
 // K2: cosine (or scaled) window attention for windows of up to 64 tokens
-// and heads up to 64 wide.
+// and heads up to 128 wide.
 //
 // Replaces the Pallas kernels
 //   deepfake_tpu/ops/pallas_window_attn.py:1127 pallas_window_attention,
@@ -44,7 +44,10 @@
 //     128-byte-swizzled K-major tiles, q^ into registers as wgmma's A;
 //     S = q^ k^T is three wgmma m64n64k16 products per 16 channels (one for
 //     scaled logits, which take the bf16 q and k as they are and scale
-//     after), f32 accumulation. D is padded to a multiple of 16 with zeros.
+//     after), f32 accumulation. D is padded to a multiple of 16 with zeros;
+//     heads of more than 64 channels take the instance with two 64-column
+//     operands of k^ and V^T (S in up to 8 k steps, O as two m64n64
+//     products).
 //     The softmax is max-stabilised in f32 with ex2, the logit scale folded
 //     into the exponent: 2^(s scale log2 e + (bias + mask) log2 e - m). The
 //     weights, rounded to bf16, are wgmma's A for P V (m64n64k16, V^T from
@@ -226,16 +229,19 @@ __device__ __forceinline__ float quad_sum(float v) {
 // note at the top. Block x = h + heads (mask index + n_groups split): the
 // heads of a group run together, so a mask slice is read from device memory
 // once for all of them.
+// DT: the head's 64-column tiles, 1 (D <= 64) or 2 (D <= 128); k^ (hi, lo)
+// and V^T take DT swizzled operands each, S DT x 4 k steps, O DT products
+template <int DT>
 __global__ void __launch_bounds__(THREADS)
     attn_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
               const __grid_constant__ CUtensorMap tm_v, Args g, Plan p) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint8_t* khi = base;                  // k^ hi [key][channel], swizzled
-  uint8_t* klo = base + OPND;           // k^ lo
-  uint8_t* vt = base + 2 * OPND;        // V^T [channel][key], swizzled
-  float* tile = reinterpret_cast<float*>(base + 3 * OPND);  // [64][TP], log2 units
+  uint8_t* khi = base;                  // k^ hi [key][channel], DT swizzled operands
+  uint8_t* klo = base + DT * OPND;      // k^ lo
+  uint8_t* vt = base + 2 * DT * OPND;   // V^T [channel][key], DT swizzled operands
+  float* tile = reinterpret_cast<float*>(base + 3 * DT * OPND);  // [64][TP], log2 units
   uint8_t* land = reinterpret_cast<uint8_t*>(tile + BM * TP);  // STAGES x [q | k | v] [64][D]
   uint64_t* full = reinterpret_cast<uint64_t*>(land + STAGES * 3 * p.land);
 
@@ -265,7 +271,7 @@ __global__ void __launch_bounds__(THREADS)
   // channels past D of k^ and rows past D of V^T are never written below:
   // zero them once (k^'s feed the products as zeros; V^T's give output
   // columns that are not stored)
-  for (int i = t; i < 3 * OPND / 16; i += THREADS)
+  for (int i = t; i < 3 * DT * OPND / 16; i += THREADS)
     reinterpret_cast<uint4*>(base)[i] = make_uint4(0, 0, 0, 0);
   fence_async_smem();
   __syncthreads();
@@ -343,9 +349,9 @@ __global__ void __launch_bounds__(THREADS)
     // channels 16 ks + 8 (e >> 1) + 2 t4 + {0, 1}
     const float ia = __shfl_sync(0xffffffffu, iq, (2 * g8) & 31);
     const float ib = __shfl_sync(0xffffffffu, iq, (2 * g8 + 16) & 31);
-    uint32_t qh[4][4], ql[4][4];
+    uint32_t qh[4 * DT][4], ql[4 * DT][4];
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
+    for (int ks = 0; ks < 4 * DT; ++ks)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = (e & 1) ? rb : ra, c = 16 * ks + 8 * (e >> 1) + 2 * t4;
@@ -361,11 +367,12 @@ __global__ void __launch_bounds__(THREADS)
     for (int c = c_lo; c < c_hi; ++c) {
       const float x = ld_bf(lk, row * D + c) * ik;
       const bf16 hi = __float2bfloat16(x);
-      *reinterpret_cast<bf16*>(khi + sw128_offset(row, c)) = hi;
+      const int op = (c >> 6) * OPND, cc = c & 63;  // channel c's operand and its column
+      *reinterpret_cast<bf16*>(khi + op + sw128_offset(row, cc)) = hi;
       if (g.cosine)
-        *reinterpret_cast<bf16*>(klo + sw128_offset(row, c)) =
+        *reinterpret_cast<bf16*>(klo + op + sw128_offset(row, cc)) =
             __float2bfloat16(x - __bfloat162float(hi));
-      *reinterpret_cast<bf16*>(vt + sw128_offset(c, row)) =
+      *reinterpret_cast<bf16*>(vt + op + sw128_offset(cc, row)) =
           reinterpret_cast<const bf16*>(lv)[row * D + c];
     }
     fence_async_smem();  // the tiles are read by wgmma next
@@ -375,16 +382,21 @@ __global__ void __launch_bounds__(THREADS)
     // S = q^ k^T (hi.hi + hi.lo + lo.hi), f32
     float s[32];
     wgmma_fence();
+    // 16-channel step ks reads operand ks / 4 at byte 32 (ks % 4) of its rows
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      if (ks < nks) WgmmaRS<64, 0>::mma(s, qh[ks], desc_sw128(khi + 32 * ks), ks > 0);
+    for (int ks = 0; ks < 4 * DT; ++ks)
+      if (ks < nks)
+        WgmmaRS<64, 0>::mma(s, qh[ks], desc_sw128(khi + (ks >> 2) * OPND + 32 * (ks & 3)),
+                            ks > 0);
     if (g.cosine) {
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        if (ks < nks) WgmmaRS<64, 0>::mma(s, qh[ks], desc_sw128(klo + 32 * ks), 1);
+      for (int ks = 0; ks < 4 * DT; ++ks)
+        if (ks < nks)
+          WgmmaRS<64, 0>::mma(s, qh[ks], desc_sw128(klo + (ks >> 2) * OPND + 32 * (ks & 3)), 1);
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        if (ks < nks) WgmmaRS<64, 0>::mma(s, ql[ks], desc_sw128(khi + 32 * ks), 1);
+      for (int ks = 0; ks < 4 * DT; ++ks)
+        if (ks < nks)
+          WgmmaRS<64, 0>::mma(s, ql[ks], desc_sw128(khi + (ks >> 2) * OPND + 32 * (ks & 3)), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -420,19 +432,23 @@ __global__ void __launch_bounds__(THREADS)
     suma = quad_sum(suma);
     sumb = quad_sum(sumb);
 
-    float o[32];
+    // O's 64-column tile dt from V^T's operand dt
+    float o[DT][32];
     wgmma_fence();
 #pragma unroll
-    for (int st = 0; st < 4; ++st)
-      WgmmaRS<64, 0>::mma(o, pa[st], desc_sw128(vt + 32 * st), st > 0);
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int st = 0; st < 4; ++st)
+        WgmmaRS<64, 0>::mma(o[dt], pa[st], desc_sw128(vt + dt * OPND + 32 * st), st > 0);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(o);
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) fence_regs(o[dt]);
 
     const float inva = 1.f / suma, invb = 1.f / sumb;
     bf16* O = static_cast<bf16*>(g.out) + (int64_t)w * g.o_w + (int64_t)h * g.o_h;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8 * DT; ++j) {
       const int c = 8 * j + 2 * t4;
       if (c >= D) continue;
 #pragma unroll
@@ -441,7 +457,8 @@ __global__ void __launch_bounds__(THREADS)
         if (r >= N) continue;
         const float inv = hh ? invb : inva;
         bf16* at = O + (int64_t)r * g.o_n + c;
-        const float y0 = o[4 * j + 2 * hh] * inv, y1 = o[4 * j + 2 * hh + 1] * inv;
+        const float* oj = o[j >> 3] + 4 * (j & 7) + 2 * hh;
+        const float y0 = oj[0] * inv, y1 = oj[1] * inv;
         if (c + 1 < D && !(D & 1)) {
           *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(y0, y1);
         } else {
@@ -478,10 +495,24 @@ bool qkv_map(CUtensorMap* map, const void* ptr, const Args& g, int heads, int wi
 
 // one landed [64, D] operand, in bytes (a multiple of 128, as TMA writes it)
 int land_bytes(int d) { return (hop::BM * d * 2 + 127) & ~127; }
-// the alignment slack, the operand tiles, the bias tile, the landing ring
-// and its barriers
-int smem_bytes(int land) {
-  return 1024 + 3 * hop::OPND + hop::BM * hop::TP * 4 + hop::STAGES * (3 * land + 8);
+// the alignment slack, the operand tiles (DT of each), the bias tile, the
+// landing ring and its barriers
+int smem_bytes(int land, int dt) {
+  return 1024 + 3 * dt * hop::OPND + hop::BM * hop::TP * 4 + hop::STAGES * (3 * land + 8);
+}
+
+// lets attn_bf16<DT> take the shared memory of its widest head (64 DT),
+// once per device
+template <int DT>
+cudaError_t allow_smem() {
+  static std::atomic<bool> done[hopper::MAX_DEVICES];
+  const int slot = hopper::device_slot();
+  if (slot >= 0 && done[slot].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(hop::attn_bf16<DT>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             smem_bytes(land_bytes(64 * DT), DT));
+  if (e == cudaSuccess && slot >= 0) done[slot].store(true, std::memory_order_release);
+  return e;
 }
 
 cudaError_t launch_bf16(const Args& g, int windows, int heads, int group, cudaStream_t s) {
@@ -512,19 +543,16 @@ cudaError_t launch_bf16(const Args& g, int windows, int heads, int group, cudaSt
                  qkv_map(&tk, g.k, g, heads, windows, order) &&
                  qkv_map(&tv, g.v, g, heads, windows, order)))
     return cudaErrorInvalidValue;
-  const int smem = smem_bytes(p.land);
-  static std::atomic<bool> done[hopper::MAX_DEVICES];
-  const int slot = hopper::device_slot();
-  if (slot < 0 || !done[slot].load(std::memory_order_acquire)) {
-    // once per device, for the widest head (D = 64)
-    const cudaError_t e = cudaFuncSetAttribute(
-        hop::attn_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(land_bytes(64)));
-    if (e != cudaSuccess) return e;
-    if (slot >= 0) done[slot].store(true, std::memory_order_release);
-  }
+  const int dt = g.d > 64 ? 2 : 1;
+  const int smem = smem_bytes(p.land, dt);
+  const cudaError_t e = dt == 2 ? allow_smem<2>() : allow_smem<1>();
+  if (e != cudaSuccess) return e;
   const int64_t blocks = (int64_t)heads * p.n_groups * ((p.per_group + p.g - 1) / p.g);
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  hop::attn_bf16<<<(unsigned)blocks, hop::THREADS, smem, s>>>(tq, tk, tv, g, p);
+  if (dt == 2)
+    hop::attn_bf16<2><<<(unsigned)blocks, hop::THREADS, smem, s>>>(tq, tk, tv, g, p);
+  else
+    hop::attn_bf16<1><<<(unsigned)blocks, hop::THREADS, smem, s>>>(tq, tk, tv, g, p);
   return cudaGetLastError();
 }
 
@@ -540,7 +568,7 @@ extern "C" int k2_window_attn(
     void* out, int64_t o_w, int64_t o_h, int64_t o_n,
     const float* bias, const float* mask, int n_masks, const float* scales,
     int cosine, int windows, int heads, int n, int d, int group, void* stream) {
-  if (n < 1 || n > 64 || d < 1 || d > 64 || windows < 1 || heads < 1 ||
+  if (n < 1 || n > 64 || d < 1 || d > 128 || windows < 1 || heads < 1 ||
       (mask && (n_masks < 1 || windows % n_masks)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args g{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask, n_masks, scales, cosine, n, d};

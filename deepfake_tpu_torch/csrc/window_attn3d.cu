@@ -1,5 +1,6 @@
 // K3: window attention for Video Swin's large 3D windows (any N: 392
-// tokens for (8,7,7) windows, 784 for (16,7,7)), head dim 32, token-major.
+// tokens for (8,7,7) windows, 784 for (16,7,7)), head dims 8 to 128 in steps
+// of 8, token-major.
 // For each (window w, head h):
 //
 //   out = softmax_rows(q.s . k^T + bias[h] + mask[w % n_masks]) . v
@@ -54,21 +55,27 @@
 //     in all against ~20.7 GB for the first design; chip_smoke.py logs the
 //     count per launch (k3_windows_per_block gives G). Above 512 tokens the
 //     body streams each window's keys (window_attn_tile.cuh, attn_bf16_stream).
-//   - f32 (the parity route only; a different kernel from the one that
-//     serves): window_attn_tile.cuh's SIMT kernel, one block of 8 warps per
-//     (query tile of 32 rows, window, head), K and V streamed in tiles of 64
-//     keys, any N.
+//     That kernel is built for head dim 32 (every Video Swin head: Swin-S,
+//     -B and -L). Other head dims take window_attn_mma.cuh's tensor-core
+//     kernel (mma.sync) in bf16, at the same cast points.
+//   - f32 (the parity route only; a different kernel from the ones that
+//     serve): window_attn_tile.cuh's SIMT kernel, one block of 8
+//     warps per (query tile of 32 rows, window, head), K and V streamed in
+//     tiles of 64 keys, any N, instances for heads of 32, 64 and 128
+//     columns (a narrower head zero-filled to the next).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "window_attn_mma.cuh"
 #include "window_attn_tile.cuh"
 
 namespace {
 
 constexpr int D = wtile::D;
+static_assert(D == wtile::mma::WGMMA_D, "the wgmma body's head dim");
 using wtile::Args;
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -97,9 +104,10 @@ int choose_group(int windows, int heads, int n, int n_masks, bool masked) {
 
 }  // namespace
 
-// dtype: 0 float32 (SIMT, f32 mask), 1 bfloat16 (Hopper: wgmma and TMA, bf16
-// mask). grid = query tiles x heads x window groups on Hopper, (query
-// tiles, windows, heads) in SIMT. Returns cudaGetLastError(), or
+// dtype: 0 float32 (SIMT, f32 mask), 1 bfloat16 (bf16 mask; at d = 32
+// Hopper: wgmma and TMA, else mma.sync, window_attn_mma.cuh). d: the head
+// dim, 8 to 128 in steps of 8. grid = query tiles x heads x window groups on Hopper, (query tiles,
+// windows, heads) in SIMT. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int k3_window_attn(
     int dtype, const void* q, const void* k, const void* v,
@@ -107,22 +115,29 @@ extern "C" int k3_window_attn(
     void* out, int64_t o_w, int64_t o_h, int64_t o_n,
     const float* bias, const void* mask, int n_masks, float scale,
     int windows, int heads, int n, int d, void* stream) {
-  if (n < 1 || n > 65535 || d != D || windows < 1 || windows > 65535 || heads < 1 ||
-      heads > 65535 || (mask && (n_masks < 1 || windows % n_masks)))
+  if (n < 1 || n > 65535 || d < 8 || d > 128 || d % 8 || windows < 1 || windows > 65535 ||
+      heads < 1 || heads > 65535 || (mask && (n_masks < 1 || windows % n_masks)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args g{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask, mask ? n_masks : 1,
          scale, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 1) {
-    if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && aligned16(bias) &&
-          aligned16(mask)) ||
-        (s_w | s_h | s_n | o_w | o_h | o_n) % 8)
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
+                        aligned16(bias) && aligned16(mask)) ||
+                      (s_w | s_h | s_n | o_w | o_h | o_n) % 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wtile::mma::on_wgmma(dtype, d)) {
     err = wtile::launch<wtile::STATIC_SHIFT>(
         g, windows, heads, choose_group(windows, heads, n, g.n_masks, mask != nullptr), s);
+  } else if (dtype == 1) {
+    const wtile::mma::MArgs m{static_cast<const wtile::bf16*>(q),
+                              static_cast<const wtile::bf16*>(k),
+                              static_cast<const wtile::bf16*>(v), s_w, s_h, s_n,
+                              static_cast<wtile::bf16*>(out), o_w, o_h, o_n, bias, mask,
+                              g.n_masks, nullptr, scale, n, d};
+    err = wtile::mma::launch<wtile::mma::M_STATIC_SHIFT, wtile::bf16>(m, windows, heads, s);
   } else if (dtype == 0) {
-    err = wtile::simt::launch_f32<wtile::STATIC_SHIFT, float>(g, windows, heads, s);
+    err = wtile::simt::launch<wtile::STATIC_SHIFT, float>(g, windows, heads, d, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,6 +1,6 @@
 // K5: training window attention for Video Swin's 3D windows (any N: 392
-// tokens for (8,7,7) windows, 784 for (16,7,7)), head dim 32, token-major,
-// with its backward. For each (window w, head h), s = scale:
+// tokens for (8,7,7) windows, 784 for (16,7,7)), head dims 8 to 128 in
+// steps of 8, token-major, with its backward. For each (window w, head h), s = scale:
 //
 //   forward:  out = softmax_rows((q s) k^T + bias[h] + mask[w % n_masks]) v
 //             (the max-stabilised f32 softmax)
@@ -58,8 +58,13 @@
 //     below 1e-40 in either rounding. The tiles, the dbias slab and the row
 //     statistics keep each run of 16 columns in the order of the wgmma
 //     accumulator (pos_of), so a thread reads its 4 values of a row at once.
-//     A weight is P = 2^((s scale + tile) log2 e - lse), lse the row's
-//     log-sum-exp in base 2: two FMAs and one ex2.approx.
+//     A weight is P = 2^((x - m) log2 e - log2 l), x = s scale + tile, m
+//     the row max and l the row sum, kept apart: folded into one
+//     log-sum-exp (m log2 e + log2 l) at the logits of a diverging run
+//     (|x| ~ 1e12) log2 l falls below the ulp of m log2 e and a weight of
+//     1/N reads 1; and x - m comes before the scaling, exact near the max
+//     (an FMA x log2 e - m log2 e rounds m log2 e alone by more than ex2
+//     takes there). Three flops and one ex2.approx.
 //     * launch 1 (dq, dbias, the row statistics): one block per (head,
 //       group, 64-row query tile), three warpgroups and no producer warp
 //       (so a thread may keep 168 registers; a producer warp beside them
@@ -72,7 +77,7 @@
 //       forms S = q K^T and dP = dO V^T (wgmma m64n64k16, q and dO as
 //       register A fragments) for the online row max, row sum and
 //       rowsum(e dP); the warpgroups combine them through shared
-//       memory and save (lse, rowsum(dP P)) for launch 2. Sweep 2 forms S
+//       memory and save (m, -log2 l, rowsum(dP P)) for launch 2. Sweep 2 forms S
 //       and dP again, then P and dS = P (dP - rowsum(dP P)) in f32, adds dS
 //       into the block's f32 [64, N] dbias slab, and re-packs dS in registers
 //       as the bf16 A operand of dq += dS K (K read MN-major). Holding S and
@@ -117,23 +122,28 @@
 //     the Pallas kernel, are rounded to bf16 where they feed P V, P^T dO,
 //     dS K and dS^T Q; the softmax, its statistics, dP, dS itself and the
 //     dbias sums stay f32.
-//   - f32 (parity runs only; a different kernel from the one that trains):
-//     SIMT FMA, any N. Forward K3's f32 kernel (window_attn_tile.cuh) with an
-//     online row max; backward one block per (16-row query tile, window,
+//   The Hopper routes are built for head dim 32 (every Video Swin head).
+//     At other head dims bf16 takes window_attn_mma.cuh's tensor-core
+//     kernels (mma.sync), forward and backward.
+//   - f32 (parity runs only): SIMT FMA, any N. Forward K3's SIMT kernel
+//     (window_attn_tile.cuh) with an online row max; backward one block per (16-row query tile, window,
 //     head) sweeping K and V twice in tiles of 64 keys (the row statistics,
 //     then P, dS and dq), adding dK, dV and dbias with atomics into zeroed
-//     f32 outputs.
+//     f32 outputs. Instances for heads of 32, 64 and 128 columns, a
+//     narrower head zero-filled to the next.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "window_attn_mma.cuh"
 #include "window_attn_tile.cuh"
 
 namespace {
 
 constexpr int D = 32;  // head dim
+static_assert(D == wtile::mma::WGMMA_D, "the wgmma kernels' head dim");
 typedef __nv_bfloat16 bf16;
 
 struct BwdArgs {
@@ -144,7 +154,7 @@ struct BwdArgs {
   int64_t g_w, g_h, g_n;
   const void* bias;                // [heads, n, n] in the compute type
   const bf16* mask; int n_masks;
-  float* stats;                    // [windows, heads, 2, ns] (Hopper route)
+  float* stats;                    // [windows, heads, 3, ns] (Hopper route)
   float* dbias;                    // [heads, n, n] f32, zeroed by the caller
   float scale;
   int n, ns, heads, windows, group;
@@ -170,19 +180,22 @@ namespace simt {
 using wtile::simt::warp_max;
 using wtile::simt::warp_sum;
 
-constexpr int BMQ = 16, KT = 64, THREADS = 256, DP = D + 1, PP = KT + 1;
+constexpr int BMQ = 16, KT = 64, THREADS = 256, PP = KT + 1;
 
+template <int DC>
 __host__ __device__ constexpr size_t bwd_smem() {
-  return sizeof(float) * (2 * BMQ * DP + 2 * KT * DP + 2 * BMQ * PP);
+  return sizeof(float) * (2 * BMQ * (32 * DC + 1) + 2 * KT * (32 * DC + 1) + 2 * BMQ * PP);
 }
-static_assert(bwd_smem() <= 48 * 1024, "bwd_f32 needs no shared-memory attribute");
 
 // Any N: two sweeps over K and V in tiles of 64 keys. Sweep 1 keeps each
 // row's online max m, sum l and c = sum e dP (warp w: rows w and w + 8);
 // sweep 2 forms P = e / l and dS = P (dP - c / l), adds dS into dbias and
-// dS^T (q s), P^T dO into dk, dv with atomics (zeroed outputs), and keeps
-// dq = dS K in registers until it is written.
-__global__ void __launch_bounds__(THREADS) bwd_f32(BwdArgs g) {
+// dS^T (q s), P^T dO into dk, dv with atomics (zeroed f32 outputs), and
+// keeps dq = dS K in registers until it is written. A head is held as DC
+// column groups of 32, the columns from d on zero.
+template <int DC>
+__global__ void __launch_bounds__(THREADS) bwd_simt(BwdArgs g, int d) {
+  constexpr int DW = 32 * DC, DP = DW + 1;  // +1 pads off bank conflicts
   extern __shared__ float sm[];
   const int N = g.n;
   float* qs = sm;              // [BMQ][DP] q * scale
@@ -200,9 +213,9 @@ __global__ void __launch_bounds__(THREADS) bwd_f32(BwdArgs g) {
   const float* K = static_cast<const float*>(g.k) + base;
   const float* V = static_cast<const float*>(g.v) + base;
   const float* dO = static_cast<const float*>(g.dout) + (int64_t)w * g.d_w + (int64_t)h * g.d_h;
-  for (int idx = tid; idx < BMQ * D; idx += THREADS) {
-    const int i = idx / D, c = idx % D;
-    const bool ok = i < rows;
+  for (int idx = tid; idx < BMQ * DW; idx += THREADS) {
+    const int i = idx / DW, c = idx % DW;
+    const bool ok = i < rows && c < d;
     qs[i * DP + c] = ok ? Q[(int64_t)(q0 + i) * g.s_n + c] * g.scale : 0.f;
     os[i * DP + c] = ok ? dO[(int64_t)(q0 + i) * g.d_n + c] : 0.f;
   }
@@ -214,23 +227,23 @@ __global__ void __launch_bounds__(THREADS) bwd_f32(BwdArgs g) {
   float* dV = static_cast<float*>(g.dv) + gb;
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f};
-  float dq[BMQ * D / THREADS] = {};  // element tid + THREADS e of [BMQ][D]
+  float dq[BMQ * DW / THREADS] = {};  // element tid + THREADS e of [BMQ][DW]
   for (int sweep = 0; sweep < 2; ++sweep) {
     for (int k0 = 0; k0 < N; k0 += KT) {
       const int kn = min(KT, N - k0);
       __syncthreads();  // the last tile's reads are done (and q, dO are in place)
-      for (int idx = tid; idx < kn * D; idx += THREADS) {
-        const int j = idx / D, c = idx % D;
+      for (int idx = tid; idx < kn * DW; idx += THREADS) {
+        const int j = idx / DW, c = idx % DW;
         const int64_t off = (int64_t)(k0 + j) * g.s_n + c;
-        ks[j * DP + c] = K[off];
-        vs[j * DP + c] = V[off];
+        ks[j * DP + c] = c < d ? K[off] : 0.f;
+        vs[j * DP + c] = c < d ? V[off] : 0.f;
       }
       __syncthreads();
       for (int idx = tid; idx < rows * kn; idx += THREADS) {
         const int i = idx / kn, j = idx - i * kn;
         float sv = 0.f, dp = 0.f;
 #pragma unroll
-        for (int c = 0; c < D; ++c) {
+        for (int c = 0; c < DW; ++c) {
           sv = fmaf(qs[i * DP + c], ks[j * DP + c], sv);
           dp = fmaf(os[i * DP + c], vs[j * DP + c], dp);
         }
@@ -274,15 +287,16 @@ __global__ void __launch_bounds__(THREADS) bwd_f32(BwdArgs g) {
         atomicAdd(dbias + (int64_t)(q0 + i) * N + k0 + j, dps[i * PP + j]);
       }
 #pragma unroll
-      for (int e = 0; e < BMQ * D / THREADS; ++e) {
-        const int i = (tid + THREADS * e) / D, c = (tid + THREADS * e) % D;
+      for (int e = 0; e < BMQ * DW / THREADS; ++e) {
+        const int i = (tid + THREADS * e) / DW, c = (tid + THREADS * e) % DW;
         if (i >= rows) continue;
         float a = 0.f;
         for (int j = 0; j < kn; ++j) a = fmaf(dps[i * PP + j], ks[j * DP + c], a);
         dq[e] += a;
       }
-      for (int idx = tid; idx < kn * D; idx += THREADS) {
-        const int j = idx / D, c = idx % D;
+      for (int idx = tid; idx < kn * DW; idx += THREADS) {
+        const int j = idx / DW, c = idx % DW;
+        if (c >= d) continue;
         float a = 0.f, b = 0.f;
         for (int i = 0; i < rows; ++i) {
           a = fmaf(dps[i * PP + j], qs[i * DP + c], a);  // dS^T (q s)
@@ -295,10 +309,30 @@ __global__ void __launch_bounds__(THREADS) bwd_f32(BwdArgs g) {
   }
   float* dQ = static_cast<float*>(g.dq) + gb;
 #pragma unroll
-  for (int e = 0; e < BMQ * D / THREADS; ++e) {
-    const int i = (tid + THREADS * e) / D, c = (tid + THREADS * e) % D;
-    if (i < rows) dQ[(int64_t)(q0 + i) * g.g_n + c] = dq[e] * g.scale;
+  for (int e = 0; e < BMQ * DW / THREADS; ++e) {
+    const int i = (tid + THREADS * e) / DW, c = (tid + THREADS * e) % DW;
+    if (i < rows && c < d) dQ[(int64_t)(q0 + i) * g.g_n + c] = dq[e] * g.scale;
   }
+}
+
+template <int DC>
+cudaError_t launch_dc(const BwdArgs& g, int d, cudaStream_t s) {
+  constexpr size_t smem = bwd_smem<DC>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bwd_simt<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  bwd_simt<DC><<<dim3((g.n + BMQ - 1) / BMQ, g.windows, g.heads), THREADS, smem, s>>>(g, d);
+  return cudaGetLastError();
+}
+
+// One launch at head dim d (8 to 128: the instance of 1, 2 or 4 column
+// groups of 32)
+cudaError_t launch_bwd(const BwdArgs& g, int d, cudaStream_t s) {
+  if (d <= 32) return launch_dc<1>(g, d, s);
+  if (d <= 64) return launch_dc<2>(g, d, s);
+  return launch_dc<4>(g, d, s);
 }
 
 }  // namespace simt
@@ -318,6 +352,7 @@ constexpr int C1 = 3, THREADS1 = 128 * C1;
 constexpr int C2 = 2, THREADS2 = 128 * C2;
 constexpr int SMEM_MAX = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int STATS = 3;  // row statistics launch 1 saves: m, -log2 l, rowsum(dP P)
 
 // what the host decides for a launch
 struct Plan {
@@ -542,12 +577,12 @@ __device__ __forceinline__ void stats_chunk(const uint32_t (&qa)[2][4], const ui
       mx[h] = fmaxf(mx[h], fmaxf(fmaxf(s[a], s[a + 1]), fmaxf(s[b], s[b + 1])));
     }
   }
-  float nb[2];  // -(the new max) log2 e
+  float base[2];  // the new max (0 while it is -inf)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float mn = fmaxf(m[h], quad_max(mx[h]));
-    nb[h] = mn == -INFINITY ? 0.f : -mn * LOG2E;
-    const float alpha = ex2(fmaf(m[h], LOG2E, nb[h]));  // m = -inf: 0
+    base[h] = mn == -INFINITY ? 0.f : mn;
+    const float alpha = ex2((m[h] - base[h]) * LOG2E);  // m = -inf: 0
     m[h] = mn;
     l[h] *= alpha;
     c[h] *= alpha;
@@ -557,15 +592,39 @@ __device__ __forceinline__ void stats_chunk(const uint32_t (&qa)[2][4], const ui
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int h = i >> 1;
-      const float e = ex2(fmaf(s[4 * j + i], LOG2E, nb[h]));
+      const float e = ex2((s[4 * j + i] - base[h]) * LOG2E);
       l[h] += e;
       c[h] += e * dp[4 * j + i];
     }
 }
 
-// launch 1, sweep 2: one chunk's P = 2^(x log2 e - lse) (lse = (m log2 e +
-// log2 l), the row's log-sum-exp in base 2) and dS = P (dP - D) (D =
-// rowsum(dP P)); dS into the dbias slab (sa: this thread's slab row a at
+// a weight P = 2^((x - m) log2 e + nl) of logit x, from its row's max m
+// and nl = -log2 (row sum)
+__device__ __forceinline__ float weight(float x, float m, float nl) {
+  return ex2(fmaf(x - m, LOG2E, nl));
+}
+
+// row r's sweep-1 statistics of the C1 warpgroups (stx: [C1][BM][m, l, c])
+// combined: the row max m, nl = -log2 l and D = rowsum(dP P) = c / l
+__device__ __forceinline__ void combine_stats(const float* stx, int r, float& m, float& nl,
+                                              float& di) {
+  float mm = -INFINITY, ll = 0.f, cc = 0.f;
+#pragma unroll
+  for (int k = 0; k < C1; ++k) mm = fmaxf(mm, stx[(k * BM + r) * 3]);
+#pragma unroll
+  for (int k = 0; k < C1; ++k) {
+    const float* x = stx + (k * BM + r) * 3;
+    const float f = ex2((x[0] - mm) * LOG2E);  // a warpgroup without keys: -inf, 0
+    ll += x[1] * f;
+    cc += x[2] * f;
+  }
+  m = mm;
+  nl = -__log2f(ll);
+  di = cc / ll;
+}
+
+// launch 1, sweep 2: one chunk's P (weight, from the row's m and nl) and
+// dS = P (dP - D) (D = rowsum(dP P)); dS into the dbias slab (sa: this thread's slab row a at
 // position 4 (lane % 4)) or, without a slab, into dbias (dg: row a of dbias
 // at key 2 (lane % 4); rows or keys past n skipped); dq += dS K with dS in
 // bf16. The product is left in flight: the next chunk's wait covers it.
@@ -573,7 +632,7 @@ template <int W, bool SLAB>
 __device__ __forceinline__ void ds_chunk(const uint32_t (&qa)[2][4], const uint32_t (&oa)[2][4],
                                          const uint8_t* ks, const uint8_t* vs, int kc,
                                          const uint16_t* ta, int bpitch, float scale,
-                                         const float (&lse)[2],
+                                         const float (&rm)[2], const float (&nl)[2],
                                          const float (&di)[2], float (&dq)[16], float* sa,
                                          int dpitch, float* dg, int n, int key0, bool ok_a,
                                          bool ok_b) {
@@ -590,7 +649,7 @@ __device__ __forceinline__ void ds_chunk(const uint32_t (&qa)[2][4], const uint3
 #pragma unroll
       for (int q = 0; q < 4; ++q) {  // q = 2 j' + e, the position's order
         const int i = 4 * (q >> 1) + 2 * h + (q & 1);
-        const float p = ex2(fmaf(fmaf(s[8 * u + i], scale, tv[q]), LOG2E, -lse[h]));
+        const float p = weight(fmaf(s[8 * u + i], scale, tv[q]), rm[h], nl[h]);
         ds[i] = p * (dp[8 * u + i] - di[h]);
       }
       if (SLAB) {
@@ -727,32 +786,18 @@ __global__ void __launch_bounds__(THREADS1, 1)
       }
     }
     named_sync(1, CT);
-    // the warpgroups' statistics combined: the log-sum-exp in base 2 and
-    // rowsum(dP P)
-    float lse[2], di[2];
+    // the warpgroups' statistics combined
+    float rm[2], nl[2], di[2];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = ra + 8 * hh;
-      float mm = -INFINITY, ll = 0.f, cc = 0.f;
-#pragma unroll
-      for (int k = 0; k < C1; ++k) mm = fmaxf(mm, stx[(k * BM + r) * 3]);
-#pragma unroll
-      for (int k = 0; k < C1; ++k) {
-        const float* x = stx + (k * BM + r) * 3;
-        const float f = ex2((x[0] - mm) * LOG2E);  // a warpgroup without keys: -inf, 0
-        ll += x[1] * f;
-        cc += x[2] * f;
-      }
-      lse[hh] = fmaf(mm, LOG2E, __log2f(ll));
-      di[hh] = cc / ll;
-    }
+    for (int hh = 0; hh < 2; ++hh) combine_stats(stx, ra + 8 * hh, rm[hh], nl[hh], di[hh]);
     if (wg == 0 && t4 == 0) {  // for launch 2: every row of the tile (< ns), in pos_of order
-      float* sg = g.stats + ((int64_t)w * p.heads + h) * 2 * p.ns + q0 + (ra & ~15);
+      float* sg = g.stats + ((int64_t)w * p.heads + h) * STATS * p.ns + q0 + (ra & ~15);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int at = pos_of((ra + 8 * hh) & 15);
-        sg[at] = lse[hh];
-        sg[p.ns + at] = di[hh];
+        sg[at] = rm[hh];
+        sg[p.ns + at] = nl[hh];
+        sg[2 * p.ns + at] = di[hh];
       }
     }
 
@@ -763,11 +808,11 @@ __global__ void __launch_bounds__(THREADS1, 1)
     for (int ch = wg; ch < n_chunks; ch += C1) {
       const int kc = ch * KCH;
       if (kc + KCH <= p.nk) {
-        ds_chunk<KCH, SLAB>(qa, oa, ks, vs, kc, ta, p.bpitch, g.scale, lse, di, dq, sa, p.dpitch,
-                            dg, N, 2 * t4, ok_a, ok_b);
+        ds_chunk<KCH, SLAB>(qa, oa, ks, vs, kc, ta, p.bpitch, g.scale, rm, nl, di, dq, sa,
+                            p.dpitch, dg, N, 2 * t4, ok_a, ok_b);
       } else {
         for (int k16 = kc; k16 < p.nk; k16 += 16)
-          ds_chunk<16, SLAB>(qa, oa, ks, vs, k16, ta, p.bpitch, g.scale, lse, di, dq, sa,
+          ds_chunk<16, SLAB>(qa, oa, ks, vs, k16, ta, p.bpitch, g.scale, rm, nl, di, dq, sa,
                              p.dpitch, dg, N, 2 * t4, ok_a, ok_b);
       }
     }
@@ -817,7 +862,7 @@ __global__ void __launch_bounds__(THREADS1, 1)
 // launch 2, one chunk of W queries from qc for this warpgroup's 64 keys,
 // from S^T = K q^T and dP^T = V dO^T: P^T and dS^T in bf16 as the A operands
 // of dV and dK, from the statistics of launch 1 (sts: this thread's position
-// 4 (lane % 4) of [lse | D], ns apart) and the transposed tile (tt: row a at
+// 4 (lane % 4) of [m | -log2 l | D], ns apart) and the transposed tile (tt: row a at
 // the same position)
 template <int W>
 __device__ __forceinline__ void dkdv_weights(const float (&s)[W / 2], const float (&dp)[W / 2],
@@ -827,9 +872,11 @@ __device__ __forceinline__ void dkdv_weights(const float (&s)[W / 2], const floa
 #pragma unroll
   for (int u = 0; u < W / 16; ++u) {
     const int q0 = qc + 16 * u;
-    const float4 lse4 = *reinterpret_cast<const float4*>(sts + q0);
-    const float4 di4 = *reinterpret_cast<const float4*>(sts + ns + q0);
-    const float lse[4] = {lse4.x, lse4.y, lse4.z, lse4.w}, di[4] = {di4.x, di4.y, di4.z, di4.w};
+    const float4 m4 = *reinterpret_cast<const float4*>(sts + q0);
+    const float4 nl4 = *reinterpret_cast<const float4*>(sts + ns + q0);
+    const float4 di4 = *reinterpret_cast<const float4*>(sts + 2 * ns + q0);
+    const float rm[4] = {m4.x, m4.y, m4.z, m4.w}, nl[4] = {nl4.x, nl4.y, nl4.z, nl4.w};
+    const float di[4] = {di4.x, di4.y, di4.z, di4.w};
     float pv[8], ds[8];  // 4 j' + 2 h + e: step j = 2 u + j', row h, column e
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -838,7 +885,7 @@ __device__ __forceinline__ void dkdv_weights(const float (&s)[W / 2], const floa
 #pragma unroll
       for (int q = 0; q < 4; ++q) {  // q = 2 j' + e, the position's order
         const int i = 4 * (q >> 1) + 2 * h + (q & 1);
-        pv[i] = ex2(fmaf(fmaf(s[8 * u + i], scale, tv[q]), LOG2E, -lse[q]));
+        pv[i] = weight(fmaf(s[8 * u + i], scale, tv[q]), rm[q], nl[q]);
         ds[i] = pv[i] * (dp[8 * u + i] - di[q]);
       }
     }
@@ -895,7 +942,7 @@ __global__ void __launch_bounds__(THREADS2, 1)
   // stages; thread 0 issues them once the stage is free (no producer warp:
   // with 8 warps a block, no SM sub-partition holds 3, so each thread may
   // have up to 255 registers)
-  const uint32_t sbytes = 2 * p.ns * 4;
+  const uint32_t sbytes = STATS * p.ns * 4;
   auto load = [&](int it) {
     const int sl = it % p.stages, x = h * D, w = mi + (b0 + it) * p.n_groups;
     uint8_t* st = ring + sl * p.stage_bytes;
@@ -907,7 +954,7 @@ __global__ void __launch_bounds__(THREADS2, 1)
       tma_load_3d(r, &tm_q, full + sl, x, b * p.kbox, w);
       tma_load_3d(r + p.rows_bytes, &tm_o, full + sl, x, b * p.kbox, w);
     }
-    bulk_load(st + stats_off, g.stats + ((int64_t)w * p.heads + h) * 2 * p.ns, sbytes,
+    bulk_load(st + stats_off, g.stats + ((int64_t)w * p.heads + h) * STATS * p.ns, sbytes,
               full + sl);
   };
   if (threadIdx.x == 0) {
@@ -1069,7 +1116,7 @@ __global__ void __launch_bounds__(THREADS1, 1)
   float* dg = g.dbias + (int64_t)h * N * N + (int64_t)(q0 + ra) * N + 2 * t4;
 
   uint32_t qa[2][4], oa[2][4];
-  float m[2], l[2], c[2], lse[2], di[2], dq[16];
+  float m[2], l[2], c[2], rm[2], nl[2], di[2], dq[16];
   for (int s = 0; s < items; ++s) {
     const int sl = s % p.stages, it = s / per_win, sk = s - it * per_win;
     const int sweep = sk / p.n_kt, kt = sk - sweep * p.n_kt;
@@ -1116,29 +1163,16 @@ __global__ void __launch_bounds__(THREADS1, 1)
       }
       named_sync(1, CT);
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = ra + 8 * hh;
-        float mm = -INFINITY, ll = 0.f, cc = 0.f;
-#pragma unroll
-        for (int k = 0; k < C1; ++k) mm = fmaxf(mm, stx[(k * BM + r) * 3]);
-#pragma unroll
-        for (int k = 0; k < C1; ++k) {
-          const float* x = stx + (k * BM + r) * 3;
-          const float f = ex2((x[0] - mm) * LOG2E);
-          ll += x[1] * f;
-          cc += x[2] * f;
-        }
-        lse[hh] = fmaf(mm, LOG2E, __log2f(ll));
-        di[hh] = cc / ll;
-      }
+      for (int hh = 0; hh < 2; ++hh) combine_stats(stx, ra + 8 * hh, rm[hh], nl[hh], di[hh]);
       if (wg == 0 && t4 == 0) {
         const int w = mi + (b0 + it) * p.n_groups;
-        float* sg = g.stats + ((int64_t)w * p.heads + h) * 2 * p.ns + q0 + (ra & ~15);
+        float* sg = g.stats + ((int64_t)w * p.heads + h) * STATS * p.ns + q0 + (ra & ~15);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int at = pos_of((ra + 8 * hh) & 15);
-          sg[at] = lse[hh];
-          sg[p.ns + at] = di[hh];
+          sg[at] = rm[hh];
+          sg[p.ns + at] = nl[hh];
+          sg[2 * p.ns + at] = di[hh];
         }
       }
 #pragma unroll
@@ -1149,11 +1183,12 @@ __global__ void __launch_bounds__(THREADS1, 1)
     // sweep 2: keys from k0 (dbias from column k0 of row a)
     for (int kc = wg * KCH; kc < len; kc += C1 * KCH) {
       if (kc + KCH <= len) {
-        ds_chunk<KCH, false>(qa, oa, ks, vs, kc, ta, p.bpitch, g.scale, lse, di, dq, nullptr,
+        ds_chunk<KCH, false>(qa, oa, ks, vs, kc, ta, p.bpitch, g.scale, rm, nl, di, dq, nullptr,
                              p.dpitch, dg + k0, N, k0 + 2 * t4, ok_a, ok_b);
       } else {
         for (int k16 = kc; k16 < len; k16 += 16)
-          ds_chunk<16, false>(qa, oa, ks, vs, k16, ta, p.bpitch, g.scale, lse, di, dq, nullptr,
+          ds_chunk<16, false>(qa, oa, ks, vs, k16, ta, p.bpitch, g.scale, rm, nl, di, dq,
+                              nullptr,
                               p.dpitch, dg + k0, N, k0 + 2 * t4, ok_a, ok_b);
       }
     }
@@ -1220,14 +1255,14 @@ __global__ void __launch_bounds__(THREADS2, 1)
     const int x = h * D, w = mi + (b0 + it) * p.n_groups;
     const uint32_t sb = 4 * min(p.kt, p.ns - qo);
     uint8_t* st = ring + sl * p.stage_bytes;
-    mbar_expect_tx(full + sl, 2 * TILE_BYTES + 2 * p.kt * ROW_BYTES + 2 * sb);
+    mbar_expect_tx(full + sl, 2 * TILE_BYTES + 2 * p.kt * ROW_BYTES + STATS * sb);
     tma_load_3d(st, &tm_k, full + sl, x, k0, w);
     tma_load_3d(st + TILE_BYTES, &tm_v, full + sl, x, k0, w);
     tma_load_3d(st + 2 * TILE_BYTES, &tm_q, full + sl, x, qo, w);
     tma_load_3d(st + 2 * TILE_BYTES + p.rows_bytes, &tm_o, full + sl, x, qo, w);
-    const float* sg = g.stats + ((int64_t)w * p.heads + h) * 2 * p.ns + qo;
-    bulk_load(st + stats_off, sg, sb, full + sl);
-    bulk_load(st + stats_off + 4 * p.kt, sg + p.ns, sb, full + sl);
+    const float* sg = g.stats + ((int64_t)w * p.heads + h) * STATS * p.ns + qo;
+    for (int i = 0; i < STATS; ++i)
+      bulk_load(st + stats_off + 4 * i * p.kt, sg + i * p.ns, sb, full + sl);
   };
   if (threadIdx.x == 0) {
     for (int i = 0; i < p.stages; ++i) mbar_init(full + i, 1);
@@ -1329,8 +1364,8 @@ __global__ void __launch_bounds__(THREADS2, 1)
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 bool bad_shape(int n, int d, int windows, int heads, const void* mask, int n_masks) {
-  return n < 1 || n > 65535 || d != D || windows < 1 || windows > 65535 || heads < 1 ||
-         heads > 65535 || (mask && (n_masks < 1 || windows % n_masks));
+  return n < 1 || n > 65535 || d < 8 || d > 128 || d % 8 || windows < 1 || windows > 65535 ||
+         heads < 1 || heads > 65535 || (mask && (n_masks < 1 || windows % n_masks));
 }
 
 // the least x >= n with x % m == r (r < m)
@@ -1381,14 +1416,14 @@ hop::Plan plan_bwd(int windows, int heads, int n, int n_masks, bool masked, int 
     p.rows_bytes = p.kt * ROW_BYTES;
     p.bpitch = at_least(p.kt, 32, 16);
     p.stage_bytes = 2 * TILE_BYTES + 2 * p.rows_bytes;
-    if (launch == 2) p.stage_bytes += (2 * p.kt * 4 + 511) & ~511;
+    if (launch == 2) p.stage_bytes += (STATS * p.kt * 4 + 511) & ~511;
     p.slab = 0;
     p.stages = 3;
     if (smem_bytes(p, launch) > SMEM_MAX) p.stages = 0;
     return p;
   }
   p.stage_bytes = 2 * TILE_BYTES + 2 * p.rows_bytes;
-  if (launch == 2) p.stage_bytes += (2 * p.ns * 4 + 511) & ~511;
+  if (launch == 2) p.stage_bytes += (STATS * p.ns * 4 + 511) & ~511;
   p.slab = launch == 1;
   for (;;) {  // two stages, then one; launch 1: with the slab first
     for (p.stages = 2; p.stages >= 1; --p.stages)
@@ -1463,9 +1498,11 @@ cudaError_t launch_bwd_bf16(const BwdArgs& g, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 float32 (SIMT), 1 bfloat16 (tensor cores). Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernels do
-// not take.
+// dtype: 0 float32 (SIMT), 1 bfloat16 (at d = 32 Hopper's wgmma and TMA,
+// else mma.sync, window_attn_mma.cuh); d: the head dim, 8 to 128 in steps
+// of 8.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments the
+// kernels do not take.
 extern "C" int k5_fwd(int dtype, const void* q, const void* k, const void* v, int64_t s_w,
                       int64_t s_h, int64_t s_n, void* out, int64_t o_w, int64_t o_h, int64_t o_n,
                       const float* bias, const void* mask, int n_masks, float scale, int windows,
@@ -1475,25 +1512,35 @@ extern "C" int k5_fwd(int dtype, const void* q, const void* k, const void* v, in
   const wtile::Args a{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask,
                       mask ? n_masks : 1, scale, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && aligned16(bias) &&
-          aligned16(mask)) ||
-        (s_w | s_h | s_n | o_w | o_h | o_n) % 8 || group < 1)
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
+                        aligned16(bias) && aligned16(mask)) ||
+                      (s_w | s_h | s_n | o_w | o_h | o_n) % 8 || group < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wtile::mma::on_wgmma(dtype, d))
     return static_cast<int>(wtile::launch<wtile::MAX_STABLE>(a, windows, heads, group, s));
+  if (dtype == 1) {
+    const wtile::mma::MArgs m{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v), s_w, s_h, s_n,
+                              static_cast<bf16*>(out), o_w, o_h, o_n, bias, mask,
+                              mask ? n_masks : 1, nullptr, scale, n, d};
+    return static_cast<int>(
+        wtile::mma::launch<wtile::mma::M_MAX_STABLE, bf16>(m, windows, heads, s));
   }
   if (dtype == 0)
-    return static_cast<int>(wtile::simt::launch_f32<wtile::MAX_STABLE, bf16>(a, windows, heads, s));
+    return static_cast<int>(
+        wtile::simt::launch<wtile::MAX_STABLE, bf16>(a, windows, heads, d, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The row-statistics stride the bf16 backward needs: stats holds
-// windows * heads * 2 * k5_stats_stride(n) floats.
+// windows * heads * 3 * k5_stats_stride(n) floats (hop::STATS rows of statistics).
 extern "C" int k5_stats_stride(int n) { return (n + hop::BM - 1) / hop::BM * hop::BM; }
 
-// bias in the compute type; mask bf16 or null; dbias zeroed; for f32, dk and
-// dv zeroed too (the SIMT route adds into them). group: windows a bf16 block
-// takes (G).
+// bias in the compute type; mask bf16 or null; dbias zeroed. dq, dk, dv:
+// in bf16 on the Hopper route (dtype 1, d = 32); else (dtype 0, SIMT; or
+// bf16 at another head dim, mma.sync, window_attn_mma.cuh) f32, dk and dv
+// zeroed (the kernels add into them). d: the head dim, 8 to 128 in steps
+// of 8. group: windows a bf16 block takes (G).
 extern "C" int k5_bwd(int dtype, const void* q, const void* k, const void* v, int64_t s_w,
                       int64_t s_h, int64_t s_n, const void* dout, int64_t d_w, int64_t d_h,
                       int64_t d_n, void* dq, void* dk, void* dv, int64_t g_w, int64_t g_h,
@@ -1506,7 +1553,7 @@ extern "C" int k5_bwd(int dtype, const void* q, const void* k, const void* v, in
             static_cast<const bf16*>(mask), mask ? n_masks : 1, stats, dbias, scale, n,
             k5_stats_stride(n), heads, windows, group};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (wtile::mma::on_wgmma(dtype, d)) {
     if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(bias) &&
           aligned16(mask) && aligned16(stats)) ||
         s_h != D || d_h != D || (s_w | s_n | d_w | d_n) % 8 || (g_w | g_h | g_n) % 2 ||
@@ -1515,11 +1562,19 @@ extern "C" int k5_bwd(int dtype, const void* q, const void* k, const void* v, in
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_bwd_bf16(g, s));
   }
-  if (dtype == 0) {
-    simt::bwd_f32<<<dim3((n + simt::BMQ - 1) / simt::BMQ, windows, heads), simt::THREADS,
-                    simt::bwd_smem(), s>>>(g);
-    return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) ||
+        (s_w | s_h | s_n | d_w | d_h | d_n) % 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const wtile::mma::MBwdArgs m{
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        s_w, s_h, s_n, static_cast<const bf16*>(dout), d_w, d_h, d_n, static_cast<float*>(dq),
+        static_cast<float*>(dk), static_cast<float*>(dv), g_w, g_h, g_n,
+        static_cast<const bf16*>(bias), static_cast<const bf16*>(mask), mask ? n_masks : 1,
+        dbias, scale, n, d};
+    return static_cast<int>(wtile::mma::launch_bwd(m, windows, heads, s));
   }
+  if (dtype == 0) return static_cast<int>(simt::launch_bwd(g, d, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

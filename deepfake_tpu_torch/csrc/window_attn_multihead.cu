@@ -1,6 +1,6 @@
 // K6: window attention for the windows above K2's range (N >= 65 tokens, any
-// N above that), head dim 32, cosine (SwinV2) or scaled. For each (window w,
-// head h):
+// N above that), head dims 8 to 128 in steps of 8, cosine (SwinV2) or
+// scaled. For each (window w, head h):
 //
 //   cosine: out = softmax_rows(scales[h] (q^ . k^T^) + bias[h] + mask[w % n_masks]) . v
 //           q^ = q / max(|q|, 1e-12), k^ likewise, per row
@@ -71,10 +71,13 @@
 //     warpgroup a block refills a tile of one key tile's columns before each
 //     key tile, which shares nothing. Every mbarrier wait traps after 10 s
 //     (hopper.cuh), so a fault in the schedule is a failed launch.
-//   - f32 (parity runs only; a different kernel from the one that serves):
-//     one block per (32-query tile, window, head), SIMT f32 FMA; K and V
-//     stream through shared memory in tiles of 128 keys with an online row
-//     max, the [32, 128] logit tile in shared memory.
+//   The Hopper route is built for head dim 32 (every SwinV2-B head); other
+//     head dims take window_attn_mma.cuh's tensor-core kernel (mma.sync).
+//   - f32 (parity runs only): one block per (32-query tile, window, head),
+//     SIMT f32 FMA; K and V stream through shared
+//     memory in tiles of 128 keys (64 at heads of 128 columns) with an
+//     online row max, the [32, 128] logit tile in shared memory. Instances
+//     for heads of 32, 64 and 128 columns, a narrower head zero-filled.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -83,11 +86,13 @@
 
 #include <atomic>
 
+#include "window_attn_mma.cuh"
 #include "window_attn_tile.cuh"
 
 namespace {
 
 constexpr int D = 32;      // head dim
+static_assert(D == wtile::mma::WGMMA_D, "the wgmma kernel's head dim");
 constexpr int MIN_N = 65;  // windows of N <= 64 are K2's
 typedef __nv_bfloat16 bf16;
 
@@ -124,17 +129,24 @@ __device__ __forceinline__ float norm_div(float ss) { return fmaxf(sqrtf(ss), 1e
 
 namespace simt {
 
-constexpr int MQ = 32, KT = 128, THREADS = 256, DP = D + 1;  // +1 pads off bank conflicts
+constexpr int MQ = 32, THREADS = 256;
 constexpr int ROWS_PER_WARP = MQ / (THREADS / 32);
 
+// keys a tile: 128, 64 at heads of 128 columns (the shared memory)
+__host__ __device__ constexpr int key_tile(int dc) { return dc <= 2 ? 128 : 64; }
+template <int DC>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * KT * DP + MQ * DP + MQ * (KT + 1));
+  return sizeof(float) * ((2 * key_tile(DC) + MQ) * (32 * DC + 1) + MQ * (key_tile(DC) + 1));
 }
 
-template <bool COSINE>
-__global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
+// Any head dim d of 8 to 128 (DC column groups of 32, the columns from d on
+// zero-filled, which change neither the norms, q.k nor the kept columns of
+// P V)
+template <bool COSINE, int DC>
+__global__ void __launch_bounds__(THREADS) attn_simt(Args g, int d) {
+  constexpr int DW = 32 * DC, DP = DW + 1, KT = key_tile(DC), NP = KT + 1;
   extern __shared__ float sm[];
-  const int N = g.n, NP = KT + 1;
+  const int N = g.n;
   float* ks = sm;              // [KT][DP]
   float* vs = ks + KT * DP;    // [KT][DP]
   float* qs = vs + KT * DP;    // [MQ][DP]
@@ -149,45 +161,49 @@ __global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
   const float* V = static_cast<const float*>(g.v) + base;
   const float scale = g.scales[h];
 
-  for (int idx = tid; idx < MQ * D; idx += THREADS) {
-    const int i = idx / D, c = idx % D;
-    const float x = i < rows ? Q[(int64_t)(q0 + i) * g.s_n + c] : 0.f;
+  for (int idx = tid; idx < MQ * DW; idx += THREADS) {
+    const int i = idx / DW, c = idx % DW;
+    const float x = i < rows && c < d ? Q[(int64_t)(q0 + i) * g.s_n + c] : 0.f;
     qs[i * DP + c] = COSINE ? x : x * scale;
   }
+  // a row's L2 norm: lane c holds columns c + 32 u
+  auto normalise = [&](float* row) {
+    float ss = 0.f;
+#pragma unroll
+    for (int u = 0; u < DC; ++u) ss += row[lane + 32 * u] * row[lane + 32 * u];
+    const float div = norm_div(warp_sum(ss));
+#pragma unroll
+    for (int u = 0; u < DC; ++u) row[lane + 32 * u] = row[lane + 32 * u] / div;
+  };
   if (COSINE) {
     __syncthreads();
-    for (int r = warp; r < rows; r += THREADS / 32) {  // a lane per element (D == 32)
-      const float val = qs[r * DP + lane];
-      qs[r * DP + lane] = val / norm_div(warp_sum(val * val));
-    }
+    for (int r = warp; r < rows; r += THREADS / 32) normalise(qs + r * DP);
   }
 
   const float* bias = g.bias + (int64_t)h * N * N;
   const float* mask = g.mask ? g.mask + (int64_t)(w % g.n_masks) * N * N : nullptr;
   // the online softmax of rows warp + 8 i: running max, sum, and lane c's
-  // column of the unnormalised P V
-  float m[ROWS_PER_WARP], l[ROWS_PER_WARP], o[ROWS_PER_WARP];
+  // columns c + 32 u of the unnormalised P V
+  float m[ROWS_PER_WARP], l[ROWS_PER_WARP], o[ROWS_PER_WARP][DC];
 #pragma unroll
   for (int i = 0; i < ROWS_PER_WARP; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
-    o[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < DC; ++u) o[i][u] = 0.f;
   }
   for (int t0 = 0; t0 < N; t0 += KT) {
     const int nt = min(KT, N - t0);
     __syncthreads();  // the previous tile is consumed (and q is ready)
-    for (int idx = tid; idx < nt * D; idx += THREADS) {
-      const int j = idx / D, c = idx % D;
+    for (int idx = tid; idx < nt * DW; idx += THREADS) {
+      const int j = idx / DW, c = idx % DW;
       const int64_t off = (int64_t)(t0 + j) * g.s_n + c;
-      ks[j * DP + c] = K[off];
-      vs[j * DP + c] = V[off];
+      ks[j * DP + c] = c < d ? K[off] : 0.f;
+      vs[j * DP + c] = c < d ? V[off] : 0.f;
     }
     if (COSINE) {
       __syncthreads();
-      for (int r = warp; r < nt; r += THREADS / 32) {
-        const float val = ks[r * DP + lane];
-        ks[r * DP + lane] = val / norm_div(warp_sum(val * val));
-      }
+      for (int r = warp; r < nt; r += THREADS / 32) normalise(ks + r * DP);
     }
     __syncthreads();
     for (int idx = tid; idx < rows * nt; idx += THREADS) {
@@ -196,7 +212,7 @@ __global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
       const float* kj = ks + j * DP;
       float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < D; ++c) s = fmaf(qi[c], kj[c], s);
+      for (int c = 0; c < DW; ++c) s = fmaf(qi[c], kj[c], s);
       if (COSINE) s *= scale;
       const int64_t at = (int64_t)(q0 + i) * N + t0 + j;
       s += bias[at];
@@ -222,10 +238,12 @@ __global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
       }
       l[ri] = l[ri] * alpha + warp_sum(sum);
       __syncwarp();
-      // P V: lane c accumulates column c of the row (D == 32)
-      float acc = 0.f;
-      for (int j = 0; j < nt; ++j) acc = fmaf(p[j], vs[j * DP + lane], acc);
-      o[ri] = o[ri] * alpha + acc;
+#pragma unroll
+      for (int u = 0; u < DC; ++u) {
+        float acc = 0.f;
+        for (int j = 0; j < nt; ++j) acc = fmaf(p[j], vs[j * DP + lane + 32 * u], acc);
+        o[ri][u] = o[ri][u] * alpha + acc;
+      }
       m[ri] = mn;
     }
   }
@@ -234,7 +252,10 @@ __global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
 #pragma unroll
   for (int ri = 0; ri < ROWS_PER_WARP; ++ri) {
     const int i = warp + ri * (THREADS / 32);
-    if (i < rows) O[(int64_t)(q0 + i) * g.o_n + lane] = o[ri] / l[ri];
+    if (i >= rows) continue;
+#pragma unroll
+    for (int u = 0; u < DC; ++u)
+      if (lane + 32 * u < d) O[(int64_t)(q0 + i) * g.o_n + lane + 32 * u] = o[ri][u] / l[ri];
   }
 }
 
@@ -490,19 +511,28 @@ __global__ void __launch_bounds__(128 * MAX_CONSUMERS, 1)
 
 }  // namespace hop
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
-                   const Args& g) {
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// the SIMT kernel at head dim d: the instance of 1, 2 or 4 column groups
+template <int DC>
+cudaError_t launch_simt_dc(bool cosine, const Args& g, int windows, int heads, int d,
+                           cudaStream_t s) {
+  constexpr size_t smem = simt::smem_bytes<DC>();
+  void (*kernel)(Args, int) = cosine ? simt::attn_simt<true, DC> : simt::attn_simt<false, DC>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<grid, threads, smem, s>>>(g);
+  kernel<<<dim3(windows, (g.n + simt::MQ - 1) / simt::MQ, heads), simt::THREADS, smem, s>>>(g, d);
   return cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+cudaError_t launch_simt(bool cosine, const Args& g, int windows, int heads, int d,
+                        cudaStream_t s) {
+  if (d <= 32) return launch_simt_dc<1>(cosine, g, windows, heads, d, s);
+  if (d <= 64) return launch_simt_dc<2>(cosine, g, windows, heads, d, s);
+  return launch_simt_dc<4>(cosine, g, windows, heads, d, s);
+}
 
 // the least x >= n with x % 32 == 8
 constexpr int pitch_of(int n) { return n + ((8 - n % 32) % 32 + 32) % 32; }
@@ -614,24 +644,28 @@ extern "C" int k6_window_attn(int dtype, int cosine, const void* q, const void* 
                               int64_t o_h, int64_t o_n, const float* bias, const float* mask,
                               int n_masks, const float* scales, int windows, int heads, int n,
                               int d, int group, void* stream) {
-  if (n < MIN_N || d != D || windows < 1 || heads < 1 || heads > 65535 ||
+  if (n < MIN_N || d < 8 || d > 128 || d % 8 || windows < 1 || heads < 1 || heads > 65535 ||
       (mask && (n_masks < 1 || windows % n_masks)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args g{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask, mask ? n_masks : 1, scales, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 1) {
-    if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && aligned16(bias) &&
-          aligned16(mask)) ||
-        (s_w | s_h | s_n | o_w | o_h | o_n) % 8)
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
+                        aligned16(bias) && aligned16(mask)) ||
+                      (s_w | s_h | s_n | o_w | o_h | o_n) % 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (wtile::mma::on_wgmma(dtype, d)) {
     err = cosine ? launch_bf16<true>(g, windows, heads, group, s)
                  : launch_bf16<false>(g, windows, heads, group, s);
+  } else if (dtype == 1) {
+    using namespace wtile::mma;
+    const MArgs m{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), s_w, s_h, s_n, static_cast<bf16*>(out), o_w,
+                  o_h, o_n, bias, mask, g.n_masks, scales, 0.f, n, d};
+    err = cosine ? launch<M_COSINE, float>(m, windows, heads, s)
+                 : launch<M_SCALED, float>(m, windows, heads, s);
   } else if (dtype == 0) {
-    const dim3 grid(windows, (n + simt::MQ - 1) / simt::MQ, heads);
-    const size_t smem = simt::smem_bytes();
-    err = cosine ? launch(simt::attn_f32<true>, grid, simt::THREADS, smem, s, g)
-                 : launch(simt::attn_f32<false>, grid, simt::THREADS, smem, s, g);
+    err = launch_simt(cosine, g, windows, heads, d, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

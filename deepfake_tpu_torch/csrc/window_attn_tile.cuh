@@ -1,6 +1,7 @@
 // The Hopper body of the token-major window attention of Video Swin's
 // large 3D windows (any N: 392 tokens for (8,7,7) windows, 784 for (16,7,7);
-// head dim 32), shared by K3 (window_attn3d.cu, serving) and K5's forward
+// head dim 32; other head dims take the SIMT kernel at the end), shared by
+// K3 (window_attn3d.cu, serving) and K5's forward
 // (window_attn3d_train.cu, training). For each (window w, head h):
 //
 //   out = softmax_rows(S + bias[h] + mask[w % n_masks]) . v
@@ -932,23 +933,28 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// ------------------------------------------------------------- f32: SIMT
+// ------------------------------------------------------------- SIMT
 
 // The f32 parity kernel of K3 (STATIC_SHIFT, f32 mask) and of K5's forward
-// (MAX_STABLE, bf16 mask); a different kernel from the ones that serve and
-// train. One block of 8 warps per (query tile of 32 rows, window, head),
-// SIMT f32 FMA, any N: K and V come in tiles of 64 keys through shared
-// memory beside the tile's [32, 64] logits; warp w keeps the softmax state
-// and O[r][lane] of rows r = w + 8 i, so STATIC_SHIFT sums its weights and
+// (MAX_STABLE, bf16 mask), at every head dim of 8 to 128; a different kernel
+// from the ones that serve and train (the wgmma kernels above at D = 32,
+// window_attn_mma.cuh's at other head dims). One block of 8 warps per
+// (query tile of 32 rows, window, head), SIMT f32 FMA, any N: K
+// and V come in tiles of 64 keys through shared memory beside the tile's
+// [32, 64] logits; a head is held as DC = 1, 2 or 4 column groups of 32
+// (instances 32, 64, 128), the columns from D on zero-filled, so they change
+// neither q.k nor the kept columns of P V; warp w keeps the softmax state and
+// O[r][lane + 32 u] of rows r = w + 8 i, so STATIC_SHIFT sums its weights and
 // MAX_STABLE keeps an online row max, rescaling its sum and O when it grows.
 // Logits (q scale) k + bias + mask, then exp(min(x - 24, 60)) or
 // exp(x - max); O / rowsum at the end.
 namespace simt {
 
-constexpr int MQ = 32, KT = 64, THREADS = 256, DP = D + 1;  // +1 pads off bank conflicts
+constexpr int MQ = 32, KT = 64, THREADS = 256;
 
+template <int DC>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(float) * (MQ * DP + 2 * KT * DP + MQ * (KT + 1));
+  return sizeof(float) * (MQ * (32 * DC + 1) + 2 * KT * (32 * DC + 1) + MQ * (KT + 1));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -964,8 +970,9 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float to_f32(float m) { return m; }
 __device__ __forceinline__ float to_f32(bf16 m) { return __bfloat162float(m); }
 
-template <int F, typename MaskT>
-__global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
+template <int F, typename MaskT, int DC>
+__global__ void __launch_bounds__(THREADS) attn_simt(Args g, int d) {
+  constexpr int DW = 32 * DC, DP = DW + 1;  // +1 pads off bank conflicts
   extern __shared__ float sm[];
   const int N = g.n;
   float* qs = sm;             // [MQ][DP] q * scale
@@ -980,28 +987,31 @@ __global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
   const float* Q = static_cast<const float*>(g.q) + base;
   const float* K = static_cast<const float*>(g.k) + base;
   const float* V = static_cast<const float*>(g.v) + base;
-  for (int idx = tid; idx < MQ * D; idx += THREADS) {
-    const int i = idx / D, c = idx % D;
-    qs[i * DP + c] = i < rows ? Q[(int64_t)(q0 + i) * g.s_n + c] * g.scale : 0.f;
+  for (int idx = tid; idx < MQ * DW; idx += THREADS) {
+    const int i = idx / DW, c = idx % DW;
+    qs[i * DP + c] = i < rows && c < d ? Q[(int64_t)(q0 + i) * g.s_n + c] * g.scale : 0.f;
   }
   const float* bias = g.bias + (int64_t)h * N * N;
   const MaskT* mask =
       g.mask ? static_cast<const MaskT*>(g.mask) + (int64_t)(w % g.n_masks) * N * N : nullptr;
 
-  float o[MQ / 8], m[MQ / 8], l[MQ / 8];  // rows warp + 8 i: O[.][lane], max, sum
+  // rows warp + 8 i: O[.][lane + 32 u], max, sum
+  float o[MQ / 8][DC], m[MQ / 8], l[MQ / 8];
 #pragma unroll
   for (int i = 0; i < MQ / 8; ++i) {
-    o[i] = l[i] = 0.f;
+    l[i] = 0.f;
     m[i] = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < DC; ++u) o[i][u] = 0.f;
   }
   for (int k0 = 0; k0 < N; k0 += KT) {
     const int kn = min(KT, N - k0);
     __syncthreads();  // the last tile's reads are done (and q is in place)
-    for (int idx = tid; idx < kn * D; idx += THREADS) {
-      const int j = idx / D, c = idx % D;
+    for (int idx = tid; idx < kn * DW; idx += THREADS) {
+      const int j = idx / DW, c = idx % DW;
       const int64_t off = (int64_t)(k0 + j) * g.s_n + c;
-      ks[j * DP + c] = K[off];
-      vs[j * DP + c] = V[off];
+      ks[j * DP + c] = c < d ? K[off] : 0.f;
+      vs[j * DP + c] = c < d ? V[off] : 0.f;
     }
     __syncthreads();
     for (int idx = tid; idx < rows * kn; idx += THREADS) {
@@ -1010,7 +1020,7 @@ __global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
       const float* kj = ks + j * DP;
       float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < D; ++c) s = fmaf(qi[c], kj[c], s);
+      for (int c = 0; c < DW; ++c) s = fmaf(qi[c], kj[c], s);
       const int64_t at = (int64_t)(q0 + i) * N + k0 + j;
       ps[i * (KT + 1) + j] = (s + bias[at]) + (mask ? to_f32(mask[at]) : 0.f);
     }
@@ -1038,30 +1048,50 @@ __global__ void __launch_bounds__(THREADS) attn_f32(Args g) {
           sum += e;
         }
         l[i] = fmaf(l[i], alpha, warp_sum(sum));
-        o[i] *= alpha;
+#pragma unroll
+        for (int u = 0; u < DC; ++u) o[i][u] *= alpha;
         m[i] = mn;
       }
       __syncwarp();
-      float acc = 0.f;
-      for (int j = 0; j < kn; ++j) acc = fmaf(p[j], vs[j * DP + lane], acc);
-      o[i] += acc;
+#pragma unroll
+      for (int u = 0; u < DC; ++u) {
+        float acc = 0.f;
+        for (int j = 0; j < kn; ++j) acc = fmaf(p[j], vs[j * DP + lane + 32 * u], acc);
+        o[i][u] += acc;
+      }
     }
   }
   float* O = static_cast<float*>(g.out) + (int64_t)w * g.o_w + (int64_t)h * g.o_h;
 #pragma unroll
   for (int i = 0; i < MQ / 8; ++i) {
     const int r = warp + 8 * i;
-    if (r < rows) O[(int64_t)(q0 + r) * g.o_n + lane] = o[i] * (1.f / l[i]);
+    if (r >= rows) continue;
+#pragma unroll
+    for (int u = 0; u < DC; ++u)
+      if (lane + 32 * u < d) O[(int64_t)(q0 + r) * g.o_n + lane + 32 * u] = o[i][u] * (1.f / l[i]);
   }
 }
 
-static_assert(smem_bytes() <= 48 * 1024, "attn_f32 needs no shared-memory attribute");
-
-// One launch; the caller has checked the shapes
-template <int F, typename MaskT>
-cudaError_t launch_f32(const Args& g, int windows, int heads, cudaStream_t s) {
-  attn_f32<F, MaskT><<<dim3((g.n + MQ - 1) / MQ, windows, heads), THREADS, smem_bytes(), s>>>(g);
+template <int F, typename MaskT, int DC>
+cudaError_t launch_dc(const Args& g, int windows, int heads, int d, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<DC>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_simt<F, MaskT, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  attn_simt<F, MaskT, DC><<<dim3((g.n + MQ - 1) / MQ, windows, heads), THREADS, smem, s>>>(g, d);
   return cudaGetLastError();
+}
+
+// One launch at head dim d (8 to 128; the instance of d's column groups, 1,
+// 2 or 4); the caller has checked the shapes
+template <int F, typename MaskT>
+cudaError_t launch(const Args& g, int windows, int heads, int d, cudaStream_t s) {
+  if (d <= 32) return launch_dc<F, MaskT, 1>(g, windows, heads, d, s);
+  if (d <= 64) return launch_dc<F, MaskT, 2>(g, windows, heads, d, s);
+  if (d <= 128) return launch_dc<F, MaskT, 4>(g, windows, heads, d, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace simt

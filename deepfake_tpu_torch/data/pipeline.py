@@ -5,9 +5,11 @@ PCM becomes the mel image (``mel_image_masked``) for the ``audio`` input
 and a normalised waveform for the ``paudio`` input. Everything runs in f32
 on the assembler's device; the caller casts the result to its compute type.
 
-Evaluation only: the train-time augmentation and the device prefetch queue
-are not ported. ``video_swin`` clips stay NTHWC (the JAX package's
-channel-folded and pre-windowed host feeds are TPU layout work).
+For training, frames are augmented on the device and ``batch_longest``
+waves are normalised per accumulation micro-batch (``FeatureAssembler``
+with ``train=True``). The device prefetch queue is not ported.
+``video_swin`` clips stay NTHWC (the JAX package's channel-folded and
+pre-windowed host feeds are TPU layout work).
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import numpy as np
 import torch
 
 from deepfake_tpu_torch.config import Config
-from deepfake_tpu_torch.ops.image import imagenet_stats, normalize_imagenet
+from deepfake_tpu_torch.ops.image import (
+    imagenet_stats, normalize_imagenet, preprocess_clip_batch,
+)
 from deepfake_tpu_torch.ops.mel import full_f32_matmul, mel_filterbank, stft_power
 from deepfake_tpu_torch.ops.resample import resample, resampled_length
 
@@ -138,20 +142,32 @@ def mel_image_masked(wave: torch.Tensor, length: torch.Tensor, sr: int = 22050,
 
 class FeatureAssembler:
     """Raw batch dict -> model inputs on ``device`` (the card unless the
-    caller names one), evaluation only. Keys as the JAX package's dataset
-    gives them: ``video`` (uint8 NTHWC), ``audio_image`` (uint8 NHWC),
-    ``audio_wave`` / ``audio_len`` and ``paudio_wave`` / ``paudio_len``
+    caller names one), for evaluation or, with ``train``, for training
+    (deepfake_tpu/data/pipeline.py:170-253). Keys as the JAX package's
+    dataset gives them: ``video`` (uint8 NTHWC), ``audio_image`` (uint8
+    NHWC), ``audio_wave`` / ``audio_len`` and ``paudio_wave`` / ``paudio_len``
     (padded PCM and valid lengths). Returns (inputs, labels): a tuple in the
-    fused order (video, audio, paudio) for ``fused``, else the one input."""
+    fused order (video, audio, paudio) for ``fused``, else the one input.
 
-    def __init__(self, cfg: Config, train: bool = False, device=None):
+    In training the frames (``video``, ``video_swin`` and the video part of
+    ``fused``) are augmented on the device (``ops/image.py``: flips and a
+    rotation, one draw a clip unless ``per_frame``) from the assembler's own
+    ``torch.Generator`` on ``device``, seeded with ``cfg.random_seed + 1``
+    as the JAX assembler seeds its key; and ``batch_longest`` waves are
+    normalised per accumulation micro-batch (``cfg.optim.accum_step``
+    slices of the batch, the slices the Trainer hands the model)."""
+
+    def __init__(self, cfg: Config, train: bool = False, device=None, per_frame: bool = False):
         from deepfake_tpu_torch.models.registry import resolve_device
 
-        if train:
-            raise NotImplementedError("train-time feature assembly (augmentation) is not ported")
         self.cfg = cfg
+        self.train = train
+        self.per_frame = per_frame
         self.modality = cfg.data.modality
         self.device = resolve_device(device)
+        self.gen = None
+        if train:
+            self.gen = torch.Generator(self.device).manual_seed(cfg.random_seed + 1)
 
     def _get(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
@@ -161,7 +177,7 @@ class FeatureAssembler:
         cfg = self.cfg
         out = []
         if "video" in feats:
-            out.append(normalize_imagenet(self._get(feats["video"])))
+            out.append(preprocess_clip_batch(self._get(feats["video"]), self.gen, self.per_frame))
         if "audio_image" in feats:
             out.append(normalize_imagenet(self._get(feats["audio_image"])))
         if "audio_wave" in feats:
@@ -177,7 +193,15 @@ class FeatureAssembler:
                 out.append(masked_wave_normalize(wave, self._get(feats["paudio_len"], torch.long)))
             elif cfg.data.wave_norm == "batch_longest":
                 lengths = self._get(feats["paudio_len"], torch.long)
-                out.append((batch_longest_wave_normalize(wave, lengths), lengths))
+                # the reference normalises per DataLoader batch, which under
+                # accumulation is each micro-batch
+                accum = max(1, cfg.optim.accum_step) if self.train else 1
+                if accum > 1 and wave.shape[0] % accum == 0:
+                    normed = torch.cat([batch_longest_wave_normalize(w, n) for w, n in zip(
+                        wave.chunk(accum), lengths.chunk(accum))])
+                else:
+                    normed = batch_longest_wave_normalize(wave, lengths)
+                out.append((normed, lengths))
             else:  # "hf"
                 out.append(hf_wave_normalize(wave))
         inputs = tuple(out) if self.modality == "fused" else out[0]

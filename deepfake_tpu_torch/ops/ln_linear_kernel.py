@@ -41,7 +41,10 @@ from deepfake_tpu_torch.models.layers import gelu_exact
 from deepfake_tpu_torch.ops.window_attn_kernel import _no_autograd, _on_cuda
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_PANEL_K = 1024  # csrc/ln_linear.cu hop::MAX_PANEL_K
+# csrc/ln_linear.cu hop::MAX_PANEL_K: wider rows (Video Swin-L's stage 3, C =
+# 1536) come through the ring an atom at a time, normalised as they land,
+# with their LayerNorm statistics from a pre-pass
+MAX_PANEL_K = 1024
 # the channel widths k4_mlp_tail takes in one launch (csrc/ln_linear.cu):
 # Video Swin-S's stages 0-2; at 768 its [64, C] f32 accumulator would not
 # fit in registers
@@ -80,7 +83,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.k4_ln_linear.argtypes = [
-            i, p, p, i64, p, p, ctypes.c_float, p, p, i, i, i, i, p, p, i64, p, i64, p]
+            i, p, p, i64, p, p, ctypes.c_float, p, p, i, i, i, i, p, p, i64, p, i64, p, p]
         lib.k4_ln_linear.restype = i
         lib.k4_mlp_tail.argtypes = [p, p, i64, p, p, ctypes.c_float, p, p, p, p, i, i, p, i64, p]
         lib.k4_mlp_tail.restype = i
@@ -132,10 +135,9 @@ def _check(x, weight, bias, x2, ln, res, res2):
         raise ValueError("K4's bf16 route needs K, N and row strides that are multiples of 8 "
                          "and 16-byte aligned x, x2, weight, bias, res, res2 and LayerNorm "
                          "weights")
-    if dt == torch.bfloat16 and (x2 is not None or ln is not None) and (
-            K % 32 or K > MAX_PANEL_K):
-        raise ValueError(f"K4's bf16 route with a sum or a LayerNorm holds x in shared memory: "
-                         f"it needs K a multiple of 32 up to {MAX_PANEL_K}, got {K}")
+    if dt == torch.bfloat16 and (x2 is not None or ln is not None) and K % 32:
+        raise ValueError(f"K4's bf16 route with a sum or a LayerNorm needs K a multiple of 32, "
+                         f"got {K}")
     return a, a2, r, r2
 
 
@@ -154,6 +156,9 @@ def ln_linear(x, weight, bias=None, *, x2=None, ln: Optional[LN] = None, gelu: b
     M, K = a.shape
     N = weight.shape[0]
     out = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    # the rows' LayerNorm statistics where x's rows are too wide for a panel
+    stats = (torch.empty(M, 2, dtype=torch.float32, device=x.device)
+             if ln is not None and x.dtype == torch.bfloat16 and K > MAX_PANEL_K else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _lib()
     status = lib.k4_ln_linear(
@@ -161,7 +166,7 @@ def ln_linear(x, weight, bias=None, *, x2=None, ln: Optional[LN] = None, gelu: b
         ptr(ln[0] if ln is not None else None), ptr(ln[1] if ln is not None else None),
         float(ln[2]) if ln is not None else 0.0, weight.data_ptr(), ptr(bias), M, K, N,
         int(gelu), ptr(r), ptr(r2), r.stride(0) if r is not None else 0, out.data_ptr(), N,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        ptr(stats), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, lib.k4_error_string, "k4_ln_linear")
     ln_linear.launches += 1
     return out.view(*x.shape[:-1], N)

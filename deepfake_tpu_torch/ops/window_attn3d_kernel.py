@@ -5,15 +5,18 @@ Counterpart of deepfake_tpu/ops/pallas_window_attn.py
 channel slices), and, between K4's qkv and proj launches
 (ops/ln_linear_kernel.py), of the attention inside
 ``pallas_window_attention_nhc_qkv`` (:548). Windows of any size (392 tokens
-for (8,7,7) windows, 784 for (16,7,7)), head dim 32.
+for (8,7,7) windows, 784 for (16,7,7)), head dims 8 to 128 in steps of 8.
 
 On the card, bf16 runs on Hopper's wgmma and TMA: one block per (head, group
 of windows that read one mask index, query tile of 64 rows), the group
 sharing one bias + mask tile in shared memory (see the source's note); a
 window of more than 512 tokens streams its keys in tiles, each warpgroup
 filling the bias + mask of its own 64-key chunk; f32 runs the SIMT parity
-kernel, which streams its keys at any N. The wrapper takes its plain version for a CPU
-tensor and launches the kernel for a CUDA tensor, or raises;
+kernel, which streams its keys at any N; bf16 at a head dim other than 32
+(Video Swin's) runs a tensor-core kernel on mma.sync
+(csrc/window_attn_mma.cuh) at the same cast points. The wrapper takes its
+plain version for a CPU tensor and launches the kernel for a CUDA tensor,
+or raises;
 ``window_attn3d_tokens.launches`` counts kernel launches. The plain version
 keeps the Pallas kernel's cast points: q * bf16(scale) in q's type, f32
 logits, + bias + mask, the static-shift softmax exp(min(x - 24, 60)) with
@@ -28,9 +31,8 @@ import torch
 
 from deepfake_tpu_torch.kernels import build
 from deepfake_tpu_torch.ops.window_attn import add_mask
-from deepfake_tpu_torch.ops.window_attn_kernel import _no_autograd, _on_cuda
+from deepfake_tpu_torch.ops.window_attn_kernel import _no_autograd, _on_cuda, check_head_dim
 
-HEAD_DIM = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -69,8 +71,7 @@ def _lib():
 def _launch(q, k, v, strides, out, out_strides, *, windows, heads, n, d, bias, mask, scale):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"K3 takes f32 or bf16 q/k/v of one type, got {q.dtype}")
-    if d != HEAD_DIM:
-        raise ValueError(f"K3 takes D == {HEAD_DIM}, got N={n}, D={d}")
+    check_head_dim("K3", n, d)
     if not (q.stride(-1) == k.stride(-1) == v.stride(-1) == 1):
         raise ValueError("K3 needs the head dim contiguous")
     bf16 = q.dtype == torch.bfloat16

@@ -7,7 +7,9 @@ the token-major kernel with the max-stabilised softmax and whose backward is
 a Pallas kernel of its own (``_nhc_bwd_kernel``). Token-major q, k, v [B_, N,
 C] with heads in channel slices, windows of any size (392 tokens for (8,7,7)
 windows, 784 for (16,7,7); above 512 the bf16 kernels stream the window in
-tiles of keys or queries), head dim 32.
+tiles of keys or queries), head dims 8 to 128 in steps of 8 (32, Video
+Swin's, on Hopper's wgmma; any other in bf16 through mma.sync, forward and
+backward, csrc/window_attn_mma.cuh).
 
 ``window_attn3d_train(qkv, ...)`` takes the [B_, N, 3C] qkv tensor and is a
 ``torch.autograd.Function``: for a CPU tensor it runs the plain versions
@@ -34,9 +36,8 @@ import torch
 
 from deepfake_tpu_torch.kernels import build
 from deepfake_tpu_torch.ops.window_attn import add_mask
-from deepfake_tpu_torch.ops.window_attn_kernel import _on_cuda
+from deepfake_tpu_torch.ops.window_attn_kernel import _on_cuda, check_head_dim, on_wgmma
 
-HEAD_DIM = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64  # rows of a bf16 block, queries or keys (hop::BM, csrc/window_attn_tile.cuh wtile::BM)
 
@@ -109,8 +110,7 @@ def _check(qkv, num_heads: int, bias, mask):
         raise ValueError(f"K5: qkv width {C3} is not 3 x num_heads x head dim")
     C = C3 // 3
     D = C // num_heads
-    if D != HEAD_DIM:
-        raise ValueError(f"K5 takes D == {HEAD_DIM}, got N={N}, D={D}")
+    check_head_dim("K5", N, D)
     if qkv.stride(-1) != 1:
         raise ValueError("K5 needs the channels of qkv contiguous")
     if tuple(bias.shape) != (num_heads, N, N):
@@ -219,14 +219,17 @@ def window_attn3d_train_bwd(qkv, dout, *, num_heads: int, bias, mask=None, scale
     n_masks = mask.shape[0] if mask is not None else 1
     lib = _lib()
     group = _group(qkv, num_heads, N, n_masks, mask is not None)
-    if dt == torch.bfloat16:
+    # the f32 SIMT kernel and bf16's mma.sync kernel (D != 32) add into f32
+    # gradients; the wgmma kernels write bf16
+    if on_wgmma(dt, D):
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-        stats = torch.empty(B_ * num_heads * 2 * lib.k5_stats_stride(N), dtype=torch.float32,
+        # three rows a (window, head): max, -log2 sum, rowsum(dP P) (hop::STATS)
+        stats = torch.empty(B_ * num_heads * 3 * lib.k5_stats_stride(N), dtype=torch.float32,
                             device=dev)
         if dout.data_ptr() % 16:
             raise ValueError("K5's bf16 backward needs a 16-byte aligned dout")
     else:
-        dqkv = torch.zeros(qkv.shape, dtype=dt, device=dev)  # the f32 route adds dk, dv
+        dqkv = torch.zeros(qkv.shape, dtype=torch.float32, device=dev)  # it adds dk, dv
         stats = None
     status = lib.k5_bwd(
         _DTYPES[dt], qkv.data_ptr(), qkv[..., C:].data_ptr(), qkv[..., 2 * C:].data_ptr(),
@@ -237,7 +240,7 @@ def window_attn3d_train_bwd(qkv, dout, *, num_heads: int, bias, mask=None, scale
         B_, num_heads, N, D, group, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, lib.k5_error_string, "k5_bwd")
     window_attn3d_train_bwd.launches += 1
-    return dqkv, dbias
+    return dqkv.to(dt), dbias
 
 
 window_attn3d_train_bwd.launches = 0

@@ -30,7 +30,13 @@ from deepfake_tpu_torch.kernels import build
 from deepfake_tpu_torch.ops.window_attn import add_mask, l2_normalize
 
 MAX_TOKENS = 64
-MAX_HEAD_DIM = 64
+MAX_HEAD_DIM = 128
+# the head dims K3, K5 and K6 take: multiples of 8 from 8 to 128 (on_wgmma
+# says which of their bf16 kernels runs)
+HEAD_DIMS = range(8, 129, 8)
+# the head dim of the wgmma + TMA kernels of K3, K5 and K6
+# (csrc/window_attn_mma.cuh wtile::mma::WGMMA_D)
+WGMMA_HEAD_DIM = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # bf16 blocks resident on one SM (shared memory: ~67 KB a block at D = 32)
 BLOCKS_PER_SM = 3
@@ -157,6 +163,20 @@ def _launch(q, k, v, strides, out, out_strides, *, windows, heads, n, d, bias, m
         mask.data_ptr() if mask is not None else None, n_masks, scales.data_ptr(),
         int(cosine), windows, heads, n, d, group, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, lib.k2_error_string, "k2_window_attn")
+
+
+def on_wgmma(dtype: torch.dtype, d: int) -> bool:
+    """Whether K3, K5 or K6 runs its wgmma kernel for this dtype and head
+    dim; every other bf16 head dim runs the mma.sync kernels of
+    csrc/window_attn_mma.cuh (the C side splits by ``wtile::mma::on_wgmma``)."""
+    return dtype == torch.bfloat16 and d == WGMMA_HEAD_DIM
+
+
+def check_head_dim(kernel: str, n: int, d: int) -> None:
+    """Raise for a head dim that K3, K5 or K6 does not take."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{kernel} takes head dims {HEAD_DIMS.start} to {HEAD_DIMS.stop - 1} "
+                         f"in steps of {HEAD_DIMS.step}, got N={n}, D={d}")
 
 
 def _no_autograd(name: str, *ts) -> None:

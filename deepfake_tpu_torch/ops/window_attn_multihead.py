@@ -15,8 +15,9 @@ type. SwinV2 takes it for every window of more than 64 tokens (9 x 9 and up:
 (``window_attention_heads_plain``, K2's, which computes this function at any
 N) and launches K6 for CUDA tensors, or raises; ``.launches`` counts the
 launches. K6 takes N >= 65, with no upper limit (K and V stream through
-shared memory in key tiles), and head dim 32 (every SwinV2-B head). Its bf16
-kernel takes, per block, one head, one 64-row query tile and a group of
+shared memory in key tiles), and head dims 8 to 128 in steps of 8: 32
+(every SwinV2-B head) on Hopper's wgmma, any other in bf16 through
+mma.sync (csrc/window_attn_mma.cuh). Its bf16 wgmma kernel takes, per block, one head, one 64-row query tile and a group of
 windows that read one mask index, which share a bias + mask tile
 (``window_group`` chooses how many, ``block_windows`` lists the blocks: both
 are K5's, in ops/window_attn3d_train.py).
@@ -33,10 +34,10 @@ import torch
 from deepfake_tpu_torch.kernels import build
 from deepfake_tpu_torch.ops.window_attn3d_train import window_group
 from deepfake_tpu_torch.ops.window_attn_kernel import (
-    _no_autograd, _on_cuda, _sm_count, window_attention_heads_plain,
+    _no_autograd, _on_cuda, _sm_count, check_head_dim, on_wgmma, window_attention_heads_plain,
 )
 
-MIN_TOKENS, HEAD_DIM = 65, 32
+MIN_TOKENS = 65
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,8 +71,9 @@ def _launch(q, k, v, out, *, bias, mask, logit_scale, scale, cosine):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"K6 takes f32 or bf16 q/k/v, got {q.dtype}")
     B_, H, N, D = q.shape
-    if N < MIN_TOKENS or D != HEAD_DIM:
-        raise ValueError(f"K6 takes N >= {MIN_TOKENS} and D == {HEAD_DIM}, got N={N}, D={D}")
+    if N < MIN_TOKENS:
+        raise ValueError(f"K6 takes N >= {MIN_TOKENS}, got N={N}, D={D}")
+    check_head_dim("K6", N, D)
     if not (q.stride() == k.stride() == v.stride()) or q.stride(-1) != 1 or out.stride(-1) != 1:
         raise ValueError("K6 needs q, k, v with one set of strides and the head dim contiguous")
     dev = q.device
@@ -93,7 +95,7 @@ def _launch(q, k, v, out, *, bias, mask, logit_scale, scale, cosine):
     else:
         scales = torch.full((H,), float(scale), dtype=torch.float32, device=dev)
     group = 1
-    if q.dtype == torch.bfloat16:
+    if on_wgmma(q.dtype, D):
         index = dev.index if dev.index is not None else torch.cuda.current_device()
         group = window_group(B_, H, N, n_masks, mask is not None, _sm_count(index),
                              consumers(N))

@@ -155,11 +155,21 @@ def test_feature_assembler_matches_jax(name):
 
 
 def test_feature_assembler_is_evaluation_only():
+    """The audio input's assembly is the evaluation one in training too: a
+    train assembler (which augments frames and normalises batch_longest
+    waves per micro-batch) gives the mel image of the evaluation assembler,
+    bit for bit, and draws nothing for it."""
     from deepfake_tpu_torch.data.pipeline import FeatureAssembler
 
-    _, tcfg = both_configs({"data.modality": "audio"})
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        FeatureAssembler(tcfg, train=True, device="cpu")
+    _, tcfg = both_configs({"data.modality": "audio", "data.audio_size": 56})
+    feats = dict(zip(("audio_wave", "audio_len"), _pcm(2, 24000, 52)))
+    labels = np.asarray([0.0, 1.0], np.float32)
+    train = FeatureAssembler(tcfg, train=True, device="cpu")
+    state = train.gen.get_state()
+    got, _ = train(feats, labels)
+    want, _ = FeatureAssembler(tcfg, train=False, device="cpu")(feats, labels)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert torch.equal(train.gen.get_state(), state)
 
 
 @functools.lru_cache(maxsize=None)

@@ -138,8 +138,9 @@ def test_k1_is_deterministic(cuda_device, dtype):
 
 # (B_, H, shift mask (side, window, shift) or None, N, D, cosine): SwinV2-B's
 # stage shapes at window 7, b1's single window (head-major only), K2's range
-# (N = 16 and 64, D = 12, 16, 48 and 64; D = 12 is no multiple of 8, so the
-# kernel loads q, k, v with its threads, not by TMA), the audio preset's
+# (N = 16 and 64, D = 12, 16, 48, 64, 72, 96 and 128; D = 12 is no multiple
+# of 8, so the kernel loads q, k, v with its threads, not by TMA; above 64
+# the instance with two 64-column operands), the audio preset's
 # stage 3 (window 8, N = 64, H = 32), batches that are no multiple of the
 # window group, and scaled logits
 K2_CASES = {
@@ -153,6 +154,9 @@ K2_CASES = {
     "d16": (7, 3, None, 49, 16, True),
     "d48_n36": (5, 2, None, 36, 48, True),
     "d12_thread_loads": (6, 2, None, 49, 12, True),
+    "d128_shifted": (8, 2, (14, 7, 3), 49, 128, True),
+    "d96_scaled": (6, 2, None, 49, 96, False),
+    "d72_n64": (4, 2, (16, 8, 4), 64, 72, True),
     "scaled_shifted": (8, 4, (14, 7, 3), 49, 32, False),
     "scaled_n64": (6, 8, None, 64, 32, False),
 }
@@ -377,12 +381,16 @@ def k4_tolerance(want: torch.Tensor) -> float:
 
 # (rows, K, N, role): Video Swin-S stage 0 and stage 3 widths, and the whole
 # MLP tail (mlp_tail: one launch at C <= 384, two at 768) at the four stage
-# widths; the row counts are not multiples of the 64-row tile
+# widths; Video Swin-L's stage 3 (C = 1536: rows too wide for a panel, the
+# LayerNorm applied to each A atom as it lands) and K = 1056 (a partial last
+# 64-column atom); the row counts are not multiples of the 64-row tile
 K4_CASES = [(4100, 96, 288, "ln_qkv"), (4100, 96, 96, "proj"), (4100, 96, 384, "sum_ln_fc1_gelu"),
             (4100, 384, 96, "fc2_residual_pair"), (1000, 768, 2304, "ln_qkv"),
             (1000, 3072, 768, "fc2_residual_pair"), (4100, 96, 96, "mlp_tail"),
             (2050, 192, 192, "mlp_tail"), (1000, 384, 384, "mlp_tail"),
-            (1000, 768, 768, "mlp_tail")]
+            (1000, 768, 768, "mlp_tail"), (1000, 1536, 4608, "ln_qkv"),
+            (1000, 1536, 6144, "sum_ln_fc1_gelu"), (1000, 6144, 1536, "fc2_residual_pair"),
+            (1000, 1536, 1536, "mlp_tail"), (200, 1056, 96, "sum_ln_fc1_gelu")]
 
 
 @pytest.mark.cuda
@@ -570,6 +578,47 @@ def test_k5_autograd_forward_and_backward_match_plain(cuda_device):
         assert math.isfinite(err) and err <= k5_tolerance(w_, dbias=name == "dbias"), (name, err)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,grid", [(392, (8, 14, 14)), (784, (16, 14, 14))],
+                         ids=["n392", "n784_streamed"])
+@pytest.mark.parametrize("D", [32, 64], ids=["d32", "d64"])
+def test_k5_huge_logits_match_plain(cuda_device, N, grid, D):
+    """Logits of ~1e12, as a diverging training run gives them (Video
+    Swin-S from the init's zero biases, whose augmented clips' zero-filled
+    windows reach the second step with every token equal at ~2e6): windows
+    of one repeated token, where every weight is 1/N, and windows of
+    distinct tokens at ~1e4 (logits ~1e8, nearly one-hot), bf16. Every
+    gradient is finite; out and dv, which no cancellation touches, hold the
+    plain version's tolerance; dq, dk and dbias, where dS = P (dP - D) is a
+    cancellation, stay within 2^-6 of their terms' size."""
+    gen = torch.Generator(cuda_device).manual_seed(21)
+    B_, H = 4, 2
+    C = D * H
+    same = 2e6 * torch.randn(B_ // 2, 1, 3 * C, generator=gen, device=cuda_device)
+    spread = 1e4 * torch.randn(B_ // 2, N, 3 * C, generator=gen, device=cuda_device)
+    qkv = torch.cat([same.expand(-1, N, -1), spread]).to(torch.bfloat16)
+    dout = torch.randn(B_, N, C, generator=gen, device=cuda_device).to(torch.bfloat16)
+    ws, ss = get_window_size(grid, (grid[0], 7, 7), (grid[0] // 2, 3, 3))
+    mask = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(cuda_device, torch.bfloat16)
+    kw = dict(num_heads=H, bias=0.02 * torch.randn(H, N, N, generator=gen, device=cuda_device),
+              mask=mask[:B_], scale=D ** -0.5)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    out = window_attn3d_train_fwd(qkv, **kw)
+    dqkv, dbias = window_attn3d_train_bwd(qkv, dout, **kw)
+    want = [window_attn3d_train_fwd_plain(q, k, v, **kw),
+            *window_attn3d_train_bwd_plain(q, k, v, dout, **kw)]
+    got = [out, *dqkv.split(C, dim=-1), dbias]
+    amax = lambda t: t.float().abs().max().item()
+    dp = amax(dout) * amax(v) * D  # |dP| at most
+    terms = {"dq": dp * amax(k) * kw["scale"], "dk": dp * amax(q) * kw["scale"],
+             "dbias": dp * B_}
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        err = (a.float() - b.float()).abs().max().item()
+        tol = 2.0 ** -6 * terms[name] if name in terms else k5_tolerance(b)
+        assert err <= tol, (name, err, tol)
+
+
 # (B_, H, N, mask grid side or None, cosine): SwinV2-B at window 16, 256^2, b8:
 # stage 0 (16 masks) and stage 1 (4 masks) shifted and not, stage 2 (one
 # window an image); the scaled form at N = 392
@@ -699,18 +748,112 @@ def test_k6_is_deterministic(cuda_device, N):
 
 @pytest.mark.cuda
 def test_k6_raises_for_windows_it_does_not_take(cuda_device):
-    """K2's windows (N <= 64) and head dims other than 32 raise before any
-    launch; nothing falls back to the plain version."""
+    """K2's windows (N <= 64) and head dims outside 8-128 or not a multiple
+    of 8 raise before any launch; nothing falls back to the plain version."""
     before = window_attention_multihead.launches
     q = torch.zeros(2, 1, 64, 32, device=cuda_device)
     with pytest.raises(ValueError, match="N >= 65"):
         window_attention_multihead(q, q, q, bias=torch.zeros(1, 64, 64),
                                    logit_scale=torch.ones(1, 1, 1))
-    q = torch.zeros(2, 1, 100, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="D == 32"):
+    q = torch.zeros(2, 1, 100, 136, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims 8 to 128 in steps of 8"):
         window_attention_multihead(q, q, q, bias=torch.zeros(1, 100, 100),
                                    logit_scale=torch.ones(1, 1, 1))
     assert window_attention_multihead.launches == before
+
+
+# Head dims other than 32 (Video Swin's and SwinV2-B's), every kernel of
+# window attention in the tolerances above: K3 and K5 at Video Swin's
+# stage-0 windows (N = 392, shifted: 8 masks, 2 clips), K6 at SwinV2's
+# window 16 (N = 256, shifted: 4 masks); K2's are in K2_CASES. bf16 at these
+# head dims runs the mma.sync kernels (csrc/window_attn_mma.cuh), K5's
+# forward and backward among them, at the plain versions' cast points.
+HEAD_DIMS = (16, 48, 64, 128)
+
+
+def _head_dim_qkv(dev, B_, H, N, D, dtype, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    qkv = torch.randn(B_, N, 3 * H * D, generator=gen, device=dev).to(dtype)
+    return gen, qkv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_k3_head_dims_match_plain(cuda_device, D, dtype):
+    B_, H, N = 16, 2, 392
+    gen, qkv = _head_dim_qkv(cuda_device, B_, H, N, D, dtype, seed=21)
+    C = H * D
+    mask = torch.from_numpy(compute_mask_3d(16, 14, 14, (8, 7, 7), (4, 3, 3))).to(cuda_device)
+    kw = dict(num_heads=H, bias=0.5 * torch.randn(H, N, N, generator=gen, device=cuda_device),
+              mask=mask, scale=D ** -0.5)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    before = window_attn3d_tokens.launches
+    got = window_attn3d_tokens(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert window_attn3d_tokens.launches == before + 1
+    want = window_attn3d_tokens_plain(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert math.isfinite(err) and err <= k3_tolerance(want), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_k5_head_dims_match_plain(cuda_device, D, dtype):
+    B_, H, N = 16, 2, 392
+    gen, qkv = _head_dim_qkv(cuda_device, B_, H, N, D, dtype, seed=22)
+    C = H * D
+    dout = torch.randn(B_, N, C, generator=gen, device=cuda_device).to(dtype)
+    mask = torch.from_numpy(compute_mask_3d(16, 14, 14, (8, 7, 7), (4, 3, 3))).to(
+        cuda_device, torch.bfloat16)
+    kw = dict(num_heads=H, bias=0.5 * torch.randn(H, N, N, generator=gen, device=cuda_device),
+              mask=mask, scale=D ** -0.5)
+    before = window_attn3d_train_fwd.launches, window_attn3d_train_bwd.launches
+    out = window_attn3d_train_fwd(qkv, **kw)
+    dqkv, dbias = window_attn3d_train_bwd(qkv, dout, **kw)
+    torch.cuda.synchronize()
+    assert (window_attn3d_train_fwd.launches, window_attn3d_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    want = [window_attn3d_train_fwd_plain(q, k, v, **kw),
+            *window_attn3d_train_bwd_plain(q, k, v, dout, **kw)]
+    got = [out, *dqkv.split(C, dim=-1), dbias]
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        tol = k5_tolerance(b, dbias=name == "dbias" and dtype == torch.bfloat16)
+        assert math.isfinite(err) and err <= tol, (name, err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["tokens", "heads"])
+@pytest.mark.parametrize("cosine", [True, False], ids=["cosine", "scaled"])
+@pytest.mark.parametrize("ws", [16, 10], ids=["N256", "N100"])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_k6_head_dims_match_plain(cuda_device, D, ws, cosine, layout, dtype):
+    """K6 at windows of 16 and 10 (N = 256 and 100: a partial last 64-row
+    tile), q, k, v as views of one qkv tensor or contiguous head-major."""
+    B_, H, N = 8, 2, ws * ws
+    gen, qkv = _head_dim_qkv(cuda_device, B_, H, N, D, dtype, seed=23)
+    q, k, v = qkv.view(B_, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+    if layout == "heads":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    mask = torch.from_numpy(shift_attn_mask(2 * ws, 2 * ws, ws, ws // 2)).to(cuda_device)
+    bias = 16 * torch.sigmoid(torch.randn(H, N, N, generator=gen, device=cuda_device))
+    if cosine:
+        kw = dict(bias=bias, mask=mask, logit_scale=torch.tensor(
+            [10.0, 100.0], device=cuda_device).reshape(H, 1, 1))
+    else:
+        kw = dict(bias=bias, mask=mask, scale=D ** -0.5, cosine=False)
+    before = window_attention_multihead.launches
+    got = window_attention_multihead(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert window_attention_multihead.launches == before + 1
+    want = window_attention_heads_plain(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert math.isfinite(err) and err <= k4_tolerance(want), err
 
 
 # ------------------------------------------------------------- CUDA graphs
@@ -977,3 +1120,190 @@ def test_predict_raw_front_end_runs_in_f32_under_bf16(cuda_device):
     assert window_attention_multihead.launches == before + 4
     assert scores.shape == (2,) and np.isfinite(scores).all()
     np.testing.assert_array_equal(scores, pred.predict(got))
+
+
+# ---------------------------------------------------------------- training as a CUDA graph
+
+# Video Swin at a small geometry (stage 0: 8 x 14 x 14 tokens, (8,7,7)
+# windows of N = 392, shifted in its second block), bf16 on the K5 route,
+# DropPath at 0.5 in the last block and classifier dropout, batch 2 x accum
+# 2, cosine over 3 steps
+SMALL_TRAIN = {
+    "data.modality": "video_swin", "data.num_frames": 16, "data.frame_size": 56,
+    "model.swin3d_embed_dim": 32, "model.swin3d_depths": (2, 2), "model.swin3d_heads": (1, 2),
+    "model.num_hiddens": 16, "model.swin3d_drop_path": 0.5, "model.classify_drop": 0.1,
+    "optim.batch_size": 2, "optim.accum_step": 2, "optim.learning_rate": 0.1,
+    "optim.epochs": 3, "parallel.compute_dtype": "bfloat16",
+}
+
+
+class _OneBatch:
+    def __init__(self, x, y):
+        self.x, self.y = x, y
+
+    def train_loader(self):
+        return [(self.x, self.y)]
+
+    def val_loader(self):
+        return [(self.x, self.y)]
+
+
+def _train_batches(dev, n, seed=61):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return [(torch.randn(4, 16, 56, 56, 3, generator=gen, device=dev),
+             (torch.rand(4, generator=gen, device=dev) > 0.5).float()) for _ in range(n)]
+
+
+def _trainer(dev, compiled, batches, **over):
+    from deepfake_tpu_torch.config import Config
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    cfg = Config()
+    for k, v in dict(SMALL_TRAIN, **over).items():
+        cfg.set(k, v)
+    return Trainer(None, cfg, _OneBatch(*batches[0]), logger=lambda line: None, device=dev,
+                   compiled=compiled)
+
+
+def _weights(trainer):
+    return [p.detach().clone() for p in trainer.model.parameters()]
+
+
+def _steps(trainer, batches):
+    return [float(trainer.train_step(x, y)["loss"]) for x, y in batches]
+
+
+def _gap(a, b):
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+
+def _spread_tolerance(spread: float, scale: float) -> float:
+    """What the graph route may differ from the eager route by: four times
+    the spread of two eager runs from one state (K5's backward adds dS into
+    dbias with atomics, in an order that changes from run to run), and no
+    less than 1e-6 of the quantity's scale (two runs may agree by chance)."""
+    return 4.0 * spread + 1e-6 * max(scale, 1.0)
+
+
+@pytest.mark.cuda
+def test_train_graph_matches_eager_within_spread(cuda_device):
+    """Three steps of the graph route (the default on the card) against
+    three eager steps from the same seed: losses and updated weights within
+    the eager-vs-eager spread's tolerance; one graph, replayed three times,
+    whose capture launched K5 both ways."""
+    batches = _train_batches(cuda_device, 3)
+    eager = [_trainer(cuda_device, False, batches) for _ in range(2)]
+    graph = _trainer(cuda_device, True, batches)
+    assert graph.graphs is not None and eager[0].graphs is None
+    losses = [_steps(t, batches) for t in (*eager, graph)]
+    weights = [_weights(t) for t in (*eager, graph)]
+    loss_spread = max(abs(a - b) for a, b in zip(losses[0], losses[1]))
+    w_spread = _gap(weights[0], weights[1])
+    scale = max(abs(v) for v in losses[0])
+    w_scale = max(w.abs().max().item() for w in weights[0])
+    assert max(abs(a - b) for a, b in zip(losses[0], losses[2])) <= _spread_tolerance(
+        loss_spread, scale), (losses, loss_spread)
+    assert _gap(weights[0], weights[2]) <= _spread_tolerance(w_spread, w_scale), w_spread
+    assert _gap(weights[0], _weights(_trainer(cuda_device, False, batches))) > 0  # they train
+    (g,) = graph.graphs.graphs.values()
+    assert g.replays == 3 and graph.step == 3
+    assert g.launches["window_attn3d_train_fwd"] > 0 and g.launches["window_attn3d_train_bwd"] > 0
+
+
+@pytest.mark.cuda
+def test_train_graph_replays_draw_new_dropout_masks(cuda_device):
+    """At lr 0 (the weights never move) two replays on one batch give
+    different losses: each draws new DropPath and dropout masks, and the
+    generator's state advances; the replays' losses are those of two eager
+    steps from the same seed (the same mask sequence)."""
+    batches = _train_batches(cuda_device, 1) * 2
+    graph = _trainer(cuda_device, True, batches, **{"optim.learning_rate": 0.0})
+    eager = [_trainer(cuda_device, False, batches, **{"optim.learning_rate": 0.0})
+             for _ in range(2)]
+    states = [graph.dropout.get_state()]
+    got = []
+    for x, y in batches:
+        got.append(float(graph.train_step(x, y)["loss"]))
+        states.append(graph.dropout.get_state())
+    assert got[0] != got[1]
+    assert not torch.equal(states[0], states[1]) and not torch.equal(states[1], states[2])
+    want, again = (_steps(t, batches) for t in eager)
+    spread = max(abs(a - b) for a, b in zip(want, again))
+    assert max(abs(a - b) for a, b in zip(got, want)) <= _spread_tolerance(
+        spread, max(abs(v) for v in want)), (got, want)
+
+
+@pytest.mark.cuda
+def test_train_graph_rates_follow_the_schedule(cuda_device):
+    """With momentum and weight decay off, each replay moves every
+    parameter by -lr(t) times its gradient (the graph's static .grad): the
+    rate the update read on the device is make_schedule's for that step,
+    through the cosine's three steps."""
+    batches = _train_batches(cuda_device, 3)
+    t = _trainer(cuda_device, True, batches, **{"optim.momentum": 0.0,
+                                                "optim.weight_decay": 0.0})
+    for step, (x, y) in enumerate(batches):
+        before = _weights(t)
+        t.train_step(x, y)
+        lr = t.lr(step)
+        assert float(t.optimizer.lr) == pytest.approx(lr, rel=1e-6)
+        for p, b in zip(t.model.parameters(), before):
+            want = b - lr * p.grad
+            tol = 1e-6 * max(b.abs().max().item(), 1.0)
+            assert (p.detach() - want).abs().max().item() <= tol
+    assert [t.lr(s) for s in range(3)] == sorted([t.lr(s) for s in range(3)], reverse=True)
+
+
+@pytest.mark.cuda
+def test_train_graph_capture_moves_no_weight(cuda_device):
+    """The capture (two eager warm-up steps and the captured one) leaves
+    the weights, buffers, momentum, dropout generator and step count as
+    they were."""
+    batches = _train_batches(cuda_device, 1)
+    t = _trainer(cuda_device, True, batches)
+    # detached: a clone that autograd tracks would keep the parameters'
+    # AccumulateGrad nodes alive on this stream, which the capture refuses
+    state = [s.detach().clone() for s in t._state()]
+    gen = t.dropout.get_state()
+    t._step_graph(batches[0])
+    assert len(t.graphs.graphs) == 1 and t.step == 0
+    assert all(torch.equal(a, b) for a, b in zip(t._state(), state))
+    assert all(not b.any() for b in t.optimizer.bufs)
+    assert torch.equal(t.dropout.get_state(), gen)
+
+
+@pytest.mark.cuda
+def test_chained_train_steps_equal_single_replays(cuda_device):
+    """chained_train_steps(3) on one batch against three train_step calls
+    on it from the same seed: the last loss and the weights within the
+    eager-vs-eager spread's tolerance, one graph replayed three times."""
+    batches = _train_batches(cuda_device, 1) * 3
+    single = _trainer(cuda_device, True, batches)
+    chained = _trainer(cuda_device, True, batches)
+    want = _steps(single, batches)[-1]
+    got = chained.chained_train_steps(3)(*batches[0])
+    assert got.dtype == torch.float32 and got.dim() == 0 and chained.step == 3
+    eager = [_trainer(cuda_device, False, batches) for _ in range(2)]
+    ew = [(_steps(t, batches), _weights(t)) for t in eager]
+    spread = abs(ew[0][0][-1] - ew[1][0][-1])
+    w_spread = _gap(ew[0][1], ew[1][1])
+    assert abs(float(got) - want) <= _spread_tolerance(spread, abs(want))
+    w_scale = max(w.abs().max().item() for w in ew[0][1])
+    assert _gap(_weights(single), _weights(chained)) <= _spread_tolerance(w_spread, w_scale)
+    (g,) = chained.graphs.graphs.values()
+    assert g.replays == 3
+
+
+@pytest.mark.cuda
+def test_train_eval_runs_through_graphs(cuda_device):
+    """Trainer.eval on the compiled route replays one graph per batch shape
+    (a ragged last batch captures a second) and matches the eager route's
+    loss and accuracy; its probabilities' AUC too."""
+    batches = _train_batches(cuda_device, 2)
+    graph = _trainer(cuda_device, True, batches)
+    eager = _trainer(cuda_device, False, batches)
+    loader = [batches[0], batches[1], (batches[1][0][:3], batches[1][1][:3])]
+    got, want = graph.eval(loader), eager.eval(loader)
+    assert len(graph.graphs.graphs) == 2
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+    assert got["acc"] == want["acc"] and got["auc"] == pytest.approx(want["auc"])

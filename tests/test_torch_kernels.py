@@ -33,6 +33,7 @@ from deepfake_tpu_torch.io.jax_weights import load_jax_variables
 from deepfake_tpu_torch.models import inception_resnet_v2 as tirv2
 from deepfake_tpu_torch.models.layers import as_nchw, as_nhwc
 from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, mlp_tail
+from deepfake_tpu_torch.ops.window_attn import scaled_window_attention
 from deepfake_tpu_torch.ops.window_attn3d_kernel import window_attn3d_tokens
 from deepfake_tpu_torch.ops.window_attn3d_train import window_attn3d_train
 from deepfake_tpu_torch.ops.window_attn_kernel import (
@@ -382,9 +383,10 @@ def test_k6_plain_matches_pallas_above_k2_range(N, side, ws, route):
 
 def test_k6_rejects_what_it_does_not_take(monkeypatch):
     """K6's launch checks raise before any launch for N <= 64 (K2's
-    windows), a head dim other than 32, q, k, v of different strides and a
-    mask that does not tile the windows; windows of 65 to 1024 tokens pass
-    every check and reach the kernel library (no upper limit on N)."""
+    windows), a head dim outside 8-128 or not a multiple of 8, q, k, v of
+    different strides and a mask that does not tile the windows; windows of
+    65 to 1024 tokens and head dims 8 to 128 pass every check and reach the
+    kernel library (no upper limit on N)."""
     from deepfake_tpu_torch.ops import window_attn_multihead as k6
 
     class Reached(Exception):
@@ -402,8 +404,12 @@ def test_k6_rejects_what_it_does_not_take(monkeypatch):
 
     with pytest.raises(ValueError, match="N >= 65"):
         launch(64, 32)
-    with pytest.raises(ValueError, match="D == 32"):
-        launch(256, 64)
+    for d in (4, 20, 136):
+        with pytest.raises(ValueError, match="head dims 8 to 128 in steps of 8"):
+            launch(256, d)
+    for d in (8, 16, 48, 64, 128):
+        with pytest.raises(Reached):
+            launch(256, d)
     with pytest.raises(ValueError, match="one set of strides"):
         launch(256, 32, k=torch.zeros(1, 256, 1, 32).transpose(1, 2))
     with pytest.raises(ValueError, match="does not tile 3 windows"):
@@ -479,10 +485,40 @@ def test_k3_plain_tokens_matches_pallas_nhc(masked, B_, N):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
 
 
+def test_k3_static_shift_at_huge_logits_matches_pallas_nhc():
+    """A window of one token repeated at ~2e6 (what a diverging training run
+    from the init's zero biases gives its zero-filled corners) has every
+    logit near +-1e12. The static-shift softmax exp(min(x - 24, 60)) of the
+    Pallas kernel underflows a row near -1e12 to 0 / 0, and K3's plain
+    version does the same (NaN where the reference is NaN, equal to 2e-5
+    relative elsewhere); the max-stabilised plain route stays finite."""
+    rng = np.random.default_rng(66)
+    B_, H, N, D = 2, 2, 392, 32
+    C = H * D
+    qkv = np.repeat(2e6 * rng.standard_normal((B_, 1, 3 * C)), N, axis=1).astype(np.float32)
+    bias = (0.02 * rng.standard_normal((H, N, N))).astype(np.float32)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    want = np.asarray(pallas_window_attention_nhc(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=H, bias=jnp.asarray(bias),
+        mask=None, scale=D ** -0.5))
+    t = torch.from_numpy(qkv)
+    got = window_attn3d_tokens(t[..., :C], t[..., C:2 * C], t[..., 2 * C:], num_heads=H,
+                               bias=torch.from_numpy(bias), mask=None, scale=D ** -0.5).numpy()
+    assert np.isnan(want).any() and np.isfinite(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = np.isfinite(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=2e-5, atol=0)
+    heads = lambda a: torch.from_numpy(a).reshape(B_, N, H, D).transpose(1, 2)
+    plain = scaled_window_attention(heads(q), heads(k), heads(v), D ** -0.5,
+                                    torch.from_numpy(bias))
+    assert bool(torch.isfinite(plain).all())
+
+
 def test_k3_rejects_what_it_does_not_take(monkeypatch):
-    """The CUDA wrapper raises before any launch for a head dim other than
-    32, a non-contiguous head dim and a mask that does not tile the windows;
-    a window of N = 784 passes its checks (K3 takes any N)."""
+    """The CUDA wrapper raises before any launch for a head dim outside
+    8-128 or not a multiple of 8, a non-contiguous head dim and a mask that
+    does not tile the windows; a window of N = 784 and head dims 16 to 128
+    pass its checks (K3 takes any N and every such head dim)."""
     from deepfake_tpu_torch.ops.window_attn3d_kernel import _launch
 
     def launch(q, n, d, mask=None, windows=1):
@@ -507,9 +543,13 @@ def test_k3_rejects_what_it_does_not_take(monkeypatch):
                         lambda device=None: type("Stream", (), {"cuda_stream": 0}))
     launch(torch.zeros(1, 784, 32), 784, 32)
     assert len(calls) == 1 and calls[0][-3:-1] == (784, 32)
+    for d in (16, 48, 64, 128):
+        launch(torch.zeros(1, 392, d), 392, d)
+    assert [c[-3:-1] for c in calls[1:]] == [(392, d) for d in (16, 48, 64, 128)]
     monkeypatch.undo()
-    with pytest.raises(ValueError, match="D == 32"):
-        launch(torch.zeros(1, 392, 64), 392, 64)
+    for d in (4, 12, 136):
+        with pytest.raises(ValueError, match="head dims 8 to 128 in steps of 8"):
+            launch(torch.zeros(1, 392, d), 392, d)
     with pytest.raises(ValueError, match="head dim contiguous"):
         launch(torch.zeros(1, 32, 392).transpose(1, 2), 392, 32)
     with pytest.raises(ValueError, match="does not tile 3 windows"):

@@ -132,7 +132,8 @@ def test_trainer_two_steps_match_jax_trainer(monkeypatch, jax_train_kernel):
     """Two optimizer steps of the port's Trainer against the JAX Trainer on
     the small video_swin geometry (N = 392 at stage 0), batch 2 x accum 2,
     f32, drop rates 0, lr 0.1 and t_max 3 (the cosine and the momentum both
-    act), from the same weights (random, with the JAX tree's shapes, set into
+    act), the port's Trainer built compiled (its default, eager on the CPU),
+    from the same weights (random, with the JAX tree's shapes, set into
     the JAX trainer's state and carried across with load_jax_variables): the
     losses within 1e-5 relative, and every parameter's update (new - old)
     within 1e-4 of its largest |update|. The JAX step runs its nhc_train
@@ -171,8 +172,10 @@ def test_trainer_two_steps_match_jax_trainer(monkeypatch, jax_train_kernel):
         m = build_model(tcfg, "cpu", train=True)
         return load_jax_variables(m, {"params": params})
 
-    tt = Trainer(port_model(params0), tcfg, data, logger=lambda line: None, device="cpu")
-    assert tt.t_max == 3
+    # compiled=True (the default) is the eager route on the CPU
+    tt = Trainer(port_model(params0), tcfg, data, logger=lambda line: None, device="cpu",
+                 compiled=True)
+    assert tt.t_max == 3 and tt.graphs is None
     got = [float(tt.train_step(x, y)["loss"]) for _ in range(2)]
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
@@ -226,9 +229,10 @@ def test_drop_path_draws_one_mask_per_sample():
 
 def test_cosine_schedule_and_sgd_two_steps():
     """cosine_annealing holds at eta_min past t_max; SGD with momentum and
-    coupled weight decay, at lr(0) then lr(1), against the update computed
-    by hand: d = g + wd * p; buf = d, then m * buf + d; p -= lr * buf."""
-    from deepfake_tpu_torch.train.schedule import cosine_annealing, make_optimizer
+    coupled weight decay (schedule.SGD, its rate a device scalar), at lr(0)
+    then lr(1), against the update computed by hand: d = g + wd * p; buf =
+    d, then m * buf + d; p -= lr * buf."""
+    from deepfake_tpu_torch.train.schedule import SGD, cosine_annealing
 
     lr0, t_max, m, wd = 0.1, 3, 0.9, 0.05
     sched = cosine_annealing(lr0, t_max)
@@ -237,17 +241,79 @@ def test_cosine_schedule_and_sgd_two_steps():
     p0 = np.asarray([1.0, -2.0, 0.5])
     gs = [np.asarray([0.3, 0.1, -0.2]), np.asarray([-0.4, 0.2, 0.6])]
     w = torch.nn.Parameter(torch.tensor(p0, dtype=torch.float64))
-    opt = make_optimizer([w], lr0, m, wd)
+    opt = SGD([w], m, wd)
     p, buf = p0.copy(), None
     for t, g in enumerate(gs):
-        w.grad = torch.tensor(g)
-        for group in opt.param_groups:
-            group["lr"] = sched(t)
-        opt.step()
+        opt.set_lr(sched(t))
+        opt.step([torch.tensor(g)])
         d = g + wd * p
         buf = d if buf is None else m * buf + d
         p = p - sched(t) * buf
         np.testing.assert_allclose(w.detach().numpy(), p, rtol=1e-12)
+
+
+@pytest.mark.parametrize("clip", [None, 0.5], ids=["no_clip", "clip"])
+def test_foreach_sgd_matches_torch_sgd_and_optax(clip):
+    """schedule.SGD (foreach ops, the rate a device scalar, momentum
+    buffers from zero) over three cosine steps on f32 tensors of several
+    shapes, with the global-norm clip or without: within 1e-6 of the largest
+    |parameter| of torch.optim.SGD(momentum, weight_decay) and of the JAX
+    package's optax chain (clip -> add_decayed_weights -> sgd(momentum))."""
+    import optax
+    from deepfake_tpu.train.schedule import make_optimizer as jmake
+    from deepfake_tpu_torch.train.schedule import SGD, clip_by_global_norm, cosine_annealing
+
+    lr0, t_max, m, wd = 0.1, 4, 0.9, 0.05
+    sched = cosine_annealing(lr0, t_max)
+    rng = np.random.default_rng(47)
+    shapes = [(3, 5), (7,), (2, 2, 3)]
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    gs = [[rng.standard_normal(s).astype(np.float32) for s in shapes] for _ in range(3)]
+    ours = [torch.tensor(p) for p in p0]
+    opt = SGD([torch.nn.Parameter(p) for p in ours], m, wd)
+    ref = [torch.nn.Parameter(torch.tensor(p)) for p in p0]
+    topt = torch.optim.SGD(ref, lr=lr0, momentum=m, weight_decay=wd)
+    tx = jmake(lr0, t_max, m, wd, grad_clip=clip)
+    jp = [jnp.asarray(p) for p in p0]
+    jstate = tx.init(jp)
+    for t, g in enumerate(gs):
+        grads = [torch.tensor(x) for x in g]
+        clip_by_global_norm(grads, clip)
+        opt.set_lr(sched(t))
+        opt.step(grads)
+        for w, gr in zip(ref, grads):
+            w.grad = gr.clone()
+        for group in topt.param_groups:
+            group["lr"] = sched(t)
+        topt.step()
+        upd, jstate = tx.update([jnp.asarray(x) for x in g], jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+    for a, b, c in zip(opt.params, ref, jp):
+        tol = 1e-6 * max(1.0, float(np.abs(np.asarray(c)).max()))
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=0, atol=tol)
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(c), rtol=0, atol=tol)
+
+
+def test_trainer_chained_steps_equal_single_steps():
+    """chained_train_steps(2) on the CPU (eager) equals two train_step calls
+    on the same batch from the same Trainer state: the same weights, step
+    count and last loss, bit for bit; DropPath active, so the dropout
+    stream advances alike on both routes."""
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    _, tcfg = both_configs(dict(SMALL_VIDEO_SWIN, **{
+        "optim.batch_size": 1, "optim.accum_step": 2, "model.swin3d_drop_path": 0.5}))
+    rng = np.random.default_rng(48)
+    x = rng.standard_normal((2, 16, 56, 56, 3)).astype(np.float32)
+    y = np.asarray([0.0, 1.0], np.float32)
+    a = Trainer(None, tcfg, _Batches(x, y), logger=lambda line: None, device="cpu")
+    b = Trainer(None, tcfg, _Batches(x, y), logger=lambda line: None, device="cpu")
+    last = [a.train_step(x, y)["loss"] for _ in range(2)][-1]
+    got = b.chained_train_steps(2)(x, y)
+    assert a.step == b.step == 2 and got.dtype == torch.float32
+    assert torch.equal(got, last.float())
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
 
 
 def test_bce_with_logits_matches_jax():
@@ -317,17 +383,21 @@ def test_kernels_without_backward_raise_under_autograd():
 
 
 def test_k5_rejects_what_it_does_not_take():
-    """K5's checks raise before any launch: a head dim other than 32, a mask
-    that does not tile the windows, a type it does not take; a model in
-    train mode refuses an inference bias cache. A window of N = 784 ((16,7,7))
-    passes them (K5 takes any N)."""
+    """K5's checks raise before any launch: a head dim outside 8-128 or not a
+    multiple of 8, a mask that does not tile the windows, a type it does not
+    take; a model in train mode refuses an inference bias cache. A window of
+    N = 784 ((16,7,7)) and head dims 8, 64 and 128 pass them (K5 takes any N
+    and every such head dim)."""
     from deepfake_tpu_torch.models.swin3d import WindowAttention3D
     from deepfake_tpu_torch.ops.window_attn3d_train import _check
 
     assert _check(torch.zeros(4, 784, 96), 1, torch.zeros(1, 784, 784),
                   torch.zeros(4, 784, 784))[:4] == (4, 784, 32, 32)
-    with pytest.raises(ValueError, match="D == 32"):
-        _check(torch.zeros(1, 392, 192), 1, torch.zeros(1, 392, 392), None)
+    for d in (8, 64, 128):
+        assert _check(torch.zeros(1, 392, 3 * d), 1, torch.zeros(1, 392, 392), None)[3] == d
+    for d in (4, 12, 136):
+        with pytest.raises(ValueError, match="head dims 8 to 128 in steps of 8"):
+            _check(torch.zeros(1, 392, 3 * d), 1, torch.zeros(1, 392, 392), None)
     with pytest.raises(ValueError, match="does not tile 3 windows"):
         _check(torch.zeros(3, 392, 96), 1, torch.zeros(1, 392, 392), torch.zeros(2, 392, 392))
     with pytest.raises(ValueError, match="f32 or bf16"):
