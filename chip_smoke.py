@@ -21,9 +21,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      plain, library and bound times per shape and per b8 request or
      micro-batch; then K3 and K5 (forward and backward) again at the four
      stages of Video Swin-B at its (16,7,7) window (N = 784, streamed);
-     then K2, K3, K5 (forward and backward) and K6 at head dims 16, 48, 64
-     and 128 (one shape of each path with the head dim changed; the kernel
-     line's "head_dims"), and K4 (LN1 + qkv, proj and the MLP tail) at
+     then K2, K3, K5 (forward and backward) and K6 at head dims 12, 16, 20,
+     36, 48, 64 and 128 (one shape of each path with the head dim changed;
+     the kernel line's "head_dims"), and K4 (LN1 + qkv, proj and the MLP tail) at
      Video Swin-L's stage 3, C = 1536 (its "swin_l_stage3").
   3. fused serving at full width (IRv2 + NeXtVLAD, SwinV2-B, wav2vec2-base,
      fusion head; random weights from --seed) in bf16: three b8 requests
@@ -86,7 +86,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      route (step ms, clips/s, peak memory), f32 b1 parity of scores (graph
      against eager too) and of one micro-batch's gradients. Phases 5 and 9
      hold the f32 graphs against the eager route as well (to the bit).
-The last two lines are {"kernels": [...]} and {"ok": true, "device": ...};
+ 11. from video files, on the graph route (phase_ingest): a synthetic test
+     set of 60 mp4v clips (48 frames of 256^2, 4 s PCM sidecars) scored by
+     SubmitCtl in fused b8 batches through K1 and K2 (clips/s from files,
+     the loader alone by seek and by sequential sampling, device ms a
+     batch, the card's idle share; every score equal to the bit to
+     predict_raw of its batch), the inference CLI in a subprocess stopped
+     by SIGTERM after its first batch and resumed (each clip once), a
+     96-frame video through Video Swin-S by sliding windows (K3, K4) and one
+     file through SwinV2-B at window 16 (K6, K2); the kernel line's
+     "launches_ingest" and "graph_launches_ingest".
+The last four lines are {"ingest": {...}}, the card's name and power
+limit, {"kernels": [...]} and {"ok": true, "device": ...};
 --report writes every measurement and check as JSON to PATH. Imports
 nothing of JAX.
 """
@@ -1002,7 +1013,9 @@ def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7
 
 # ---------------------------------------------------------------- phase 2: head dims
 
-HEAD_DIMS = (16, 48, 64, 128)  # every kernel of window attention takes 8-128 in steps of 8
+# every kernel of window attention takes head dims 1-128; 12, 20 and 36
+# (not multiples of 8) take the mma.sync kernels' element-by-element loads
+HEAD_DIMS = (12, 16, 20, 36, 48, 64, 128)
 # Video Swin-L (Liu et al. 2022, configs/recognition/swin/
 # swin_large_patch244_window877_kinetics400_22k.py: embed 192, heads
 # 6/12/24/48, depths 2/2/18/2, window (8,7,7)) at 32 frames of 224: stage 3
@@ -1012,8 +1025,8 @@ SWIN_L = "swin_large_patch244_window877"  # the port's preset of that config
 
 
 def phase_head_dims(dev, gen, batch: int, report):
-    """K2, K3, K5 (forward and backward) and K6 at head dims 16, 48, 64 and
-    128, f32 and bf16, each at one shape of its path with the head dim
+    """K2, K3, K5 (forward and backward) and K6 at head dims 12, 16, 20,
+    36, 48, 64 and 128, f32 and bf16, each at one shape of its path with the head dim
     changed: K3 and K5 at Video Swin-S's stage-0 windows of a b8 clip batch
     (1024 shifted windows of N = 392, 3 heads), K2 at SwinV2-B's stage 0 at
     224 (512 shifted windows of N = 49, 4 heads, cosine), K6 at SwinV2-B's
@@ -2250,6 +2263,268 @@ def phase_video_swin_train_parity(cfg_kernel, cfg_plain, dev, gen, report, batch
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 11: from files
+
+# 60 clips: 7 batches of 8 and a ragged 4 (padded), more than the
+# prefetcher holds ahead (depth 4 and 2 staged), so that a warm submit
+# reaches the loader's steady rate
+INGEST_CLIPS, INGEST_FRAMES, INGEST_SIDE, INGEST_SECONDS = 60, 48, 256, 4.0
+LONG_VIDEO_FRAMES = 96  # 5 windows of 32 every 16: one b8 batch, 3 rows padding
+
+
+def csv_rows(path):
+    if not os.path.exists(path):
+        return []
+    return [line.strip().split(",") for line in open(path) if line.strip()]
+
+
+def ingest_launches(graphs):
+    """(the wrappers' counts, the captured launches x replays of ``graphs``)."""
+    replayed = collections.Counter()
+    for g in graphs.graphs.values():
+        for name, n in g.launches.items():
+            replayed[name] += n * g.replays
+    return counts(), dict(replayed)
+
+
+def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int):
+    """The main path from video files (data ingest, SubmitCtl and the CLI),
+    on the graph route (the default on the card), each kernel's counts set to
+    0 before its path and read after it:
+      fused: a synthetic test set of INGEST_CLIPS mp4v clips (cv2.VideoWriter,
+        48 frames of 256^2, 4 s PCM sidecars) scored by SubmitCtl.submit in
+        b8 batches (the last, of 4, padded to 8) through K1 and K2: the first run
+        captures the graph, the second is timed (clips/s from files), a third
+        under torch.profiler (the device's idle share); every score equal to
+        the bit to predict_raw of its batch through the same Predictor; the
+        loader alone (decode and collate) by seek and by sequential sampling
+        (the same frames); then the CLI (python -m deepfake_tpu_torch.test) in
+        a subprocess, stopped by SIGTERM once prediction.csv holds 8 rows and
+        run again: each clip exactly once.
+      video_swin (Video Swin-S): score_long_video on one 96-frame clip through
+        K3 and K4, equal to the bit to the mean of predict_raw over its windows.
+      audio (SwinV2-B, window 16, 256^2): score_file on one clip through K6
+        and K2, equal to predict_raw on the clip's features.
+    Returns {path: (counts, graph launches)}."""
+    import copy
+    import signal
+    import tempfile
+
+    import cv2
+    import torch
+
+    from deepfake_tpu_torch.data.audio_io import extract_wav, pad_to_bucket
+    from deepfake_tpu_torch.data.chunking import aggregate_window_scores, chunk_frames
+    from deepfake_tpu_torch.data.dataset import DeepFakeDataModule
+    from deepfake_tpu_torch.data.synthetic import make_synthetic_testset
+    from deepfake_tpu_torch.data.video_decode import sequential_frames
+    from deepfake_tpu_torch.serving import Predictor
+    from deepfake_tpu_torch.train.submit import SubmitCtl, pad_rows
+
+    res = {"card": report["card"],
+           "decode": f"cv2 {cv2.__version__} from mp4v files written by cv2.VideoWriter",
+           "clips": INGEST_CLIPS, "clip": f"{INGEST_FRAMES} frames of {INGEST_SIDE}^2, "
+                                         f"{INGEST_SECONDS} s PCM sidecar"}
+    paths = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        t = time.perf_counter()
+        names = make_synthetic_testset(root, INGEST_CLIPS, frames=INGEST_FRAMES,
+                                       size=INGEST_SIDE, seconds=INGEST_SECONDS, seed=seed)
+        res["write_testset_s"] = time.perf_counter() - t
+        cfg = copy.deepcopy(cfg_fused)
+        cfg.data.data_root = root
+        B = cfg.optim.batch_size = 8
+
+        def data(c, csv):
+            return DeepFakeDataModule(c, prediction_csv=os.path.join(tmp, csv)).setup("test")
+
+        # the loader alone: decode and collate on the host
+        loaded = {}
+        for method in ("seek", "sequential"):
+            c = copy.deepcopy(cfg)
+            c.data.decode_method = method
+            t = time.perf_counter()
+            loaded[method] = list(data(c, "none.csv").test_dataloader())
+            res[f"loader_ms_per_clip_{method}"] = (time.perf_counter() - t) * 1e3 / INGEST_CLIPS
+        if [len(b[2]) for b in loaded["seek"]] != [B] * (INGEST_CLIPS // B) + [INGEST_CLIPS % B]:
+            fail(f"ingest: batches {[len(b[2]) for b in loaded['seek']]}")
+        for a, b in zip(loaded["seek"], loaded["sequential"]):
+            if not np.array_equal(a[0]["video"], b[0]["video"]):
+                fail("ingest: seek and sequential decode kept different frames")
+
+        # fused: SubmitCtl on the graph route
+        t = time.perf_counter()
+        pred = Predictor(cfg, device=dev)
+        torch.cuda.synchronize()
+        res["predictor_build_s"] = time.perf_counter() - t
+        spans = []
+        real = pred.predict_raw
+
+        def timed_raw(feats):
+            t0 = time.perf_counter()
+            out = real(feats)  # ends in a device->host copy
+            spans.append((t0, time.perf_counter()))
+            return out
+
+        pred.predict_raw = timed_raw
+
+        def submit(csv, logger=lambda s: None):
+            spans.clear()
+            ctl = SubmitCtl(pred, cfg, data(cfg, csv), logger=logger,
+                            prediction_csv=os.path.join(tmp, csv))
+            t0 = time.perf_counter()
+            out = ctl.submit()
+            return out, time.perf_counter() - t0
+
+        reset_counts()  # the fused ingest path's run starts here
+        first, res["first_submit_s"] = submit("first.csv", log)
+        res["first_batch_s"] = spans[0][1] - spans[0][0]  # warm-up and capture included
+        second, wall = submit("second.csv")
+        paths["fused"] = ingest_launches(pred.graphs)  # ... and ends here
+        if len(pred.graphs.graphs) != 1:
+            fail(f"ingest: {len(pred.graphs.graphs)} graphs for one batch shape")
+        (g,) = pred.graphs.graphs.values()
+        res["graph_launches_per_batch"] = dict(g.launches)
+        if not (g.launches.get("inception_block") and g.launches.get("window_attn_tokens")):
+            fail(f"ingest: the fused graph launched {g.launches}: K1 and K2 expected")
+        if list(first) != names or list(second) != names or second != first:
+            fail("ingest: a second submit gave other names or scores")
+        res["submit_s"] = wall
+        res["clips_per_s_from_files"] = INGEST_CLIPS / wall
+        # steady state: from the end of the first batch to the end of the last
+        res["clips_per_s_steady"] = (INGEST_CLIPS - B) / (spans[-1][1] - spans[0][1])
+        res["batch_s"] = [b - a for a, b in spans]
+        # every score against predict_raw of its batch from the host, same graph
+        for feats, _labels, bnames in loaded["seek"]:
+            want = real(pad_rows(feats, B))[:len(bnames)]
+            if [first[n] for n in bnames] != [float(p) for p in want]:
+                fail(f"ingest: submit's scores of {bnames} differ from predict_raw's")
+        rows = csv_rows(os.path.join(tmp, "first.csv"))
+        if [r[0] for r in rows] != names or [float(r[1]) for r in rows] != list(first.values()):
+            fail("ingest: prediction.csv does not hold the scores submit returned")
+        res["device_ms_per_batch"] = cuda_time_ms(g.graph.replay, iters=10)
+        busy = sum(ms for _, ms in traced(lambda: submit("profiled.csv"),
+                                          warm=lambda: real(pad_rows(loaded["seek"][0][0], B))))
+        res["device_busy_ms"] = busy
+        res["device_idle_share"] = 1.0 - busy / (wall * 1e3)
+        res["graph_pool_mib"] = pred.graphs.pool_bytes() / 2 ** 20
+        del pred, g, real
+        torch.cuda.empty_cache()
+
+        # the CLI in a subprocess: SIGTERM once 8 rows are written, then resumed
+        cli = os.path.join(tmp, "cli")
+        os.makedirs(cli)
+        cmd = [sys.executable, "-m", "deepfake_tpu_torch.test", "--preset", "fused",
+               "--data_root", root, "-b", str(B), "--random_seed", str(cfg.random_seed)]
+        env = dict(os.environ, PYTHONPATH=repo)
+        csv = os.path.join(cli, "prediction.csv")
+        t = time.perf_counter()
+        with open(os.path.join(tmp, "cli_1.log"), "w") as out:
+            proc = subprocess.Popen(cmd, cwd=cli, env=env, stdout=out, stderr=subprocess.STDOUT)
+            try:
+                while len(csv_rows(csv)) < B and proc.poll() is None:
+                    if time.perf_counter() - t > 600:
+                        fail("ingest: the CLI wrote no batch in 600 s")
+                    time.sleep(0.05)
+                proc.send_signal(signal.SIGTERM)
+                code = proc.wait(timeout=120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        log1 = open(os.path.join(tmp, "cli_1.log")).read()
+        stopped = len(csv_rows(csv))
+        if code != 0 or "Program Killed by signal" not in log1:
+            fail(f"ingest: the CLI exited {code} on SIGTERM: {log1[-2000:]}")
+        res["cli_rows_before_sigterm_stop"] = stopped
+        res["cli_first_run_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        run = subprocess.run(cmd, cwd=cli, env=env, capture_output=True, text=True, timeout=900)
+        res["cli_resumed_run_s"] = time.perf_counter() - t
+        if run.returncode != 0:
+            fail(f"ingest: the resumed CLI run failed: {run.stdout[-2000:]} {run.stderr[-2000:]}")
+        rows = csv_rows(csv)
+        full = csv_rows(os.path.join(cli, "prediction_full.csv"))
+        if sorted(r[0] for r in rows) != sorted(names) or [r[0] for r in rows] != names:
+            fail(f"ingest: the CLI's prediction.csv rows {[r[0] for r in rows]}")
+        if full[0] != ["video_name", "y_pred"] or full[1:] != rows[stopped:]:
+            fail("ingest: prediction_full.csv does not hold the resumed run's rows")
+        res["cli_max_abs_diff_vs_in_process"] = max(
+            abs(float(r[1]) - first[r[0]]) for r in rows)
+        torch.cuda.empty_cache()
+
+        # video_swin: one long clip by sliding windows
+        long_root = os.path.join(tmp, "long")
+        (long_name,) = make_synthetic_testset(long_root, 1, frames=LONG_VIDEO_FRAMES,
+                                              size=INGEST_SIDE, seconds=1.0, seed=seed + 1)
+        path = os.path.join(long_root, "phase2", "testset1seen", long_name)
+        cfg_s = copy.deepcopy(cfg_swin)
+        pred = Predictor(cfg_s, device=dev)
+        ctl = SubmitCtl(pred, cfg_s, None, logger=lambda s: None)
+        reset_counts()  # the long-video path's run starts here
+        score = ctl.score_long_video(path)
+        t = time.perf_counter()
+        score_again = ctl.score_long_video(path)
+        res["long_video_s"] = time.perf_counter() - t
+        paths["video_swin"] = ingest_launches(pred.graphs)  # ... and ends here
+        t = time.perf_counter()
+        frames = sequential_frames(path, cfg_s.data.frame_size)
+        res["long_video_decode_s"] = time.perf_counter() - t
+        windows = chunk_frames(frames, cfg_s.data.chunk_frames, cfg_s.data.chunk_stride)
+        if frames.shape[0] != LONG_VIDEO_FRAMES or windows.shape[0] != 5:
+            fail(f"ingest: {frames.shape[0]} frames, {windows.shape[0]} windows")
+        want = aggregate_window_scores(
+            pred.predict_raw(pad_rows({"video": windows}, 8))[:5].tolist())
+        if not (score == score_again == want):
+            fail(f"ingest: score_long_video {score} {score_again}, predict_raw's mean {want}")
+        launched = paths["video_swin"][0]
+        if not (launched["window_attn3d_tokens"] and launched["ln_linear"]
+                and launched["mlp_tail"]):
+            fail(f"ingest: score_long_video launched {launched}: K3 and K4 expected")
+        res["long_video"] = dict(frames=LONG_VIDEO_FRAMES, windows=5, score=score)
+        del pred, ctl
+        torch.cuda.empty_cache()
+
+        # audio: score_file of one clip at window 16
+        cfg_a = copy.deepcopy(cfg_audio)
+        pred = Predictor(cfg_a, device=dev)
+        path = os.path.join(root, "phase2", "testset1seen", names[0])
+        reset_counts()  # the audio file path's run starts here
+        got = pred.score_file(path)
+        t = time.perf_counter()
+        got_again = pred.score_file(path)
+        res["audio_score_file_s"] = time.perf_counter() - t
+        paths["audio"] = ingest_launches(pred.graphs)  # ... and ends here
+        wave = extract_wav(path, cfg_a.data.wave_sample_rate)
+        buckets = [int(x * cfg_a.data.wave_sample_rate) for x in cfg_a.data.wave_seconds_buckets]
+        want = pred.predict_raw({"audio_wave": pad_to_bucket(wave, buckets)[None],
+                                 "audio_len": np.array([len(wave)], np.int32)})[0]
+        if not (got == got_again == float(want)):
+            fail(f"ingest: audio score_file {got} {got_again}, predict_raw {want}")
+        launched = paths["audio"][0]
+        if not (launched["window_attention_multihead"] and launched["window_attn_heads"]):
+            fail(f"ingest: audio score_file launched {launched}: K6 and K2 expected")
+        del pred
+        torch.cuda.empty_cache()
+    res["launches"] = {k: v[0] for k, v in paths.items()}
+    res["graph_launches"] = {k: v[1] for k, v in paths.items()}
+    report["ingest"] = res
+    log(f"ingest: {INGEST_CLIPS} clips from files, fused b8 on the graph route: "
+        f"{res['clips_per_s_from_files']:.2f} clips/s over a warm submit "
+        f"({res['clips_per_s_steady']:.2f} after the first batch); loader alone "
+        f"{res['loader_ms_per_clip_seek']:.1f} ms a clip by seek, "
+        f"{res['loader_ms_per_clip_sequential']:.1f} by sequential; device "
+        f"{res['device_ms_per_batch']:.2f} ms a batch, idle share "
+        f"{res['device_idle_share']:.3f} ({res['card']})")
+    log(f"ingest: CLI stopped by SIGTERM with {res['cli_rows_before_sigterm_stop']} rows, "
+        f"resumed to {INGEST_CLIPS}; max |score - in-process| "
+        f"{res['cli_max_abs_diff_vs_in_process']:.3e}; long video {res['long_video_s']:.2f} s, "
+        f"audio score_file {res['audio_score_file_s'] * 1e3:.1f} ms")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2369,6 +2644,16 @@ def main() -> int:
     record(kernels[10:12], (phase_video_swin_train(config_b16("bfloat16", True), dev, gen,
                                                    report, key="video_swin_b16 train"), None),
            ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
+    # the main path from files: ingest, SubmitCtl and the CLI (graph route)
+    ingest = phase_ingest(config("bfloat16", True), config("bfloat16", True, "video_swin"),
+                          config("bfloat16", True, "audio"), dev, report, args.seed)
+    for i, path, name in ((0, "fused", "inception_block"), (1, "fused", "window_attn_tokens"),
+                          (3, "video_swin", "window_attn3d_tokens"),
+                          (4, "video_swin", "ln_linear"), (5, "video_swin", "mlp_tail"),
+                          (8, "audio", "window_attention_multihead"),
+                          (2, "audio", "window_attn_heads")):
+        kernels[i]["launches_ingest"] = ingest[path][0][name]
+        kernels[i]["graph_launches_ingest"] = ingest[path][1].get(name, 0)
     for k in kernels:
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         log(f"kernel {k['name']}: {k['per']}: kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
@@ -2396,6 +2681,7 @@ def main() -> int:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
     log(f"total: {report['total_s']:.1f} s")
+    print(json.dumps({"ingest": report["ingest"]}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
-"""Typed configuration tree: the port's own copy of the fields that fused,
-``audio`` and ``video_swin`` serving (raw-input feature assembly included)
-and ``video_swin`` training read (deepfake_tpu/config.py:18-256). Field
-names and defaults match the JAX package, so one set of dotted overrides
-configures both.
+"""Typed configuration tree and CLI: the port's own copy of the fields that
+fused, ``audio`` and ``video_swin`` serving (raw-input feature assembly and
+the ingest of video files included) and ``video_swin`` training read
+(deepfake_tpu/config.py:18-256). Field names and defaults match the JAX
+package, so one set of dotted overrides configures both; ``get_config(argv)``
+takes the JAX package's flags (deepfake_tpu/config.py:284-380).
 
 The three kernel switches are on by default and renamed without "pallas":
 ``model.irv2_fused_blocks`` (deepfake_tpu: ``irv2_pallas_blocks``),
@@ -19,22 +20,38 @@ and through K5 (forward and backward) in training.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 
 @dataclass
 class DataConfig:
+    data_root: str = "/data/deepfake/full_data"
     modality: str = "fused"  # video | audio | paudio | video_swin | fused
     num_frames: int = 32
     frame_size: int = 224
     audio_size: int = 224  # mel-spectrogram image side
+    num_workers: int = 4  # host decode threads of a loader
+    # seek: num_frames evenly spaced seeks (the reference's sampling);
+    # sequential: one pass over the stream keeping the same frames
+    decode_method: str = "seek"
+    force_generate: bool = False  # rewrite the mel JPEGs that already exist
+    prefetch_depth: int = 4  # batches the loader's thread decodes ahead
     wave_seconds_buckets: Tuple[float, ...] = (4.0, 8.0, 16.0)
     wave_sample_rate: int = 16000
     # waveform normalisation of the paudio input: "batch_longest" (the
     # reference processor's statistics over the batch-longest length), "hf"
     # (over the full bucket row) or "masked" (over the valid prefix only)
     wave_norm: str = "batch_longest"
+    # read the reference's {train,Val,Test}AudioImgs mel JPEGs instead of
+    # computing the mel image from PCM on the device
+    audio_from_images: bool = False
+    # long videos: sliding windows of chunk_frames frames, stride chunk_stride
+    chunk_frames: int = 32
+    chunk_stride: int = 16
 
 
 @dataclass
@@ -80,7 +97,7 @@ class ModelConfig:
     # the window attention) and K4 (csrc/ln_linear.cu, LayerNorm + the linear
     # layers); training K5 (csrc/window_attn3d_train.cu, the window attention
     # and its backward); K3 and K5 take any window (N = 392 at (8,7,7), 784
-    # at Video Swin-B's (16,7,7)) and head dims 8 to 128 in steps of 8
+    # at Video Swin-B's (16,7,7)) and head dims 1 to 128
     swin3d_attn_kernel: bool = True
     # wav2vec2-base topology
     wav_layers: int = 12
@@ -90,6 +107,12 @@ class ModelConfig:
     wav_conv_dim: int = 512
     # IRv2 residual blocks A/B/C through the CUDA kernel (csrc/inception_block.cu)
     irv2_fused_blocks: bool = True
+    # checkpoints of each modality; --Resume loads one (not ported: ROADMAP A3)
+    audio_ckpt_path: Optional[str] = None
+    video_ckpt_path: Optional[str] = None
+    paudio_ckpt_path: Optional[str] = None
+    fused_ckpt_path: Optional[str] = None
+    resume: bool = False
 
 
 @dataclass
@@ -112,11 +135,15 @@ class ParallelConfig:
     # bfloat16 serves and trains; float32 is for parity runs
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"  # the training masters
+    # the reference's -cuda flag (the JAX package accepts and ignores it):
+    # False runs the CLIs on the CPU; True on the card, or they raise
+    use_cuda: bool = True
 
 
 @dataclass
 class LogConfig:
-    log_step: int = 10  # a train log line every log_step optimizer steps
+    log_step: int = 10  # a log line every log_step steps (optimizer steps, batches)
+    log_dir: Optional[str] = None  # the log file; None: standard output only
 
 
 # Video Swin 3D as the reference's shell script runs it: 32 frames, batch 8 x
@@ -134,8 +161,18 @@ _VIDEO_SWIN = {
 
 # Named override sets (deepfake_tpu/config.py PRESETS)
 PRESETS = {
+    "video": {"data.modality": "video", "optim.batch_size": 8, "optim.accum_step": 4},
     # SwinV2-B on the mel image (deepfake_tpu/config.py:231)
     "audio": {"data.modality": "audio", "optim.batch_size": 48, "optim.epochs": 12},
+    "paudio": {"data.modality": "paudio", "optim.batch_size": 8},
+    # the reference's fused configs (train_model.sh:14-38, test_model.sh)
+    "fused": {
+        "data.modality": "fused",
+        "optim.batch_size": 8,
+        "optim.accum_step": 4,
+        "optim.learning_rate": 1e-4,
+        "optim.epochs": 4,
+    },
     "video_swin": _VIDEO_SWIN,
     # Video Swin-L (Liu et al. 2022, configs/recognition/swin/
     # swin_large_patch244_window877_kinetics400_22k.py): embed 192, depths
@@ -179,3 +216,116 @@ class Config:
         for k, v in PRESETS[name].items():
             cfg.set(k, v)
         return cfg
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=4, default=str)
+
+
+def _str2bool(v) -> bool:
+    """``-cuda False``: argparse's ``type=bool`` would read any non-empty
+    string as True."""
+    if isinstance(v, bool):
+        return v
+    s = str(v).strip().lower()
+    if s in ("1", "true", "t", "yes", "y"):
+        return True
+    if s in ("0", "false", "f", "no", "n", ""):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
+
+
+def _apply(cfg: Config, key: str, value: Any) -> None:
+    """Set a dotted field, converted to the type of its current value (as
+    the JAX package's ``_apply_dotted``: ``--set optim.learning_rate=1`` is
+    1.0)."""
+    obj = cfg
+    for p in key.split(".")[:-1]:
+        obj = getattr(obj, p)
+    cur = getattr(obj, key.split(".")[-1], None)
+    if cur is not None and not isinstance(cur, (tuple, list)) and value is not None:
+        value = type(cur)(value)
+    cfg.set(key, value)
+
+
+# flag -> dotted field, for the flags that take a value
+_DIRECT = {
+    "data_root": "data.data_root", "modality": "data.modality",
+    "num_frames": "data.num_frames", "num_workers": "data.num_workers",
+    "classify_drop": "model.classify_drop", "num_hiddens": "model.num_hiddens",
+    "video_pool": "model.video_pool", "audio_ckpt_path": "model.audio_ckpt_path",
+    "video_ckpt_path": "model.video_ckpt_path", "paudio_ckpt_path": "model.paudio_ckpt_path",
+    "fused_ckpt_path": "model.fused_ckpt_path", "use_cuda": "parallel.use_cuda",
+    "random_seed": "random_seed", "batch_size": "optim.batch_size",
+    "accum_step": "optim.accum_step", "l2_decacy": "optim.weight_decay",
+    "epochs": "optim.epochs", "learning_rate": "optim.learning_rate",
+    "log_step": "log.log_step", "log_dir": "log.log_dir",
+}
+# flags of the JAX package whose fields the port does not have (pretrained
+# backbones, wav2vec2 checkpoints, the alignment loss, checkpoint cadence,
+# training switches): parsed, and refused when given
+_NOT_PORTED = ("swin_drop", "soft", "wav2vec2_dir", "video_pretrained_dir",
+               "audio_pretrained_dir", "bn_momentum", "align_loss_rate", "model_save",
+               "skip_learning", "val_model")
+
+
+def get_config(argv: Optional[list] = None) -> Config:
+    """The CLI's flags (the JAX package's surface, the reference's
+    config.py:3-45) into a Config: ``--preset`` first, then each flag, then
+    every ``--set a.b=v`` (the value read as JSON where it parses)."""
+    p = argparse.ArgumentParser(description="deepfake_tpu_torch")
+    p.add_argument("--preset", type=str, default=None, choices=list(PRESETS))
+    p.add_argument("--data_root", type=str, default=None)
+    p.add_argument("--modality", type=str, default=None)
+    p.add_argument("--num_frames", type=int, default=None)
+    p.add_argument("--force_generate", action="store_true")
+    p.add_argument("-nu", "--num_workers", type=int, default=None)
+    p.add_argument("--classify_drop", type=float, default=None)
+    p.add_argument("--swin_drop", type=float, default=None)
+    p.add_argument("--soft", type=float, default=None)
+    p.add_argument("--num_hiddens", type=int, default=None)
+    p.add_argument("--video_pool", type=str, default=None)
+    p.add_argument("--audio_ckpt_path", type=str, default=None)
+    p.add_argument("--video_ckpt_path", type=str, default=None)
+    p.add_argument("--paudio_ckpt_path", type=str, default=None)
+    p.add_argument("--fused_ckpt_path", type=str, default=None)
+    p.add_argument("--wav2vec2_dir", type=str, default=None)
+    p.add_argument("--video_pretrained_dir", type=str, default=None)
+    p.add_argument("--audio_pretrained_dir", type=str, default=None)
+    p.add_argument("--bn_momentum", type=float, default=None)
+    p.add_argument("--Resume", action="store_true")
+    p.add_argument("-cuda", "--use_cuda", type=_str2bool, default=None)
+    p.add_argument("--random_seed", type=int, default=None)
+    p.add_argument("-b", "--batch_size", type=int, default=None)
+    p.add_argument("--accum_step", type=int, default=None)
+    p.add_argument("--align_loss_rate", type=float, default=None)
+    p.add_argument("--l2_decacy", type=float, default=None)  # the reference's spelling
+    p.add_argument("-e", "--epochs", type=int, default=None)
+    p.add_argument("-lr", "--learning_rate", type=float, default=None)
+    p.add_argument("--model_save", type=int, default=None)
+    p.add_argument("--skip_learning", action="store_true")
+    p.add_argument("--val_model", action="store_true")
+    p.add_argument("--log_step", type=int, default=None)
+    p.add_argument("--log_dir", type=str, default=None)
+    p.add_argument("--set", action="append", default=[], metavar="a.b=v")
+    args = p.parse_args(argv)
+    for name in _NOT_PORTED:
+        if getattr(args, name) not in (None, False):
+            p.error(f"--{name}: the port's config has no such field")
+
+    cfg = Config.preset(args.preset) if args.preset else Config()
+    for name, dotted in _DIRECT.items():
+        v = getattr(args, name)
+        if v is not None:
+            _apply(cfg, dotted, v)
+    if args.force_generate:
+        cfg.data.force_generate = True
+    if args.Resume:
+        cfg.model.resume = True
+    for kv in args.set:
+        k, _, v = kv.partition("=")
+        try:
+            parsed = json.loads(v)
+        except ValueError:
+            parsed = v
+        _apply(cfg, k, parsed)
+    return cfg

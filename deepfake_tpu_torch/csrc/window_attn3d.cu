@@ -1,6 +1,6 @@
 // K3: window attention for Video Swin's large 3D windows (any N: 392
-// tokens for (8,7,7) windows, 784 for (16,7,7)), head dims 8 to 128 in steps
-// of 8, token-major.
+// tokens for (8,7,7) windows, 784 for (16,7,7)), head dims 1 to 128,
+// token-major.
 // For each (window w, head h):
 //
 //   out = softmax_rows(q.s . k^T + bias[h] + mask[w % n_masks]) . v
@@ -106,7 +106,7 @@ int choose_group(int windows, int heads, int n, int n_masks, bool masked) {
 
 // dtype: 0 float32 (SIMT, f32 mask), 1 bfloat16 (bf16 mask; at d = 32
 // Hopper: wgmma and TMA, else mma.sync, window_attn_mma.cuh). d: the head
-// dim, 8 to 128 in steps of 8. grid = query tiles x heads x window groups on Hopper, (query tiles,
+// dim, 1 to 128. grid = query tiles x heads x window groups on Hopper, (query tiles,
 // windows, heads) in SIMT. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int k3_window_attn(
@@ -115,16 +115,18 @@ extern "C" int k3_window_attn(
     void* out, int64_t o_w, int64_t o_h, int64_t o_n,
     const float* bias, const void* mask, int n_masks, float scale,
     int windows, int heads, int n, int d, void* stream) {
-  if (n < 1 || n > 65535 || d < 8 || d > 128 || d % 8 || windows < 1 || windows > 65535 ||
+  if (n < 1 || n > 65535 || d < 1 || d > 128 || windows < 1 || windows > 65535 ||
       heads < 1 || heads > 65535 || (mask && (n_masks < 1 || windows % n_masks)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args g{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask, mask ? n_masks : 1,
          scale, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 1 && (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
-                        aligned16(bias) && aligned16(mask)) ||
-                      (s_w | s_h | s_n | o_w | o_h | o_n) % 8))
+  // the Hopper route's TMA needs 16-byte rows and addresses
+  if (wtile::mma::on_wgmma(dtype, d) &&
+      (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && aligned16(bias) &&
+         aligned16(mask)) ||
+       (s_w | s_h | s_n | o_w | o_h | o_n) % 8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (wtile::mma::on_wgmma(dtype, d)) {
     err = wtile::launch<wtile::STATIC_SHIFT>(

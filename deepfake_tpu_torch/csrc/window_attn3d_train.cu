@@ -1,6 +1,6 @@
 // K5: training window attention for Video Swin's 3D windows (any N: 392
-// tokens for (8,7,7) windows, 784 for (16,7,7)), head dims 8 to 128 in
-// steps of 8, token-major, with its backward. For each (window w, head h), s = scale:
+// tokens for (8,7,7) windows, 784 for (16,7,7)), head dims 1 to 128,
+// token-major, with its backward. For each (window w, head h), s = scale:
 //
 //   forward:  out = softmax_rows((q s) k^T + bias[h] + mask[w % n_masks]) v
 //             (the max-stabilised f32 softmax)
@@ -327,7 +327,7 @@ cudaError_t launch_dc(const BwdArgs& g, int d, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// One launch at head dim d (8 to 128: the instance of 1, 2 or 4 column
+// One launch at head dim d (1 to 128: the instance of 1, 2 or 4 column
 // groups of 32)
 cudaError_t launch_bwd(const BwdArgs& g, int d, cudaStream_t s) {
   if (d <= 32) return launch_dc<1>(g, d, s);
@@ -1364,7 +1364,7 @@ __global__ void __launch_bounds__(THREADS2, 1)
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 bool bad_shape(int n, int d, int windows, int heads, const void* mask, int n_masks) {
-  return n < 1 || n > 65535 || d < 8 || d > 128 || d % 8 || windows < 1 || windows > 65535 ||
+  return n < 1 || n > 65535 || d < 1 || d > 128 || windows < 1 || windows > 65535 ||
          heads < 1 || heads > 65535 || (mask && (n_masks < 1 || windows % n_masks));
 }
 
@@ -1499,8 +1499,7 @@ cudaError_t launch_bwd_bf16(const BwdArgs& g, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 float32 (SIMT), 1 bfloat16 (at d = 32 Hopper's wgmma and TMA,
-// else mma.sync, window_attn_mma.cuh); d: the head dim, 8 to 128 in steps
-// of 8.
+// else mma.sync, window_attn_mma.cuh); d: the head dim, 1 to 128.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for arguments the
 // kernels do not take.
 extern "C" int k5_fwd(int dtype, const void* q, const void* k, const void* v, int64_t s_w,
@@ -1512,9 +1511,11 @@ extern "C" int k5_fwd(int dtype, const void* q, const void* k, const void* v, in
   const wtile::Args a{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask,
                       mask ? n_masks : 1, scale, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
-                        aligned16(bias) && aligned16(mask)) ||
-                      (s_w | s_h | s_n | o_w | o_h | o_n) % 8 || group < 1))
+  // the Hopper route's TMA needs 16-byte rows and addresses
+  if (wtile::mma::on_wgmma(dtype, d) &&
+      (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && aligned16(bias) &&
+         aligned16(mask)) ||
+       (s_w | s_h | s_n | o_w | o_h | o_n) % 8 || group < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (wtile::mma::on_wgmma(dtype, d))
     return static_cast<int>(wtile::launch<wtile::MAX_STABLE>(a, windows, heads, group, s));
@@ -1539,8 +1540,8 @@ extern "C" int k5_stats_stride(int n) { return (n + hop::BM - 1) / hop::BM * hop
 // bias in the compute type; mask bf16 or null; dbias zeroed. dq, dk, dv:
 // in bf16 on the Hopper route (dtype 1, d = 32); else (dtype 0, SIMT; or
 // bf16 at another head dim, mma.sync, window_attn_mma.cuh) f32, dk and dv
-// zeroed (the kernels add into them). d: the head dim, 8 to 128 in steps
-// of 8. group: windows a bf16 block takes (G).
+// zeroed (the kernels add into them). d: the head dim, 1 to 128. group:
+// windows a bf16 block takes (G).
 extern "C" int k5_bwd(int dtype, const void* q, const void* k, const void* v, int64_t s_w,
                       int64_t s_h, int64_t s_n, const void* dout, int64_t d_w, int64_t d_h,
                       int64_t d_n, void* dq, void* dk, void* dv, int64_t g_w, int64_t g_h,
@@ -1563,9 +1564,6 @@ extern "C" int k5_bwd(int dtype, const void* q, const void* k, const void* v, in
     return static_cast<int>(launch_bwd_bf16(g, s));
   }
   if (dtype == 1) {
-    if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout)) ||
-        (s_w | s_h | s_n | d_w | d_h | d_n) % 8)
-      return static_cast<int>(cudaErrorInvalidValue);
     const wtile::mma::MBwdArgs m{
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         s_w, s_h, s_n, static_cast<const bf16*>(dout), d_w, d_h, d_n, static_cast<float*>(dq),

@@ -2,7 +2,7 @@
 // through mma.sync (m16n8k16, bf16 in, f32 accumulate): the forward of K3
 // (window_attn3d.cu), K5 (window_attn3d_train.cu) and K6
 // (window_attn_multihead.cu), and K5's backward (at the end), for every head
-// dim of 8 to 128 in steps of 8 but 32, whose Hopper kernels (wgmma + TMA,
+// dim of 1 to 128 but 32, whose Hopper kernels (wgmma + TMA,
 // window_attn_tile.cuh and K6's and K5's own) are built for that width
 // alone. The forward, for each (window w, head h):
 //
@@ -31,6 +31,11 @@
 // to P V's A fragments without leaving the registers. The head is held as
 // DP = 32, 64 or 128 columns (instances), the columns from d on zero in
 // shared memory, so they change neither q.k nor the kept columns of P V.
+// Rows of q, k, v and dO come into shared memory 16 bytes at a time where
+// the head dim, every stride and every address are multiples of 8 elements
+// (16 bytes; MArgs::vec, set by the launch), else element by element with
+// the same zero fill (D = 12 with 3 heads: rows of 24 bytes, a qkv row of
+// 108 elements); outputs are written in pairs, or one element at a time.
 // Bias and mask are read per logit from device memory (L2): nothing is
 // shared between the windows of a mask index (the Hopper kernels share a
 // tile); that and the thread loads of K and V are what a faster design
@@ -68,6 +73,7 @@ struct MArgs {
   const float* scales;             // [heads] (SCALED, COSINE), or null
   float scale;                     // STATIC_SHIFT, MAX_STABLE
   int n, d;
+  int vec = 0;                     // 16-byte rows and strides (set by launch)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -89,6 +95,26 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// eight bf16 of a row from column c on, zeros from column d on: one 16-byte
+// load where the rows allow it (vec), else element by element
+__device__ __forceinline__ uint4 load8(const bf16* row, int c, int d, bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(row + c);
+  union { uint4 u; unsigned short h[8]; } x;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x.h[j] = c + j < d ? __bfloat16_as_ushort(row[c + j]) : 0;
+  return x.u;
+}
+// columns c and c + 1 of a bf16 output row (c even; c + 1 only where it is
+// below d): one 4-byte store where the rows allow it (vec)
+__device__ __forceinline__ void store2(bf16* p, float x0, float x1, bool second, bool vec) {
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+  } else {
+    p[0] = __float2bfloat16(x0);
+    if (second) p[1] = __float2bfloat16(x1);
+  }
 }
 
 // d += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32
@@ -196,14 +222,14 @@ __global__ void __launch_bounds__(THREADS) attn_mma(MArgs a) {
 
   for (int k0 = 0; k0 < N; k0 += BK) {
     __syncthreads();  // the last tile's reads are done
-    // K and V tiles, 8 columns (16 bytes) at a time; keys past N and
-    // columns past D zero
+    // K and V tiles, 8 columns at a time; keys past N and columns past D
+    // zero
     for (int i = tid; i < BK * (DP / 8); i += THREADS) {
       const int r = i / (DP / 8), c = (i - r * (DP / 8)) * 8, key = k0 + r;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
       if (key < N && c < D) {
-        kv = *reinterpret_cast<const uint4*>(K + (int64_t)key * a.s_n + c);
-        vv = *reinterpret_cast<const uint4*>(V + (int64_t)key * a.s_n + c);
+        kv = load8(K + (int64_t)key * a.s_n, c, D, a.vec);
+        vv = load8(V + (int64_t)key * a.s_n, c, D, a.vec);
       }
       *reinterpret_cast<uint4*>(ks + r * P + c) = kv;
       *reinterpret_cast<uint4*>(vs + r * P + c) = vv;
@@ -314,13 +340,11 @@ __global__ void __launch_bounds__(THREADS) attn_mma(MArgs a) {
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
     const int c = 8 * j + 2 * t;
-    if (c >= D) continue;  // D is a multiple of 8: a pair is in or out whole
+    if (c >= D) continue;
     if (row_a < N)
-      *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)row_a * a.o_n + c) =
-          __floats2bfloat162_rn(o[j][0] * ia, o[j][1] * ia);
+      store2(O + (int64_t)row_a * a.o_n + c, o[j][0] * ia, o[j][1] * ia, c + 1 < D, a.vec);
     if (row_b < N)
-      *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)row_b * a.o_n + c) =
-          __floats2bfloat162_rn(o[j][2] * ib, o[j][3] * ib);
+      store2(O + (int64_t)row_b * a.o_n + c, o[j][2] * ib, o[j][3] * ib, c + 1 < D, a.vec);
   }
 }
 
@@ -336,13 +360,22 @@ cudaError_t launch_dp(const MArgs& a, int windows, int heads, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// One launch at head dim a.d (8 to 128, a multiple of 8: the instance of
-// 32, 64 or 128 columns). Needs q, k, v and out 16-byte aligned with
-// strides that are multiples of 8 elements; the caller has checked.
+// whether every address is a multiple of 16 bytes
+template <typename... T>
+inline bool all_aligned16(const T*... p) {
+  return ((reinterpret_cast<uintptr_t>(p) % 16 == 0) && ...);
+}
+
+// One launch at head dim a.d (1 to 128: the instance of 32, 64 or 128
+// columns), q, k, v and out with any strides (the head dim contiguous);
+// 16-byte loads where d, the strides and the addresses allow them.
 template <int F, typename MaskT>
-cudaError_t launch(const MArgs& a, int windows, int heads, cudaStream_t s) {
-  if (a.d < 8 || a.d > 128 || a.d % 8 || windows > 65535 || heads > 65535)
+cudaError_t launch(const MArgs& args, int windows, int heads, cudaStream_t s) {
+  if (args.d < 1 || args.d > 128 || windows > 65535 || heads > 65535)
     return cudaErrorInvalidValue;
+  MArgs a = args;
+  a.vec = a.d % 8 == 0 && (a.s_w | a.s_h | a.s_n | a.o_w | a.o_h | a.o_n) % 8 == 0 &&
+          all_aligned16(a.q, a.k, a.v, a.out);
   if (a.d <= 32) return launch_dp<F, 32, MaskT>(a, windows, heads, s);
   if (a.d <= 64) return launch_dp<F, 64, MaskT>(a, windows, heads, s);
   return launch_dp<F, 128, MaskT>(a, windows, heads, s);
@@ -376,6 +409,7 @@ struct MBwdArgs {
   float* dbias;                     // [heads, n, n] f32, zeroed
   float scale;
   int n, d;
+  int vec = 0;                      // 16-byte rows and strides (set by launch_bwd)
 };
 
 template <int DP>
@@ -446,13 +480,13 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_mma(MBwdArgs a) {
   float* dbias = a.dbias + (int64_t)h * N * N;
   const int64_t gb = (int64_t)w * a.g_w + (int64_t)h * a.g_h;
 
-  // the query tile's q and dO, 16 bytes at a time (zeros past N and D)
+  // the query tile's q and dO, 8 columns at a time (zeros past N and D)
   for (int i = tid; i < BQ * (DP / 8); i += THREADS) {
     const int r = i / (DP / 8), c = (i - r * (DP / 8)) * 8, row = q0 + r;
     uint4 qv = make_uint4(0, 0, 0, 0), ov = qv;
     if (row < N && c < D) {
-      qv = *reinterpret_cast<const uint4*>(Q + (int64_t)row * a.s_n + c);
-      ov = *reinterpret_cast<const uint4*>(dO + (int64_t)row * a.d_n + c);
+      qv = load8(Q + (int64_t)row * a.s_n, c, D, a.vec);
+      ov = load8(dO + (int64_t)row * a.d_n, c, D, a.vec);
     }
     *reinterpret_cast<uint4*>(qs + r * P + c) = qv;
     *reinterpret_cast<uint4*>(os + r * P + c) = ov;
@@ -471,8 +505,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_mma(MBwdArgs a) {
         const int r = i / (DP / 8), c = (i - r * (DP / 8)) * 8, key = k0 + r;
         uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
         if (key < N && c < D) {
-          kv = *reinterpret_cast<const uint4*>(K + (int64_t)key * a.s_n + c);
-          vv = *reinterpret_cast<const uint4*>(V + (int64_t)key * a.s_n + c);
+          kv = load8(K + (int64_t)key * a.s_n, c, D, a.vec);
+          vv = load8(V + (int64_t)key * a.s_n, c, D, a.vec);
         }
         *reinterpret_cast<uint4*>(ks + r * P + c) = kv;
         *reinterpret_cast<uint4*>(vs + r * P + c) = vv;
@@ -613,7 +647,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_mma(MBwdArgs a) {
             if (key >= N) continue;
             float* o = out + (int64_t)key * a.g_n + c;
             atomicAdd(o, acc[j][2 * hh] * f);
-            atomicAdd(o + 1, acc[j][2 * hh + 1] * f);
+            if (c + 1 < D) atomicAdd(o + 1, acc[j][2 * hh + 1] * f);
           }
         }
       }
@@ -626,11 +660,11 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_mma(MBwdArgs a) {
     if (c >= D) continue;
     if (row_a < N) {
       dQ[(int64_t)row_a * a.g_n + c] = dq[j][0] * a.scale;
-      dQ[(int64_t)row_a * a.g_n + c + 1] = dq[j][1] * a.scale;
+      if (c + 1 < D) dQ[(int64_t)row_a * a.g_n + c + 1] = dq[j][1] * a.scale;
     }
     if (row_b < N) {
       dQ[(int64_t)row_b * a.g_n + c] = dq[j][2] * a.scale;
-      dQ[(int64_t)row_b * a.g_n + c + 1] = dq[j][3] * a.scale;
+      if (c + 1 < D) dQ[(int64_t)row_b * a.g_n + c + 1] = dq[j][3] * a.scale;
     }
   }
 }
@@ -647,12 +681,14 @@ cudaError_t launch_bwd_dp(const MBwdArgs& a, int windows, int heads, cudaStream_
   return cudaGetLastError();
 }
 
-// One backward launch at head dim a.d (8 to 128, a multiple of 8); q, k, v,
-// dout 16-byte aligned with strides that are multiples of 8 elements (the
-// caller has checked); dk, dv and dbias zeroed
-inline cudaError_t launch_bwd(const MBwdArgs& a, int windows, int heads, cudaStream_t s) {
-  if (a.d < 8 || a.d > 128 || a.d % 8 || windows > 65535 || heads > 65535)
+// One backward launch at head dim a.d (1 to 128), q, k, v and dout with any
+// strides (the head dim contiguous); dk, dv and dbias zeroed
+inline cudaError_t launch_bwd(const MBwdArgs& args, int windows, int heads, cudaStream_t s) {
+  if (args.d < 1 || args.d > 128 || windows > 65535 || heads > 65535)
     return cudaErrorInvalidValue;
+  MBwdArgs a = args;
+  a.vec = a.d % 8 == 0 && (a.s_w | a.s_h | a.s_n | a.d_w | a.d_h | a.d_n) % 8 == 0 &&
+          all_aligned16(a.q, a.k, a.v, a.dout);
   if (a.d <= 32) return launch_bwd_dp<32>(a, windows, heads, s);
   if (a.d <= 64) return launch_bwd_dp<64>(a, windows, heads, s);
   return launch_bwd_dp<128>(a, windows, heads, s);

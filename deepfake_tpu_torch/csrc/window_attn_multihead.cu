@@ -1,5 +1,5 @@
 // K6: window attention for the windows above K2's range (N >= 65 tokens, any
-// N above that), head dims 8 to 128 in steps of 8, cosine (SwinV2) or
+// N above that), head dims 1 to 128, cosine (SwinV2) or
 // scaled. For each (window w, head h):
 //
 //   cosine: out = softmax_rows(scales[h] (q^ . k^T^) + bias[h] + mask[w % n_masks]) . v
@@ -139,7 +139,7 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(float) * ((2 * key_tile(DC) + MQ) * (32 * DC + 1) + MQ * (key_tile(DC) + 1));
 }
 
-// Any head dim d of 8 to 128 (DC column groups of 32, the columns from d on
+// Any head dim d of 1 to 128 (DC column groups of 32, the columns from d on
 // zero-filled, which change neither the norms, q.k nor the kept columns of
 // P V)
 template <bool COSINE, int DC>
@@ -644,15 +644,17 @@ extern "C" int k6_window_attn(int dtype, int cosine, const void* q, const void* 
                               int64_t o_h, int64_t o_n, const float* bias, const float* mask,
                               int n_masks, const float* scales, int windows, int heads, int n,
                               int d, int group, void* stream) {
-  if (n < MIN_N || d < 8 || d > 128 || d % 8 || windows < 1 || heads < 1 || heads > 65535 ||
+  if (n < MIN_N || d < 1 || d > 128 || windows < 1 || heads < 1 || heads > 65535 ||
       (mask && (n_masks < 1 || windows % n_masks)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args g{q, k, v, s_w, s_h, s_n, out, o_w, o_h, o_n, bias, mask, mask ? n_masks : 1, scales, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 1 && (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
-                        aligned16(bias) && aligned16(mask)) ||
-                      (s_w | s_h | s_n | o_w | o_h | o_n) % 8))
+  // the Hopper route's TMA needs 16-byte rows and addresses
+  if (wtile::mma::on_wgmma(dtype, d) &&
+      (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && aligned16(bias) &&
+         aligned16(mask)) ||
+       (s_w | s_h | s_n | o_w | o_h | o_n) % 8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (wtile::mma::on_wgmma(dtype, d)) {
     err = cosine ? launch_bf16<true>(g, windows, heads, group, s)

@@ -936,7 +936,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // ------------------------------------------------------------- SIMT
 
 // The f32 parity kernel of K3 (STATIC_SHIFT, f32 mask) and of K5's forward
-// (MAX_STABLE, bf16 mask), at every head dim of 8 to 128; a different kernel
+// (MAX_STABLE, bf16 mask), at every head dim of 1 to 128; a different kernel
 // from the ones that serve and train (the wgmma kernels above at D = 32,
 // window_attn_mma.cuh's at other head dims). One block of 8 warps per
 // (query tile of 32 rows, window, head), SIMT f32 FMA, any N: K
@@ -1084,7 +1084,7 @@ cudaError_t launch_dc(const Args& g, int windows, int heads, int d, cudaStream_t
   return cudaGetLastError();
 }
 
-// One launch at head dim d (8 to 128; the instance of d's column groups, 1,
+// One launch at head dim d (1 to 128; the instance of d's column groups, 1,
 // 2 or 4); the caller has checked the shapes
 template <int F, typename MaskT>
 cudaError_t launch(const Args& g, int windows, int heads, int d, cudaStream_t s) {

@@ -7,15 +7,23 @@ on the assembler's device; the caller casts the result to its compute type.
 
 For training, frames are augmented on the device and ``batch_longest``
 waves are normalised per accumulation micro-batch (``FeatureAssembler``
-with ``train=True``). The device prefetch queue is not ported.
-``video_swin`` clips stay NTHWC (the JAX package's channel-folded and
-pre-windowed host feeds are TPU layout work).
+with ``train=True``). ``video_swin`` clips stay NTHWC (the JAX package's
+channel-folded and pre-windowed host feeds are TPU layout work).
+
+``DevicePrefetcher`` moves a loader's raw batches to the device ahead of
+their use (deepfake_tpu/data/pipeline.py:260-309, the reference's
+CudaDataLoader): a producer thread decodes and collates, and writes each
+batch into pinned host buffers; the main thread copies it to the device on
+a side stream. ``ModelFeedLoader`` assembles those batches into model
+inputs for the Trainer.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+import queue
+import threading
+from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -206,3 +214,144 @@ class FeatureAssembler:
                 out.append(hf_wave_normalize(wave))
         inputs = tuple(out) if self.modality == "fused" else out[0]
         return inputs, self._get(labels)
+
+
+class _Slot:
+    """One batch's pinned host buffers, by feature key. Only the main thread
+    allocates them (``pin``); the producer thread writes into those whose
+    shape and type match (``fill``), and leaves the rest to ``pin``."""
+
+    def __init__(self):
+        self.pinned: Dict[str, torch.Tensor] = {}
+        self.pending: Dict[str, np.ndarray] = {}  # arrays that had no matching buffer
+        self.copied: Optional[torch.cuda.Event] = None  # the last copy out of the buffers
+
+    def fill(self, feats) -> None:
+        """Producer thread: host copies only, no CUDA call."""
+        self.pending = {}
+        for k, a in feats.items():
+            a = np.asarray(a)
+            buf = self.pinned.get(k)
+            if buf is not None and tuple(buf.shape) == a.shape and buf.numpy().dtype == a.dtype:
+                np.copyto(buf.numpy(), a)
+            else:
+                self.pending[k] = a
+
+    def pin(self) -> None:
+        """Main thread: pinned buffers for the arrays ``fill`` could not place."""
+        for k, a in self.pending.items():
+            buf = torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, pin_memory=True)
+            np.copyto(buf.numpy(), a)
+            self.pinned[k] = buf
+        self.pending = {}
+
+
+class DevicePrefetcher:
+    """Yields a loader's (feats, labels, names) batches with each feature on
+    ``device``, at most ``depth`` batches decoded ahead.
+
+    CUDA calls stay in the thread that iterates: a capture in CUDA's global
+    mode fails if another thread allocates pinned or device memory or
+    synchronises while it runs, and the first batch's graph is captured
+    while the producer is decoding. So the producer thread only decodes,
+    collates and copies into pinned buffers that the main thread allocated
+    (``_Slot``; a new shape's buffers are allocated by the main thread on
+    first sight, and the producer writes into them from then on). The main
+    thread issues batch i + 1's host-to-device copies on a side stream
+    before it hands out batch i, and makes the current stream wait for them
+    before batch i + 1 is handed out; a slot is written again only after
+    its copies ran. Labels and names stay on the host. On the CPU the
+    batches pass through as they are. A failure in the producer is raised
+    in the iterating thread."""
+
+    def __init__(self, loader: Iterable, device, depth: int = 4):
+        from deepfake_tpu_torch.models.registry import resolve_device
+
+        self.loader = loader
+        self.device = resolve_device(device)
+        self.depth = max(1, depth)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self) -> Iterator:
+        if self.device.type != "cuda":
+            yield from self.loader
+            return
+        slots = [_Slot() for _ in range(self.depth + 2)]
+        free: queue.Queue = queue.Queue()
+        for s in slots:
+            free.put(s)
+        ready: queue.Queue = queue.Queue()
+        stop = threading.Event()
+        end = object()
+
+        def producer():
+            try:
+                for feats, labels, names in self.loader:
+                    slot = free.get()
+                    if stop.is_set():
+                        return
+                    slot.fill(feats)
+                    ready.put((slot, labels, names))
+            except BaseException as e:  # re-raised in the iterating thread
+                ready.put(e)
+            finally:
+                ready.put(end)
+
+        side = torch.cuda.Stream(self.device)
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+
+        def stage():
+            item = ready.get()
+            if item is end:
+                return None
+            if isinstance(item, BaseException):
+                raise item
+            slot, labels, names = item
+            slot.pin()
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                feats = {k: t.to(self.device, non_blocking=True) for k, t in slot.pinned.items()}
+                slot.copied = torch.cuda.Event()
+                slot.copied.record(side)
+            return slot, feats, labels, names
+
+        try:
+            cur = stage()
+            while cur is not None:
+                nxt = stage()
+                slot, feats, labels, names = cur
+                torch.cuda.current_stream(self.device).wait_event(slot.copied)
+                for t in feats.values():  # allocated on the side stream, used on this one
+                    t.record_stream(torch.cuda.current_stream(self.device))
+                yield feats, labels, names
+                slot.copied.synchronize()
+                free.put(slot)
+                cur = nxt
+        finally:
+            stop.set()
+            for s in slots:  # unblock a producer waiting for a slot
+                free.put(s)
+            thread.join(timeout=60)
+
+
+class ModelFeedLoader:
+    """A raw loader -> (inputs, labels) on ``device`` for the Trainer:
+    batches through ``DevicePrefetcher`` (``cfg.data.prefetch_depth`` ahead)
+    and a ``FeatureAssembler`` (``train`` selects augmentation)."""
+
+    def __init__(self, raw_loader, cfg: Config, train: bool, device=None,
+                 depth: Optional[int] = None):
+        self.raw = raw_loader
+        self.assembler = FeatureAssembler(cfg, train, device=device)
+        self.depth = depth if depth is not None else cfg.data.prefetch_depth
+
+    def __len__(self):
+        return len(self.raw)
+
+    def __iter__(self):
+        for feats, labels, _names in DevicePrefetcher(self.raw, self.assembler.device,
+                                                      self.depth):
+            yield self.assembler(feats, labels)

@@ -5,7 +5,7 @@ Counterpart of deepfake_tpu/ops/pallas_window_attn.py
 channel slices), and, between K4's qkv and proj launches
 (ops/ln_linear_kernel.py), of the attention inside
 ``pallas_window_attention_nhc_qkv`` (:548). Windows of any size (392 tokens
-for (8,7,7) windows, 784 for (16,7,7)), head dims 8 to 128 in steps of 8.
+for (8,7,7) windows, 784 for (16,7,7)), head dims 1 to 128.
 
 On the card, bf16 runs on Hopper's wgmma and TMA: one block per (head, group
 of windows that read one mask index, query tile of 64 rows), the group
@@ -31,7 +31,9 @@ import torch
 
 from deepfake_tpu_torch.kernels import build
 from deepfake_tpu_torch.ops.window_attn import add_mask
-from deepfake_tpu_torch.ops.window_attn_kernel import _no_autograd, _on_cuda, check_head_dim
+from deepfake_tpu_torch.ops.window_attn_kernel import (
+    _no_autograd, _on_cuda, check_head_dim, on_wgmma,
+)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -87,10 +89,10 @@ def _launch(q, k, v, strides, out, out_strides, *, windows, heads, n, d, bias, m
         n_masks = mask.shape[0]
         if mask.shape[1:] != (n, n) or windows % n_masks:
             raise ValueError(f"mask {tuple(mask.shape)} does not tile {windows} windows")
-    if bf16 and (any(t.data_ptr() % 16 for t in (q, k, v, out, bias))
-                 or (mask is not None and mask.data_ptr() % 16)
-                 or any(s % 8 for s in (*strides, *out_strides))):
-        raise ValueError("K3's bf16 route needs 16-byte aligned q/k/v/out/bias/mask "
+    if on_wgmma(q.dtype, d) and (any(t.data_ptr() % 16 for t in (q, k, v, out, bias))
+                                 or (mask is not None and mask.data_ptr() % 16)
+                                 or any(s % 8 for s in (*strides, *out_strides))):
+        raise ValueError("K3's wgmma route needs 16-byte aligned q/k/v/out/bias/mask "
                          "and strides that are multiples of 8 elements")
     lib = _lib()
     status = lib.k3_window_attn(

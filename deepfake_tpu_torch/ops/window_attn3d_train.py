@@ -7,7 +7,7 @@ the token-major kernel with the max-stabilised softmax and whose backward is
 a Pallas kernel of its own (``_nhc_bwd_kernel``). Token-major q, k, v [B_, N,
 C] with heads in channel slices, windows of any size (392 tokens for (8,7,7)
 windows, 784 for (16,7,7); above 512 the bf16 kernels stream the window in
-tiles of keys or queries), head dims 8 to 128 in steps of 8 (32, Video
+tiles of keys or queries), head dims 1 to 128 (32, Video
 Swin's, on Hopper's wgmma; any other in bf16 through mma.sync, forward and
 backward, csrc/window_attn_mma.cuh).
 
@@ -120,9 +120,9 @@ def _check(qkv, num_heads: int, bias, mask):
         mask = mask.to(qkv.device, torch.bfloat16).contiguous()
         if mask.shape[1:] != (N, N) or B_ % mask.shape[0]:
             raise ValueError(f"mask {tuple(mask.shape)} does not tile {B_} windows")
-    if qkv.dtype == torch.bfloat16 and (qkv.data_ptr() % 16 or any(
+    if on_wgmma(qkv.dtype, D) and (qkv.data_ptr() % 16 or any(
             s % 8 for s in qkv.stride()[:2])):
-        raise ValueError("K5's bf16 route needs a 16-byte aligned qkv with strides that are "
+        raise ValueError("K5's wgmma route needs a 16-byte aligned qkv with strides that are "
                          "multiples of 8 elements")
     return B_, N, C, D, mask
 

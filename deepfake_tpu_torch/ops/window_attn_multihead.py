@@ -15,7 +15,7 @@ type. SwinV2 takes it for every window of more than 64 tokens (9 x 9 and up:
 (``window_attention_heads_plain``, K2's, which computes this function at any
 N) and launches K6 for CUDA tensors, or raises; ``.launches`` counts the
 launches. K6 takes N >= 65, with no upper limit (K and V stream through
-shared memory in key tiles), and head dims 8 to 128 in steps of 8: 32
+shared memory in key tiles), and head dims 1 to 128: 32
 (every SwinV2-B head) on Hopper's wgmma, any other in bf16 through
 mma.sync (csrc/window_attn_mma.cuh). Its bf16 wgmma kernel takes, per block, one head, one 64-row query tile and a group of
 windows that read one mask index, which share a bias + mask tile
@@ -86,10 +86,10 @@ def _launch(q, k, v, out, *, bias, mask, logit_scale, scale, cosine):
         n_masks = mask.shape[0]
         if mask.shape[1:] != (N, N) or B_ % n_masks:
             raise ValueError(f"mask {tuple(mask.shape)} does not tile {B_} windows")
-    if q.dtype == torch.bfloat16 and (any(t.data_ptr() % 16 for t in (q, k, v, out)) or any(
+    if on_wgmma(q.dtype, D) and (any(t.data_ptr() % 16 for t in (q, k, v, out)) or any(
             s % 8 for s in (*q.stride()[:3], *out.stride()[:3]))):
-        raise ValueError("K6's bf16 route needs 16-byte aligned q, k, v, out with strides that "
-                         "are multiples of 8 elements")
+        raise ValueError("K6's wgmma route needs 16-byte aligned q, k, v, out with strides "
+                         "that are multiples of 8 elements")
     if cosine:
         scales = logit_scale.to(dev, torch.float32).reshape(H).contiguous()
     else:

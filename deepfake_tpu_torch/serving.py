@@ -12,7 +12,8 @@ configured length and size; its model returns (scores, per-frame
 features), of which ``predict`` returns the scores. ``predict_raw`` takes
 the dataset's raw dict (uint8 frames, bucket-padded 16 kHz PCM and valid
 lengths) and assembles the model inputs on the Predictor's device
-(data/pipeline.py::FeatureAssembler). ``score_file`` waits for video decode.
+(data/pipeline.py::FeatureAssembler). ``score_file`` decodes one video file
+(``data/dataset.py``) and scores it at batch 1.
 
 Routes. On the card a Predictor is compiled by default (``compiled=True``):
 ``predict``, ``predict_raw`` and ``forward`` run each request shape as one
@@ -147,5 +148,12 @@ class Predictor:
         return self._scores(self._run("raw", self._raw, feats))
 
     def score_file(self, path: str) -> float:
-        """One video file end to end: needs the video decoder, not ported."""
-        raise NotImplementedError("score_file needs video decode, which is not ported")
+        """One video file end to end: decoded on the host as the test split
+        decodes a clip (frames, and PCM from its sidecar or ffmpeg), then
+        ``predict_raw`` at batch 1 (deepfake_tpu/serving.py:103-115)."""
+        from deepfake_tpu_torch.data.dataset import DeepFakeDataset
+
+        ds = DeepFakeDataset.__new__(DeepFakeDataset)
+        ds.cfg, ds.split, ds.dataset_path, ds.labels, ds.names = self.cfg, "test", "", {}, [path]
+        feats, _label, _name = ds[0]
+        return float(self.predict_raw({k: np.asarray(v)[None] for k, v in feats.items()})[0])

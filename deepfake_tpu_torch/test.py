@@ -1,0 +1,60 @@
+"""The inference CLI: score a test set into a submission (the port's
+counterpart of the repository's root test.py, the reference's test.py:28-74).
+
+    python -m deepfake_tpu_torch.test --preset fused --data_root /data/multi-ffdv
+    python -m deepfake_tpu_torch.test --preset fused --data_root ... -cuda False   # on the CPU
+
+Reads ``<data_root>/phase2/testset1seen/*.mp4`` in the order of
+``<data_root>/phase2/prediction.txt.csv`` (PCM from ``<clip>.wav`` / ``.npy``
+sidecars, or ffmpeg), appends ``name,score`` lines to ``./prediction.csv``
+after every batch (a stopped run resumes: the names already there are
+skipped), then writes ``./prediction_full.csv`` with this run's rows and a
+header. Runs on the card unless ``-cuda False`` asks for the CPU; without a
+card and without that flag it raises. The weights are seeded random:
+``--Resume`` with a checkpoint path raises (ROADMAP A3).
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import sys
+
+
+def main(argv=None):
+    from deepfake_tpu_torch.config import get_config
+    from deepfake_tpu_torch.data.dataset import DeepFakeDataModule
+    from deepfake_tpu_torch.serving import Predictor
+    from deepfake_tpu_torch.train.submit import SubmitCtl
+    from deepfake_tpu_torch.utils.logging import Logger
+    from deepfake_tpu_torch.utils.seeding import seed_everything
+
+    cfg = get_config(argv)
+    logger = Logger(cfg.log.log_dir)
+    logger(f"processId: {os.getpid()}")
+    logger(cfg.to_json())
+
+    def handle_exit(*_a):
+        print("Program Killed by signal")
+        sys.exit(0)
+
+    signal.signal(signal.SIGTERM, handle_exit)
+    signal.signal(signal.SIGINT, handle_exit)
+    device = None if cfg.parallel.use_cuda else "cpu"
+    if cfg.model.resume:
+        ckpt = {"audio": cfg.model.audio_ckpt_path, "video": cfg.model.video_ckpt_path,
+                "paudio": cfg.model.paudio_ckpt_path,
+                "fused": cfg.model.fused_ckpt_path}.get(cfg.data.modality)
+        if ckpt:
+            raise NotImplementedError(f"--Resume {ckpt}: checkpoints are not ported (ROADMAP A3)")
+    predictor = Predictor(cfg, device=device)
+    seed_everything(cfg.random_seed, predictor.device)
+    dm = DeepFakeDataModule(cfg, device=predictor.device).setup("test")
+    ctl = SubmitCtl(predictor, cfg, dm, logger=logger)
+    result = ctl.submit()
+    ctl.write_full(result)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -326,9 +326,22 @@ def test_predict_raw_fused_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
-def test_score_file_is_not_ported():
+def test_score_file_is_not_ported(tmp_path):
+    """score_file is ported (its name is kept from when it raised): for
+    ``audio`` it reads the clip's PCM sidecar, pads it to its bucket and
+    scores it at batch 1, the score of predict_raw on those arrays (its
+    parity with the JAX score_file: tests/test_torch_submit.py)."""
+    from scipy.io import wavfile
+
     from deepfake_tpu_torch.serving import Predictor
 
     _, tcfg = both_configs(SMALL_AUDIO_W16)
-    with pytest.raises(NotImplementedError, match="video decode"):
-        Predictor(tcfg, device="cpu").score_file("clip.mp4")
+    pred = Predictor(tcfg, device="cpu")
+    wave, _ = _pcm(1, 40000, 66)
+    wavfile.write(str(tmp_path / "clip.wav"), 16000, (wave[0] * 32767).astype(np.int16))
+    (tmp_path / "clip.mp4").write_bytes(b"")
+    got = pred.score_file(str(tmp_path / "clip.mp4"))
+    pcm = np.zeros((1, 64000), np.float32)
+    pcm[0, :40000] = (wave[0] * 32767).astype(np.int16) / np.float32(32768.0)
+    want = pred.predict_raw({"audio_wave": pcm, "audio_len": np.array([40000], np.int32)})
+    assert isinstance(got, float) and got == float(want[0])

@@ -748,15 +748,15 @@ def test_k6_is_deterministic(cuda_device, N):
 
 @pytest.mark.cuda
 def test_k6_raises_for_windows_it_does_not_take(cuda_device):
-    """K2's windows (N <= 64) and head dims outside 8-128 or not a multiple
-    of 8 raise before any launch; nothing falls back to the plain version."""
+    """K2's windows (N <= 64) and head dims above 128 raise before any
+    launch; nothing falls back to the plain version."""
     before = window_attention_multihead.launches
     q = torch.zeros(2, 1, 64, 32, device=cuda_device)
     with pytest.raises(ValueError, match="N >= 65"):
         window_attention_multihead(q, q, q, bias=torch.zeros(1, 64, 64),
                                    logit_scale=torch.ones(1, 1, 1))
-    q = torch.zeros(2, 1, 100, 136, device=cuda_device)
-    with pytest.raises(ValueError, match="head dims 8 to 128 in steps of 8"):
+    q = torch.zeros(2, 1, 100, 129, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims 1 to 128"):
         window_attention_multihead(q, q, q, bias=torch.zeros(1, 100, 100),
                                    logit_scale=torch.ones(1, 1, 1))
     assert window_attention_multihead.launches == before
@@ -767,8 +767,15 @@ def test_k6_raises_for_windows_it_does_not_take(cuda_device):
 # stage-0 windows (N = 392, shifted: 8 masks, 2 clips), K6 at SwinV2's
 # window 16 (N = 256, shifted: 4 masks); K2's are in K2_CASES. bf16 at these
 # head dims runs the mma.sync kernels (csrc/window_attn_mma.cuh), K5's
-# forward and backward among them, at the plain versions' cast points.
-HEAD_DIMS = (16, 48, 64, 128)
+# forward and backward among them, at the plain versions' cast points. Head
+# dims that are not a multiple of 8 (12, 20, 36) take its element-by-element
+# loads; K3 and K5 run them with 3 heads, so that a qkv row (9 D elements)
+# is not a multiple of 8 either (108 at D = 12).
+HEAD_DIMS = (12, 16, 20, 36, 48, 64, 128)
+
+
+def _head_dim_heads(D):
+    return 2 if D % 8 == 0 else 3
 
 
 def _head_dim_qkv(dev, B_, H, N, D, dtype, seed):
@@ -781,7 +788,7 @@ def _head_dim_qkv(dev, B_, H, N, D, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_k3_head_dims_match_plain(cuda_device, D, dtype):
-    B_, H, N = 16, 2, 392
+    B_, H, N = 16, _head_dim_heads(D), 392
     gen, qkv = _head_dim_qkv(cuda_device, B_, H, N, D, dtype, seed=21)
     C = H * D
     mask = torch.from_numpy(compute_mask_3d(16, 14, 14, (8, 7, 7), (4, 3, 3))).to(cuda_device)
@@ -801,7 +808,7 @@ def test_k3_head_dims_match_plain(cuda_device, D, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_k5_head_dims_match_plain(cuda_device, D, dtype):
-    B_, H, N = 16, 2, 392
+    B_, H, N = 16, _head_dim_heads(D), 392
     gen, qkv = _head_dim_qkv(cuda_device, B_, H, N, D, dtype, seed=22)
     C = H * D
     dout = torch.randn(B_, N, C, generator=gen, device=cuda_device).to(dtype)
@@ -1307,3 +1314,118 @@ def test_train_eval_runs_through_graphs(cuda_device):
     assert len(graph.graphs.graphs) == 2
     assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
     assert got["acc"] == want["acc"] and got["auc"] == pytest.approx(want["auc"])
+
+
+# ------------------------------------------------- submission from video files
+
+def _ingest_case(dev, tmp_path, n_clips=5):
+    """A fused bf16 Predictor on the graph route at the small geometry, and
+    a synthetic test set of ``n_clips`` mp4v clips (12 frames of 64^2,
+    0.5 s PCM sidecars) for batches of 2. Skips where cv2 does not import
+    (it writes and decodes the clips)."""
+    pytest.importorskip("cv2", reason="needs OpenCV to write and decode the mp4 clips")
+    from deepfake_tpu_torch.data.synthetic import make_synthetic_testset
+    from deepfake_tpu_torch.serving import Predictor
+
+    make_synthetic_testset(str(tmp_path), n_clips, frames=12, size=64, seconds=0.5, seed=5)
+    cfg = _graph_cfg("fused", torch.bfloat16)
+    cfg.data.data_root = str(tmp_path)
+    cfg.optim.batch_size = 2
+    cfg.data.num_workers = 2
+    return cfg, Predictor(cfg, device=dev)
+
+
+def _submit(cfg, pred, csv, logs=None):
+    from deepfake_tpu_torch.data.dataset import DeepFakeDataModule
+    from deepfake_tpu_torch.train.submit import SubmitCtl
+
+    dm = DeepFakeDataModule(cfg, prediction_csv=str(csv)).setup("test")
+    return SubmitCtl(pred, cfg, dm, logger=(logs if logs is not None else []).append,
+                     prediction_csv=str(csv))
+
+
+@pytest.mark.cuda
+def test_submit_graph_route_equals_predict_raw(cuda_device, tmp_path):
+    """submit() over 5 clips in batches of 2 (the ragged last padded): each
+    clip's score equals, to the bit, predict_raw of its batch from the host
+    through the same Predictor; one graph serves every batch."""
+    from deepfake_tpu_torch.data.dataset import DeepFakeDataModule
+    from deepfake_tpu_torch.train.submit import pad_rows
+
+    cfg, pred = _ingest_case(cuda_device, tmp_path)
+    result = _submit(cfg, pred, tmp_path / "prediction.csv").submit()
+    assert list(result) == [f"clip_{i}.mp4" for i in range(5)]
+    assert len(pred.graphs.graphs) == 1
+    dm = DeepFakeDataModule(cfg, prediction_csv=str(tmp_path / "none.csv")).setup("test")
+    for feats, _labels, names in dm.test_dataloader():
+        want = pred.predict_raw(pad_rows(feats, 2))[:len(names)]
+        assert [result[n] for n in names] == [float(p) for p in want]
+    rows = [line.split(",") for line in open(tmp_path / "prediction.csv").read().splitlines()]
+    assert [float(r[1]) for r in rows] == [float(v) for v in result.values()]
+
+
+@pytest.mark.cuda
+def test_graph_capture_while_the_producer_decodes(cuda_device, tmp_path, monkeypatch):
+    """The first batch's graph is captured while the prefetcher's thread
+    decodes the next batches (each decode slowed by 200 ms, so that the
+    decodes span the warm-up and the capture): the capture succeeds, a decode ran during it, and the scores
+    are those of a run without the slowdown."""
+    import threading
+    import time
+
+    from deepfake_tpu_torch.compiled import GraphCache
+    from deepfake_tpu_torch.data import dataset
+
+    cfg, pred = _ingest_case(cuda_device, tmp_path, n_clips=10)
+    decodes, captures = [], []
+    real_decode, real_graph = dataset.extract_frames, GraphCache.graph
+
+    def slow_decode(*a, **k):
+        t0 = time.perf_counter()
+        time.sleep(0.2)
+        out = real_decode(*a, **k)
+        decodes.append((t0, time.perf_counter(), threading.get_ident()))
+        return out
+
+    def timed_graph(self, key, *a, **k):
+        new = key not in self.graphs
+        t0 = time.perf_counter()
+        g = real_graph(self, key, *a, **k)
+        if new:
+            captures.append((t0, time.perf_counter()))
+        return g
+
+    monkeypatch.setattr(dataset, "extract_frames", slow_decode)
+    monkeypatch.setattr(GraphCache, "graph", timed_graph)
+    got = _submit(cfg, pred, tmp_path / "slow.csv").submit()
+    (c0, c1), = captures
+    assert any(d0 < c1 and d1 > c0 for d0, d1, tid in decodes
+               if tid != threading.get_ident()), (captures, decodes)
+    monkeypatch.setattr(dataset, "extract_frames", real_decode)
+    assert _submit(cfg, pred, tmp_path / "fast.csv").submit() == got
+
+
+@pytest.mark.cuda
+def test_submit_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """A run stopped after its first batch, then resumed: prediction.csv
+    holds each clip once, with the scores of an uninterrupted run to the
+    bit (the same graph)."""
+    cfg, pred = _ingest_case(cuda_device, tmp_path)
+    whole = _submit(cfg, pred, tmp_path / "whole.csv").submit()
+    real, calls = pred.predict_raw, []
+
+    def stop_after_one(feats):
+        if calls:
+            raise KeyboardInterrupt
+        calls.append(1)
+        return real(feats)
+
+    monkeypatch.setattr(pred, "predict_raw", stop_after_one)
+    with pytest.raises(KeyboardInterrupt):
+        _submit(cfg, pred, tmp_path / "prediction.csv").submit()
+    monkeypatch.setattr(pred, "predict_raw", real)
+    rest = _submit(cfg, pred, tmp_path / "prediction.csv").submit()
+    assert list(rest) == [f"clip_{i}.mp4" for i in range(2, 5)]
+    rows = [line.split(",") for line in open(tmp_path / "prediction.csv").read().splitlines()]
+    assert [r[0] for r in rows] == list(whole)
+    assert [float(r[1]) for r in rows] == [float(v) for v in whole.values()]

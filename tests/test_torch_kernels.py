@@ -383,10 +383,10 @@ def test_k6_plain_matches_pallas_above_k2_range(N, side, ws, route):
 
 def test_k6_rejects_what_it_does_not_take(monkeypatch):
     """K6's launch checks raise before any launch for N <= 64 (K2's
-    windows), a head dim outside 8-128 or not a multiple of 8, q, k, v of
-    different strides and a mask that does not tile the windows; windows of
-    65 to 1024 tokens and head dims 8 to 128 pass every check and reach the
-    kernel library (no upper limit on N)."""
+    windows), a head dim outside 1-128, q, k, v of different strides and a
+    mask that does not tile the windows; windows of 65 to 1024 tokens and
+    head dims 1 to 128 pass every check and reach the kernel library (no
+    upper limit on N)."""
     from deepfake_tpu_torch.ops import window_attn_multihead as k6
 
     class Reached(Exception):
@@ -404,10 +404,10 @@ def test_k6_rejects_what_it_does_not_take(monkeypatch):
 
     with pytest.raises(ValueError, match="N >= 65"):
         launch(64, 32)
-    for d in (4, 20, 136):
-        with pytest.raises(ValueError, match="head dims 8 to 128 in steps of 8"):
+    for d in (129, 136):
+        with pytest.raises(ValueError, match="head dims 1 to 128"):
             launch(256, d)
-    for d in (8, 16, 48, 64, 128):
+    for d in (1, 4, 8, 12, 16, 20, 36, 48, 64, 128):
         with pytest.raises(Reached):
             launch(256, d)
     with pytest.raises(ValueError, match="one set of strides"):
@@ -516,9 +516,9 @@ def test_k3_static_shift_at_huge_logits_matches_pallas_nhc():
 
 def test_k3_rejects_what_it_does_not_take(monkeypatch):
     """The CUDA wrapper raises before any launch for a head dim outside
-    8-128 or not a multiple of 8, a non-contiguous head dim and a mask that
-    does not tile the windows; a window of N = 784 and head dims 16 to 128
-    pass its checks (K3 takes any N and every such head dim)."""
+    1-128, a non-contiguous head dim and a mask that does not tile the
+    windows; a window of N = 784 and head dims 1 to 128 pass its checks (K3
+    takes any N and every such head dim)."""
     from deepfake_tpu_torch.ops.window_attn3d_kernel import _launch
 
     def launch(q, n, d, mask=None, windows=1):
@@ -543,12 +543,13 @@ def test_k3_rejects_what_it_does_not_take(monkeypatch):
                         lambda device=None: type("Stream", (), {"cuda_stream": 0}))
     launch(torch.zeros(1, 784, 32), 784, 32)
     assert len(calls) == 1 and calls[0][-3:-1] == (784, 32)
-    for d in (16, 48, 64, 128):
+    dims = (1, 4, 12, 16, 20, 36, 48, 64, 128)
+    for d in dims:
         launch(torch.zeros(1, 392, d), 392, d)
-    assert [c[-3:-1] for c in calls[1:]] == [(392, d) for d in (16, 48, 64, 128)]
+    assert [c[-3:-1] for c in calls[1:]] == [(392, d) for d in dims]
     monkeypatch.undo()
-    for d in (4, 12, 136):
-        with pytest.raises(ValueError, match="head dims 8 to 128 in steps of 8"):
+    for d in (129, 136):
+        with pytest.raises(ValueError, match="head dims 1 to 128"):
             launch(torch.zeros(1, 392, d), 392, d)
     with pytest.raises(ValueError, match="head dim contiguous"):
         launch(torch.zeros(1, 32, 392).transpose(1, 2), 392, 32)

@@ -106,8 +106,10 @@ def test_single_modality_predictor_matches_jax(modality):
 
 def test_port_imports_no_jax_and_no_jax_package():
     """Importing every module of deepfake_tpu_torch (the Swin3D model, the
-    K3, K4, K5 and K6 wrappers, the training modules and the feature
-    assembly among them) loads no jax* module and nothing of deepfake_tpu."""
+    K3, K4, K5 and K6 wrappers, the training modules, the feature
+    assembly, the data modules, SubmitCtl and the CLIs among them) loads no
+    jax* module and nothing of deepfake_tpu, nor cv2 (imported only inside
+    the functions that decode or encode)."""
     code = (
         "import importlib, pkgutil, sys, deepfake_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -121,8 +123,13 @@ def test_port_imports_no_jax_and_no_jax_package():
         "        'deepfake_tpu_torch.utils.metrics', 'deepfake_tpu_torch.utils.logging',\n"
         "        'deepfake_tpu_torch.ops.window_attn_multihead', 'deepfake_tpu_torch.ops.mel',\n"
         "        'deepfake_tpu_torch.ops.resample', 'deepfake_tpu_torch.ops.image',\n"
-        "        'deepfake_tpu_torch.data.pipeline'}\n"
+        "        'deepfake_tpu_torch.data.pipeline', 'deepfake_tpu_torch.data.dataset',\n"
+        "        'deepfake_tpu_torch.data.audio_io', 'deepfake_tpu_torch.data.video_decode',\n"
+        "        'deepfake_tpu_torch.data.chunking', 'deepfake_tpu_torch.data.synthetic',\n"
+        "        'deepfake_tpu_torch.data.audio_images', 'deepfake_tpu_torch.train.submit',\n"
+        "        'deepfake_tpu_torch.test', 'deepfake_tpu_torch.audio_preprocess'}\n"
         "bad += sorted(need - set(sys.modules))\n"
+        "bad += [m for m in ('cv2',) if m in sys.modules]  # cv2 only inside the decoders\n"
         "print(len([m for m in sys.modules if m.startswith('deepfake_tpu_torch.')]), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -383,20 +383,20 @@ def test_kernels_without_backward_raise_under_autograd():
 
 
 def test_k5_rejects_what_it_does_not_take():
-    """K5's checks raise before any launch: a head dim outside 8-128 or not a
-    multiple of 8, a mask that does not tile the windows, a type it does not
-    take; a model in train mode refuses an inference bias cache. A window of
-    N = 784 ((16,7,7)) and head dims 8, 64 and 128 pass them (K5 takes any N
-    and every such head dim)."""
+    """K5's checks raise before any launch: a head dim outside 1-128, a mask
+    that does not tile the windows, a type it does not take; a model in
+    train mode refuses an inference bias cache. A window of N = 784
+    ((16,7,7)) and head dims 1 to 128 pass them (K5 takes any N and every
+    such head dim)."""
     from deepfake_tpu_torch.models.swin3d import WindowAttention3D
     from deepfake_tpu_torch.ops.window_attn3d_train import _check
 
     assert _check(torch.zeros(4, 784, 96), 1, torch.zeros(1, 784, 784),
                   torch.zeros(4, 784, 784))[:4] == (4, 784, 32, 32)
-    for d in (8, 64, 128):
+    for d in (1, 4, 8, 12, 20, 36, 64, 128):
         assert _check(torch.zeros(1, 392, 3 * d), 1, torch.zeros(1, 392, 392), None)[3] == d
-    for d in (4, 12, 136):
-        with pytest.raises(ValueError, match="head dims 8 to 128 in steps of 8"):
+    for d in (129, 136):
+        with pytest.raises(ValueError, match="head dims 1 to 128"):
             _check(torch.zeros(1, 392, 3 * d), 1, torch.zeros(1, 392, 392), None)
     with pytest.raises(ValueError, match="does not tile 3 windows"):
         _check(torch.zeros(3, 392, 96), 1, torch.zeros(1, 392, 392), torch.zeros(2, 392, 392))
