@@ -96,6 +96,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      96-frame video through Video Swin-S by sliding windows (K3, K4) and one
      file through SwinV2-B at window 16 (K6, K2); the kernel line's
      "launches_ingest" and "graph_launches_ingest".
+ 12. fused training at full width (the preset: micro-batch 8 x accum 4 of
+     32 frames at 224^2, the 224^2 mel image and 4 s of PCM, bf16 compute,
+     f32 masters; BatchNorm batch statistics in IRv2, NeXtVLAD and the
+     head; SwinV2-B through K5 at N = 49: 96 forward and 96 backward
+     launches a step, the kernel line's N=49 rows), fed by the train-side
+     FeatureAssembler from raw clips: three steps on the eager K5 route, the
+     same again (do eager runs repeat to the bit), the same as one CUDA
+     graph a step (losses equal to the eager route's to the bit) and two
+     more replays, then the plain route (K5 off) as the A/B; step ms,
+     clips/s, peak memory, idle share, graph pool. Phase 2 holds K5 at
+     SwinV2-B's four stage shapes of a b8 micro-batch (cosine inputs:
+     q^ times per-head scales, scale 1).
+ 13. the training CLI (python -m deepfake_tpu_torch.train) in a subprocess on
+     40 synthetic mp4v clips with PCM sidecars (32 train: one step at 8 x 4;
+     8 val): its Train Loss and val AUC lines.
 The last four lines are {"ingest": {...}}, the card's name and power
 limit, {"kernels": [...]} and {"ok": true, "device": ...};
 --report writes every measurement and check as JSON to PATH. Imports
@@ -874,114 +889,174 @@ def k5_flops_bytes(B_, H, C, n_masks, n=N3):
     return fwd, bwd
 
 
-def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7), n=N3,
-             label: str = "Video Swin-S"):
-    """K5's forward and backward at the four stage shapes of a b8 training
-    micro-batch (Video Swin-S's by default), shifted and not."""
+def k5_cases_3d(dev, batch: int, stages=SWIN3D_STAGES, window=(8, 7, 7), n=N3):
+    """(name, B_, H, C, mask, blocks) of a b``batch`` Video Swin training
+    micro-batch's K5 calls: each stage's unshifted and shifted blocks."""
     import torch
-    import torch.nn.functional as F
 
     from deepfake_tpu_torch.models.swin3d import compute_mask_3d, get_window_size
-    from deepfake_tpu_torch.ops import window_attn3d_train as k5
 
-    acc = {d: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-               "library_device_ms": 0.0, "flops": 0.0, "bytes": 0.0} for d in ("fwd", "bwd")}
-    acc["bwd"].update(device_ms_launch1=0.0, device_ms_launch2=0.0)
-    errs = {(d, t): 0.0 for d in ("fwd", "bwd") for t in ("float32", "bfloat16")}
+    cases = []
     for grid, H, C, depth in stages:
         ws, ss = get_window_size(grid, window, tuple(w // 2 for w in window))
         nW = math.prod(n // w for n, w in zip(grid, ws))
         B_ = batch * nW
         mask3 = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(dev, torch.bfloat16)
         for mask, count in ((None, (depth + 1) // 2), (mask3, depth // 2)):
-            name = (f"N={n} stage {grid} B_={B_} H={H} C={C}"
-                    + (" shifted" if mask is not None else ""))
-            for dtype in (torch.float32, torch.bfloat16):
-                dname = str(dtype).split(".")[1]
-                qkv = torch.randn(B_, n, 3 * C, generator=gen, device=dev).to(dtype)
-                dout = torch.randn(B_, n, C, generator=gen, device=dev).to(dtype)
-                bias = 0.5 * torch.randn(H, n, n, generator=gen, device=dev)
-                q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-                kw = dict(num_heads=H, bias=bias, mask=mask, scale=(C // H) ** -0.5)
-                run_f = lambda: k5.window_attn3d_train_fwd(qkv, **kw)
-                run_b = lambda: k5.window_attn3d_train_bwd(qkv, dout, **kw)
-                plain_f = lambda: k5.window_attn3d_train_fwd_plain(q, k, v, **kw)
-                plain_b = lambda: k5.window_attn3d_train_bwd_plain(q, k, v, dout, **kw)
-                out = run_f()
-                dqkv, dbias = run_b()
-                torch.cuda.synchronize()
-                e_f, _ = k5_check(out, plain_f(), f"fwd {name} {dname}")
-                want = plain_b()
-                e_b = max(k5_check(a, b, f"bwd {n} {name} {dname}",
-                                   dbias=n == "dbias" and dtype == torch.bfloat16)[0]
-                          for n, a, b in zip(("dq", "dk", "dv", "dbias"),
-                                             (*dqkv.split(C, dim=-1), dbias), want))
-                del out, dqkv, dbias, want
-                errs["fwd", dname] = max(errs["fwd", dname], e_f)
-                errs["bwd", dname] = max(errs["bwd", dname], e_b)
-                row = dict(kernel="window_attn3d_train", case=name, dtype=dname,
-                           max_abs_err_fwd=e_f, max_abs_err_bwd=e_b, blocks_per_microbatch=count)
-                if dtype == torch.bfloat16:
-                    ms_f, ms_b = cuda_time_ms(run_f, iters=10), cuda_time_ms(run_b, iters=10)
-                    dms_f = device_time_ms(run_f)
-                    # the backward's device time by launch: launch 1 (dq,
-                    # dbias) and launch 2 (dk, dv), streamed above 512
-                    # tokens; the rest is the wrapper's copies and zero fills
-                    by_name = device_kernel_ms(run_b)
-                    dms_b = sum(by_name.values())
-                    l1 = sum(v for k, v in by_name.items() if "dq_bf16" in k or "dq_stream" in k)
-                    l2 = sum(v for k, v in by_name.items()
-                             if "dkdv_bf16" in k or "dkdv_stream" in k)
-                    if not (l1 > 0 and l2 > 0):
-                        fail(f"K5 bwd {name}: the profile shows no launch 1 or 2: {by_name}")
-                    pms_f, pms_b = cuda_time_ms(plain_f, iters=3), cuda_time_ms(plain_b, iters=3)
-                    # SDPA forward, and its backward alone, with bias + mask as one
-                    # grad-requiring [B_, H, N, N] attn_mask
-                    hq, hk, hv = (t.reshape(B_, n, H, C // H).transpose(1, 2).contiguous()
-                                  .requires_grad_() for t in (q, k, v))
-                    am = sdpa_mask(bias, mask, B_, dtype).contiguous().requires_grad_()
-                    sdpa = lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am,
-                                                                  scale=kw["scale"])
-                    lib_f = cuda_time_ms(sdpa, iters=10)
-                    lib_dms_f = device_time_ms(sdpa)
-                    o = sdpa()
-                    do_h = dout.reshape(B_, n, H, C // H).transpose(1, 2).contiguous()
-                    sdpa_b = lambda: torch.autograd.grad(o, (hq, hk, hv, am), do_h,
-                                                         retain_graph=True)
-                    lib_b = cuda_time_ms(sdpa_b, iters=10)
-                    lib_dms_b = device_time_ms(sdpa_b)
-                    del hq, hk, hv, am, o, do_h, sdpa_b
-                    n_masks = 0 if mask is None else mask.shape[0]
-                    for d, ms, dms, pms, lib, lib_dms, (flops, nbytes) in (
-                            ("fwd", ms_f, dms_f, pms_f, lib_f, lib_dms_f,
-                             k5_flops_bytes(B_, H, C, n_masks, n)[0]),
-                            ("bwd", ms_b, dms_b, pms_b, lib_b, lib_dms_b,
-                             k5_flops_bytes(B_, H, C, n_masks, n)[1])):
-                        b, by = bound_ms(flops, nbytes, dname)
-                        row[d] = dict(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib,
-                                      library_device_ms=lib_dms, bound_ms=b, bound_by=by,
-                                      gflop=flops / 1e9, mbytes=nbytes / 1e6)
-                        split = (f" (launch 1 {l1:.4f}, launch 2 {l2:.4f})" if d == "bwd"
-                                 else "")
-                        log(f"K5 {d} {name:48s} {dname} kernel_ms={ms:.4f} device_ms={dms:.4f}"
-                            f"{split} plain_ms={pms:.3f} sdpa_ms={lib:.4f} (device "
-                            f"{lib_dms:.4f}) bound_ms={b:.4f} ({by})")
-                        for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
-                                         ("library_ms", lib), ("library_device_ms", lib_dms),
-                                         ("bound_ms", b), ("flops", flops), ("bytes", nbytes)):
-                            acc[d][key] += count * val
-                    row["bwd"].update(device_ms_launch1=l1, device_ms_launch2=l2)
-                    acc["bwd"]["device_ms_launch1"] += count * l1
-                    acc["bwd"]["device_ms_launch2"] += count * l2
-                    log(f"K5 {name:52s} {dname} err fwd={e_f:.2e} bwd={e_b:.2e}")
-                else:
-                    row["ms_fwd"] = cuda_time_ms(run_f, iters=3)
-                    row["ms_bwd"] = cuda_time_ms(run_b, iters=3)
-                    log(f"K5 {name:52s} {dname} fwd_ms={row['ms_fwd']:.4f} "
-                        f"bwd_ms={row['ms_bwd']:.4f} err fwd={e_f:.2e} bwd={e_b:.2e}")
-                report["k5"].append(row)
-                del qkv, dout, bias, q, k, v
-            torch.cuda.empty_cache()
+            cases.append((f"N={n} stage {grid} B_={B_} H={H} C={C}"
+                          + (" shifted" if mask is not None else ""), B_, H, C, mask, count))
+    return cases
+
+
+def k5_cases_swinv2(dev, batch: int, window: int = 7):
+    """The same for SwinV2-B's 24 blocks at 224^2 (window 7, N = 49): stage 3
+    (7^2 tokens) is one unshifted window a clip."""
+    import torch
+
+    from deepfake_tpu_torch.models.swin2d import shift_attn_mask
+
+    cases = []
+    for res, H, C, depth in SWIN_B_STAGES:
+        B_ = batch * (res // window) ** 2
+        shifted = res > window
+        mask = (torch.from_numpy(shift_attn_mask(res, res, window, window // 2)).to(
+            dev, torch.bfloat16) if shifted else None)
+        for m, count in ((None, (depth + 1) // 2 if shifted else depth),
+                         (mask, depth // 2 if shifted else 0)):
+            if count:
+                cases.append((f"N={window * window} stage {res}^2 B_={B_} H={H} C={C}"
+                              + (" shifted" if m is not None else ""), B_, H, C, m, count))
+    return cases
+
+
+def k5_inputs(gen, dev, B_, n, H, C, dtype, cosine: bool):
+    """qkv, dout and the bias of one K5 case. ``cosine``: what SwinV2's
+    training route hands K5 (swin2d.py:195-222): q^ times per-head scales
+    exp(ln 10 +- 0.3 N(0,1)) clamped at 100, k^ unit rows per head, the
+    16 sigmoid bias, scale 1; else Video Swin's N(0,1) q, k, v at D^-0.5."""
+    import torch
+
+    D = C // H
+    if not cosine:
+        qkv = torch.randn(B_, n, 3 * C, generator=gen, device=dev).to(dtype)
+        bias = 0.5 * torch.randn(H, n, n, generator=gen, device=dev)
+        scale = D ** -0.5
+    else:
+        unit = lambda t: torch.nn.functional.normalize(t.view(B_, n, H, D), dim=-1)
+        ls = torch.exp(torch.clamp(math.log(10.0) + 0.3 * torch.randn(
+            H, 1, generator=gen, device=dev), max=math.log(100.0)))
+        q = unit(torch.randn(B_, n, C, generator=gen, device=dev)) * ls
+        k = unit(torch.randn(B_, n, C, generator=gen, device=dev))
+        v = torch.randn(B_, n, C, generator=gen, device=dev)
+        qkv = torch.cat([q.reshape(B_, n, C), k.reshape(B_, n, C), v], -1).to(dtype)
+        bias = 16 * torch.sigmoid(torch.randn(H, n, n, generator=gen, device=dev))
+        scale = 1.0
+    dout = torch.randn(B_, n, C, generator=gen, device=dev).to(dtype)
+    return qkv, dout, bias, scale
+
+
+def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7), n=N3,
+             label: str = "Video Swin-S", cases=None, cosine: bool = False,
+             path: str = "video_swin"):
+    """K5's forward and backward at the four stage shapes of a b8 training
+    micro-batch (Video Swin-S's by default), shifted and not; ``cases``
+    (k5_cases_swinv2) replaces the stages, ``cosine`` the inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepfake_tpu_torch.ops import window_attn3d_train as k5
+
+    acc = {d: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "library_device_ms": 0.0, "flops": 0.0, "bytes": 0.0} for d in ("fwd", "bwd")}
+    acc["bwd"].update(device_ms_launch1=0.0, device_ms_launch2=0.0)
+    errs = {(d, t): 0.0 for d in ("fwd", "bwd") for t in ("float32", "bfloat16")}
+    if cases is None:
+        cases = k5_cases_3d(dev, batch, stages, window, n)
+    for name, B_, H, C, mask, count in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            qkv, dout, bias, scale = k5_inputs(gen, dev, B_, n, H, C, dtype, cosine)
+            q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+            kw = dict(num_heads=H, bias=bias, mask=mask, scale=scale)
+            run_f = lambda: k5.window_attn3d_train_fwd(qkv, **kw)
+            run_b = lambda: k5.window_attn3d_train_bwd(qkv, dout, **kw)
+            plain_f = lambda: k5.window_attn3d_train_fwd_plain(q, k, v, **kw)
+            plain_b = lambda: k5.window_attn3d_train_bwd_plain(q, k, v, dout, **kw)
+            out = run_f()
+            dqkv, dbias = run_b()
+            torch.cuda.synchronize()
+            e_f, _ = k5_check(out, plain_f(), f"fwd {name} {dname}")
+            want = plain_b()
+            e_b = max(k5_check(a, b, f"bwd {n} {name} {dname}",
+                               dbias=n == "dbias" and dtype == torch.bfloat16)[0]
+                      for n, a, b in zip(("dq", "dk", "dv", "dbias"),
+                                         (*dqkv.split(C, dim=-1), dbias), want))
+            del out, dqkv, dbias, want
+            errs["fwd", dname] = max(errs["fwd", dname], e_f)
+            errs["bwd", dname] = max(errs["bwd", dname], e_b)
+            row = dict(kernel="window_attn3d_train", case=name, dtype=dname,
+                       max_abs_err_fwd=e_f, max_abs_err_bwd=e_b, blocks_per_microbatch=count)
+            if dtype == torch.bfloat16:
+                ms_f, ms_b = cuda_time_ms(run_f, iters=10), cuda_time_ms(run_b, iters=10)
+                dms_f = device_time_ms(run_f)
+                # the backward's device time by launch: launch 1 (dq,
+                # dbias) and launch 2 (dk, dv), streamed above 512
+                # tokens; the rest is the wrapper's copies and zero fills
+                by_name = device_kernel_ms(run_b)
+                dms_b = sum(by_name.values())
+                l1 = sum(v for k, v in by_name.items() if "dq_bf16" in k or "dq_stream" in k)
+                l2 = sum(v for k, v in by_name.items()
+                         if "dkdv_bf16" in k or "dkdv_stream" in k)
+                if not (l1 > 0 and l2 > 0):
+                    fail(f"K5 bwd {name}: the profile shows no launch 1 or 2: {by_name}")
+                pms_f, pms_b = cuda_time_ms(plain_f, iters=3), cuda_time_ms(plain_b, iters=3)
+                # SDPA forward, and its backward alone, with bias + mask as one
+                # grad-requiring [B_, H, N, N] attn_mask
+                hq, hk, hv = (t.reshape(B_, n, H, C // H).transpose(1, 2).contiguous()
+                              .requires_grad_() for t in (q, k, v))
+                am = sdpa_mask(bias, mask, B_, dtype).contiguous().requires_grad_()
+                sdpa = lambda: F.scaled_dot_product_attention(hq, hk, hv, attn_mask=am,
+                                                              scale=kw["scale"])
+                lib_f = cuda_time_ms(sdpa, iters=10)
+                lib_dms_f = device_time_ms(sdpa)
+                o = sdpa()
+                do_h = dout.reshape(B_, n, H, C // H).transpose(1, 2).contiguous()
+                sdpa_b = lambda: torch.autograd.grad(o, (hq, hk, hv, am), do_h,
+                                                     retain_graph=True)
+                lib_b = cuda_time_ms(sdpa_b, iters=10)
+                lib_dms_b = device_time_ms(sdpa_b)
+                del hq, hk, hv, am, o, do_h, sdpa_b
+                n_masks = 0 if mask is None else mask.shape[0]
+                for d, ms, dms, pms, lib, lib_dms, (flops, nbytes) in (
+                        ("fwd", ms_f, dms_f, pms_f, lib_f, lib_dms_f,
+                         k5_flops_bytes(B_, H, C, n_masks, n)[0]),
+                        ("bwd", ms_b, dms_b, pms_b, lib_b, lib_dms_b,
+                         k5_flops_bytes(B_, H, C, n_masks, n)[1])):
+                    b, by = bound_ms(flops, nbytes, dname)
+                    row[d] = dict(ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib,
+                                  library_device_ms=lib_dms, bound_ms=b, bound_by=by,
+                                  gflop=flops / 1e9, mbytes=nbytes / 1e6)
+                    split = (f" (launch 1 {l1:.4f}, launch 2 {l2:.4f})" if d == "bwd"
+                             else "")
+                    log(f"K5 {d} {name:48s} {dname} kernel_ms={ms:.4f} device_ms={dms:.4f}"
+                        f"{split} plain_ms={pms:.3f} sdpa_ms={lib:.4f} (device "
+                        f"{lib_dms:.4f}) bound_ms={b:.4f} ({by})")
+                    for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                                     ("library_ms", lib), ("library_device_ms", lib_dms),
+                                     ("bound_ms", b), ("flops", flops), ("bytes", nbytes)):
+                        acc[d][key] += count * val
+                row["bwd"].update(device_ms_launch1=l1, device_ms_launch2=l2)
+                acc["bwd"]["device_ms_launch1"] += count * l1
+                acc["bwd"]["device_ms_launch2"] += count * l2
+                log(f"K5 {name:52s} {dname} err fwd={e_f:.2e} bwd={e_b:.2e}")
+            else:
+                row["ms_fwd"] = cuda_time_ms(run_f, iters=3)
+                row["ms_bwd"] = cuda_time_ms(run_b, iters=3)
+                log(f"K5 {name:52s} {dname} fwd_ms={row['ms_fwd']:.4f} "
+                    f"bwd_ms={row['ms_bwd']:.4f} err fwd={e_f:.2e} bwd={e_b:.2e}")
+            report["k5"].append(row)
+            del qkv, dout, bias, q, k, v
+        torch.cuda.empty_cache()
     k5.window_attn3d_train_fwd.launches = 0
     k5.window_attn3d_train_bwd.launches = 0
     rows = []
@@ -995,7 +1070,7 @@ def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7
             ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"], bound_by=by,
             library_ms=a["library_ms"], device_ms=a["device_ms"],
             library_device_ms=a["library_device_ms"],
-            per=f"one video_swin b8 training micro-batch: the {what} of 24 {label} blocks at "
+            per=f"one {path} b8 training micro-batch: the {what} of 24 {label} blocks at "
                 f"window {window}, bf16; library_ms is SDPA's " + what + " with bias + mask as a "
                 "grad-requiring attn_mask")
         if d == "bwd":
@@ -2035,7 +2110,8 @@ def k5_step_launches(cfg):
 
 
 def assembled_steps(trainer, raw, n: int, want=None, key: str = "video_swin train"):
-    """``n`` optimizer steps on the raw batches (cycled), each first
+    """``n`` optimizer steps on the raw batches (cycled: uint8 clips, or the
+    fused model's raw feature dicts), each first
     assembled by a train-side FeatureAssembler (augmentation on the card,
     its generator seeded as the trainer's config says): per step the
     assembly's and the step's host times apart (each ending in a
@@ -2051,7 +2127,7 @@ def assembled_steps(trainer, raw, n: int, want=None, key: str = "video_swin trai
     for i in range(n):
         x8, y = raw.batches[i % len(raw.batches)]
         t0 = time.perf_counter()
-        x, y = asm({"video": x8}, y)
+        x, y = asm(x8 if isinstance(x8, dict) else {"video": x8}, y)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         before = counts()
@@ -2218,6 +2294,218 @@ def phase_video_swin_train_graph(cfg, cfg_plain, dev, gen, report, steps: int = 
     if not d_loss <= 2e-2:
         fail(f"{key}: first-step losses of the K5 and plain routes differ by {d_loss:.3e}")
     return launches, graph_launches
+
+
+class RawFused:
+    """``steps`` batches of ``rows`` seeded raw fused clips on the card (uint8
+    frames and 4 s of 16 kHz PCM, valid 2.5-4 s, for the mel image and the
+    waveform; fused_raw) with 0/1 labels."""
+
+    def __init__(self, cfg, rows: int, steps: int, dev, gen):
+        import torch
+
+        self.batches = [(fused_raw(cfg, rows, dev, gen),
+                         (torch.rand(rows, generator=gen, device=dev) < 0.5).float())
+                        for _ in range(steps)]
+
+    def train_loader(self):
+        return self.batches
+
+
+def fused_k5_step_launches(cfg):
+    """K5's launches in one fused optimizer step: SwinV2-B's forward and
+    backward per block and micro-batch, and no other hand-written kernel
+    (IRv2 trains on cuDNN convs, not K1)."""
+    n = cfg.optim.accum_step * sum(cfg.model.swin2d_depths)
+    return {"window_attn3d_train_fwd": n, "window_attn3d_train_bwd": n}
+
+
+def phase_fused_train(cfg, cfg_plain, dev, gen, report, steps: int = 3):
+    """The fused model's training at full width (the preset: IRv2 on 32
+    frames of 224^2, SwinV2-B window 7 on the 224^2 mel image, wav2vec2-base
+    on the waveform, the 3-token head; micro-batch 8 x accum 4, bf16 compute,
+    f32 masters), fed by the train-side FeatureAssembler from raw clips:
+    ``steps`` steps on the eager K5 route (the kernel line's launches), the
+    same steps again eagerly from the same seed (whether eager steps repeat
+    to the bit), the same steps as one CUDA graph a step (the default), held
+    to the eager route to the bit where two eager runs agree to the bit,
+    else within SPREAD_MULTIPLE of their spread (its first loss to the bit
+    always), two more replays, then
+    the same steps on the plain route (K5 off: SwinV2's max-stabilised
+    einsum softmax) from the same weights. Per route: step ms, clips/s,
+    peak memory, one step profiled (idle share); the graph's pool."""
+    import torch
+
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    o = cfg.optim
+    rows = o.batch_size * o.accum_step
+    raw = RawFused(cfg, rows, steps, dev, gen)
+    want = fused_k5_step_launches(cfg)
+    quiet = lambda line: None
+    key = "fused train"
+    res = {}
+
+    def finish(r, trainer, x, y, skip_first=True):
+        r["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        timed = r["step_ms"][1:] if skip_first else r["step_ms"]
+        r["p50_step_ms"] = statistics.median(timed)
+        r["clips_per_s"] = rows * 1e3 / r["p50_step_ms"]
+        r["profile"] = profile_call(lambda: trainer.train_step(x, y), r["p50_step_ms"])
+        return r
+
+    # the eager K5 route: the main path's run for the kernel line
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    te = Trainer(None, cfg, raw, logger=quiet, device=dev, compiled=False)
+    init = {k: v.clone() for k, v in te.model.state_dict().items()}
+    log(f"{key}: Trainer({cfg.parallel.compute_dtype} compute, {cfg.parallel.param_dtype} "
+        f"masters, {o.batch_size} x {o.accum_step}) built in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in te.model.parameters()) / 1e6:.1f} M params")
+    reset_counts()  # the main path's run starts here
+    r, w_eager, (x, y) = assembled_steps(te, raw, steps, want, key + " eager")
+    launches = counts()  # ... and ends here
+    res["eager"] = finish(r, te, x, y)
+    del te
+    torch.cuda.empty_cache()
+
+    # the same steps again: do two eager runs from one seed repeat to the bit?
+    te2 = Trainer(None, cfg, raw, logger=quiet, device=dev, compiled=False)
+    r2, w_eager2, _ = assembled_steps(te2, raw, steps, want, key + " eager 2")
+    del te2
+    torch.cuda.empty_cache()
+    res["eager_repeat"] = dict(losses=r2["losses"], equal=r2["losses"] == r["losses"],
+                               weight_gap=max_gap(w_eager, w_eager2))
+    del w_eager2
+
+    # the graph route: the first step captures, then every step replays
+    torch.cuda.reset_peak_memory_stats()
+    tg = Trainer(None, cfg, raw, logger=quiet, device=dev)
+    rg, w_graph, _ = assembled_steps(tg, raw, steps, key=key + " graph")
+    (g,) = (g for k, g in tg.graphs.graphs.items() if k[0] == "train")
+    if g.launches != want or g.replays != steps:
+        fail(f"{key} graph: captured launches {g.launches} x {g.replays} replays, expected "
+             f"{want} x {steps}")
+    if rg["per_step_launches"][1:] != [{}] * (steps - 1):
+        fail(f"{key} graph: a replay moved the launch counters: {rg['per_step_launches']}")
+    # the graph against the eager route: to the bit where two eager runs
+    # agree to the bit, else within SPREAD_MULTIPLE of their spread (cuDNN's
+    # backward algorithms and K5's dbias atomics sum in an order that may
+    # change from run to run); the first step's loss, a forward of the same
+    # weights with the same masks, to the bit in any case
+    eq = res["eager_repeat"]
+    loss_spread = max(abs(a - b) for a, b in zip(r["losses"], r2["losses"]))
+    loss_gap = max(abs(a - b) for a, b in zip(r["losses"], rg["losses"]))
+    w_gap = max_gap(w_eager, w_graph)
+    loss_tol = SPREAD_MULTIPLE * loss_spread + SPREAD_FLOOR * max(abs(v) for v in r["losses"])
+    w_tol = (SPREAD_MULTIPLE * eq["weight_gap"]
+             + SPREAD_FLOOR * max(w.abs().max().item() for w in w_eager))
+    res["graph_vs_eager"] = dict(loss_gap=loss_gap, weight_gap=w_gap, loss_spread=loss_spread,
+                                 loss_tol=loss_tol, weight_tol=w_tol,
+                                 losses_equal=rg["losses"] == r["losses"])
+    if rg["losses"][0] != r["losses"][0]:
+        fail(f"{key}: the graph route's first loss {rg['losses'][0]} is not the eager "
+             f"route's {r['losses'][0]} to the bit")
+    if eq["equal"] and eq["weight_gap"] == 0.0:
+        if rg["losses"] != r["losses"] or w_gap != 0.0:
+            fail(f"{key}: two eager runs agree to the bit, the graph route does not: losses "
+                 f"{rg['losses']} against {r['losses']}, weights by {w_gap:.3e}")
+    elif not (loss_gap <= loss_tol and w_gap <= w_tol):
+        fail(f"{key}: the graph route's {steps} steps differ from the eager route's by "
+             f"{loss_gap:.3e} (losses) and {w_gap:.3e} (weights), past {SPREAD_MULTIPLE} x the "
+             f"eager spread {loss_spread:.3e} / {eq['weight_gap']:.3e} (+ floor)")
+    del w_eager, w_graph
+    more, _, _ = assembled_steps(tg, raw, 2, key=key + " graph")  # steady-state replays
+    rg["steady_step_ms"] = more["step_ms"]
+    rg["step_ms"] = rg["step_ms"] + more["step_ms"]
+    rg["pool_bytes"] = tg.graphs.pool_bytes()
+    rg["timed_replays"] = g.replays
+    rg["graph_launches"] = {k: v * g.replays for k, v in g.launches.items()}
+    res["graph"] = finish(rg, tg, x, y)
+    graph_launches = dict(rg["graph_launches"])
+    del tg
+    torch.cuda.empty_cache()
+
+    # the A/B: the plain route (K5 off) from the same weights
+    torch.cuda.reset_peak_memory_stats()
+    tp = Trainer(None, cfg_plain, raw, logger=quiet, device=dev, compiled=False)
+    tp.model.load_state_dict(init)
+    del init
+    before = counts()
+    rp, _, _ = assembled_steps(tp, raw, steps, key=key + " plain")
+    if counts() != before:
+        fail(f"{key}: the plain route launched a kernel")
+    res["plain"] = finish(rp, tp, x, y)
+    del tp
+    torch.cuda.empty_cache()
+    d_loss = abs(r["losses"][0] - rp["losses"][0])
+    res["first_step_loss_diff_vs_plain"] = d_loss
+    report["fused_train"] = res
+
+    for name in ("eager", "graph", "plain"):
+        rr = res[name]
+        prof = rr["profile"]
+        log(f"{key} {name:5s}: steps {[round(t, 1) for t in rr['step_ms']]} ms, assembly "
+            f"{[round(t, 1) for t in rr['assembly_ms']]} ms, losses {rr['losses']}; p50 step "
+            f"{rr['p50_step_ms']:.1f} ms, {rr['clips_per_s']:.2f} clips/s, peak "
+            f"{rr['max_memory_allocated_gb']:.2f} GB; one step profiled: device busy "
+            f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms, idle share "
+            f"{prof['device_idle_share']:.3f} ({report['card']}); top "
+            + json.dumps(prof["top_kernels_ms"]))
+    gv = res["graph_vs_eager"]
+    log(f"{key} graph: pool {rg['pool_bytes'] / 2 ** 20:.0f} MiB, K5 launches captured "
+        f"{g.launches} x {rg['timed_replays']} replays = {graph_launches}; against the eager "
+        f"route: losses equal to the bit {gv['losses_equal']} (gap {gv['loss_gap']:.3e}), "
+        f"weights after {steps} steps differ by {gv['weight_gap']:.3e}; a second eager run: "
+        f"losses {res['eager_repeat']['losses']}, equal to the bit "
+        f"{res['eager_repeat']['equal']}, weights differ by "
+        f"{res['eager_repeat']['weight_gap']:.3e}")
+    # the first step's loss is a forward of the same weights on the same
+    # inputs: bf16 noise only
+    if not d_loss <= 2e-2:
+        fail(f"{key}: first-step losses of the K5 and plain routes differ by {d_loss:.3e}")
+    return launches, graph_launches
+
+
+def phase_fused_train_cli(cfg, dev, report, seed: int):
+    """``python -m deepfake_tpu_torch.train`` in a subprocess on a synthetic
+    fused set in the reference's layout (mp4v clips of 48 frames at 256^2
+    with 4 s PCM sidecars: 32 train clips, one step at 8 x 4, and 8 val
+    clips): one step on the graph route, its Train Loss line and the val
+    AUC line."""
+    import tempfile
+
+    import torch
+
+    from deepfake_tpu_torch.data.synthetic import make_synthetic_trainset
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        t = time.perf_counter()
+        make_synthetic_trainset(root, 32, 8, frames=INGEST_FRAMES, size=INGEST_SIDE,
+                                seconds=INGEST_SECONDS, seed=seed)
+        res["write_s"] = time.perf_counter() - t
+        logfile = os.path.join(tmp, "train.log")
+        cmd = [sys.executable, "-m", "deepfake_tpu_torch.train", "--preset", "fused",
+               "--data_root", root, "-e", "0", "--log_step", "1", "--log_dir", logfile,
+               "--random_seed", str(cfg.random_seed)]
+        t = time.perf_counter()
+        run = subprocess.run(cmd, cwd=tmp, env=dict(os.environ, PYTHONPATH=repo),
+                             capture_output=True, text=True, timeout=900)
+        res["cli_s"] = time.perf_counter() - t
+        text = open(logfile).read() if os.path.exists(logfile) else ""
+        if run.returncode != 0 or "Train Loss Avg" not in text or "AUC:" not in text:
+            fail(f"fused train CLI: exit {run.returncode}; log {text[-2000:]}; "
+                 f"{run.stdout[-1500:]} {run.stderr[-2000:]}")
+        res["lines"] = [line.split(" ", 2)[-1] for line in text.splitlines()
+                        if "Train Loss" in line or "Phase:" in line]
+    torch.cuda.empty_cache()
+    report["fused_train_cli"] = res
+    log(f"fused train CLI: 32 + 8 clips written in {res['write_s']:.1f} s; one step and the "
+        f"val pass in {res['cli_s']:.1f} s: " + " / ".join(res["lines"]))
 
 
 def phase_video_swin_train_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int,
@@ -2570,6 +2858,9 @@ def main() -> int:
                        label="Video Swin-B")
     kernels += ([phase_k3(dev, gen, 8, report, b1=False, **long_window)]
                 + phase_k5(dev, gen, 8, report, **long_window))
+    # K5 at SwinV2-B's 7x7 windows (N = 49), the fused model's training path
+    kernels += phase_k5(dev, gen, 8, report, window=7, n=49, label="SwinV2-B",
+                        cases=k5_cases_swinv2(dev, 8), cosine=True, path="fused")
     # head dims other than 32 in every kernel of window attention
     head_dims = phase_head_dims(dev, gen, 8, report)
     for i, key in ((1, "k2"), (3, "k3"), (6, "k5_fwd"), (7, "k5_bwd"), (8, "k6")):
@@ -2644,6 +2935,12 @@ def main() -> int:
     record(kernels[10:12], (phase_video_swin_train(config_b16("bfloat16", True), dev, gen,
                                                    report, key="video_swin_b16 train"), None),
            ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
+    # fused training at 8 x 4 (K5 at N = 49 in SwinV2-B), then its CLI
+    record(kernels[12:14], phase_fused_train(config("bfloat16", True, "fused"),
+                                             config("bfloat16", False, "fused"), dev, gen,
+                                             report),
+           ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
+    phase_fused_train_cli(config("bfloat16", True, "fused"), dev, report, args.seed)
     # the main path from files: ingest, SubmitCtl and the CLI (graph route)
     ingest = phase_ingest(config("bfloat16", True), config("bfloat16", True, "video_swin"),
                           config("bfloat16", True, "audio"), dev, report, args.seed)

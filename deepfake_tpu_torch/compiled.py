@@ -77,11 +77,12 @@ def _as_tensor(x) -> torch.Tensor:
     return x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
 
 
-def _map(fn, x):
+def map_leaves(fn, x):
+    """``fn`` on every leaf of a nested tuple, list or dict, the structure kept."""
     if isinstance(x, dict):
-        return {k: _map(fn, v) for k, v in x.items()}
+        return {k: map_leaves(fn, v) for k, v in x.items()}
     if isinstance(x, (tuple, list)):
-        return type(x)(_map(fn, v) for v in x)
+        return type(x)(map_leaves(fn, v) for v in x)
     return fn(x)
 
 
@@ -103,7 +104,7 @@ class Graph:
 
     def __init__(self, fn: Callable, example, device: torch.device, pool,
                  generators: Sequence[torch.Generator] = ()):
-        self.static_in = _map(lambda x: torch.empty(
+        self.static_in = map_leaves(lambda x: torch.empty(
             tuple(_as_tensor(x).shape), dtype=_as_tensor(x).dtype, device=device), example)
         self.staging: Dict[int, torch.Tensor] = {}  # pinned, for inputs from the host
         self.copied = torch.cuda.Event()  # the last request's copies out of the staging

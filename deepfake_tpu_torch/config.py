@@ -1,7 +1,7 @@
 """Typed configuration tree and CLI: the port's own copy of the fields that
 fused, ``audio`` and ``video_swin`` serving (raw-input feature assembly and
-the ingest of video files included) and ``video_swin`` training read
-(deepfake_tpu/config.py:18-256). Field names and defaults match the JAX
+the ingest of video files included) and the training of every modality
+read (deepfake_tpu/config.py:18-256). Field names and defaults match the JAX
 package, so one set of dotted overrides configures both; ``get_config(argv)``
 takes the JAX package's flags (deepfake_tpu/config.py:284-380).
 
@@ -74,6 +74,9 @@ class MelConfig:
 class ModelConfig:
     num_classes: int = 1
     classify_drop: float = 0.1  # classifier MLP dropout, in training
+    swin_drop: float = 0.1  # backbone dropout (IRv2, NeXtVLAD, the paudio feature), in training
+    bn_momentum: float = 0.1  # IRv2 and NeXtVLAD BatchNorm, PyTorch semantics
+    soft: float = 0.01  # InfoNCE temperature of the fused alignment loss
     num_hiddens: int = 128  # Video Swin classifier hidden width
     video_pool: str = "mean"  # Video Swin pooling ("Attention" is not ported)
     # SwinV2-B audio branch
@@ -128,6 +131,12 @@ class OptimConfig:
     epochs: int = 50
     schedule: str = "cosine"  # "cosine", or any other value for a constant rate
     grad_clip: Optional[float] = None  # global-norm clip
+    # the fused model's InfoNCE alignment loss, loss + align_loss_rate * align
+    # (the reference computes it and leaves it off)
+    align_loss_rate: float = 0.4
+    use_align_loss: bool = False
+    skip_learning: bool = False  # the training CLI builds everything and trains nothing
+    val_model: bool = False  # the training CLI evaluates on the val split only
 
 
 @dataclass
@@ -252,6 +261,8 @@ _DIRECT = {
     "data_root": "data.data_root", "modality": "data.modality",
     "num_frames": "data.num_frames", "num_workers": "data.num_workers",
     "classify_drop": "model.classify_drop", "num_hiddens": "model.num_hiddens",
+    "swin_drop": "model.swin_drop", "soft": "model.soft", "bn_momentum": "model.bn_momentum",
+    "align_loss_rate": "optim.align_loss_rate",
     "video_pool": "model.video_pool", "audio_ckpt_path": "model.audio_ckpt_path",
     "video_ckpt_path": "model.video_ckpt_path", "paudio_ckpt_path": "model.paudio_ckpt_path",
     "fused_ckpt_path": "model.fused_ckpt_path", "use_cuda": "parallel.use_cuda",
@@ -261,11 +272,9 @@ _DIRECT = {
     "log_step": "log.log_step", "log_dir": "log.log_dir",
 }
 # flags of the JAX package whose fields the port does not have (pretrained
-# backbones, wav2vec2 checkpoints, the alignment loss, checkpoint cadence,
-# training switches): parsed, and refused when given
-_NOT_PORTED = ("swin_drop", "soft", "wav2vec2_dir", "video_pretrained_dir",
-               "audio_pretrained_dir", "bn_momentum", "align_loss_rate", "model_save",
-               "skip_learning", "val_model")
+# backbones, wav2vec2 checkpoints, checkpoint cadence: ROADMAP A3): parsed,
+# and refused when given
+_NOT_PORTED = ("wav2vec2_dir", "video_pretrained_dir", "audio_pretrained_dir", "model_save")
 
 
 def get_config(argv: Optional[list] = None) -> Config:
@@ -321,6 +330,10 @@ def get_config(argv: Optional[list] = None) -> Config:
         cfg.data.force_generate = True
     if args.Resume:
         cfg.model.resume = True
+    if args.skip_learning:
+        cfg.optim.skip_learning = True
+    if args.val_model:
+        cfg.optim.val_model = True
     for kv in args.set:
         k, _, v = kv.partition("=")
         try:

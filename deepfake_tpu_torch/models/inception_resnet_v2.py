@@ -8,9 +8,11 @@ parameter tree (``stem.f0``, ``a_3.b1_1``, ``c_9.conv`` ...), so
 
 With ``fused_blocks`` the residual blocks A/B/C run through kernel K1
 (ops/inception_block.py) exactly where the JAX model routes them to Pallas
-(inception_resnet_v2.py:172, :292, :345); otherwise they run as plain
-convolutions, mirroring the JAX XLA path. Activations are NCHW tensors in
-channels_last memory.
+(inception_resnet_v2.py:172, :292, :345): in eval mode only. Otherwise, and
+always in training (batch statistics, autograd), they run as plain
+convolutions, mirroring the JAX XLA path. In training a Dropout at
+``drop_rate`` follows the global pool (JAX :399-401). Activations are NCHW
+tensors in channels_last memory.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from torch import nn
 
 from deepfake_tpu_torch.models.layers import (
-    ConvBnRelu, as_nchw, as_nhwc, avg_pool_torch, max_pool_torch,
+    Conv2d, ConvBnRelu, Dropout, as_nchw, as_nhwc, avg_pool_torch, max_pool_torch,
 )
 from deepfake_tpu_torch.ops.inception_block import (
     BlockWeights, TapConv, fold_bn, inception_block,
@@ -84,6 +86,7 @@ class _ResidualBlock(nn.Module):
         self.relu = relu
         self.fused = fused
         self.packed: Optional[BlockWeights] = None  # set by pack_weights()
+        self.eval()
 
     def pack_weights(self, dtype: torch.dtype) -> BlockWeights:
         """Fold BN and lay the weights out for K1, in ``dtype`` (affines f32)."""
@@ -108,7 +111,7 @@ class _ResidualBlock(nn.Module):
         return self.pack_weights(x.dtype)
 
     def forward(self, x):
-        if self.fused and x.shape[2] == x.shape[3]:
+        if self.fused and not self.training and x.shape[2] == x.shape[3]:
             out = inception_block(as_nhwc(x), self._kernel_weights(x))
             return as_nchw(out)
         parts = [getattr(self, self.direct)(x)]
@@ -135,7 +138,7 @@ class BlockA(_ResidualBlock):
         self.b2_0 = ConvBnRelu(C, 32, (1, 1))
         self.b2_1 = ConvBnRelu(32, 48, (3, 3), 1, 1)
         self.b2_2 = ConvBnRelu(48, 64, (3, 3), 1, 1)
-        self.conv = nn.Conv2d(128, C, 1)
+        self.conv = Conv2d(128, C, 1)
 
 
 class BlockB(_ResidualBlock):
@@ -150,7 +153,7 @@ class BlockB(_ResidualBlock):
         self.b1_0 = ConvBnRelu(C, 128, (1, 1))
         self.b1_1 = ConvBnRelu(128, 160, (1, 7), 1, (0, 3))
         self.b1_2 = ConvBnRelu(160, 192, (7, 1), 1, (3, 0))
-        self.conv = nn.Conv2d(384, C, 1)
+        self.conv = Conv2d(384, C, 1)
 
 
 class BlockC(_ResidualBlock):
@@ -166,7 +169,7 @@ class BlockC(_ResidualBlock):
         self.b1_0 = ConvBnRelu(C, 192, (1, 1))
         self.b1_1 = ConvBnRelu(192, 224, (1, 3), 1, (0, 1))
         self.b1_2 = ConvBnRelu(224, 256, (3, 1), 1, (1, 0))
-        self.conv = nn.Conv2d(448, C, 1)
+        self.conv = Conv2d(448, C, 1)
 
 
 class ReductionA(nn.Module):
@@ -208,7 +211,7 @@ class InceptionResNetV2(nn.Module):
     """Frames NHWC [F, H, W, 3] -> per-frame features [F, 1536]
     (reference: InceptionResV2.py:166-191)."""
 
-    def __init__(self, fused_blocks: bool = False):
+    def __init__(self, fused_blocks: bool = False, drop_rate: float = 0.0):
         super().__init__()
         self.stem = Stem()
         for i in range(10):
@@ -221,6 +224,8 @@ class InceptionResNetV2(nn.Module):
             self.add_module(f"c_{i}", BlockC(0.20, fused=fused_blocks))
         self.c_9 = BlockC(1.0, activation=False, fused=fused_blocks)
         self.conv = ConvBnRelu(2080, 1536, (1, 1))
+        self.drop = Dropout(drop_rate)
+        self.eval()
 
     def blocks(self) -> Sequence[_ResidualBlock]:
         return [m for m in self.children() if isinstance(m, _ResidualBlock)]
@@ -228,7 +233,7 @@ class InceptionResNetV2(nn.Module):
     def forward(self, x):
         x = self.stem(as_nchw(x).contiguous(memory_format=torch.channels_last))
         for name, m in self.named_children():
-            if name not in ("stem", "conv"):
+            if name not in ("stem", "conv", "drop"):
                 x = m(x)
         x = self.conv(x)
-        return x.float().mean(dim=(2, 3)).to(x.dtype)
+        return self.drop(x.float().mean(dim=(2, 3)).to(x.dtype))

@@ -3,7 +3,10 @@
 Images run NCHW in ``torch.channels_last`` memory, so a [N, C, H, W] tensor
 is NHWC in memory: the IRv2 block kernel reads it as flat frame-major rows
 without a copy, and cuDNN takes it as is. Norm layers compute in f32 and
-return the input's type, as flax's do.
+return the input's type, as flax's do. Modules whose training differs
+(BatchNorm, the Dropout family, and the models built of them) are built in
+eval mode, the mode serving runs them in; ``model.train()`` selects
+training.
 """
 
 from __future__ import annotations
@@ -40,25 +43,51 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm with torch semantics over ``axis`` (running
-    statistics; f32 arithmetic). The port serves only, so no batch
-    statistics are taken. ``torch_batchnorm``'s default eps is 1e-5."""
+    """BatchNorm over ``axis`` with torch momentum semantics, in f32, the
+    output in the input's type (layers.py:129-146, flax ``nn.BatchNorm``).
 
-    def __init__(self, features: int, eps: float = 1e-5, axis: int = 1):
+    Eval mode normalises with the running statistics. Training normalises
+    with the batch's statistics over every axis but ``axis`` and moves the
+    running ones as ``ra = (1 - m) ra + m batch``, where the batch variance
+    is the biased one, E[x^2] - E[x]^2, as flax feeds it (torch's own
+    BatchNorm feeds the unbiased variance, n / (n - 1) of it). The batch
+    statistics come out of ``F.batch_norm`` itself (scratch running buffers
+    at momentum 1), so training takes no extra pass over the input.
+    ``torch_batchnorm``'s default eps is 1e-5."""
+
+    def __init__(self, features: int, eps: float = 1e-5, axis: int = 1, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
         self.axis = axis
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.eval()
 
     def forward(self, x):
+        if self.training:
+            return self._train(x)
         shape = [1] * x.dim()
         shape[self.axis] = -1
         s = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         t = self.bias.float() - self.running_mean.float() * s
         return (x.float() * s.view(shape) + t.view(shape)).to(x.dtype)
+
+    def _train(self, x):
+        xc = x.movedim(self.axis, 1)
+        n = xc.numel() // xc.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(xc, mean, var, self.weight.float(), self.bias.float(), True, 1.0,
+                         self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            # F.batch_norm left the unbiased variance in ``var``
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
+        return y.movedim(1, self.axis).to(x.dtype)
 
 
 class Linear(nn.Linear):
@@ -72,6 +101,24 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), b)
 
 
+class Conv1d(nn.Conv1d):
+    """nn.Conv1d that casts its parameters to the input's type at use (as
+    ``Linear``)."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that casts its parameters to the input's type at use (as
+    ``Linear``)."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
+
+
 class Dropout(nn.Module):
     """flax nn.Dropout: each element kept with probability 1 - rate and
     scaled by 1 / (1 - rate), in training only. The mask comes from
@@ -81,6 +128,7 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator = generator
+        self.eval()
 
     def _keep(self, x, shape):
         if self.generator is None:
@@ -107,7 +155,8 @@ class DropPath(Dropout):
 
 
 def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Give every Dropout and DropPath of ``model`` the stream they draw from."""
+    """Give every Dropout of ``model`` and every module built on it (DropPath,
+    wav2vec2's LayerDrop and SpecAugment) the stream they draw from."""
     for mod in model.modules():
         if isinstance(mod, Dropout):
             mod.generator = generator
@@ -132,17 +181,17 @@ Padding = Union[int, Sequence[int], str]
 
 
 class ConvBnRelu(nn.Module):
-    """Conv2d + BatchNorm(eps 1e-3) + ReLU (reference:
-    src/models/InceptionResV2.py:6-16). ``padding`` is an int, an (h, w)
-    pair, or "VALID"."""
+    """Conv2d + BatchNorm(eps 1e-3, momentum ``bn_momentum``) + ReLU
+    (reference: src/models/InceptionResV2.py:6-16). ``padding`` is an int,
+    an (h, w) pair, or "VALID"."""
 
     def __init__(self, cin: int, cout: int, kernel: Sequence[int], stride: int = 1,
-                 padding: Padding = 0, bn_eps: float = 1e-3):
+                 padding: Padding = 0, bn_eps: float = 1e-3, bn_momentum: float = 0.1):
         super().__init__()
         if padding == "VALID":
             padding = 0
-        self.conv = nn.Conv2d(cin, cout, tuple(kernel), stride=stride, padding=padding, bias=False)
-        self.bn = BatchNorm(cout, eps=bn_eps)
+        self.conv = Conv2d(cin, cout, tuple(kernel), stride=stride, padding=padding, bias=False)
+        self.bn = BatchNorm(cout, eps=bn_eps, momentum=bn_momentum)
 
     def forward(self, x):
         return torch.relu(self.bn(self.conv(x)))

@@ -7,6 +7,11 @@ Reproduced quirks, as in the JAX package:
 * F.normalize(vlad, 1) is an L1 normalisation along the group_size axis
   (nextvlad.py:83-85);
 * BatchNorm1d(1) over the flattened VLAD / hidden vectors (one scalar stat).
+
+In training the BatchNorms take batch statistics (momentum ``bn_momentum``),
+a Dropout at ``drop_rate`` follows the IRv2 pool and the VLAD (nextvlad.py:
+136-137), and ``classify_drop`` the logits when the classifier is not a
+feature extractor (:156-158).
 """
 
 from __future__ import annotations
@@ -15,21 +20,21 @@ import torch
 from torch import nn
 
 from deepfake_tpu_torch.models.inception_resnet_v2 import InceptionResNetV2
-from deepfake_tpu_torch.models.layers import BatchNorm
+from deepfake_tpu_torch.models.layers import BatchNorm, Dropout, Linear
 
 
 class NeXtVLAD(nn.Module):
     def __init__(self, dim: int = 1024, num_clusters: int = 64, lamb: int = 2,
-                 groups: int = 8, max_frames: int = 300):
+                 groups: int = 8, max_frames: int = 300, bn_momentum: float = 0.1):
         super().__init__()
         self.G, self.K = groups, num_clusters
         self.group_size = (lamb * dim) // groups
-        self.fc0 = nn.Linear(dim, lamb * dim)
-        self.fc_gk = nn.Linear(lamb * dim, groups * num_clusters)
-        self.bn0 = BatchNorm(max_frames, axis=1)
-        self.fc_g = nn.Linear(lamb * dim, groups)
+        self.fc0 = Linear(dim, lamb * dim)
+        self.fc_gk = Linear(lamb * dim, groups * num_clusters)
+        self.bn0 = BatchNorm(max_frames, axis=1, momentum=bn_momentum)
+        self.fc_g = Linear(lamb * dim, groups)
         self.cluster_weights2 = nn.Parameter(torch.zeros(1, self.group_size, num_clusters))
-        self.bn1 = BatchNorm(1, axis=1)
+        self.bn1 = BatchNorm(1, axis=1, momentum=bn_momentum)
 
     def init_extra(self, generator: torch.Generator) -> None:
         self.cluster_weights2.uniform_(0.0, 1.0, generator=generator)
@@ -42,7 +47,7 @@ class NeXtVLAD(nn.Module):
         alpha_gk = torch.softmax(wgk.float(), dim=-1).to(x.dtype)
         alpha_g = torch.sigmoid(self.fc_g(x_dot)).reshape(B, M * G, 1)
         activation = alpha_gk * alpha_g  # [B, M*G, K]
-        a = activation.sum(dim=-2, keepdim=True) * self.cluster_weights2  # [B, gs, K]
+        a = activation.sum(dim=-2, keepdim=True) * self.cluster_weights2.to(x.dtype)  # [B, gs, K]
         vlad = activation.transpose(1, 2) @ x_dot.reshape(B, M * G, gs)  # [B, K, gs]
         vlad = vlad.transpose(1, 2) - a
         vlad = vlad / torch.clamp(vlad.abs().sum(dim=1, keepdim=True), min=1e-12)
@@ -56,25 +61,29 @@ class InceptionVideoClassifier(nn.Module):
 
     def __init__(self, num_frames: int, num_classes: int = 1, num_clusters: int = 64,
                  lamb: int = 2, hidden_size: int = 1024, groups: int = 8,
-                 gating_reduction: int = 8, use_feat: bool = False, fused_blocks: bool = False):
+                 gating_reduction: int = 8, use_feat: bool = False, fused_blocks: bool = False,
+                 drop_rate: float = 0.5, classify_drop: float = 0.1, bn_momentum: float = 0.1):
         super().__init__()
         self.num_classes = num_classes
         self.use_feat = use_feat
-        self.inception = InceptionResNetV2(fused_blocks)
-        self.video_nextvlad = NeXtVLAD(1536, num_clusters, lamb, groups, num_frames)
+        self.inception = InceptionResNetV2(fused_blocks, drop_rate)
+        self.video_nextvlad = NeXtVLAD(1536, num_clusters, lamb, groups, num_frames, bn_momentum)
+        self.vlad_drop = Dropout(drop_rate)
         vlad_dim = num_clusters * (lamb * 1536) // groups
-        self.fc0 = nn.Linear(vlad_dim, hidden_size)
-        self.bn0 = BatchNorm(1, axis=1)
-        self.fc1 = nn.Linear(hidden_size, hidden_size // gating_reduction)
-        self.bn1 = BatchNorm(1, axis=1)
-        self.fc2 = nn.Linear(hidden_size // gating_reduction, hidden_size)
+        self.fc0 = Linear(vlad_dim, hidden_size)
+        self.bn0 = BatchNorm(1, axis=1, momentum=bn_momentum)
+        self.fc1 = Linear(hidden_size, hidden_size // gating_reduction)
+        self.bn1 = BatchNorm(1, axis=1, momentum=bn_momentum)
+        self.fc2 = Linear(hidden_size // gating_reduction, hidden_size)
         if not use_feat:
-            self.logistic = nn.Linear(hidden_size, num_classes)
+            self.logistic = Linear(hidden_size, num_classes)
+            self.classify_drop = Dropout(classify_drop)
+        self.eval()
 
     def forward(self, x, return_logits: bool = False):
         B, T = x.shape[:2]
         feat = self.inception(x.reshape((B * T,) + tuple(x.shape[2:]))).reshape(B, T, -1)
-        vlad = self.video_nextvlad(feat)
+        vlad = self.vlad_drop(self.video_nextvlad(feat))
         act = torch.relu(self.bn0(self.fc0(vlad)[:, None])[:, 0])
         gates = torch.sigmoid(self.fc2(self.bn1(self.fc1(act)[:, None])[:, 0]))
         feat = act * gates
@@ -83,4 +92,5 @@ class InceptionVideoClassifier(nn.Module):
         logits = self.logistic(feat)
         if self.num_classes == 1:
             logits = logits.squeeze(-1)
+        logits = self.classify_drop(logits)
         return logits if return_logits else torch.sigmoid(logits)

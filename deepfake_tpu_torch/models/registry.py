@@ -3,10 +3,11 @@
 ``build_model(cfg, device=None)`` returns the modality's module in f32 on
 ``device`` (the card unless the caller asks for the CPU), with seeded
 random weights, in eval mode; ``build_model(cfg, device, train=True)`` the
-``video_swin`` model in train mode, its parameters in
-``parallel.param_dtype``, its drop rates from the config and its dropout
-masks drawn from the seed's dropout stream. ``example_inputs`` gives zero
-inputs of the canonical shapes; ``precompute_bias_cache`` and
+same model in train mode, its parameters in ``parallel.param_dtype``, its
+drop rates and BatchNorm momenta from the config (the rates the JAX package
+hard-codes as it does: SwinV2's DropPath 0.1, wav2vec2's dropouts, LayerDrop
+and SpecAugment) and every mask drawn from the seed's dropout stream.
+``example_inputs`` gives zero inputs of the canonical shapes; ``precompute_bias_cache`` and
 ``pack_block_weights`` fill the inference caches once the weights are final.
 """
 
@@ -68,16 +69,19 @@ def _swin(cfg: Config, use_feat: bool):
 def _video(cfg: Config, use_feat: bool):
     from deepfake_tpu_torch.models.nextvlad import InceptionVideoClassifier
 
+    m = cfg.model
     return InceptionVideoClassifier(
-        num_frames=cfg.data.num_frames, num_classes=cfg.model.num_classes, use_feat=use_feat,
-        fused_blocks=cfg.model.irv2_fused_blocks)
+        num_frames=cfg.data.num_frames, num_classes=m.num_classes, use_feat=use_feat,
+        fused_blocks=m.irv2_fused_blocks, drop_rate=m.swin_drop,
+        classify_drop=m.classify_drop, bn_momentum=m.bn_momentum)
 
 
 def _paudio(cfg: Config, use_feat: bool):
     from deepfake_tpu_torch.models.audio2d import Audio2D
 
-    return Audio2D(num_classes=cfg.model.num_classes, use_feat=use_feat,
-                   wav_config=wav_config(cfg))
+    m = cfg.model
+    return Audio2D(num_classes=m.num_classes, use_feat=use_feat, wav_config=wav_config(cfg),
+                   model_drop=m.swin_drop, classify_drop=m.classify_drop)
 
 
 def _video_swin(cfg: Config):
@@ -95,13 +99,10 @@ def _video_swin(cfg: Config):
 
 def build_model(cfg: Config, device=None, train: bool = False) -> nn.Module:
     """The configured modality's model on ``device`` with random weights
-    drawn from ``cfg.random_seed``: f32 in eval mode, or with ``train``
-    (video_swin only: fused training is not ported) in train mode with
-    ``parallel.param_dtype`` parameters and seeded dropout."""
+    drawn from ``cfg.random_seed``: f32 in eval mode, or with ``train`` in
+    train mode with ``parallel.param_dtype`` parameters and seeded dropout."""
     dev = resolve_device(device)
     modality = cfg.data.modality
-    if train and modality != "video_swin":
-        raise NotImplementedError(f"training is ported for video_swin only, not {modality}")
     if modality == "video":
         model = _video(cfg, False)
     elif modality == "audio":
@@ -117,7 +118,7 @@ def build_model(cfg: Config, device=None, train: bool = False) -> nn.Module:
         model = FusionModel(
             _video(cfg, True), _swin(cfg, True), _paudio(cfg, True),
             dims=(1024, m.swin2d_embed_dim * 2 ** (len(m.swin2d_depths) - 1), m.wav_hidden),
-            out_dim=m.num_classes)
+            out_dim=m.num_classes, soft=m.soft, classify_drop=m.classify_drop)
     else:
         raise ValueError(f"unknown modality: {modality}")
     model = model.to(dev).eval()

@@ -18,6 +18,18 @@ of the qkv tensor by strides in either layout: the Pallas routes' 64 < N <
 128 cases (windows 9-11) and ``_run_multihead`` for N >= 128 (window 16 at
 256^2, window 24 at 384^2). Otherwise it runs the plain path
 ``ops/window_attn.cosine_window_attention``.
+
+In training (``model.train()``) every block has DropPath on both residual
+branches (``linspace(0, drop_path_rate, blocks)``, swin2d.py:430,463), the
+[H, N, N] bias is recomputed from the CPB-MLP on every forward (it gets a
+gradient; ``bias_cache`` is ignored), and with ``attn_kernel`` the window
+attention goes through K5 (ops/window_attn3d_train.py, forward and backward)
+as the JAX training route does (swin2d.py:185-222): q and k L2-normalised
+per head in f32, q times the clamped per-head scale, both cast to the
+compute type and passed with v as K5's qkv at scale 1, the f32 bias and the
+shift mask beside them. Without ``attn_kernel`` training takes the plain
+path with the max-stabilised softmax. Linear and conv layers cast their
+parameters to the activations' type at use, so f32 masters train in bf16.
 """
 
 from __future__ import annotations
@@ -30,8 +42,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepfake_tpu_torch.models.layers import LayerNorm, Mlp, as_nchw
-from deepfake_tpu_torch.ops.window_attn import cosine_window_attention
+from deepfake_tpu_torch.models.layers import Conv2d, DropPath, LayerNorm, Linear, Mlp, as_nchw
+from deepfake_tpu_torch.ops.window_attn import cosine_window_attention, l2_normalize
+from deepfake_tpu_torch.ops.window_attn3d_train import window_attn3d_train
 from deepfake_tpu_torch.ops.window_attn_kernel import MAX_TOKENS as K2_MAX_TOKENS
 from deepfake_tpu_torch.ops.window_attn_kernel import (
     window_attention_heads, window_attention_tokens,
@@ -105,14 +118,16 @@ class WindowAttention(nn.Module):
         self.v_bias = nn.Parameter(torch.zeros(dim))
         self.cpb_fc1 = nn.Linear(2, 512)
         self.cpb_fc2 = nn.Linear(512, num_heads, bias=False)
-        self.proj = nn.Linear(dim, dim)
+        self.proj = Linear(dim, dim)
         # a plain f32 attribute, not a buffer: casting the model to bf16
         # must not round the table the bias is computed from
         self.coords_table = torch.from_numpy(
             relative_coords_table(window_size, pretrained_window_size))
+        self._table_on = self.coords_table  # its copy on the last device used
         self.register_buffer("rel_index", torch.from_numpy(
             relative_position_index(window_size).reshape(-1)), persistent=False)
         self.bias_cache: Optional[torch.Tensor] = None  # set by precompute_bias()
+        self.eval()
 
     def init_extra(self, generator: torch.Generator) -> None:
         self.qkv_weight.normal_(0.0, 1.0 / math.sqrt(self.dim), generator=generator)
@@ -123,7 +138,11 @@ class WindowAttention(nn.Module):
     def relative_bias(self) -> torch.Tensor:
         """16 * sigmoid(CPB-MLP(table)) gathered to [H, N, N], f32."""
         fc1, fc2 = self.cpb_fc1, self.cpb_fc2
-        table = self.coords_table.to(fc1.weight.device)
+        if self._table_on.device != fc1.weight.device:
+            # copied once per device, not per forward: a CUDA graph capture
+            # refuses a copy from pageable host memory
+            self._table_on = self.coords_table.to(fc1.weight.device)
+        table = self._table_on
         h = torch.relu(F.linear(table, fc1.weight.float(), fc1.bias.float()))
         t = F.linear(h, fc2.weight.float()).reshape(-1, self.num_heads)
         N = int(math.isqrt(self.rel_index.numel()))
@@ -137,12 +156,14 @@ class WindowAttention(nn.Module):
         B_, N, C = x.shape
         H = self.num_heads
         qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
-        qkv = F.linear(x, self.qkv_weight, qkv_bias)  # [B_, N, 3C], q|k|v
+        qkv = F.linear(x, self.qkv_weight.to(x.dtype), qkv_bias.to(x.dtype))  # [B_, N, 3C]
         bias = self.bias_cache
-        if bias is None or bias.device != x.device:
+        if self.training or bias is None or bias.device != x.device:
             bias = self.relative_bias()
         scale = torch.exp(torch.clamp(self.logit_scale.float(), max=math.log(100.0)))
-        if self.attn_kernel and N <= K2_MAX_TOKENS and B_ >= 2:
+        if self.training and self.attn_kernel:
+            out = self._train_kernel(qkv, bias, mask, scale)
+        elif self.attn_kernel and N <= K2_MAX_TOKENS and B_ >= 2:
             out = window_attention_tokens(
                 qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], num_heads=H, bias=bias,
                 mask=mask, logit_scale=scale)
@@ -156,9 +177,23 @@ class WindowAttention(nn.Module):
                 out = window_attention_heads(*heads.contiguous().unbind(0), bias=bias, mask=mask,
                                              logit_scale=scale)
             else:
-                out = cosine_window_attention(*heads.contiguous().unbind(0), scale, bias, mask)
+                out = cosine_window_attention(*heads.contiguous().unbind(0), scale, bias, mask,
+                                              bounded=not self.training)
             out = out.transpose(1, 2).reshape(B_, N, C)
         return self.proj(out)
+
+    def _train_kernel(self, qkv, bias, mask, scale):
+        """Cosine attention as scaled attention through K5 (swin2d.py:195-222):
+        q^ s and k^ per head in f32, cast to the compute type, then K5 at
+        scale 1; autograd carries the normalisation's and the scale's
+        gradients, K5's backward the attention's and the bias's."""
+        B_, N, C3 = qkv.shape
+        C, H = C3 // 3, self.num_heads
+        heads = lambda t: l2_normalize(t.reshape(B_, N, H, C // H).float())
+        qn = (heads(qkv[..., :C]) * scale.reshape(1, 1, H, 1)).reshape(B_, N, C)
+        kn = heads(qkv[..., C:2 * C]).reshape(B_, N, C)
+        packed = torch.cat([qn.to(qkv.dtype), kn.to(qkv.dtype), qkv[..., 2 * C:]], dim=-1)
+        return window_attn3d_train(packed, num_heads=H, bias=bias, mask=mask, scale=1.0)
 
 
 class SwinBlock(nn.Module):
@@ -166,7 +201,8 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int], num_heads: int,
                  window_size: int = 7, shift_size: int = 0, mlp_ratio: float = 4.0,
-                 pretrained_window_size: int = 0, attn_kernel: bool = False):
+                 pretrained_window_size: int = 0, attn_kernel: bool = False,
+                 drop_path: float = 0.0):
         super().__init__()
         self.input_resolution = input_resolution
         ws, shift = window_size, shift_size
@@ -178,9 +214,11 @@ class SwinBlock(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
         self.norm2 = LayerNorm(dim)
+        self.drop_path = DropPath(drop_path)
         H, W = input_resolution
         mask = torch.from_numpy(shift_attn_mask(H, W, ws, shift)) if shift > 0 else None
         self.register_buffer("attn_mask", mask, persistent=False)
+        self.eval()
 
     def forward(self, x):
         H, W = self.input_resolution
@@ -193,8 +231,8 @@ class SwinBlock(nn.Module):
         h = window_reverse(self.attn(window_partition(h, ws), mask), ws, H, W)
         if shift > 0:
             h = torch.roll(h, (shift, shift), dims=(1, 2))
-        x = x + self.norm1(h.reshape(B, L, C))
-        return x + self.norm2(self.mlp(x))
+        x = x + self.drop_path(self.norm1(h.reshape(B, L, C)))
+        return x + self.drop_path(self.norm2(self.mlp(x)))
 
 
 class PatchMerging(nn.Module):
@@ -203,7 +241,7 @@ class PatchMerging(nn.Module):
     def __init__(self, input_resolution: Tuple[int, int], dim: int):
         super().__init__()
         self.input_resolution = input_resolution
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
         self.norm = LayerNorm(2 * dim)
 
     def forward(self, x):
@@ -219,7 +257,7 @@ class PatchEmbed(nn.Module):
 
     def __init__(self, patch_size: int = 4, embed_dim: int = 96, in_chans: int = 3):
         super().__init__()
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
         self.norm = LayerNorm(embed_dim)
 
     def forward(self, x):
@@ -235,12 +273,13 @@ class SwinTransformerV2(nn.Module):
                  embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, pretrained_window_sizes: Sequence[int] = (0, 0, 0, 0),
-                 use_feat: bool = False, attn_kernel: bool = False):
+                 use_feat: bool = False, attn_kernel: bool = False, drop_path_rate: float = 0.1):
         super().__init__()
         self.num_classes = num_classes
         self.use_feat = use_feat
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         res = img_size // patch_size
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.stages = []
         for i, depth in enumerate(depths):
             dim = embed_dim * 2 ** i
@@ -251,7 +290,7 @@ class SwinTransformerV2(nn.Module):
                 self.add_module(name, SwinBlock(
                     dim, (r, r), num_heads[i], window_size,
                     0 if j % 2 == 0 else window_size // 2, mlp_ratio,
-                    pretrained_window_sizes[i], attn_kernel))
+                    pretrained_window_sizes[i], attn_kernel, dpr[sum(depths[:i]) + j]))
                 names.append(name)
             if i < len(depths) - 1:
                 name = f"layers_{i}_downsample"
@@ -262,6 +301,7 @@ class SwinTransformerV2(nn.Module):
         self.norm = LayerNorm(num_features)
         if not use_feat:
             self.head = Mlp(num_features, 256, num_classes)
+        self.eval()
 
     def forward(self, x, return_logits: bool = False):
         x = self.patch_embed(x)

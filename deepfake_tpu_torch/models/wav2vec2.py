@@ -10,6 +10,16 @@ emulates the reference's pad-to-batch-longest (wav2vec2.py:145-160,
 257-262): the GroupNorm statistics, the positional conv's boundary and the
 attention keys are restricted to the frames a max(lengths)-long input would
 produce. No Pallas kernel runs here; this is plain PyTorch.
+
+Train mode (wav2vec2.py:50-57, :107-111, :161, :176-178, :195, :217,
+:226-233, :272-286): dropout after the feature projection
+(``feat_proj_dropout``), on the attention weights (``attention_dropout``),
+after the FFN's activation (``activation_dropout``) and on the hidden
+states (``hidden_dropout``); LayerDrop, one draw per layer and batch, the
+layer's output or its input chosen on the device; SpecAugment time masking.
+Every mask draws from the model's dropout generator (set_dropout_generator)
+on the device: a train-mode forward reads nothing back to the host, so it
+runs inside a CUDA graph and each replay draws anew.
 """
 
 from __future__ import annotations
@@ -20,7 +30,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from deepfake_tpu_torch.models.layers import LayerNorm, gelu_exact
+import torch.nn.functional as F
+
+from deepfake_tpu_torch.models.layers import Conv1d, Dropout, LayerNorm, Linear, gelu_exact
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +47,14 @@ class Wav2Vec2Config:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
+    feat_proj_dropout: float = 0.1
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    layerdrop: float = 0.1
+    apply_spec_augment: bool = True
+    mask_time_prob: float = 0.05
+    mask_time_length: int = 10
 
 
 def feature_extract_output_length(c: Wav2Vec2Config, input_length):
@@ -49,13 +69,57 @@ def _frame_mask(T: int, valid, device) -> torch.Tensor:
     return torch.arange(T, device=device) < valid
 
 
+class LayerDrop(Dropout):
+    """Skips a whole layer with probability ``rate`` in training: one draw
+    per call (per layer and batch), the layer's output ``y`` or its input
+    ``x`` selected on the device (``jnp.where(keep, y, x)``,
+    wav2vec2.py:226-233), so the draw stays a device value."""
+
+    def forward(self, x, y):
+        if not self.training or self.rate == 0.0:
+            return y
+        if self.generator is None:
+            raise RuntimeError("LayerDrop in training needs a generator (set_dropout_generator)")
+        keep = torch.rand((), generator=self.generator, device=x.device) < 1.0 - self.rate
+        return torch.where(keep, y, x)
+
+
+class SpecAugment(Dropout):
+    """Time masking in training (wav2vec2.py:272-286): span starts drawn per
+    frame at ``rate`` (mask_time_prob), each dilated over ``length`` frames
+    (``jnp.convolve(starts, ones(length), 'full')[:T]``), the masked frames
+    replaced by ``embed``."""
+
+    def __init__(self, rate: float, length: int):
+        super().__init__(rate)
+        self.length = length
+
+    def spans(self, starts: torch.Tensor) -> torch.Tensor:
+        """[B, T] 0/1 starts -> [B, T] masked frames: frame t is masked where
+        a span starts at t - length + 1 .. t."""
+        T, L = starts.shape[1], self.length
+        ones = torch.ones(1, 1, L, dtype=starts.dtype, device=starts.device)
+        return F.conv1d(starts[:, None], ones, padding=L - 1)[:, 0, :T] > 0
+
+    def forward(self, x, embed):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("SpecAugment in training needs a generator "
+                               "(set_dropout_generator)")
+        B, T, _ = x.shape
+        starts = (torch.rand((B, T), generator=self.generator, device=x.device)
+                  < self.rate).float()
+        return torch.where(self.spans(starts)[..., None], embed.to(x.dtype), x)
+
+
 class ConvFeatureEncoder(nn.Module):
     def __init__(self, c: Wav2Vec2Config):
         super().__init__()
         self.c = c
         cin = 1
         for i, (dim, k, s) in enumerate(zip(c.conv_dim, c.conv_kernel, c.conv_stride)):
-            self.add_module(f"conv_{i}", nn.Conv1d(cin, dim, k, stride=s, bias=False))
+            self.add_module(f"conv_{i}", Conv1d(cin, dim, k, stride=s, bias=False))
             cin = dim
         self.group_norm = nn.GroupNorm(c.conv_dim[0], c.conv_dim[0], eps=c.layer_norm_eps)
 
@@ -93,10 +157,11 @@ class FeatureProjection(nn.Module):
     def __init__(self, c: Wav2Vec2Config):
         super().__init__()
         self.layer_norm = LayerNorm(c.conv_dim[-1], eps=c.layer_norm_eps)
-        self.projection = nn.Linear(c.conv_dim[-1], c.hidden_size)
+        self.projection = Linear(c.conv_dim[-1], c.hidden_size)
+        self.drop = Dropout(c.feat_proj_dropout)
 
     def forward(self, x):
-        return self.projection(self.layer_norm(x))
+        return self.drop(self.projection(self.layer_norm(x)))
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -104,8 +169,8 @@ class PositionalConvEmbedding(nn.Module):
         super().__init__()
         k = c.num_conv_pos_embeddings
         self.crop = k % 2 == 0
-        self.conv = nn.Conv1d(c.hidden_size, c.hidden_size, k, padding=k // 2,
-                              groups=c.num_conv_pos_embedding_groups)
+        self.conv = Conv1d(c.hidden_size, c.hidden_size, k, padding=k // 2,
+                           groups=c.num_conv_pos_embedding_groups)
 
     def forward(self, x):
         """x [B, T, C] -> [B, T, C]."""
@@ -120,10 +185,11 @@ class SelfAttention(nn.Module):
         super().__init__()
         C = c.hidden_size
         self.H = c.num_attention_heads
-        self.q_proj = nn.Linear(C, C)
-        self.k_proj = nn.Linear(C, C)
-        self.v_proj = nn.Linear(C, C)
-        self.out_proj = nn.Linear(C, C)
+        self.q_proj = Linear(C, C)
+        self.k_proj = Linear(C, C)
+        self.v_proj = Linear(C, C)
+        self.out_proj = Linear(C, C)
+        self.drop = Dropout(c.attention_dropout)
 
     def forward(self, x, valid_frames=None):
         B, T, C = x.shape
@@ -135,7 +201,7 @@ class SelfAttention(nn.Module):
         if valid_frames is not None:
             keep = _frame_mask(T, valid_frames, x.device)
             attn = attn.masked_fill(~keep[None, None, None, :], float("-inf"))
-        attn = torch.softmax(attn, dim=-1).to(x.dtype)
+        attn = self.drop(torch.softmax(attn, dim=-1).to(x.dtype))
         out = (attn @ v).transpose(1, 2).reshape(B, T, C)
         return self.out_proj(out)
 
@@ -143,11 +209,14 @@ class SelfAttention(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, c: Wav2Vec2Config):
         super().__init__()
-        self.intermediate_dense = nn.Linear(c.hidden_size, c.intermediate_size)
-        self.output_dense = nn.Linear(c.intermediate_size, c.hidden_size)
+        self.intermediate_dense = Linear(c.hidden_size, c.intermediate_size)
+        self.output_dense = Linear(c.intermediate_size, c.hidden_size)
+        self.act_drop = Dropout(c.activation_dropout)
+        self.drop = Dropout(c.hidden_dropout)
 
     def forward(self, x):
-        return self.output_dense(gelu_exact(self.intermediate_dense(x)))
+        h = self.act_drop(gelu_exact(self.intermediate_dense(x)))
+        return self.drop(self.output_dense(h))
 
 
 class EncoderLayer(nn.Module):
@@ -159,9 +228,10 @@ class EncoderLayer(nn.Module):
         self.layer_norm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.feed_forward = FeedForward(c)
         self.final_layer_norm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.drop = Dropout(c.hidden_dropout)
 
     def forward(self, x, valid_frames=None):
-        x = self.layer_norm(x + self.attention(x, valid_frames))
+        x = self.layer_norm(x + self.drop(self.attention(x, valid_frames)))
         return self.final_layer_norm(x + self.feed_forward(x))
 
 
@@ -170,6 +240,8 @@ class Encoder(nn.Module):
         super().__init__()
         self.pos_conv_embed = PositionalConvEmbedding(c)
         self.layer_norm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.drop = Dropout(c.hidden_dropout)
+        self.layerdrop = LayerDrop(c.layerdrop)
         self.n_layers = c.num_hidden_layers
         for i in range(c.num_hidden_layers):
             self.add_module(f"layers_{i}", EncoderLayer(c))
@@ -180,9 +252,9 @@ class Encoder(nn.Module):
             # the positional conv sees zeros past the valid frames, as a
             # valid_frames-long input padded by the conv would
             pos_in = x * _frame_mask(x.shape[1], valid_frames, x.device)[None, :, None].to(x.dtype)
-        x = self.layer_norm(x + self.pos_conv_embed(pos_in))
+        x = self.drop(self.layer_norm(x + self.pos_conv_embed(pos_in)))
         for i in range(self.n_layers):
-            x = getattr(self, f"layers_{i}")(x, valid_frames)
+            x = self.layerdrop(x, getattr(self, f"layers_{i}")(x, valid_frames))
         return x
 
 
@@ -195,9 +267,12 @@ class Wav2Vec2Model(nn.Module):
         self.config = c
         self.feature_encoder = ConvFeatureEncoder(c)
         self.feature_projection = FeatureProjection(c)
-        # used only by training's spec-augment; kept so the weights map 1:1
+        # what SpecAugment writes into the masked frames, in training
         self.masked_spec_embed = nn.Parameter(torch.zeros(c.hidden_size))
+        self.spec_augment = SpecAugment(
+            c.mask_time_prob if c.apply_spec_augment else 0.0, c.mask_time_length)
         self.encoder = Encoder(c)
+        self.eval()
 
     def init_extra(self, generator: torch.Generator) -> None:
         self.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
@@ -205,7 +280,7 @@ class Wav2Vec2Model(nn.Module):
     def forward(self, input_values):
         wave, valid_samples = split_wave(input_values)
         feats = self.feature_encoder(wave, valid_samples).transpose(1, 2)
-        x = self.feature_projection(feats)
+        x = self.spec_augment(self.feature_projection(feats), self.masked_spec_embed)
         valid_frames = (None if valid_samples is None
                         else feature_extract_output_length(self.config, valid_samples))
         return self.encoder(x, valid_frames)

@@ -31,15 +31,21 @@ def add_mask(attn: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return (attn.view(B_ // nW, nW, H, N, N) + mask.float()[None, :, None]).view(B_, H, N, N)
 
 
-def cosine_window_attention(q, k, v, logit_scale, bias, mask=None) -> torch.Tensor:
-    """SwinV2 cosine attention as the JAX inference path computes it:
-    L2-normalised q, k; logits times the per-head scale, plus bias and
-    mask; f32 softmax with the static shift exp(min(x - 24, 60))
-    (window_attn.py:31-56: cosine logits are bounded and every row's max is
-    >= 0, so it equals the max-stabilised form up to f32 rounding); PV in
-    v's type."""
+def cosine_window_attention(q, k, v, logit_scale, bias, mask=None,
+                            bounded: bool = True) -> torch.Tensor:
+    """SwinV2 cosine attention as the JAX path computes it: L2-normalised q,
+    k; logits times the per-head scale, plus bias and mask; an f32 softmax;
+    PV in v's type. ``bounded`` (inference) takes the static shift
+    exp(min(x - 24, 60)) (window_attn.py:31-56: cosine logits are bounded
+    and every row's max is >= 0, so it equals the max-stabilised form up to
+    f32 rounding); training passes ``bounded=False`` for the max-stabilised
+    softmax (window_attn.py:70-89, swin2d.py:244-249), since a learned
+    logit_scale past ln(68) would saturate the shift's clamp and zero those
+    weights' gradients."""
     attn = l2_normalize(q.float()) @ l2_normalize(k.float()).transpose(-1, -2)
     attn = add_mask(attn * logit_scale.float() + bias.float()[None], mask)
+    if not bounded:
+        return torch.softmax(attn, dim=-1).to(v.dtype) @ v
     e = torch.exp(torch.clamp(attn - 24.0, max=60.0))
     return (e / e.sum(dim=-1, keepdim=True)).to(v.dtype) @ v
 

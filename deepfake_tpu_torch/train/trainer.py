@@ -7,14 +7,20 @@
     trainer.eval(data.val_loader())          # loss, acc, AUC
 
 ``data`` exposes ``train_loader()`` and ``val_loader()``, iterables of
-(inputs, labels) batches (numpy or torch). One train-loader yield is one
-optimizer step of ``batch_size * accum_step`` rows, split into ``accum_step``
-micro-batches of ``batch_size``; their gradients are summed and divided by
-``accum_step``, clipped by their global norm where ``optim.grad_clip`` is
-set, then SGD with momentum and coupled weight decay steps at the cosine
-rate of this step (schedule.py), ``t_max = epochs * len(train_loader)``.
-The loss is the BCE from logits, in the logits' type; inputs take
-``parallel.compute_dtype``, the parameters stay in ``parallel.param_dtype``.
+(inputs, labels) batches (numpy or torch). Inputs are one array or, for the
+fused model, the nested tuple (video, audio, (wave, lengths)). One
+train-loader yield is one optimizer step of ``batch_size * accum_step``
+rows; every array of the inputs is split along its first axis into
+``accum_step`` micro-batches of ``batch_size``; their gradients are summed
+and divided by ``accum_step``, clipped by their global norm where
+``optim.grad_clip`` is set, then SGD with momentum and coupled weight decay
+steps at the cosine rate of this step (schedule.py), ``t_max = epochs *
+len(train_loader)``. The loss is the BCE from logits, in the logits' type,
+plus ``optim.align_loss_rate`` times the fused model's InfoNCE alignment
+loss where ``optim.use_align_loss`` is set (deepfake_tpu/train/trainer.py:
+170-209). Float inputs take ``parallel.compute_dtype`` and integer ones
+(wave lengths) int64; the parameters stay in ``parallel.param_dtype``.
+BatchNorm's running statistics move with each micro-batch's forward.
 
 Routes. On the card a Trainer is compiled by default (``compiled=True``),
 the counterpart of the JAX Trainer's jitted step and eval step: each step
@@ -62,7 +68,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from deepfake_tpu_torch.compiled import GraphCache, signature
+from deepfake_tpu_torch.compiled import GraphCache, map_leaves, signature
 from deepfake_tpu_torch.config import Config
 from deepfake_tpu_torch.models.layers import set_dropout_generator
 from deepfake_tpu_torch.models.registry import build_model, compute_dtype, resolve_device
@@ -93,6 +99,7 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
         self.logger = logger or Logger()
         self.accum = max(1, cfg.optim.accum_step)
+        self.align = cfg.optim.use_align_loss and cfg.data.modality == "fused"
         gens = seed_everything(cfg.random_seed, self.device)
         if model is None:
             model = build_model(cfg, self.device, train=True)
@@ -116,31 +123,44 @@ class Trainer:
         self.step = 0
 
     # ------------------------------------------------------------------ steps
-    def _put_batch(self, inputs, labels):
-        def put(x, dtype):
-            t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
-            return t.to(self.device, dtype)
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        """A float input in the compute type, an integer one in int64."""
+        return x.to(self.dtype if x.is_floating_point() else torch.int64)
 
-        return put(inputs, self.dtype), put(labels, torch.float32)
+    def _put_batch(self, inputs, labels):
+        def put(x):
+            return (x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))).to(self.device)
+
+        return (map_leaves(lambda x: self._cast(put(x)), inputs),
+                put(labels).to(torch.float32))
 
     def _logits(self, x):
         out = self.model(x, return_logits=True)
         return out[0] if isinstance(out, tuple) else out
+
+    def _loss(self, x, y):
+        """(loss, logits) of one micro-batch in train mode: the BCE, plus the
+        weighted alignment loss where the config asks for it."""
+        if self.align:
+            logits, align = self.model(x, return_logits=True, with_align_loss=True)
+            return bce_with_logits(logits, y) + self.cfg.optim.align_loss_rate * align, logits
+        logits = self._logits(x)
+        return bce_with_logits(logits, y), logits
 
     def _step(self, batch) -> Dict[str, torch.Tensor]:
         """One optimizer step on a batch on the device, at the rate in
         ``optimizer.lr``: the function that the eager route runs and that a
         graph captures. Reads no value back to the host."""
         x, y = batch
-        x, y = x.to(self.dtype), y.to(torch.float32)
+        x, y = map_leaves(self._cast, x), y.to(torch.float32)
         self.model.train()
         params = self.optimizer.params
         for p in params:
             p.grad = None
         losses, accs = [], []
-        for xm, ym in zip(x.chunk(self.accum), y.chunk(self.accum)):
-            logits = self._logits(xm)
-            loss = bce_with_logits(logits, ym)
+        for i, ym in enumerate(y.chunk(self.accum)):
+            xm = map_leaves(lambda t: t.chunk(self.accum)[i], x)
+            loss, logits = self._loss(xm, ym)
             loss.backward()
             losses.append(loss.detach())
             with torch.no_grad():
@@ -179,7 +199,7 @@ class Trainer:
         """One optimizer step over ``accum`` micro-batches; returns the mean
         micro-batch loss and accuracy as device scalars (a graph's static
         outputs on the compiled route: the next step overwrites them)."""
-        n = len(inputs)
+        n = len(labels)
         if n % self.accum:
             raise ValueError(f"a batch of {n} rows does not split into "
                              f"{self.accum} micro-batches")
@@ -215,7 +235,7 @@ class Trainer:
     @torch.no_grad()
     def _eval_batch(self, batch) -> Dict[str, torch.Tensor]:
         x, y = batch
-        x, y = x.to(self.dtype), y.to(torch.float32)
+        x, y = map_leaves(self._cast, x), y.to(torch.float32)
         self.model.eval()
         try:
             logits = self._logits(x)

@@ -1429,3 +1429,120 @@ def test_submit_resume_on_the_card(cuda_device, tmp_path, monkeypatch):
     rows = [line.split(",") for line in open(tmp_path / "prediction.csv").read().splitlines()]
     assert [r[0] for r in rows] == list(whole)
     assert [float(r[1]) for r in rows] == [float(v) for v in whole.values()]
+
+
+# ---------------------------------------------------------------- fused training
+
+# (B_, H, C, side of the token grid, shifted): SwinV2-B's four stages at 224^2
+# with window 7 (N = 49, one partial 64-row tile a window) in a b8 training
+# micro-batch, shifted and not (stage 3 is one unshifted window a clip), and
+# N = 49 at head dim 16 (mma.sync)
+K5_SWINV2_CASES = [(512, 4, 128, 56, True), (512, 4, 128, 56, False),
+                   (128, 8, 256, 28, True), (128, 8, 256, 28, False),
+                   (32, 16, 512, 14, True), (32, 16, 512, 14, False),
+                   (8, 32, 1024, 7, False), (32, 4, 64, 14, True)]
+
+
+def _cosine_qkv(dev, B_, H, C, dtype, seed):
+    """What SwinV2's training route hands K5: q^ times per-head scales up to
+    100, k^ unit rows per head, v, packed [B_, 49, 3C]; the 16 sigmoid bias."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    N, D = 49, C // H
+    unit = lambda t: torch.nn.functional.normalize(t.view(B_, N, H, D), dim=-1).view(B_, N, C)
+    scales = torch.linspace(10.0, 100.0, H, device=dev).repeat_interleave(D)
+    q = unit(torch.randn(B_, N, C, generator=gen, device=dev)) * scales
+    k = unit(torch.randn(B_, N, C, generator=gen, device=dev))
+    v = torch.randn(B_, N, C, generator=gen, device=dev)
+    bias = 16 * torch.sigmoid(torch.randn(H, N, N, generator=gen, device=dev))
+    dout = torch.randn(B_, N, C, generator=gen, device=dev).to(dtype)
+    return torch.cat([q, k, v], -1).to(dtype), bias, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B_,H,C,side,shifted", K5_SWINV2_CASES, ids=[
+    "stage0_shifted", "stage0", "stage1_shifted", "stage1", "stage2_shifted", "stage2",
+    "stage3", "d16_shifted"])
+def test_k5_swinv2_windows_match_plain(cuda_device, B_, H, C, side, shifted, dtype):
+    """K5 forward and backward at N = 49 with SwinV2's cosine inputs (scale
+    1) against its plain versions, in the K5 tolerances above."""
+    qkv, bias, dout = _cosine_qkv(cuda_device, B_, H, C, dtype, seed=20)
+    mask = (torch.from_numpy(shift_attn_mask(side, side, 7, 3)).to(cuda_device, torch.bfloat16)
+            if shifted else None)
+    assert mask is None or B_ % mask.shape[0] == 0
+    kw = dict(num_heads=H, bias=bias, mask=mask, scale=1.0)
+    q, k, v = qkv.split(C, dim=-1)
+    before = window_attn3d_train_fwd.launches, window_attn3d_train_bwd.launches
+    out = window_attn3d_train_fwd(qkv, **kw)
+    dqkv, dbias = window_attn3d_train_bwd(qkv, dout, **kw)
+    torch.cuda.synchronize()
+    assert (window_attn3d_train_fwd.launches, window_attn3d_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = [window_attn3d_train_fwd_plain(q, k, v, **kw),
+            *window_attn3d_train_bwd_plain(q, k, v, dout, **kw)]
+    got = [out, *dqkv.split(C, dim=-1), dbias]
+    for name, a, b in zip(("out", "dq", "dk", "dv", "dbias"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        tol = k5_tolerance(b, dbias=name == "dbias" and dtype == torch.bfloat16)
+        assert math.isfinite(err) and err <= tol, (name, err, tol)
+
+
+FUSED_TRAIN = dict(GRAPH_BASE, **{"data.modality": "fused", "optim.batch_size": 2,
+                                  "optim.accum_step": 2, "optim.learning_rate": 0.01})
+
+
+def _fused_trainer(dev, compiled, batches):
+    from deepfake_tpu_torch.config import Config
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    cfg = Config()
+    for k, v in FUSED_TRAIN.items():
+        cfg.set(k, v)
+    return Trainer(None, cfg, _OneBatch(*batches[0]), logger=lambda line: None, device=dev,
+                   compiled=compiled)
+
+
+def _fused_batches(dev, n, seed=62):
+    """n batches of 4 fused clips: frames, mel images, 1 s waves with valid
+    lengths, labels."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        wave = torch.randn(4, 16000, generator=gen, device=dev)
+        lengths = torch.randint(8000, 16001, (4,), generator=gen, device=dev)
+        x = (0.5 * torch.randn(4, 2, 96, 96, 3, generator=gen, device=dev),
+             torch.randn(4, 56, 56, 3, generator=gen, device=dev), (wave, lengths))
+        out.append((x, (torch.rand(4, generator=gen, device=dev) > 0.5).float()))
+    return out
+
+
+@pytest.mark.cuda
+def test_fused_train_graph_matches_eager(cuda_device):
+    """Three fused bf16 training steps at the small geometry (micro-batch 2 x
+    accum 2, every dropout at its default: IRv2's and NeXtVLAD's, SwinV2's
+    DropPath, wav2vec2's rates, LayerDrop and SpecAugment) as one CUDA graph
+    a step against three eager steps from the same seed. The first step's
+    loss, a forward of the same weights with the same masks, equals the
+    eager route's to the bit. The rest equals it to the bit where two eager
+    runs agree to the bit, else lies within 4x their spread (cuDNN's
+    backward algorithms and K5's dbias atomics sum in an order that may
+    change from run to run). The graph launches K5 both ways in every SwinV2
+    block and micro-batch (4 blocks x 2) and no other hand-written kernel."""
+    batches = _fused_batches(cuda_device, 3)
+    runs = []
+    for compiled in (False, False, True):
+        t = _fused_trainer(cuda_device, compiled, batches)
+        runs.append((_steps(t, batches), _weights(t), t.graphs))
+    (want, w_want, _), (again, w_again, _), (got, w_got, graphs) = runs
+    assert got[0] == want[0], (got, want)
+    if again == want and _gap(w_want, w_again) == 0.0:
+        assert got == want and _gap(w_want, w_got) == 0.0, (got, want)
+    else:
+        spread = max(abs(a - b) for a, b in zip(want, again))
+        assert max(abs(a - b) for a, b in zip(got, want)) <= _spread_tolerance(
+            spread, max(abs(v) for v in want)), (got, want, again)
+        w_scale = max(w.abs().max().item() for w in w_want)
+        assert _gap(w_want, w_got) <= _spread_tolerance(_gap(w_want, w_again), w_scale)
+    (g,) = graphs.graphs.values()
+    assert g.replays == 3 and g.launches == {"window_attn3d_train_fwd": 8,
+                                             "window_attn3d_train_bwd": 8}

@@ -339,7 +339,10 @@ REFERENCE_FLAGS = [
      "--set", "data.wave_seconds_buckets=[4, 8, 16, 32]", "--set", "data.decode_method=sequential"],
     ["--preset", "audio", "--modality", "paudio", "--set", "model.swin2d_heads=[2, 4]"],
     ["--modality", "video"],
-], ids=["reference_flags", "video_swin_set", "audio_modality", "defaults"])
+    ["--preset", "fused", "--swin_drop", "0.3", "--soft", "0.05", "--bn_momentum", "0.2",
+     "--align_loss_rate", "0.5", "--skip_learning", "--val_model",
+     "--set", "optim.use_align_loss=true"],
+], ids=["reference_flags", "video_swin_set", "audio_modality", "defaults", "training_flags"])
 def test_get_config_matches_jax(argv):
     """Every field both config trees have takes the same value from the same
     argv (flags, presets and ``--set``; the defaults with the modality named,
@@ -368,7 +371,11 @@ def test_get_config_cuda_flag_and_refusals():
     assert get_config(["-cuda", "False"]).parallel.use_cuda is False
     assert get_config(["--use_cuda", "no"]).parallel.use_cuda is False
     assert '"data_root"' in get_config([]).to_json()
-    for argv in (["--swin_drop", "0.2"], ["--val_model"]):
+    train = get_config(["--swin_drop", "0.2", "--val_model", "--skip_learning"])
+    assert train.model.swin_drop == 0.2 and train.optim.val_model and train.optim.skip_learning
+    # checkpoint and pretrained-weight flags stay refused (ROADMAP A3)
+    for argv in (["--wav2vec2_dir", "w2v"], ["--model_save", "5"],
+                 ["--video_pretrained_dir", "irv2"]):
         with pytest.raises(SystemExit):
             get_config(argv)
     with pytest.raises(AttributeError):

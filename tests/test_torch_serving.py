@@ -107,7 +107,8 @@ def test_single_modality_predictor_matches_jax(modality):
 def test_port_imports_no_jax_and_no_jax_package():
     """Importing every module of deepfake_tpu_torch (the Swin3D model, the
     K3, K4, K5 and K6 wrappers, the training modules, the feature
-    assembly, the data modules, SubmitCtl and the CLIs among them) loads no
+    assembly, the data modules, SubmitCtl and the CLIs among them, the
+    training CLI ``train/__main__.py`` imported without running) loads no
     jax* module and nothing of deepfake_tpu, nor cv2 (imported only inside
     the functions that decode or encode)."""
     code = (
@@ -127,7 +128,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "        'deepfake_tpu_torch.data.audio_io', 'deepfake_tpu_torch.data.video_decode',\n"
         "        'deepfake_tpu_torch.data.chunking', 'deepfake_tpu_torch.data.synthetic',\n"
         "        'deepfake_tpu_torch.data.audio_images', 'deepfake_tpu_torch.train.submit',\n"
-        "        'deepfake_tpu_torch.test', 'deepfake_tpu_torch.audio_preprocess'}\n"
+        "        'deepfake_tpu_torch.test', 'deepfake_tpu_torch.audio_preprocess',\n"
+        "        'deepfake_tpu_torch.train.__main__', 'deepfake_tpu_torch.models.fusion'}\n"
         "bad += sorted(need - set(sys.modules))\n"
         "bad += [m for m in ('cv2',) if m in sys.modules]  # cv2 only inside the decoders\n"
         "print(len([m for m in sys.modules if m.startswith('deepfake_tpu_torch.')]), bad)\n"

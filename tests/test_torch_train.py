@@ -24,7 +24,7 @@ from deepfake_tpu_torch.io.jax_weights import load_jax_variables
 from deepfake_tpu_torch.models.layers import DropPath
 
 from tests.test_torch_swin3d import SMALL_VIDEO_SWIN
-from tests.torch_port_helpers import both_configs, random_variables
+from tests.torch_port_helpers import SMALL_FUSED, both_configs, random_variables
 
 
 @pytest.fixture
@@ -350,8 +350,8 @@ def test_trainer_without_cuda_raises_unless_cpu_asked(monkeypatch):
 
 def test_build_model_train_mode():
     """build_model(train=True): train mode, f32 parameters, the drop rates
-    of the config (linspace(0, drop_path, blocks)), seeded dropout; fused
-    training is not ported."""
+    of the config (linspace(0, drop_path, blocks)), seeded dropout; the
+    other modalities build in train mode too (tests/test_torch_fused_modules.py)."""
     from deepfake_tpu_torch.models.registry import build_model
 
     _, tcfg = both_configs(dict(SMALL_VIDEO_SWIN, **{"model.swin3d_drop_path": 0.3,
@@ -362,8 +362,7 @@ def test_build_model_train_mode():
     np.testing.assert_allclose(rates, np.linspace(0, 0.3, 4))
     assert m.classifier.mlp.drop.rate == tcfg.model.classify_drop
     assert m.classifier.mlp.drop.generator is not None
-    with pytest.raises(NotImplementedError, match="video_swin only"):
-        build_model(both_configs({"data.modality": "fused"})[1], "cpu", train=True)
+    assert build_model(both_configs(SMALL_FUSED)[1], "cpu", train=True).training
 
 
 def test_kernels_without_backward_raise_under_autograd():
