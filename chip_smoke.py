@@ -92,7 +92,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      the loader alone by seek and by sequential sampling, device ms a
      batch, the card's idle share; every score equal to the bit to
      predict_raw of its batch), the inference CLI in a subprocess stopped
-     by SIGTERM after its first batch and resumed (each clip once), a
+     by SIGTERM after its first batch and resumed (each clip once), both
+     serving phase 14's checkpoint (Predictor.from_checkpoint, --Resume), a
      96-frame video through Video Swin-S by sliding windows (K3, K4) and one
      file through SwinV2-B at window 16 (K6, K2); the kernel line's
      "launches_ingest" and "graph_launches_ingest".
@@ -102,17 +103,31 @@ Phases, in order; any failure exits non-zero and prints no result:
      head; SwinV2-B through K5 at N = 49: 96 forward and 96 backward
      launches a step, the kernel line's N=49 rows), fed by the train-side
      FeatureAssembler from raw clips: three steps on the eager K5 route, the
-     same again (do eager runs repeat to the bit), the same as one CUDA
-     graph a step (losses equal to the eager route's to the bit) and two
+     same again (do eager runs repeat to the bit; their spread), the same
+     as one CUDA graph a step (held to the eager route to the bit where the
+     two eager runs agree, else within 4x their spread) and two
      more replays, then the plain route (K5 off) as the A/B; step ms,
      clips/s, peak memory, idle share, graph pool. Phase 2 holds K5 at
      SwinV2-B's four stage shapes of a b8 micro-batch (cosine inputs:
      q^ times per-head scales, scale 1).
- 13. the training CLI (python -m deepfake_tpu_torch.train) in a subprocess on
-     40 synthetic mp4v clips with PCM sidecars (32 train: one step at 8 x 4;
-     8 val): its Train Loss and val AUC lines.
-The last four lines are {"ingest": {...}}, the card's name and power
-limit, {"kernels": [...]} and {"ok": true, "device": ...};
+ 13. the training CLI on mp4 files: item 5 of phase 14.
+ 14. checkpoints of fused training at 8 x 4 on the graph route
+     (phase_checkpoints): Trainer.train over five steps with model_save 5,
+     the profiler trace (naming K5's kernels), the HbmTracker file and the
+     `duty |` line's ckpt share; a fresh Trainer resumed from the save
+     after step 4 (every tensor equal to the file's) and the checkpoint
+     loaded into a captured step graph (data_ptrs kept), step 5 against the
+     uninterrupted one (losses to the bit, weights within 4x two eager
+     steps' spread); Predictor.from_checkpoint serving fused b8 (graph =
+     eager to the bit); the training CLI on 40 mp4v clips (32 train, 8 val)
+     stopped by SIGTERM after its first checkpoint and resumed from it (its
+     Train Loss and val AUC lines); phase 11 then serves the checkpoint
+     (in-process and through the inference CLI with --Resume); the kernel
+     line's "launches_checkpoints" (K5 over the captures and the loop, K1
+     and K2 over the serving). Runs before phase 11.
+A "phases (s)" line gives each phase's seconds. The last four lines are
+{"ingest": {...}}, the card's name and power limit, {"kernels": [...]} and
+{"ok": true, "device": ...};
 --report writes every measurement and check as JSON to PATH. Imports
 nothing of JAX.
 """
@@ -125,9 +140,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -195,7 +212,9 @@ def traced(fn, warm=None, tries: int = 5) -> list:
     them). So one call of ``warm`` (default:
     ``fn``) runs first in the window, then the sentinels and the call; a
     window that did not record both sentinels is traced again, and one that
-    never does fails."""
+    never does fails. Only the card's activity is recorded: host ops are
+    not read here, and turning an eager training step's tens of thousands
+    of them into events costs the host time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -204,7 +223,7 @@ def traced(fn, warm=None, tries: int = 5) -> list:
     seen = []
     for _ in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             (warm or fn)()
             torch.cuda.synchronize()
             torch.cuda._sleep(100_000)
@@ -2468,44 +2487,417 @@ def phase_fused_train(cfg, cfg_plain, dev, gen, report, steps: int = 3):
     return launches, graph_launches
 
 
-def phase_fused_train_cli(cfg, dev, report, seed: int):
-    """``python -m deepfake_tpu_torch.train`` in a subprocess on a synthetic
-    fused set in the reference's layout (mp4v clips of 48 frames at 256^2
-    with 4 s PCM sidecars: 32 train clips, one step at 8 x 4, and 8 val
-    clips): one step on the graph route, its Train Loss line and the val
-    AUC line."""
-    import tempfile
+CKPT_MODEL_SAVE = 5  # the JAX default cadence: a save after step 4 of 5
+# K5's kernels in a Chrome trace (hop::dq_bf16, hop::dkdv_bf16 and the
+# forward's wtile::attn_bf16, whose instance K3 shares but which only K5
+# runs in training)
+K5_TRACE_NAMES = ("dq_bf16", "dkdv_bf16", "attn_bf16")
+
+
+class AssembledFused:
+    """The optimizer steps' batches of RawFused, assembled once by one
+    train-side FeatureAssembler, so that every Trainer of phase 14 takes the
+    same inputs (the uninterrupted run's step and the resumed run's); the
+    val loader holds one micro-batch of the first."""
+
+    def __init__(self, cfg, raw, dev):
+        from deepfake_tpu_torch.compiled import map_leaves
+        from deepfake_tpu_torch.data.pipeline import FeatureAssembler
+
+        asm = FeatureAssembler(cfg, train=True, device=dev)
+        self.batches = [asm(x8, y) for x8, y in raw.batches]
+        b = cfg.optim.batch_size
+        x, y = self.batches[0]
+        self.val = [(map_leaves(lambda t: t[:b], x), y[:b])]
+
+    def train_loader(self):
+        return self.batches
+
+    def val_loader(self):
+        return self.val
+
+
+def wait_for_line(path, text: str, proc, timeout: float, what: str) -> None:
+    """Polls the log at ``path`` until it holds ``text``; fails when ``proc``
+    ends first or ``timeout`` seconds pass."""
+    t = time.perf_counter()
+    while True:
+        if os.path.exists(path) and text in open(path).read():
+            return
+        if proc.poll() is not None:
+            fail(f"{what}: exited {proc.returncode} before '{text}': "
+                 + (open(path).read()[-2000:] if os.path.exists(path) else ""))
+        if time.perf_counter() - t > timeout:
+            fail(f"{what}: no '{text}' in {timeout:.0f} s")
+        time.sleep(0.1)
+
+
+def phase_checkpoints(cfg, dev, gen, report, seed: int, ckpt_dir: str):
+    """Checkpoints of the fused model at full width on the graph route (the
+    preset: 8 x 4, bf16 compute, f32 masters), the Trainers in turn (each
+    ~28 GB peak and a ~17 GB graph pool), on five seeded raw batches
+    assembled once (AssembledFused):
+      1. Trainer A captures its step and eval graphs (state and step left as
+         they were), then runs Trainer.train for one epoch of the five steps with
+         log.model_save = 5 (a save after step 4, the JAX cadence),
+         log_step = 1, an HbmTracker census at step 5 and log.profile_dir
+         set: the checkpoint's bytes and the save's ms (synchronised
+         first), the loop's `duty |` line after step 5 and its ckpt share
+         (one save in five steps of replays: the steady state), the trace file
+         naming K5's kernels, the tracker file's lines, whether the curves
+         were drawn (matplotlib) or not; step 5's loss and the weights
+         after it (uninterrupted). K5's launches over the captures and the
+         loop (counts set to 0 just before, read just after: the capture's;
+         the replays' are the graph's launches x replays).
+      2. Trainer B, built fresh, loads the checkpoint (ms): every tensor
+         equal to the file's to the bit, step 4, epoch 0; with the dropout
+         generator set to A's state at the save (the checkpoint does not
+         hold it, as the JAX one does not hold Trainer.rng), its step 5,
+         the first on its graph route (the capture), against A's.
+      3. The checkpoint loaded again into B, whose step graph is captured:
+         every state tensor's data_ptr unchanged, and step 5 replayed; then
+         that loaded state copied back twice (from a copy on the card) for
+         two eager steps 5 (the eager spread). Every
+         step 5's loss equals A's to the bit (a forward of the same state
+         with the same masks); the weights after it equal A's to the bit
+         where the two eager steps agree to the bit, else within
+         SPREAD_MULTIPLE of their spread (K5's dbias atomics, cuDNN).
+      4. Predictor.from_checkpoint serves fused b8 on the graph route, a
+         Predictor of the same state on the eager route: parameters equal to the checkpoint's (in bf16) to the
+         bit, graph logits equal to eager to the bit, latency beside phase
+         3's; K1 and K2 launched.
+      5. The training CLI on 40 mp4v clips (32 train, 8 val; 48 frames of
+         256^2, 4 s PCM sidecars) with -e 1 --model_save 2, stopped by
+         SIGTERM after its first checkpoint (after step 1: the (t + 1) %
+         model_save cadence), then --Resume from it, stopped by SIGTERM
+         after epoch 0's val line (epoch 0 re-entered at step 2; its Train
+         Loss and val AUC lines). Phase 11 runs the inference CLI with
+         --Resume of A's checkpoint (in ``ckpt_dir``).
+    Returns A's checkpoint, the kernel counts of A's loop and of the
+    serving run, and the graph launches (captured x replays) of each."""
+    import copy
+    import gc
+    import signal
 
     import torch
 
     from deepfake_tpu_torch.data.synthetic import make_synthetic_trainset
+    from deepfake_tpu_torch.io import checkpoint as ckmod
+    from deepfake_tpu_torch.io.checkpoint import momentum_names, read_checkpoint
+    from deepfake_tpu_torch.serving import Predictor
+    from deepfake_tpu_torch.train.trainer import Trainer
 
+    key = "checkpoints"
+    card = report["card"]
+    steps = CKPT_MODEL_SAVE
+    o = cfg.optim
+    data = AssembledFused(cfg, RawFused(cfg, o.batch_size * o.accum_step, steps, dev, gen), dev)
+    res = {"card": card, "model_save": CKPT_MODEL_SAVE}
     repo = os.path.dirname(os.path.abspath(__file__))
-    res = {}
+    cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
+        # 1. Trainer A: the loop, its save after step 4, its hooks
+        ca = copy.deepcopy(cfg)
+        # log_step 1: the host reads each step's metric, so "step" holds the
+        # step's device time and "ckpt" the save alone
+        ca.log.model_save, ca.log.log_step, ca.log.hbm_track_step = CKPT_MODEL_SAVE, 1, steps
+        ca.log.ckpt_dir = ca.log.curve_dir = ckpt_dir  # phase 11 serves the checkpoint too
+        ca.log.profile_dir = os.path.join(tmp, "trace")
+        lines = []
+        t_phase = time.perf_counter()
+        a = Trainer(None, ca, data, logger=lines.append, device=dev)
+        # one epoch of the loop, the cosine horizon (4 epochs x 5 steps)
+        # fixed at construction as B's is
+        ca.optim.epochs = 0
+        rec = {"loss": [], "fsync_s": 0.0}
+        real_step, real_save = a.train_step, a.save_ckpt
+        real_payload, real_fsync = ckmod.checkpoint_payload, os.fsync
+
+        def payload_spy(*args):
+            t0 = time.perf_counter()
+            out = real_payload(*args)
+            rec["payload_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def fsync_spy(fd):
+            t0 = time.perf_counter()
+            real_fsync(fd)
+            rec["fsync_s"] += time.perf_counter() - t0
+
+        def step_spy(x, y):
+            out = real_step(x, y)
+            rec["loss"].append(out["loss"].detach().clone())  # on the device: no sync
+            return out
+
+        def save_spy(epoch):
+            rec["gen"] = a.dropout.get_state()  # the dropout stream before step 5
+            torch.cuda.synchronize()  # the step in flight, then the save alone
+            t0 = time.perf_counter()
+            rec["path"] = real_save(epoch)
+            rec["save_ms"] = (time.perf_counter() - t0) * 1e3
+            return rec["path"]
+
+        a.train_step, a.save_ckpt = step_spy, save_spy
+        ckmod.checkpoint_payload, os.fsync = payload_spy, fsync_spy
+        os.chdir(tmp)  # HbmTracker writes ./hbm_track/
+        try:
+            torch.cuda.synchronize()
+            reset_counts()  # the training path's run starts here
+            # the step and eval graphs captured first (the capture leaves
+            # the state and step as they were): the loop's five steps are
+            # replays, the steady state whose duty shares are wanted
+            t0 = time.perf_counter()
+            a._step_graph(data.batches[0])
+            a._eval_step(*data.val[0])
+            torch.cuda.synchronize()
+            res["capture_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            a.train()
+            torch.cuda.synchronize()
+            loop_counts = counts()  # ... and ends here
+        finally:
+            os.chdir(cwd)
+            ckmod.checkpoint_payload, os.fsync = real_payload, real_fsync
+        res["loop_s"] = time.perf_counter() - t0
+        res["save_payload_ms"] = rec["payload_ms"]
+        res["save_fsync_ms"] = rec["fsync_s"] * 1e3
+        (g,) = (g for k, g in a.graphs.graphs.items() if k[0] == "train")
+        loop_graph = {k: v * g.replays for k, v in g.launches.items()}
+        if g.replays != steps or not all(loop_counts[k] for k in ("window_attn3d_train_fwd",
+                                                                  "window_attn3d_train_bwd")):
+            fail(f"{key}: the loop replayed {g.replays} steps, K5 launches {loop_counts}")
+        path = rec["path"]
+        want_name = f"deepfake_modalityfused_batch{o.batch_size}_epoch0_step{steps - 1}"
+        if os.path.basename(path) != want_name or a.step != steps:
+            fail(f"{key}: saved {path} at model_save {CKPT_MODEL_SAVE}; the loop ended at "
+                 f"step {a.step}")
+        res["ckpt_bytes"] = os.path.getsize(path)
+        res["save_ms"] = rec["save_ms"]
+        duty = [s for s in lines if s.startswith("duty |")]
+        m = re.search(r"ckpt ([\d.]+)%", duty[-1]) if duty else None
+        if not m or not any(s.startswith("| epoch  0 | step    5") for s in lines):
+            fail(f"{key}: no duty line with a ckpt share, or no step-5 loss line: {lines}")
+        res["duty_line"] = duty[-1]
+        res["ckpt_share"] = float(m.group(1)) / 100
+        t0 = time.perf_counter()
+        traces = os.listdir(ca.log.profile_dir)
+        trace_text = open(os.path.join(ca.log.profile_dir, traces[0])).read() if traces else ""
+        found = [n for n in K5_TRACE_NAMES if n in trace_text]
+        res["trace"] = dict(files=len(traces), mib=len(trace_text) / 2 ** 20, k5_names=found)
+        if found != list(K5_TRACE_NAMES):
+            fail(f"{key}: the loop's trace ({len(traces)} files) names {found} of K5's kernels")
+        del trace_text
+        res["trace_read_s"] = time.perf_counter() - t0
+        hbm_dir = os.path.join(tmp, "hbm_track")
+        tracked = "".join(open(os.path.join(hbm_dir, f)).read() for f in os.listdir(hbm_dir))
+        res["hbm_track_lines"] = len(tracked.strip().splitlines())
+        if f"At step {steps} Total HBM bytes:" not in tracked or res["hbm_track_lines"] < 3:
+            fail(f"{key}: the HbmTracker file holds {tracked[:500]!r}")
+        res["curves"] = ("drawn" if any(f.endswith(".png") for f in os.listdir(ca.log.ckpt_dir))
+                         else "not drawn: " + next((s for s in lines if "matplotlib" in s),
+                                                   "no line"))
+        loss_a = float(rec["loss"][steps - 1])
+        w_a = [p.detach().clone() for p in a.model.parameters()]
+        res["uninterrupted_step5_loss"] = loss_a
+        del a, g, real_step, real_save
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["part_s"] = {"1_loop": time.perf_counter() - t_phase}
+
+        # 2. Trainer B: a fresh run from the checkpoint
+        t_part = time.perf_counter()
+        b = Trainer(None, copy.deepcopy(cfg), data, logger=lambda s: None, device=dev)
+        ptrs = [t.data_ptr() for t in b._state()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.load_ckpt(path)
+        torch.cuda.synchronize()
+        res["load_ms"] = (time.perf_counter() - t0) * 1e3
+        saved = read_checkpoint(path)
+        momentum = dict(zip(momentum_names(b.model, b.optimizer), b.optimizer.bufs))
+        bad = [k for k, v in b.model.state_dict().items() if not torch.equal(v.cpu(),
+                                                                             saved["model"][k])]
+        bad += [k for k, v in momentum.items() if not torch.equal(v.cpu(), saved["momentum"][k])]
+        if bad or (b.step, b.start_epoch) != (steps - 1, 0) or saved["epoch"] != 0:
+            fail(f"{key}: loaded {len(bad)} tensors unequal to the file's ({bad[:3]}), step "
+                 f"{b.step}, epoch {b.start_epoch}")
+        res["tensors_checked"] = len(saved["model"]) + len(saved["momentum"])
+        saved = saved["model"]  # for the Predictor's check below
+        del momentum
+        x5, y5 = data.batches[steps - 1]
+
+        def step5(route: str, restore=None):
+            if restore is not None:
+                restore()
+            b.dropout.set_state(rec["gen"])
+            if route == "graph":
+                out = b.train_step(x5, y5)
+            else:  # the eager route's step function on the same Trainer
+                b.optimizer.set_lr(b.lr(b.step))
+                out = b._step(b._put_batch(x5, y5))
+                b.step += 1
+            loss = float(out["loss"])
+            return loss, [p.detach().clone() for p in b.model.parameters()]
+
+        loss_b, w_b = step5("graph")  # the capture, then a replay
+        # 3. into the captured graph, then two eager steps from the same
+        # loaded state (kept on the card and copied back, as the load
+        # copies: a second read of the file would only cost time)
+        before = [t.data_ptr() for t in b._state()]
+        loaded = []
+
+        def load():
+            b.load_ckpt(path)
+            loaded[:] = [t.detach().clone() for t in b._state()]
+
+        def back_to_loaded():
+            with torch.no_grad():
+                for t, v in zip(b._state(), loaded):
+                    t.copy_(v)
+            b.step = steps - 1
+
+        loss_r, w_r = step5("graph", load)
+        kept = [t.data_ptr() for t in b._state()] == before == ptrs
+        (gb,) = (g for k, g in b.graphs.graphs.items() if k[0] == "train")
+        loss_e1, w_e1 = step5("eager", back_to_loaded)
+        loss_e2, w_e2 = step5("eager", back_to_loaded)
+        del loaded
+        spread = max_gap(w_e1, w_e2)
+        scale = max(w.abs().max().item() for w in w_a)
+        tol = SPREAD_MULTIPLE * spread + SPREAD_FLOOR * scale
+        gaps = {"resumed_vs_uninterrupted": max_gap(w_a, w_b),
+                "replay_after_load_vs_eager": max_gap(w_r, w_e1),
+                "replay_after_load_vs_uninterrupted": max_gap(w_a, w_r)}
+        losses = {"uninterrupted": loss_a, "resumed_graph": loss_b, "loaded_replay": loss_r,
+                  "eager": loss_e1, "eager_2": loss_e2}
+        res.update(step5_losses=losses, weight_gaps=gaps, eager_spread=spread, weight_tol=tol,
+                   data_ptrs_kept=kept, graph_replays=gb.replays)
+        if not kept or gb.replays != 2:
+            fail(f"{key}: load_ckpt moved a state tensor ({kept}) or the graph replayed "
+                 f"{gb.replays} times")
+        if len(set(losses.values())) != 1:
+            fail(f"{key}: step 5's losses from one state differ: {losses}")
+        if spread == 0.0 and any(gaps.values()):
+            fail(f"{key}: two eager steps agree to the bit, the resumed ones do not: {gaps}")
+        if any(v > tol for v in gaps.values()):
+            fail(f"{key}: weights after step 5 differ by {gaps}, past {SPREAD_MULTIPLE} x the "
+                 f"eager spread {spread:.3e} (+ floor)")
+        del b, gb, w_a, w_b, w_r, w_e1, w_e2
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["part_s"]["2_3_resume"] = time.perf_counter() - t_part
+
+        # 4. serving the checkpoint
+        t_part = t0 = time.perf_counter()
+        pred = Predictor.from_checkpoint(cfg, path, device=dev)
+        res["from_checkpoint_s"] = time.perf_counter() - t0
+        eager = Predictor(cfg, device=dev, compiled=False, state=saved)  # the file read once
+        bad = [k for k, v in pred.model.state_dict().items()
+               if not torch.equal(v.cpu(), saved[k].to(v.dtype))]
+        if bad:
+            fail(f"{key}: the Predictor's {bad[:3]} are not the checkpoint's")
+        del saved
+        requests = [fused_inputs(cfg, 8, dev, gen) for _ in range(3)]
+        reset_counts()  # the serving path's run starts here
+        t0 = time.perf_counter()
+        serve(pred, requests[:1])  # captures
+        res["first_call_s"] = time.perf_counter() - t0
+        lat, _ = serve(pred, requests)
+        serve_counts = counts()  # ... and ends here
+        (gp,) = pred.graphs.graphs.values()
+        serve_graph = {k: v * gp.replays for k, v in gp.launches.items()}
+        if not (serve_counts["inception_block"] and serve_counts["window_attn_tokens"]):
+            fail(f"{key}: serving the checkpoint launched {serve_counts}")
+        logits = [graph_equals_eager(pred, eager, r, f"{key} serving") for r in requests[:2]]
+        if torch_equal(*logits):
+            fail(f"{key}: two requests gave the same logits")
+        res["serving_p50_b8_ms"] = statistics.median(lat) * 1e3
+        res["phase3_graph_p50_b8_ms"] = report["serving"]["graph_route"]["p50_b8_s"] * 1e3
+        del pred, eager, logits
+        torch.cuda.empty_cache()
+        res["part_s"]["4_serve"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # 5. the CLIs on mp4 files
         root = os.path.join(tmp, "data")
+        cli = os.path.join(tmp, "cli")
+        os.makedirs(cli)
         t = time.perf_counter()
-        make_synthetic_trainset(root, 32, 8, frames=INGEST_FRAMES, size=INGEST_SIDE,
+        B = o.batch_size  # one optimizer step of train clips, one batch of val clips
+        make_synthetic_trainset(root, B * o.accum_step, B, frames=INGEST_FRAMES, size=INGEST_SIDE,
                                 seconds=INGEST_SECONDS, seed=seed)
         res["write_s"] = time.perf_counter() - t
-        logfile = os.path.join(tmp, "train.log")
-        cmd = [sys.executable, "-m", "deepfake_tpu_torch.train", "--preset", "fused",
-               "--data_root", root, "-e", "0", "--log_step", "1", "--log_dir", logfile,
-               "--random_seed", str(cfg.random_seed)]
+        env = dict(os.environ, PYTHONPATH=repo)
+        train = [sys.executable, "-m", "deepfake_tpu_torch.train", "--preset", "fused",
+                 "--data_root", root, "-e", "1", "--log_step", "1", "--model_save", "2",
+                 "--random_seed", str(cfg.random_seed)]
+        log1 = os.path.join(cli, "train_1.log")
         t = time.perf_counter()
-        run = subprocess.run(cmd, cwd=tmp, env=dict(os.environ, PYTHONPATH=repo),
-                             capture_output=True, text=True, timeout=900)
-        res["cli_s"] = time.perf_counter() - t
-        text = open(logfile).read() if os.path.exists(logfile) else ""
-        if run.returncode != 0 or "Train Loss Avg" not in text or "AUC:" not in text:
-            fail(f"fused train CLI: exit {run.returncode}; log {text[-2000:]}; "
-                 f"{run.stdout[-1500:]} {run.stderr[-2000:]}")
-        res["lines"] = [line.split(" ", 2)[-1] for line in text.splitlines()
-                        if "Train Loss" in line or "Phase:" in line]
-    torch.cuda.empty_cache()
-    report["fused_train_cli"] = res
-    log(f"fused train CLI: 32 + 8 clips written in {res['write_s']:.1f} s; one step and the "
-        f"val pass in {res['cli_s']:.1f} s: " + " / ".join(res["lines"]))
+        with open(os.path.join(cli, "train_1.out"), "w") as out:
+            proc = subprocess.Popen(train + ["--log_dir", log1], cwd=cli, env=env, stdout=out,
+                                    stderr=subprocess.STDOUT)
+            try:
+                wait_for_line(log1, "checkpoint saved", proc, 600, "train CLI")
+                proc.send_signal(signal.SIGTERM)
+                code = proc.wait(timeout=120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        res["cli_first_run_s"] = time.perf_counter() - t
+        text1 = open(log1).read()
+        out1 = open(os.path.join(cli, "train_1.out")).read()
+        saves = re.findall(r"checkpoint saved: (\S+)", text1)
+        ckpt = saves[0] if saves else ""
+        if code != 0 or "Program Killed by signal" not in out1 or not os.path.exists(ckpt) \
+                or not ckpt.endswith("_epoch0_step1") or "| epoch  0 | step    1" not in text1:
+            fail(f"train CLI: exit {code} on SIGTERM; log {text1[-2000:]} {out1[-1500:]}")
+        # resumed, and stopped once epoch 0 (re-entered at step 2) has its val line
+        log2 = os.path.join(cli, "train_2.log")
+        t = time.perf_counter()
+        with open(os.path.join(cli, "train_2.out"), "w") as out:
+            proc = subprocess.Popen(train + ["--log_dir", log2, "--Resume", "--fused_ckpt_path",
+                                             ckpt], cwd=cli, env=env, stdout=out,
+                                    stderr=subprocess.STDOUT)
+            try:
+                wait_for_line(log2, "AUC:", proc, 600, "train CLI --Resume")
+                proc.send_signal(signal.SIGTERM)
+                code = proc.wait(timeout=120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        res["cli_resumed_run_s"] = time.perf_counter() - t
+        text2 = open(log2).read()
+        steps2 = re.findall(r"\| epoch +(\d+) \| step +(\d+) \|", text2)
+        if code != 0 or f"Load Finetuned Model From:{ckpt}" not in text2 \
+                or steps2[:1] != [("0", "2")]:
+            fail(f"train CLI --Resume: exit {code}, steps {steps2}; log {text2[-2500:]} "
+                 + open(os.path.join(cli, "train_2.out")).read()[-1500:])
+        res["cli_resumed_lines"] = [ln.split(" ", 2)[-1] for ln in text2.splitlines()
+                                    if "Train Loss" in ln or "Phase:" in ln]
+        res["part_s"]["5_cli"] = time.perf_counter() - t_part
+    report["checkpoints"] = res
+    log(f"{key}: fused 8 x 4, graph route: checkpoint {res['ckpt_bytes'] / 2 ** 30:.3f} GiB, "
+        f"save {res['save_ms']:.0f} ms (to the host {res['save_payload_ms']:.0f}, fsync "
+        f"{res['save_fsync_ms']:.0f}), load {res['load_ms']:.0f} ms; the loop's "
+        f"{res['duty_line']!r} (ckpt share {res['ckpt_share']:.3f} at model_save "
+        f"{CKPT_MODEL_SAVE}); curves {res['curves']}; trace {res['trace']}; tracker "
+        f"{res['hbm_track_lines']} lines; captures {res['capture_s']:.1f} s, loop "
+        f"{res['loop_s']:.1f} s, trace read {res['trace_read_s']:.1f} s; parts "
+        + json.dumps({k: round(v, 1) for k, v in res["part_s"].items()}) + f" ({card})")
+    log(f"{key}: step 5 resumed, replayed after a load into the captured graph and eager: "
+        f"losses {res['step5_losses']} (equal to the bit); weights vs uninterrupted "
+        f"{json.dumps(res['weight_gaps'])}, eager spread {res['eager_spread']:.3e}; data_ptrs "
+        f"kept; {res['tensors_checked']} tensors equal to the file's ({card})")
+    log(f"{key}: Predictor.from_checkpoint b8 graph p50 {res['serving_p50_b8_ms']:.2f} ms "
+        f"(phase 3, random weights: {res['phase3_graph_p50_b8_ms']:.2f} ms), graph = eager to "
+        f"the bit ({card})")
+    log(f"{key}: {B + B * o.accum_step} mp4 clips written in {res['write_s']:.1f} s; train "
+        f"CLI stopped by SIGTERM after its step-1 checkpoint ({res['cli_first_run_s']:.1f} s), "
+        f"resumed at step 2 of epoch 0 and stopped after its val pass "
+        f"({res['cli_resumed_run_s']:.1f} s): " + " / ".join(res["cli_resumed_lines"]))
+    return path, (loop_counts, loop_graph), (serve_counts, serve_graph)
 
 
 def phase_video_swin_train_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int,
@@ -2575,20 +2967,22 @@ def ingest_launches(graphs):
     return counts(), dict(replayed)
 
 
-def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int):
+def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int, ckpt: str):
     """The main path from video files (data ingest, SubmitCtl and the CLI),
     on the graph route (the default on the card), each kernel's counts set to
     0 before its path and read after it:
       fused: a synthetic test set of INGEST_CLIPS mp4v clips (cv2.VideoWriter,
-        48 frames of 256^2, 4 s PCM sidecars) scored by SubmitCtl.submit in
+        48 frames of 256^2, 4 s PCM sidecars) scored with the weights of
+        phase 14's checkpoint ``ckpt`` (Predictor.from_checkpoint) by SubmitCtl.submit in
         b8 batches (the last, of 4, padded to 8) through K1 and K2: the first run
         captures the graph, the second is timed (clips/s from files), a third
         under torch.profiler (the device's idle share); every score equal to
         the bit to predict_raw of its batch through the same Predictor; the
         loader alone (decode and collate) by seek and by sequential sampling
-        (the same frames); then the CLI (python -m deepfake_tpu_torch.test) in
-        a subprocess, stopped by SIGTERM once prediction.csv holds 8 rows and
-        run again: each clip exactly once.
+        (the same frames); then the CLI (python -m deepfake_tpu_torch.test
+        --Resume --fused_ckpt_path ckpt) in a subprocess, stopped by SIGTERM
+        once prediction.csv holds 8 rows and run again: each clip exactly
+        once, every score equal to the bit to the in-process one.
       video_swin (Video Swin-S): score_long_video on one 96-frame clip through
         K3 and K4, equal to the bit to the mean of predict_raw over its windows.
       audio (SwinV2-B, window 16, 256^2): score_file on one clip through K6
@@ -2596,7 +2990,6 @@ def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int):
     Returns {path: (counts, graph launches)}."""
     import copy
     import signal
-    import tempfile
 
     import cv2
     import torch
@@ -2644,7 +3037,7 @@ def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int):
 
         # fused: SubmitCtl on the graph route
         t = time.perf_counter()
-        pred = Predictor(cfg, device=dev)
+        pred = Predictor.from_checkpoint(cfg, ckpt, device=dev)
         torch.cuda.synchronize()
         res["predictor_build_s"] = time.perf_counter() - t
         spans = []
@@ -2705,7 +3098,8 @@ def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int):
         cli = os.path.join(tmp, "cli")
         os.makedirs(cli)
         cmd = [sys.executable, "-m", "deepfake_tpu_torch.test", "--preset", "fused",
-               "--data_root", root, "-b", str(B), "--random_seed", str(cfg.random_seed)]
+               "--data_root", root, "-b", str(B), "--random_seed", str(cfg.random_seed),
+               "--Resume", "--fused_ckpt_path", ckpt]
         env = dict(os.environ, PYTHONPATH=repo)
         csv = os.path.join(cli, "prediction.csv")
         t = time.perf_counter()
@@ -2724,14 +3118,15 @@ def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int):
                     proc.wait()
         log1 = open(os.path.join(tmp, "cli_1.log")).read()
         stopped = len(csv_rows(csv))
-        if code != 0 or "Program Killed by signal" not in log1:
+        load_line = f"Load Finetuned Model From:{ckpt}"
+        if code != 0 or "Program Killed by signal" not in log1 or load_line not in log1:
             fail(f"ingest: the CLI exited {code} on SIGTERM: {log1[-2000:]}")
         res["cli_rows_before_sigterm_stop"] = stopped
         res["cli_first_run_s"] = time.perf_counter() - t
         t = time.perf_counter()
         run = subprocess.run(cmd, cwd=cli, env=env, capture_output=True, text=True, timeout=900)
         res["cli_resumed_run_s"] = time.perf_counter() - t
-        if run.returncode != 0:
+        if run.returncode != 0 or load_line not in run.stdout:
             fail(f"ingest: the resumed CLI run failed: {run.stdout[-2000:]} {run.stderr[-2000:]}")
         rows = csv_rows(csv)
         full = csv_rows(os.path.join(cli, "prediction_full.csv"))
@@ -2741,6 +3136,9 @@ def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int):
             fail("ingest: prediction_full.csv does not hold the resumed run's rows")
         res["cli_max_abs_diff_vs_in_process"] = max(
             abs(float(r[1]) - first[r[0]]) for r in rows)
+        if res["cli_max_abs_diff_vs_in_process"] != 0.0:
+            fail(f"ingest: the CLI's scores of the checkpoint differ from the in-process ones "
+                 f"by {res['cli_max_abs_diff_vs_in_process']:.3e}")
         torch.cuda.empty_cache()
 
         # video_swin: one long clip by sliding windows
@@ -2847,6 +3245,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     gen = torch.Generator(dev).manual_seed(args.seed)
+    laps, mark = {}, [time.perf_counter()]
+
+    def lap(name: str):
+        """The seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        laps[name] = now - mark[0]
+        mark[0] = now
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2871,6 +3276,7 @@ def main() -> int:
         kernels[i]["swin_l_stage3"] = {k: row[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
             "max_abs_err_f32")}
+    lap("2 kernels")
 
     def config(dtype: str, kernels: bool, preset=None):
         cfg = Config.preset(preset) if preset else Config()
@@ -2906,6 +3312,7 @@ def main() -> int:
     record(kernels[0:3], phase_serving(config("bfloat16", True), config("bfloat16", False), dev,
                                        gen, report),
            ("inception_block", "window_attn_tokens", "window_attn_heads"))
+    lap("3 fused serving")
     record(kernels[3:6], phase_video_swin(config("bfloat16", True, "video_swin"),
                                           config("bfloat16", False, "video_swin"), dev, gen,
                                           report),
@@ -2918,14 +3325,17 @@ def main() -> int:
     for i, name in ((3, "window_attn3d_tokens"), (4, "ln_linear"), (5, "mlp_tail")):
         kernels[i]["launches_swin_l"] = swin_l[name]
         kernels[i]["graph_launches_swin_l"] = swin_l_graph.get(name, 0)
+    lap("4 video_swin serving, S and L")
     # training: the eager K5 route, then the graph route (the default)
     record(kernels[6:8], phase_video_swin_train_graph(config("bfloat16", True, "video_swin"),
                                                       config("bfloat16", False, "video_swin"),
                                                       dev, gen, report),
            ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
+    lap("6 video_swin training")
     record(kernels[8:9], phase_audio(config("bfloat16", True, "audio"),
                                      config("bfloat16", False, "audio"), dev, gen, report),
            ("window_attention_multihead",))
+    lap("8 audio serving")
     # Video Swin-B at (16,7,7): serving (K3 at N = 784, K4 at C = 128-1024),
     # then training (K5 at N = 784) on the K5 route
     record(kernels[9:10], phase_video_swin(config_b16("bfloat16", True),
@@ -2935,15 +3345,33 @@ def main() -> int:
     record(kernels[10:12], (phase_video_swin_train(config_b16("bfloat16", True), dev, gen,
                                                    report, key="video_swin_b16 train"), None),
            ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
+    lap("10 video_swin_b16")
     # fused training at 8 x 4 (K5 at N = 49 in SwinV2-B), then its CLI
     record(kernels[12:14], phase_fused_train(config("bfloat16", True, "fused"),
                                              config("bfloat16", False, "fused"), dev, gen,
                                              report),
            ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
-    phase_fused_train_cli(config("bfloat16", True, "fused"), dev, report, args.seed)
-    # the main path from files: ingest, SubmitCtl and the CLI (graph route)
-    ingest = phase_ingest(config("bfloat16", True), config("bfloat16", True, "video_swin"),
-                          config("bfloat16", True, "audio"), dev, report, args.seed)
+    lap("12 fused training")
+    # checkpoints (save, resume, serve), the loop's hooks, the training CLI;
+    # the checkpoint lives on for phase 11's inference CLI
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt, (loop, loop_graph), (served, served_graph) = phase_checkpoints(
+            config("bfloat16", True, "fused"), dev, gen, report, args.seed, ckpt_dir)
+        lap("14 checkpoints")
+        # the main path from files: ingest, SubmitCtl and the CLI (graph route)
+        ingest = phase_ingest(config("bfloat16", True), config("bfloat16", True, "video_swin"),
+                              config("bfloat16", True, "audio"), dev, report, args.seed, ckpt)
+        lap("11 ingest")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for i, counted, graphed, name in (
+            (12, loop, loop_graph, "window_attn3d_train_fwd"),
+            (13, loop, loop_graph, "window_attn3d_train_bwd"),
+            (0, served, served_graph, "inception_block"),
+            (1, served, served_graph, "window_attn_tokens")):
+        kernels[i]["launches_checkpoints"] = counted[name]
+        kernels[i]["graph_launches_checkpoints"] = graphed.get(name, 0)
     for i, path, name in ((0, "fused", "inception_block"), (1, "fused", "window_attn_tokens"),
                           (3, "video_swin", "window_attn3d_tokens"),
                           (4, "video_swin", "ln_linear"), (5, "video_swin", "mlp_tail"),
@@ -2968,6 +3396,9 @@ def main() -> int:
                             report, batch=1, key="video_swin_b16_parity")
     phase_video_swin_train_parity(config_b16("float32", True), config_b16("float32", False), dev,
                                   gen, report, batch=1, key="video_swin_b16_train_parity")
+    lap("5, 7, 9, 10 f32 parity")
+    report["phase_s"] = laps
+    log("phases (s): " + json.dumps({k: round(v, 1) for k, v in laps.items()}))
 
     report["profiler_traces"] = dict(TRACES)
     log(f"profiler: traced calls {json.dumps(TRACES)}")

@@ -110,7 +110,8 @@ class ModelConfig:
     wav_conv_dim: int = 512
     # IRv2 residual blocks A/B/C through the CUDA kernel (csrc/inception_block.cu)
     irv2_fused_blocks: bool = True
-    # checkpoints of each modality; --Resume loads one (not ported: ROADMAP A3)
+    # checkpoints of each modality: --Resume loads the modality's one
+    # (io/checkpoint.py); a reference .pth or .safetensors path raises
     audio_ckpt_path: Optional[str] = None
     video_ckpt_path: Optional[str] = None
     paudio_ckpt_path: Optional[str] = None
@@ -151,8 +152,17 @@ class ParallelConfig:
 
 @dataclass
 class LogConfig:
+    """The training loop's logging, checkpoints and observability
+    (deepfake_tpu/config.py:197-207)."""
+
     log_step: int = 10  # a log line every log_step steps (optimizer steps, batches)
     log_dir: Optional[str] = None  # the log file; None: standard output only
+    model_save: int = 5  # a checkpoint after each step t with (t + 1) % model_save == 0
+    ckpt_dir: str = "./checkpoints"
+    curve_dir: str = "./checkpoints"  # the loss curves' PNGs
+    profile_dir: Optional[str] = None  # a torch.profiler trace of the training loop
+    hbm_track_step: int = 500  # live-tensor census cadence (./hbm_track/)
+    step_deadline_s: float = 600.0  # the watchdog logs a step that runs longer
 
 
 # Video Swin 3D as the reference's shell script runs it: 32 frames, batch 8 x
@@ -269,12 +279,12 @@ _DIRECT = {
     "random_seed": "random_seed", "batch_size": "optim.batch_size",
     "accum_step": "optim.accum_step", "l2_decacy": "optim.weight_decay",
     "epochs": "optim.epochs", "learning_rate": "optim.learning_rate",
-    "log_step": "log.log_step", "log_dir": "log.log_dir",
+    "log_step": "log.log_step", "log_dir": "log.log_dir", "model_save": "log.model_save",
 }
-# flags of the JAX package whose fields the port does not have (pretrained
-# backbones, wav2vec2 checkpoints, checkpoint cadence: ROADMAP A3): parsed,
-# and refused when given
-_NOT_PORTED = ("wav2vec2_dir", "video_pretrained_dir", "audio_pretrained_dir", "model_save")
+# flags of the JAX package that read the reference's checkpoints (pretrained
+# backbones, wav2vec2): parsed, and refused when given, since importing
+# reference checkpoints waits for such files in the repository
+_NOT_PORTED = ("wav2vec2_dir", "video_pretrained_dir", "audio_pretrained_dir")
 
 
 def get_config(argv: Optional[list] = None) -> Config:
@@ -319,7 +329,8 @@ def get_config(argv: Optional[list] = None) -> Config:
     args = p.parse_args(argv)
     for name in _NOT_PORTED:
         if getattr(args, name) not in (None, False):
-            p.error(f"--{name}: the port's config has no such field")
+            p.error(f"--{name}: importing reference checkpoints waits for reference "
+                    "files in the repository")
 
     cfg = Config.preset(args.preset) if args.preset else Config()
     for name, dotted in _DIRECT.items():

@@ -3,6 +3,7 @@
     pred = Predictor(cfg)                       # seeded random weights, on the card
     pred = Predictor(cfg, compiled=False)       # the eager route, on the card
     pred = Predictor(cfg, variables)            # weights from the JAX package's tree
+    pred = Predictor.from_checkpoint(cfg, path) # weights from a training checkpoint
     probs = pred.predict((frames, mel, wave))   # model-ready numpy/torch inputs
     probs = pred.predict_raw({"audio_wave": pcm, "audio_len": lengths})  # raw inputs
 
@@ -36,6 +37,7 @@ import torch
 from deepfake_tpu_torch.compiled import GraphCache, signature
 from deepfake_tpu_torch.config import Config
 from deepfake_tpu_torch.data.pipeline import FeatureAssembler
+from deepfake_tpu_torch.io.checkpoint import load_model_state, read_checkpoint
 from deepfake_tpu_torch.models.registry import (
     build_model, compute_dtype, pack_block_weights, precompute_bias_cache, resolve_device,
 )
@@ -44,13 +46,15 @@ from deepfake_tpu_torch.models.registry import (
 class Predictor:
     """Builds the model once on ``device`` (the card unless the caller passes
     ``device="cpu"``; raises when there is no card and none was named),
-    loads ``variables`` or draws seeded random weights, computes the
-    inference caches from the f32 weights, then casts the parameters to
-    ``cfg.parallel.compute_dtype``. ``compiled``: on the card, each request
-    shape runs as one CUDA graph (see the module's note)."""
+    loads ``variables`` (the JAX package's tree) or ``state`` (a training
+    checkpoint's model state, the port's names) or draws seeded random
+    weights, computes the inference caches from the f32 weights, then casts
+    the parameters to ``cfg.parallel.compute_dtype``. ``compiled``: on the
+    card, each request shape runs as one CUDA graph (see the module's
+    note)."""
 
     def __init__(self, cfg: Config, variables: Optional[Dict[str, Any]] = None, device=None,
-                 compiled: bool = True):
+                 compiled: bool = True, state: Optional[Dict[str, torch.Tensor]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg)
@@ -64,6 +68,10 @@ class Predictor:
             from deepfake_tpu_torch.io.jax_weights import load_jax_variables
 
             load_jax_variables(model, variables)
+        if state is not None:
+            # before the caches below: K1's packed weights and the bias
+            # tables are computed from the loaded weights
+            load_model_state(model, state)
         precompute_bias_cache(model)
         pack_block_weights(model, self.dtype)
         # parameters in the compute type, buffers (BatchNorm running
@@ -77,6 +85,15 @@ class Predictor:
         # predict_raw's labels: none, as one zero on the device (a graph
         # cannot capture a copy from pageable host memory)
         self._no_labels = torch.zeros(1, device=self.device)
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, path: str, device=None,
+                        compiled: bool = True) -> "Predictor":
+        """Serves the weights and BatchNorm statistics of a training
+        checkpoint (``Trainer.save_ckpt``; deepfake_tpu/serving.py:67-78),
+        loaded strictly into the serving model before its caches are
+        computed."""
+        return cls(cfg, device=device, compiled=compiled, state=read_checkpoint(path)["model"])
 
     def _put(self, x):
         if isinstance(x, (tuple, list)):

@@ -10,8 +10,12 @@ sidecars, or ffmpeg), appends ``name,score`` lines to ``./prediction.csv``
 after every batch (a stopped run resumes: the names already there are
 skipped), then writes ``./prediction_full.csv`` with this run's rows and a
 header. Runs on the card unless ``-cuda False`` asks for the CPU; without a
-card and without that flag it raises. The weights are seeded random:
-``--Resume`` with a checkpoint path raises (ROADMAP A3).
+card and without that flag it raises. The weights are seeded random, or
+with ``--Resume`` those of the modality's checkpoint path
+(``--fused_ckpt_path`` ...: a training checkpoint, served by
+``Predictor.from_checkpoint``);
+a reference ``.pth`` or ``.safetensors`` path raises: importing reference
+checkpoints waits for such files in the repository.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import sys
 def main(argv=None):
     from deepfake_tpu_torch.config import get_config
     from deepfake_tpu_torch.data.dataset import DeepFakeDataModule
+    from deepfake_tpu_torch.io.checkpoint import resume_path
     from deepfake_tpu_torch.serving import Predictor
     from deepfake_tpu_torch.train.submit import SubmitCtl
     from deepfake_tpu_torch.utils.logging import Logger
@@ -41,13 +46,11 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, handle_exit)
     signal.signal(signal.SIGINT, handle_exit)
     device = None if cfg.parallel.use_cuda else "cpu"
-    if cfg.model.resume:
-        ckpt = {"audio": cfg.model.audio_ckpt_path, "video": cfg.model.video_ckpt_path,
-                "paudio": cfg.model.paudio_ckpt_path,
-                "fused": cfg.model.fused_ckpt_path}.get(cfg.data.modality)
-        if ckpt:
-            raise NotImplementedError(f"--Resume {ckpt}: checkpoints are not ported (ROADMAP A3)")
-    predictor = Predictor(cfg, device=device)
+    ckpt = resume_path(cfg)
+    predictor = (Predictor.from_checkpoint(cfg, ckpt, device=device) if ckpt
+                 else Predictor(cfg, device=device))
+    if ckpt:
+        logger(f"Load Finetuned Model From:{ckpt}")
     seed_everything(cfg.random_seed, predictor.device)
     dm = DeepFakeDataModule(cfg, device=predictor.device).setup("test")
     ctl = SubmitCtl(predictor, cfg, dm, logger=logger)

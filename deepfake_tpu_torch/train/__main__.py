@@ -13,9 +13,15 @@ augments), and the ``Trainer``; then trains (``Train Loss`` lines every
 with ``--val_model`` evaluates on the val split only, or with
 ``--skip_learning`` stops there. Runs on the card unless ``-cuda False``
 asks for the CPU; without a card and without that flag it raises.
-SIGTERM and SIGINT end the run between two steps. ``--Resume`` with a
-checkpoint path and the pretrained-weight flags raise: checkpoints are not
-ported (ROADMAP A3).
+SIGTERM and SIGINT end the run between two steps. A checkpoint is saved to
+``./checkpoints`` (``log.ckpt_dir``) after each step t with (t + 1) %
+``--model_save`` == 0, the JAX cadence. ``--Resume`` with the modality's
+checkpoint path (``--fused_ckpt_path``, ``--audio_ckpt_path``,
+``--video_ckpt_path``, ``--paudio_ckpt_path``) resumes from it: the weights,
+BatchNorm statistics, momentum and step, re-entering the saved epoch from its
+first batch. A reference ``.pth`` or ``.safetensors`` path, and the
+pretrained-weight flags, raise: importing reference checkpoints waits for
+such files in the repository.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ def main(argv=None):
     from deepfake_tpu_torch.config import get_config
     from deepfake_tpu_torch.data.dataset import DeepFakeDataModule
     from deepfake_tpu_torch.data.pipeline import ModelFeedLoader
+    from deepfake_tpu_torch.io.checkpoint import resume_path
     from deepfake_tpu_torch.models.registry import resolve_device
     from deepfake_tpu_torch.train.trainer import Trainer
     from deepfake_tpu_torch.utils.logging import Logger
@@ -46,12 +53,7 @@ def main(argv=None):
 
     signal.signal(signal.SIGTERM, handle_exit)
     signal.signal(signal.SIGINT, handle_exit)
-    if cfg.model.resume:
-        ckpt = {"audio": cfg.model.audio_ckpt_path, "video": cfg.model.video_ckpt_path,
-                "paudio": cfg.model.paudio_ckpt_path,
-                "fused": cfg.model.fused_ckpt_path}.get(cfg.data.modality)
-        if ckpt:
-            raise NotImplementedError(f"--Resume {ckpt}: checkpoints are not ported (ROADMAP A3)")
+    ckpt = resume_path(cfg)
     device = resolve_device(None if cfg.parallel.use_cuda else "cpu")
     dm = DeepFakeDataModule(cfg, device=device).setup("fit")
 
@@ -69,6 +71,8 @@ def main(argv=None):
             return self.val
 
     trainer = Trainer(None, cfg, Feeds(), logger=logger, device=device)
+    if ckpt:
+        trainer.load_ckpt(ckpt)
     if cfg.optim.val_model:
         logger(f"val: {json.dumps(trainer.eval(Feeds.val))}")
     elif not cfg.optim.skip_learning:

@@ -22,8 +22,12 @@ videos (``video`` and ``video_swin``) by sliding windows of
 ``batch_windows`` windows (the last padded by repeating its last window),
 aggregated by ``mean``, ``max`` or ``top3``.
 
-Weights are the Predictor's: loading checkpoints waits for ROADMAP A3, and
-int8 calibration for A7.
+Weights are the Predictor's. ``load_checkpoint(path)`` swaps in a
+``Predictor.from_checkpoint`` of a training checkpoint on the same device
+and route (this ctl drops the old one, whose graphs, pool and K1 packed
+weights hold the old weights).
+Importing the reference's ``.pth`` checkpoints waits for such files in the
+repository; int8 calibration waits for ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -64,11 +68,24 @@ class SubmitCtl:
         self.prediction_csv = prediction_csv
 
     def load_checkpoint(self, path: str):
-        raise NotImplementedError(f"loading {path}: checkpoints are not ported (ROADMAP A3)")
+        """Serve ``path``'s weights (deepfake_tpu/train/submit.py:124-133): a
+        new Predictor on the old one's device and route. This ctl drops the
+        old one before building the new one: its graphs hold its own
+        weights' addresses and K1's packed copy of them."""
+        from deepfake_tpu_torch.serving import Predictor
+
+        device, compiled = self.predictor.device, self.predictor.graphs is not None
+        self.predictor = None
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.predictor = Predictor.from_checkpoint(self.cfg, path, device=device,
+                                                   compiled=compiled)
+        self.logger(f"Load Finetuned Model From:{path}")
 
     def load_reference_pth(self, path: str):
         raise NotImplementedError(
-            f"loading {path}: reference checkpoints are not ported (ROADMAP A3)")
+            f"loading {path}: importing the reference's .pth checkpoints waits for reference "
+            "files in the repository")
 
     def calibrate(self, batches):
         raise NotImplementedError("int8 calibration is not ported (ROADMAP A7)")

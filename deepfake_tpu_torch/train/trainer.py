@@ -5,6 +5,8 @@
     metrics = trainer.train_step(x, y)       # one optimizer step
     loss = trainer.chained_train_steps(3)(x, y)  # three steps, one batch, no sync
     trainer.eval(data.val_loader())          # loss, acc, AUC
+    path = trainer.save_ckpt(epoch)          # cfg.log.ckpt_dir/deepfake_modality..._step{t}
+    trainer.load_ckpt(path)                  # resume: step, start_epoch, weights, momentum
 
 ``data`` exposes ``train_loader()`` and ``val_loader()``, iterables of
 (inputs, labels) batches (numpy or torch). Inputs are one array or, for the
@@ -55,13 +57,29 @@ has, and what the route does about each:
 The host reads a metric only at ``log_step``. ``chained_train_steps(n)``
 replays the step graph n times on one device-resident batch, writing each
 step's rate in between, with no host sync (deepfake_tpu/train/
-trainer.py:240-270). The JAX trainer's mesh, checkpoints,
-``load_pretrained_backbones``, profiler and duty-cycle timers are not
-ported.
+trainer.py:240-270).
+
+The loop (``train``) is the JAX one (deepfake_tpu/train/trainer.py:314-384):
+epochs ``start_epoch`` .. ``optim.epochs``, the step count ``t`` going on
+from ``self.step``; ``StepTimer`` marks and ``DutyCycle`` buckets
+(``input_wait``, ``step``, ``ckpt``; a ``duty |`` line every ``log_step``
+steps); each step inside a ``StepWatchdog`` section and a profiler range;
+``HbmTracker`` after every step (a census every ``log.hbm_track_step``); a
+checkpoint, then the train and val curves, after each step t with (t + 1) %
+``log.model_save`` == 0 (the JAX cadence, kept); the val pass at each
+epoch's end; a torch.profiler trace of the whole loop into
+``log.profile_dir`` where it is set. ``save_ckpt`` / ``load_ckpt`` write and
+read ``io/checkpoint.py``'s file; a load copies into the existing tensors,
+so the captured step and eval graphs replay the loaded weights, and a
+resumed run re-enters the saved epoch from its first batch
+(``start_epoch``), as the JAX run does. The JAX trainer's mesh and its
+reference ``.pth`` imports are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
@@ -70,13 +88,16 @@ from torch import nn
 
 from deepfake_tpu_torch.compiled import GraphCache, map_leaves, signature
 from deepfake_tpu_torch.config import Config
+from deepfake_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint
 from deepfake_tpu_torch.models.layers import set_dropout_generator
 from deepfake_tpu_torch.models.registry import build_model, compute_dtype, resolve_device
 from deepfake_tpu_torch.train.losses import bce_with_logits
 from deepfake_tpu_torch.train.schedule import SGD, clip_by_global_norm, make_schedule
-from deepfake_tpu_torch.utils.logging import AverageMeter, Logger
+from deepfake_tpu_torch.utils.logging import AverageMeter, Drawer, DutyCycle, Logger, StepTimer
 from deepfake_tpu_torch.utils.metrics import roc_auc
+from deepfake_tpu_torch.utils.profiling import HbmTracker, StepAnnotation, trace
 from deepfake_tpu_torch.utils.seeding import seed_everything
+from deepfake_tpu_torch.utils.watchdog import StepWatchdog
 
 
 class Trainer:
@@ -99,6 +120,7 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
         self.logger = logger or Logger()
         self.accum = max(1, cfg.optim.accum_step)
+        self.modality = cfg.data.modality
         self.align = cfg.optim.use_align_loss and cfg.data.modality == "fused"
         gens = seed_everything(cfg.random_seed, self.device)
         if model is None:
@@ -121,6 +143,7 @@ class Trainer:
         self.lr = make_schedule(o.learning_rate, self.t_max, o.schedule)
         self.optimizer = SGD(self.model.parameters(), o.momentum, o.weight_decay)
         self.step = 0
+        self.start_epoch = 0
 
     # ------------------------------------------------------------------ steps
     def _cast(self, x: torch.Tensor) -> torch.Tensor:
@@ -260,35 +283,92 @@ class Trainer:
     def train(self):
         cfg = self.cfg
         logger = self.logger
+        timer = StepTimer(logger, cfg.log.log_step)
+        duty = DutyCycle(logger, cfg.log.log_step)
         loss_stat = AverageMeter()
+        train_draw = Drawer(self.modality, "train", cfg.log.curve_dir, logger)
+        val_draw = Drawer(self.modality, "val", cfg.log.curve_dir, logger)
         logger(f"[INFO] Start training, lr = {cfg.optim.learning_rate:.6f}")
-        for epoch in range(cfg.optim.epochs + 1):  # epochs 0 .. epochs, as the JAX loop
-            for inputs, labels in self.data.train_loader():
-                metrics = self.train_step(inputs, labels)
-                t = self.step
-                if t % cfg.log.log_step == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    loss_stat.update(m["loss"])
-                    logger("| epoch {:2d} | step {:4d} | lr {:.4E} | Train Loss Avg {:3.5f} "
-                           "| Train Acc {:1.5f}".format(epoch, t, self.lr(t), loss_stat.avg,
-                                                        m["acc"]))
-            val = self.eval(self.data.val_loader())
-            logger(f"Phase:train, Avg Loss:{loss_stat.avg}")
-            logger(f"Phase:val, Avg Loss:{val['loss']}, Acc:{val['acc']}, AUC:{val['auc']}")
-            loss_stat.reset()
+        hbm = HbmTracker(every=cfg.log.hbm_track_step, device_type=self.device.type)
+        watchdog = StepWatchdog(cfg.log.step_deadline_s, on_stall=logger)
+        t = self.step
+        profiled = trace(cfg.log.profile_dir) if cfg.log.profile_dir else contextlib.nullcontext()
+        try:
+            with profiled:
+                for epoch in range(self.start_epoch, cfg.optim.epochs + 1):
+                    timer.mark("dataload")
+                    for inputs, labels in self.data.train_loader():
+                        duty.add("input_wait", timer.report("dataload"))
+                        timer.mark("step")
+                        with watchdog.watch(f"train_step {t}"), StepAnnotation("train", t):
+                            metrics = self.train_step(inputs, labels)
+                        hbm.step()
+                        hbm.track()
+                        t += 1
+                        if t % cfg.log.log_step == 0:
+                            m = {k: float(v) for k, v in metrics.items()}
+                            loss_stat.update(m["loss"])
+                            train_draw.update(m["loss"])
+                            logger("| epoch {:2d} | step {:4d} | lr {:.4E} | Train Loss Avg "
+                                   "{:3.5f} | Train Acc {:1.5f}".format(
+                                       epoch, t, self.lr(t), loss_stat.avg, m["acc"]))
+                            timer.report("step")
+                        # "step" holds the metric read above, where the host
+                        # waits for the card; saves and curves are "ckpt"
+                        duty.add("step", timer.elapsed("step"))
+                        if (t + 1) % cfg.log.model_save == 0:
+                            timer.mark("ckpt")
+                            self.save_ckpt(epoch)
+                            train_draw.draw(epoch)
+                            val_draw.draw(epoch)
+                            duty.add("ckpt", timer.elapsed("ckpt"))
+                        duty.step()
+                        timer.mark("dataload")
+                    val = self.eval(self.data.val_loader(), val_draw)
+                    logger(f"Phase:train, Avg Loss:{loss_stat.avg}")
+                    logger(f"Phase:val, Avg Loss:{val['loss']}, Acc:{val['acc']}, "
+                           f"AUC:{val['auc']}")
+                    loss_stat.reset()
+                    train_draw.reset()
+                    val_draw.reset()
+        finally:
+            watchdog.close()
 
-    def eval(self, loader: Iterable) -> Dict[str, float]:
-        """Mean loss and accuracy over the loader's rows, and the ROC-AUC."""
+    def eval(self, loader: Iterable, draw: Optional[Drawer] = None) -> Dict[str, float]:
+        """Mean loss and accuracy over the loader's rows, and the ROC-AUC;
+        each batch's mean loss into ``draw`` where one is given."""
         loss_stat, acc_stat = AverageMeter(), AverageMeter()
         all_probs, all_labels = [], []
         for inputs, labels in loader:
             out = {k: v.float().cpu().numpy() for k, v in self._eval_step(inputs, labels).items()}
             n = out["probs"].shape[0]
-            loss_stat.update(float(np.mean(out["loss_vec"])), n)
+            loss = float(np.mean(out["loss_vec"]))
+            loss_stat.update(loss, n)
             acc_stat.update(float(np.mean(out["correct"])), n)
             all_probs.append(out["probs"])
             all_labels.append(labels.cpu().numpy() if torch.is_tensor(labels) else
                               np.asarray(labels))
+            if draw is not None:
+                draw.update(loss)
         probs = np.concatenate(all_probs) if all_probs else np.zeros(0)
         labels = np.concatenate(all_labels) if all_labels else np.zeros(0)
         return {"loss": loss_stat.avg, "acc": acc_stat.avg, "auc": roc_auc(probs, labels)}
+
+    # ----------------------------------------------------------- checkpoints
+    def save_ckpt(self, epoch: int) -> str:
+        """The step, weights, BatchNorm statistics, momentum and ``epoch`` to
+        ``log.ckpt_dir``/deepfake_modality{m}_batch{b}_epoch{e}_step{t}."""
+        path = os.path.join(
+            self.cfg.log.ckpt_dir,
+            f"deepfake_modality{self.modality}_batch{self.cfg.optim.batch_size}"
+            f"_epoch{epoch}_step{self.step}")
+        path = save_checkpoint(path, self, epoch)
+        self.logger(f"checkpoint saved: {path}")
+        return path
+
+    def load_ckpt(self, path: str) -> None:
+        """Resume from ``save_ckpt``'s file: the weights, statistics and
+        momentum copied into this Trainer's tensors, ``step`` and
+        ``start_epoch`` (the saved epoch, re-entered from its first batch)."""
+        self.start_epoch = restore_checkpoint(path, self)
+        self.logger(f"Load Finetuned Model From:{path}")

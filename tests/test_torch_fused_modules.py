@@ -9,6 +9,7 @@ tests/test_torch_fused_train.py holds two whole Trainer steps.
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
@@ -417,7 +418,10 @@ def test_training_cli_trains_and_evaluates_on_the_cpu(tmp_path, monkeypatch, one
     """``python -m deepfake_tpu_torch.train`` in process on a synthetic fused
     set (mp4v clips with PCM sidecars) at the tests' small geometry on the
     CPU: one optimizer step (4 clips = 2 x 2), its Train Loss line and the
-    val AUC line; ``--Resume`` with a checkpoint raises (ROADMAP A3)."""
+    val AUC line, and with ``--model_save 2`` a checkpoint after step 1 (the
+    JAX cadence: (t + 1) % model_save == 0); ``--Resume`` from it continues
+    at its step and epoch (epoch 0 re-entered: step 2, no second save); a
+    reference ``.pth`` path raises."""
     from deepfake_tpu_torch.data.synthetic import make_synthetic_trainset
     from deepfake_tpu_torch.train.__main__ import main
 
@@ -427,12 +431,22 @@ def test_training_cli_trains_and_evaluates_on_the_cpu(tmp_path, monkeypatch, one
     log = tmp_path / "train.log"
     argv = ["--preset", "fused", "--data_root", str(root), "-cuda", "False", "-b", "2",
             "--accum_step", "2", "-e", "0", "--log_step", "1", "--num_frames", "2", "-nu", "2",
-            "--log_dir", str(log), "--set", "data.wave_seconds_buckets=[0.5, 1.0]"]
+            "--model_save", "2", "--log_dir", str(log),
+            "--set", "data.wave_seconds_buckets=[0.5, 1.0]"]
     for k, v in SMALL_FUSED.items():
         if k not in ("data.modality", "data.num_frames"):
             argv += ["--set", f"{k}={list(v) if isinstance(v, tuple) else v}"]
     trainer = main(argv)
     text = log.read_text()
     assert trainer.step == 1 and "Train Loss Avg" in text and "AUC:" in text
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        main(argv + ["--Resume", "--fused_ckpt_path", "ckpt/fused"])
+    ckpt = tmp_path / "checkpoints" / "deepfake_modalityfused_batch2_epoch0_step1"
+    assert f"checkpoint saved: {ckpt}" in text
+    resumed = main(argv + ["--Resume", "--fused_ckpt_path", str(ckpt)])
+    text = log.read_text()
+    assert resumed.step == 2 and resumed.start_epoch == 0
+    assert f"Load Finetuned Model From:{ckpt}" in text
+    assert "| epoch  0 | step    2 |" in text and "checkpoint saved" not in text
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == [  # and the train curve
+        "Modality:fused_Phase:train_Epoch0.png", ckpt.name]
+    with pytest.raises(NotImplementedError, match="reference files"):
+        main(argv + ["--Resume", "--fused_ckpt_path", "fused.pth"])

@@ -108,9 +108,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     """Importing every module of deepfake_tpu_torch (the Swin3D model, the
     K3, K4, K5 and K6 wrappers, the training modules, the feature
     assembly, the data modules, SubmitCtl and the CLIs among them, the
-    training CLI ``train/__main__.py`` imported without running) loads no
-    jax* module and nothing of deepfake_tpu, nor cv2 (imported only inside
-    the functions that decode or encode)."""
+    training CLI ``train/__main__.py`` imported without running, the
+    checkpoints and the loop's observability) loads no jax* module and
+    nothing of deepfake_tpu, nor cv2 (imported only inside the functions
+    that decode or encode) nor matplotlib (only inside ``Drawer.draw``)."""
     code = (
         "import importlib, pkgutil, sys, deepfake_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -129,9 +130,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         "        'deepfake_tpu_torch.data.chunking', 'deepfake_tpu_torch.data.synthetic',\n"
         "        'deepfake_tpu_torch.data.audio_images', 'deepfake_tpu_torch.train.submit',\n"
         "        'deepfake_tpu_torch.test', 'deepfake_tpu_torch.audio_preprocess',\n"
-        "        'deepfake_tpu_torch.train.__main__', 'deepfake_tpu_torch.models.fusion'}\n"
+        "        'deepfake_tpu_torch.train.__main__', 'deepfake_tpu_torch.models.fusion',\n"
+        "        'deepfake_tpu_torch.io.checkpoint', 'deepfake_tpu_torch.utils.profiling',\n"
+        "        'deepfake_tpu_torch.utils.watchdog', 'deepfake_tpu_torch.utils.init'}\n"
         "bad += sorted(need - set(sys.modules))\n"
-        "bad += [m for m in ('cv2',) if m in sys.modules]  # cv2 only inside the decoders\n"
+        "bad += [m for m in ('cv2', 'matplotlib') if m in sys.modules]  # imported where used\n"
         "print(len([m for m in sys.modules if m.startswith('deepfake_tpu_torch.')]), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

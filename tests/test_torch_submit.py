@@ -224,13 +224,47 @@ def test_score_file_matches_jax(data_root, modality):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
-def test_checkpoint_loading_is_not_ported():
-    ctl = SubmitCtl(None, both_configs({})[1], None, logger=lambda s: None)
-    for call, arg in ((ctl.load_checkpoint, "ckpt"), (ctl.load_reference_pth, "x.pth")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            call(arg)
+def _audio_checkpoint(tcfg, variables, path):
+    """A training checkpoint (``save_checkpoint`` of a Trainer that took no
+    step) of the port's audio model holding the JAX ``variables``."""
+    from deepfake_tpu_torch.io.checkpoint import save_checkpoint
+    from deepfake_tpu_torch.io.jax_weights import load_jax_variables
+    from deepfake_tpu_torch.models.registry import build_model
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    class NoBatches:
+        def train_loader(self):
+            return []
+
+    model = load_jax_variables(build_model(tcfg, "cpu", train=True), variables)
+    trainer = Trainer(model, tcfg, NoBatches(), logger=lambda s: None, device="cpu")
+    return save_checkpoint(str(path), trainer)
+
+
+def test_checkpoint_loading_is_not_ported(data_root, tmp_path):
+    """What is not ported raises: the reference .pth import (it waits for
+    reference files) and int8 calibration (ROADMAP A7). The port's own
+    checkpoints load: ``SubmitCtl.load_checkpoint`` swaps the random-weight
+    Predictor for one serving the checkpoint's weights, whose submission
+    equals, to the bit, that of a Predictor built on the same weights."""
+    jcfg, tcfg = _configs("audio", data_root)
+    _, variables = _variables(jcfg, seed=46)
+    path = _audio_checkpoint(tcfg, variables, tmp_path / "ckpt")
+    lines = []
+    ctl = _port_ctl(tcfg, Predictor(tcfg, device="cpu"), str(tmp_path / "t.csv"), lines)
+    with pytest.raises(NotImplementedError, match="reference files"):
+        ctl.load_reference_pth("x.pth")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         ctl.calibrate([])
+    old = ctl.predictor
+    ctl.load_checkpoint(path)
+    assert ctl.predictor is not old and ctl.predictor.device.type == "cpu"
+    assert f"Load Finetuned Model From:{path}" in lines
+    got = ctl.submit()
+    want = _port_ctl(tcfg, Predictor(tcfg, variables, device="cpu"), str(tmp_path / "w.csv"),
+                     []).submit()
+    assert list(got) == list(want) and list(got.values()) == list(want.values())
+    assert _rows(tmp_path / "t.csv") == _rows(tmp_path / "w.csv")
 
 
 CLI_SET = ["--set", "data.num_frames=16", "--set", "data.frame_size=56",
@@ -266,17 +300,47 @@ def test_cli_on_the_cpu_writes_both_csvs(data_root, tmp_path):
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(data_root, tmp_path, monkeypatch):
     """Without ``-cuda False`` on a machine with no card the CLI raises, and
-    --Resume with a checkpoint raises (ROADMAP A3); neither writes a CSV."""
+    --Resume with a reference .pth raises (it waits for reference files);
+    neither writes a CSV. ``-cuda False --Resume --audio_ckpt_path`` with a
+    training checkpoint scores with the checkpoint's weights: the CSV of a
+    SubmitCtl over a Predictor built on those weights, to the bit."""
+    import dataclasses
+    import json
+
     from deepfake_tpu_torch import test as cli
+    from deepfake_tpu_torch.config import get_config
 
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = ["--preset", "video_swin", "--data_root", str(data_root), *CLI_SET]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        cli.main(["--preset", "fused", "--Resume", "--fused_ckpt_path", "ckpt", "-cuda", "False"])
+    with pytest.raises(NotImplementedError, match="reference files"):
+        cli.main(["--preset", "fused", "--Resume", "--fused_ckpt_path", "fused.pth",
+                  "-cuda", "False"])
     assert not os.path.exists(tmp_path / "prediction.csv")
+
+    jcfg, tcfg = _configs("audio", data_root)
+    _, variables = _variables(jcfg, seed=47)
+    path = _audio_checkpoint(tcfg, variables, tmp_path / "ckpt")
+    argv = ["-cuda", "False", "--Resume", "--audio_ckpt_path", path]
+    for group in (GEOMETRIES["audio"], {"data.data_root": str(data_root),
+                                        "data.wave_seconds_buckets": (0.5, 1.0),
+                                        "data.num_workers": 2, "optim.batch_size": 2,
+                                        "data.chunk_frames": 16, "data.chunk_stride": 8}):
+        for k, v in group.items():
+            argv += ["--set", f"{k}={json.dumps(list(v) if isinstance(v, tuple) else v)}"]
+    cfg = get_config(argv)
+    as_json = lambda c: json.loads(json.dumps(dataclasses.asdict(c)))  # lists for tuples
+    assert cfg.model.resume and cfg.model.audio_ckpt_path == path
+    assert as_json(cfg.data) == as_json(tcfg.data)
+    assert as_json(dataclasses.replace(cfg.model, resume=False, audio_ckpt_path=None)) == \
+        as_json(tcfg.model)
+    got = cli.main(argv)
+    want = _port_ctl(tcfg, Predictor(tcfg, variables, device="cpu"), str(tmp_path / "w.csv"),
+                     []).submit()
+    assert list(got) == list(want) and list(got.values()) == list(want.values())
+    assert _rows(tmp_path / "prediction.csv") == _rows(tmp_path / "w.csv")
 
 
 def test_prefetcher_and_feed_loader_on_the_cpu(data_root):
