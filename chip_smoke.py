@@ -61,8 +61,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      random uint8 clips: three optimizer steps on the eager K5 route (96 K5
      forward and 96 backward launches a step; the kernel line's launches)
      and Trainer.eval of one batch (K3 and K4 on the trained f32 masters);
-     the same three steps by a second eager Trainer (the spread K5's
-     atomics give); the same three on the graph route (the default: the
+     the same three steps by a second eager Trainer (the spread of sums
+     whose order may change from run to run); the same three on the graph route (the default: the
      first step captures the step graph), whose losses and weights must
      fall within SPREAD_MULTIPLE of that spread, then two more and its
      eval through a graph; then two steps on the plain route from the same
@@ -103,13 +103,26 @@ Phases, in order; any failure exits non-zero and prints no result:
      head; SwinV2-B through K5 at N = 49: 96 forward and 96 backward
      launches a step, the kernel line's N=49 rows), fed by the train-side
      FeatureAssembler from raw clips: three steps on the eager K5 route, the
-     same again (do eager runs repeat to the bit; their spread), the same
-     as one CUDA graph a step (held to the eager route to the bit where the
-     two eager runs agree, else within 4x their spread) and two
-     more replays, then the plain route (K5 off) as the A/B; step ms,
+     same as one CUDA graph a step and two more replays (the timing rows,
+     default configuration), then both again in the deterministic
+     configuration (cuDNN's deterministic algorithms,
+     torch.use_deterministic_algorithms; K5's dbias is summed in a fixed
+     order), where the graph equals the eager route to the bit in losses
+     and weights, then the plain route (K5 off) as the A/B; step ms,
      clips/s, peak memory, idle share, graph pool. Phase 2 holds K5 at
      SwinV2-B's four stage shapes of a b8 micro-batch (cosine inputs:
-     q^ times per-head scales, scale 1).
+     q^ times per-head scales, scale 1), each backward launched twice: dbias
+     repeats to the bit (the K5 rows' "dbias_repeats").
+ 15. the mesh on the card (phase_mesh, right after phase 12): a one-process
+     NCCL group (world_size 1, rank 0) and its (1 data, 1 model) mesh;
+     three fused graph steps at 8 x 4 with the group, in the deterministic
+     configuration, equal to phase 12's deterministic graph steps without
+     a group to the bit (losses and weights: an all-reduce of one rank is
+     exact, and BatchNorm's statistics come from one routine with or
+     without a group); a fused b8 Predictor request with the group equal
+     to one without to the bit; the step ms beside phase 12's graph step,
+     the collectives a step's graph holds and the bytes one step
+     all-reduces (the "mesh:" line).
  13. the training CLI on mp4 files: item 5 of phase 14.
  14. checkpoints of fused training at 8 x 4 on the graph route
      (phase_checkpoints): Trainer.train over five steps with model_save 5,
@@ -136,6 +149,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -987,7 +1001,8 @@ def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7
 
     acc = {d: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "library_device_ms": 0.0, "flops": 0.0, "bytes": 0.0} for d in ("fwd", "bwd")}
-    acc["bwd"].update(device_ms_launch1=0.0, device_ms_launch2=0.0)
+    acc["bwd"].update(device_ms_launch1=0.0, device_ms_launch2=0.0, device_ms_sum_parts=0.0,
+                      workspace_bytes=0)
     errs = {(d, t): 0.0 for d in ("fwd", "bwd") for t in ("float32", "bfloat16")}
     if cases is None:
         cases = k5_cases_3d(dev, batch, stages, window, n)
@@ -1003,6 +1018,11 @@ def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7
             plain_b = lambda: k5.window_attn3d_train_bwd_plain(q, k, v, dout, **kw)
             out = run_f()
             dqkv, dbias = run_b()
+            if dtype == torch.bfloat16:  # dbias is summed in a fixed order: the same bits
+                again = run_b()
+                if not (torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)):
+                    fail(f"K5 bwd {name}: two launches on the same inputs differ")
+                del again
             torch.cuda.synchronize()
             e_f, _ = k5_check(out, plain_f(), f"fwd {name} {dname}")
             want = plain_b()
@@ -1026,8 +1046,16 @@ def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7
                 l1 = sum(v for k, v in by_name.items() if "dq_bf16" in k or "dq_stream" in k)
                 l2 = sum(v for k, v in by_name.items()
                          if "dkdv_bf16" in k or "dkdv_stream" in k)
-                if not (l1 > 0 and l2 > 0):
-                    fail(f"K5 bwd {name}: the profile shows no launch 1 or 2: {by_name}")
+                l3 = sum(v for k, v in by_name.items() if "sum_parts" in k)
+                if not (l1 > 0 and l2 > 0 and l3 > 0):
+                    fail(f"K5 bwd {name}: the profile shows no launch 1, 2 or sum_parts: "
+                         f"{by_name}")
+                # the dS partial sums: a slot for each block of a (head, query tile)
+                n_masks = 0 if mask is None else mask.shape[0]
+                parts = k5._lib().k5_bwd_parts(1, B_, H, n, C // H, max(n_masks, 1),
+                                               mask is not None, k5._group(
+                                                   qkv, H, n, max(n_masks, 1), mask is not None))
+                ws = parts * H * n * n * 4
                 pms_f, pms_b = cuda_time_ms(plain_f, iters=3), cuda_time_ms(plain_b, iters=3)
                 # SDPA forward, and its backward alone, with bias + mask as one
                 # grad-requiring [B_, H, N, N] attn_mask
@@ -1045,7 +1073,6 @@ def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7
                 lib_b = cuda_time_ms(sdpa_b, iters=10)
                 lib_dms_b = device_time_ms(sdpa_b)
                 del hq, hk, hv, am, o, do_h, sdpa_b
-                n_masks = 0 if mask is None else mask.shape[0]
                 for d, ms, dms, pms, lib, lib_dms, (flops, nbytes) in (
                         ("fwd", ms_f, dms_f, pms_f, lib_f, lib_dms_f,
                          k5_flops_bytes(B_, H, C, n_masks, n)[0]),
@@ -1064,9 +1091,12 @@ def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7
                                      ("library_ms", lib), ("library_device_ms", lib_dms),
                                      ("bound_ms", b), ("flops", flops), ("bytes", nbytes)):
                         acc[d][key] += count * val
-                row["bwd"].update(device_ms_launch1=l1, device_ms_launch2=l2)
+                row["bwd"].update(device_ms_launch1=l1, device_ms_launch2=l2,
+                                  device_ms_sum_parts=l3, workspace_bytes=ws, dbias_repeats=True)
                 acc["bwd"]["device_ms_launch1"] += count * l1
                 acc["bwd"]["device_ms_launch2"] += count * l2
+                acc["bwd"]["device_ms_sum_parts"] += count * l3
+                acc["bwd"]["workspace_bytes"] = max(acc["bwd"]["workspace_bytes"], ws)
                 log(f"K5 {name:52s} {dname} err fwd={e_f:.2e} bwd={e_b:.2e}")
             else:
                 row["ms_fwd"] = cuda_time_ms(run_f, iters=3)
@@ -1094,10 +1124,14 @@ def phase_k5(dev, gen, batch: int, report, stages=SWIN3D_STAGES, window=(8, 7, 7
                 "grad-requiring attn_mask")
         if d == "bwd":
             row.update(device_ms_launch1=a["device_ms_launch1"],
-                       device_ms_launch2=a["device_ms_launch2"])
+                       device_ms_launch2=a["device_ms_launch2"],
+                       device_ms_sum_parts=a["device_ms_sum_parts"],
+                       workspace_bytes_largest=a["workspace_bytes"], dbias_repeats=True)
         log(f"K5 N={n} {what} per b8 micro-batch: kernel_ms={a['ms']:.4f} "
             f"device_ms={a['device_ms']:.4f}"
-            + (f" (launch 1 {a['device_ms_launch1']:.4f}, launch 2 {a['device_ms_launch2']:.4f})"
+            + (f" (launch 1 {a['device_ms_launch1']:.4f}, launch 2 {a['device_ms_launch2']:.4f}, "
+               f"sum_parts {a['device_ms_sum_parts']:.4f}; largest dS workspace "
+               f"{a['workspace_bytes'] / 2 ** 20:.1f} MiB; dbias repeats to the bit)"
                if d == "bwd" else "")
             + f" plain_ms={a['plain_ms']:.4f} sdpa_ms={a['library_ms']:.4f} (device "
             f"{a['library_device_ms']:.4f}) bound_ms={a['bound_ms']:.4f}")
@@ -2174,9 +2208,10 @@ def max_gap(a, b) -> float:
 
 
 # the graph route may differ from the eager route by this multiple of the
-# spread of two eager runs from one state (K5's backward adds dS into dbias
-# with atomics, in an order that changes from run to run), and by no less
-# than this share of the quantity's scale (two runs may agree by chance)
+# spread of two eager runs from one state (outside the deterministic
+# configuration some sums, cuDNN's and the bias tables' scatter-adds among
+# them, may change their order from run to run), and by no less than this
+# share of the quantity's scale (two runs may agree by chance)
 SPREAD_MULTIPLE, SPREAD_FLOOR = 4.0, 1e-6
 
 
@@ -2184,7 +2219,7 @@ def phase_video_swin_train_graph(cfg, cfg_plain, dev, gen, report, steps: int = 
     """video_swin training at full width (Video Swin-S, micro-batch 8 x
     accum 4, from the init) fed by the train-side FeatureAssembler from
     uint8 clips: the eager K5 route (the kernel line's launches), a second
-    eager run from the same state (the spread K5's atomics give), the graph
+    eager run from the same state (their spread), the graph
     route (the default on the card) held to the eager route within
     SPREAD_MULTIPLE of that spread, and the plain route (kernels off) from
     the same weights, every route ``steps`` steps. The init's zero biases keep a rotation's
@@ -2339,20 +2374,37 @@ def fused_k5_step_launches(cfg):
     return {"window_attn3d_train_fwd": n, "window_attn3d_train_bwd": n}
 
 
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and torch.use_deterministic_algorithms
+    (warnings only; tools/train_determinism.py), restored after."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
 def phase_fused_train(cfg, cfg_plain, dev, gen, report, steps: int = 3):
     """The fused model's training at full width (the preset: IRv2 on 32
     frames of 224^2, SwinV2-B window 7 on the 224^2 mel image, wav2vec2-base
     on the waveform, the 3-token head; micro-batch 8 x accum 4, bf16 compute,
     f32 masters), fed by the train-side FeatureAssembler from raw clips:
     ``steps`` steps on the eager K5 route (the kernel line's launches), the
-    same steps again eagerly from the same seed (whether eager steps repeat
-    to the bit), the same steps as one CUDA graph a step (the default), held
-    to the eager route to the bit where two eager runs agree to the bit,
-    else within SPREAD_MULTIPLE of their spread (its first loss to the bit
-    always), two more replays, then
-    the same steps on the plain route (K5 off: SwinV2's max-stabilised
-    einsum softmax) from the same weights. Per route: step ms, clips/s,
-    peak memory, one step profiled (idle share); the graph's pool."""
+    same steps as one CUDA graph a step (the default), two more replays,
+    then both routes again in the deterministic configuration (cuDNN's
+    deterministic algorithms, torch.use_deterministic_algorithms), where the
+    graph equals the eager route to the bit in losses and weights (K5's
+    dbias is summed in a fixed order), then the same steps on the plain
+    route (K5 off: SwinV2's max-stabilised einsum softmax) from the same
+    weights. Per route: step ms, clips/s, peak memory, one step profiled
+    (idle share); the graph's pool. The timing rows are the default
+    configuration's. Returns the kernel line's launches, the graph's, and
+    the deterministic graph run (losses, weights) for phase 15."""
     import torch
 
     from deepfake_tpu_torch.train.trainer import Trainer
@@ -2383,58 +2435,22 @@ def phase_fused_train(cfg, cfg_plain, dev, gen, report, steps: int = 3):
         f"masters, {o.batch_size} x {o.accum_step}) built in {time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in te.model.parameters()) / 1e6:.1f} M params")
     reset_counts()  # the main path's run starts here
-    r, w_eager, (x, y) = assembled_steps(te, raw, steps, want, key + " eager")
+    r, _, (x, y) = assembled_steps(te, raw, steps, want, key + " eager")
     launches = counts()  # ... and ends here
     res["eager"] = finish(r, te, x, y)
     del te
     torch.cuda.empty_cache()
 
-    # the same steps again: do two eager runs from one seed repeat to the bit?
-    te2 = Trainer(None, cfg, raw, logger=quiet, device=dev, compiled=False)
-    r2, w_eager2, _ = assembled_steps(te2, raw, steps, want, key + " eager 2")
-    del te2
-    torch.cuda.empty_cache()
-    res["eager_repeat"] = dict(losses=r2["losses"], equal=r2["losses"] == r["losses"],
-                               weight_gap=max_gap(w_eager, w_eager2))
-    del w_eager2
-
     # the graph route: the first step captures, then every step replays
     torch.cuda.reset_peak_memory_stats()
     tg = Trainer(None, cfg, raw, logger=quiet, device=dev)
-    rg, w_graph, _ = assembled_steps(tg, raw, steps, key=key + " graph")
+    rg, _, _ = assembled_steps(tg, raw, steps, key=key + " graph")
     (g,) = (g for k, g in tg.graphs.graphs.items() if k[0] == "train")
     if g.launches != want or g.replays != steps:
         fail(f"{key} graph: captured launches {g.launches} x {g.replays} replays, expected "
              f"{want} x {steps}")
     if rg["per_step_launches"][1:] != [{}] * (steps - 1):
         fail(f"{key} graph: a replay moved the launch counters: {rg['per_step_launches']}")
-    # the graph against the eager route: to the bit where two eager runs
-    # agree to the bit, else within SPREAD_MULTIPLE of their spread (cuDNN's
-    # backward algorithms and K5's dbias atomics sum in an order that may
-    # change from run to run); the first step's loss, a forward of the same
-    # weights with the same masks, to the bit in any case
-    eq = res["eager_repeat"]
-    loss_spread = max(abs(a - b) for a, b in zip(r["losses"], r2["losses"]))
-    loss_gap = max(abs(a - b) for a, b in zip(r["losses"], rg["losses"]))
-    w_gap = max_gap(w_eager, w_graph)
-    loss_tol = SPREAD_MULTIPLE * loss_spread + SPREAD_FLOOR * max(abs(v) for v in r["losses"])
-    w_tol = (SPREAD_MULTIPLE * eq["weight_gap"]
-             + SPREAD_FLOOR * max(w.abs().max().item() for w in w_eager))
-    res["graph_vs_eager"] = dict(loss_gap=loss_gap, weight_gap=w_gap, loss_spread=loss_spread,
-                                 loss_tol=loss_tol, weight_tol=w_tol,
-                                 losses_equal=rg["losses"] == r["losses"])
-    if rg["losses"][0] != r["losses"][0]:
-        fail(f"{key}: the graph route's first loss {rg['losses'][0]} is not the eager "
-             f"route's {r['losses'][0]} to the bit")
-    if eq["equal"] and eq["weight_gap"] == 0.0:
-        if rg["losses"] != r["losses"] or w_gap != 0.0:
-            fail(f"{key}: two eager runs agree to the bit, the graph route does not: losses "
-                 f"{rg['losses']} against {r['losses']}, weights by {w_gap:.3e}")
-    elif not (loss_gap <= loss_tol and w_gap <= w_tol):
-        fail(f"{key}: the graph route's {steps} steps differ from the eager route's by "
-             f"{loss_gap:.3e} (losses) and {w_gap:.3e} (weights), past {SPREAD_MULTIPLE} x the "
-             f"eager spread {loss_spread:.3e} / {eq['weight_gap']:.3e} (+ floor)")
-    del w_eager, w_graph
     more, _, _ = assembled_steps(tg, raw, 2, key=key + " graph")  # steady-state replays
     rg["steady_step_ms"] = more["step_ms"]
     rg["step_ms"] = rg["step_ms"] + more["step_ms"]
@@ -2445,6 +2461,25 @@ def phase_fused_train(cfg, cfg_plain, dev, gen, report, steps: int = 3):
     graph_launches = dict(rg["graph_launches"])
     del tg
     torch.cuda.empty_cache()
+
+    # the deterministic configuration: the graph against the eager route,
+    # to the bit in losses and weights
+    with deterministic():
+        det = {}
+        for name, compiled in (("eager", False), ("graph", True)):
+            t = Trainer(None, cfg, raw, logger=quiet, device=dev, compiled=compiled)
+            det[name] = assembled_steps(t, raw, steps, key=f"{key} deterministic {name}")[:2]
+            del t
+            torch.cuda.empty_cache()
+    (rde, w_de), (rdg, w_dg) = det["eager"], det["graph"]
+    w_gap = max_gap(w_de, w_dg)
+    res["deterministic"] = dict(eager_losses=rde["losses"], graph_losses=rdg["losses"],
+                                losses_equal=rdg["losses"] == rde["losses"], weight_gap=w_gap,
+                                graph_step_ms=rdg["step_ms"])
+    if rdg["losses"] != rde["losses"] or w_gap != 0.0:
+        fail(f"{key} deterministic: the graph route's losses {rdg['losses']} and weights (by "
+             f"{w_gap:.3e}) are not the eager route's {rde['losses']} to the bit")
+    del w_de
 
     # the A/B: the plain route (K5 off) from the same weights
     torch.cuda.reset_peak_memory_stats()
@@ -2472,19 +2507,109 @@ def phase_fused_train(cfg, cfg_plain, dev, gen, report, steps: int = 3):
             f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f} ms, idle share "
             f"{prof['device_idle_share']:.3f} ({report['card']}); top "
             + json.dumps(prof["top_kernels_ms"]))
-    gv = res["graph_vs_eager"]
+    dd = res["deterministic"]
     log(f"{key} graph: pool {rg['pool_bytes'] / 2 ** 20:.0f} MiB, K5 launches captured "
-        f"{g.launches} x {rg['timed_replays']} replays = {graph_launches}; against the eager "
-        f"route: losses equal to the bit {gv['losses_equal']} (gap {gv['loss_gap']:.3e}), "
-        f"weights after {steps} steps differ by {gv['weight_gap']:.3e}; a second eager run: "
-        f"losses {res['eager_repeat']['losses']}, equal to the bit "
-        f"{res['eager_repeat']['equal']}, weights differ by "
-        f"{res['eager_repeat']['weight_gap']:.3e}")
+        f"{g.launches} x {rg['timed_replays']} replays = {graph_launches}; deterministic "
+        f"configuration: graph losses {dd['graph_losses']} equal the eager route's to the bit "
+        f"{dd['losses_equal']}, weights after {steps} steps differ by {dd['weight_gap']:.3e}")
     # the first step's loss is a forward of the same weights on the same
     # inputs: bf16 noise only
     if not d_loss <= 2e-2:
         fail(f"{key}: first-step losses of the K5 and plain routes differ by {d_loss:.3e}")
-    return launches, graph_launches
+    return launches, graph_launches, (raw, rdg, w_dg, res["graph"]["p50_step_ms"])
+
+
+def phase_mesh(cfg, dev, gen, report, det_graph, steps: int = 3):
+    """Phase 15, the mesh on the card: a one-process NCCL group
+    (world_size 1, rank 0) and its (1 data, 1 model) mesh. The fused model
+    at 8 x 4, full width, on the graph route in the deterministic
+    configuration: ``steps`` steps with the group against phase 12's
+    deterministic graph steps without one, from the same seeded weights,
+    batches and generator state, equal to the bit in losses and weights;
+    a b8 fused Predictor request (predict_raw, graph) with the group against
+    one without, equal to the bit. Prints the step ms beside phase 12's
+    graph step, the collectives one step's graph holds (NCCL kernels in a
+    profiled replay, and the calls the step function makes) and the bytes
+    one step all-reduces."""
+    import torch
+    import torch.distributed as dist
+
+    from deepfake_tpu_torch.parallel.dryrun import free_port
+    from deepfake_tpu_torch.parallel.mesh import make_mesh
+    from deepfake_tpu_torch.serving import Predictor
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    raw, r_ref, w_ref, graph_p50 = det_graph
+    key = "mesh"
+    res = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        calls = collections.Counter()
+        nbytes = collections.Counter()
+        real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+        def counted(name):
+            def call(tensor, *a, **kw):
+                calls[name] += 1
+                ts = tensor if isinstance(tensor, (list, tuple)) else [tensor]
+                nbytes[name] += sum(t.numel() * t.element_size() for t in ts)
+                return real[name](tensor, *a, **kw)
+            return call
+
+        with deterministic():
+            tm = Trainer(None, cfg, raw, logger=lambda line: None, device=dev, mesh=mesh)
+            for n in real:
+                setattr(dist, n, counted(n))
+            try:  # the step function runs in Python three times: two warm-ups, the capture
+                rm, w_mesh, (x, y) = assembled_steps(tm, raw, steps, key=key + " train")
+            finally:
+                for n, f in real.items():
+                    setattr(dist, n, f)
+        gap = max_gap(w_ref, w_mesh)
+        if rm["losses"] != r_ref["losses"] or gap != 0.0:
+            fail(f"{key}: the one-process group's steps (losses {rm['losses']}) are not the "
+                 f"steps without a group ({r_ref['losses']}) to the bit; weights by {gap:.3e}")
+        per_step = {n: c // 3 for n, c in calls.items()}  # warm-up x 2 + capture
+        per_step_bytes = {n: b // 3 for n, b in nbytes.items()}
+        grad_bytes = 4 * sum(p.numel() for p in tm.model.parameters())
+        ms = statistics.median(rm["step_ms"][1:])
+        nccl = collections.Counter(k for k, _ in traced(lambda: tm.train_step(x, y))
+                                   if "nccl" in k.lower())
+        res["train"] = dict(losses=rm["losses"], weight_gap=gap, step_ms=rm["step_ms"],
+                            p50_step_ms=ms, graph_p50_step_ms_phase12=graph_p50,
+                            collective_calls_per_step=per_step,
+                            collective_bytes_per_step=per_step_bytes,
+                            gradient_bytes=grad_bytes, nccl_kernels_per_replay=dict(nccl))
+        del tm
+        torch.cuda.empty_cache()
+
+        # serving: a b8 request with the group against one without
+        request = fused_raw(cfg, 8, dev, gen)
+        scores = []
+        with deterministic():
+            for m in (None, mesh):
+                pred = Predictor(cfg, device=dev, mesh=m)
+                scores.append(pred.forward(request, return_logits=True, raw=True))
+                del pred
+                torch.cuda.empty_cache()
+        if not torch_equal(scores[0], scores[1]):
+            fail(f"{key}: the Predictor with the group does not equal the one without to the bit")
+        res["serving_equal"] = True
+    finally:
+        dist.destroy_process_group()
+    report["mesh"] = res
+    tr = res["train"]
+    log(f"{key}: one-process NCCL group, mesh (1 data, 1 model): {steps} fused graph steps "
+        f"equal the steps without a group to the bit (losses {tr['losses']}); step "
+        f"{tr['p50_step_ms']:.1f} ms against phase 12's graph step {graph_p50:.1f} ms "
+        f"(deterministic configuration here, default there; {report['card']}); collectives "
+        f"a step: {json.dumps(tr['collective_calls_per_step'])} calls, "
+        f"{json.dumps(tr['collective_bytes_per_step'])} bytes (the gradients "
+        f"{tr['gradient_bytes'] / 1e9:.3f} GB), NCCL kernels in one replay "
+        f"{json.dumps(tr['nccl_kernels_per_replay'])}; Predictor b8 with the group equals "
+        f"the one without to the bit")
 
 
 CKPT_MODEL_SAVE = 5  # the JAX default cadence: a save after step 4 of 5
@@ -2561,7 +2686,8 @@ def phase_checkpoints(cfg, dev, gen, report, seed: int, ckpt_dir: str):
          step 5's loss equals A's to the bit (a forward of the same state
          with the same masks); the weights after it equal A's to the bit
          where the two eager steps agree to the bit, else within
-         SPREAD_MULTIPLE of their spread (K5's dbias atomics, cuDNN).
+         SPREAD_MULTIPLE of their spread (cuDNN's and other sums whose
+         order may change from run to run).
       4. Predictor.from_checkpoint serves fused b8 on the graph route, a
          Predictor of the same state on the eager route: parameters equal to the checkpoint's (in bf16) to the
          bit, graph logits equal to eager to the bit, latency beside phase
@@ -3217,6 +3343,9 @@ def main() -> int:
     ap.add_argument("--report", help="write the detailed report as JSON to this path")
     args = ap.parse_args()
 
+    # cuBLAS repeats its sums only with a fixed workspace, set before its
+    # first call (phases 12 and 15 run the deterministic configuration)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3347,11 +3476,15 @@ def main() -> int:
            ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
     lap("10 video_swin_b16")
     # fused training at 8 x 4 (K5 at N = 49 in SwinV2-B), then its CLI
-    record(kernels[12:14], phase_fused_train(config("bfloat16", True, "fused"),
-                                             config("bfloat16", False, "fused"), dev, gen,
-                                             report),
+    fused_eager, fused_graph, det_graph = phase_fused_train(
+        config("bfloat16", True, "fused"), config("bfloat16", False, "fused"), dev, gen, report)
+    record(kernels[12:14], (fused_eager, fused_graph),
            ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
     lap("12 fused training")
+    # the mesh: a one-process NCCL group against phase 12's steps without one
+    phase_mesh(config("bfloat16", True, "fused"), dev, gen, report, det_graph)
+    del det_graph
+    lap("15 mesh")
     # checkpoints (save, resume, serve), the loop's hooks, the training CLI;
     # the checkpoint lives on for phase 11's inference CLI
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")

@@ -148,6 +148,13 @@ class ParallelConfig:
     # the reference's -cuda flag (the JAX package accepts and ignores it):
     # False runs the CLIs on the CPU; True on the card, or they raise
     use_cuda: bool = True
+    # the mesh of a multi-device run (parallel/mesh.py; deepfake_tpu/config.py:
+    # 161-186): data x model ranks, -1 on the data axis takes every rank the
+    # model axis leaves; multihost joins the group torchrun's environment
+    # names even at one rank
+    data_axis: int = -1
+    model_axis: int = 1
+    multihost: bool = False
 
 
 @dataclass

@@ -86,10 +86,13 @@
 //       of exponentials (PERF.md, K5 backward's Step 0). The other
 //       warpgroups hand their dq to the first, which refills the stage (the
 //       next window's loads start), then adds and stores. After its windows
-//       the block adds its slab into dbias with one atomic add per element
-//       (the order of that sum varies from run to run: f32 rounding only).
-//       Where the slab does not fit (N > ~440) dS is added into dbias per
-//       window instead.
+//       the block stores its slab into a slot of its own in a workspace of
+//       partial sums [n_groups splits, heads, N, N] f32; a third small
+//       launch (wtile::mma::sum_parts) adds the slots into dbias in slot
+//       order, so dbias repeats to the bit. Where the slab does not fit (N >
+//       ~440) the block adds dS into its slot per window instead (zeroed
+//       first; the thread that owns an element owns it in every window and
+//       its adds apply in program order).
 //     * launch 2 (dk, dv): one block per (head, group, 64-key tile), two
 //       warpgroups and no producer warp: thread 0 streams each window's K
 //       and V tiles, its whole q and dO and its row statistics (a bulk copy)
@@ -113,7 +116,7 @@
 //       and dkdv_stream stream it in tiles of 192 keys (launch 1) or 128
 //       queries (launch 2), the block moving through (window, [sweep,] tile)
 //       items in step, a bf16 tile of the item's columns filled before each,
-//       dS into dbias by atomics (no slab), the row statistics and dq, dk,
+//       dS into the block's slot of the partial sums (no slab), the row statistics and dq, dk,
 //       dv carried across a window's tiles.
 //     Every mbarrier wait traps after 10 s (csrc/hopper.cuh), so a fault in
 //     the schedule is a failed launch, not a hang.
@@ -156,6 +159,7 @@ struct BwdArgs {
   const bf16* mask; int n_masks;
   float* stats;                    // [windows, heads, 3, ns] (Hopper route)
   float* dbias;                    // [heads, n, n] f32, zeroed by the caller
+  float* part;                     // [parts, heads, n, n] f32: each block's dS sums (bf16)
   float scale;
   int n, ns, heads, windows, group;
 };
@@ -399,6 +403,12 @@ __device__ __forceinline__ uint8_t* align512(uint8_t* p) {
   return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 511) &
                                     ~static_cast<uintptr_t>(511));
 }
+// launch 1's slot of the dS partial sums for head h of group-split grp: the
+// blocks of one (head, query tile) write slots 0 .. n_groups splits - 1, and
+// wtile::mma::sum_parts adds them into dbias in that order
+__device__ __forceinline__ float* block_part(const BwdArgs& g, const Plan& p, int h, int grp) {
+  return g.part + ((int64_t)grp * p.heads + h) * g.n * g.n;
+}
 
 // this thread's wgmma A fragments (rows 16 (warp % 4) + lane / 4 and + 8,
 // two k steps of 16) of a [64, 32] bf16 tile that TMA wrote with the 64-byte
@@ -625,8 +635,9 @@ __device__ __forceinline__ void combine_stats(const float* stx, int r, float& m,
 
 // launch 1, sweep 2: one chunk's P (weight, from the row's m and nl) and
 // dS = P (dP - D) (D = rowsum(dP P)); dS into the dbias slab (sa: this thread's slab row a at
-// position 4 (lane % 4)) or, without a slab, into dbias (dg: row a of dbias
-// at key 2 (lane % 4); rows or keys past n skipped); dq += dS K with dS in
+// position 4 (lane % 4)) or, without a slab, into the block's own slot of the
+// partial sums (dg: row a at key 2 (lane % 4); rows or keys past n skipped;
+// the same thread owns an element in every window); dq += dS K with dS in
 // bf16. The product is left in flight: the next chunk's wait covers it.
 template <int W, bool SLAB>
 __device__ __forceinline__ void ds_chunk(const uint32_t (&qa)[2][4], const uint32_t (&oa)[2][4],
@@ -664,8 +675,12 @@ __device__ __forceinline__ void ds_chunk(const uint32_t (&qa)[2][4], const uint3
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int dk = 8 * (q >> 1) + (q & 1), key = key0 + kc + 16 * u + dk;
-          if (key < n)
-            atomicAdd(dg + h * 8 * n + kc + 16 * u + dk, ds[4 * (q >> 1) + 2 * h + (q & 1)]);
+          // an atomic add without a return (red), into this block's own
+          // slot: no other thread touches the element, and one thread's
+          // adds to one address apply in program order (the window
+          // order), so the sum repeats to the bit; a plain load and
+          // store measured 40% slower at N = 784 (the load's latency)
+          if (key < n) atomicAdd(dg + h * 8 * n + kc + 16 * u + dk, ds[4 * (q >> 1) + 2 * h + (q & 1)]);
         }
       }
     }
@@ -748,7 +763,8 @@ __global__ void __launch_bounds__(THREADS1, 1)
   const bool ok_a = q0 + ra < N, ok_b = q0 + ra + 8 < N;
   const uint16_t* ta = tile + ra * p.bpitch + 4 * t4;
   float* sa = slab + ra * p.dpitch + 4 * t4;
-  float* dg = g.dbias + (int64_t)h * N * N + (int64_t)(q0 + ra) * N + 2 * t4;
+  // this block's slot of the partial sums (block_part), row a at key 2 (lane % 4)
+  float* dg = block_part(g, p, h, grp) + (int64_t)(q0 + ra) * N + 2 * t4;
   const int n_chunks = (p.nk + KCH - 1) / KCH;
 
   for (int it = 0; it < nw; ++it) {
@@ -850,11 +866,12 @@ __global__ void __launch_bounds__(THREADS1, 1)
 
   if (SLAB) {
     named_sync(2, CT);  // every warpgroup's slab adds are done
-    float* dbias = g.dbias + (int64_t)h * N * N;
+    // the slab into this block's slot: plain stores, every element of its rows
+    float* part = block_part(g, p, h, grp);
     const int rows = min(BM, N - q0);
     for (int i = threadIdx.x; i < rows * p.nk; i += CT) {
       const int r = i / p.nk, at = i - r * p.nk, k = (at & ~15) + col_of(at & 15);
-      if (k < N) atomicAdd(dbias + (int64_t)(q0 + r) * N + k, slab[r * p.dpitch + at]);
+      if (k < N) part[(int64_t)(q0 + r) * N + k] = slab[r * p.dpitch + at];
     }
   }
 }
@@ -1060,7 +1077,7 @@ __global__ void __launch_bounds__(THREADS2, 1)
 
 // Launch 1 for a window of more than WHOLE_N tokens (N = 784: whole K and V
 // take 100 KB, a whole tile 100 KB more): dq_bf16's arithmetic without the
-// slab (dS into dbias by atomics, as dq_bf16 above N ~440), on a window
+// slab (dS into the block's slot of the partial sums, as dq_bf16 above N ~440), on a window
 // streamed as key tiles of kt = 192 keys. An item is (window, sweep, key
 // tile); thread 0 loads the q and dO tiles with the key tile's K and V into
 // a ring of stages, stages - 1 items ahead. The block moves through the
@@ -1113,7 +1130,8 @@ __global__ void __launch_bounds__(THREADS1, 1)
   const int ra = 16 * (warp & 3) + (lane >> 2);
   const bool ok_a = q0 + ra < N, ok_b = q0 + ra + 8 < N;
   const uint16_t* ta = tile + ra * p.bpitch + 4 * t4;
-  float* dg = g.dbias + (int64_t)h * N * N + (int64_t)(q0 + ra) * N + 2 * t4;
+  // this block's slot of the partial sums (block_part), row a at key 2 (lane % 4)
+  float* dg = block_part(g, p, h, grp) + (int64_t)(q0 + ra) * N + 2 * t4;
 
   uint32_t qa[2][4], oa[2][4];
   float m[2], l[2], c[2], rm[2], nl[2], di[2], dq[16];
@@ -1389,7 +1407,8 @@ int smem_bytes(const hop::Plan& p, int launch) {
 // i + b n_groups share mask i (every window shares the bias without a mask);
 // a block takes G = group of them (the host's choice, window_group in
 // ops/window_attn3d_train.py). Launch 1 keeps its dbias slab in shared memory
-// where it fits beside one stage (N <= ~440), else adds dS to dbias per window.
+// where it fits beside one stage (N <= ~440), else adds dS to its slot of the
+// partial sums per window.
 hop::Plan plan_bwd(int windows, int heads, int n, int n_masks, bool masked, int group,
                    int launch) {
   using namespace hop;
@@ -1465,12 +1484,20 @@ cudaError_t launch_bwd_bf16(const BwdArgs& g, cudaStream_t s) {
   const int64_t blocks = (int64_t)p1.tiles * g.heads * p1.n_groups * p1.splits;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   const int smem1 = smem_bytes(p1, 1), smem2 = smem_bytes(p2, 2);
+  const int64_t hnn = (int64_t)g.heads * g.n * g.n;
+  const int parts = p1.n_groups * p1.splits;
   cudaError_t e;
+  if (!p1.slab) {  // the blocks add into their slots
+    e = cudaMemsetAsync(g.part, 0, parts * hnn * sizeof(float), s);
+    if (e != cudaSuccess) return e;
+  }
   if (p1.stream) {
     e = cudaFuncSetAttribute(hop::dq_stream, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
     if (e != cudaSuccess) return e;
     hop::dq_stream<<<(unsigned)blocks, hop::THREADS1, smem1, s>>>(q64, o64, kr, vr, g, p1);
     e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    e = wtile::mma::launch_sum_parts(g.part, g.dbias, parts, hnn, s);
     if (e != cudaSuccess) return e;
     e = cudaFuncSetAttribute(hop::dkdv_stream, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
     if (e != cudaSuccess) return e;
@@ -1489,6 +1516,8 @@ cudaError_t launch_bwd_bf16(const BwdArgs& g, cudaStream_t s) {
     hop::dq_bf16<false><<<(unsigned)blocks, hop::THREADS1, smem1, s>>>(q64, o64, kr, vr, g, p1);
   }
   e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = wtile::mma::launch_sum_parts(g.part, g.dbias, parts, hnn, s);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(hop::dkdv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
   if (e != cudaSuccess) return e;
@@ -1537,7 +1566,21 @@ extern "C" int k5_fwd(int dtype, const void* q, const void* k, const void* v, in
 // windows * heads * 3 * k5_stats_stride(n) floats (hop::STATS rows of statistics).
 extern "C" int k5_stats_stride(int n) { return (n + hop::BM - 1) / hop::BM * hop::BM; }
 
-// bias in the compute type; mask bf16 or null; dbias zeroed. dq, dk, dv:
+// The slots of dS partial sums a bf16 backward needs: part holds
+// k5_bwd_parts(...) * heads * n * n floats (0 for f32, whose SIMT kernel adds
+// into dbias by atomics). Launch 1's blocks of one (head, query tile) each
+// write a slot (wgmma route: n_groups x splits of them; mma.sync: one a window).
+extern "C" int k5_bwd_parts(int dtype, int windows, int heads, int n, int d, int n_masks,
+                            int masked, int group) {
+  if (wtile::mma::on_wgmma(dtype, d)) {
+    const hop::Plan p = plan_bwd(windows, heads, n, n_masks, masked != 0, group, 1);
+    return p.n_groups * p.splits;
+  }
+  return dtype == 1 ? windows : 0;
+}
+
+// bias in the compute type; mask bf16 or null; dbias zeroed; part: the
+// workspace of k5_bwd_parts slots (bf16). dq, dk, dv:
 // in bf16 on the Hopper route (dtype 1, d = 32); else (dtype 0, SIMT; or
 // bf16 at another head dim, mma.sync, window_attn_mma.cuh) f32, dk and dv
 // zeroed (the kernels add into them). d: the head dim, 1 to 128. group:
@@ -1546,12 +1589,12 @@ extern "C" int k5_bwd(int dtype, const void* q, const void* k, const void* v, in
                       int64_t s_h, int64_t s_n, const void* dout, int64_t d_w, int64_t d_h,
                       int64_t d_n, void* dq, void* dk, void* dv, int64_t g_w, int64_t g_h,
                       int64_t g_n, const void* bias, const void* mask, int n_masks, float* stats,
-                      float* dbias, float scale, int windows, int heads, int n, int d, int group,
-                      void* stream) {
+                      float* dbias, float* part, float scale, int windows, int heads, int n,
+                      int d, int group, void* stream) {
   if (bad_shape(n, d, windows, heads, mask, n_masks) || group < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs g{q, k, v, s_w, s_h, s_n, dout, d_w, d_h, d_n, dq, dk, dv, g_w, g_h, g_n, bias,
-            static_cast<const bf16*>(mask), mask ? n_masks : 1, stats, dbias, scale, n,
+            static_cast<const bf16*>(mask), mask ? n_masks : 1, stats, dbias, part, scale, n,
             k5_stats_stride(n), heads, windows, group};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wtile::mma::on_wgmma(dtype, d)) {
@@ -1569,7 +1612,7 @@ extern "C" int k5_bwd(int dtype, const void* q, const void* k, const void* v, in
         s_w, s_h, s_n, static_cast<const bf16*>(dout), d_w, d_h, d_n, static_cast<float*>(dq),
         static_cast<float*>(dk), static_cast<float*>(dv), g_w, g_h, g_n,
         static_cast<const bf16*>(bias), static_cast<const bf16*>(mask), mask ? n_masks : 1,
-        dbias, scale, n, d};
+        dbias, part, scale, n, d};
     return static_cast<int>(wtile::mma::launch_bwd(m, windows, heads, s));
   }
   if (dtype == 0) return static_cast<int>(simt::launch_bwd(g, d, s));

@@ -387,12 +387,13 @@ cudaError_t launch(const MArgs& args, int windows, int heads, cudaStream_t s) {
 // window_attn3d_train.cu is built for 32): for each (window, head), with
 // P recomputed from q, k and the bias in the compute type (bf16) + mask,
 //   dV = P^T dO,  dP = dO V^T,  dS = P (dP - rowsum(dP P)),
-//   dQ = dS K s,  dK = dS^T Q s,  dbias[h] += dS (f32, over the windows).
+//   dQ = dS K s,  dK = dS^T Q s,  dbias[h] = sum of dS over the windows (f32).
 // One block of 4 warps per (64-row query tile, window, head), two sweeps
 // over the keys in tiles of 64 (FlashAttention-2's backward order turned
 // around: the query tile stays, the keys move): sweep 1 keeps each row's
-// online max m, sum l and c = sum e dP; sweep 2 forms P and dS, adds dS
-// into dbias (atomics), dS K into dq (registers, written once at the end)
+// online max m, sum l and c = sum e dP; sweep 2 forms P and dS, stores dS
+// into the window's slot of the partial sums (sum_parts then adds the
+// windows into dbias in order), dS K into dq (registers, written once at the end)
 // and, through shared memory, P^T dO and dS^T q into dv and dk (atomics,
 // zeroed f32 outputs; each warp 16 of the tile's keys). S, dP, dq, dk and
 // dv on mma.sync with f32 accumulation; P and dS rounded to bf16 where
@@ -406,7 +407,8 @@ struct MBwdArgs {
   int64_t g_w, g_h, g_n;
   const bf16* bias;                 // [heads, n, n] in the compute type
   const bf16* mask; int n_masks;    // [n_masks, n, n] or null
-  float* dbias;                     // [heads, n, n] f32, zeroed
+  float* dbias;                     // [heads, n, n] f32
+  float* part;                      // [windows, heads, n, n] f32: each window's dS
   float scale;
   int n, d;
   int vec = 0;                      // 16-byte rows and strides (set by launch_bwd)
@@ -477,7 +479,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_mma(MBwdArgs a) {
   const bf16* dO = a.dout + (int64_t)w * a.d_w + (int64_t)h * a.d_h;
   const bf16* bias = a.bias + (int64_t)h * N * N;
   const bf16* mask = a.mask ? a.mask + (int64_t)(w % a.n_masks) * N * N : nullptr;
-  float* dbias = a.dbias + (int64_t)h * N * N;
+  // this window's dS, every element written once (sum_parts adds the windows)
+  float* dbias = a.part + ((int64_t)w * gridDim.z + h) * N * N;
   const int64_t gb = (int64_t)w * a.g_w + (int64_t)h * a.g_h;
 
   // the query tile's q and dO, 8 columns at a time (zeros past N and D)
@@ -577,7 +580,7 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_mma(MBwdArgs a) {
         continue;
       }
 
-      // sweep 2: P, dS; dbias; P and dS (bf16) into shared memory
+      // sweep 2: P, dS; dS into the window's slot; P and dS (bf16) into shared memory
       const float rl_a = 1.f / l_a, rl_b = 1.f / l_b;
       const float di_a = c_a * rl_a, di_b = c_b * rl_b;
       const float ba = m_a == -INFINITY ? 0.f : m_a, bb = m_b == -INFINITY ? 0.f : m_b;
@@ -594,8 +597,8 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_mma(MBwdArgs a) {
           *reinterpret_cast<uint32_t*>(ds + r * PT + kk) = pack(d0, d1);
           if (row < N) {
             const int key = k0 + kk;
-            if (key < N) atomicAdd(dbias + (int64_t)row * N + key, d0);
-            if (key + 1 < N) atomicAdd(dbias + (int64_t)row * N + key + 1, d1);
+            if (key < N) dbias[(int64_t)row * N + key] = d0;
+            if (key + 1 < N) dbias[(int64_t)row * N + key + 1] = d1;
           }
         }
       }
@@ -669,6 +672,25 @@ __global__ void __launch_bounds__(THREADS) attn_bwd_mma(MBwdArgs a) {
   }
 }
 
+// dbias[i] = sum over slots j = 0 .. parts - 1 of part[j][i], in that order:
+// the backward's dbias without atomics, the same bits on every run
+__global__ void sum_parts(const float* __restrict__ part, float* __restrict__ dbias, int parts,
+                          int64_t len) {
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < len;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int j = 0; j < parts; ++j) acc += part[(int64_t)j * len + i];
+    dbias[i] = acc;
+  }
+}
+
+inline cudaError_t launch_sum_parts(const float* part, float* dbias, int parts, int64_t len,
+                                    cudaStream_t s) {
+  const int64_t blocks = (len + 255) / 256;
+  sum_parts<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(part, dbias, parts, len);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch_bwd_dp(const MBwdArgs& a, int windows, int heads, cudaStream_t s) {
   constexpr size_t smem = bwd_smem_bytes<DP>();
@@ -678,11 +700,14 @@ cudaError_t launch_bwd_dp(const MBwdArgs& a, int windows, int heads, cudaStream_
     if (e != cudaSuccess) return e;
   }
   attn_bwd_mma<DP><<<dim3((a.n + BQ - 1) / BQ, windows, heads), THREADS, smem, s>>>(a);
-  return cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_sum_parts(a.part, a.dbias, windows, (int64_t)heads * a.n * a.n, s);
 }
 
 // One backward launch at head dim a.d (1 to 128), q, k, v and dout with any
-// strides (the head dim contiguous); dk, dv and dbias zeroed
+// strides (the head dim contiguous); dk and dv zeroed; then sum_parts writes
+// dbias from a.part
 inline cudaError_t launch_bwd(const MBwdArgs& args, int windows, int heads, cudaStream_t s) {
   if (args.d < 1 || args.d > 128 || windows > 65535 || heads > 65535)
     return cudaErrorInvalidValue;

@@ -6,7 +6,9 @@ with ``<root>/train_label.txt``, ``<root>/phase1/valset`` with
 ``<root>/val_label.txt``, ``<root>/phase2/testset1seen`` with
 ``<root>/phase2/prediction.txt.csv`` (``video_name,...`` rows; its names and
 their order are the test split). A test split skips the names already in
-``prediction.csv`` (a run that was stopped resumes).
+``prediction.csv`` (a run that was stopped resumes). Under a mesh the train
+and val loaders decode this data rank's rows only (``_Loader``); the test
+loader yields whole batches, which the Predictor shards.
 
 A clip's features are host arrays: ``video`` uint8 [T, S, S, 3];
 ``audio_wave`` / ``paudio_wave`` float32 16 kHz PCM zero-padded to a bucket
@@ -75,7 +77,7 @@ class DeepFakeDataset:
     ``data.force_generate``), on ``device``."""
 
     def __init__(self, cfg: Config, split: str = "train", prediction_csv: str = "./prediction.csv",
-                 resume: bool = True, device=None):
+                 resume: bool = True, device=None, scored: Optional[Sequence[str]] = None):
         self.cfg = cfg
         self.split = split
         root = cfg.data.data_root
@@ -93,7 +95,9 @@ class DeepFakeDataset:
                          if n.lower().endswith(VIDEO_EXTS))
         if split == "test":
             names = list(self.labels) or listing
-            skip = set(predicted_names(prediction_csv)) if resume else set()
+            if scored is None:
+                scored = predicted_names(prediction_csv) if resume else []
+            skip = set(scored)
             names = [n for n in names if n not in skip]
         else:
             names = listing
@@ -162,14 +166,16 @@ class DeepFakeDataset:
         return self.assemble(self.names[index])
 
 
-def collate(samples: Sequence) -> Tuple[Dict[str, np.ndarray], np.ndarray, List[str]]:
-    """Stack a batch's features; waves pad to the batch's largest bucket."""
+def collate(samples: Sequence, wave_len: int = 0) -> Tuple[Dict[str, np.ndarray], np.ndarray,
+                                                           List[str]]:
+    """Stack a batch's features; waves pad to the batch's largest bucket, or
+    to ``wave_len`` samples where that is longer."""
     feats, labels, names = zip(*samples)
     out: Dict[str, np.ndarray] = {}
     for k in feats[0]:
         vals = [f[k] for f in feats]
         if k.endswith("_wave"):
-            m = max(v.shape[0] for v in vals)
+            m = max([wave_len] + [v.shape[0] for v in vals])
             vals = [np.pad(v, (0, m - v.shape[0])) if v.shape[0] < m else v for v in vals]
         out[k] = np.stack(vals)
     return out, np.asarray(labels, np.float32), list(names)
@@ -178,16 +184,28 @@ def collate(samples: Sequence) -> Tuple[Dict[str, np.ndarray], np.ndarray, List[
 class _Loader:
     """Batches of ``batch_size`` clips in order (shuffled per epoch with
     ``shuffle``, from ``seed + epoch``), each clip decoded by one of
-    ``num_workers`` threads; ``drop_last`` drops a ragged last batch."""
+    ``num_workers`` threads; ``drop_last`` drops a ragged last batch.
+
+    With a ``mesh`` (parallel/mesh.py) each batch is this data rank's rows of
+    the global one, and only those are decoded: its slice of each of the
+    ``accum`` micro-batches (every rank sees one order, from the seed), or
+    the whole batch where the data axis does not divide a micro-batch. A
+    batch of a loader without ``drop_last`` (val) is padded to a multiple of the data
+    axis by repeating its last clip, the padding rows' labels NaN (the
+    Trainer's eval drops them). Waves pad to the largest bucket
+    (``wave_len``), so that every rank's arrays are as long as the longest
+    wave of the global batch needs."""
 
     def __init__(self, dataset: DeepFakeDataset, batch_size: int, shuffle: bool,
-                 num_workers: int, seed: int = 0, drop_last: bool = False):
+                 num_workers: int, seed: int = 0, drop_last: bool = False, mesh=None,
+                 accum: int = 1, wave_len: int = 0):
         self.ds = dataset
         self.batch = batch_size
         self.shuffle = shuffle
         self.workers = max(1, num_workers)
         self.seed = seed
         self.drop_last = drop_last
+        self.mesh, self.accum, self.wave_len = mesh, accum, wave_len
         self.epoch = 0
 
     def __len__(self):
@@ -204,7 +222,28 @@ class _Loader:
                 idx = order[s:s + self.batch]
                 if self.drop_last and len(idx) < self.batch:
                     break
-                yield collate(list(pool.map(lambda i: self.ds[int(i)], idx)))
+                pad = 0
+                if self.mesh is not None:
+                    idx, pad = self._rows(idx)
+                feats, labels, names = collate(list(pool.map(lambda i: self.ds[int(i)], idx)),
+                                               self.wave_len)
+                if pad:
+                    labels[-pad:] = np.nan
+                yield feats, labels, names
+
+    def _rows(self, idx):
+        """This data rank's clips of the global batch ``idx`` and how many of
+        them (at the end) are padding."""
+        from deepfake_tpu_torch.parallel.mesh import data_rows
+
+        n = len(idx)
+        if self.drop_last:  # training: whole micro-batches, never padded
+            rows = data_rows(n, self.mesh, self.accum)
+            return (idx, 0) if rows is None else (idx[rows], 0)
+        padded = -(-n // self.mesh.data) * self.mesh.data
+        idx = np.concatenate([idx, np.repeat(idx[-1:], padded - n)])
+        rows = data_rows(padded, self.mesh, 1)
+        return idx[rows], sum(r >= n for r in rows)
 
 
 class DeepFakeDataModule:
@@ -214,10 +253,12 @@ class DeepFakeDataModule:
     val and test batches are batch_size clips. ``device``: where the mel
     JPEGs are computed, on the JPEG path."""
 
-    def __init__(self, cfg: Config, prediction_csv: str = "./prediction.csv", device=None):
+    def __init__(self, cfg: Config, prediction_csv: str = "./prediction.csv", device=None,
+                 mesh=None):
         self.cfg = cfg
         self.prediction_csv = prediction_csv
         self.device = device
+        self.mesh = mesh
         self.trainset: Optional[DeepFakeDataset] = None
         self.valset: Optional[DeepFakeDataset] = None
         self.testset: Optional[DeepFakeDataset] = None
@@ -227,17 +268,37 @@ class DeepFakeDataModule:
             self.trainset = DeepFakeDataset(self.cfg, "train", device=self.device)
             self.valset = DeepFakeDataset(self.cfg, "val", device=self.device)
         if stage in (None, "test"):
+            scored = None
+            if self.mesh is not None:
+                # rank 0 reads what is scored and tells the others: no rank
+                # reads prediction.csv while rank 0 writes it
+                import torch.distributed as dist
+
+                box = [predicted_names(self.prediction_csv) if self.mesh.rank == 0 else None]
+                dist.broadcast_object_list(box, src=0)
+                scored = box[0]
             self.testset = DeepFakeDataset(self.cfg, "test", self.prediction_csv,
-                                           device=self.device)
+                                           device=self.device, scored=scored)
         return self
 
+    def _mesh_kw(self, accum: int = 1) -> Dict:
+        """A loader's mesh arguments: this data rank's rows, waves padded to
+        the largest bucket (none without a mesh)."""
+        if self.mesh is None:
+            return {}
+        d = self.cfg.data
+        return dict(mesh=self.mesh, accum=accum,
+                    wave_len=int(max(d.wave_seconds_buckets) * d.wave_sample_rate))
+
     def train_dataloader(self):
-        rows = self.cfg.optim.batch_size * max(1, self.cfg.optim.accum_step)
-        return _Loader(self.trainset, rows, True, self.cfg.data.num_workers,
-                       self.cfg.random_seed, drop_last=True)
+        accum = max(1, self.cfg.optim.accum_step)
+        return _Loader(self.trainset, self.cfg.optim.batch_size * accum, True,
+                       self.cfg.data.num_workers, self.cfg.random_seed, drop_last=True,
+                       **self._mesh_kw(accum))
 
     def val_dataloader(self):
-        return _Loader(self.valset, self.cfg.optim.batch_size, False, self.cfg.data.num_workers)
+        return _Loader(self.valset, self.cfg.optim.batch_size, False, self.cfg.data.num_workers,
+                       **self._mesh_kw())
 
     def test_dataloader(self):
         return _Loader(self.testset, self.cfg.optim.batch_size, False, self.cfg.data.num_workers)

@@ -34,6 +34,9 @@ from deepfake_tpu_torch.ops.image import (
 )
 from deepfake_tpu_torch.ops.mel import full_f32_matmul, mel_filterbank, stft_power
 from deepfake_tpu_torch.ops.resample import resample, resampled_length
+from deepfake_tpu_torch.parallel.mesh import (
+    batch_state, data_rows, global_max, splits_train_batch,
+)
 
 
 def hf_wave_normalize(wave: torch.Tensor) -> torch.Tensor:
@@ -43,11 +46,13 @@ def hf_wave_normalize(wave: torch.Tensor) -> torch.Tensor:
     return (wave - mean) / torch.sqrt(var + 1e-7)
 
 
-def batch_longest_wave_normalize(wave: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+def batch_longest_wave_normalize(wave: torch.Tensor, length: torch.Tensor,
+                                 longest: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The reference processor's statistics: each row as if padded to the
     batch's longest valid length L (the zeros between a row's length and L
-    count, the bucket's padding past L does not); every position normalised."""
-    L = length.max().to(wave.dtype)
+    count, the bucket's padding past L does not); every position normalised.
+    ``longest``: L where the batch is wider than these rows (a mesh)."""
+    L = (length.max() if longest is None else longest).to(wave.dtype)
     mask = (torch.arange(wave.shape[1], device=wave.device)[None] < length[:, None]).to(wave.dtype)
     n = length[:, None].to(wave.dtype)
     mean = (wave * mask).sum(dim=1, keepdim=True) / L
@@ -163,12 +168,22 @@ class FeatureAssembler:
     ``torch.Generator`` on ``device``, seeded with ``cfg.random_seed + 1``
     as the JAX assembler seeds its key; and ``batch_longest`` waves are
     normalised per accumulation micro-batch (``cfg.optim.accum_step``
-    slices of the batch, the slices the Trainer hands the model)."""
+    slices of the batch, the slices the Trainer hands the model). With a
+    ``mesh`` the batch is this data rank's rows of a global one: the batch's
+    longest wave is taken over every data rank's rows, and the training
+    augmentation draws for the whole global batch (one generator state on
+    every rank), each clip taking its row's draw, so the mesh augments as
+    one device does. A training batch is split over the data axis or
+    replicated as ``parallel.mesh.splits_train_batch`` says; an evaluation
+    batch takes the caller's ``batch_state`` (split, unless it says
+    otherwise)."""
 
-    def __init__(self, cfg: Config, train: bool = False, device=None, per_frame: bool = False):
+    def __init__(self, cfg: Config, train: bool = False, device=None, per_frame: bool = False,
+                 mesh=None):
         from deepfake_tpu_torch.models.registry import resolve_device
 
         self.cfg = cfg
+        self.mesh = mesh
         self.train = train
         self.per_frame = per_frame
         self.modality = cfg.data.modality
@@ -182,10 +197,22 @@ class FeatureAssembler:
         return t.to(self.device, dtype)
 
     def __call__(self, feats, labels):
+        if not self.train:  # the caller's batch state: a padded batch splits
+            return self._assemble(feats, labels, None)
+        split = splits_train_batch(self.cfg, self.mesh)
+        rows = None
+        if split:  # this data rank's rows of the global batch
+            n = len(labels) * self.mesh.data
+            rows = n, data_rows(n, self.mesh, max(1, self.cfg.optim.accum_step))
+        with batch_state(self.mesh, split):
+            return self._assemble(feats, labels, rows)
+
+    def _assemble(self, feats, labels, rows):
         cfg = self.cfg
         out = []
         if "video" in feats:
-            out.append(preprocess_clip_batch(self._get(feats["video"]), self.gen, self.per_frame))
+            out.append(preprocess_clip_batch(self._get(feats["video"]), self.gen, self.per_frame,
+                                             rows))
         if "audio_image" in feats:
             out.append(normalize_imagenet(self._get(feats["audio_image"])))
         if "audio_wave" in feats:
@@ -204,11 +231,12 @@ class FeatureAssembler:
                 # the reference normalises per DataLoader batch, which under
                 # accumulation is each micro-batch
                 accum = max(1, cfg.optim.accum_step) if self.train else 1
+                longest = lambda n: global_max(n.max(), self.mesh)
                 if accum > 1 and wave.shape[0] % accum == 0:
-                    normed = torch.cat([batch_longest_wave_normalize(w, n) for w, n in zip(
-                        wave.chunk(accum), lengths.chunk(accum))])
+                    normed = torch.cat([batch_longest_wave_normalize(w, n, longest(n)) for w, n in
+                                        zip(wave.chunk(accum), lengths.chunk(accum))])
                 else:
-                    normed = batch_longest_wave_normalize(wave, lengths)
+                    normed = batch_longest_wave_normalize(wave, lengths, longest(lengths))
                 out.append((normed, lengths))
             else:  # "hf"
                 out.append(hf_wave_normalize(wave))
@@ -343,9 +371,9 @@ class ModelFeedLoader:
     and a ``FeatureAssembler`` (``train`` selects augmentation)."""
 
     def __init__(self, raw_loader, cfg: Config, train: bool, device=None,
-                 depth: Optional[int] = None):
+                 depth: Optional[int] = None, mesh=None):
         self.raw = raw_loader
-        self.assembler = FeatureAssembler(cfg, train, device=device)
+        self.assembler = FeatureAssembler(cfg, train, device=device, mesh=mesh)
         self.depth = depth if depth is not None else cfg.data.prefetch_depth
 
     def __len__(self):

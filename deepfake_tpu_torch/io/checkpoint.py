@@ -20,6 +20,11 @@ a restore the Trainer draws from its own seeded stream. The file is a
 ``torch.save`` of CPU tensors, read back with ``torch.load(...,
 weights_only=True)``.
 
+Under a mesh (parallel/mesh.py) a checkpoint does not depend on it: the
+save gathers the model ranks' slices of each split tensor and rank 0 writes
+whole tensors, the file a single-device run writes (the JAX checkpoint is
+``device_get``'s whole arrays); a restore copies each rank's slice.
+
 A save writes a temporary file in the same directory, flushes it to the disk
 and renames it onto the path (``os.replace``): a run stopped mid-save leaves
 the previous file under that name whole, and no half file there. A restore
@@ -36,7 +41,10 @@ import os
 from typing import Dict, Mapping
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from deepfake_tpu_torch.parallel.mesh import full_tensor, local_slice
 
 KEYS = ("step", "model", "momentum", "epoch")
 
@@ -70,20 +78,31 @@ def momentum_names(model: nn.Module, optimizer) -> list:
 
 def checkpoint_payload(trainer, epoch: int = 0) -> Dict:
     """``trainer``'s step, model state, momentum and ``epoch``, copied to the
-    CPU."""
+    CPU; under a mesh (``trainer.mesh``) each tensor whole, its model ranks'
+    slices gathered (a collective: every rank calls it)."""
+    mesh = getattr(trainer, "mesh", None)
+    whole = lambda n, t: _cpu(full_tensor(n, t, mesh))
     return {
         "step": int(trainer.step),
-        "model": {k: _cpu(v) for k, v in trainer.model.state_dict().items()},
-        "momentum": {n: _cpu(b) for n, b in zip(momentum_names(trainer.model, trainer.optimizer),
-                                                 trainer.optimizer.bufs)},
+        "model": {k: whole(k, v) for k, v in trainer.model.state_dict().items()},
+        "momentum": {n: whole(n, b) for n, b in zip(
+            momentum_names(trainer.model, trainer.optimizer), trainer.optimizer.bufs)},
         "epoch": int(epoch),
     }
 
 
 def save_checkpoint(path: str, trainer, epoch: int = 0) -> str:
     """Writes ``checkpoint_payload(trainer, epoch)`` to ``path`` (a file,
-    replaced atomically); returns its absolute path."""
-    return write_checkpoint(path, checkpoint_payload(trainer, epoch))
+    replaced atomically); returns its absolute path. Under a mesh every rank
+    calls it, rank 0 writes, and the ranks meet after the write."""
+    mesh = getattr(trainer, "mesh", None)
+    payload = checkpoint_payload(trainer, epoch)
+    path = os.path.abspath(path)
+    if mesh is None or mesh.rank == 0:
+        write_checkpoint(path, payload)
+    if mesh is not None:
+        dist.barrier()
+    return path
 
 
 def write_checkpoint(path: str, payload: Dict) -> str:
@@ -149,8 +168,13 @@ def load_model_state(model: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.
 
 def restore_checkpoint(path: str, trainer) -> int:
     """Loads ``path`` into ``trainer`` (model state, momentum, step) in place;
-    returns the saved epoch. Nothing is written unless everything matches."""
+    returns the saved epoch. Under a mesh each rank takes its slices of the
+    whole tensors, so a file from any mesh loads onto any other. Nothing is
+    written unless everything matches."""
     payload = read_checkpoint(path)
+    mesh = getattr(trainer, "mesh", None)
+    for part in ("model", "momentum"):
+        payload[part] = {k: local_slice(k, v, mesh) for k, v in payload[part].items()}
     model = trainer.model.state_dict(keep_vars=True)
     momentum = dict(zip(momentum_names(trainer.model, trainer.optimizer),
                         trainer.optimizer.bufs))

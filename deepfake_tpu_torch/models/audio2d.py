@@ -38,8 +38,10 @@ class Audio2D(nn.Module):
             self.classifier = Linear(512, num_classes)
         self.eval()
 
+    mesh = None  # the data axis of the batch-longest length (parallel.mesh.attach)
+
     def forward(self, input_values, return_logits: bool = False):
-        _, valid_samples = split_wave(input_values)
+        _, valid_samples = split_wave(input_values, self.mesh)
         hidden = self.wav_model(input_values)
         if valid_samples is None:
             feat = hidden.float().mean(dim=1)

@@ -11,6 +11,9 @@ micro-batch's statistics, and ``classify_drop`` drops the attention weights
 and the normalised feature (:128, :136); ``with_align_loss`` also returns
 the InfoNCE alignment of the projected video feature with each audio
 feature (:115-119), which the Trainer adds at ``optim.align_loss_rate``.
+Under a mesh the loss is taken over the global batch (the three projected
+features gathered over the data axis), and the head's projections may be
+split over the model axis.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from torch import nn
 
 from deepfake_tpu_torch.models.layers import BatchNorm, Dropout, Linear, Mlp
+from deepfake_tpu_torch.parallel.mesh import gather_rows
 
 
 def infonce_pair_loss(p_a: torch.Tensor, p_b: torch.Tensor, soft: float) -> torch.Tensor:
@@ -35,6 +39,14 @@ def infonce_pair_loss(p_a: torch.Tensor, p_b: torch.Tensor, soft: float) -> torc
 
 
 class FusionModel(nn.Module):
+    """``tp``: the head's split over a mesh's model axis (queries, keys and
+    values column-parallel: the 3 x 3 energy summed over the model ranks,
+    the output gathered); ``mesh``: the mesh whose data axis the alignment
+    loss gathers its batch over (``parallel.mesh.shard_model``)."""
+
+    tp = None
+    mesh = None
+
     def __init__(self, video_extractor: nn.Module, audio_extractor: nn.Module,
                  paudio_extractor: nn.Module, dims: Sequence[int] = (1024, 1024, 768),
                  out_dim: int = 1, common_dim: int = 512, soft: float = 0.01,
@@ -72,17 +84,28 @@ class FusionModel(nn.Module):
         pa_x = self.paudio_projection(pa_x)
         comb = torch.stack([v_x, a_x, pa_x], dim=1)  # [B, 3, C]
         q, k, v = self.queries(comb), self.keys(comb), self.values(comb)
+        energy = q @ k.transpose(1, 2)
+        if self.tp is not None:  # q and k hold this rank's channels of one head
+            energy = self.tp.reduce(energy)
         # reference quirk: softmax first, THEN scale
-        att = torch.softmax((q @ k.transpose(1, 2)).float(), dim=-1) * self.common_dim ** -0.5
-        out = self.attn_drop(att.to(v.dtype)) @ v
+        att = self.attn_drop(
+            (torch.softmax(energy.float(), dim=-1) * self.common_dim ** -0.5).to(v.dtype))
+        if self.tp is not None:
+            # the weights (replicated) meet this rank's channels of v: their
+            # gradient sums the model ranks'; the channels are gathered after
+            out = self.tp.gather(self.tp.copy(att) @ v)
+        else:
+            out = att @ v
         feat = self.feat_drop(self.norm(self.attn_proj(out.reshape(out.shape[0], -1))))
         logits = self.classify(feat)
         if self.out_dim == 1:
             logits = logits.squeeze(-1)
         result = logits if return_logits else torch.sigmoid(logits)
         if with_align_loss:
-            align = 0.5 * (infonce_pair_loss(v_x, a_x, self.soft)
-                           + infonce_pair_loss(v_x, pa_x, self.soft))
+            # over the global batch under a mesh (the JAX loss sees all of it)
+            v_g, a_g, pa_g = (gather_rows(t, self.mesh) for t in (v_x, a_x, pa_x))
+            align = 0.5 * (infonce_pair_loss(v_g, a_g, self.soft)
+                           + infonce_pair_loss(v_g, pa_g, self.soft))
             return result, align
         return result
 

@@ -15,6 +15,7 @@ import math
 from typing import Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -42,18 +43,105 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class _BatchStats(torch.autograd.Function):
+    """Training BatchNorm of x [rows, C] with the statistics over the rows
+    of every data rank: one routine with or without a group (``group``:
+    the data axis, or None), so that a group of one computes the bits of no
+    group. On the card, PyTorch's SyncBatchNorm kernels
+    (``batch_norm_stats``: this rank's mean and inverse std in one pass;
+    the ranks' [mean, invstd, rows] all-gathered, ``batch_norm_gather_stats
+    _with_counts`` combines them; ``batch_norm_elemt`` normalises;
+    ``batch_norm_backward_reduce``, one all-reduce of its two sums,
+    ``batch_norm_backward_elemt``). On the CPU, where those kernels do not
+    exist, sums: the local sum all-reduced, the mean, the local sum of
+    squared deviations all-reduced, the biased variance (flax's two-pass
+    form), accumulated in f64 as PyTorch's CPU BatchNorm accumulates; the
+    backward's two sums likewise. dw and db are this rank's (the Trainer's
+    gradient mean over ``data`` adds the ranks'). Returns y in x's type and
+    the batch mean and biased variance (f32) for the running statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float, group):
+        if x.is_cuda:
+            mean, invstd = torch.batch_norm_stats(x, eps)
+            C = mean.numel()
+            local = torch.cat([mean, invstd, mean.new_full((1,), x.shape[0])])
+            every = local[None]
+            if group is not None:
+                parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, local, group=group)
+                every = torch.stack(parts)
+            counts = every[:, 2 * C]
+            # scratch f32 running buffers at momentum 0: the kernel takes
+            # their type (the counts' too) and leaves them as they are
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                x, every[:, :C].contiguous(), every[:, C:2 * C].contiguous(),
+                torch.zeros_like(mean), torch.ones_like(mean), 0.0, eps, counts)
+            y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+            var = 1.0 / (invstd * invstd) - eps
+            ctx.counts = counts.to(torch.int32)
+        else:
+            count = x.shape[0] * (1 if group is None else dist.get_world_size(group))
+            xf = x.float()
+            s = xf.sum(0, dtype=torch.float64)
+            if group is not None:
+                dist.all_reduce(s, group=group)
+            mean = (s / count).float()
+            xmu = xf - mean
+            sq = (xmu * xmu).sum(0, dtype=torch.float64)
+            if group is not None:
+                dist.all_reduce(sq, group=group)
+            var = (sq / count).float()
+            invstd = torch.rsqrt(var + eps)
+            y = (xmu * (invstd * weight.float()) + bias.float()).to(x.dtype)
+            ctx.count = count
+        ctx.save_for_backward(x, mean, invstd, weight)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, mean, invstd, weight = ctx.saved_tensors
+        dy = dy.contiguous()
+        if x.is_cuda:
+            s_dy, s_dyx, dw, db = torch.batch_norm_backward_reduce(dy, x, mean, invstd, weight,
+                                                                   True, True, True)
+            if ctx.group is not None:
+                sums = torch.cat([s_dy, s_dyx])
+                dist.all_reduce(sums, group=ctx.group)
+                s_dy, s_dyx = sums.chunk(2)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, s_dy, s_dyx,
+                                                 ctx.counts)
+            return dx, dw, db, None, None
+        dyf = dy.float()
+        xmu = x.float() - mean
+        sums = torch.stack([dyf.sum(0, dtype=torch.float64),
+                            (dyf * xmu).sum(0, dtype=torch.float64)])
+        dw, db = (sums[1] * invstd).float(), sums[0].to(torch.float32, copy=True)
+        if ctx.group is not None:
+            dist.all_reduce(sums, group=ctx.group)
+        s_dy, s_dyx = (sums[0] / ctx.count).float(), (sums[1] / ctx.count).float()
+        dx = (dyf - s_dy - xmu * (invstd * invstd * s_dyx)) * (invstd * weight.float())
+        return dx.to(x.dtype), dw.to(weight.dtype), db.to(weight.dtype), None, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over ``axis`` with torch momentum semantics, in f32, the
     output in the input's type (layers.py:129-146, flax ``nn.BatchNorm``).
 
     Eval mode normalises with the running statistics. Training normalises
-    with the batch's statistics over every axis but ``axis`` and moves the
-    running ones as ``ra = (1 - m) ra + m batch``, where the batch variance
-    is the biased one, E[x^2] - E[x]^2, as flax feeds it (torch's own
-    BatchNorm feeds the unbiased variance, n / (n - 1) of it). The batch
-    statistics come out of ``F.batch_norm`` itself (scratch running buffers
-    at momentum 1), so training takes no extra pass over the input.
-    ``torch_batchnorm``'s default eps is 1e-5."""
+    with the batch's statistics over every axis but ``axis`` (``_BatchStats``)
+    and moves the running ones as ``ra = (1 - m) ra + m batch``, where the
+    batch variance is the biased one, as flax feeds it (torch's own
+    BatchNorm and SyncBatchNorm feed the unbiased variance, n / (n - 1) of
+    it). Under a mesh (``mesh``, set by ``parallel.mesh.shard_model``) the
+    batch is the global one: the statistics are all-reduced over the data
+    axis, as XLA all-reduces them under the JAX mesh, except while the
+    batch is replicated on every data rank. ``torch_batchnorm``'s default
+    eps is 1e-5."""
+
+    mesh = None
 
     def __init__(self, features: int, eps: float = 1e-5, axis: int = 1, momentum: float = 0.1):
         super().__init__()
@@ -76,27 +164,30 @@ class BatchNorm(nn.Module):
         return (x.float() * s.view(shape) + t.view(shape)).to(x.dtype)
 
     def _train(self, x):
-        xc = x.movedim(self.axis, 1)
-        n = xc.numel() // xc.shape[1]
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(xc, mean, var, self.weight.float(), self.bias.float(), True, 1.0,
-                         self.eps)
+        # channels last: a view for NCHW tensors in channels_last memory
+        xc = x.movedim(self.axis, -1)
+        rows = xc.reshape(-1, xc.shape[-1]).contiguous()
+        group = None if self.mesh is None else self.mesh.stats_group
+        y, mean, var = _BatchStats.apply(rows, self.weight, self.bias, self.eps, group)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            # F.batch_norm left the unbiased variance in ``var``
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
-        return y.movedim(1, self.axis).to(x.dtype)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y.view(xc.shape).movedim(-1, self.axis)
 
 
 class Linear(nn.Linear):
     """nn.Linear that casts its parameters to the input's type at use, as
     the JAX package's dense layers do (swin3d.py:369-375): f32 masters train
     in bf16 and their gradients reach the f32 leaves; weights stored in the
-    compute type (serving) cast to nothing."""
+    compute type (serving) cast to nothing. ``tp``: its split over a mesh's
+    model axis (``parallel.mesh.ColumnParallel`` / ``RowParallel``)."""
+
+    tp = None
 
     def forward(self, x):
+        if self.tp is not None:
+            return self.tp(self, x)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
 

@@ -105,7 +105,13 @@ def shift_attn_mask(H: int, W: int, ws: int, shift: int) -> np.ndarray:
 
 class WindowAttention(nn.Module):
     """W-MSA / SW-MSA with cosine attention and the continuous relative bias.
-    x [B_, N, C] -> [B_, N, C]."""
+    x [B_, N, C] -> [B_, N, C]. Under a mesh's model axis (``tp``, ``qkv_tp``,
+    set by ``parallel.mesh.shard_model``) it computes its rank's heads: the
+    qkv rows of those heads, the bias, logit scale and qkv bias sliced to
+    them, and a row-parallel ``proj``."""
+
+    tp = None
+    qkv_tp = None
 
     def __init__(self, dim: int, window_size: Tuple[int, int], num_heads: int,
                  pretrained_window_size: Tuple[int, int] = (0, 0), attn_kernel: bool = False):
@@ -153,14 +159,19 @@ class WindowAttention(nn.Module):
         self.bias_cache = self.relative_bias()
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        B_, N, C = x.shape
+        B_, N, _ = x.shape
         H = self.num_heads
         qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
-        qkv = F.linear(x, self.qkv_weight.to(x.dtype), qkv_bias.to(x.dtype))  # [B_, N, 3C]
         bias = self.bias_cache
         if self.training or bias is None or bias.device != x.device:
             bias = self.relative_bias()
         scale = torch.exp(torch.clamp(self.logit_scale.float(), max=math.log(100.0)))
+        if self.tp is not None:  # this model rank's heads (parallel/mesh.py)
+            x, qkv_bias = self.qkv_tp.copy(x), self.qkv_tp.take(qkv_bias)
+            bias, scale = self.tp.take(bias), self.tp.take(scale)
+            H = bias.shape[0]
+        qkv = F.linear(x, self.qkv_weight.to(x.dtype), qkv_bias.to(x.dtype))  # [B_, N, 3C]
+        C = qkv.shape[-1] // 3
         if self.training and self.attn_kernel:
             out = self._train_kernel(qkv, bias, mask, scale)
         elif self.attn_kernel and N <= K2_MAX_TOKENS and B_ >= 2:
@@ -188,7 +199,7 @@ class WindowAttention(nn.Module):
         scale 1; autograd carries the normalisation's and the scale's
         gradients, K5's backward the attention's and the bias's."""
         B_, N, C3 = qkv.shape
-        C, H = C3 // 3, self.num_heads
+        C, H = C3 // 3, bias.shape[0]
         heads = lambda t: l2_normalize(t.reshape(B_, N, H, C // H).float())
         qn = (heads(qkv[..., :C]) * scale.reshape(1, 1, H, 1)).reshape(B_, N, C)
         kn = heads(qkv[..., C:2 * C]).reshape(B_, N, C)

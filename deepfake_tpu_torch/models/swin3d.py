@@ -122,7 +122,13 @@ class WindowAttention3D(nn.Module):
     """Scaled window attention with a 3D relative-position bias table.
     x [B_, N, C] -> [B_, N, C]. The table is sized by ``table_window`` (the
     configured window); a clamped ``window_size`` indexes it with the full
-    window's index sliced [:N, :N], as the reference does."""
+    window's index sliced [:N, :N], as the reference does. Under a mesh's
+    model axis (``tp``, set by ``parallel.mesh.shard_model``) it computes its
+    rank's heads: a column-parallel ``qkv`` of those heads' rows, the bias
+    sliced to them (K5 takes [H_m, N, N]), a row-parallel ``proj``; it then
+    takes the plain route outside training."""
+
+    tp = None
 
     def __init__(self, dim: int, window_size: Dims, num_heads: int, table_window: Dims,
                  kernels: bool = False):
@@ -164,10 +170,14 @@ class WindowAttention3D(nn.Module):
             raise RuntimeError("bias_cache is an inference cache; a model in training "
                                "gathers its bias from the table (drop_inference_caches)")
         bias = self.bias_cache if self.bias_cache is not None else self.relative_bias()
+        if self.tp is not None:  # this model rank's heads (parallel/mesh.py)
+            bias = self.tp.take(bias)
+            H = bias.shape[0]
+            C = C // self.num_heads * H
         if self.kernels and self.training:
             return self.proj(window_attn3d_train(self.qkv(x), num_heads=H, bias=bias, mask=mask,
                                                  scale=scale))
-        if self.kernels:
+        if self.kernels and self.tp is None:  # serving: K4 and K3 never take a split layer
             dt = x.dtype  # f32 masters (a trainer's eval) cast to nothing when serving
             ln = None if norm is None else (norm.weight.to(dt), norm.bias.to(dt), norm.eps)
             qkv = ln_linear(x, self.qkv.weight.to(dt), self.qkv.bias.to(dt), ln=ln)  # q|k|v
@@ -214,7 +224,7 @@ class SwinBlock3D(nn.Module):
         # serving on the kernel route norms the window tokens inside K4,
         # unless there is padding: padded tokens must stay zero after the norm
         # (the reference norms before padding, swin3d.py:602-616)
-        fused = self.kernels and not self.training
+        fused = self.kernels and not self.training and self.attn.tp is None
         norm_in_kernel = fused and not any(self.pads)
         h = x if norm_in_kernel else self.norm1(x)
         if any(self.pads):

@@ -33,6 +33,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from deepfake_tpu_torch.models.layers import Conv1d, Dropout, LayerNorm, Linear, gelu_exact
+from deepfake_tpu_torch.parallel.mesh import global_max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,10 +182,14 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
+    """Multi-head self-attention; ``local_heads``: the heads this model rank
+    computes under a mesh's model axis (``parallel.mesh.shard_model`` splits
+    q, k and v by heads and ``out_proj`` by rows)."""
+
     def __init__(self, c: Wav2Vec2Config):
         super().__init__()
         C = c.hidden_size
-        self.H = c.num_attention_heads
+        self.H = self.local_heads = c.num_attention_heads
         self.q_proj = Linear(C, C)
         self.k_proj = Linear(C, C)
         self.v_proj = Linear(C, C)
@@ -193,7 +198,7 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, valid_frames=None):
         B, T, C = x.shape
-        H, D = self.H, C // self.H
+        H, D = self.local_heads, C // self.H
         heads = lambda t: t.view(B, T, H, D).transpose(1, 2)
         q = heads(self.q_proj(x) * (D ** -0.5))
         k, v = heads(self.k_proj(x)), heads(self.v_proj(x))
@@ -202,7 +207,7 @@ class SelfAttention(nn.Module):
             keep = _frame_mask(T, valid_frames, x.device)
             attn = attn.masked_fill(~keep[None, None, None, :], float("-inf"))
         attn = self.drop(torch.softmax(attn, dim=-1).to(x.dtype))
-        out = (attn @ v).transpose(1, 2).reshape(B, T, C)
+        out = (attn @ v).transpose(1, 2).reshape(B, T, H * D)
         return self.out_proj(out)
 
 
@@ -260,7 +265,10 @@ class Encoder(nn.Module):
 
 class Wav2Vec2Model(nn.Module):
     """Raw waveform [B, T] (or ``(wave, lengths)``) -> last_hidden_state
-    [B, T', hidden]."""
+    [B, T', hidden]. ``mesh``: the data axis the batch-longest length is
+    taken over (``parallel.mesh.attach``)."""
+
+    mesh = None
 
     def __init__(self, c: Wav2Vec2Config = Wav2Vec2Config()):
         super().__init__()
@@ -278,7 +286,7 @@ class Wav2Vec2Model(nn.Module):
         self.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
 
     def forward(self, input_values):
-        wave, valid_samples = split_wave(input_values)
+        wave, valid_samples = split_wave(input_values, self.mesh)
         feats = self.feature_encoder(wave, valid_samples).transpose(1, 2)
         x = self.spec_augment(self.feature_projection(feats), self.masked_spec_embed)
         valid_frames = (None if valid_samples is None
@@ -286,9 +294,11 @@ class Wav2Vec2Model(nn.Module):
         return self.encoder(x, valid_frames)
 
 
-def split_wave(input_values):
-    """``wave`` or ``(wave, lengths)`` -> (wave, batch-longest length or None)."""
+def split_wave(input_values, mesh=None):
+    """``wave`` or ``(wave, lengths)`` -> (wave, batch-longest length or None);
+    under a ``mesh`` the longest of the global batch (the rows of every data
+    rank; their waves are padded at least that far)."""
     if isinstance(input_values, (tuple, list)):
         wave, lengths = input_values
-        return wave, torch.as_tensor(lengths, device=wave.device).max()
+        return wave, global_max(torch.as_tensor(lengths, device=wave.device).max(), mesh)
     return input_values, None

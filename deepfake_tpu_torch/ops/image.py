@@ -84,11 +84,18 @@ def draw_augmentation(gen: torch.Generator, batch: int, frames: int, per_frame: 
 
 
 def preprocess_clip_batch(frames_u8: torch.Tensor, gen: Optional[torch.Generator] = None,
-                          per_frame: bool = False) -> torch.Tensor:
+                          per_frame: bool = False, rows=None) -> torch.Tensor:
     """uint8 [B, T, H, W, 3] -> f32 normalised, augmented when a generator
-    is given (training)."""
+    is given (training). ``rows``: (n, index), where the B clips are the
+    rows ``index`` of a batch of n (a data rank's share): the draws are the
+    whole batch's, and each clip takes its row's."""
     x = normalize_imagenet(frames_u8)
     if gen is None:
         return x
     B, T = x.shape[:2]
-    return augment_clip(x, *draw_augmentation(gen, B, T, per_frame))
+    if rows is None:
+        return augment_clip(x, *draw_augmentation(gen, B, T, per_frame))
+    n, index = rows
+    draws = draw_augmentation(gen, n, T, per_frame)
+    index = torch.as_tensor(index, device=draws[0].device)
+    return augment_clip(x, *(d[index] for d in draws))

@@ -90,9 +90,11 @@ def _lib():
             i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, i, ctypes.c_float, i, i, i, i, i, p]
         lib.k5_fwd.restype = i
         lib.k5_bwd.argtypes = [
-            i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, p, i64, i64, i64, p, p, i, p, p,
+            i, p, p, p, i64, i64, i64, p, i64, i64, i64, p, p, p, i64, i64, i64, p, p, i, p, p, p,
             ctypes.c_float, i, i, i, i, i, p]
         lib.k5_bwd.restype = i
+        lib.k5_bwd_parts.argtypes = [i, i, i, i, i, i, i, i]
+        lib.k5_bwd_parts.restype = i
         lib.k5_stats_stride.argtypes = [i]
         lib.k5_stats_stride.restype = i
         lib.k5_error_string.argtypes = [i]
@@ -231,12 +233,18 @@ def window_attn3d_train_bwd(qkv, dout, *, num_heads: int, bias, mask=None, scale
     else:
         dqkv = torch.zeros(qkv.shape, dtype=torch.float32, device=dev)  # it adds dk, dv
         stats = None
+    # bf16: each block of launch 1 sums its windows' dS into a slot of its
+    # own, and a last launch adds the slots into dbias in a fixed order, so
+    # dbias repeats to the bit (the f32 SIMT kernel adds by atomics)
+    parts = lib.k5_bwd_parts(_DTYPES[dt], B_, num_heads, N, D, n_masks, mask is not None, group)
+    part = torch.empty(parts * num_heads * N * N, dtype=torch.float32, device=dev)
     status = lib.k5_bwd(
         _DTYPES[dt], qkv.data_ptr(), qkv[..., C:].data_ptr(), qkv[..., 2 * C:].data_ptr(),
         qkv.stride(0), D, qkv.stride(1), dout.data_ptr(), N * C, D, C,
         dqkv.data_ptr(), dqkv[..., C:].data_ptr(), dqkv[..., 2 * C:].data_ptr(), N * 3 * C, D,
         3 * C, bias_c.data_ptr(), mask.data_ptr() if mask is not None else None, n_masks,
-        stats.data_ptr() if stats is not None else None, dbias.data_ptr(), float(scale),
+        stats.data_ptr() if stats is not None else None, dbias.data_ptr(),
+        part.data_ptr() if parts else None, float(scale),
         B_, num_heads, N, D, group, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, lib.k5_error_string, "k5_bwd")
     window_attn3d_train_bwd.launches += 1

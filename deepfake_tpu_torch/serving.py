@@ -4,6 +4,7 @@
     pred = Predictor(cfg, compiled=False)       # the eager route, on the card
     pred = Predictor(cfg, variables)            # weights from the JAX package's tree
     pred = Predictor.from_checkpoint(cfg, path) # weights from a training checkpoint
+    pred = Predictor(cfg, mesh=mesh)            # one data rank of batch-sharded serving
     probs = pred.predict((frames, mel, wave))   # model-ready numpy/torch inputs
     probs = pred.predict_raw({"audio_wave": pcm, "audio_len": lengths})  # raw inputs
 
@@ -25,6 +26,17 @@ fails raises. ``compiled=False`` runs every op eagerly from Python: the
 reference route that the graphs are held against. On the CPU
 (``device="cpu"``) a Predictor always runs eagerly (the kernel wrappers take
 their plain versions for CPU tensors, and there is nothing to capture).
+
+Under a mesh (``parallel/mesh.py``; deepfake_tpu/serving.py:31-40, 62-64)
+serving is data-parallel: every rank holds the whole model, as the JAX
+Predictor replicates its weights. ``predict``, ``predict_raw`` and
+``forward`` take the global batch on every rank; a ragged one is padded to
+a multiple of the data axis by repeating its last row, each data rank runs
+its contiguous block of rows (through its own graph), and the outputs are
+all-gathered over the data axis into input order, outside the graph, and
+trimmed. Statistics that span the batch (the batch-longest wave) are taken
+over the global batch. ``score_file`` runs at batch 1 on the calling rank
+alone.
 """
 
 from __future__ import annotations
@@ -41,6 +53,8 @@ from deepfake_tpu_torch.io.checkpoint import load_model_state, read_checkpoint
 from deepfake_tpu_torch.models.registry import (
     build_model, compute_dtype, pack_block_weights, precompute_bias_cache, resolve_device,
 )
+from deepfake_tpu_torch.parallel import mesh as pm
+from deepfake_tpu_torch.train.submit import pad_rows
 
 
 class Predictor:
@@ -54,8 +68,10 @@ class Predictor:
     note)."""
 
     def __init__(self, cfg: Config, variables: Optional[Dict[str, Any]] = None, device=None,
-                 compiled: bool = True, state: Optional[Dict[str, torch.Tensor]] = None):
+                 compiled: bool = True, state: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg)
         self.graphs = GraphCache(self.device) if compiled and self.device.type == "cuda" else None
@@ -80,20 +96,23 @@ class Predictor:
         with torch.no_grad():
             for p in model.parameters():
                 p.data = p.data.to(self.dtype)
+        if mesh is not None:
+            pm.attach(model, mesh)
         self.model = model
-        self._assemble = FeatureAssembler(cfg, train=False, device=self.device)
+        self._assemble = FeatureAssembler(cfg, train=False, device=self.device, mesh=mesh)
         # predict_raw's labels: none, as one zero on the device (a graph
         # cannot capture a copy from pageable host memory)
         self._no_labels = torch.zeros(1, device=self.device)
 
     @classmethod
     def from_checkpoint(cls, cfg: Config, path: str, device=None,
-                        compiled: bool = True) -> "Predictor":
+                        compiled: bool = True, mesh=None) -> "Predictor":
         """Serves the weights and BatchNorm statistics of a training
         checkpoint (``Trainer.save_ckpt``; deepfake_tpu/serving.py:67-78),
         loaded strictly into the serving model before its caches are
         computed."""
-        return cls(cfg, device=device, compiled=compiled, state=read_checkpoint(path)["model"])
+        return cls(cfg, device=device, compiled=compiled, state=read_checkpoint(path)["model"],
+                   mesh=mesh)
 
     def _put(self, x):
         if isinstance(x, (tuple, list)):
@@ -127,10 +146,39 @@ class Predictor:
 
     def _run(self, route: str, fn, inputs):
         """``fn(inputs)`` eagerly, or through the graph of the request's
-        signature (its static outputs)."""
+        signature (its static outputs); under a mesh on this data rank's rows
+        of the global batch, the outputs gathered and trimmed (see the
+        module's note)."""
+        if self.mesh is None or route == "file":
+            return self._call(route, fn, inputs)
+        inputs, n = self._rows(inputs)
+        out = self._call(route, fn, inputs)
+        return tuple(pm.gather_from(t, self.mesh.data_group, dim=0)[:n] for t in out)
+
+    def _call(self, route: str, fn, inputs):
         if self.graphs is None:
             return fn(inputs)
         return self.graphs.run(signature(route, self.cfg.data.modality, inputs), fn, inputs)
+
+    def _rows(self, inputs):
+        """This data rank's contiguous block of the global batch, padded to a
+        multiple of the data axis; and the batch's rows before padding."""
+        leaves = list(inputs.values()) if isinstance(inputs, dict) else [inputs]
+        while isinstance(leaves[0], (tuple, list)):
+            leaves = list(leaves[0])
+        n = leaves[0].shape[0]
+        W = self.mesh.data
+        k = -(-n // W)
+        lo, hi = self.mesh.d * k, (self.mesh.d + 1) * k
+
+        def cut(x):
+            if isinstance(x, (tuple, list)):
+                return type(x)(cut(e) for e in x)
+            return pad_rows({"x": x}, k * W)["x"][lo:hi]
+
+        if isinstance(inputs, dict):
+            return {key: cut(v) for key, v in inputs.items()}, n
+        return cut(inputs), n
 
     @staticmethod
     def _scores(out) -> np.ndarray:
@@ -173,4 +221,9 @@ class Predictor:
         ds = DeepFakeDataset.__new__(DeepFakeDataset)
         ds.cfg, ds.split, ds.dataset_path, ds.labels, ds.names = self.cfg, "test", "", {}, [path]
         feats, _label, _name = ds[0]
-        return float(self.predict_raw({k: np.asarray(v)[None] for k, v in feats.items()})[0])
+        feats = {k: np.asarray(v)[None] for k, v in feats.items()}
+        if self.mesh is None:
+            return float(self.predict_raw(feats)[0])
+        # this rank alone: the batch's statistics are its own
+        with pm.batch_state(self.mesh, False), torch.inference_mode():
+            return float(self._scores(self._run("file", self._raw, feats))[0])

@@ -15,7 +15,12 @@ with ``--Resume`` those of the modality's checkpoint path
 (``--fused_ckpt_path`` ...: a training checkpoint, served by
 ``Predictor.from_checkpoint``);
 a reference ``.pth`` or ``.safetensors`` path raises: importing reference
-checkpoints waits for such files in the repository.
+checkpoints waits for such files in the repository. Launched by torchrun
+(WORLD_SIZE > 1) or with ``parallel.multihost``, each rank joins the group
+(parallel/mesh.py) and serves its data rank's rows of every batch; rank 0
+writes the files:
+
+    torchrun --nproc_per_node=4 -m deepfake_tpu_torch.test --preset fused --data_root ...
 """
 
 from __future__ import annotations
@@ -29,13 +34,17 @@ def main(argv=None):
     from deepfake_tpu_torch.config import get_config
     from deepfake_tpu_torch.data.dataset import DeepFakeDataModule
     from deepfake_tpu_torch.io.checkpoint import resume_path
+    from deepfake_tpu_torch.models.registry import resolve_device
+    from deepfake_tpu_torch.parallel.mesh import join_group, local_device
     from deepfake_tpu_torch.serving import Predictor
     from deepfake_tpu_torch.train.submit import SubmitCtl
     from deepfake_tpu_torch.utils.logging import Logger
     from deepfake_tpu_torch.utils.seeding import seed_everything
 
     cfg = get_config(argv)
-    logger = Logger(cfg.log.log_dir)
+    device = resolve_device(local_device(cfg))
+    mesh = join_group(cfg, device)
+    logger = Logger(cfg.log.log_dir) if mesh is None or mesh.rank == 0 else (lambda line: None)
     logger(f"processId: {os.getpid()}")
     logger(cfg.to_json())
 
@@ -45,14 +54,13 @@ def main(argv=None):
 
     signal.signal(signal.SIGTERM, handle_exit)
     signal.signal(signal.SIGINT, handle_exit)
-    device = None if cfg.parallel.use_cuda else "cpu"
     ckpt = resume_path(cfg)
-    predictor = (Predictor.from_checkpoint(cfg, ckpt, device=device) if ckpt
-                 else Predictor(cfg, device=device))
+    predictor = (Predictor.from_checkpoint(cfg, ckpt, device=device, mesh=mesh) if ckpt
+                 else Predictor(cfg, device=device, mesh=mesh))
     if ckpt:
         logger(f"Load Finetuned Model From:{ckpt}")
     seed_everything(cfg.random_seed, predictor.device)
-    dm = DeepFakeDataModule(cfg, device=predictor.device).setup("test")
+    dm = DeepFakeDataModule(cfg, device=predictor.device, mesh=mesh).setup("test")
     ctl = SubmitCtl(predictor, cfg, dm, logger=logger)
     result = ctl.submit()
     ctl.write_full(result)

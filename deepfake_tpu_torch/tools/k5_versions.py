@@ -7,6 +7,11 @@ through the package's own wrapper (ops/window_attn3d_train.py).
     python3 deepfake_tpu_torch/tools/k5_versions.py _checkout/k5_other.cu \\
         deepfake_tpu_torch/csrc/window_attn3d_train.cu [--diag [names]] [--out PATH]
 
+A version may come from an older checkout (its csrc/ unpacked with git
+archive; the headers beside the source are its own): one from before dbias
+was summed in a fixed order, whose k5_bwd takes no workspace, is called
+through ``_Before``.
+
 At each Video Swin-S stage shape of a b8 training micro-batch (32 frames of
 224, window (8,7,7), N = 392), shifted and not, every version's dq, dk, dv
 (two bf16 ulps of the largest |value|) and dbias (1e-2 of its largest
@@ -157,7 +162,9 @@ def main() -> int:
     lib_of = k5._lib
 
     def use(spec):
-        k5._lib = lambda lib=libs[spec]: _typed(lib, lib_of)
+        lib = libs[spec]
+        typed = _typed(lib, lib_of) if hasattr(lib, "k5_bwd_parts") else _Before(lib, lib_of())
+        k5._lib = lambda: typed
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
@@ -255,11 +262,39 @@ def main() -> int:
     return 0
 
 
+class _Before:
+    """A build of csrc/ from before dbias was summed in a fixed order (no
+    k5_bwd_parts, no workspace argument to k5_bwd; launch 1 adds into dbias
+    by atomics), called through the package's wrapper: it asks for no
+    workspace, and its k5_bwd drops that argument."""
+
+    PART = 22  # the workspace's place in k5_bwd's arguments
+
+    def __init__(self, lib, real):
+        self.lib = lib
+        for fn in ("k5_fwd", "k5_bwd", "k5_stats_stride", "k5_error_string"):
+            args = list(getattr(real, fn).argtypes)
+            if fn == "k5_bwd":
+                del args[self.PART]
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = getattr(real, fn).restype
+        self.k5_fwd, self.k5_stats_stride = lib.k5_fwd, lib.k5_stats_stride
+        self.k5_error_string = lib.k5_error_string
+
+    def k5_bwd_parts(self, *args):
+        return 0
+
+    def k5_bwd(self, *args):
+        args = list(args)
+        del args[self.PART]
+        return self.lib.k5_bwd(*args)
+
+
 def _typed(lib, lib_of):
     """lib with the argument types the package's _lib() sets."""
     if not getattr(lib, "_typed", False):
         real = lib_of()
-        for fn in ("k5_fwd", "k5_bwd", "k5_stats_stride", "k5_error_string"):
+        for fn in ("k5_fwd", "k5_bwd", "k5_bwd_parts", "k5_stats_stride", "k5_error_string"):
             getattr(lib, fn).argtypes = getattr(real, fn).argtypes
             getattr(lib, fn).restype = getattr(real, fn).restype
         lib._typed = True

@@ -10,7 +10,7 @@ A VERSION is NAME=DIR, a directory that holds a version of csrc/
 "tree" is the checkout's csrc/), or the name of a patch of csrc/ below
 (PATCHES): "slice" (the forward's per-chunk slices filled by the threads
 also where N % 8 == 0, the first streamed design), and the diagnostic builds
-"diag_no_atomic" (the backward adds no dS into dbias) and "diag_no_fill"
+"diag_no_atomic" (the streamed backward adds no dS into its slot) and "diag_no_fill"
 (the backward builds no bias + mask tile), which compute garbage and are
 timed, not checked. Each is built into the ignored
 deepfake_tpu_torch/_build/longwin/ and called through the package's own
@@ -42,8 +42,8 @@ ROOT = common.ROOT
 # (name, file, [(old text, new text), ...]): each old text occurs once
 PATCHES = {
     "slice": [("window_attn_tile.cuh", "    p.tma = n % 8 == 0;", "    p.tma = 0;")],
-    "diag_no_atomic": [("window_attn3d_train.cu", "          if (key < n)\n            atomicAdd(",
-                        "          if (key < -1)\n            atomicAdd(")],
+    "diag_no_atomic": [("window_attn3d_train.cu", "          if (key < n) atomicAdd(",
+                        "          if (key < -1) atomicAdd(")],
     "diag_no_fill": [
         ("window_attn3d_train.cu",
          "    fill_rows(tile, bias, mask, q0, k0, N, p.bpitch, threadIdx.x, CT);\n", ""),

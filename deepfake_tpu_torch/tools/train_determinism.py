@@ -22,7 +22,7 @@ repeat to the bit, a graph that does not equal them to the bit is a fault
 of the graph route. (3) K5's forward and backward twice on the same inputs
 at SwinV2-B's stage-0 shape (shifted, b8) and stage-3 shape: whether out,
 dq | dk | dv and dbias repeat to the bit (dbias is summed across blocks
-with atomics). Prints the card's name and power limit first.
+in a fixed order). Prints the card's name and power limit first.
 """
 
 from __future__ import annotations

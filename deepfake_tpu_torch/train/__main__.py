@@ -13,6 +13,14 @@ augments), and the ``Trainer``; then trains (``Train Loss`` lines every
 with ``--val_model`` evaluates on the val split only, or with
 ``--skip_learning`` stops there. Runs on the card unless ``-cuda False``
 asks for the CPU; without a card and without that flag it raises.
+Launched by torchrun (WORLD_SIZE > 1) or with ``parallel.multihost``, each
+rank joins the group (NCCL on its card ``cuda:LOCAL_RANK``, gloo with ``-cuda
+False``) as a rank of the ``parallel.data_axis`` x ``parallel.model_axis``
+mesh (parallel/mesh.py), decodes its data rank's rows and trains its share;
+rank 0 logs and saves:
+
+    torchrun --nproc_per_node=4 -m deepfake_tpu_torch.train --preset fused --data_root ... \
+        --set parallel.model_axis=2
 SIGTERM and SIGINT end the run between two steps. A checkpoint is saved to
 ``./checkpoints`` (``log.ckpt_dir``) after each step t with (t + 1) %
 ``--model_save`` == 0, the JAX cadence. ``--Resume`` with the modality's
@@ -38,11 +46,14 @@ def main(argv=None):
     from deepfake_tpu_torch.data.pipeline import ModelFeedLoader
     from deepfake_tpu_torch.io.checkpoint import resume_path
     from deepfake_tpu_torch.models.registry import resolve_device
+    from deepfake_tpu_torch.parallel.mesh import join_group, local_device
     from deepfake_tpu_torch.train.trainer import Trainer
     from deepfake_tpu_torch.utils.logging import Logger
 
     cfg = get_config(argv)
-    logger = Logger(cfg.log.log_dir)
+    device = resolve_device(local_device(cfg))
+    mesh = join_group(cfg, device)
+    logger = Logger(cfg.log.log_dir) if mesh is None or mesh.rank == 0 else (lambda line: None)
     logger(f"processId: {os.getpid()}")
     logger(f"parent processId: {os.getppid()}")
     logger(cfg.to_json())
@@ -54,15 +65,14 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, handle_exit)
     signal.signal(signal.SIGINT, handle_exit)
     ckpt = resume_path(cfg)
-    device = resolve_device(None if cfg.parallel.use_cuda else "cpu")
-    dm = DeepFakeDataModule(cfg, device=device).setup("fit")
+    dm = DeepFakeDataModule(cfg, device=device, mesh=mesh).setup("fit")
 
     class Feeds:
         """The loaders, built once: the train loader moves its shuffle epoch
         on each pass."""
 
-        train = ModelFeedLoader(dm.train_dataloader(), cfg, train=True, device=device)
-        val = ModelFeedLoader(dm.val_dataloader(), cfg, train=False, device=device)
+        train = ModelFeedLoader(dm.train_dataloader(), cfg, train=True, device=device, mesh=mesh)
+        val = ModelFeedLoader(dm.val_dataloader(), cfg, train=False, device=device, mesh=mesh)
 
         def train_loader(self):
             return self.train
@@ -70,7 +80,7 @@ def main(argv=None):
         def val_loader(self):
             return self.val
 
-    trainer = Trainer(None, cfg, Feeds(), logger=logger, device=device)
+    trainer = Trainer(None, cfg, Feeds(), logger=logger, device=device, mesh=mesh)
     if ckpt:
         trainer.load_ckpt(ckpt)
     if cfg.optim.val_model:

@@ -20,6 +20,7 @@ import math
 from typing import Iterable, List, Optional
 
 import torch
+import torch.distributed
 
 
 def cosine_annealing(lr0: float, t_max: int, eta_min: float = 0.0):
@@ -63,12 +64,20 @@ class SGD:
         torch._foreach_sub_(self.params, torch._foreach_mul(self.bufs, self.lr))
 
 
-def clip_by_global_norm(grads, max_norm: Optional[float]) -> None:
+def clip_by_global_norm(grads, max_norm: Optional[float], sharded: Optional[List[bool]] = None,
+                        group=None) -> None:
     """optax.clip_by_global_norm in place: every gradient times
-    max_norm / max(global norm, max_norm)."""
+    max_norm / max(global norm, max_norm). Under a mesh's model axis
+    (``group``), the squares of the gradients ``sharded`` marks are summed
+    over it and the replicated ones counted once."""
     if not max_norm:
         return
-    norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    sharded = sharded or [False] * len(grads)
+    sq = lambda gs: sum((g.float().pow(2).sum() for g in gs), torch.zeros((), device=grads[0].device))
+    split = sq([g for g, s in zip(grads, sharded) if s])
+    if group is not None:
+        torch.distributed.all_reduce(split, group=group)
+    norm = torch.sqrt(sq([g for g, s in zip(grads, sharded) if not s]) + split)
     factor = max_norm / torch.clamp(norm, min=max_norm)
     for g in grads:
         g.mul_(factor.to(g.dtype))

@@ -22,6 +22,13 @@ videos (``video`` and ``video_swin``) by sliding windows of
 ``batch_windows`` windows (the last padded by repeating its last window),
 aggregated by ``mean``, ``max`` or ``top3``.
 
+Under a mesh (the Predictor's) every rank runs ``submit`` on the same whole
+batches: the Predictor scores each data rank's rows and gathers the scores
+in input order, and rank 0 alone writes prediction.csv and
+prediction_full.csv (the data module's rank 0 reads the names already
+scored and broadcasts them). The long-video routes score their window
+batches the same way.
+
 Weights are the Predictor's. ``load_checkpoint(path)`` swaps in a
 ``Predictor.from_checkpoint`` of a training checkpoint on the same device
 and route (this ctl drops the old one, whose graphs, pool and K1 packed
@@ -32,6 +39,7 @@ repository; int8 calibration waits for ROADMAP A7.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
@@ -67,6 +75,14 @@ class SubmitCtl:
         self.logger = logger or Logger(cfg.log.log_dir)
         self.prediction_csv = prediction_csv
 
+    def _rank0(self) -> bool:
+        mesh = self.predictor.mesh
+        return mesh is None or mesh.rank == 0
+
+    def _writer(self):
+        """prediction.csv opened to append, on rank 0 (None on the others)."""
+        return open(self.prediction_csv, "a") if self._rank0() else None
+
     def load_checkpoint(self, path: str):
         """Serve ``path``'s weights (deepfake_tpu/train/submit.py:124-133): a
         new Predictor on the old one's device and route. This ctl drops the
@@ -75,11 +91,12 @@ class SubmitCtl:
         from deepfake_tpu_torch.serving import Predictor
 
         device, compiled = self.predictor.device, self.predictor.graphs is not None
+        mesh = self.predictor.mesh
         self.predictor = None
         if device.type == "cuda":
             torch.cuda.empty_cache()
         self.predictor = Predictor.from_checkpoint(self.cfg, path, device=device,
-                                                   compiled=compiled)
+                                                   compiled=compiled, mesh=mesh)
         self.logger(f"Load Finetuned Model From:{path}")
 
     def load_reference_pth(self, path: str):
@@ -99,14 +116,17 @@ class SubmitCtl:
         result: Dict[str, float] = {}
         loader = self.data.test_dataloader()
         total = len(loader)
-        with open(self.prediction_csv, "a") as f:
+        writer = self._writer()
+        with writer or contextlib.nullcontext():
             for it, (feats, _labels, names) in enumerate(DevicePrefetcher(
                     loader, self.predictor.device, cfg.data.prefetch_depth)):
                 probs = self.predictor.predict_raw(pad_rows(feats, cfg.optim.batch_size))
                 for name, p in zip(names, probs[:len(names)]):
-                    f.write(f"{name},{p}\n")
+                    if writer is not None:
+                        writer.write(f"{name},{p}\n")
                     result[name] = float(p)
-                f.flush()
+                if writer is not None:
+                    writer.flush()
                 if it % cfg.log.log_step == 0:
                     self.logger("|step {:4d} |total {:4d}| Rate% {:.3f}".format(
                         it, total, it / max(total, 1) * 100))
@@ -152,15 +172,17 @@ class SubmitCtl:
         def decode(name):
             return sequential_frames(os.path.join(ds.dataset_path, name), size)
 
-        with ThreadPoolExecutor(decode_ahead) as pool, open(self.prediction_csv, "a") as f:
+        writer = self._writer()
+        with ThreadPoolExecutor(decode_ahead) as pool, writer or contextlib.nullcontext():
             futs = {i: pool.submit(decode, names[i]) for i in range(min(decode_ahead, len(names)))}
             for it, name in enumerate(names):
                 frames = futs.pop(it).result()
                 if it + decode_ahead < len(names):
                     futs[it + decode_ahead] = pool.submit(decode, names[it + decode_ahead])
                 score = self.score_frames(frames, agg)
-                f.write(f"{name},{score}\n")
-                f.flush()
+                if writer is not None:
+                    writer.write(f"{name},{score}\n")
+                    writer.flush()
                 result[name] = score
                 if it % self.cfg.log.log_step == 0:
                     self.logger(f"|clip {it:4d}| {name} -> {score:.5f}")
@@ -169,7 +191,10 @@ class SubmitCtl:
 
     def write_full(self, result: Dict[str, float], path: str = "prediction_full.csv"):
         """prediction_full.csv: a header and one row per entry of ``result``
-        (after a resume, only this run's rows, as in the JAX package)."""
+        (after a resume, only this run's rows, as in the JAX package); rank
+        0's under a mesh."""
+        if not self._rank0():
+            return
         with open(path, "w") as f:
             f.write("video_name,y_pred\n")
             for k, v in result.items():

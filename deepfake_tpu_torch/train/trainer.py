@@ -1,6 +1,8 @@
-"""Training and evaluation on one device (deepfake_tpu/train/trainer.py:68-413).
+"""Training and evaluation on one device or over a mesh
+(deepfake_tpu/train/trainer.py:68-413).
 
     trainer = Trainer(None, cfg, data)       # builds cfg's model, on the card
+    trainer = Trainer(None, cfg, data, mesh=mesh)  # one rank of a (data, model) mesh
     trainer.train()                          # the epoch loop with log lines
     metrics = trainer.train_step(x, y)       # one optimizer step
     loss = trainer.chained_train_steps(3)(x, y)  # three steps, one batch, no sync
@@ -72,8 +74,35 @@ epoch's end; a torch.profiler trace of the whole loop into
 read ``io/checkpoint.py``'s file; a load copies into the existing tensors,
 so the captured step and eval graphs replay the loaded weights, and a
 resumed run re-enters the saved epoch from its first batch
-(``start_epoch``), as the JAX run does. The JAX trainer's mesh and its
-reference ``.pth`` imports are not ported.
+(``start_epoch``), as the JAX run does. The JAX trainer's reference
+``.pth`` imports are not ported.
+
+The mesh (``parallel/mesh.py``; the JAX Trainer's ``mesh``, trainer.py:86,
+142-160, 286-300). One process a device, each a rank of a (data, model)
+grid. ``train_step`` and ``eval`` then take this data rank's rows: its
+slice of each micro-batch (``parallel.mesh.shard_batch`` of a global batch;
+the data module's loaders built with the mesh decode those rows only), and
+for ``eval`` a batch padded to a multiple of the data axis whose padding
+rows carry NaN labels (``parallel.mesh.shard_eval_batch``). The model is split over the
+model axis (``shard_model``) before the optimizer is built, so each
+momentum buffer follows its parameter's slice. In the step function, after
+the ``accum`` micro-batches' gradients are summed and divided, one
+all-reduce over the data axis takes their mean (XLA's psum), inside the
+step's CUDA graph; the clip's global norm sums the squares of split
+gradients over the model axis and counts replicated ones once; loss and
+accuracy are all-reduced to global means. BatchNorm's statistics and the
+InfoNCE loss are over the global batch (models/layers.py, models/fusion.py)
+unless the data axis does not divide ``optim.batch_size``, when every data
+rank takes the whole training batch and nothing is all-reduced over data but
+the gradients (``parallel.mesh.batch_state``, set for each step and each
+evaluation batch: the latter is padded, so it always splits). The dropout
+generator is seeded from (seed, data rank): the model ranks of a data rank
+draw the same masks. ``eval`` gathers the per-row outputs over the data
+axis and drops the padding rows. Logging, curves and checkpoint files are
+rank 0's; a checkpoint holds whole tensors
+(the model ranks' slices gathered), the file a single-device run writes,
+and loads onto any mesh. The watchdog and HbmTracker (``./hbm_track/rank<r>``)
+run on every rank.
 """
 
 from __future__ import annotations
@@ -91,12 +120,13 @@ from deepfake_tpu_torch.config import Config
 from deepfake_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint
 from deepfake_tpu_torch.models.layers import set_dropout_generator
 from deepfake_tpu_torch.models.registry import build_model, compute_dtype, resolve_device
+from deepfake_tpu_torch.parallel import mesh as pm
 from deepfake_tpu_torch.train.losses import bce_with_logits
 from deepfake_tpu_torch.train.schedule import SGD, clip_by_global_norm, make_schedule
 from deepfake_tpu_torch.utils.logging import AverageMeter, Drawer, DutyCycle, Logger, StepTimer
 from deepfake_tpu_torch.utils.metrics import roc_auc
 from deepfake_tpu_torch.utils.profiling import HbmTracker, StepAnnotation, trace
-from deepfake_tpu_torch.utils.seeding import seed_everything
+from deepfake_tpu_torch.utils.seeding import make_generators, seed_everything
 from deepfake_tpu_torch.utils.watchdog import StepWatchdog
 
 
@@ -108,8 +138,11 @@ class Trainer:
     module's note)."""
 
     def __init__(self, model: Optional[nn.Module], cfg: Config, data,
-                 logger: Optional[Logger] = None, device=None, compiled: bool = True):
+                 logger: Optional[Logger] = None, device=None, compiled: bool = True,
+                 mesh: Optional[pm.Mesh] = None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.rank0 = mesh is None or mesh.rank == 0
         self.data = data
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg)
@@ -118,7 +151,7 @@ class Trainer:
             # f32 means parity: full-precision products, no TF32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.logger = logger or Logger()
+        self.logger = (logger or Logger()) if self.rank0 else (lambda line: None)
         self.accum = max(1, cfg.optim.accum_step)
         self.modality = cfg.data.modality
         self.align = cfg.optim.use_align_loss and cfg.data.modality == "fused"
@@ -126,7 +159,13 @@ class Trainer:
         if model is None:
             model = build_model(cfg, self.device, train=True)
         self.dropout = gens.dropout
-        self.model = set_dropout_generator(model.to(self.device), gens.dropout).train()
+        if mesh is not None:
+            # every rank builds the same weights from the seed, then keeps its
+            # slices; the dropout stream is the data rank's
+            self.dropout = make_generators(cfg.random_seed + 7919 * mesh.d, self.device).dropout
+            pm.shard_model(model.to(self.device), mesh)
+        self.train_sharded = pm.splits_train_batch(cfg, mesh)
+        self.model = set_dropout_generator(model.to(self.device), self.dropout).train()
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger(f"model parameters: {n_params / 1e6:.2f}M")
 
@@ -142,6 +181,7 @@ class Trainer:
         self.t_max = max(1, o.epochs * steps_per_epoch)
         self.lr = make_schedule(o.learning_rate, self.t_max, o.schedule)
         self.optimizer = SGD(self.model.parameters(), o.momentum, o.weight_decay)
+        self.sharded = pm.sharded_flags(self.model, self.optimizer.params, mesh)
         self.step = 0
         self.start_epoch = 0
 
@@ -183,7 +223,8 @@ class Trainer:
         losses, accs = [], []
         for i, ym in enumerate(y.chunk(self.accum)):
             xm = map_leaves(lambda t: t.chunk(self.accum)[i], x)
-            loss, logits = self._loss(xm, ym)
+            with pm.batch_state(self.mesh, self.train_sharded):
+                loss, logits = self._loss(xm, ym)
             loss.backward()
             losses.append(loss.detach())
             with torch.no_grad():
@@ -193,9 +234,17 @@ class Trainer:
             # (decay and momentum), as in the optax chain
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
             torch._foreach_div_(grads, float(self.accum))
-            clip_by_global_norm(grads, self.cfg.optim.grad_clip)
+            if self.mesh is not None:
+                grads = pm.all_reduce_mean(grads, self.mesh)
+                for p in params:  # the mean lives in one flat buffer now
+                    p.grad = None
+            clip_by_global_norm(grads, self.cfg.optim.grad_clip, self.sharded,
+                                None if self.mesh is None else self.mesh.model_group)
             self.optimizer.step(grads)
-        return {"loss": torch.stack(losses).float().mean(), "acc": torch.stack(accs).mean()}
+            metrics = torch.stack([torch.stack(losses).float().mean(), torch.stack(accs).mean()])
+            if self.mesh is not None:
+                metrics = pm.all_reduce_mean([metrics], self.mesh)[0]
+        return {"loss": metrics[0], "acc": metrics[1]}
 
     def _state(self) -> List[torch.Tensor]:
         """Everything a step moves: parameters, buffers, momentum."""
@@ -261,7 +310,9 @@ class Trainer:
         x, y = map_leaves(self._cast, x), y.to(torch.float32)
         self.model.eval()
         try:
-            logits = self._logits(x)
+            # an evaluation batch is padded to split over the data axis
+            with pm.batch_state(self.mesh, True):
+                logits = self._logits(x)
         finally:
             self.model.train()
         probs = torch.sigmoid(logits)
@@ -289,7 +340,9 @@ class Trainer:
         train_draw = Drawer(self.modality, "train", cfg.log.curve_dir, logger)
         val_draw = Drawer(self.modality, "val", cfg.log.curve_dir, logger)
         logger(f"[INFO] Start training, lr = {cfg.optim.learning_rate:.6f}")
-        hbm = HbmTracker(every=cfg.log.hbm_track_step, device_type=self.device.type)
+        hbm = HbmTracker("./hbm_track/" if self.mesh is None or self.mesh.world == 1 else
+                         f"./hbm_track/rank{self.mesh.rank}/", every=cfg.log.hbm_track_step,
+                         device_type=self.device.type)
         watchdog = StepWatchdog(cfg.log.step_deadline_s, on_stall=logger)
         t = self.step
         profiled = trace(cfg.log.profile_dir) if cfg.log.profile_dir else contextlib.nullcontext()
@@ -305,7 +358,7 @@ class Trainer:
                         hbm.step()
                         hbm.track()
                         t += 1
-                        if t % cfg.log.log_step == 0:
+                        if t % cfg.log.log_step == 0 and self.rank0:
                             m = {k: float(v) for k, v in metrics.items()}
                             loss_stat.update(m["loss"])
                             train_draw.update(m["loss"])
@@ -318,9 +371,10 @@ class Trainer:
                         duty.add("step", timer.elapsed("step"))
                         if (t + 1) % cfg.log.model_save == 0:
                             timer.mark("ckpt")
-                            self.save_ckpt(epoch)
-                            train_draw.draw(epoch)
-                            val_draw.draw(epoch)
+                            self.save_ckpt(epoch)  # every rank: it gathers the slices
+                            if self.rank0:
+                                train_draw.draw(epoch)
+                                val_draw.draw(epoch)
                             duty.add("ckpt", timer.elapsed("ckpt"))
                         duty.step()
                         timer.mark("dataload")
@@ -336,18 +390,30 @@ class Trainer:
 
     def eval(self, loader: Iterable, draw: Optional[Drawer] = None) -> Dict[str, float]:
         """Mean loss and accuracy over the loader's rows, and the ROC-AUC;
-        each batch's mean loss into ``draw`` where one is given."""
+        each batch's mean loss into ``draw`` where one is given. Under a mesh
+        over the data ranks' rows gathered, padding rows (NaN labels) dropped
+        (deepfake_tpu/train/trainer.py:386-406)."""
         loss_stat, acc_stat = AverageMeter(), AverageMeter()
         all_probs, all_labels = [], []
         for inputs, labels in loader:
-            out = {k: v.float().cpu().numpy() for k, v in self._eval_step(inputs, labels).items()}
+            out = self._eval_step(inputs, labels)
+            lab = torch.as_tensor(labels.cpu().numpy() if torch.is_tensor(labels) else
+                                  np.asarray(labels), dtype=torch.float32)
+            if self.mesh is not None:
+                out = dict(out, labels=lab.to(out["probs"].device))
+                out = {k: pm.gather_from(v.float(), self.mesh.data_group, dim=0)
+                       for k, v in out.items()}
+            out = {k: v.float().cpu().numpy() for k, v in out.items()}
+            if self.mesh is not None:
+                real = ~np.isnan(out["labels"])
+                out = {k: v[real] for k, v in out.items()}
+                lab = torch.from_numpy(out.pop("labels"))
             n = out["probs"].shape[0]
             loss = float(np.mean(out["loss_vec"]))
             loss_stat.update(loss, n)
             acc_stat.update(float(np.mean(out["correct"])), n)
             all_probs.append(out["probs"])
-            all_labels.append(labels.cpu().numpy() if torch.is_tensor(labels) else
-                              np.asarray(labels))
+            all_labels.append(lab.numpy())
             if draw is not None:
                 draw.update(loss)
         probs = np.concatenate(all_probs) if all_probs else np.zeros(0)

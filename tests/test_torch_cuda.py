@@ -18,7 +18,8 @@ plain| / max(|plain|, 1): f32 1e-5 (summation order); bf16 two bf16 ulps of
 the largest output (each of the LayerNorm output, the product, the GELU and
 the residual sum is rounded to bf16 on both sides and may round apart by an
 ulp). For K5, forward and backward: f32 1e-5 of max(|plain|, 1) (summation
-order; dk, dv and dbias are summed with atomics in the SIMT route); bf16 out,
+order; dk, dv and dbias are summed with atomics in the SIMT route; bf16's
+dbias is summed in a fixed order and repeats to the bit); bf16 out,
 dq, dk and dv within two bf16 ulps of the largest |output| (the kernel feeds
 P and dS to the tensor cores in bf16, the plain version keeps them f32);
 dbias (f32) within 1e-2 of its largest |value|. For K6: f32 1e-5 of
@@ -29,9 +30,14 @@ taken as a split bf16 hi/lo product, so the logits keep ~16 bits).
 """
 
 import math
+import os
 
 import pytest
 import torch
+
+# cuBLAS repeats its sums only with a fixed workspace, set before its first
+# call (the deterministic configuration of the fused training tests)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from deepfake_tpu_torch.models import inception_resnet_v2 as irv2
 from deepfake_tpu_torch.models.layers import BatchNorm, init_weights
@@ -549,6 +555,45 @@ def test_k5_forward_is_deterministic(cuda_device):
     b = window_attn3d_train_fwd(qkv, **kw)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# (B_, H, N, D, window, token grid or None): K5's backward on the shapes the
+# presets train, at b8 and shifted: SwinV2-B's stage 0 in the fused model
+# (N = 49, 7x7 windows of a 56 x 56 grid), Video Swin-S's stage 0 (N = 392,
+# the shared-memory slab) and Video Swin-B's (16,7,7) stage 0 (N = 784,
+# streamed, no slab); and a head dim of 16 (the mma.sync backward)
+K5_DETERMINISM = [(512, 4, 49, 32, (1, 7, 7), (1, 56, 56)),
+                  (1024, 3, 392, 32, (8, 7, 7), (16, 56, 56)),
+                  (512, 4, 784, 32, (16, 7, 7), (16, 56, 56)),
+                  (512, 4, 49, 16, (1, 7, 7), (1, 56, 56))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_,H,N,D,window,grid", K5_DETERMINISM,
+                         ids=["n49", "n392", "n784", "n49_d16"])
+def test_k5_backward_is_deterministic(cuda_device, B_, H, N, D, window, grid):
+    """Two bf16 backward launches on the same inputs give the same bits, dbias
+    included (each block sums its windows' dS into a slot of its own, and
+    the slots are added in a fixed order); both within k5_tolerance of the
+    plain version."""
+    gen = torch.Generator(cuda_device).manual_seed(13)
+    C = D * H
+    qkv = torch.randn(B_, N, 3 * C, generator=gen, device=cuda_device).to(torch.bfloat16)
+    dout = torch.randn(B_, N, C, generator=gen, device=cuda_device).to(torch.bfloat16)
+    bias = 0.5 * torch.randn(H, N, N, generator=gen, device=cuda_device)
+    ws, ss = get_window_size(grid, window, tuple(w // 2 for w in window))
+    mask = torch.from_numpy(compute_mask_3d(*grid, ws, ss)).to(cuda_device, torch.bfloat16)
+    assert B_ % mask.shape[0] == 0 and ws[0] * ws[1] * ws[2] == N
+    kw = dict(num_heads=H, bias=bias, mask=mask, scale=D ** -0.5)
+    runs = [window_attn3d_train_bwd(qkv, dout, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    (dqkv, dbias), (dqkv2, dbias2) = runs
+    assert torch.equal(dbias, dbias2) and torch.equal(dqkv, dqkv2)
+    want = window_attn3d_train_bwd_plain(*qkv.split(C, dim=-1), dout, **kw)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), (*dqkv.split(C, dim=-1), dbias), want):
+        err = (a.float() - b.float()).abs().max().item()
+        tol = k5_tolerance(b, dbias=name == "dbias")
+        assert math.isfinite(err) and err <= tol, (name, err, tol)
 
 
 @pytest.mark.cuda
@@ -1491,7 +1536,7 @@ FUSED_TRAIN = dict(GRAPH_BASE, **{"data.modality": "fused", "optim.batch_size": 
                                   "optim.accum_step": 2, "optim.learning_rate": 0.01})
 
 
-def _fused_trainer(dev, compiled, batches):
+def _fused_trainer(dev, compiled, batches, mesh=None):
     from deepfake_tpu_torch.config import Config
     from deepfake_tpu_torch.train.trainer import Trainer
 
@@ -1499,7 +1544,7 @@ def _fused_trainer(dev, compiled, batches):
     for k, v in FUSED_TRAIN.items():
         cfg.set(k, v)
     return Trainer(None, cfg, _OneBatch(*batches[0]), logger=lambda line: None, device=dev,
-                   compiled=compiled)
+                   compiled=compiled, mesh=mesh)
 
 
 def _fused_batches(dev, n, seed=62):
@@ -1516,33 +1561,104 @@ def _fused_batches(dev, n, seed=62):
     return out
 
 
+@pytest.fixture
+def deterministic():
+    """cuDNN's deterministic algorithms and torch.use_deterministic_algorithms
+    (warnings only, as tools/train_determinism.py sets them), restored
+    after the test."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
 @pytest.mark.cuda
-def test_fused_train_graph_matches_eager(cuda_device):
+def test_fused_train_graph_matches_eager(cuda_device, deterministic):
     """Three fused bf16 training steps at the small geometry (micro-batch 2 x
     accum 2, every dropout at its default: IRv2's and NeXtVLAD's, SwinV2's
     DropPath, wav2vec2's rates, LayerDrop and SpecAugment) as one CUDA graph
-    a step against three eager steps from the same seed. The first step's
-    loss, a forward of the same weights with the same masks, equals the
-    eager route's to the bit. The rest equals it to the bit where two eager
-    runs agree to the bit, else lies within 4x their spread (cuDNN's
-    backward algorithms and K5's dbias atomics sum in an order that may
-    change from run to run). The graph launches K5 both ways in every SwinV2
-    block and micro-batch (4 blocks x 2) and no other hand-written kernel."""
+    a step against three eager steps from the same seed, in the
+    deterministic configuration: losses and weights equal to the bit (K5's
+    dbias is summed in a fixed order). The graph launches K5 both ways in
+    every SwinV2 block and micro-batch (4 blocks x 2) and no other
+    hand-written kernel."""
     batches = _fused_batches(cuda_device, 3)
     runs = []
-    for compiled in (False, False, True):
+    for compiled in (False, True):
         t = _fused_trainer(cuda_device, compiled, batches)
         runs.append((_steps(t, batches), _weights(t), t.graphs))
-    (want, w_want, _), (again, w_again, _), (got, w_got, graphs) = runs
-    assert got[0] == want[0], (got, want)
-    if again == want and _gap(w_want, w_again) == 0.0:
-        assert got == want and _gap(w_want, w_got) == 0.0, (got, want)
-    else:
-        spread = max(abs(a - b) for a, b in zip(want, again))
-        assert max(abs(a - b) for a, b in zip(got, want)) <= _spread_tolerance(
-            spread, max(abs(v) for v in want)), (got, want, again)
-        w_scale = max(w.abs().max().item() for w in w_want)
-        assert _gap(w_want, w_got) <= _spread_tolerance(_gap(w_want, w_again), w_scale)
+    (want, w_want, _), (got, w_got, graphs) = runs
+    assert got == want, (got, want)
+    assert _gap(w_want, w_got) == 0.0
     (g,) = graphs.graphs.values()
     assert g.replays == 3 and g.launches == {"window_attn3d_train_fwd": 8,
                                              "window_attn3d_train_bwd": 8}
+
+
+@pytest.mark.cuda
+def test_one_process_group_step_equals_no_group(cuda_device, deterministic):
+    """A one-process NCCL group's (1 data, 1 model) mesh: three fused graph
+    steps equal three graph steps of a Trainer without a group from the same
+    seed to the bit, in losses and weights (an all-reduce of one rank is
+    exact, and BatchNorm's statistics come from one routine with or without
+    a group); the graph holds the collectives."""
+    import torch.distributed as dist
+
+    from deepfake_tpu_torch.parallel.dryrun import free_port
+    from deepfake_tpu_torch.parallel.mesh import make_mesh
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    batches = _fused_batches(cuda_device, 3)
+    t = _fused_trainer(cuda_device, True, batches)
+    want, w_want = _steps(t, batches), _weights(t)
+    del t
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        tm = _fused_trainer(cuda_device, True, batches, mesh=make_mesh(1, 1))
+        got, w_got = _steps(tm, batches), _weights(tm)
+        (g,) = tm.graphs.graphs.values()
+        assert g.replays == 3
+    finally:
+        dist.destroy_process_group()
+    assert got == want, (got, want)
+    assert _gap(w_want, w_got) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_batchnorm_train_on_the_card_matches_the_cpu(cuda_device, dtype):
+    """Training BatchNorm on the card (PyTorch's SyncBatchNorm kernels, no
+    group) against the same module on the CPU (f64-accumulated sums): the
+    output, the running statistics and the gradients of the input, weight
+    and bias, for an IRv2-like channels_last [8, 64, 13, 13] activation. f32
+    within 1e-4 of max(|CPU|, 1) (one-pass Welford on the card, two-pass on
+    the CPU); bf16 within two bf16 ulps of the largest |value| (the output
+    and dx are rounded to bf16 on both sides)."""
+    gen = torch.Generator().manual_seed(21)
+    x = (1.5 * torch.randn(8, 64, 13, 13, generator=gen) + 0.7).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    dy = torch.randn(8, 64, 13, 13, generator=gen).to(dtype)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        bn = BatchNorm(64, eps=1e-3).to(dev).train()
+        with torch.no_grad():
+            bn.weight.copy_(1.0 + 0.2 * torch.randn(64, generator=torch.Generator().manual_seed(22)))
+            bn.bias.fill_(0.1)
+        xd = x.detach().clone().to(dev).requires_grad_()
+        y = bn(xd)
+        y.backward(dy.to(dev))
+        runs.append([t.detach().float().cpu() for t in (y, bn.running_mean, bn.running_var,
+                                                       xd.grad, bn.weight.grad, bn.bias.grad)])
+    for name, a, b in zip(("y", "running_mean", "running_var", "dx", "dw", "db"), runs[1],
+                          runs[0]):
+        big = b.abs().max().item()
+        if dtype == torch.bfloat16 and name in ("y", "dx"):
+            tol = 2.0 * 2.0 ** (math.floor(math.log2(big)) - 7)
+        else:
+            tol = 1e-4 * max(big, 1.0)
+        err = (a - b).abs().max().item()
+        assert err <= tol, (name, err, tol)

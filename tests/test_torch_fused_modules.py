@@ -450,3 +450,74 @@ def test_training_cli_trains_and_evaluates_on_the_cpu(tmp_path, monkeypatch, one
         "Modality:fused_Phase:train_Epoch0.png", ckpt.name]
     with pytest.raises(NotImplementedError, match="reference files"):
         main(argv + ["--Resume", "--fused_ckpt_path", "fused.pth"])
+
+
+def test_training_cli_val_model_matches_jax_eval(tmp_path, monkeypatch, one_torch_thread):
+    """``python -m deepfake_tpu_torch.train --val_model`` in process at the
+    small geometry on the CPU, from a checkpoint of weights carried across
+    from the JAX tree (--Resume): the logged ``val:`` loss, accuracy and AUC
+    against the JAX Trainer.eval (train.py:84-85) with the same weights on
+    the same batches (the port's val split, 4 clips in 2 batches, assembled
+    by its val loader), loss and accuracy within rtol 1e-5 and the AUC
+    equal."""
+    import json
+
+    from deepfake_tpu.parallel.mesh import make_mesh
+    from deepfake_tpu.train.trainer import Trainer as JTrainer, TrainState
+    from deepfake_tpu_torch.data.dataset import DeepFakeDataModule
+    from deepfake_tpu_torch.data.pipeline import ModelFeedLoader
+    from deepfake_tpu_torch.data.synthetic import make_synthetic_trainset
+    from deepfake_tpu_torch.io.checkpoint import save_checkpoint
+    from deepfake_tpu_torch.models.registry import build_model
+    from deepfake_tpu_torch.train.__main__ import main
+    from deepfake_tpu_torch.train.trainer import Trainer
+    from tests.torch_fused_train_helpers import _jax_fused
+
+    root = tmp_path / "data"
+    make_synthetic_trainset(str(root), 2, 4, frames=6, size=96, seconds=0.5)
+    monkeypatch.chdir(tmp_path)
+    over = dict(SMALL_FUSED, **{"data.data_root": str(root), "optim.batch_size": 2,
+                                "data.wave_seconds_buckets": (0.5, 1.0), "data.num_workers": 2})
+    jcfg, tcfg = both_configs(over)
+    jmodel = _jax_fused(jcfg)
+    one = (jnp.zeros((1, 2, 96, 96, 3)), jnp.zeros((1, 56, 56, 3)), jnp.zeros((1, 8000)))
+    variables = random_variables(jmodel, one, seed=81, train=False, deterministic=True)
+    model = load_jax_variables(build_model(tcfg, "cpu", train=True), variables)
+    class NoData:
+        def train_loader(self):
+            return [None]
+
+    ckpt = save_checkpoint(str(tmp_path / "carried"),
+                           Trainer(model, tcfg, NoData(), logger=lambda line: None, device="cpu"))
+    log = tmp_path / "train.log"
+    argv = ["--preset", "fused", "--data_root", str(root), "-cuda", "False", "-b", "2",
+            "--num_frames", "2", "-nu", "2", "--log_dir", str(log), "--val_model", "--Resume",
+            "--fused_ckpt_path", ckpt, "--set", "data.wave_seconds_buckets=[0.5, 1.0]"]
+    for k, v in SMALL_FUSED.items():
+        if k not in ("data.modality", "data.num_frames"):
+            argv += ["--set", f"{k}={list(v) if isinstance(v, tuple) else v}"]
+    main(argv)
+    (line,) = [s for s in log.read_text().splitlines() if "val: " in s]
+    got = json.loads(line.split("val: ", 1)[1])
+
+    dm = DeepFakeDataModule(tcfg, device="cpu").setup("fit")
+    batches = [(jax.tree.map(lambda t: t.numpy(), x), y.numpy())
+               for x, y in ModelFeedLoader(dm.val_dataloader(), tcfg, train=False, device="cpu")]
+    assert len(batches) == 2
+    jt = JTrainer.__new__(JTrainer)
+    jt.model, jt.cfg, jt.modality = jmodel, jcfg, "fused"
+    jt.mesh = make_mesh(data=1, model=1, devices=jax.devices()[:1])
+    jt.data_sharding = jax.sharding.NamedSharding(jt.mesh, jax.sharding.PartitionSpec("data"))
+    jt.repl = jax.sharding.NamedSharding(jt.mesh, jax.sharding.PartitionSpec())
+    jt.logger = lambda line: None
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    jt.state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                          batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
+                          opt_state=None)
+    jt._eval_step = jax.jit(jt._eval_step_impl)
+    try:
+        want = jt.eval(batches)
+    finally:
+        jax.clear_caches()  # the fused eval's executable: the worker runs other files after
+    np.testing.assert_allclose([got["loss"], got["acc"]], [want["loss"], want["acc"]], rtol=1e-5)
+    assert got["auc"] == pytest.approx(want["auc"], rel=1e-6, nan_ok=True)
