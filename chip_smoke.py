@@ -123,6 +123,19 @@ Phases, in order; any failure exits non-zero and prints no result:
      to one without to the bit; the step ms beside phase 12's graph step,
      the collectives a step's graph holds and the bytes one step
      all-reduces (the "mesh:" line).
+ 16. int8 serving of the IRv2 trunk (phase_int8, right after phase 3, on its
+     weights and requests): model.irv2_quant = int8, then int8_static after
+     SubmitCtl.calibrate on one b8 batch, each on the eager route (24 K7
+     launches a request, 24 + 24 K8 at int8 and 24 at int8_static) and as
+     CUDA graphs (graph = eager to the bit), latency, clips/s and idle
+     share beside phase 3's bf16 route, the logits' correlation with the
+     bf16 route (>= 0.99), static on its calibration batch equal to dynamic
+     to the bit; one b8 request with irv2_fused_blocks off (244 K7); K7 and
+     K8 against their plain versions to the bit at every conv shape of both
+     (bf16 and f32 out; K8 with a saturating static scale), each shape's
+     kernel, plain, cuDNN bf16 conv, torch._int_mm (1x1) and bound ms; and,
+     inside phase 11, the inference CLI over its files at
+     --set model.irv2_quant=int8 (the kernel line's K7 and K8 rows).
  13. the training CLI on mp4 files: item 5 of phase 14.
  14. checkpoints of fused training at 8 x 4 on the graph route
      (phase_checkpoints): Trainer.train over five steps with model_save 5,
@@ -1501,8 +1514,8 @@ def profile_call(fn, wall_ms: float):
 
 
 # the hand-written kernels' names as the profiler reports them: every
-# __global__ function of csrc/ sits in namespace hop, simt or wtile
-KERNEL_NAME = re.compile(r"(?:^|[^A-Za-z0-9_])(?:hop|simt|wtile)::")
+# __global__ function of csrc/ sits in namespace hop, simt, wtile or i8
+KERNEL_NAME = re.compile(r"(?:^|[^A-Za-z0-9_])(?:hop|simt|wtile|i8)::")
 
 
 def handwritten_kernels(fn) -> collections.Counter:
@@ -1643,6 +1656,17 @@ def fused_raw(cfg, batch, dev, gen):
             "audio_wave": wave, "audio_len": lengths, "paudio_wave": wave, "paudio_len": lengths}
 
 
+def irv2_features(pred, request):
+    """The IRv2 trunk's per-frame features [frames, 1536] of a fused
+    request, in f32."""
+    import torch
+
+    with torch.inference_mode():
+        video = pred._inputs(request)[0]
+        frames = video.reshape((-1,) + tuple(video.shape[2:]))
+        return pred.model.video_extractor.inception(frames).float()
+
+
 def phase_serving(cfg, cfg_plain, dev, gen, report):
     """Fused serving on the kernel routes (the main path), then the same
     requests on the plain routes (cuDNN convs, plain attention) with the
@@ -1744,9 +1768,14 @@ def phase_serving(cfg, cfg_plain, dev, gen, report):
         fail("serving: kernel and plain routes disagree in bf16")
     if d_raw_graph != 0:
         fail(f"serving: predict_raw's graph and eager scores differ by {d_raw_graph:.3e}")
+    # phase 16 serves the same requests at int8 and compares its logits and
+    # IRv2 features
+    with torch.inference_mode():
+        logits = torch.cat([pred.forward(r, return_logits=True).float() for r in requests])
+    feats = irv2_features(pred, requests[0])
     del pred, plain, graph
     torch.cuda.empty_cache()
-    return launches, res_graph["launches"]
+    return launches, res_graph["launches"], (requests, logits, feats)
 
 
 def phase_parity(cfg_kernel, cfg_plain, dev, gen, report, batch: int):
@@ -3093,7 +3122,8 @@ def ingest_launches(graphs):
     return counts(), dict(replayed)
 
 
-def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int, ckpt: str):
+def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int, ckpt: str,
+                 after=None):
     """The main path from video files (data ingest, SubmitCtl and the CLI),
     on the graph route (the default on the card), each kernel's counts set to
     0 before its path and read after it:
@@ -3113,7 +3143,9 @@ def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int, ckpt: s
         K3 and K4, equal to the bit to the mean of predict_raw over its windows.
       audio (SwinV2-B, window 16, 256^2): score_file on one clip through K6
         and K2, equal to predict_raw on the clip's features.
-    Returns {path: (counts, graph launches)}."""
+    ``after(root, names, scores)``, where given, runs last on the same test
+    set (the fused in-process scores beside it). Returns {path: (counts,
+    graph launches)}."""
     import copy
     import signal
 
@@ -3320,6 +3352,8 @@ def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int, ckpt: s
             fail(f"ingest: audio score_file launched {launched}: K6 and K2 expected")
         del pred
         torch.cuda.empty_cache()
+        if after is not None:
+            after(root, names, first)
     res["launches"] = {k: v[0] for k, v in paths.items()}
     res["graph_launches"] = {k: v[1] for k, v in paths.items()}
     report["ingest"] = res
@@ -3335,6 +3369,324 @@ def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int, ckpt: s
         f"{res['cli_max_abs_diff_vs_in_process']:.3e}; long video {res['long_video_s']:.2f} s, "
         f"audio score_file {res['audio_score_file_s'] * 1e3:.1f} ms")
     return paths
+
+
+# ---------------------------------------------------------------- phase 16: int8 serving
+
+K7_SRC = K8_SRC = "deepfake_tpu_torch/csrc/int8_conv.cu"
+K7_REPLACES = ("none (not Pallas): deepfake_tpu/models/layers.py:256 quant_conv, XLA's int8 "
+               "conv_general_dilated and its dequantising epilogue (layers.py:322-330)")
+K8_AMAX_REPLACES = ("none (not Pallas): the max-abs of deepfake_tpu/models/layers.py:224 "
+                    "act_scale_for (an XLA reduction)")
+K8_QUANT_REPLACES = "none (not Pallas): deepfake_tpu/models/layers.py:249 quantize_to (XLA ops)"
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores, NVIDIA data sheet
+
+
+def int8_bound(ops: float, nbytes: float):
+    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def int8_convs(pred, request):
+    """One request through ``pred`` (eager, at int8): the number of int8 conv
+    calls, and {shape: [first call (xq, weights, amax, relu, dtype), count]}."""
+    import torch
+
+    from deepfake_tpu_torch.ops.int8_conv import conv_key, recorded_convs
+
+    with recorded_convs() as calls, torch.inference_mode():
+        pred.predict(request)
+    by_shape = {}
+    for c in calls:
+        by_shape.setdefault(conv_key(c[0], c[1], c[3]), [c, 0])[1] += 1
+    return len(calls), by_shape
+
+
+def int8_conv_cost(xq, w):
+    """(operations, bytes) of one K7 launch with bf16 output: 2 M N K; the
+    int8 input and weights read once, the bf16 output written once, the
+    scales, shift and amax."""
+    from deepfake_tpu_torch.ops.int8_conv import out_size
+
+    cout, kh, kw, cin = w.wq.shape
+    Fn, H, W, _ = xq.shape
+    Ho, Wo = out_size(H, W, kh, kw, w.stride, w.pad)
+    M = Fn * Ho * Wo
+    return 2.0 * M * cout * kh * kw * cin, xq.numel() + w.wq.numel() + 8 * cout + 4 + 2 * M * cout
+
+
+def phase_int8_kernels(shapes, dev, gen, report):
+    """K7 and K8 against their plain versions to the bit at every conv shape
+    of one fused b8 request (``shapes``: K1 on and K1 off), bf16 and f32
+    out; K8 on a bf16 activation of each conv's input shape (the batch's
+    own scale, and a static scale at a quarter of the batch's max, which
+    saturates). Each shape's kernel, plain, yardstick (cuDNN's bf16 conv;
+    torch._int_mm, cuBLASLt, on the 1x1 convs) and bound ms; sums per
+    request. Returns the K7, K8 amax and K8 quantize rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepfake_tpu_torch.ops.int8_conv import (
+        act_amax, act_amax_plain, act_quantize, act_quantize_plain, int8_conv, int8_conv_plain,
+    )
+
+    keys = ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "int_mm_ms", "ops", "bytes",
+            "amax_ms", "amax_plain_ms", "amax_bound_ms", "amax_library_ms", "quant_ms",
+            "quant_plain_ms", "quant_bound_ms")
+    totals = {k1: dict.fromkeys(keys, 0.0) for k1 in ("k1_on", "k1_off")}
+    rows, errs = [], 0.0
+    for k1, by_shape in shapes.items():
+        for key, ((xq, w, amax, relu, _), count) in by_shape.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                got = int8_conv(xq, w, amax, relu, dtype)
+                want = int8_conv_plain(xq, w, amax, relu, dtype)
+                torch.cuda.synchronize()
+                if not torch_equal(got, want):
+                    fail(f"K7 {key} {dtype}: differs from its plain version by "
+                         f"{(got.float() - want.float()).abs().max().item():.3e}")
+            del got, want
+            x = (0.5 * torch.randn(xq.shape, generator=gen, device=dev)).to(torch.bfloat16)
+            a = act_amax(x)
+            torch.cuda.synchronize()
+            if not torch_equal(a, act_amax_plain(x)):
+                fail(f"K8 amax at {tuple(x.shape)}: {a.item()} against {act_amax_plain(x).item()}")
+            for scale in (a, 0.25 * a):  # the batch's max; a static scale below it
+                q = act_quantize(x, scale)
+                torch.cuda.synchronize()
+                if not torch_equal(q, act_quantize_plain(x, scale)):
+                    fail(f"K8 quantize at {tuple(x.shape)} differs from its plain version")
+            if q.abs().max().item() != 127:
+                fail(f"K8 quantize at {tuple(x.shape)}: a quarter of the max did not saturate")
+            cout, kh, kw, cin = w.wq.shape
+            ops, nbytes = int8_conv_cost(xq, w)
+            bound, _ = int8_bound(ops, nbytes)
+            ms = cuda_time_ms(lambda: int8_conv(xq, w, amax, relu, torch.bfloat16), iters=10)
+            plain = cuda_time_ms(lambda: int8_conv_plain(xq, w, amax, relu, torch.bfloat16),
+                                 iters=1, warmup=0)
+            # cuDNN's bf16 conv of the same shape (channels_last; the IRv2
+            # paddings are symmetric on each axis)
+            xb = torch.randn(xq.shape[0], cin, xq.shape[1], xq.shape[2], device=dev).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            wb = torch.randn(cout, cin, kh, kw, device=dev).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            cudnn = cuda_time_ms(lambda: F.conv2d(xb, wb, stride=w.stride,
+                                                  padding=(w.pad[0], w.pad[2])), iters=10)
+            del xb, wb
+            int_mm = None
+            if kh == kw == 1 and w.stride == 1 and cin % 8 == 0 and cout % 8 == 0:
+                a2, b2 = xq.view(-1, cin), w.wq.view(cout, cin).t()
+                int_mm = cuda_time_ms(lambda: torch._int_mm(a2, b2), iters=10)
+            t_amax = cuda_time_ms(lambda: act_amax(x), iters=10)
+            t_amax_plain = cuda_time_ms(lambda: act_amax_plain(x), iters=3)
+            t_amax_lib = cuda_time_ms(lambda: torch.linalg.vector_norm(x, ord=math.inf), iters=10)
+            t_quant = cuda_time_ms(lambda: act_quantize(x, a), iters=10)
+            t_quant_plain = cuda_time_ms(lambda: act_quantize_plain(x, a), iters=3)
+            b_amax, _ = int8_bound(0, 2 * x.numel() + 4)
+            b_quant, _ = int8_bound(0, 3 * x.numel() + 4)
+            row = dict(k1=k1, shape=[list(key[0]), list(key[1]), key[2], list(key[3]), key[4]],
+                       count=count, ms=ms, plain_ms=plain, bound_ms=bound, cudnn_bf16_ms=cudnn,
+                       int_mm_ms=int_mm, gop=ops / 1e9, mbytes=nbytes / 1e6,
+                       amax_ms=t_amax, amax_plain_ms=t_amax_plain, amax_library_ms=t_amax_lib,
+                       amax_bound_ms=b_amax, quant_ms=t_quant, quant_plain_ms=t_quant_plain,
+                       quant_bound_ms=b_quant)
+            rows.append(row)
+            tot = totals[k1]
+            for k in keys:
+                v = {"ops": ops, "bytes": nbytes}.get(k, row.get(k))
+                tot[k] += count * (v or 0.0)
+            log(f"K7 {k1} x{count} in [{','.join(map(str, xq.shape))}] w [{cout},{kh},{kw},{cin}] "
+                f"s{w.stride} pad {w.pad}: kernel_ms={ms:.4f} plain_ms={plain:.3f} "
+                f"cudnn_bf16_ms={cudnn:.4f} "
+                + (f"int_mm_ms={int_mm:.4f} " if int_mm is not None else "")
+                + f"bound_ms={bound:.4f} ({ops / 1e9:.2f} GOP, {nbytes / 1e6:.1f} MB); "
+                f"K8 amax {t_amax:.4f} (plain {t_amax_plain:.4f}, vector_norm {t_amax_lib:.4f}, "
+                f"bound {b_amax:.4f}) quantize {t_quant:.4f} (plain {t_quant_plain:.4f}, "
+                f"bound {b_quant:.4f})")
+            del x, q
+    report["int8_kernels"] = rows
+    report["int8_kernel_totals"] = totals
+    torch.cuda.empty_cache()
+    for name in ("int8_conv", "act_amax", "act_quantize"):
+        wrappers()[name].launches = 0
+    on, off = totals["k1_on"], totals["k1_off"]
+    _, by = int8_bound(on["ops"], on["bytes"])
+    log(f"K7 per fused b8 request, K1 on (24 convs): kernel_ms={on['ms']:.3f} "
+        f"plain_ms={on['plain_ms']:.2f} cudnn_bf16_ms={on['cudnn_bf16_ms']:.3f} "
+        f"int_mm_ms (1x1 only)={on['int_mm_ms']:.3f} bound_ms={on['bound_ms']:.4f} ({by}); "
+        f"K1 off (244 convs): kernel_ms={off['ms']:.3f} plain_ms={off['plain_ms']:.2f} "
+        f"cudnn_bf16_ms={off['cudnn_bf16_ms']:.3f} bound_ms={off['bound_ms']:.4f}")
+    per = "one fused b8 request, K1 on: the 24 IRv2 convs outside the blocks, bf16 out"
+    extra = lambda t, *ks: {k: t[k] for k in ks}
+    return [
+        dict(name="int8_conv (K7)", route="cuda", source=K7_SRC, replaces=K7_REPLACES,
+             launches=None, max_abs_err=0.0, ms=on["ms"], plain_ms=on["plain_ms"],
+             bound_ms=on["bound_ms"], bound_by=by, library_ms=on["cudnn_bf16_ms"],
+             library="cuDNN bf16 conv of each shape (F.conv2d), summed",
+             int_mm_ms_1x1=on["int_mm_ms"], per=per,
+             k1_off=extra(off, "ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "int_mm_ms")),
+        dict(name="act_amax (K8, launch 1)", route="cuda", source=K8_SRC,
+             replaces=K8_AMAX_REPLACES, launches=None, max_abs_err=0.0, ms=on["amax_ms"],
+             plain_ms=on["amax_plain_ms"], bound_ms=on["amax_bound_ms"], bound_by="bytes",
+             library_ms=on["amax_library_ms"],
+             library="torch.linalg.vector_norm(x, ord=inf) of each input, summed",
+             per=per.replace("bf16 out", "their bf16 inputs"),
+             k1_off=extra(off, "amax_ms", "amax_plain_ms", "amax_bound_ms")),
+        dict(name="act_quantize (K8, launch 2)", route="cuda", source=K8_SRC,
+             replaces=K8_QUANT_REPLACES, launches=None, max_abs_err=0.0, ms=on["quant_ms"],
+             plain_ms=on["quant_plain_ms"], bound_ms=on["quant_bound_ms"], bound_by="bytes",
+             library_ms=None, per=per.replace("bf16 out", "their bf16 inputs"),
+             k1_off=extra(off, "quant_ms", "quant_plain_ms", "quant_bound_ms"))]
+
+
+def corr(a, b) -> float:
+    return float(np.corrcoef(np.asarray(a, np.float64).ravel(),
+                             np.asarray(b, np.float64).ravel())[0, 1])
+
+
+def phase_int8(cfg, dev, gen, report, requests, bf16_logits, bf16_feats):
+    """Fused serving at model.irv2_quant = int8, then int8_static after
+    SubmitCtl.calibrate on one b8 batch, on phase 3's weights (the same
+    seed) and requests (three b8, one b1): the eager route with the launch
+    counters (24 K7, 24 + 24 K8 per request at int8; 24 K7 and 24 K8 at
+    int8_static, no amax), then as CUDA graphs (graph = eager to the bit;
+    graph_route's checks), static on its calibration batch equal to dynamic
+    to the bit, and each mode's logits' and IRv2 features' correlation with
+    phase 3's bf16 route (>= 0.99, tests/test_quantize.py:153's bar on the
+    features; the logits of random weights move little with the trunk);
+    then one b8 request
+    with irv2_fused_blocks off (244 K7); then K7 and K8 against their plain
+    versions at every conv shape of both (``phase_int8_kernels``). Returns
+    the kernel rows, their launches and graph launches set."""
+    import copy
+
+    import torch
+
+    from deepfake_tpu_torch.serving import Predictor
+    from deepfake_tpu_torch.train.submit import SubmitCtl
+
+    res, shapes = {}, {}
+    convs = {"int8": 24, "int8_static": 24}
+    eager_of = {}
+    launches = graph_launches = None
+    for quant in ("int8", "int8_static"):
+        c = copy.deepcopy(cfg)
+        c.model.irv2_quant = quant
+        eager = Predictor(c, device=dev, compiled=False)
+        graph = Predictor(c, device=dev)
+        if quant == "int8":
+            n, shapes["k1_on"] = int8_convs(eager, requests[0])
+            if n != 24:
+                fail(f"int8: a fused b8 request made {n} int8 convs, expected 24")
+        else:
+            t = time.perf_counter()
+            calibrated = [SubmitCtl(p, c, None, logger=lambda s: None).calibrate([requests[0]])
+                          for p in (eager, graph)]
+            res["calibrate_s"] = time.perf_counter() - t
+            if calibrated != [24, 24]:
+                fail(f"int8_static: calibrate recorded {calibrated} scales, expected 24 each")
+        serve(eager, [requests[0], requests[-1]])  # warm-up at both batch sizes
+        torch.cuda.synchronize()
+        reset_counts()  # this mode's main-path run starts here
+        lat, per_req, scores = [], [], []
+        for r in requests:
+            before = counts()
+            (t,), (sc,) = serve(eager, [r])
+            after = counts()
+            lat.append(t)
+            scores.append(sc)
+            per_req.append({k: after[k] - before[k] for k in after})
+        counted = counts()  # ... and ends here
+        want = {"int8_conv": convs[quant], "act_quantize": convs[quant],
+                "act_amax": convs[quant] if quant == "int8" else 0, "inception_block": 40}
+        for i, d in enumerate(per_req):
+            if any(d[k] != v for k, v in want.items()) or not d["window_attn_tokens"] + d[
+                    "window_attn_heads"]:
+                fail(f"{quant} request {i}: launches {d}, expected {want} and K2")
+        rg = graph_route(graph, eager, requests, scores, per_req, f"{quant} serving")
+        with torch.inference_mode():
+            logits = torch.cat([eager.forward(r, return_logits=True).float() for r in requests])
+        eager_of[quant] = eager
+        rho = corr(logits.cpu(), bf16_logits.cpu())
+        rho_feat = corr(irv2_features(eager, requests[0]).cpu(), bf16_feats.cpu())
+        res[quant] = dict(p50_b8_s=statistics.median(lat[:3]),
+                          clips_per_s_b8=8 * 3 / sum(lat[:3]), b1_latency_s=lat[3],
+                          per_request_launches=per_req, graph_route=rg,
+                          logit_corr_vs_bf16=rho, irv2_feature_corr_vs_bf16=rho_feat,
+                          max_abs_logit_diff_vs_bf16=(logits - bf16_logits).abs().max().item(),
+                          profile={"eager b8": profile_call(lambda: eager.predict(requests[0]),
+                                                            statistics.median(lat[:3]) * 1e3)})
+        if quant == "int8":
+            launches, graph_launches = counted, rg["launches"]
+        bf = report["serving"]["graph_route"]
+        log(f"{quant} serving: eager b8 p50 {res[quant]['p50_b8_s'] * 1e3:.2f} ms, "
+            f"{res[quant]['clips_per_s_b8']:.2f} clips/s, b1 {lat[3] * 1e3:.2f} ms, idle share "
+            f"{res[quant]['profile']['eager b8']['device_idle_share']:.3f}; graph route b8 p50 "
+            f"{rg['p50_b8_s'] * 1e3:.2f} ms, {rg['clips_per_s_b8']:.2f} clips/s, b1 "
+            f"{rg['b1_latency_s'] * 1e3:.2f} ms, idle share "
+            f"{rg['profile']['graph route b8']['device_idle_share']:.3f} (bf16 route, phase 3: "
+            f"graph b8 p50 {bf['p50_b8_s'] * 1e3:.2f} ms, {bf['clips_per_s_b8']:.2f} clips/s, "
+            f"b1 {bf['b1_latency_s'] * 1e3:.2f} ms, idle share "
+            f"{bf['profile']['graph route b8']['device_idle_share']:.3f}); launches per request "
+            f"{json.dumps({k: per_req[0][k] for k in want})}; logits' correlation with the bf16 "
+            f"route {rho:.5f}, max |diff| {res[quant]['max_abs_logit_diff_vs_bf16']:.3e}; IRv2 "
+            f"features' (b8, 256 frames x 1536) {rho_feat:.5f} ({report['card']})")
+        if not (rho >= 0.99 and rho_feat >= 0.99):
+            fail(f"{quant} serving: correlation with the bf16 route {rho:.5f} (logits), "
+                 f"{rho_feat:.5f} (IRv2 features)")
+        del graph
+        torch.cuda.empty_cache()
+    # static on its calibration batch runs the dynamic ops on the same scales
+    a, b = (eager_of[q].forward(requests[0], return_logits=True) for q in ("int8", "int8_static"))
+    if not torch_equal(a, b):
+        fail("int8_static on its calibration batch differs from int8")
+    del eager_of, a, b
+    torch.cuda.empty_cache()
+    # K1 off: all 244 convs int8
+    c = copy.deepcopy(cfg)
+    c.model.irv2_quant = "int8"
+    c.model.irv2_fused_blocks = False
+    off = Predictor(c, device=dev, compiled=False)
+    n, shapes["k1_off"] = int8_convs(off, requests[0])
+    if n != 244:
+        fail(f"int8 with K1 off: a fused b8 request made {n} int8 convs, expected 244")
+    (t_off,), _ = serve(off, [requests[0]])
+    res["k1_off"] = dict(latency_b8_s=t_off, int8_convs=n)
+    log(f"int8 serving, K1 off: one b8 request through 244 int8 convs, eager {t_off * 1e3:.1f} "
+        f"ms (warm)")
+    del off
+    torch.cuda.empty_cache()
+    rows = phase_int8_kernels(shapes, dev, gen, report)
+    del shapes
+    torch.cuda.empty_cache()
+    for row, name in zip(rows, ("int8_conv", "act_amax", "act_quantize")):
+        row["launches"] = launches[name]
+        row["graph_launches"] = graph_launches.get(name, 0)
+    report["int8"] = res
+    return rows
+
+
+def int8_cli(root, names, scores, ckpt, seed: int, report):
+    """The inference CLI at --set model.irv2_quant=int8 over phase 11's test
+    set (its checkpoint, --Resume): every clip once, finite scores in [0, 1],
+    their distance from phase 11's bf16 in-process scores printed."""
+    with tempfile.TemporaryDirectory() as cwd:
+        cmd = [sys.executable, "-m", "deepfake_tpu_torch.test", "--preset", "fused",
+               "--data_root", root, "-b", "8", "--random_seed", str(seed), "--Resume",
+               "--fused_ckpt_path", ckpt, "--set", "model.irv2_quant=int8"]
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t = time.perf_counter()
+        run = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t
+        if run.returncode != 0:
+            fail(f"int8 CLI: exit {run.returncode}: {run.stdout[-2000:]} {run.stderr[-2000:]}")
+        rows = csv_rows(os.path.join(cwd, "prediction.csv"))
+    got = [float(r[1]) for r in rows]
+    if [r[0] for r in rows] != names or not all(0.0 <= p <= 1.0 for p in got):
+        fail(f"int8 CLI: prediction.csv rows {rows[:3]}...")
+    diff = max(abs(p - scores[n]) for n, p in zip(names, got))
+    report["int8"]["cli"] = dict(wall_s=wall, clips=len(rows), max_abs_score_diff_vs_bf16=diff)
+    log(f"int8 CLI: {len(rows)} clips from files at irv2_quant=int8 in {wall:.1f} s (process "
+        f"start, build and capture included); max |score - bf16 in-process| {diff:.3e}")
 
 
 def main() -> int:
@@ -3438,10 +3790,13 @@ def main() -> int:
             row["launches"] = counted[0][name]
             row["graph_launches"] = None if counted[1] is None else counted[1].get(name, 0)
 
-    record(kernels[0:3], phase_serving(config("bfloat16", True), config("bfloat16", False), dev,
-                                       gen, report),
-           ("inception_block", "window_attn_tokens", "window_attn_heads"))
+    served = phase_serving(config("bfloat16", True), config("bfloat16", False), dev, gen, report)
+    record(kernels[0:3], served, ("inception_block", "window_attn_tokens", "window_attn_heads"))
     lap("3 fused serving")
+    # int8 serving of the IRv2 trunk (K7, K8) on phase 3's weights and requests
+    kernels += phase_int8(config("bfloat16", True), dev, gen, report, *served[2])
+    del served
+    lap("16 int8 serving")
     record(kernels[3:6], phase_video_swin(config("bfloat16", True, "video_swin"),
                                           config("bfloat16", False, "video_swin"), dev, gen,
                                           report),
@@ -3493,8 +3848,11 @@ def main() -> int:
             config("bfloat16", True, "fused"), dev, gen, report, args.seed, ckpt_dir)
         lap("14 checkpoints")
         # the main path from files: ingest, SubmitCtl and the CLI (graph route)
+        # ... and the inference CLI at int8 on the same files (phase 16's (d))
+        cli = lambda root, names, scores: int8_cli(root, names, scores, ckpt, args.seed, report)
         ingest = phase_ingest(config("bfloat16", True), config("bfloat16", True, "video_swin"),
-                              config("bfloat16", True, "audio"), dev, report, args.seed, ckpt)
+                              config("bfloat16", True, "audio"), dev, report, args.seed, ckpt,
+                              after=cli)
         lap("11 ingest")
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)

@@ -110,6 +110,17 @@ class ModelConfig:
     wav_conv_dim: int = 512
     # IRv2 residual blocks A/B/C through the CUDA kernel (csrc/inception_block.cu)
     irv2_fused_blocks: bool = True
+    # int8 IRv2 trunk at serving ("none" | "int8" | "int8_static"; any other
+    # value raises; deepfake_tpu/config.py:124-130): each ConvBnRelu's
+    # BatchNorm folded into its weight, weights quantised per output channel,
+    # activations per tensor (int8: each batch's max; int8_static: the scale
+    # SubmitCtl.calibrate / Predictor.calibrate recorded, the dynamic one
+    # before any), the conv int8 x int8 -> int32 on the tensor cores (K7,
+    # K8: csrc/int8_conv.cu). With irv2_fused_blocks on, the blocks run K1
+    # in the compute type and the 24 convs outside them int8 (stem,
+    # reductions, the 1536 conv); off, all 244 convs, the blocks' residual
+    # 1x1s included. Training ignores it.
+    irv2_quant: str = "none"
     # checkpoints of each modality: --Resume loads the modality's one
     # (io/checkpoint.py); a reference .pth or .safetensors path raises
     audio_ckpt_path: Optional[str] = None

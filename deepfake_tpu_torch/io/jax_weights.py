@@ -18,6 +18,12 @@ name and layout change:
 
 It is strict: every JAX leaf is consumed, every port parameter and
 persistent buffer is set, and any mismatch raises with the path.
+
+A ``quant_cache`` collection (int8_static's calibrated activation scales,
+``deepfake_tpu/models/registry.py::calibrate_act_scales``) lands leaf by
+leaf, by the same module paths, in each int8 conv's scalar (``act_amax`` of
+a ConvBnRelu, ``res_act_amax`` of a residual block), which then counts as
+calibrated; without one, every scale is forgotten (weights loaded since).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from deepfake_tpu_torch.models.registry import drop_inference_caches
+from deepfake_tpu_torch.models.registry import drop_inference_caches, reset_calibration
 
 _RENAME = {
     ("params", "scale"): "weight",
@@ -64,7 +70,7 @@ def _convert(owner: nn.Module, leaf: str, arr: np.ndarray, where: str) -> Tuple[
 
 def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:
     """Fill ``model`` from the JAX variables tree; see the module docstring."""
-    extra = set(variables) - {"params", "batch_stats"}
+    extra = set(variables) - {"params", "batch_stats", "quant_cache"}
     if extra:
         raise ValueError(f"unexpected variable collections {sorted(extra)}")
     targets = dict(model.state_dict(keep_vars=True))
@@ -92,4 +98,13 @@ def load_jax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Module
     if missing:
         raise KeyError(f"port parameters not set by the JAX variables: {missing[:10]}"
                        + (f" (+{len(missing) - 10} more)" if len(missing) > 10 else ""))
+    reset_calibration(model)
+    with torch.no_grad():
+        for path, arr in _leaves(variables.get("quant_cache", {})):
+            where = "/".join(("quant_cache",) + path)
+            try:
+                owner = model.get_submodule(".".join(path[:-1]))
+                owner.load_act_scale(path[-1], np.asarray(arr, dtype=np.float32))
+            except (AttributeError, KeyError) as e:
+                raise KeyError(f"{where}: no int8 activation scale there in the port") from e
     return drop_inference_caches(model)

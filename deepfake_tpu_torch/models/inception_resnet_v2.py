@@ -13,6 +13,14 @@ always in training (batch statistics, autograd), they run as plain
 convolutions, mirroring the JAX XLA path. In training a Dropout at
 ``drop_rate`` follows the global pool (JAX :399-401). Activations are NCHW
 tensors in channels_last memory.
+
+``quant`` (``model.irv2_quant``: None, "int8" or "int8_static") reaches
+every ConvBnRelu (layers.py's int8 branch) and each residual block's plain
+biased 1x1 (``_residual_conv`` :141-157: no BatchNorm, no ReLU, cast to
+the compute type before ``x + scale * res``), in eval mode. As in JAX, a
+block that runs K1 ignores it: with ``fused_blocks`` the 24 convs outside
+the blocks run int8 (12 in the stem, 4 in Reduction A, 7 in Reduction B,
+and ``conv``), without it all 244 (and 70, 100 and 50 in blocks A, B, C).
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 from torch import nn
 
 from deepfake_tpu_torch.models.layers import (
-    Conv2d, ConvBnRelu, Dropout, as_nchw, as_nhwc, avg_pool_torch, max_pool_torch,
+    Conv2d, ConvBnRelu, Dropout, Int8Owner, as_nchw, as_nhwc, avg_pool_torch, max_pool_torch,
 )
 from deepfake_tpu_torch.ops.inception_block import (
     BlockWeights, TapConv, fold_bn, inception_block,
@@ -72,10 +80,13 @@ def _affine(cbr: ConvBnRelu) -> torch.Tensor:
     return fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps).contiguous()
 
 
-class _ResidualBlock(nn.Module):
+class _ResidualBlock(Int8Owner):
     """Shared structure of blocks A/B/C: a direct 1x1 branch, chains of
     ConvBnRelu, concat, a plain biased 1x1 ``conv`` and the scaled residual.
-    ``direct`` names the 1x1 branch; ``chains`` name each chain's modules."""
+    ``direct`` names the 1x1 branch; ``chains`` name each chain's modules.
+    With ``quant`` and not fused, ``conv`` runs int8 on the block's scalar
+    ``res_act_amax`` (``int8_packed``: its weights per output channel, the
+    bias as the shift)."""
 
     direct: str
     chains: Tuple[Tuple[str, ...], ...]
@@ -86,6 +97,7 @@ class _ResidualBlock(nn.Module):
         self.relu = relu
         self.fused = fused
         self.packed: Optional[BlockWeights] = None  # set by pack_weights()
+        self.add_act_scale("res_act_amax")
         self.eval()
 
     def pack_weights(self, dtype: torch.dtype) -> BlockWeights:
@@ -104,6 +116,17 @@ class _ResidualBlock(nn.Module):
             b_out=self.conv.bias.detach().to(torch.float32, copy=True),
             res_scale=self.scale, relu=self.relu)
 
+    def pack_int8(self):
+        from deepfake_tpu_torch.ops.int8_conv import Int8Weights
+
+        return Int8Weights.from_folded(self.conv.weight.float(), self.conv.bias.float(), 1,
+                                       (0, 0, 0, 0))
+
+    def _residual(self, res):
+        if self.int8_active((1, 1), 1, res.shape[1]):
+            return self.int8_forward("res_act_amax", res, relu=False)
+        return self.conv(res)
+
     def _kernel_weights(self, x) -> BlockWeights:
         p = self.packed
         if p is not None and p.w_in.dtype == x.dtype and p.w_in.device == x.device:
@@ -120,7 +143,7 @@ class _ResidualBlock(nn.Module):
             for name in ch:
                 h = getattr(self, name)(h)
             parts.append(h)
-        out = x + self.scale * self.conv(torch.cat(parts, dim=1))
+        out = x + self.scale * self._residual(torch.cat(parts, dim=1))
         return torch.relu(out) if self.relu else out
 
 
@@ -211,8 +234,12 @@ class InceptionResNetV2(nn.Module):
     """Frames NHWC [F, H, W, 3] -> per-frame features [F, 1536]
     (reference: InceptionResV2.py:166-191)."""
 
-    def __init__(self, fused_blocks: bool = False, drop_rate: float = 0.0):
+    def __init__(self, fused_blocks: bool = False, drop_rate: float = 0.0,
+                 quant: Optional[str] = None):
         super().__init__()
+        if quant not in (None, "int8", "int8_static"):
+            raise ValueError(f"quant={quant!r}: expected None, 'int8' or 'int8_static'")
+        self.quant = quant
         self.stem = Stem()
         for i in range(10):
             self.add_module(f"a_{i}", BlockA(0.17, fused_blocks))
@@ -225,6 +252,9 @@ class InceptionResNetV2(nn.Module):
         self.c_9 = BlockC(1.0, activation=False, fused=fused_blocks)
         self.conv = ConvBnRelu(2080, 1536, (1, 1))
         self.drop = Dropout(drop_rate)
+        for m in self.modules():
+            if isinstance(m, Int8Owner):
+                m.quant = quant
         self.eval()
 
     def blocks(self) -> Sequence[_ResidualBlock]:

@@ -271,10 +271,83 @@ class Mlp(nn.Module):
 Padding = Union[int, Sequence[int], str]
 
 
-class ConvBnRelu(nn.Module):
+class Int8Owner(nn.Module):
+    """A module that owns int8 convs at serving (``model.irv2_quant``): the
+    activation max-abs of each, one f32 scalar on the device named as its
+    JAX ``quant_cache`` leaf (``add_act_scale``; a buffer outside the
+    state_dict, so checkpoints do not change), its int8 weights
+    (``int8_packed``, made once by ``registry.pack_int8_weights`` from the
+    f32 weights through the subclass's ``pack_int8``; without them each call
+    packs the current weights), and the mode. ``quant``: None, ``"int8"``
+    (each batch's max, layers.py:224-247's dynamic branch) or
+    ``"int8_static"`` (the calibrated scalar; before any calibration the
+    dynamic computation, as JAX falls back). While ``calibrating``
+    (``registry.calibrate_act_scales``) an int8_static conv runs on the
+    batch's max and folds it into its scalar (``torch.maximum``, in place: a
+    captured graph holds the address). ``mesh`` (``parallel.mesh.attach``):
+    the batch's max is taken over the data axis. Training always takes the
+    float path."""
+
+    quant: Optional[str] = None
+    calibrating = False
+    mesh = None
+    int8_packed = None
+
+    def add_act_scale(self, name: str) -> None:
+        self.register_buffer(name, torch.zeros((), dtype=torch.float32), persistent=False)
+        self.calibrated = set()  # the scalars calibrated since the weights were loaded
+
+    def reset_act_scales(self) -> None:
+        for name in self.calibrated:
+            getattr(self, name).zero_()
+        self.calibrated = set()
+
+    def load_act_scale(self, name: str, value) -> None:
+        """A calibrated scalar carried in (a JAX ``quant_cache`` leaf)."""
+        if name not in dict(self.named_buffers(recurse=False)):
+            raise KeyError(f"{type(self).__name__} has no activation scale {name!r}")
+        getattr(self, name).fill_(float(value))
+        self.calibrated.add(name)
+
+    def int8_active(self, kernel: Sequence[int], stride: int, cin: int) -> bool:
+        """Whether a conv of this shape runs int8 now: a quant mode, eval
+        mode, and the scope gate (ops/int8_conv.py::int8_shape_allowed)."""
+        if self.quant is None or self.training:
+            return False
+        from deepfake_tpu_torch.ops.int8_conv import int8_shape_allowed
+
+        return int8_shape_allowed(kernel, stride, cin)
+
+    def int8_forward(self, name: str, x: torch.Tensor, relu: bool) -> torch.Tensor:
+        """The int8 conv (ops/int8_conv.py) of NCHW ``x`` (channels_last)
+        with the scalar ``name``; the output NCHW in x's type."""
+        from deepfake_tpu_torch.ops.int8_conv import quantized_conv
+
+        w = self.int8_packed
+        if w is None or w.wq.device != x.device:
+            w = self.pack_int8()
+        amax = getattr(self, name)
+        static = self.quant == "int8_static"
+        ready = static and not self.calibrating and name in self.calibrated
+        group = None if self.mesh is None else self.mesh.stats_group
+        out, used = quantized_conv(as_nhwc(x), w, amax if ready else None, relu, group)
+        if static and self.calibrating:
+            amax.copy_(torch.maximum(amax, used.reshape(())))
+            self.calibrated.add(name)
+        return as_nchw(out)
+
+
+class ConvBnRelu(Int8Owner):
     """Conv2d + BatchNorm(eps 1e-3, momentum ``bn_momentum``) + ReLU
     (reference: src/models/InceptionResV2.py:6-16). ``padding`` is an int,
-    an (h, w) pair, or "VALID"."""
+    an (h, w) pair, or "VALID".
+
+    With ``quant`` (set by InceptionResNetV2) in eval mode, where the scope
+    gate allows the shape, it runs int8 (layers.py:273-330): the BatchNorm
+    folded into the conv weight in f32 (g = scale rsqrt(var + eps), shift =
+    bias - mean g, w g), the folded weight quantised per output channel,
+    the input per tensor, and relu(acc (xs ws) + shift) in the input's
+    type."""
 
     def __init__(self, cin: int, cout: int, kernel: Sequence[int], stride: int = 1,
                  padding: Padding = 0, bn_eps: float = 1e-3, bn_momentum: float = 0.1):
@@ -283,9 +356,24 @@ class ConvBnRelu(nn.Module):
             padding = 0
         self.conv = Conv2d(cin, cout, tuple(kernel), stride=stride, padding=padding, bias=False)
         self.bn = BatchNorm(cout, eps=bn_eps, momentum=bn_momentum)
+        self.add_act_scale("act_amax")
+        self.eval()
+
+    def pack_int8(self):
+        from deepfake_tpu_torch.ops.int8_conv import Int8Weights
+
+        bn = self.bn
+        g = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+        shift = bn.bias.float() - bn.running_mean.float() * g
+        ph, pw = self.conv.padding
+        return Int8Weights.from_folded(self.conv.weight.float() * g.view(-1, 1, 1, 1), shift,
+                                       self.conv.stride[0], (ph, ph, pw, pw))
 
     def forward(self, x):
-        return torch.relu(self.bn(self.conv(x)))
+        c = self.conv
+        if self.int8_active(c.kernel_size, c.stride[0], c.in_channels):
+            return self.int8_forward("act_amax", x, relu=True)
+        return torch.relu(self.bn(c(x)))
 
 
 def max_pool_torch(x, window: int, stride: int, padding: int = 0):

@@ -62,11 +62,13 @@ class InceptionVideoClassifier(nn.Module):
     def __init__(self, num_frames: int, num_classes: int = 1, num_clusters: int = 64,
                  lamb: int = 2, hidden_size: int = 1024, groups: int = 8,
                  gating_reduction: int = 8, use_feat: bool = False, fused_blocks: bool = False,
-                 drop_rate: float = 0.5, classify_drop: float = 0.1, bn_momentum: float = 0.1):
+                 drop_rate: float = 0.5, classify_drop: float = 0.1, bn_momentum: float = 0.1,
+                 quant=None):
         super().__init__()
         self.num_classes = num_classes
         self.use_feat = use_feat
-        self.inception = InceptionResNetV2(fused_blocks, drop_rate)
+        self.quant = quant  # the IRv2 trunk's int8 mode (nextvlad.py:120, registry.py:77)
+        self.inception = InceptionResNetV2(fused_blocks, drop_rate, quant)
         self.video_nextvlad = NeXtVLAD(1536, num_clusters, lamb, groups, num_frames, bn_momentum)
         self.vlad_drop = Dropout(drop_rate)
         vlad_dim = num_clusters * (lamb * 1536) // groups

@@ -7,13 +7,17 @@ same model in train mode, its parameters in ``parallel.param_dtype``, its
 drop rates and BatchNorm momenta from the config (the rates the JAX package
 hard-codes as it does: SwinV2's DropPath 0.1, wav2vec2's dropouts, LayerDrop
 and SpecAugment) and every mask drawn from the seed's dropout stream.
-``example_inputs`` gives zero inputs of the canonical shapes; ``precompute_bias_cache`` and
-``pack_block_weights`` fill the inference caches once the weights are final.
+``example_inputs`` gives zero inputs of the canonical shapes; ``precompute_bias_cache``,
+``pack_block_weights`` and ``pack_int8_weights`` fill the inference caches once the
+weights are final. ``model.irv2_quant`` (``irv2_quant``) sets the IRv2 trunk's int8 mode
+of the ``video`` and ``fused`` models at serving; a training model is built without it
+(its BatchNorm takes batch statistics, and its evaluation runs the float path).
+``calibrate_act_scales`` records int8_static's activation scales.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -66,14 +70,28 @@ def _swin(cfg: Config, use_feat: bool):
         use_feat=use_feat, attn_kernel=m.swin2d_attn_kernel)
 
 
-def _video(cfg: Config, use_feat: bool):
+IRV2_QUANT = ("none", "int8", "int8_static")
+
+
+def irv2_quant(cfg: Config) -> Optional[str]:
+    """``model.irv2_quant`` as the modules take it (None for "none"); any
+    value but none, int8 and int8_static raises (the JAX package would run
+    the float path)."""
+    q = cfg.model.irv2_quant
+    if q not in IRV2_QUANT:
+        raise ValueError(f"model.irv2_quant={q!r}: expected one of {IRV2_QUANT}")
+    return None if q == "none" else q
+
+
+def _video(cfg: Config, use_feat: bool, train: bool = False):
     from deepfake_tpu_torch.models.nextvlad import InceptionVideoClassifier
 
     m = cfg.model
     return InceptionVideoClassifier(
         num_frames=cfg.data.num_frames, num_classes=m.num_classes, use_feat=use_feat,
         fused_blocks=m.irv2_fused_blocks, drop_rate=m.swin_drop,
-        classify_drop=m.classify_drop, bn_momentum=m.bn_momentum)
+        classify_drop=m.classify_drop, bn_momentum=m.bn_momentum,
+        quant=None if train else irv2_quant(cfg))
 
 
 def _paudio(cfg: Config, use_feat: bool):
@@ -102,9 +120,10 @@ def build_model(cfg: Config, device=None, train: bool = False) -> nn.Module:
     drawn from ``cfg.random_seed``: f32 in eval mode, or with ``train`` in
     train mode with ``parallel.param_dtype`` parameters and seeded dropout."""
     dev = resolve_device(device)
+    irv2_quant(cfg)
     modality = cfg.data.modality
     if modality == "video":
-        model = _video(cfg, False)
+        model = _video(cfg, False, train)
     elif modality == "audio":
         model = _swin(cfg, False)
     elif modality == "paudio":
@@ -116,7 +135,7 @@ def build_model(cfg: Config, device=None, train: bool = False) -> nn.Module:
 
         m = cfg.model
         model = FusionModel(
-            _video(cfg, True), _swin(cfg, True), _paudio(cfg, True),
+            _video(cfg, True, train), _swin(cfg, True), _paudio(cfg, True),
             dims=(1024, m.swin2d_embed_dim * 2 ** (len(m.swin2d_depths) - 1), m.wav_hidden),
             out_dim=m.num_classes, soft=m.soft, classify_drop=m.classify_drop)
     else:
@@ -178,6 +197,20 @@ def pack_block_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
+def pack_int8_weights(model: nn.Module) -> nn.Module:
+    """Fold BN into every int8 conv's weights and quantise them per output
+    channel, once, from the f32 weights (the JAX package folds the cast
+    parameters on every forward: the same numbers in f32). Call after the
+    weights are final; nothing to do without ``irv2_quant``."""
+    from deepfake_tpu_torch.models.layers import Int8Owner
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Int8Owner) and mod.quant is not None:
+                mod.int8_packed = mod.pack_int8()
+    return model
+
+
 def drop_inference_caches(model: nn.Module) -> nn.Module:
     """Forget the caches above (after new weights are loaded)."""
     for mod in model.modules():
@@ -185,4 +218,42 @@ def drop_inference_caches(model: nn.Module) -> nn.Module:
             mod.bias_cache = None
         if hasattr(mod, "packed"):
             mod.packed = None
+        if hasattr(mod, "int8_packed"):
+            mod.int8_packed = None
     return model
+
+
+def reset_calibration(model: nn.Module) -> nn.Module:
+    """Forget every int8_static activation scale (weights loaded since they
+    were recorded): static mode runs the dynamic computation until
+    ``calibrate_act_scales``."""
+    from deepfake_tpu_torch.models.layers import Int8Owner
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Int8Owner):
+                mod.reset_act_scales()
+    return model
+
+
+def calibrate_act_scales(model: nn.Module, run: Callable, batches: Iterable) -> int:
+    """Record int8_static's activation scales (registry.py:162-199): every
+    scale zeroed, then ``run(batch)`` (one eager eval forward of ``model``)
+    for each batch, each int8_static conv folding the batch's max |input|
+    into its scalar (the running max over the batches). Convs that ran none
+    stay uncalibrated, and a model in another mode records nothing, as in
+    JAX. Returns the number of scalars calibrated."""
+    from deepfake_tpu_torch.models.layers import Int8Owner
+
+    owners = [m for m in model.modules() if isinstance(m, Int8Owner)]
+    reset_calibration(model)
+    for m in owners:
+        m.calibrating = True
+    try:
+        with torch.inference_mode():
+            for batch in batches:
+                run(batch)
+    finally:
+        for m in owners:
+            m.calibrating = False
+    return sum(len(m.calibrated) for m in owners)

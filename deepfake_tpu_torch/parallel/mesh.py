@@ -328,15 +328,15 @@ def global_max(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 def attach(model: nn.Module, mesh: Mesh) -> nn.Module:
     """The data axis on the modules whose statistics span the batch:
     BatchNorm, the fusion head's alignment loss, wav2vec2's batch-longest
-    length (the Predictor's data-parallel serving; ``shard_model`` calls it
-    too)."""
+    length, the int8 convs' per-tensor max (the Predictor's data-parallel
+    serving; ``shard_model`` calls it too)."""
     from deepfake_tpu_torch.models.audio2d import Audio2D
     from deepfake_tpu_torch.models.fusion import FusionModel
-    from deepfake_tpu_torch.models.layers import BatchNorm
+    from deepfake_tpu_torch.models.layers import BatchNorm, Int8Owner
     from deepfake_tpu_torch.models.wav2vec2 import Wav2Vec2Model
 
     for mod in model.modules():
-        if isinstance(mod, (BatchNorm, FusionModel, Wav2Vec2Model, Audio2D)):
+        if isinstance(mod, (BatchNorm, FusionModel, Wav2Vec2Model, Audio2D, Int8Owner)):
             mod.mesh = mesh
     return model
 

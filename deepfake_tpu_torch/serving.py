@@ -7,6 +7,7 @@
     pred = Predictor(cfg, mesh=mesh)            # one data rank of batch-sharded serving
     probs = pred.predict((frames, mel, wave))   # model-ready numpy/torch inputs
     probs = pred.predict_raw({"audio_wave": pcm, "audio_len": lengths})  # raw inputs
+    pred.calibrate([inputs, ...])               # model.irv2_quant = int8_static: record scales
 
 Inputs keep the JAX contract: frames NTHWC float32, mel image NHWC, wave
 [B, T] or a (wave, lengths) pair. ``video_swin`` takes NTHWC clips of the
@@ -27,6 +28,16 @@ reference route that the graphs are held against. On the CPU
 (``device="cpu"``) a Predictor always runs eagerly (the kernel wrappers take
 their plain versions for CPU tensors, and there is nothing to capture).
 
+int8 serving (``model.irv2_quant``, ``models/layers.py::Int8Owner``): the
+int8 weights are folded and quantised once from the f32 weights, beside
+K1's packed weights. A Predictor starts uncalibrated, whatever built its
+weights (the seeded init, ``variables`` without a ``quant_cache``, a
+checkpoint): int8_static runs the dynamic computation until ``calibrate``
+records the scales on representative batches (or ``variables`` carries the
+JAX package's ``quant_cache``). ``calibrate`` drops the Predictor's graphs:
+a static graph launches other kernels than a dynamic one. A dynamic graph
+zeroes each scalar it reduces into on every replay (K8's first launch).
+
 Under a mesh (``parallel/mesh.py``; deepfake_tpu/serving.py:31-40, 62-64)
 serving is data-parallel: every rank holds the whole model, as the JAX
 Predictor replicates its weights. ``predict``, ``predict_raw`` and
@@ -34,9 +45,9 @@ Predictor replicates its weights. ``predict``, ``predict_raw`` and
 a multiple of the data axis by repeating its last row, each data rank runs
 its contiguous block of rows (through its own graph), and the outputs are
 all-gathered over the data axis into input order, outside the graph, and
-trimmed. Statistics that span the batch (the batch-longest wave) are taken
-over the global batch. ``score_file`` runs at batch 1 on the calling rank
-alone.
+trimmed. Statistics that span the batch (the batch-longest wave, int8's
+per-tensor max) are taken over the global batch. ``score_file`` runs at
+batch 1 on the calling rank alone.
 """
 
 from __future__ import annotations
@@ -51,7 +62,8 @@ from deepfake_tpu_torch.config import Config
 from deepfake_tpu_torch.data.pipeline import FeatureAssembler
 from deepfake_tpu_torch.io.checkpoint import load_model_state, read_checkpoint
 from deepfake_tpu_torch.models.registry import (
-    build_model, compute_dtype, pack_block_weights, precompute_bias_cache, resolve_device,
+    build_model, calibrate_act_scales, compute_dtype, pack_block_weights, pack_int8_weights,
+    precompute_bias_cache, resolve_device,
 )
 from deepfake_tpu_torch.parallel import mesh as pm
 from deepfake_tpu_torch.train.submit import pad_rows
@@ -90,6 +102,7 @@ class Predictor:
             load_model_state(model, state)
         precompute_bias_cache(model)
         pack_block_weights(model, self.dtype)
+        pack_int8_weights(model)
         # parameters in the compute type, buffers (BatchNorm running
         # statistics, shift masks) kept in f32, as the JAX package keeps
         # batch_stats f32 (registry.py::cast_inference_params)
@@ -179,6 +192,29 @@ class Predictor:
         if isinstance(inputs, dict):
             return {key: cut(v) for key, v in inputs.items()}, n
         return cut(inputs), n
+
+    def calibrate(self, batches) -> int:
+        """int8_static: record every int8 conv's activation scale as the
+        running max over ``batches`` (deepfake_tpu/train/submit.py:112-121),
+        each a model-ready input (a bare array, a tuple of the model's
+        arguments as JAX takes them, or ``predict``'s fused tuple), run
+        eagerly (under a mesh, this data rank's rows, the max taken over the
+        data axis, so every rank records the same scales); then drop the
+        captured graphs. A no-op in other modes, as in JAX. Returns the
+        number of scalars calibrated."""
+        def run(batch):
+            args = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
+            inputs = args[0] if len(args) == 1 else args
+            if self.mesh is not None:
+                inputs, _ = self._rows(inputs)
+            self.model(self._inputs(inputs))
+
+        n = calibrate_act_scales(self.model, run, batches)
+        if self.graphs is not None:
+            self.graphs = None
+            torch.cuda.empty_cache()
+            self.graphs = GraphCache(self.device)
+        return n
 
     @staticmethod
     def _scores(out) -> np.ndarray:

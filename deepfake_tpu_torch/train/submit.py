@@ -32,9 +32,12 @@ batches the same way.
 Weights are the Predictor's. ``load_checkpoint(path)`` swaps in a
 ``Predictor.from_checkpoint`` of a training checkpoint on the same device
 and route (this ctl drops the old one, whose graphs, pool and K1 packed
-weights hold the old weights).
+weights hold the old weights); the new one starts uncalibrated, as the JAX
+ctl strips a stale ``quant_cache`` on a weight load (submit.py:66-72).
+``calibrate(batches)`` records ``model.irv2_quant=int8_static``'s
+activation scales on representative batches (``Predictor.calibrate``).
 Importing the reference's ``.pth`` checkpoints waits for such files in the
-repository; int8 calibration waits for ROADMAP A7.
+repository.
 """
 
 from __future__ import annotations
@@ -104,8 +107,12 @@ class SubmitCtl:
             f"loading {path}: importing the reference's .pth checkpoints waits for reference "
             "files in the repository")
 
-    def calibrate(self, batches):
-        raise NotImplementedError("int8 calibration is not ported (ROADMAP A7)")
+    def calibrate(self, batches) -> int:
+        """Calibrate int8_static's activation scales on ``batches`` (input
+        tuples or bare arrays, as the JAX ctl takes them; submit.py:112-121);
+        a no-op unless the model has int8_static convs. Returns the number
+        of scales recorded."""
+        return self.predictor.calibrate(batches)
 
     def submit(self) -> Dict[str, float]:
         """Score the test split into prediction.csv; returns {name: score}

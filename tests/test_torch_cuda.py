@@ -26,7 +26,9 @@ dbias (f32) within 1e-2 of its largest |value|. For K6: f32 1e-5 of
 max(|plain|, 1) (summation order; cosine logits reach 100 x q^.k^ and
 amplify it); bf16 two bf16 ulps of the largest |output| (the weights are
 rounded to bf16 for P V on the card, not in the plain version; q^.k^ is
-taken as a split bf16 hi/lo product, so the logits keep ~16 bits).
+taken as a split bf16 hi/lo product, so the logits keep ~16 bits). K7 and
+K8 (int8): to the bit (explicit roundings on both sides, the plain conv
+exact in float64).
 """
 
 import math
@@ -1662,3 +1664,185 @@ def test_batchnorm_train_on_the_card_matches_the_cpu(cuda_device, dtype):
             tol = 1e-4 * max(big, 1.0)
         err = (a - b).abs().max().item()
         assert err <= tol, (name, err, tol)
+
+
+# ------------------------------------------------------------- int8 serving (K7, K8)
+
+def _irv2_int8_convs(dev, fused: bool, frames: int = 2, side: int = 224, dtype=torch.bfloat16):
+    """One int8 IRv2 forward on the card at ``side``: the first call of
+    each conv shape as (xq, weights, amax, relu, dtype), by shape."""
+    from deepfake_tpu_torch.models.registry import pack_int8_weights
+    from deepfake_tpu_torch.ops.int8_conv import conv_key, recorded_convs
+
+    gen = torch.Generator(dev).manual_seed(51)
+    model = init_weights(irv2.InceptionResNetV2(fused, quant="int8").to(dev), gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                n = m.weight.numel()
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen, device=dev))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen, device=dev))
+    pack_int8_weights(model)
+    model = model.to(dtype)
+    x = torch.randn(frames, side, side, 3, generator=gen, device=dev).to(dtype)
+    with recorded_convs() as calls, torch.inference_mode():
+        model(x)
+    shapes = {}
+    for xq, w, amax, relu, dt in calls:
+        shapes.setdefault(conv_key(xq, w, relu), (xq, w, amax, relu, dt))
+    return len(calls), shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["k1_on", "k1_off"])
+def test_k7_matches_plain_at_every_irv2_shape(cuda_device, fused):
+    """K7 against its plain version (the conv in float64, the f32 epilogue)
+    to the bit, bf16 and f32 out, at every conv shape of an int8 IRv2
+    forward of 2 frames at 224 (24 convs with K1 on, 244 off), on the
+    activations and weights the forward gave it."""
+    from deepfake_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain
+
+    n, shapes = _irv2_int8_convs(cuda_device, fused)
+    assert n == (24 if fused else 244)
+    for key, (xq, w, amax, relu, _) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            got = int8_conv(xq, w, amax, relu, dtype)
+            want = int8_conv_plain(xq, w, amax, relu, dtype)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and torch.equal(got, want), (key, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,offset", [(8 * 4096, 0), (12345, 0), (4099, 1)],
+                         ids=["aligned", "ragged", "unaligned"])
+def test_k8_matches_plain(cuda_device, dtype, n, offset):
+    """K8's amax and quantisation against the plain versions, to the bit:
+    random values, exact .5 ties at scale 1/8 (half to even), a static
+    scale below the batch's max (saturation at +-127) and zeros (the 1e-12
+    floor); a length that is not a multiple of 8 and a start that is not
+    16-byte aligned take the scalar loads."""
+    from deepfake_tpu_torch.ops.int8_conv import (
+        act_amax, act_amax_plain, act_quantize, act_quantize_plain,
+    )
+
+    gen = torch.Generator(cuda_device).manual_seed(52)
+    base = 3.0 * torch.randn(n + offset, generator=gen, device=cuda_device)
+    ties = (torch.randint(-200, 200, (n + offset,), generator=gen, device=cuda_device) + 0.5) / 8
+    for raw in (base, ties, torch.zeros_like(base)):
+        x = raw.to(dtype)[offset:]
+        amax = act_amax(x)
+        torch.cuda.synchronize()
+        assert torch.equal(amax, act_amax_plain(x))
+        scales = [amax, torch.full((1,), 127.0 / 8, device=cuda_device),
+                  torch.full((1,), 0.25, device=cuda_device)]  # batch max, ties, saturation
+        for a in scales:
+            q = act_quantize(x, a)
+            torch.cuda.synchronize()
+            assert q.dtype == torch.int8 and torch.equal(q, act_quantize_plain(x, a))
+    assert act_quantize(base[:n].to(dtype), scales[2]).abs().max().item() == 127
+
+
+@pytest.mark.cuda
+def test_k7_raises_for_shapes_it_does_not_take(cuda_device):
+    """K7 raises for a shape outside its range (Cin 20, a 9x9 kernel, stride
+    3, padding as wide as the kernel, an output type other than f32/bf16)
+    on a CUDA tensor; nothing falls back to the plain version."""
+    from deepfake_tpu_torch.ops.int8_conv import Int8Weights, int8_conv
+
+    dev = cuda_device
+    amax = torch.ones(1, device=dev)
+
+    def call(cin, k, stride, pad, dtype=torch.bfloat16):
+        xq = torch.zeros(1, 16, 16, cin, dtype=torch.int8, device=dev)
+        w = Int8Weights(torch.zeros(32, k, k, cin, dtype=torch.int8, device=dev),
+                        torch.ones(32, device=dev), torch.zeros(32, device=dev), stride, pad)
+        return int8_conv(xq, w, amax, True, dtype)
+
+    before = int8_conv.launches
+    for args in ((20, 3, 1, (1, 1, 1, 1)), (32, 9, 1, (0, 0, 0, 0)), (32, 3, 3, (0, 0, 0, 0)),
+                 (32, 3, 1, (3, 3, 0, 0)), (32, 1, 1, (0, 0, 0, 0), torch.float16)):
+        with pytest.raises(ValueError):
+            call(*args)
+    assert int8_conv.launches == before
+    call(32, 3, 1, (1, 1, 1, 1))
+    call(3, 3, 2, (0, 0, 0, 0))
+    assert int8_conv.launches == before + 2
+
+
+def _int8_cfg(quant, fused=True):
+    cfg = _graph_cfg("video", torch.bfloat16)
+    cfg.model.irv2_quant = quant
+    cfg.model.irv2_fused_blocks = fused
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["k1_on", "k1_off"])
+@pytest.mark.parametrize("quant", ["int8", "int8_static"])
+def test_int8_graph_matches_eager(cuda_device, quant, fused):
+    """The video model at int8 and int8_static (calibrated on one batch by
+    both Predictors) through a CUDA graph == the eager route, to the bit;
+    the requests go through K7 and K8 (per conv: two K8 launches in
+    dynamic mode, one in static mode)."""
+    from deepfake_tpu_torch.ops.int8_conv import act_amax, act_quantize, int8_conv
+
+    eager, graph = _predictor_pair(_int8_cfg(quant, fused), cuda_device)
+    # calibrated at the larger request's scale: no request saturates, so the
+    # two requests' bf16 logits differ as in dynamic mode
+    calib = _model_request(eager.cfg, 2, cuda_device, 30, scale=2.0)
+    if quant == "int8_static":
+        assert eager.calibrate([calib]) == graph.calibrate([calib]) == (24 if fused else 244)
+    before = (int8_conv.launches, act_amax.launches, act_quantize.launches)
+    reqs = [_model_request(eager.cfg, 2, cuda_device, 31),
+            _model_request(eager.cfg, 2, cuda_device, 32, scale=2.0)]
+    eager.predict(reqs[0])
+    convs = 24 if fused else 244
+    amax = convs if quant == "int8" else 0
+    assert (int8_conv.launches - before[0], act_amax.launches - before[1],
+            act_quantize.launches - before[2]) == (convs, amax, convs)
+    _assert_graph_equals_eager(graph, eager, [*reqs, reqs[0]])
+    (g,) = graph.graphs.graphs.values()
+    assert g.launches.get("int8_conv") == convs and g.launches.get("act_quantize") == convs
+    assert g.launches.get("act_amax", 0) == amax
+
+
+@pytest.mark.cuda
+def test_calibrate_drops_stale_graphs(cuda_device):
+    """A graph captured before calibration runs the dynamic kernels;
+    calibrate drops it, and the next request captures a static graph that
+    equals the eager route calibrated on the same batch, to the bit."""
+    eager, graph = _predictor_pair(_int8_cfg("int8_static"), cuda_device)
+    req = _model_request(eager.cfg, 2, cuda_device, 33)
+    calib = _model_request(eager.cfg, 2, cuda_device, 34, scale=0.25)
+    graph.predict(req)
+    (old,) = graph.graphs.graphs.values()
+    assert old.launches.get("act_amax") == 24
+    eager.calibrate([calib])
+    graph.calibrate([calib])
+    assert len(graph.graphs.graphs) == 0
+    got = graph.predict(req)
+    (new,) = graph.graphs.graphs.values()
+    assert new is not old and "act_amax" not in new.launches
+    import numpy as np
+
+    np.testing.assert_array_equal(got, eager.predict(req))
+
+
+@pytest.mark.cuda
+def test_int8_dynamic_replay_resets_each_amax(cuda_device):
+    """In dynamic mode each replay zeroes every scalar it reduces into: a
+    replay after a request of larger activations scores a small request as
+    a fresh Predictor does, to the bit."""
+    import numpy as np
+
+    from deepfake_tpu_torch.serving import Predictor
+
+    cfg = _int8_cfg("int8")
+    small = _model_request(cfg, 2, cuda_device, 35, scale=0.25)
+    big = _model_request(cfg, 2, cuda_device, 36, scale=4.0)
+    fresh = Predictor(cfg, device=cuda_device).predict(small)
+    pred = Predictor(cfg, device=cuda_device)
+    pred.predict(big)
+    pred.predict(big)
+    np.testing.assert_array_equal(pred.predict(small), fresh)

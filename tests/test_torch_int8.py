@@ -1,0 +1,380 @@
+"""int8 serving of the IRv2 trunk (``model.irv2_quant``) in the port against
+the JAX package, on the CPU in f32: the quantisation primitives, the
+integer convolution, ConvBnRelu at each IRv2 shape class, a residual block
+and the backbone; calibration of int8_static; the config, scope and
+SubmitCtl plumbing. The port's K7 and K8 wrappers take their plain versions
+here (tests/test_torch_cuda.py holds the kernels to them on the card); the
+JAX side runs its XLA int8 path. Random numpy weights go through
+``load_jax_variables``; torch runs on one thread. The models, and
+calibration against the JAX package's, are in
+tests/test_torch_int8_models.py.
+
+Tolerances (each test names its own): the primitives and the integer
+accumulator to the bit (the same arithmetic); the conv's f32 output within
+rtol 1e-6 (XLA's epilogue may fuse what the port rounds apart);
+ConvBnRelu's int8 weights and activations equal in >= 99.99% of entries and
+never more than 1 apart (XLA's rsqrt differs from torch's in the last bit
+in about a third of the BatchNorm gains, so a folded weight near a .5
+boundary may round the other way), its output within 5e-3 of max |y_jax|
+(one quantisation step of a weight or an input moves an output by about
+1/127 of that term); the quality bar against the float path of
+tests/test_quantize.py:77-86 (corr > 0.999, relative error < 0.05); a block
+within 0.02 of max |y| and the backbone within 0.03 (the one-step
+differences above, carried through 7 and 244 quantised convs; the
+backbone's reason is in its test), both at corr >= 0.999."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tests.torch_port_helpers import random_variables
+
+from deepfake_tpu_torch.io.jax_weights import load_jax_variables
+from deepfake_tpu_torch.ops import int8_conv as Q
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _corr(a, b):
+    return float(np.corrcoef(np.asarray(a, np.float64).ravel(),
+                             np.asarray(b, np.float64).ravel())[0, 1])
+
+
+def _rel(got, want):
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(want).max())
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+def _owners(model):
+    from deepfake_tpu_torch.models.layers import Int8Owner
+
+    return [m for m in model.modules() if isinstance(m, Int8Owner)]
+
+
+def _set_quant(model, quant):
+    for m in _owners(model):
+        m.quant = quant
+
+
+# ---------------------------------------------------------------- (a) primitives
+
+def test_primitives_match_jax_to_the_bit():
+    """quantize_sym per tensor and per output channel, quantize_to and the
+    act scale max(amax, 1e-12) / 127 (K8's plain versions among them)
+    against the JAX functions, to the bit: random values, exact .5 ties
+    (half to even), an all-zero tensor (the 1e-12 floor) and saturation."""
+    from deepfake_tpu.models.layers import quantize_sym, quantize_to
+
+    rng = np.random.default_rng(0)
+    x = (3.0 * rng.standard_normal((3, 3, 24, 16))).astype(np.float32)  # HWIO
+    jq, js = quantize_sym(jnp.asarray(x))
+    tq, ts = Q.quantize_sym(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert ts.item() == float(js)
+    jq, js = quantize_sym(jnp.asarray(x), axis=(0, 1, 2))
+    tq, ts = Q.quantize_sym(torch.from_numpy(x).permute(3, 0, 1, 2), dim=(1, 2, 3))
+    np.testing.assert_array_equal(tq.permute(1, 2, 3, 0).numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.reshape(-1).numpy(), np.asarray(js).reshape(-1))
+
+    ties = ((rng.integers(-200, 200, 4096) + 0.5) / 8).astype(np.float32)
+    cases = [(x.ravel(), None), (ties, np.float32(127 / 8)), (np.zeros(64, np.float32), None),
+             (x.ravel(), np.float32(0.5))]  # batch max, ties at scale 1/8, zeros, saturation
+    for v, amax in cases:
+        tx = torch.from_numpy(v)
+        t_amax = Q.act_amax(tx) if amax is None else torch.tensor([amax])
+        j_amax = jnp.max(jnp.abs(jnp.asarray(v))) if amax is None else jnp.float32(amax)
+        assert t_amax.item() == float(j_amax)
+        j_scale = jnp.maximum(j_amax, 1e-12) / 127.0  # layers.py:247
+        assert Q.act_scale(t_amax).item() == float(j_scale)
+        got = Q.act_quantize(tx, t_amax)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(quantize_to(jnp.asarray(v), j_scale)))
+    assert Q.act_quantize(torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 3.5]) / 8,
+                          torch.tensor([127 / 8])).tolist() == [0, 2, 2, 0, -2, 4]
+    assert Q.act_quantize(torch.from_numpy(x.ravel()), torch.tensor([0.5])).abs().max() == 127
+    zq, zs = Q.quantize_sym(torch.zeros(5))
+    assert zq.abs().max() == 0 and zs.item() == float(jnp.float32(1e-12) / 127.0)
+
+
+# ---------------------------------------------------------------- (b) the integer conv
+
+CONVS = {  # (cin, cout, kernel, stride, (top, bottom, left, right)): the IRv2 classes
+    "3x3_s2_valid_cin3": (3, 32, (3, 3), 2, (0, 0, 0, 0)),
+    "3x3_s1_valid": (32, 32, (3, 3), 1, (0, 0, 0, 0)),
+    "3x3_pad1": (32, 48, (3, 3), 1, (1, 1, 1, 1)),
+    "5x5_pad2": (48, 64, (5, 5), 1, (2, 2, 2, 2)),
+    "1x7": (128, 160, (1, 7), 1, (0, 0, 3, 3)),
+    "7x1": (160, 192, (7, 1), 1, (3, 3, 0, 0)),
+    "1x3": (192, 224, (1, 3), 1, (0, 0, 1, 1)),
+    "3x1": (224, 256, (3, 1), 1, (1, 1, 0, 0)),
+    "3x3_s2_cin288": (288, 320, (3, 3), 2, (0, 0, 0, 0)),
+    "1x1_cin2080": (2080, 1088, (1, 1), 1, (0, 0, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("cin,cout,kernel,stride,pad", list(CONVS.values()), ids=list(CONVS))
+def test_integer_conv_matches_jax_quant_conv(cin, cout, kernel, stride, pad):
+    """The plain int8 conv against JAX ``quant_conv`` (layers.py:256-270) on
+    the same int8 operands: the int32 accumulator exact (XLA's int8 conv
+    against the port's float64 one), the dequantised output within rtol
+    1e-6; and at Cin 2080 all operands +-127, |acc| = 2080 x 127^2."""
+    from deepfake_tpu.models.layers import quant_conv
+
+    rng = np.random.default_rng(1)
+    side = 3 if cin == 2080 else 11
+    xq = rng.integers(-127, 128, (2, side, side, cin)).astype(np.int8)
+    wq = rng.integers(-127, 128, kernel + (cin, cout)).astype(np.int8)  # HWIO
+    if cin == 2080:
+        xq = np.where(rng.random(xq.shape) < 0.5, -127, 127).astype(np.int8)
+        wq = np.full(wq.shape, 127, np.int8)
+        xq[0, 0, 0, :] = 127
+    ws = (rng.random(cout) * 0.02 + 1e-3).astype(np.float32)
+    shift = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+    amax = np.float32(3.7)
+    jpad = [(pad[0], pad[1]), (pad[2], pad[3])]
+    acc = jax.lax.conv_general_dilated(
+        jnp.asarray(xq), jnp.asarray(wq), (stride, stride), jpad,
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
+    w = Q.Int8Weights(torch.from_numpy(wq).permute(3, 0, 1, 2).contiguous(),
+                      torch.from_numpy(ws), torch.from_numpy(shift), stride, pad)
+    got_acc = Q.conv_acc_plain(torch.from_numpy(xq), w)
+    np.testing.assert_array_equal(got_acc.numpy(), np.asarray(acc))
+    if cin == 2080:
+        assert got_acc.abs().max().item() == 2080 * 127 * 127
+    xs = jnp.maximum(amax, 1e-12) / 127.0
+    want = quant_conv(jnp.asarray(xq), jnp.asarray(wq), stride, jpad,
+                      out_scale=(xs * jnp.asarray(ws)).reshape(1, 1, 1, -1),
+                      out_bias=jnp.asarray(shift))
+    got = Q.int8_conv(torch.from_numpy(xq), w, torch.tensor([amax]), False, torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------- (c) ConvBnRelu
+
+CLASSES = {  # JAX ConvBnRelu arguments: (cin, cout, kernel, stride, padding)
+    "f0_cin3_s2": (3, 32, (3, 3), 2, "VALID"),
+    "3x3_valid": (32, 32, (3, 3), 1, "VALID"),
+    "3x3_pad1": (32, 64, (3, 3), 1, 1),
+    "5x5_pad2": (48, 64, (5, 5), 1, 2),
+    "1x7": (128, 160, (1, 7), 1, (0, 3)),
+    "7x1": (160, 192, (7, 1), 1, (3, 0)),
+    "1x3": (192, 224, (1, 3), 1, (0, 1)),
+    "3x1": (224, 256, (3, 1), 1, (1, 0)),
+    "3x3_s2_cin256": (256, 288, (3, 3), 2, "VALID"),
+    "1x1": (320, 32, (1, 1), 1, 0),
+}
+
+
+def _convbnrelu_pair(cin, cout, kernel, stride, padding, seed, quant="int8"):
+    from deepfake_tpu.models.layers import ConvBnRelu as J
+    from deepfake_tpu_torch.models.layers import ConvBnRelu as T
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, 13, 13, cin)).astype(np.float32)
+    jf = J(cout, kernel, stride, padding, use_bias=False)
+    v = random_variables(jf, jnp.asarray(x), seed=seed)
+    tm = load_jax_variables(T(cin, cout, kernel, stride, padding), v)
+    tm.quant = quant
+    return x, v, J(cout, kernel, stride, padding, use_bias=False, quant=quant), jf, tm
+
+
+@pytest.mark.parametrize("cin,cout,kernel,stride,padding", list(CLASSES.values()),
+                         ids=list(CLASSES))
+def test_convbnrelu_int8_matches_jax(cin, cout, kernel, stride, padding):
+    """ConvBnRelu's int8 branch (layers.py:273-330) against JAX's: the folded
+    int8 weights and the int8 input equal in >= 99.99% of entries and never
+    more than 1 apart; the output within 5e-3 of max |y_jax|; against the
+    float path corr > 0.999 and relative error < 0.05."""
+    from deepfake_tpu.models.layers import quantize_sym, quantize_to
+
+    x, v, jq, jf, tm = _convbnrelu_pair(cin, cout, kernel, stride, padding, seed=2)
+    p, st = v["params"], v["batch_stats"]
+    g = jnp.asarray(p["bn"]["scale"]) * jax.lax.rsqrt(jnp.asarray(st["bn"]["var"]) + 1e-3)
+    jwq, jws = quantize_sym(jnp.asarray(p["conv"]["kernel"]) * g, axis=(0, 1, 2))
+    twq = tm.pack_int8().wq.permute(1, 2, 3, 0).numpy()
+    jxq = quantize_to(jnp.asarray(x), jnp.maximum(jnp.max(jnp.abs(jnp.asarray(x))), 1e-12) / 127)
+    tx = torch.from_numpy(x)
+    txq = Q.act_quantize(tx, Q.act_amax(tx)).numpy()
+    for got, want in ((twq, np.asarray(jwq)), (txq, np.asarray(jxq))):
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert d.max() <= 1 and (d == 0).mean() >= 0.9999, (d.max(), (d == 0).mean())
+    y_jax = np.asarray(jq.apply(v, jnp.asarray(x)))
+    y_float = np.asarray(jf.apply(v, jnp.asarray(x)))
+    with torch.inference_mode():
+        y = _nhwc(tm(_nchw(x)))
+    assert y.shape == y_jax.shape
+    assert np.abs(y - y_jax).max() <= 5e-3 * np.abs(y_jax).max()
+    assert _corr(y, y_float) > 0.999 and _rel(y, y_float) < 0.05
+
+
+# ---------------------------------------------------------------- (d) block and backbone
+
+def test_residual_block_a_int8_matches_jax():
+    """Block A without K1 (six quantised ConvBnRelus and the int8 residual
+    1x1, test_quantize.py:104-119) against the JAX block at int8: corr >=
+    0.999, max |diff| <= 0.02 max |y|."""
+    from deepfake_tpu.models.inception_resnet_v2 import BlockA as J
+    from deepfake_tpu_torch.models.inception_resnet_v2 import BlockA as T
+
+    x = np.random.default_rng(3).standard_normal((1, 8, 8, 320)).astype(np.float32)
+    v = random_variables(J(), jnp.asarray(x), seed=3)
+    want = np.asarray(J(quant="int8").apply(v, jnp.asarray(x)))
+    tm = load_jax_variables(T(0.17, fused=False), v)
+    _set_quant(tm, "int8")
+    with torch.inference_mode():
+        got = _nhwc(tm(_nchw(x)))
+    assert _corr(got, want) >= 0.999 and _rel(got, want) <= 0.02
+
+
+def test_irv2_backbone_int8_matches_jax():
+    """The IRv2 trunk at 96 x 96, 2 frames, all 244 convs int8 (K1 off),
+    against the JAX trunk at int8 (test_quantize.py:138-153): corr >=
+    0.999, max |diff| <= 0.03 max |y| (not 0.02: a one-step flip at an early
+    conv carries through the trunk like quantisation noise itself; over
+    weight and input seeds 0-5 the port is 0.0168-0.0279 of max |y| from
+    JAX's int8 trunk, which is 0.0194-0.0301 from JAX's float trunk, and
+    0.0204 at this seed), 244 K7 calls."""
+    from deepfake_tpu.models.inception_resnet_v2 import InceptionResNetV2 as J
+    from deepfake_tpu_torch.models.inception_resnet_v2 import InceptionResNetV2 as T
+
+    x = np.random.default_rng(4).standard_normal((2, 96, 96, 3)).astype(np.float32) * 0.5
+    v = random_variables(J(), jnp.asarray(x), seed=4)
+    want = np.asarray(jax.jit(J(quant="int8").apply)(v, jnp.asarray(x)))
+    tm = load_jax_variables(T(fused_blocks=False, quant="int8"), v)
+    with Q.recorded_convs() as calls, torch.inference_mode():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert len(calls) == 244 and np.isfinite(got).all()
+    assert _corr(got, want) >= 0.999 and _rel(got, want) <= 0.03
+
+
+# ---------------------------------------------------------------- (f) static mode, one conv
+
+def test_static_scales_are_running_max_over_batches():
+    """calibrate_act_scales keeps the running max over its batches whatever
+    their order (test_quantize.py:186-202): the scalar equals max |big| in
+    both orders, and the conv counts as calibrated."""
+    from deepfake_tpu_torch.models.layers import ConvBnRelu
+    from deepfake_tpu_torch.models.registry import calibrate_act_scales
+
+    rng = np.random.default_rng(6)
+    small = _nchw(rng.standard_normal((1, 6, 6, 8)).astype(np.float32))
+    big = small * 4.0
+    m = ConvBnRelu(8, 8, (3, 3), 1, 1)
+    m.quant = "int8_static"
+    got = []
+    for order in ([small, big], [big, small]):
+        assert calibrate_act_scales(m, m, order) == 1
+        got.append(m.act_amax.item())
+    assert got[0] == got[1] == big.abs().max().item()
+    assert m.calibrated == {"act_amax"}
+
+
+def test_static_on_the_calibration_batch_equals_dynamic():
+    """Static mode on its own calibration batch runs the ops of dynamic mode
+    on the same scales: equal to the bit; uncalibrated static equals dynamic
+    to the bit too (the JAX fallback, layers.py:235-247); static on a batch
+    of four times the scale saturates and differs."""
+    from deepfake_tpu_torch.models.inception_resnet_v2 import BlockA
+    from deepfake_tpu_torch.models.registry import calibrate_act_scales, reset_calibration
+
+    x = _nchw(np.random.default_rng(5).standard_normal((1, 8, 8, 320)).astype(np.float32))
+    block = BlockA(0.17, fused=False)
+    _set_quant(block, "int8")
+    with torch.inference_mode():
+        dynamic, dynamic4 = block(x), block(4 * x)
+        _set_quant(block, "int8_static")
+        uncalibrated = block(x)
+    assert torch.equal(uncalibrated, dynamic)
+    assert calibrate_act_scales(block, block, [x]) == 7
+    with torch.inference_mode():
+        assert torch.equal(block(x), dynamic)
+        assert not torch.equal(block(4 * x), dynamic4)
+    reset_calibration(block)
+    assert not any(m.calibrated for m in _owners(block))
+
+
+# ---------------------------------------------------------------- (g) plumbing
+
+def test_irv2_quant_and_scope_values(monkeypatch):
+    """model.irv2_quant takes none, int8 and int8_static from --set; any
+    other value raises at build (the JAX package would run the float path).
+    DEEPFAKE_TPU_INT8_SCOPE: all by default, pointwise routes a 3x3 conv to
+    the float path (equal to the float module to the bit) and keeps a 1x1
+    int8, wide takes stride-1 convs of cin >= 32; an unknown value raises
+    (the JAX gate reads it as all)."""
+    from deepfake_tpu_torch.config import get_config
+    from deepfake_tpu_torch.models.layers import ConvBnRelu
+    from deepfake_tpu_torch.models.registry import build_model
+
+    for q in ("none", "int8", "int8_static"):
+        assert get_config(["--set", f"model.irv2_quant={q}"]).model.irv2_quant == q
+    cfg = get_config(["--set", "model.irv2_quant=int4", "--modality", "video"])
+    with pytest.raises(ValueError, match="irv2_quant"):
+        build_model(cfg, "cpu")
+
+    monkeypatch.delenv(Q.SCOPE_ENV, raising=False)
+    assert Q.int8_scope() == "all" and Q.int8_shape_allowed((3, 3), 2, 3)
+    x = _nchw(np.random.default_rng(7).standard_normal((1, 8, 8, 16)).astype(np.float32))
+    monkeypatch.setenv(Q.SCOPE_ENV, "pointwise")
+    assert not Q.int8_shape_allowed((3, 3), 1, 320) and Q.int8_shape_allowed((1, 1), 1, 320)
+    with torch.inference_mode():
+        m = ConvBnRelu(16, 8, (3, 3), 1, 1)
+        want = m(x)
+        m.quant = "int8"
+        assert torch.equal(m(x), want)
+        m1 = ConvBnRelu(16, 8, (1, 1))
+        want = m1(x)
+        m1.quant = "int8"
+        assert not torch.equal(m1(x), want)
+    monkeypatch.setenv(Q.SCOPE_ENV, "wide")
+    assert Q.int8_shape_allowed((3, 3), 1, 320) and not Q.int8_shape_allowed((3, 3), 1, 3)
+    assert not Q.int8_shape_allowed((3, 3), 2, 320)
+    monkeypatch.setenv(Q.SCOPE_ENV, "everything")
+    with pytest.raises(ValueError, match=Q.SCOPE_ENV):
+        with torch.inference_mode():
+            m(x)
+
+
+def test_training_ignores_quant():
+    """A train-mode ConvBnRelu with quant set takes the float path with
+    batch statistics (test_quantize.py:89-101): output and running
+    statistics equal the float module's; a training model is built without
+    quant."""
+    from deepfake_tpu_torch.config import Config
+    from deepfake_tpu_torch.models.layers import ConvBnRelu, Int8Owner
+    from deepfake_tpu_torch.models.registry import build_model
+
+    x = _nchw(np.random.default_rng(8).standard_normal((2, 6, 6, 8)).astype(np.float32))
+    runs = []
+    for quant in (None, "int8"):
+        torch.manual_seed(0)
+        m = ConvBnRelu(8, 8, (3, 3), 1, 1).train()
+        m.quant = quant
+        runs.append((m(x), m.bn.running_mean.clone(), m.bn.running_var.clone()))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    cfg = Config()
+    for k, val in {"data.modality": "video", "data.num_frames": 2, "data.frame_size": 96,
+                   "model.irv2_quant": "int8"}.items():
+        cfg.set(k, val)
+    train = build_model(cfg, "cpu", train=True)
+    assert all(m.quant is None for m in train.modules() if isinstance(m, Int8Owner))
+    serve = build_model(cfg, "cpu")
+    assert serve.quant == "int8"
+    assert all(m.quant == "int8" for m in serve.modules() if isinstance(m, Int8Owner))

@@ -1,7 +1,8 @@
 """The port's mesh at two CPU ranks (gloo, one spawn for the file), against
 the port's own single-device run: one fused training step at (2, 1) and at
 (1, 2); the InfoNCE alignment loss over the global batch at (2, 1);
-batch-sharded serving (Predictor and SubmitCtl) at data 2 on a ragged batch;
+batch-sharded serving (Predictor and SubmitCtl) at data 2 on a ragged batch,
+and int8 serving (dynamic, and static after calibration) likewise;
 the data module's loaders at data 2 (a step and evaluations, one at a batch
 the data axis does not divide); the (2, 1) steps in float64 at 1e-10.
 tests/torch_parallel_workers.py has the ranks' jobs and the tolerances;
@@ -88,9 +89,12 @@ def run(tmp_path_factory):
                     np.asarray([9000, 16000, 12000, 8000, 15000], np.int64)))
         serve = dict(SERVE, **{"data.data_root": str(root)})
         eval_batch = (serve_x, np.asarray([0.0, 1.0, 1.0, 0.0, 1.0], np.float32))
+        # int8 serving: frames at twice the calibration batch's scale, so the
+        # static scales saturate
+        int8_x = (2.0 * serve_x[0], serve_x[1], serve_x[2])
         torch.save({"overrides": CLIPPED, "x": x, "y": y, "serve": serve, "serve_x": serve_x,
-                    "eval": eval_batch, "csv": str(out / "mesh.csv"), "loader": loader},
-                   out / "setup.pt")
+                    "int8_x": int8_x, "eval": eval_batch, "csv": str(out / "mesh.csv"),
+                    "loader": loader}, out / "setup.pt")
         W.spawn("job_mesh2", 2, str(out))()  # the ranks first, then the references
         start_params = dict(W.port_model(cfg, "conditioned").named_parameters())
         ref = {name: W.reference(W.config(over), "conditioned", x, y) for name, over in (
@@ -116,6 +120,7 @@ def run(tmp_path_factory):
         res["serve"] = [torch.load(out / f"serve{r}.pt", weights_only=False) for r in (0, 1)]
         res["csv"] = [line.strip().split(",") for line in open(out / "mesh.csv") if line.strip()]
         res["serve_cfg"], res["serve_x"], res["eval"] = serve, serve_x, evaluated
+        res["int8_one"] = W.int8_scores({"serve": serve, "serve_x": serve_x, "int8_x": int8_x})
         W.release()
         yield res
     finally:
@@ -178,6 +183,34 @@ def test_batch_sharded_serving_matches_one_device(run, tmp_path):
         np.testing.assert_allclose(list(got["result"].values()), list(want_result.values()),
                                    rtol=0, atol=1e-5)
     assert [r[0] for r in run["csv"]] == list(want_result)
+
+
+@pytest.mark.parametrize("quant", W.INT8)
+def test_batch_sharded_int8_serving_matches_one_device(run, quant):
+    """At data 2, model.irv2_quant int8 and int8_static (every IRv2 conv
+    int8), Predictor.predict on a ragged batch of 5 (padded by repeating its
+    last row, which leaves a max unchanged): each int8 conv's per-tensor max
+    is taken over both ranks' rows before it quantises (and, at calibration
+    on the same ragged batch, before it is folded in). Both ranks give one
+    device's fused scores within 1e-5 (the file's serving tolerance) and its
+    fused and video logits within 1e-5 of their largest |logit|: the int8
+    trunk is the same integer arithmetic on either side, and the rest
+    differs by summation order (measured: 1.2e-7 and 2.7e-7 of it). A
+    rank's own max in place of the global one moves the video logits by
+    1.2e-2 of it, the fused ones by 2.0e-5 (measured in a copy without the
+    all-reduce, where the scores still met 1e-5: their sigmoid near 0.5
+    hides it)."""
+    for modality in ("fused", "video"):
+        want_scores, want_logits = run["int8_one"][modality, quant]
+        assert want_scores.shape == (5,) and np.isfinite(want_logits).all()
+        for got in run["serve"]:
+            scores, logits = got["int8"][modality, quant]
+            if modality == "fused":
+                np.testing.assert_allclose(scores, want_scores, rtol=0, atol=1e-5)
+            np.testing.assert_allclose(logits, want_logits, rtol=0,
+                                       atol=1e-5 * np.abs(want_logits).max())
+    one = run["int8_one"]
+    assert not np.array_equal(one["video", "int8"][1], one["video", "int8_static"][1])
 
 
 def test_loaders_over_the_data_axis_match_one_device(run):

@@ -226,7 +226,8 @@ def test_score_file_matches_jax(data_root, modality):
 
 def _audio_checkpoint(tcfg, variables, path):
     """A training checkpoint (``save_checkpoint`` of a Trainer that took no
-    step) of the port's audio model holding the JAX ``variables``."""
+    step) of the port's model of ``tcfg`` (the audio model here) holding the
+    JAX ``variables``, or its seeded weights where they are None."""
     from deepfake_tpu_torch.io.checkpoint import save_checkpoint
     from deepfake_tpu_torch.io.jax_weights import load_jax_variables
     from deepfake_tpu_torch.models.registry import build_model
@@ -236,17 +237,29 @@ def _audio_checkpoint(tcfg, variables, path):
         def train_loader(self):
             return []
 
-    model = load_jax_variables(build_model(tcfg, "cpu", train=True), variables)
+    model = build_model(tcfg, "cpu", train=True)
+    if variables is not None:
+        load_jax_variables(model, variables)
     trainer = Trainer(model, tcfg, NoBatches(), logger=lambda s: None, device="cpu")
     return save_checkpoint(str(path), trainer)
 
 
 def test_checkpoint_loading_is_not_ported(data_root, tmp_path):
     """What is not ported raises: the reference .pth import (it waits for
-    reference files) and int8 calibration (ROADMAP A7). The port's own
-    checkpoints load: ``SubmitCtl.load_checkpoint`` swaps the random-weight
-    Predictor for one serving the checkpoint's weights, whose submission
-    equals, to the bit, that of a Predictor built on the same weights."""
+    reference files). int8 calibration is ported (ROADMAP A7): a fused
+    int8_static ctl records its 24 scales (the IRv2 convs outside K1's
+    blocks) and ``load_checkpoint`` serves the checkpoint uncalibrated (the
+    JAX ctl's stale-cache strip, submit.py:66-72); calibrate records them
+    again. The port's own checkpoints load: ``SubmitCtl.load_checkpoint``
+    swaps the random-weight Predictor for one serving the checkpoint's
+    weights, whose submission equals, to the bit, that of a Predictor built
+    on the same weights."""
+    from deepfake_tpu_torch.models.layers import Int8Owner
+
+    def calibrated(c):
+        return sum(len(m.calibrated) for m in c.predictor.model.modules()
+                   if isinstance(m, Int8Owner))
+
     jcfg, tcfg = _configs("audio", data_root)
     _, variables = _variables(jcfg, seed=46)
     path = _audio_checkpoint(tcfg, variables, tmp_path / "ckpt")
@@ -254,8 +267,14 @@ def test_checkpoint_loading_is_not_ported(data_root, tmp_path):
     ctl = _port_ctl(tcfg, Predictor(tcfg, device="cpu"), str(tmp_path / "t.csv"), lines)
     with pytest.raises(NotImplementedError, match="reference files"):
         ctl.load_reference_pth("x.pth")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ctl.calibrate([])
+    fcfg = _configs("fused", data_root)[1]
+    fcfg.model.irv2_quant = "int8_static"
+    fctl = SubmitCtl(Predictor(fcfg, device="cpu"), fcfg, None, logger=lines.append)
+    batch = (np.full((1, 2, 96, 96, 3), 0.5, np.float32), np.zeros((1, 56, 56, 3), np.float32),
+             np.zeros((1, 8000), np.float32))
+    assert calibrated(fctl) == 0 and fctl.calibrate([batch]) == calibrated(fctl) == 24
+    fctl.load_checkpoint(_audio_checkpoint(fcfg, None, tmp_path / "fused_ckpt"))
+    assert calibrated(fctl) == 0 and fctl.calibrate([(batch,)]) == 24
     old = ctl.predictor
     ctl.load_checkpoint(path)
     assert ctl.predictor is not old and ctl.predictor.device.type == "cpu"

@@ -322,11 +322,38 @@ def job_mesh2(rank, out):
     dm = DeepFakeDataModule(scfg, prediction_csv=s["csv"], device="cpu", mesh=mesh).setup("test")
     result = SubmitCtl(pred, scfg, dm, logger=lambda line: None, prediction_csv=s["csv"]).submit()
     del pred, dm
-    res = {"scores": scores, "result": result, "eval": metrics,
+    res = {"scores": scores, "result": result, "eval": metrics, "int8": int8_scores(s, mesh),
            "loaders": loaders(rank, s["loader"], mesh, out)}
     release()
     res["witness"] = witness(rank, s["x"], s["y"], mesh)
     torch.save(res, os.path.join(out, f"serve{rank}.pt"))
+
+
+INT8 = ("int8", "int8_static")
+
+
+def int8_scores(s, mesh=None):
+    """Serving's (scores, logits) at ``model.irv2_quant`` int8 and
+    int8_static (every IRv2 conv int8: K1 off), on the ragged batch
+    ``s["int8_x"]``, for the fused model and the video model (its frames
+    alone); static after Predictor.calibrate on ``s["serve_x"]``. Under a
+    data-2 mesh each rank runs its rows, the per-tensor max taken over
+    both."""
+    from deepfake_tpu_torch.serving import Predictor
+
+    got = {}
+    for modality in ("fused", "video"):
+        pick = (lambda x: x) if modality == "fused" else (lambda x: x[0])
+        for quant in INT8:
+            cfg = config(dict(s["serve"], **{"data.modality": modality, "model.irv2_quant": quant,
+                                             "model.irv2_fused_blocks": False}))
+            pred = Predictor(cfg, device="cpu", mesh=mesh)
+            if quant == "int8_static":
+                assert pred.calibrate([pick(s["serve_x"])]) == 244
+            x = pick(s["int8_x"])
+            got[modality, quant] = (pred.predict(x), pred.forward(x, return_logits=True).numpy())
+            del pred
+    return got
 
 
 def loaders(rank, overrides, mesh, out):
