@@ -136,6 +136,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernel, plain, cuDNN bf16 conv, torch._int_mm (1x1) and bound ms; and,
      inside phase 11, the inference CLI over its files at
      --set model.irv2_quant=int8 (the kernel line's K7 and K8 rows).
+ 17. the remaining model options (right after phase 15): (a) activation
+     checkpointing (parallel.remat) of the fused model at 8 x 4 on the
+     graph route at remat_policy "", "dots" and "dots,dots,off,off", in the
+     deterministic configuration: three steps equal to phase 12's
+     deterministic graph steps to the bit in losses and weights, K5 at N =
+     49 launching its forward once more per recomputed block (192 a step,
+     112 at "dots,dots,off,off", 96 backward), step ms, peak GB and graph
+     pool beside phase 12's; Video Swin-S at 8 x 4 at "" on phase 6's
+     clips (K5's forward 192 a step; losses within phase 6's spread rule);
+     (b) Video Swin-S at --video_pool Attention: b8 requests eager and as
+     a graph (equal to the bit; K3 and K4 launching as at mean pooling),
+     then three training steps eager, eager again and as a graph (phase 6's
+     spread rule); (c) iResNet (bottleneck 2/2/2/2) and Res34 on one b8 x
+     32-frame batch (256 images of 224^2), bf16 against f32, ms, and one
+     train-mode forward and backward; (d) fused b8 under
+     model.parity_inference_dropout: two equal requests give equal scores,
+     the graph equals the eager route to the bit. The kernel line's K5 rows
+     gain "launches_remat" (a step, by policy) and the K3, K4 and K5 rows
+     "launches_attention_pool".
  13. the training CLI on mp4 files: item 5 of phase 14.
  14. checkpoints of fused training at 8 x 4 on the graph route
      (phase_checkpoints): Trainer.train over five steps with model_save 5,
@@ -163,6 +182,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import json
 import math
 import os
@@ -2376,7 +2396,7 @@ def phase_video_swin_train_graph(cfg, cfg_plain, dev, gen, report, steps: int = 
     # clips: bf16 noise only, ~8 bf16 ulps of a loss near 0.69
     if not d_loss <= 2e-2:
         fail(f"{key}: first-step losses of the K5 and plain routes differ by {d_loss:.3e}")
-    return launches, graph_launches
+    return launches, graph_launches, (raw, init_losses, loss_tol)
 
 
 class RawFused:
@@ -2496,15 +2516,21 @@ def phase_fused_train(cfg, cfg_plain, dev, gen, report, steps: int = 3):
     with deterministic():
         det = {}
         for name, compiled in (("eager", False), ("graph", True)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t = Trainer(None, cfg, raw, logger=quiet, device=dev, compiled=compiled)
             det[name] = assembled_steps(t, raw, steps, key=f"{key} deterministic {name}")[:2]
+            det[name][0]["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            det[name][0]["pool_bytes"] = None if t.graphs is None else t.graphs.pool_bytes()
             del t
             torch.cuda.empty_cache()
     (rde, w_de), (rdg, w_dg) = det["eager"], det["graph"]
     w_gap = max_gap(w_de, w_dg)
     res["deterministic"] = dict(eager_losses=rde["losses"], graph_losses=rdg["losses"],
                                 losses_equal=rdg["losses"] == rde["losses"], weight_gap=w_gap,
-                                graph_step_ms=rdg["step_ms"])
+                                graph_step_ms=rdg["step_ms"],
+                                graph_peak_gb=rdg["max_memory_allocated_gb"],
+                                graph_pool_bytes=rdg["pool_bytes"])
     if rdg["losses"] != rde["losses"] or w_gap != 0.0:
         fail(f"{key} deterministic: the graph route's losses {rdg['losses']} and weights (by "
              f"{w_gap:.3e}) are not the eager route's {rde['losses']} to the bit")
@@ -3689,6 +3715,307 @@ def int8_cli(root, names, scores, ckpt, seed: int, report):
         f"start, build and capture included); max |score - bf16 in-process| {diff:.3e}")
 
 
+# --------------------------------------------------- phase 17: model options
+
+REMAT_POLICIES = ("", "dots", "dots,dots,off,off")
+
+
+def remat_step_launches(cfg, depths):
+    """K5's launches in one remat step of a model whose K5 blocks are
+    ``depths`` a stage: a forward per block and micro-batch, another per
+    checkpointed block (its recompute in the backward), a backward per
+    block."""
+    from deepfake_tpu_torch.models.layers import block_remat
+
+    p, n = cfg.parallel, cfg.optim.accum_step
+    again = sum(d for i, d in enumerate(depths)
+                if block_remat(p.remat, p.remat_policy, i) is not None)
+    return {"window_attn3d_train_fwd": n * (sum(depths) + again),
+            "window_attn3d_train_bwd": n * sum(depths)}
+
+
+def with_remat(cfg, policy: str):
+    c = copy.deepcopy(cfg)
+    c.parallel.remat, c.parallel.remat_policy = True, policy
+    return c
+
+
+def remat_graph_steps(cfg, raw, steps, depths, dev, key):
+    """``steps`` graph steps of a remat Trainer (capture, then replays):
+    losses, weights, the captured K5 launches (checked), p50 of the
+    replays' step ms, peak GB and the graph pool."""
+    import torch
+
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9
+    t = Trainer(None, cfg, raw, logger=lambda line: None, device=dev)
+    r, w, _ = assembled_steps(t, raw, steps, key=key)
+    (g,) = (g for k, g in t.graphs.graphs.items() if k[0] == "train")
+    want = remat_step_launches(cfg, depths)
+    if g.launches != want or g.replays != steps:
+        fail(f"{key}: captured launches {g.launches} x {g.replays} replays, expected {want} x "
+             f"{steps}")
+    if r["per_step_launches"][1:] != [{}] * (steps - 1):
+        fail(f"{key}: a replay moved the launch counters: {r['per_step_launches']}")
+    r.update(launches=dict(g.launches), p50_step_ms=statistics.median(r["step_ms"][1:]),
+             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+             allocated_before_gb=base, pool_bytes=t.graphs.pool_bytes())
+    del t
+    torch.cuda.empty_cache()
+    return r, w
+
+
+def phase_remat(cfg, cfg_swin, dev, report, det_graph, swin_train):
+    """Phase 17 (a), activation checkpointing (``parallel.remat``) at full
+    width on the graph route. The fused model at 8 x 4 at each of
+    REMAT_POLICIES, in the deterministic configuration: three steps equal
+    phase 12's deterministic graph steps without remat to the bit, in losses
+    and weights (the recompute draws the forward's masks again); K5's
+    forward launches once more per recomputed SwinV2-B block and
+    micro-batch (192 a step at "" and "dots", 112 at "dots,dots,off,off",
+    where stages 0-1's 2 + 2 blocks recompute), its backward 96. Video
+    Swin-S at 8 x 4 at "" on phase 6's clips: losses within phase 6's spread
+    rule of its eager steps, K5's forward 192 a step. Each beside phase 12's
+    and phase 6's graph step ms, peak GB and pool. Returns the K5 launches a
+    step by path and policy."""
+    import torch
+
+    raw, rdg, w_dg, _ = det_graph
+    steps = len(rdg["losses"])
+    res, launches = {"fused": {}, "video_swin": {}}, {"fused": {}, "video_swin": {}}
+    det = report["fused_train"]["deterministic"]
+    with deterministic():
+        for policy in REMAT_POLICIES:
+            c = with_remat(cfg, policy)
+            key = f"remat {policy!r} fused graph"
+            r, w = remat_graph_steps(c, raw, steps, c.model.swin2d_depths, dev, key)
+            gap = max_gap(w_dg, w)
+            del w
+            if r["losses"] != rdg["losses"] or gap != 0.0:
+                fail(f"{key}: losses {r['losses']} and weights (by {gap:.3e}) are not phase 12's "
+                     f"deterministic graph steps' {rdg['losses']} to the bit")
+            res["fused"][policy] = {k: r[k] for k in (
+                "losses", "step_ms", "p50_step_ms", "max_memory_allocated_gb",
+                "allocated_before_gb", "pool_bytes", "launches")}
+            launches["fused"][policy] = r["launches"]
+    raw_s, eager_losses, loss_tol = swin_train
+    c = with_remat(cfg_swin, "")
+    key = "remat '' video_swin graph"
+    r, w = remat_graph_steps(c, raw_s, len(eager_losses), c.model.swin3d_depths, dev, key)
+    del w
+    loss_gap = max(abs(a - b) for a, b in zip(r["losses"], eager_losses))
+    if not loss_gap <= loss_tol:
+        fail(f"{key}: losses {r['losses']} differ from phase 6's eager steps {eager_losses} by "
+             f"{loss_gap:.3e}, past its spread rule {loss_tol:.3e}")
+    res["video_swin"][""] = {k: r[k] for k in (
+        "losses", "step_ms", "p50_step_ms", "max_memory_allocated_gb", "allocated_before_gb",
+        "pool_bytes", "launches")}
+    res["video_swin"][""]["loss_gap"] = loss_gap
+    launches["video_swin"][""] = r["launches"]
+    report["remat"] = res
+    p12 = det["graph_step_ms"]
+    log(f"remat fused 8 x 4, deterministic graph ({report['card']}): off (phase 12) steps "
+        f"{[round(t, 1) for t in p12]} ms, p50 of replays {statistics.median(p12[1:]):.1f} ms, "
+        f"peak {det['graph_peak_gb']:.2f} GB, pool {det['graph_pool_bytes'] / 2 ** 20:.0f} MiB")
+    for policy, rr in res["fused"].items():
+        log(f"remat fused {policy!r}: steps {[round(t, 1) for t in rr['step_ms']]} ms, p50 of "
+            f"replays {rr['p50_step_ms']:.1f} ms, peak {rr['max_memory_allocated_gb']:.2f} GB "
+            f"({rr['allocated_before_gb']:.2f} before), pool {rr['pool_bytes'] / 2 ** 20:.0f} "
+            f"MiB, K5 {rr['launches']} a step; losses equal phase 12's to the bit")
+    g6 = report["video_swin_train"]["graph"]
+    rr = res["video_swin"][""]
+    log(f"remat video_swin 8 x 4 graph ({report['card']}): off (phase 6) p50 "
+        f"{g6['p50_step_ms']:.1f} ms, peak {g6['max_memory_allocated_gb']:.2f} GB, pool "
+        f"{g6['pool_bytes'] / 2 ** 20:.0f} MiB; '' steps {[round(t, 1) for t in rr['step_ms']]} "
+        f"ms, p50 of replays {rr['p50_step_ms']:.1f} ms, peak {rr['max_memory_allocated_gb']:.2f} "
+        f"GB, pool {rr['pool_bytes'] / 2 ** 20:.0f} MiB, K5 {rr['launches']} a step, loss gap "
+        f"{loss_gap:.3e} (tolerance {loss_tol:.3e})")
+    return launches
+
+
+def phase_attention_pool(cfg, dev, gen, report, steps: int = 3):
+    """Phase 17 (b), Video Swin-S at ``--video_pool Attention`` (the head's
+    convs, BatchNorms, CLS token and six encoder layers in PyTorch; the
+    backbone on K3 and K4): three b8 requests on the eager route and as a
+    graph, the graph's scores, logits and 512-d frame tokens equal to the
+    eager route's to the bit, K3 and K4 launching per request as at mean
+    pooling (``k4_launches``); then ``steps`` training steps at 8 x 4 (K5,
+    the head's BatchNorms on batch statistics) eager, eager again and as a
+    graph, the graph within phase 6's spread rule. Returns the launches of
+    one eager request and of one step."""
+    import torch
+
+    from deepfake_tpu_torch.serving import Predictor
+    from deepfake_tpu_torch.train.trainer import Trainer
+
+    c = copy.deepcopy(cfg)
+    c.model.video_pool = "Attention"
+    key = "video_swin attention pool"
+    res = {}
+    eager = Predictor(c, device=dev, compiled=False)
+    graph = Predictor(c, device=dev)
+    requests = [clips(c, 8, dev, gen) for _ in range(3)]
+    reset_counts()
+    eager.predict(requests[0])
+    per_req = counts()
+    ln, tail = k4_launches(c)
+    want = {"window_attn3d_tokens": sum(c.model.swin3d_depths), "ln_linear": ln,
+            "mlp_tail": tail}
+    got = {k: per_req[k] for k in want}
+    if got != want:
+        fail(f"{key}: one eager b8 request launched {got}, expected {want} (mean pooling's)")
+    lat_e, _ = serve(eager, requests)
+    serve(graph, requests[:1])  # the capture
+    lat_g, _ = serve(graph, requests)
+    logits = [graph_equals_eager(graph, eager, r, key) for r in requests]
+    if torch_equal(logits[0], logits[1]):
+        fail(f"{key}: two requests gave the same logits")
+    feat = graph.forward(requests[0])[1]
+    if tuple(feat.shape) != (8, c.data.num_frames // c.model.swin3d_patch[0], 512):
+        fail(f"{key}: frame tokens of shape {tuple(feat.shape)}")
+    res["serve"] = dict(eager_ms=[t * 1e3 for t in lat_e], graph_ms=[t * 1e3 for t in lat_g],
+                        launches_per_request=got, graph_pool_bytes=graph.graphs.pool_bytes())
+    del eager, graph
+    torch.cuda.empty_cache()
+
+    o = c.optim
+    raw = RawClips(c, o.batch_size * o.accum_step, steps, dev, gen)
+    runs = []
+    for compiled in (False, False, True):
+        torch.cuda.reset_peak_memory_stats()
+        t = Trainer(None, c, raw, logger=lambda line: None, device=dev, compiled=compiled)
+        before = counts()
+        r, w, _ = assembled_steps(t, raw, steps, key=f"{key} train")
+        after = counts()
+        r["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        runs.append((r, w, {k: after[k] - before[k] for k in after if after[k] != before[k]}))
+        del t
+        torch.cuda.empty_cache()
+    (r1, w1, step_launches), (r2, w2, _), (rg, wg, _) = runs
+    loss_spread = max(abs(a - b) for a, b in zip(r1["losses"], r2["losses"]))
+    loss_tol = SPREAD_MULTIPLE * loss_spread + SPREAD_FLOOR * max(abs(v) for v in r1["losses"])
+    w_tol = (SPREAD_MULTIPLE * max_gap(w1, w2)
+             + SPREAD_FLOOR * max(x.abs().max().item() for x in w1))
+    loss_gap = max(abs(a - b) for a, b in zip(r1["losses"], rg["losses"]))
+    w_gap = max_gap(w1, wg)
+    del w1, w2, wg
+    if not (loss_gap <= loss_tol and w_gap <= w_tol):
+        fail(f"{key} train: the graph's losses and weights differ from the eager route's by "
+             f"{loss_gap:.3e} / {w_gap:.3e}, past the spread rule {loss_tol:.3e} / {w_tol:.3e}")
+    k5_want = k5_step_launches(c)
+    if {k: v // steps for k, v in step_launches.items()} != k5_want:
+        fail(f"{key} train: {steps} eager steps launched {step_launches}, expected {k5_want} a "
+             f"step")
+    res["train"] = dict(eager_losses=r1["losses"], graph_losses=rg["losses"],
+                        eager_step_ms=r1["step_ms"], graph_step_ms=rg["step_ms"],
+                        eager_peak_gb=r1["max_memory_allocated_gb"],
+                        graph_peak_gb=rg["max_memory_allocated_gb"], loss_gap=loss_gap,
+                        loss_tol=loss_tol, weight_gap=w_gap, weight_tol=w_tol)
+    report["attention_pool"] = res
+    tr = res["train"]
+    log(f"{key} b8 ({report['card']}): eager {[round(t, 2) for t in res['serve']['eager_ms']]} "
+        f"ms, graph {[round(t, 2) for t in res['serve']['graph_ms']]} ms (equal to the bit), "
+        f"launches a request {got}; train 8 x 4: eager steps "
+        f"{[round(t, 1) for t in tr['eager_step_ms']]} ms, graph "
+        f"{[round(t, 1) for t in tr['graph_step_ms']]} ms, peak {tr['graph_peak_gb']:.2f} GB, "
+        f"graph vs eager {loss_gap:.3e} / {w_gap:.3e} (tolerance {loss_tol:.3e} / {w_tol:.3e})")
+    return {**per_req, **{k: v // steps for k, v in step_launches.items()}}
+
+
+def phase_cnns(dev, gen, report, seed: int):
+    """Phase 17 (c), the alternative CNNs (models/iresnet.py): iResNet with
+    bottleneck blocks (2, 2, 2, 2) and Res34 on one b8 x 32-frame batch
+    (256 images of 224^2), seeded weights and BatchNorm statistics: bf16
+    against f32 on the card (TF32 off), the relative error (max |diff| /
+    max |f32|), each one's ms (CUDA events), and one train-mode forward and
+    backward in bf16 compute on f32 masters (BatchNorm on batch statistics;
+    ms, finite gradients)."""
+    import torch
+
+    from deepfake_tpu_torch.models.iresnet import IResNet, Res34
+    from deepfake_tpu_torch.models.layers import init_weights
+
+    x = torch.randn(256, 224, 224, 3, generator=gen, device=dev)
+    xb = x.bfloat16()
+    res = {}
+    for name, build in (("iresnet_bottleneck", lambda: IResNet("bottleneck", (2, 2, 2, 2))),
+                        ("res34", Res34)):
+        m = build().to(dev)
+        init_weights(m, torch.Generator(dev).manual_seed(seed))
+        randomize_bn(m, gen)
+        mb = copy.deepcopy(m)
+        with torch.no_grad():
+            for p in mb.parameters():
+                p.data = p.data.bfloat16()
+        with torch.inference_mode():
+            want, got = m(x), mb(xb).float()
+            ms = cuda_time_ms(lambda: m(x)), cuda_time_ms(lambda: mb(xb))
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if not (bool(torch.isfinite(got).all()) and rel <= 5e-2):
+            fail(f"{name}: bf16 against f32 on the card: relative error {rel:.3e}")
+        m.train()
+
+        def step():
+            for p in m.parameters():
+                p.grad = None
+            (m(xb).float() ** 2).mean().backward()
+
+        step()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        train_ms = cuda_time_ms(step, iters=1, warmup=0)
+        grads_ok = all(bool(torch.isfinite(p.grad).all()) for p in m.parameters())
+        if not grads_ok:
+            fail(f"{name}: a train-mode backward gave non-finite gradients")
+        res[name] = dict(out_shape=list(want.shape), rel_err_bf16=rel, f32_ms=ms[0],
+                         bf16_ms=ms[1], train_fwd_bwd_ms=train_ms,
+                         train_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"{name} b256 x 224^2 ({report['card']}): out {list(want.shape)}, bf16 vs f32 "
+            f"relative error {rel:.3e}; f32 {ms[0]:.2f} ms, bf16 {ms[1]:.2f} ms; train forward "
+            f"+ backward (bf16 compute) {train_ms:.2f} ms, peak "
+            f"{res[name]['train_peak_gb']:.2f} GB, gradients finite")
+        del m, mb, want, got
+        torch.cuda.empty_cache()
+    report["cnns"] = res
+
+
+def phase_inference_dropout(cfg, dev, gen, report):
+    """Phase 17 (d), ``model.parity_inference_dropout`` on fused b8 requests
+    (the IRv2 pool's, NeXtVLAD's and the paudio feature's dropouts active at
+    serving): two equal requests give equal scores, on each route, the
+    graph equals the eager route to the bit (scores and logits), and the
+    logits differ from a flag-off Predictor's (the dropouts act)."""
+    from deepfake_tpu_torch.serving import Predictor
+
+    c = copy.deepcopy(cfg)
+    c.model.parity_inference_dropout = True
+    eager = Predictor(c, device=dev, compiled=False)
+    graph = Predictor(c, device=dev)
+    r = fused_inputs(c, 8, dev, gen)
+    other = fused_inputs(c, 8, dev, gen)
+    scores = {}
+    for name, pred in (("eager", eager), ("graph", graph)):
+        _, (a, b) = serve(pred, [r, r])
+        if not np.array_equal(a, b):
+            fail(f"inference dropout {name}: two equal requests gave {a} and {b}")
+        scores[name] = a
+    for req in (r, other, r):
+        on = graph_equals_eager(graph, eager, req, "inference dropout")
+    del eager, graph
+    off = Predictor(cfg, device=dev, compiled=False).forward(r, return_logits=True)
+    off = off[0] if isinstance(off, tuple) else off
+    moved = (on.float() - off.float()).abs().max().item()
+    if torch_equal(on, off):
+        fail("inference dropout: the logits equal the flag-off Predictor's (no dropout acted)")
+    report["inference_dropout"] = dict(scores=scores["graph"].tolist(), max_logit_change=moved)
+    log(f"inference dropout fused b8 ({report['card']}): repeated requests equal, graph equal to "
+        f"eager to the bit, logits {moved:.3e} from the flag-off Predictor's at most; scores "
+        f"{np.round(scores['graph'], 4).tolist()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3811,10 +4138,10 @@ def main() -> int:
         kernels[i]["graph_launches_swin_l"] = swin_l_graph.get(name, 0)
     lap("4 video_swin serving, S and L")
     # training: the eager K5 route, then the graph route (the default)
-    record(kernels[6:8], phase_video_swin_train_graph(config("bfloat16", True, "video_swin"),
-                                                      config("bfloat16", False, "video_swin"),
-                                                      dev, gen, report),
-           ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
+    *swin_counted, swin_train = phase_video_swin_train_graph(
+        config("bfloat16", True, "video_swin"), config("bfloat16", False, "video_swin"), dev,
+        gen, report)
+    record(kernels[6:8], swin_counted, ("window_attn3d_train_fwd", "window_attn3d_train_bwd"))
     lap("6 video_swin training")
     record(kernels[8:9], phase_audio(config("bfloat16", True, "audio"),
                                      config("bfloat16", False, "audio"), dev, gen, report),
@@ -3838,8 +4165,25 @@ def main() -> int:
     lap("12 fused training")
     # the mesh: a one-process NCCL group against phase 12's steps without one
     phase_mesh(config("bfloat16", True, "fused"), dev, gen, report, det_graph)
-    del det_graph
     lap("15 mesh")
+    # the remaining model options: remat against phase 12's and phase 6's
+    # steps, Video Swin's attention-pooling head, the alternative CNNs and
+    # inference-time dropout
+    remat = phase_remat(config("bfloat16", True, "fused"), config("bfloat16", True, "video_swin"),
+                        dev, report, det_graph, swin_train)
+    del det_graph, swin_train
+    for i, path, name in ((12, "fused", "window_attn3d_train_fwd"),
+                          (13, "fused", "window_attn3d_train_bwd"),
+                          (6, "video_swin", "window_attn3d_train_fwd"),
+                          (7, "video_swin", "window_attn3d_train_bwd")):
+        kernels[i]["launches_remat"] = {p or "all": r[name] for p, r in remat[path].items()}
+    pooled = phase_attention_pool(config("bfloat16", True, "video_swin"), dev, gen, report)
+    for i, name in ((3, "window_attn3d_tokens"), (4, "ln_linear"), (5, "mlp_tail"),
+                    (6, "window_attn3d_train_fwd"), (7, "window_attn3d_train_bwd")):
+        kernels[i]["launches_attention_pool"] = pooled.get(name, 0)
+    phase_cnns(dev, gen, report, args.seed)
+    phase_inference_dropout(config("bfloat16", True), dev, gen, report)
+    lap("17 model options")
     # checkpoints (save, resume, serve), the loop's hooks, the training CLI;
     # the checkpoint lives on for phase 11's inference CLI
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")

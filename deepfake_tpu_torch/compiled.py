@@ -35,7 +35,18 @@ replays.
 A CUDA generator that ``fn`` draws from is registered with its graph
 (``generators``): each replay then reads the generator's offset and
 advances it by what the capture drew, so the replays draw what eager runs
-from the same state would draw.
+from the same state would draw. ``generators`` may be a function, called
+after the warm-up (a checkpointed step's recompute generators exist only
+once a warm-up has run it); ``prologue``, where given, runs on the host
+before every replay (it sets generators' offsets, which a capture can
+neither read nor set).
+
+Python's cycle collector does not run during a capture: an object it frees
+there may own another graph or its pool's memory, and releasing those is an
+operation a capture forbids (the capture then fails at its end, with no
+error of its own). Objects that hold a graph should not sit in reference
+cycles (a replay's ``prologue`` bound to its owner makes one), so that they
+go when their last reference does.
 
 A failed capture or replay raises: nothing here falls back to eager
 execution. On the CPU there is nothing to capture; ``serving.Predictor``
@@ -44,7 +55,8 @@ and ``train.Trainer`` run eagerly there.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple
+import gc
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,7 +115,7 @@ class Graph:
     replays."""
 
     def __init__(self, fn: Callable, example, device: torch.device, pool,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators=(), prologue: Optional[Callable[[], None]] = None):
         self.static_in = map_leaves(lambda x: torch.empty(
             tuple(_as_tensor(x).shape), dtype=_as_tensor(x).dtype, device=device), example)
         self.staging: Dict[int, torch.Tensor] = {}  # pinned, for inputs from the host
@@ -116,15 +128,23 @@ class Graph:
                 fn(self.static_in)
         torch.cuda.current_stream(device).wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
-        for gen in generators:  # each replay draws from, and advances, its state
+        self.prologue = prologue
+        for gen in generators() if callable(generators) else generators:
+            # each replay draws from, and advances, its state
             self.graph.register_generator_state(gen)
         # the capture empties the allocator's cache first; so does this, so
         # that the reserved bytes grow by the capture's own segments only
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         before, reserved = launch_counts(), torch.cuda.memory_reserved(device)
-        with torch.cuda.graph(self.graph, pool=pool):
-            self.static_out = fn(self.static_in)
+        collecting = gc.isenabled()
+        gc.disable()  # no cycle collection inside the capture (module docstring)
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.static_out = fn(self.static_in)
+        finally:
+            if collecting:
+                gc.enable()
         after = launch_counts()
         # the device memory the capture reserved: this graph's share of the pool
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
@@ -151,6 +171,8 @@ class Graph:
         buffers hold; returns the static outputs."""
         if inputs is not None:
             self.copy_in(inputs)
+        if self.prologue is not None:
+            self.prologue()
         self.graph.replay()
         self.replays += 1
         return self.static_out
@@ -164,20 +186,24 @@ class GraphCache:
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[Tuple, Graph] = {}
 
-    def graph(self, key: Tuple, fn: Callable, inputs,
-              generators: Sequence[torch.Generator] = ()) -> Graph:
+    def graph(self, key: Tuple, fn: Callable, inputs, generators=(),
+              prologue: Optional[Callable[[], None]] = None) -> Graph:
         """The graph of ``key``, captured from ``fn`` on ``inputs`` if it is
-        new; ``generators``: the CUDA generators ``fn`` draws from."""
+        new; ``generators``: the CUDA generators ``fn`` draws from (or a
+        function giving them after the warm-up); ``prologue``: run before
+        each replay."""
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = Graph(fn, inputs, self.device, self.pool, generators)
+            g = self.graphs[key] = Graph(fn, inputs, self.device, self.pool, generators,
+                                         prologue)
         return g
 
-    def run(self, key: Tuple, fn: Callable, inputs):
+    def run(self, key: Tuple, fn: Callable, inputs, generators=(),
+            prologue: Optional[Callable[[], None]] = None):
         """``fn`` on ``inputs`` through the graph of ``key``, captured at the
         first request of that key; returns the graph's static outputs (the
         capture's own run computed nothing: the request replays)."""
-        return self.graph(key, fn, inputs).replay(inputs)
+        return self.graph(key, fn, inputs, generators, prologue).replay(inputs)
 
     def pool_bytes(self) -> int:
         """Device memory reserved while the graphs were captured (the

@@ -78,7 +78,7 @@ class ModelConfig:
     bn_momentum: float = 0.1  # IRv2 and NeXtVLAD BatchNorm, PyTorch semantics
     soft: float = 0.01  # InfoNCE temperature of the fused alignment loss
     num_hiddens: int = 128  # Video Swin classifier hidden width
-    video_pool: str = "mean"  # Video Swin pooling ("Attention" is not ported)
+    video_pool: str = "mean"  # Video Swin pooling: "mean" or "Attention"
     # SwinV2-B audio branch
     swin2d_embed_dim: int = 128
     swin2d_depths: Tuple[int, ...] = (2, 2, 18, 2)
@@ -121,6 +121,11 @@ class ModelConfig:
     # reductions, the 1536 conv); off, all 244 convs, the blocks' residual
     # 1x1s included. Training ignores it.
     irv2_quant: str = "none"
+    # the reference's ungated F.dropout (deepfake_tpu/config.py:131-135): the
+    # IRv2 pool's, NeXtVLAD's and the paudio head's dropouts stay active at
+    # serving, their masks drawn from the Predictor's generator, reset to
+    # one state before every request (one request, one mask)
+    parity_inference_dropout: bool = False
     # checkpoints of each modality: --Resume loads the modality's one
     # (io/checkpoint.py); a reference .pth or .safetensors path raises
     audio_ckpt_path: Optional[str] = None
@@ -166,6 +171,14 @@ class ParallelConfig:
     data_axis: int = -1
     model_axis: int = 1
     multihost: bool = False
+    # activation checkpointing (deepfake_tpu/config.py:178-182): each
+    # SwinV2, Video Swin and wav2vec2 block's forward runs again in the
+    # backward (models/layers.py::remat_block). remat_policy: "" or
+    # "nothing" recompute everything, "dots" keeps the products without
+    # batch dims (mm, addmm), "dots_all" every product; "dots,dots,off,off"
+    # takes one entry a stage (stage_policy)
+    remat: bool = False
+    remat_policy: str = ""
 
 
 @dataclass

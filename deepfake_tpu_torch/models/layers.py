@@ -11,13 +11,17 @@ training.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -212,14 +216,22 @@ class Conv2d(nn.Conv2d):
 
 class Dropout(nn.Module):
     """flax nn.Dropout: each element kept with probability 1 - rate and
-    scaled by 1 / (1 - rate), in training only. The mask comes from
-    ``generator`` (set_dropout_generator), never from a global stream."""
+    scaled by 1 / (1 - rate), in training only, or also in eval mode where
+    ``at_inference`` is set (``model.parity_inference_dropout``: the
+    reference's ungated F.dropout). The mask comes from ``generator``
+    (set_dropout_generator), never from a global stream."""
+
+    at_inference = False
 
     def __init__(self, rate: float = 0.0, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.rate = rate
         self.generator = generator
         self.eval()
+
+    @property
+    def active(self) -> bool:
+        return (self.training or self.at_inference) and self.rate != 0.0
 
     def _keep(self, x, shape):
         if self.generator is None:
@@ -230,7 +242,7 @@ class Dropout(nn.Module):
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
     def forward(self, x):
-        if not self.training or self.rate == 0.0:
+        if not self.active:
             return x
         return self._keep(x, x.shape)
 
@@ -240,7 +252,7 @@ class DropPath(Dropout):
     sample (the leading axis), x / keep where kept, in training only."""
 
     def forward(self, x):
-        if not self.training or self.rate == 0.0:
+        if not self.active:
             return x
         return self._keep(x, (x.shape[0],) + (1,) * (x.dim() - 1))
 
@@ -252,6 +264,170 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> nn.Mo
         if isinstance(mod, Dropout):
             mod.generator = generator
     return model
+
+
+# ------------------------------------------------------ activation checkpoints
+
+def stage_policy(remat: bool, policy: str, stage: int) -> Tuple[bool, str]:
+    """One backbone stage's remat setting from a spec that may name one
+    policy a stage (layers.py:34-53): "dots,dots,off,off" checkpoints stages
+    0-1 with "dots" and runs stages 2-3 without remat; "off" disables remat
+    for its stage; a spec shorter than the stages extends with its last
+    entry; a spec without a comma applies unchanged to every stage."""
+    if "," not in policy:
+        return remat, policy
+    parts = [p.strip() for p in policy.split(",")]
+    p = parts[stage] if stage < len(parts) else parts[-1]
+    if p == "off":
+        return False, ""
+    return remat, p
+
+
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# the products each policy keeps from the forward (layers.py:56-72: jax's
+# dots_with_no_batch_dims_saveable and dots_saveable); "" and "nothing"
+# recompute everything
+REMAT_SAVES = {
+    "": (), "nothing": (), "dots": _MM,
+    "dots_all": _MM + (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default),
+}
+
+
+def block_remat(remat: bool, policy: str, stage: int) -> Optional[str]:
+    """The policy a stage's blocks are checkpointed with (``remat_block``),
+    or None where remat is off for the stage; an unknown policy raises."""
+    on, p = stage_policy(remat, policy, stage)
+    if not on:
+        return None
+    if p not in REMAT_SAVES:
+        raise ValueError(f"remat policy {p!r}: expected one of {sorted(REMAT_SAVES)}")
+    return p
+
+
+def _capturing(gen: torch.Generator) -> bool:
+    return gen.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _saving(ops):
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+class RecomputeStreams:
+    """Where the checkpointed blocks of a captured training step draw their
+    masks again. Inside a CUDA graph capture a generator's offset can be
+    neither read nor set, so each block run of a step (the k-th, counted
+    from ``begin_step``) recomputes from a generator of its own,
+    ``twins[k]``, registered with the step's graph (``generators``); the
+    step's eager warm-up runs record where ``generator`` stood when each
+    block ran (``offsets``, from the step's start), and ``sync``, before
+    each replay, puts every twin at the generator's seed and offset plus
+    its block's. A replayed recompute then draws the masks that its block's
+    forward drew in the same replay, and ``generator`` moves only by what
+    the step without remat draws. The offsets hold for one step signature
+    (a wave's length sets what its dropouts draw), so each step graph has
+    one of its own. PyTorch's graph-safe state calls do not replace it:
+    ``clone_state`` raises in a capture, and ``graphsafe_get_state`` shares
+    the live state instead of copying it (tools/rng_capture_probe.py)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.twins: List[torch.Generator] = []
+        self.offsets: List[int] = []
+        self.k = 0
+        self.start = 0
+
+    @property
+    def generators(self) -> List[torch.Generator]:
+        return [self.generator, *self.twins]
+
+    def begin_step(self) -> None:
+        self.k = 0
+        if not _capturing(self.generator):
+            self.start = self.generator.get_offset()
+
+    def block(self) -> Optional[torch.Generator]:
+        """At a checkpointed block's forward: its twin during a capture, else
+        None after noting the generator's offset."""
+        k, self.k = self.k, self.k + 1
+        if _capturing(self.generator):
+            if k >= len(self.twins):
+                raise RuntimeError("a captured step ran more checkpointed blocks than its "
+                                   "warm-up")
+            return self.twins[k]
+        if k == len(self.twins):
+            self.twins.append(torch.Generator(self.generator.device))
+            self.offsets.append(0)
+        self.offsets[k] = self.generator.get_offset() - self.start
+        return None
+
+    def sync(self) -> None:
+        state, base = self.generator.get_state(), self.generator.get_offset()
+        for twin, off in zip(self.twins, self.offsets):
+            twin.set_state(state)
+            twin.set_offset(base + off)
+
+
+class _Recompute:
+    """A checkpointed block's call: the forward draws its masks from the
+    block's generator as without remat, the recompute draws the same masks
+    again from a copy of the generator's state at the forward (or the
+    captured step's twin, ``RecomputeStreams``), so the generator is left
+    where the step without remat leaves it. No mask is saved."""
+
+    def __init__(self, block: nn.Module):
+        self.block = block
+        self.drops = [m for m in block.modules() if isinstance(m, Dropout) and m.active]
+        gens = {id(m.generator): m.generator for m in self.drops}
+        if None in gens.values():
+            raise RuntimeError("a Dropout in training needs a generator (set_dropout_generator)")
+        if len(gens) > 1:
+            raise RuntimeError("a checkpointed block draws from one dropout generator")
+        self.gen = next(iter(gens.values()), None)
+        self.replay, self.calls = None, 0
+        if self.gen is not None:
+            streams = getattr(block, "recompute_streams", None)
+            twin = None if streams is None else streams.block()
+            if twin is None and _capturing(self.gen):
+                raise RuntimeError("a checkpointed block with dropout in a CUDA graph capture "
+                                   "needs RecomputeStreams (the Trainer's compiled route)")
+            self.replay = twin if twin is not None else self.gen.get_state()
+
+    def __call__(self, *args):
+        self.calls += 1
+        if self.calls == 1 or self.gen is None:
+            return self.block(*args)
+        gen = self.replay
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(self.gen.device)
+            gen.set_state(self.replay)
+        try:
+            for m in self.drops:
+                m.generator = gen
+            return self.block(*args)
+        finally:
+            for m in self.drops:
+                m.generator = self.gen
+
+
+def remat_block(block: nn.Module, *args):
+    """``block(*args)``, checkpointed where the block's ``remat`` names a
+    policy (``block_remat``) and autograd records (layers.py:56-72,
+    ``nn.remat``): its activations are dropped after the forward and the
+    forward runs again in the backward (``torch.utils.checkpoint``, not
+    reentrant; "dots" and "dots_all" keep their products through
+    selective-checkpoint contexts). Under ``no_grad`` (serving, CUDA graphs
+    of requests) it is the plain call. A BatchNorm in a block would move
+    its running statistics twice: no checkpointed block holds one."""
+    policy = getattr(block, "remat", None)
+    if policy is None or not torch.is_grad_enabled():
+        return block(*args)
+    saves = REMAT_SAVES[policy]
+    kw = {"context_fn": _saving(saves)} if saves else {}
+    return checkpoint(_Recompute(block), *args, use_reentrant=False, preserve_rng_state=False,
+                      **kw)
 
 
 class Mlp(nn.Module):

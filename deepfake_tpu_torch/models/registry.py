@@ -9,7 +9,9 @@ hard-codes as it does: SwinV2's DropPath 0.1, wav2vec2's dropouts, LayerDrop
 and SpecAugment) and every mask drawn from the seed's dropout stream.
 ``example_inputs`` gives zero inputs of the canonical shapes; ``precompute_bias_cache``,
 ``pack_block_weights`` and ``pack_int8_weights`` fill the inference caches once the
-weights are final. ``model.irv2_quant`` (``irv2_quant``) sets the IRv2 trunk's int8 mode
+weights are final. ``model.parity_inference_dropout`` keeps the reference's ungated
+dropouts active in a serving model (``inference_dropout``). ``model.irv2_quant``
+(``irv2_quant``) sets the IRv2 trunk's int8 mode
 of the ``video`` and ``fused`` models at serving; a training model is built without it
 (its BatchNorm takes batch statistics, and its evaluation runs the float path).
 ``calibrate_act_scales`` records int8_static's activation scales.
@@ -23,7 +25,7 @@ import torch
 from torch import nn
 
 from deepfake_tpu_torch.config import Config
-from deepfake_tpu_torch.models.layers import init_weights, set_dropout_generator
+from deepfake_tpu_torch.models.layers import Dropout, init_weights, set_dropout_generator
 from deepfake_tpu_torch.utils.seeding import make_generators
 
 
@@ -56,7 +58,8 @@ def wav_config(cfg: Config):
     return Wav2Vec2Config(
         conv_dim=(m.wav_conv_dim,) * 7, hidden_size=m.wav_hidden,
         num_hidden_layers=m.wav_layers, num_attention_heads=m.wav_heads,
-        intermediate_size=m.wav_intermediate)
+        intermediate_size=m.wav_intermediate, remat=cfg.parallel.remat,
+        remat_policy=cfg.parallel.remat_policy)
 
 
 def _swin(cfg: Config, use_feat: bool):
@@ -67,7 +70,8 @@ def _swin(cfg: Config, use_feat: bool):
         img_size=cfg.data.audio_size, num_classes=m.num_classes, embed_dim=m.swin2d_embed_dim,
         depths=tuple(m.swin2d_depths), num_heads=tuple(m.swin2d_heads),
         window_size=m.swin2d_window, pretrained_window_sizes=tuple(m.swin2d_pretrained_windows),
-        use_feat=use_feat, attn_kernel=m.swin2d_attn_kernel)
+        use_feat=use_feat, attn_kernel=m.swin2d_attn_kernel, remat=cfg.parallel.remat,
+        remat_policy=cfg.parallel.remat_policy)
 
 
 IRV2_QUANT = ("none", "int8", "int8_static")
@@ -112,7 +116,8 @@ def _video_swin(cfg: Config):
         num_heads=tuple(m.swin3d_heads), patch_size=tuple(m.swin3d_patch),
         window_size=tuple(m.swin3d_window), num_hiddens=m.num_hiddens, pool=m.video_pool,
         kernels=m.swin3d_attn_kernel, drop_path_rate=m.swin3d_drop_path,
-        classify_drop=m.classify_drop)
+        classify_drop=m.classify_drop, remat=cfg.parallel.remat,
+        remat_policy=cfg.parallel.remat_policy)
 
 
 def build_model(cfg: Config, device=None, train: bool = False) -> nn.Module:
@@ -143,12 +148,41 @@ def build_model(cfg: Config, device=None, train: bool = False) -> nn.Module:
     model = model.to(dev).eval()
     gens = make_generators(cfg.random_seed, dev)
     init_weights(model, gens.init)
+    if cfg.model.parity_inference_dropout and not train:
+        inference_dropout(model)
     if train:
         set_dropout_generator(model, gens.dropout)
         with torch.no_grad():
             for p in model.parameters():
                 p.data = p.data.to(_DTYPES[cfg.parallel.param_dtype])
         model.train()
+    return model
+
+
+def inference_dropout(model: nn.Module) -> nn.Module:
+    """``model.parity_inference_dropout``: the dropouts that the reference
+    applies ungated (F.dropout without ``training=``) stay active in eval
+    mode, the three sites the JAX package gates on the flag: the IRv2
+    pool's (inception_resnet_v2.py:400), NeXtVLAD's (nextvlad.py:136) and
+    the paudio head's two (audio2d.py:40). Their masks come from the
+    generator that ``set_dropout_generator`` gives (the Predictor's). A
+    training model is built without it: the Trainer's evaluation runs
+    without dropout."""
+    from deepfake_tpu_torch.models.audio2d import Audio2D
+    from deepfake_tpu_torch.models.inception_resnet_v2 import InceptionResNetV2
+    from deepfake_tpu_torch.models.nextvlad import InceptionVideoClassifier
+
+    for mod in model.modules():
+        sites = (("drop",) if isinstance(mod, InceptionResNetV2) else
+                 ("vlad_drop",) if isinstance(mod, InceptionVideoClassifier) else
+                 ("model_drop",) + (() if mod.use_feat else ("classify_drop",))
+                 if isinstance(mod, Audio2D) else ())
+        for name in sites:
+            site = getattr(mod, name, None)
+            if not isinstance(site, Dropout):
+                raise AttributeError(f"{type(mod).__name__}.{name}: the inference-time "
+                                     "dropout site is not a Dropout")
+            site.at_inference = True
     return model
 
 

@@ -42,7 +42,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepfake_tpu_torch.models.layers import Conv2d, DropPath, LayerNorm, Linear, Mlp, as_nchw
+from deepfake_tpu_torch.models.layers import (
+    Conv2d, DropPath, LayerNorm, Linear, Mlp, as_nchw, block_remat, remat_block,
+)
 from deepfake_tpu_torch.ops.window_attn import cosine_window_attention, l2_normalize
 from deepfake_tpu_torch.ops.window_attn3d_train import window_attn3d_train
 from deepfake_tpu_torch.ops.window_attn_kernel import MAX_TOKENS as K2_MAX_TOKENS
@@ -278,13 +280,16 @@ class PatchEmbed(nn.Module):
 
 class SwinTransformerV2(nn.Module):
     """Mel image NHWC [B, H, W, 3] -> sigmoid score, logits, or (``use_feat``)
-    the pooled [B, num_features] feature (reference: swin_transformer2d.py:503-634)."""
+    the pooled [B, num_features] feature (reference: swin_transformer2d.py:503-634).
+    ``remat`` / ``remat_policy``: each stage's blocks checkpointed by
+    ``stage_policy`` (swin2d.py:469-472)."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 4, num_classes: int = 1000,
                  embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, pretrained_window_sizes: Sequence[int] = (0, 0, 0, 0),
-                 use_feat: bool = False, attn_kernel: bool = False, drop_path_rate: float = 0.1):
+                 use_feat: bool = False, attn_kernel: bool = False, drop_path_rate: float = 0.1,
+                 remat: bool = False, remat_policy: str = ""):
         super().__init__()
         self.num_classes = num_classes
         self.use_feat = use_feat
@@ -298,10 +303,12 @@ class SwinTransformerV2(nn.Module):
             names = []
             for j in range(depth):
                 name = f"layers_{i}_blocks_{j}"
-                self.add_module(name, SwinBlock(
+                block = SwinBlock(
                     dim, (r, r), num_heads[i], window_size,
                     0 if j % 2 == 0 else window_size // 2, mlp_ratio,
-                    pretrained_window_sizes[i], attn_kernel, dpr[sum(depths[:i]) + j]))
+                    pretrained_window_sizes[i], attn_kernel, dpr[sum(depths[:i]) + j])
+                block.remat = block_remat(remat, remat_policy, i)
+                self.add_module(name, block)
                 names.append(name)
             if i < len(depths) - 1:
                 name = f"layers_{i}_downsample"
@@ -317,7 +324,7 @@ class SwinTransformerV2(nn.Module):
     def forward(self, x, return_logits: bool = False):
         x = self.patch_embed(x)
         for name in self.stages:
-            x = getattr(self, name)(x)
+            x = remat_block(getattr(self, name), x)
         x = self.norm(x).float().mean(dim=1).to(x.dtype)
         if self.use_feat:
             return x

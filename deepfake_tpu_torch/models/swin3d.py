@@ -1,5 +1,5 @@
-"""Video Swin Transformer (3D) and its mean-pooling classifier, for serving
-and training (deepfake_tpu/models/swin3d.py:438-1214; reference topology
+"""Video Swin Transformer (3D) and its classifier (mean or attention
+pooling), for serving and training (deepfake_tpu/models/swin3d.py:438-1214; reference topology
 embed 96, depths 2/2/18/2, heads 3/6/12/24, patch (2,4,4), window (8,7,7)).
 
 Pre-norm blocks with scaled-dot window attention and a learned 3D
@@ -8,7 +8,9 @@ cyclic roll and the -100 shift mask on the padded volume; per-dim window
 clamping (a dim <= its window takes the dim and shift 0), with the bias
 index of the full window sliced [:N, :N] (the reference's quirk,
 swin3d.py:441-444); spatial-only PatchMerging with norm before reduction;
-mean pooling into Mlp -> sigmoid, also returning the per-frame feature.
+mean pooling into Mlp -> sigmoid, or the attention-pooling head (convs
+down to one token a frame, six encoder layers, an Mlp on the CLS token),
+also returning the per-frame feature.
 
 The model is built for one clip geometry (``input_size`` = frames, height,
 width), so every block's window, shift, padding, mask and bias are fixed at
@@ -54,7 +56,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepfake_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp
+from deepfake_tpu_torch.models.layers import (
+    BatchNorm, Conv2d, Dropout, DropPath, LayerNorm, Linear, Mlp, as_nchw, block_remat,
+    gelu_exact, remat_block,
+)
 from deepfake_tpu_torch.ops.ln_linear_kernel import ln_linear, mlp_tail
 from deepfake_tpu_torch.ops.window_attn import scaled_window_attention
 from deepfake_tpu_torch.ops.window_attn3d_kernel import window_attn3d_tokens
@@ -289,12 +294,14 @@ class PatchEmbed3D(nn.Module):
 class SwinTransformer3D(nn.Module):
     """Clips [B, T, H, W, 3] of ``input_size`` -> [B, D', H', W', num_features].
     Block i of all the blocks has DropPath rate linspace(0, drop_path_rate,
-    #blocks)[i] (swin3d.py:926)."""
+    #blocks)[i] (swin3d.py:926); ``remat`` / ``remat_policy``: each stage's
+    blocks checkpointed by ``stage_policy`` (swin3d.py:929-937)."""
 
     def __init__(self, input_size: Dims, patch_size: Dims = (2, 4, 4), embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2), num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_size: Dims = (8, 7, 7), mlp_ratio: float = 4.0,
-                 kernels: bool = False, drop_path_rate: float = 0.0):
+                 kernels: bool = False, drop_path_rate: float = 0.0, remat: bool = False,
+                 remat_policy: str = ""):
         super().__init__()
         self.input_size = tuple(input_size)
         self.patch_embed = PatchEmbed3D(patch_size, embed_dim)
@@ -306,16 +313,19 @@ class SwinTransformer3D(nn.Module):
             dim = embed_dim * 2 ** i
             for j in range(depth):
                 name = f"layers_{i}_blocks_{j}"
-                self.add_module(name, SwinBlock3D(
+                block = SwinBlock3D(
                     dim, res, num_heads[i], tuple(window_size),
                     (0, 0, 0) if j % 2 == 0 else shift, mlp_ratio, kernels,
-                    dpr[sum(depths[:i]) + j]))
+                    dpr[sum(depths[:i]) + j])
+                block.remat = block_remat(remat, remat_policy, i)
+                self.add_module(name, block)
                 self.stages.append(name)
             if i < len(depths) - 1:
                 name = f"layers_{i}_downsample"
                 self.add_module(name, PatchMerging3D(dim))
                 self.stages.append(name)
                 res = (res[0], -(-res[1] // 2), -(-res[2] // 2))
+        self.output_size = res  # (D', H', W') of the last stage
         self.norm = LayerNorm(embed_dim * 2 ** (len(depths) - 1))
         self.eval()
 
@@ -325,46 +335,133 @@ class SwinTransformer3D(nn.Module):
                              f"(frames, height, width), got {tuple(x.shape[1:4])}")
         x = self.patch_embed(x)
         for name in self.stages:
-            x = getattr(self, name)(x)
+            x = remat_block(getattr(self, name), x)
         return self.norm(x)
 
 
-class PoolingMLP(nn.Module):
-    """Mean pooling head (swin3d.py:1075-1127): the clip mean into
-    Mlp(in, hidden, classes) with dropout ``classify_drop``, and the
-    per-frame spatial mean as a feature."""
+class TransformerEncoderLayer(nn.Module):
+    """The attention-pooling head's encoder layer (swin3d.py:1130-1163):
+    torch's post-norm nn.TransformerEncoderLayer with GELU as the JAX head
+    writes it. ``in_proj`` gives q | k | v, ``nhead`` heads attend over the
+    L tokens (scaled q, f32 softmax), then ``out_proj``, the residual and
+    ``norm1``; ``linear1`` -> exact GELU -> ``linear2``, the residual and
+    ``norm2`` (flax LayerNorms: eps 1e-6). In training a Dropout at ``drop``
+    on the attention output, after the GELU and on the FFN's output."""
 
-    def __init__(self, in_feature: int = 768, num_hidden: int = 128, num_classes: int = 1,
-                 pool: str = "mean", classify_drop: float = 0.0):
+    def __init__(self, d_model: int = 512, nhead: int = 8, dim_feedforward: int = 2048,
+                 drop: float = 0.1):
         super().__init__()
-        if pool != "mean":
-            raise NotImplementedError(f"pool={pool!r}: only mean pooling is ported")
-        self.num_classes = num_classes
-        self.mlp = Mlp(in_feature, num_hidden, num_classes, drop=classify_drop)
+        self.nhead = nhead
+        self.in_proj = Linear(d_model, 3 * d_model)
+        self.out_proj = Linear(d_model, d_model)
+        self.norm1 = LayerNorm(d_model)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.drop = Dropout(drop)
 
     def forward(self, x):
-        xf = x.float()
-        feat = xf.mean(dim=(2, 3)).to(x.dtype)  # [B, D', C]
-        logits = self.mlp(xf.mean(dim=(1, 2, 3)).to(x.dtype))
+        B, L, C = x.shape
+        H = self.nhead
+        q, k, v = self.in_proj(x).view(B, L, 3, H, C // H).permute(2, 0, 3, 1, 4).unbind(0)
+        a = torch.softmax(((q * (C // H) ** -0.5) @ k.transpose(-1, -2)).float(), dim=-1)
+        o = (a.to(v.dtype) @ v).transpose(1, 2).reshape(B, L, C)
+        x = self.norm1(x + self.drop(self.out_proj(o)))
+        f = self.linear2(self.drop(gelu_exact(self.linear1(x))))
+        return self.norm2(x + self.drop(f))
+
+
+class PoolingMLP(nn.Module):
+    """The classifier head (swin3d.py:1075-1127) on the backbone's
+    [B, D', H', W', C], returning (logits, per-frame feature).
+
+    ``pool="mean"``: the clip mean into Mlp(in, hidden, classes) with
+    dropout ``classify_drop``, and the per-frame spatial mean as the
+    feature. ``pool="Attention"``: each frame's map through ``down_conv1``
+    (3x3 VALID, 512) -> ``down_bn1`` -> ``down_conv2`` (5x5 VALID) ->
+    ``down_bn2`` -> exact GELU, which collapses the 7x7 map that 224^2 clips
+    give to one 512-d token a frame (any other map raises); the ``cls``
+    token prepended, ``pos_embedding`` [1, D' + 1, 512] added, six encoder
+    layers ``enc_0`` ... ``enc_5`` attending over the D' + 1 tokens of a
+    clip (the JAX axis fix, not the reference's batch-axis quirk:
+    swin3d.py:1078-1085), ``projection`` = Mlp(512, 256, classes) on the
+    CLS token, and the frame tokens as the feature. Plain PyTorch: the JAX
+    head runs einsums, no Pallas kernel. Its BatchNorms take batch
+    statistics in training. ``size``: the backbone's (D', H', W')."""
+
+    def __init__(self, in_feature: int = 768, num_hidden: int = 128, num_classes: int = 1,
+                 pool: str = "mean", classify_drop: float = 0.0,
+                 size: Optional[Dims] = None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.pool = pool
+        if pool == "mean":
+            self.mlp = Mlp(in_feature, num_hidden, num_classes, drop=classify_drop)
+        elif pool == "Attention":
+            if size is None or tuple(size[1:]) != (7, 7):
+                raise ValueError(f"pool='Attention' collapses a 7x7 map (224^2 clips) to one "
+                                 f"token a frame; the backbone gives (D', H', W') = {size}")
+            self.down_conv1 = Conv2d(in_feature, 512, 3)
+            self.down_bn1 = BatchNorm(512)
+            self.down_conv2 = Conv2d(512, 512, 5)
+            self.down_bn2 = BatchNorm(512)
+            self.cls = nn.Parameter(torch.zeros(1, 1, 512))
+            self.pos_embedding = nn.Parameter(torch.zeros(1, size[0] + 1, 512))
+            for i in range(6):
+                self.add_module(f"enc_{i}", TransformerEncoderLayer(512, 8, 2048, classify_drop))
+            self.projection = Mlp(512, 256, num_classes, drop=classify_drop)
+        else:
+            raise ValueError(f"pool={pool!r}: expected 'mean' or 'Attention'")
+        self.eval()
+
+    def init_extra(self, generator: torch.Generator) -> None:
+        if self.pool == "Attention":  # flax's normal(1.0) initializers
+            self.cls.normal_(0.0, 1.0, generator=generator)
+            self.pos_embedding.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, x):
+        if self.pool == "Attention":
+            logits, feat = self._attention(x)
+        else:
+            xf = x.float()
+            feat = xf.mean(dim=(2, 3)).to(x.dtype)  # [B, D', C]
+            logits = self.mlp(xf.mean(dim=(1, 2, 3)).to(x.dtype))
         return (logits.squeeze(-1) if self.num_classes == 1 else logits), feat
+
+    def _attention(self, x):
+        B, D, H, W, C = x.shape
+        if (H, W) != (7, 7):
+            raise ValueError(f"pool='Attention' takes a 7x7 map (224^2 clips), got {H}x{W}")
+        h = as_nchw(x.reshape(B * D, H, W, C))
+        h = self.down_bn1(self.down_conv1(h))
+        h = gelu_exact(self.down_bn2(self.down_conv2(h))).reshape(B, D, -1)
+        h = torch.cat([self.cls.to(h.dtype).expand(B, 1, -1), h], dim=1)
+        h = h + self.pos_embedding.to(h.dtype)
+        for i in range(6):
+            h = getattr(self, f"enc_{i}")(h)
+        return self.projection(h[:, 0]), h[:, 1:]
 
 
 class VideoClassifier(nn.Module):
     """Video Swin backbone + PoolingMLP: clips [B, T, H, W, 3] ->
-    (sigmoid score [B], per-frame feature [B, D', C]) (swin3d.py:1166-1214).
-    The drop rates act in training only."""
+    (sigmoid score [B], per-frame feature [B, D', C]; 512 wide with
+    ``pool="Attention"``) (swin3d.py:1166-1214). The drop rates act in
+    training only."""
 
     def __init__(self, input_size: Dims, num_classes: int = 1, embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 18, 2), num_heads: Sequence[int] = (3, 6, 12, 24),
                  patch_size: Dims = (2, 4, 4), window_size: Dims = (8, 7, 7),
                  num_hiddens: int = 128, pool: str = "mean", kernels: bool = False,
-                 drop_path_rate: float = 0.0, classify_drop: float = 0.0):
+                 drop_path_rate: float = 0.0, classify_drop: float = 0.0, remat: bool = False,
+                 remat_policy: str = ""):
         super().__init__()
         self.videoSwinT = SwinTransformer3D(input_size, patch_size, embed_dim, depths, num_heads,
                                             window_size, kernels=kernels,
-                                            drop_path_rate=drop_path_rate)
+                                            drop_path_rate=drop_path_rate, remat=remat,
+                                            remat_policy=remat_policy)
         self.classifier = PoolingMLP(embed_dim * 2 ** (len(depths) - 1), num_hiddens,
-                                     num_classes, pool, classify_drop)
+                                     num_classes, pool, classify_drop,
+                                     self.videoSwinT.output_size)
         self.eval()
 
     def forward(self, x, return_logits: bool = False):

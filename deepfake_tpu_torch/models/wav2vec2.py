@@ -32,7 +32,9 @@ from torch import nn
 
 import torch.nn.functional as F
 
-from deepfake_tpu_torch.models.layers import Conv1d, Dropout, LayerNorm, Linear, gelu_exact
+from deepfake_tpu_torch.models.layers import (
+    Conv1d, Dropout, LayerNorm, Linear, block_remat, gelu_exact, remat_block,
+)
 from deepfake_tpu_torch.parallel.mesh import global_max
 
 
@@ -56,6 +58,10 @@ class Wav2Vec2Config:
     apply_spec_augment: bool = True
     mask_time_prob: float = 0.05
     mask_time_length: int = 10
+    # activation checkpointing per encoder layer; a per-stage spec applies
+    # its first entry to every layer (wav2vec2.py:218-223)
+    remat: bool = False
+    remat_policy: str = ""
 
 
 def feature_extract_output_length(c: Wav2Vec2Config, input_length):
@@ -249,7 +255,9 @@ class Encoder(nn.Module):
         self.layerdrop = LayerDrop(c.layerdrop)
         self.n_layers = c.num_hidden_layers
         for i in range(c.num_hidden_layers):
-            self.add_module(f"layers_{i}", EncoderLayer(c))
+            layer = EncoderLayer(c)
+            layer.remat = block_remat(c.remat, c.remat_policy, 0)
+            self.add_module(f"layers_{i}", layer)
 
     def forward(self, x, valid_frames=None):
         pos_in = x
@@ -259,7 +267,8 @@ class Encoder(nn.Module):
             pos_in = x * _frame_mask(x.shape[1], valid_frames, x.device)[None, :, None].to(x.dtype)
         x = self.drop(self.layer_norm(x + self.pos_conv_embed(pos_in)))
         for i in range(self.n_layers):
-            x = self.layerdrop(x, getattr(self, f"layers_{i}")(x, valid_frames))
+            # LayerDrop outside the checkpointed layer, as in JAX
+            x = self.layerdrop(x, remat_block(getattr(self, f"layers_{i}"), x, valid_frames))
         return x
 
 

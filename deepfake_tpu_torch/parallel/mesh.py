@@ -470,7 +470,7 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
     from deepfake_tpu_torch.models.layers import Mlp
     from deepfake_tpu_torch.models.nextvlad import InceptionVideoClassifier
     from deepfake_tpu_torch.models.swin2d import WindowAttention
-    from deepfake_tpu_torch.models.swin3d import WindowAttention3D
+    from deepfake_tpu_torch.models.swin3d import TransformerEncoderLayer, WindowAttention3D
     from deepfake_tpu_torch.models.wav2vec2 import FeedForward, SelfAttention
 
     names = {id(p): n for n, p in model.named_parameters()}
@@ -508,6 +508,12 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
                 _set_col(lin, mesh, idx, names)
             _set_row(mod.out_proj, mesh, idx, names)
             mod.local_heads = mod.H // M
+        elif isinstance(mod, TransformerEncoderLayer):
+            # the attention-pooling head: the JAX rules row-split out_proj
+            # and leave in_proj whole, so out_proj slices its replicated input
+            C = mod.out_proj.weight.shape[1]
+            if _spec_for("out_proj", C, C, M) == "row":
+                _set_row(mod.out_proj, mesh, _block(C, mesh, dev), names, split_input=False)
         elif isinstance(mod, FeedForward):
             inter = mod.intermediate_dense.weight.shape[0]
             if inter % M == 0:

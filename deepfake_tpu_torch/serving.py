@@ -48,10 +48,21 @@ all-gathered over the data axis into input order, outside the graph, and
 trimmed. Statistics that span the batch (the batch-longest wave, int8's
 per-tensor max) are taken over the global batch. ``score_file`` runs at
 batch 1 on the calling rank alone.
+
+``model.parity_inference_dropout`` (off by default) keeps the reference's
+ungated dropouts active (``registry.inference_dropout``: the IRv2 pool,
+NeXtVLAD, the paudio head). Their masks come from the Predictor's own
+generator (the seed's dropout stream), reset to one state before every
+request, on the eager route and before every graph replay alike, so one
+request shape draws the same masks on every call, as the JAX Predictor's
+fixed key does (deepfake_tpu/serving.py:45). A mesh with a data axis above 1
+raises for it: its ranks would each draw their rows' masks from that one
+state, not one device's masks for those rows.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -61,12 +72,14 @@ from deepfake_tpu_torch.compiled import GraphCache, signature
 from deepfake_tpu_torch.config import Config
 from deepfake_tpu_torch.data.pipeline import FeatureAssembler
 from deepfake_tpu_torch.io.checkpoint import load_model_state, read_checkpoint
+from deepfake_tpu_torch.models.layers import set_dropout_generator
 from deepfake_tpu_torch.models.registry import (
     build_model, calibrate_act_scales, compute_dtype, pack_block_weights, pack_int8_weights,
     precompute_bias_cache, resolve_device,
 )
 from deepfake_tpu_torch.parallel import mesh as pm
 from deepfake_tpu_torch.train.submit import pad_rows
+from deepfake_tpu_torch.utils.seeding import make_generators
 
 
 class Predictor:
@@ -82,6 +95,12 @@ class Predictor:
     def __init__(self, cfg: Config, variables: Optional[Dict[str, Any]] = None, device=None,
                  compiled: bool = True, state: Optional[Dict[str, torch.Tensor]] = None,
                  mesh=None):
+        if cfg.model.parity_inference_dropout and mesh is not None and mesh.data > 1:
+            # each rank would draw its rows' masks from the one reset state:
+            # rank 0's masks, not those one device draws for those rows
+            raise ValueError(f"model.parity_inference_dropout at a data axis of {mesh.data}: "
+                             "its masks are one device's draw over the whole batch; serve it "
+                             "on a mesh of data 1")
         self.cfg = cfg
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -111,6 +130,14 @@ class Predictor:
                 p.data = p.data.to(self.dtype)
         if mesh is not None:
             pm.attach(model, mesh)
+        # model.parity_inference_dropout: the ungated dropouts draw from this
+        # generator, reset to one state before every request (eager) or
+        # every replay (a graph: registered, its state set by the prologue)
+        self.dropout, self._dropout_state = None, None
+        if cfg.model.parity_inference_dropout:
+            self.dropout = make_generators(cfg.random_seed, self.device).dropout
+            self._dropout_state = self.dropout.get_state()
+            set_dropout_generator(model, self.dropout)
         self.model = model
         self._assemble = FeatureAssembler(cfg, train=False, device=self.device, mesh=mesh)
         # predict_raw's labels: none, as one zero on the device (a graph
@@ -168,10 +195,20 @@ class Predictor:
         out = self._call(route, fn, inputs)
         return tuple(pm.gather_from(t, self.mesh.data_group, dim=0)[:n] for t in out)
 
+    def _reset_dropout(self) -> None:
+        if self.dropout is not None:
+            self.dropout.set_state(self._dropout_state)
+
     def _call(self, route: str, fn, inputs):
         if self.graphs is None:
+            self._reset_dropout()
             return fn(inputs)
-        return self.graphs.run(signature(route, self.cfg.data.modality, inputs), fn, inputs)
+        gens, reset = (), None
+        if self.dropout is not None:  # the prologue holds no reference to self
+            gens = (self.dropout,)
+            reset = functools.partial(self.dropout.set_state, self._dropout_state)
+        return self.graphs.run(signature(route, self.cfg.data.modality, inputs), fn, inputs,
+                               gens, reset)
 
     def _rows(self, inputs):
         """This data rank's contiguous block of the global batch, padded to a

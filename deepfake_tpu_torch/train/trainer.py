@@ -55,6 +55,14 @@ has, and what the route does about each:
   4. The kernel wrappers count launches when a graph is captured, not when
      it is replayed: a graph's hand-written launches are ``Graph.launches``
      (one capture's count) times ``Graph.replays``.
+  5. Activation checkpointing (``parallel.remat``, models/layers.py::
+     remat_block) runs a block's forward again in the backward, and its
+     masks must be the forward's. A capture cannot read or set the dropout
+     generator's offset, so each checkpointed block run of a step recomputes
+     from a twin generator of its own, registered with the graph and put,
+     before each replay, at the offset the generator had when that block
+     ran (``RecomputeStreams``, one a step graph: the offsets differ from one
+     signature to the next; the eager route copies the state instead).
 
 The host reads a metric only at ``log_step``. ``chained_train_steps(n)``
 replays the step graph n times on one device-resident batch, writing each
@@ -118,7 +126,7 @@ from torch import nn
 from deepfake_tpu_torch.compiled import GraphCache, map_leaves, signature
 from deepfake_tpu_torch.config import Config
 from deepfake_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint
-from deepfake_tpu_torch.models.layers import set_dropout_generator
+from deepfake_tpu_torch.models.layers import RecomputeStreams, set_dropout_generator
 from deepfake_tpu_torch.models.registry import build_model, compute_dtype, resolve_device
 from deepfake_tpu_torch.parallel import mesh as pm
 from deepfake_tpu_torch.train.losses import bce_with_logits
@@ -166,6 +174,10 @@ class Trainer:
             pm.shard_model(model.to(self.device), mesh)
         self.train_sharded = pm.splits_train_batch(cfg, mesh)
         self.model = set_dropout_generator(model.to(self.device), self.dropout).train()
+        # trap 5: the checkpointed blocks, and the RecomputeStreams of the
+        # step graph being captured (None outside a capture)
+        self._remat = [m for m in self.model.modules() if getattr(m, "remat", None) is not None]
+        self.recompute = None
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger(f"model parameters: {n_params / 1e6:.2f}M")
 
@@ -217,6 +229,8 @@ class Trainer:
         x, y = batch
         x, y = map_leaves(self._cast, x), y.to(torch.float32)
         self.model.train()
+        if self.recompute is not None:
+            self.recompute.begin_step()
         params = self.optimizer.params
         for p in params:
             p.grad = None
@@ -260,12 +274,27 @@ class Trainer:
             with torch.no_grad():
                 saved = [t.detach().clone() for t in self._state()]
             gen_state = self.dropout.get_state()
-            g = self.graphs.graph(key, self._step, batch, generators=(self.dropout,))
+            # trap 5: this graph's own twins and offsets (the offsets depend on
+            # the signature: a wave's length sets what its dropouts draw)
+            rc = RecomputeStreams(self.dropout) if self._remat else None
+            self._attach_recompute(rc)
+            try:
+                g = self.graphs.graph(key, self._step, batch,
+                                      generators=(self.dropout,) if rc is None else
+                                      lambda: rc.generators,
+                                      prologue=None if rc is None else rc.sync)
+            finally:
+                self._attach_recompute(None)
             with torch.no_grad():
                 for t, s in zip(self._state(), saved):
                     t.copy_(s)
             self.dropout.set_state(gen_state)
         return g
+
+    def _attach_recompute(self, rc: Optional[RecomputeStreams]) -> None:
+        self.recompute = rc
+        for m in self._remat:
+            m.recompute_streams = rc
 
     def train_step(self, inputs, labels) -> Dict[str, torch.Tensor]:
         """One optimizer step over ``accum`` micro-batches; returns the mean

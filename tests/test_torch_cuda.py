@@ -31,8 +31,10 @@ K8 (int8): to the bit (explicit roundings on both sides, the plain conv
 exact in float64).
 """
 
+import gc
 import math
 import os
+import weakref
 
 import pytest
 import torch
@@ -1080,6 +1082,74 @@ def test_graph_new_shape_captures_a_second_graph(cuda_device):
     assert len(graph.graphs.graphs) == 3 and graph.graphs.pool_bytes() > 0
 
 
+class _Owner:
+    pass
+
+
+@pytest.mark.cuda
+def test_graph_capture_runs_no_cycle_collection(cuda_device):
+    """A dead reference cycle that owns a captured graph is not collected
+    inside another graph's capture, however eagerly the collector is set:
+    releasing a graph or its pool there would fail the capture at its end."""
+    from deepfake_tpu_torch.compiled import GraphCache
+
+    x = torch.randn(1 << 16, device=cuda_device)
+    dead = _Owner()
+    dead.cache, dead.me = GraphCache(cuda_device), dead
+    dead.cache.run(("dead",), lambda t: t * 2, x)
+    alive = weakref.ref(dead)
+    del dead
+    during = []
+
+    def watch(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            during.append(info["generation"])
+
+    def fn(t):
+        junk = [[] for _ in range(1000)]
+        for a, b in zip(junk, junk[1:]):  # cyclic garbage: work for the collector
+            a.append(b), b.append(a)
+        return t + 1
+
+    threshold = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(1, 1, 1)
+    try:
+        out = GraphCache(cuda_device).run(("live",), fn, x)
+    finally:
+        gc.set_threshold(*threshold)
+        gc.callbacks.remove(watch)
+    assert during == []
+    torch.cuda.synchronize()
+    assert torch.equal(out, x + 1)
+    gc.collect()
+    assert alive() is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [False, True], ids=["plain", "inference_dropout"])
+def test_compiled_predictor_goes_with_its_last_reference(cuda_device, dropout):
+    """A compiled Predictor, its graph captured, is freed when its last
+    reference goes, with the cycle collector off: its graphs and pool are
+    not left for a later collection (which may run inside a capture)."""
+    from deepfake_tpu_torch.serving import Predictor
+
+    cfg = _graph_cfg("fused", torch.bfloat16)
+    cfg.model.parity_inference_dropout = dropout
+    pred = Predictor(cfg, device=cuda_device)
+    pred.predict(_model_request(cfg, 2, cuda_device, 53))
+    assert len(pred.graphs.graphs) == 1
+    alive = weakref.ref(pred)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del pred
+        assert alive() is None
+    finally:
+        if collecting:
+            gc.enable()
+
+
 def _handwritten_kernels(fn, tries: int = 5):
     """The hand-written kernels that one call of ``fn`` runs, by name
     (torch.profiler): every __global__ function of csrc/ sits in namespace
@@ -1538,25 +1608,25 @@ FUSED_TRAIN = dict(GRAPH_BASE, **{"data.modality": "fused", "optim.batch_size": 
                                   "optim.accum_step": 2, "optim.learning_rate": 0.01})
 
 
-def _fused_trainer(dev, compiled, batches, mesh=None):
+def _fused_trainer(dev, compiled, batches, mesh=None, **over):
     from deepfake_tpu_torch.config import Config
     from deepfake_tpu_torch.train.trainer import Trainer
 
     cfg = Config()
-    for k, v in FUSED_TRAIN.items():
+    for k, v in dict(FUSED_TRAIN, **over).items():
         cfg.set(k, v)
     return Trainer(None, cfg, _OneBatch(*batches[0]), logger=lambda line: None, device=dev,
                    compiled=compiled, mesh=mesh)
 
 
-def _fused_batches(dev, n, seed=62):
-    """n batches of 4 fused clips: frames, mel images, 1 s waves with valid
-    lengths, labels."""
+def _fused_batches(dev, n, seed=62, samples=16000):
+    """n batches of 4 fused clips: frames, mel images, waves of ``samples``
+    (1 s) with valid lengths, labels."""
     gen = torch.Generator(dev).manual_seed(seed)
     out = []
     for _ in range(n):
-        wave = torch.randn(4, 16000, generator=gen, device=dev)
-        lengths = torch.randint(8000, 16001, (4,), generator=gen, device=dev)
+        wave = torch.randn(4, samples, generator=gen, device=dev)
+        lengths = torch.randint(samples // 2, samples + 1, (4,), generator=gen, device=dev)
         x = (0.5 * torch.randn(4, 2, 96, 96, 3, generator=gen, device=dev),
              torch.randn(4, 56, 56, 3, generator=gen, device=dev), (wave, lengths))
         out.append((x, (torch.rand(4, generator=gen, device=dev) > 0.5).float()))
@@ -1598,6 +1668,116 @@ def test_fused_train_graph_matches_eager(cuda_device, deterministic):
     (g,) = graphs.graphs.values()
     assert g.replays == 3 and g.launches == {"window_attn3d_train_fwd": 8,
                                              "window_attn3d_train_bwd": 8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,recomputed", [("", 8), ("dots", 8), ("dots,off", 4)],
+                         ids=["all", "dots", "dots_off"])
+def test_remat_graph_step_matches_eager_and_no_remat(cuda_device, deterministic, policy,
+                                                     recomputed):
+    """Activation checkpointing (``parallel.remat``) in three fused bf16
+    training steps, every dropout at its default, the deterministic
+    configuration: the graph route (each checkpointed block recomputing its
+    masks from a twin generator registered with the graph,
+    models/layers.py::RecomputeStreams) equals the eager remat route and
+    the graph route without remat, to the bit, in losses and weights. K5's
+    forward runs again for every recomputed SwinV2 block and micro-batch (4
+    blocks x 2; "dots,off": stage 0's 2 x 2), its backward once."""
+    batches = _fused_batches(cuda_device, 3)
+    runs = {}
+    for name, compiled, over in (("eager", False, {"parallel.remat": True}),
+                                 ("graph", True, {"parallel.remat": True}),
+                                 ("plain_graph", True, {})):
+        over = dict(over, **({"parallel.remat_policy": policy} if over else {}))
+        t = _fused_trainer(cuda_device, compiled, batches, **over)
+        runs[name] = (_steps(t, batches), _weights(t), t.graphs)
+        del t
+    want, w_want, _ = runs["plain_graph"]
+    for name in ("eager", "graph"):
+        got, w_got, _ = runs[name]
+        assert got == want, (name, got, want)
+        assert _gap(w_want, w_got) == 0.0, name
+    (g,) = runs["graph"][2].graphs.values()
+    assert g.replays == 3 and g.launches == {"window_attn3d_train_fwd": 8 + recomputed,
+                                             "window_attn3d_train_bwd": 8}
+
+
+@pytest.mark.cuda
+def test_remat_graphs_of_two_signatures_match_eager(cuda_device, deterministic):
+    """Remat steps at two step signatures, 1 s and 10 s waves: wav2vec2's
+    attention dropout at 10 s ([2, 4, 499, 499] a micro-batch) takes two
+    rounds of the generator's Philox counter where 1 s takes one, so the
+    offsets at which the later checkpointed blocks draw differ between the
+    two graphs. The 1 s graph, the 10 s graph, then the 1 s graph replayed
+    again equal three eager remat steps to the bit, in losses and weights:
+    each step graph recomputes from offsets of its own (shared ones would
+    give the third step the 10 s graph's)."""
+    short, long = (_fused_batches(cuda_device, 2, seed=63 + i, samples=n)
+                   for i, n in enumerate((16000, 160000)))
+    batches = [short[0], long[0], short[1]]
+    runs = []
+    for compiled in (False, True):
+        t = _fused_trainer(cuda_device, compiled, batches, **{"parallel.remat": True})
+        runs.append((_steps(t, batches), _weights(t), t.graphs))
+        del t
+    (want, w_want, _), (got, w_got, graphs) = runs
+    assert got == want, (got, want)
+    assert _gap(w_want, w_got) == 0.0
+    assert sorted(g.replays for g in graphs.graphs.values()) == [1, 2]
+    # what the test rests on: the two graphs' recompute offsets differ
+    a, b = (g.prologue.__self__.offsets for g in graphs.graphs.values())
+    assert len(a) == len(b) and a != b, (a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_pool_graph_matches_eager(cuda_device, dtype):
+    """video_swin at --video_pool Attention (16 frames of 56^2: the head's
+    7x7 map) served through a CUDA graph == the eager route, to the bit, for
+    two requests and the first again; K3 and K4 launch as at mean pooling;
+    then two training steps as graphs against two eager ones (the head's
+    BatchNorms on batch statistics), within the spread rule of
+    test_train_graph_matches_eager's configuration."""
+    cfg = _graph_cfg("video_swin", dtype)
+    cfg.model.video_pool = "Attention"
+    eager, graph = _predictor_pair(cfg, cuda_device)
+    reqs = [_model_request(cfg, 2, cuda_device, 33),
+            _model_request(cfg, 2, cuda_device, 34, scale=2.0)]
+    _assert_graph_equals_eager(graph, eager, [*reqs, reqs[0]])
+    (g,) = graph.graphs.graphs.values()
+    assert g.launches["window_attn3d_tokens"] == 4
+    assert tuple(_outputs(graph, reqs[0])[1].shape) == (2, 8, 512)
+    batches = _train_batches(cuda_device, 2)
+    runs = [(_steps(t, batches), _weights(t)) for t in
+            (_trainer(cuda_device, c, batches, **{"model.video_pool": "Attention"})
+             for c in (False, False, True))]
+    (e1, w1), (e2, w2), (gl, wg) = runs
+    assert all(math.isfinite(v) for v in e1 + gl)
+    for a, b, c in zip(e1, e2, gl):
+        assert abs(c - a) <= _spread_tolerance(abs(b - a), abs(a)), (e1, e2, gl)
+    assert _gap(w1, wg) <= _spread_tolerance(_gap(w1, w2), max(w.abs().max().item() for w in w1))
+
+
+@pytest.mark.cuda
+def test_inference_dropout_graph_matches_eager(cuda_device):
+    """``model.parity_inference_dropout``: fused f32 b2 requests through a
+    CUDA graph == the eager route, to the bit; one request twice gives one
+    score; the logits differ from the flag-off Predictor's (the scores of
+    these random weights sit at 0.5, where bf16 rounds both to one value)."""
+    import numpy as np
+
+    cfg = _graph_cfg("fused", torch.float32)
+    cfg.model.parity_inference_dropout = True
+    eager, graph = _predictor_pair(cfg, cuda_device)
+    req = _model_request(cfg, 2, cuda_device, 35)
+    _assert_graph_equals_eager(graph, eager, [req, _model_request(cfg, 2, cuda_device, 36,
+                                                                  scale=2.0), req])
+    assert np.array_equal(graph.predict(req), graph.predict(req))
+    cfg.model.parity_inference_dropout = False
+    from deepfake_tpu_torch.serving import Predictor
+
+    off = Predictor(cfg, device=cuda_device)
+    assert not torch.equal(_outputs(off, req)[0], _outputs(graph, req)[0])
 
 
 @pytest.mark.cuda

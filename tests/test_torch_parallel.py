@@ -226,19 +226,24 @@ def _stub_mesh():
     return mesh
 
 
-@pytest.mark.parametrize("modality", ["fused", "video_swin"])
+@pytest.mark.parametrize("modality", ["fused", "video_swin", "video_swin_attention"])
 def test_split_parameters_are_the_jax_rules(modality):
     """The parameters the port splits over a model axis of 2 are those the
     JAX param_shardings splits on the JAX tree of the same model, less the
     attention layers whose heads do not divide over it (head_exceptions:
     Video Swin's one-head stage here, replicated in the port), by
-    construction. Each split weight keeps half its rows or columns."""
+    construction. Each split weight keeps half its rows or columns.
+    ``video_swin_attention``: Video Swin with the attention-pooling head,
+    whose encoder layers' out_proj the rules row-split beside a whole
+    in_proj."""
     from deepfake_tpu.models.registry import build_model as jax_build, example_inputs
     from deepfake_tpu_torch.models.registry import build_model
     from deepfake_tpu_torch.parallel.mesh import head_exceptions, shard_model
     from tests.test_torch_swin3d import SMALL_VIDEO_SWIN
 
-    over = W.TRAIN if modality == "fused" else SMALL_VIDEO_SWIN
+    over = W.TRAIN if modality == "fused" else dict(
+        SMALL_VIDEO_SWIN, **({"model.video_pool": "Attention"} if modality.endswith("attention")
+                             else {}))
     jcfg, tcfg = both_configs(over)
     if modality == "fused":
         jmodel, kw = _jax_fused(jcfg), {"deterministic": True, "train": False}
@@ -252,7 +257,7 @@ def test_split_parameters_are_the_jax_rules(modality):
     shard_model(model, mesh)
     assert set(mesh.sharded) == {n for n in want
                                  if not any(n.startswith(e + ".") for e in exceptions)}
-    assert bool(exceptions) == (modality == "video_swin")
+    assert bool(exceptions) == (modality != "fused")
     assert all(any(n.startswith(e + ".") for e in exceptions) for n in want - set(mesh.sharded))
     for name, p in model.named_parameters():
         if name in mesh.sharded:

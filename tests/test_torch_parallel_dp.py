@@ -104,7 +104,8 @@ def run(tmp_path_factory):
         evaluated = Trainer(W.port_model(cfg, "conditioned"), cfg, W.Batches(x, y),
                             logger=lambda line: None, device="cpu").eval([eval_batch])
         res = {"align_differs": ref["align"][0]["loss"] != ref["plain"][0]["loss"]}
-        for tag, name in (("mesh21", "plain"), ("mesh12", "plain"), ("align21", "align")):
+        for tag, name in (("mesh21", "plain"), ("mesh12", "plain"), ("remat12", "plain"),
+                          ("align21", "align")):
             got = W.take(out / f"{tag}.pt")
             res[tag] = W.verdict(W.check_step, got, *ref[name], start_params)
             res[tag + "_sharded"] = bool(got["sharded"])
@@ -137,6 +138,15 @@ def test_mesh_step_matches_single_device(run, mesh):
     wav2vec2 and head layer."""
     assert run[mesh] is None, run[mesh]
     assert run[mesh + "_sharded"] == (mesh == "mesh12")
+
+
+def test_remat_mesh_step_matches_single_device(run):
+    """(1, 2) with activation checkpointing on (``parallel.remat``, "dots"):
+    every SwinV2 and wav2vec2 block runs its forward again in the backward,
+    the split layers' all-reduces and gathers included, and the step equals
+    one device's step without remat (W.check_step's tolerances)."""
+    assert run["remat12"] is None, run["remat12"]
+    assert run["remat12_sharded"]
 
 
 def test_align_loss_over_the_global_batch(run):
@@ -183,6 +193,17 @@ def test_batch_sharded_serving_matches_one_device(run, tmp_path):
         np.testing.assert_allclose(list(got["result"].values()), list(want_result.values()),
                                    rtol=0, atol=1e-5)
     assert [r[0] for r in run["csv"]] == list(want_result)
+
+
+def test_inference_dropout_refuses_a_data_axis(run):
+    """At data 2, ``model.parity_inference_dropout`` raises when the
+    Predictor is built: every rank would reset one generator to one state
+    and draw masks of its own rows' shape, so rank 1's rows would take rank
+    0's masks and not those that one device's draw over the whole batch
+    gives them."""
+    for got in run["serve"]:
+        assert got["inference_dropout"] is not None
+        assert "parity_inference_dropout at a data axis of 2" in got["inference_dropout"]
 
 
 @pytest.mark.parametrize("quant", W.INT8)

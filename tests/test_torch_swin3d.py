@@ -216,8 +216,119 @@ def test_video_swin_preset_and_inputs():
     assert tuple(x.shape) == (2, 32, 224, 224, 3)
 
 
-def test_attention_pooling_is_not_ported():
-    from deepfake_tpu_torch.models.swin3d import PoolingMLP
+def _flat_stats(tree, path=()):
+    """A flax batch_stats tree as the port's running-statistic names."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(_flat_stats(v, path + (k,)))
+        else:
+            out[".".join(path + ("running_mean" if k == "mean" else "running_var",))] = v
+    return out
 
-    with pytest.raises(NotImplementedError, match="mean pooling"):
-        PoolingMLP(64, 16, 1, pool="Attention")
+
+def _check_head(got, want, tmodel=None, new_stats=None):
+    (got_l, got_f), (want_l, want_f) = got, want
+    assert tuple(got_f.shape) == tuple(np.shape(want_f))
+    np.testing.assert_allclose(got_l.detach().numpy(), np.asarray(want_l), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got_f.detach().numpy(), np.asarray(want_f), atol=1e-4, rtol=0)
+    if new_stats is not None:
+        state = tmodel.state_dict()
+        stats = _flat_stats(new_stats)
+        assert len(stats) == 4  # down_bn1, down_bn2: mean and var
+        for k, v in stats.items():
+            np.testing.assert_allclose(state[k].numpy(), np.asarray(v), atol=1e-5,
+                                       rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_attention_pooling_head_matches_jax(train):
+    """PoolingMLP(pool="Attention") alone on a [2, 8, 7, 7, 64] map against
+    the JAX head (swin3d.py:1075-1164): down convs and BatchNorms, the CLS
+    token and position embedding, six post-norm encoder layers over the 9
+    tokens of a clip, the projection Mlp; logits and frame tokens within
+    1e-4, in eval mode and in train mode (batch statistics; the running
+    statistics moved as flax moves them)."""
+    from deepfake_tpu.models.swin3d import PoolingMLP as J
+    from deepfake_tpu_torch.models.swin3d import PoolingMLP as T
+
+    x = np.random.default_rng(30).standard_normal((2, 8, 7, 7, 64)).astype(np.float32)
+    jhead = J(in_feature=64, num_hidden=16, pool="Attention", classify_drop=0.0)
+    variables = random_variables(jhead, jnp.asarray(x), seed=31, deterministic=True)
+    thead = T(64, 16, 1, "Attention", 0.0, size=(8, 7, 7))
+    load_jax_variables(thead, variables)
+    if train:
+        want, new = jhead.apply(variables, jnp.asarray(x), deterministic=False,
+                                mutable=["batch_stats"])
+        thead.train()
+    else:
+        want, new = jhead.apply(variables, jnp.asarray(x), deterministic=True), None
+    with torch.no_grad():
+        got = thead(torch.from_numpy(x))
+    _check_head(got, want, thead, None if new is None else new["batch_stats"])
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_attention_pooling_classifier_matches_jax(train):
+    """VideoClassifier at SMALL_VIDEO_SWIN with pool="Attention" (56^2
+    frames give the head its 7x7 map; 16 frames, 8 tokens in time) against
+    the JAX model, both on their plain routes, DropPath and dropout at 0:
+    scores and the 512-d frame tokens within 1e-4, in eval mode and in train
+    mode (the head's BatchNorms on batch statistics)."""
+    from deepfake_tpu.models.swin3d import VideoClassifier as J
+    from deepfake_tpu_torch.models.swin3d import VideoClassifier as T
+
+    kw = dict(embed_dim=32, depths=(2, 2), num_heads=(1, 2), window_size=(8, 7, 7),
+              num_hiddens=16, pool="Attention", drop_path_rate=0.0, classify_drop=0.0)
+    x = np.random.default_rng(32).standard_normal((2, 16, 56, 56, 3)).astype(np.float32)
+    jmodel = J(**kw, use_pallas=False)
+    variables = random_variables(jmodel, jnp.asarray(x), seed=33, deterministic=True)
+    tmodel = T((16, 56, 56), **kw)
+    load_jax_variables(tmodel, variables)
+    if train:
+        want, new = jmodel.apply(variables, jnp.asarray(x), deterministic=False,
+                                 mutable=["batch_stats"])
+        tmodel.train()
+    else:
+        want, new = jmodel.apply(variables, jnp.asarray(x), deterministic=True), None
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(x))
+    assert tuple(got[1].shape) == (2, 8, 512)
+    _check_head(got, want, tmodel, None if new is None else new["batch_stats"])
+
+
+def test_attention_pooling_predictor_matches_jax(fused_routes):
+    """``Predictor(device="cpu")`` for video_swin at --video_pool Attention
+    (SMALL_VIDEO_SWIN: the backbone on K3's and K4's plain versions, the
+    head in PyTorch) against the JAX VideoClassifier on its default routes:
+    scores and features within 1e-4; the JAX tree, the head's included,
+    loads strictly."""
+    from deepfake_tpu.models.registry import build_model
+    from deepfake_tpu_torch.serving import Predictor
+
+    jcfg, tcfg = both_configs(dict(SMALL_VIDEO_SWIN, **{"model.video_pool": "Attention"}))
+    model = build_model(jcfg)
+    x = np.random.default_rng(34).standard_normal((2, 16, 56, 56, 3)).astype(np.float32)
+    variables = random_variables(model, jnp.asarray(x), seed=35, deterministic=True)
+    want_p, want_f = jax.jit(lambda v, a: model.apply(v, a, deterministic=True))(
+        variables, jnp.asarray(x))
+    pred = Predictor(tcfg, variables, device="cpu")
+    np.testing.assert_allclose(pred.predict(x), np.asarray(want_p), atol=1e-4, rtol=0)
+    feat = pred.forward(x)[1]
+    np.testing.assert_allclose(feat.numpy(), np.asarray(want_f), atol=1e-4, rtol=0)
+
+
+def test_attention_pooling_takes_the_7x7_map_only():
+    """The attention head collapses a 7x7 map (224^2 clips at Video Swin's
+    four stages, 56^2 at two) to one token a frame: a backbone that gives
+    another map, a forward on another map and an unknown pool all raise."""
+    from deepfake_tpu_torch.models.swin3d import PoolingMLP, VideoClassifier
+
+    with pytest.raises(ValueError, match="7x7"):
+        VideoClassifier((16, 112, 112), embed_dim=32, depths=(2, 2), num_heads=(1, 2),
+                        num_hiddens=16, pool="Attention")
+    head = PoolingMLP(64, 16, 1, pool="Attention", size=(8, 7, 7))
+    with pytest.raises(ValueError, match="7x7"):
+        head(torch.zeros(1, 8, 14, 14, 64))
+    with pytest.raises(ValueError, match="pool="):
+        PoolingMLP(64, 16, 1, pool="max")

@@ -289,8 +289,11 @@ def job_mesh22(rank, out):
 
 
 def job_mesh2(rank, out):
-    """At two ranks: (2, 1) and (1, 2), one step each (test (a)); (2, 1)
-    with the alignment loss (c); Predictor and SubmitCtl at data 2 (g); the
+    """At two ranks: (2, 1) and (1, 2), one step each (test (a)); (1, 2)
+    with activation checkpointing (``parallel.remat``, policy "dots": the
+    recompute runs the split layers' collectives again); (2, 1)
+    with the alignment loss (c); Predictor and SubmitCtl at data 2 (g), and
+    the Predictor's refusal of inference-time dropout there; the
     data module's loaders at data 2 (``loaders``); the float64 witness of
     the (2, 1) steps (``witness``)."""
     from deepfake_tpu_torch.data.dataset import DeepFakeDataModule
@@ -301,8 +304,10 @@ def job_mesh2(rank, out):
     s = torch.load(os.path.join(out, "setup.pt"), weights_only=False)
     cfg = config(s["overrides"])
     x, y = s["x"], s["y"]
+    remat = config(dict(s["overrides"], **{"parallel.remat": True,
+                                           "parallel.remat_policy": "dots"}))
     for c, data, model, tag in ((cfg, 2, 1, "mesh21"), (cfg, 1, 2, "mesh12"),
-                                (config(ALIGN), 2, 1, "align21")):
+                                (remat, 1, 2, "remat12"), (config(ALIGN), 2, 1, "align21")):
         # the conditioned seeded weights, built by each rank; the Trainer
         # is freed at once
         mesh_step(c, "conditioned", x, y, data, model, tag, out)
@@ -322,8 +327,14 @@ def job_mesh2(rank, out):
     dm = DeepFakeDataModule(scfg, prediction_csv=s["csv"], device="cpu", mesh=mesh).setup("test")
     result = SubmitCtl(pred, scfg, dm, logger=lambda line: None, prediction_csv=s["csv"]).submit()
     del pred, dm
+    try:  # one device's inference-dropout masks are not per-rank draws
+        Predictor(config(dict(s["serve"], **{"model.parity_inference_dropout": True})),
+                  device="cpu", mesh=mesh)
+        dropout = None
+    except ValueError as e:
+        dropout = str(e)
     res = {"scores": scores, "result": result, "eval": metrics, "int8": int8_scores(s, mesh),
-           "loaders": loaders(rank, s["loader"], mesh, out)}
+           "inference_dropout": dropout, "loaders": loaders(rank, s["loader"], mesh, out)}
     release()
     res["witness"] = witness(rank, s["x"], s["y"], mesh)
     torch.save(res, os.path.join(out, f"serve{rank}.pt"))
