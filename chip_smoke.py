@@ -133,7 +133,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      to the bit; one b8 request with irv2_fused_blocks off (244 K7); K7 and
      K8 against their plain versions to the bit at every conv shape of both
      (bf16 and f32 out; K8 with a saturating static scale), each shape's
-     kernel, plain, cuDNN bf16 conv, torch._int_mm (1x1) and bound ms; and,
+     kernel, plain, cuDNN bf16 conv, torch._int_mm (1x1) and bound ms beside
+     K7's route for it (ops/int8_conv.py::plan); and,
      inside phase 11, the inference CLI over its files at
      --set model.irv2_quant=int8 (the kernel line's K7 and K8 rows).
  17. the remaining model options (right after phase 15): (a) activation
@@ -3400,6 +3401,11 @@ def phase_ingest(cfg_fused, cfg_swin, cfg_audio, dev, report, seed: int, ckpt: s
 # ---------------------------------------------------------------- phase 16: int8 serving
 
 K7_SRC = K8_SRC = "deepfake_tpu_torch/csrc/int8_conv.cu"
+K7_DESIGN = ("Hopper redesign: s8 wgmma m64nBNk32 fed by TMA (flat rows for 1x1, a 4D box a "
+             "tap, or the overlapping wide-row map with a halo shared by the taps along H and "
+             "border columns a box a tap), persistent producer warp + two consumer "
+             "warpgroups, epilogue staged to 16-byte stores; the RGB stem f0 on a wgmma route "
+             "that gathers its own tiles")
 K7_REPLACES = ("none (not Pallas): deepfake_tpu/models/layers.py:256 quant_conv, XLA's int8 "
                "conv_general_dilated and its dequantising epilogue (layers.py:322-330)")
 K8_AMAX_REPLACES = ("none (not Pallas): the max-abs of deepfake_tpu/models/layers.py:224 "
@@ -3455,6 +3461,7 @@ def phase_int8_kernels(shapes, dev, gen, report):
     from deepfake_tpu_torch.ops.int8_conv import (
         act_amax, act_amax_plain, act_quantize, act_quantize_plain, int8_conv, int8_conv_plain,
     )
+    from deepfake_tpu_torch.ops.int8_conv import plan as int8_plan
 
     keys = ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "int_mm_ms", "ops", "bytes",
             "amax_ms", "amax_plain_ms", "amax_bound_ms", "amax_library_ms", "quant_ms",
@@ -3484,6 +3491,9 @@ def phase_int8_kernels(shapes, dev, gen, report):
             if q.abs().max().item() != 127:
                 fail(f"K8 quantize at {tuple(x.shape)}: a quarter of the max did not saturate")
             cout, kh, kw, cin = w.wq.shape
+            p = int8_plan(tuple(xq.shape), tuple(w.wq.shape), w.stride, tuple(w.pad))
+            route = ("rgb" if p.rgb else "bytes" if p.kc == 0 else "flat" if p.flat
+                     else ("halo" if p.halo else "wide") if p.wide else "tap")
             ops, nbytes = int8_conv_cost(xq, w)
             bound, _ = int8_bound(ops, nbytes)
             ms = cuda_time_ms(lambda: int8_conv(xq, w, amax, relu, torch.bfloat16), iters=10)
@@ -3510,7 +3520,7 @@ def phase_int8_kernels(shapes, dev, gen, report):
             b_amax, _ = int8_bound(0, 2 * x.numel() + 4)
             b_quant, _ = int8_bound(0, 3 * x.numel() + 4)
             row = dict(k1=k1, shape=[list(key[0]), list(key[1]), key[2], list(key[3]), key[4]],
-                       count=count, ms=ms, plain_ms=plain, bound_ms=bound, cudnn_bf16_ms=cudnn,
+                       route=route, bn=p.bn, count=count, ms=ms, plain_ms=plain, bound_ms=bound, cudnn_bf16_ms=cudnn,
                        int_mm_ms=int_mm, gop=ops / 1e9, mbytes=nbytes / 1e6,
                        amax_ms=t_amax, amax_plain_ms=t_amax_plain, amax_library_ms=t_amax_lib,
                        amax_bound_ms=b_amax, quant_ms=t_quant, quant_plain_ms=t_quant_plain,
@@ -3521,7 +3531,8 @@ def phase_int8_kernels(shapes, dev, gen, report):
                 v = {"ops": ops, "bytes": nbytes}.get(k, row.get(k))
                 tot[k] += count * (v or 0.0)
             log(f"K7 {k1} x{count} in [{','.join(map(str, xq.shape))}] w [{cout},{kh},{kw},{cin}] "
-                f"s{w.stride} pad {w.pad}: kernel_ms={ms:.4f} plain_ms={plain:.3f} "
+                f"s{w.stride} pad {w.pad} ({route}, bn {p.bn}): kernel_ms={ms:.4f} "
+                f"plain_ms={plain:.3f} "
                 f"cudnn_bf16_ms={cudnn:.4f} "
                 + (f"int_mm_ms={int_mm:.4f} " if int_mm is not None else "")
                 + f"bound_ms={bound:.4f} ({ops / 1e9:.2f} GOP, {nbytes / 1e6:.1f} MB); "
@@ -3545,6 +3556,7 @@ def phase_int8_kernels(shapes, dev, gen, report):
     extra = lambda t, *ks: {k: t[k] for k in ks}
     return [
         dict(name="int8_conv (K7)", route="cuda", source=K7_SRC, replaces=K7_REPLACES,
+             design=K7_DESIGN,
              launches=None, max_abs_err=0.0, ms=on["ms"], plain_ms=on["plain_ms"],
              bound_ms=on["bound_ms"], bound_by=by, library_ms=on["cudnn_bf16_ms"],
              library="cuDNN bf16 conv of each shape (F.conv2d), summed",

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the kernels that run on TMA and wgmma
 // (inception_block.cu: K1, window_attn.cu: K2, window_attn3d.cu: K3,
-// ln_linear.cu: K4, window_attn3d_train.cu: K5's backward): shared-memory
+// ln_linear.cu: K4, window_attn3d_train.cu: K5's backward, int8_conv.cu:
+// K7): shared-memory
 // addresses, mbarriers, TMA loads and stores and bulk loads, wgmma fences,
 // waits, descriptors and the register-A products of the window attention
 // kernels, and, on the host, the tensor-map encoding.
@@ -148,6 +149,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // 2^x, the special-function unit's approximation; subnormal results flush to 0
 __device__ __forceinline__ float ex2(float x) {
@@ -171,6 +177,15 @@ __device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo) {
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// wgmma descriptor of a K-major s8 operand in the layout TMA writes for rows
+// of `row` bytes (32, 64 or 128) swizzled at that width (8-row groups 8 *
+// row bytes apart; p inside an aligned atom of 8 rows): a step of 32 k
+// inside a row is p + 32 bytes
+__device__ __forceinline__ uint64_t desc_sw(const void* p, int row) {
+  const uint64_t layout = row == 128 ? 1 : row == 64 ? 2 : 3;
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * row) >> 4) << 32) | (layout << 62);
 }
 // byte offset of element c (< 64) of row r in that layout
 __device__ __forceinline__ int sw128_offset(int r, int c) {
@@ -255,14 +270,15 @@ inline EncodeTiled encoder() {
 
 // a tensor of `type` and `rank` dims (dim[0] innermost, contiguous; stride[i] the
 // byte stride of dim i + 1) in boxes of box[]; reads past the edges are
-// zeros
+// zeros. `elem`, where given, is each dim's traversal stride: a box then
+// loads every elem[i]-th element of box[i], ceil(box[i] / elem[i]) of them
 inline bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
                    const cuuint64_t* dim, const cuuint64_t* stride, const cuuint32_t* box,
-                   CUtensorMapSwizzle swizzle) {
+                   CUtensorMapSwizzle swizzle, const cuuint32_t* elem = nullptr) {
   const EncodeTiled enc = encoder();
   if (!enc) return false;
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return enc(map, type, rank, const_cast<void*>(ptr), dim, stride, box, elem,
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return enc(map, type, rank, const_cast<void*>(ptr), dim, stride, box, elem ? elem : ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -13,7 +13,12 @@ package leaves to XLA's int8 convolution. Here, in ``csrc/int8_conv.cu``:
   NHWC activations and [Cout, KH, KW, Cin] weights, dequantised by
   ``amax``'s scale times the per-output-channel weight scale, plus a
   per-channel shift (the folded BatchNorm, or the conv bias), ReLU
-  optional, cast to the output type.
+  optional, cast to the output type. ``plan`` lays each conv out for it
+  on the host: s8 wgmma fed by TMA in column tiles (``n_tile``), row
+  tiles (``row_box``) and channel chunks (``chunk_width``), or, at Cin = 3
+  (the RGB stem), s8 wgmma on tiles the block gathers itself;
+  ``tensor_maps`` describes the TMA boxes the kernel encodes from the
+  plan.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors, or raises; ``.launches`` counts its launches. The
@@ -34,6 +39,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+import math
 import os
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
@@ -165,14 +172,222 @@ def int8_conv_plain(xq: torch.Tensor, w: Int8Weights, amax: torch.Tensor, relu: 
     return out.to(dtype).contiguous()
 
 
+# ---------------------------------------------------------------- K7 planning
+
+# the column tile widths K7's Hopper route is built for (csrc/wgmma_ss.cuh's
+# WgmmaS8): s8 wgmma takes N of 8, 16, 24 and the multiples of 16 up to 256;
+# none above 224, K1's widest, beside a producer warp
+N_TILES = (32, 48, 64, 80, 96, 128, 144, 160, 192, 208, 224)
+TILE_ROWS = 128    # rows of a row tile: two wgmma M of 64
+STAGE_BYTES = 128  # bytes of K a ring stage: four k32 steps
+CHUNKS = (128, 64, 32)  # channel chunk widths (bytes), each swizzled at its width
+TMA_BOX_MAX = 256  # the most elements a TMA box spans in one dimension
+RGB_K, RGB_BN = 32, 64  # the RGB route: K <= one k32 step; its widest column tile
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How K7 lays out one conv: ``kc`` the channel chunk in bytes (0: Cin
+    is not a multiple of 16, and ``rgb`` says whether the RGB route takes
+    it, in segments of ``box`` = (1, 1, bw) output pixels, or the byte
+    route), ``bn`` the column tile, ``flat`` whether the rows are read flat
+    (a 1x1 conv at stride 1, 128 rows a tile), else ``box`` = (bf, bh, bw),
+    a row tile's output pixels; ``wide`` whether A comes through the
+    wide-row map (an output pixel's KW taps of one kernel row are KW Cin
+    contiguous bytes of an input row, one box row of 128-byte chunks,
+    where the map's W step, stride Cin bytes, makes neighbouring rows
+    overlap; ``box`` then covers the columns inside the frame), else one
+    box a tap; ``border`` = (pl, pr), the border columns a wide-row stride-1
+    conv reads a box a tap, in boxes of ``border_box`` = (bf, bh) of one
+    column; ``halo``: the wide rows' box is bh + KH - 1 rows of bw (a
+    multiple of 8) columns of one frame, whose KH taps along H read its
+    rows from ky bw on (one load for all of them)."""
+
+    kc: int
+    bn: int
+    flat: bool
+    box: Tuple[int, int, int]
+    wide: bool = False
+    rgb: bool = False
+    border: Tuple[int, int] = (0, 0)
+    border_box: Tuple[int, int] = (1, 1)
+    halo: bool = False
+
+
+def column_parts(w_shape, stride: int, pad, W: int, Wo: int) -> Tuple[bool, int, int]:
+    """(wide, pl, pr): whether K7 can read a conv's A through the wide-row
+    map (csrc/int8_conv.cu checks the same: a tap conv with KW > 1, unpadded
+    along W, or at stride 1 with a column whose receptive field lies inside
+    the frame), and then the border columns left and right (a stride-1
+    conv's padding along W), which it reads a box a tap."""
+    _, kh, kw, _ = w_shape
+    if (kh == kw == 1 and stride == 1) or kw == 1:
+        return False, 0, 0
+    if pad[2] == 0 and (Wo - 1) * stride + kw <= W:
+        return True, 0, 0
+    pr = Wo - 1 + kw - W - pad[2]
+    if stride == 1 and Wo - pad[2] - pr >= 1:
+        return True, pad[2], pr
+    return False, 0, 0
+
+
+def stages(cin: int, taps: int, kc: int) -> int:
+    """Ring stages of 128 bytes a unit takes: taps of cin channels in chunks
+    of kc bytes."""
+    return -(-taps * -(-cin // kc) // (STAGE_BYTES // kc))
+
+
+# the relative time of a ring stage by its chunk width: the TMA rows it loads
+# (128 / kc boxes) take about 4 cycles for a row of 32 bytes and 8 for one of
+# 128 on the H100 (PERF.md, K7's redesign)
+STAGE_COST = {128: 8, 64: 11, 32: 16}
+
+
+def k_cost(cin: int, taps: int, kc: int) -> int:
+    return stages(cin, taps, kc) * STAGE_COST[kc]
+
+
+def _two_stages_fit(stage_bytes: int, bn: int) -> bool:
+    """Whether a block's shared memory holds a ring of two such stages beside
+    the rest (csrc/int8_conv.cu::fixed_smem: alignment, the epilogue's
+    staging, xs ws and shift, the row table, barriers; SMEM_MAX)."""
+    fixed = 1024 + 2 * 64 * (bn + 8) * 2 + 2 * max(N_TILES) * 4 + TILE_ROWS * 4 + 16 * 8
+    return 2 * -(-stage_bytes // 1024) * 1024 + fixed <= 232448
+
+
+def halo_box(frames: int, ho: int, cols: int, kh: int, tc: int, bn: int):
+    """The wide rows' halo box (1, bh, bw), bw a multiple of 8, bh bw <= 128,
+    that loads the fewest rows of 128 bytes for the conv's ``cols`` columns
+    (each unit: ceil(tc / 128) stages of (bh + kh - 1) bw rows of A and kh bn
+    of W), with that count; None where no box fits a ring of two stages."""
+    best = None
+    for bw in range(8, TILE_ROWS + 1, 8):
+        for bh in range(1, min(ho, TILE_ROWS // bw) + 1):
+            if not _two_stages_fit((TILE_ROWS + (kh - 1) * bw + kh * bn) * 128, bn):
+                continue
+            units = frames * -(-ho // bh) * -(-cols // bw)
+            rows = units * -(-tc // 128) * ((bh + kh - 1) * bw + kh * bn)
+            if best is None or rows < best[0]:
+                best = (rows, (1, bh, bw))
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def n_tile(n: int) -> int:
+    """The column tile of a conv with n outputs: the least built width >= n
+    up to the widest, else the widest built width that splits n into
+    equal tiles with one tile more than the fewest at most (256 = 2 x 128,
+    288 = 2 x 144, 1536 = 8 x 192, 2080 = 10 x 208), else the width of the
+    fewest tiles that pads n the least (1088 in 5 of 224)."""
+    widest = max(N_TILES)
+    if n <= widest:
+        return min(w for w in N_TILES if w >= n)
+    fewest = -(-n // widest)
+    for count in (fewest, fewest + 1):
+        if n % count == 0 and n // count in N_TILES:
+            return n // count
+    return min(N_TILES, key=lambda w: (-(-n // w), -(-n // w) * w))
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_width(cin: int, taps: int) -> int:
+    """The channel chunk (bytes) of the least ``k_cost``, the widest of those:
+    32 for the 3x3s of 96 channels (27 chunks in 7 stages), 128 from 128
+    channels up."""
+    return min(CHUNKS, key=lambda kc: (k_cost(cin, taps, kc), -kc))
+
+
+@functools.lru_cache(maxsize=None)
+def row_box(frames: int, ho: int, wo: int) -> Tuple[int, int, int]:
+    """A row tile's box of output pixels (bf, bh, bw), bf bh bw <= 128:
+    whole output rows (a row wider than 128 in equal parts); of the boxes
+    of bh rows of bf frames, the one that needs the fewest tiles (K1's
+    rule, ops/inception_block.py::row_tile)."""
+    bw = -(-wo // -(-wo // TILE_ROWS))
+    best = None
+    for bh in range(1, min(ho, TILE_ROWS // bw) + 1):
+        bf = min(frames, TILE_ROWS // (bw * bh))
+        tiles = -(-frames // bf) * -(-ho // bh) * -(-wo // bw)
+        if best is None or tiles < best[0]:
+            best = (tiles, (bf, bh, bw))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(x_shape: Tuple[int, int, int, int], w_shape: Tuple[int, int, int, int], stride: int,
+         pad: Tuple[int, int, int, int]) -> ConvPlan:
+    """K7's layout of a conv of NHWC input ``x_shape`` and [Cout, KH, KW,
+    Cin] weights ``w_shape`` (shapes ``check_conv`` takes)."""
+    Fn, H, W, cin = x_shape
+    cout, kh, kw, _ = w_shape
+    flat = kh == kw == 1 and stride == 1
+    Ho, Wo = out_size(H, W, kh, kw, stride, pad)
+    if cin % 16:
+        if cin <= 4 and kh * kw * cin <= RGB_K:  # csrc/int8_conv.cu takes it the same
+            bn = n_tile(cout) if cout <= RGB_BN else RGB_BN
+            return ConvPlan(0, bn, False, (1, 1, -(-Wo // -(-Wo // TILE_ROWS))), rgb=True)
+        return ConvPlan(0, 64, flat, (1, 1, TILE_ROWS))
+    wide, pl, pr = column_parts(w_shape, stride, pad, W, Wo)
+    kc = chunk_width(cin, kh * kw)
+    # the wide rows where they cost less, their border columns a box a tap
+    if wide and (k_cost(kw * cin, kh, 128) * (Wo - pl - pr) + k_cost(cin, kh * kw, 128) * (pl + pr)
+                 < k_cost(cin, kh * kw, kc) * Wo):
+        kc, bn, cols = max(CHUNKS), n_tile(cout), Wo - pl - pr
+        border = dict(border=(pl, pr), border_box=row_box(Fn, Ho, 1)[:2]) if pl + pr else {}
+        box = row_box(Fn, Ho, cols)
+        # the halo where it loads fewer rows (stride 1: a tap along H is a row)
+        halo = halo_box(Fn, Ho, cols, kh, kw * cin, bn) if stride == 1 and kh > 1 else None
+        units = -(-Fn // box[0]) * -(-Ho // box[1]) * -(-cols // box[2])
+        if halo and halo[0] < units * kh * -(-kw * cin // 128) * (math.prod(box) + bn):
+            return ConvPlan(kc, bn, False, halo[1], True, halo=True, **border)
+        return ConvPlan(kc, bn, False, box, True, **border)
+    box = (1, 1, TILE_ROWS) if flat else row_box(Fn, Ho, Wo)
+    return ConvPlan(kc, n_tile(cout), flat, box)
+
+
+def tensor_maps(x_shape, w_shape, stride: int, pad, p: ConvPlan) -> dict:
+    """The TMA maps K7 encodes for a plan (csrc/int8_conv.cu::k7_int8_conv),
+    each {"dims", "strides" (bytes, of dims 1 on), "box", "elem"
+    (traversal strides)}, innermost first: "a" the activations (flat rows
+    [M, Cin]; (Cin, W, H, F) with the conv's stride in W and H; or wide
+    rows (KW Cin, (W - KW) / stride + 1, H, F), the W step stride Cin
+    bytes), "a2" the border columns' (Cin, W, H, F) where the plan has
+    them, "w" the weights [Cout, K]; int8 elements."""
+    Fn, H, W, cin = x_shape
+    cout, kh, kw, _ = w_shape
+    K = kh * kw * cin
+    bf, bh, bw = p.box
+    maps = dict(w=dict(dims=(K, cout), strides=(K,), box=(p.kc, p.bn), elem=(1, 1)))
+    by_tap = lambda bf, bh, bw: dict(dims=(cin, W, H, Fn), strides=(cin, cin * W, cin * W * H),
+                                     box=(p.kc, bw * stride, bh * stride, bf),
+                                     elem=(1, stride, stride, 1))
+    if p.flat:
+        maps["a"] = dict(dims=(cin, Fn * H * W), strides=(cin,), box=(p.kc, TILE_ROWS),
+                         elem=(1, 1))
+    elif p.wide:
+        rows = bh + kh - 1 if p.halo else bh * stride
+        maps["a"] = dict(dims=(kw * cin, (W - kw) // stride + 1, H, Fn),
+                         strides=(stride * cin, cin * W, cin * W * H),
+                         box=(p.kc, bw, rows, bf), elem=(1, 1, stride, 1))
+        if sum(p.border):
+            maps["a2"] = by_tap(*p.border_box, 1)
+    else:
+        maps["a"] = by_tap(bf, bh, bw)
+    return maps
+
+
 # ---------------------------------------------------------------- CUDA kernels
 
 def _lib():
-    lib = build.library("int8_conv")
+    return bind(build.library("int8_conv"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument types on a loaded K7/K8 library."""
     if not getattr(lib, "_typed", False):
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.k7_int8_conv.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
-                                     i, p]
+                                     i, i, i, i, i, i, i, i, i, i, p]
         lib.k7_int8_conv.restype = i
         lib.k8_amax.argtypes = [i, p, i64, p, p]
         lib.k8_amax.restype = i
@@ -186,6 +401,11 @@ def _lib():
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_act(name: str, x: torch.Tensor) -> None:
@@ -285,11 +505,16 @@ def int8_conv(xq: torch.Tensor, w: Int8Weights, amax: torch.Tensor, relu: bool,
     Fn, H, W, C = xq.shape
     cout, kh, kw, _ = w.wq.shape
     out = torch.empty(Fn, Ho, Wo, cout, dtype=dtype, device=xq.device)
+    p = plan(tuple(xq.shape), tuple(w.wq.shape), w.stride, tuple(w.pad))
+    # TMA reads from 16-byte aligned addresses; the byte route from any
+    kc = p.kc if xq.data_ptr() % 16 == 0 and w.wq.data_ptr() % 16 == 0 else 0
+    index = xq.device.index if xq.device.index is not None else torch.cuda.current_device()
     lib = _lib()
     build.check(lib.k7_int8_conv(
         xq.data_ptr(), w.wq.data_ptr(), amax.data_ptr(), w.ws.data_ptr(), w.shift.data_ptr(),
         out.data_ptr(), _DTYPES[dtype], Fn, H, W, C, cout, kh, kw, w.stride, w.pad[0],
-        w.pad[2], Ho, Wo, int(relu), _stream(xq)), lib.k7_error_string, "k7_int8_conv")
+        w.pad[2], Ho, Wo, int(relu), kc, 2 if p.halo else int(p.wide), p.bn, *p.box,
+        *p.border_box, _sm_count(index), _stream(xq)), lib.k7_error_string, "k7_int8_conv")
     int8_conv.launches += 1
     return out
 

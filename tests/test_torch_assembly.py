@@ -13,7 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests.torch_port_helpers import both_configs
+from tests.torch_port_helpers import both_configs, torch_on_one_thread  # noqa: F401 (autouse)
 
 from deepfake_tpu_torch.ops.image import (
     augment_clip, draw_augmentation, normalize_imagenet, rotate_nearest,

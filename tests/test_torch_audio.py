@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from tests.torch_port_helpers import SMALL_FUSED, both_configs, random_variables
+from tests.torch_port_helpers import torch_on_one_thread  # noqa: F401 (an autouse fixture)
 
 from deepfake_tpu_torch.io.jax_weights import load_jax_variables
 

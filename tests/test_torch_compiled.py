@@ -12,6 +12,7 @@ from deepfake_tpu_torch.compiled import signature
 from deepfake_tpu_torch.ops import kernel_wrappers, launch_counts
 
 from tests.torch_port_helpers import SMALL_FUSED, both_configs, random_variables
+from tests.torch_port_helpers import torch_on_one_thread  # noqa: F401 (an autouse fixture)
 
 
 def _raw(batch=2, samples=16000, frames=(2, 96, 96), keys=("video", "audio_wave", "audio_len"),

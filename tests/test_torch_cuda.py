@@ -1873,23 +1873,67 @@ def _irv2_int8_convs(dev, fused: bool, frames: int = 2, side: int = 224, dtype=t
     return len(calls), shapes
 
 
+# convs off the IRv2 path that K7 takes: x [F, H, W, Cin], w [Cout, KH, KW, Cin],
+# stride, (top, bottom, left, right): M and Cout that no tile divides (Cout
+# 48, 80, 288, 320, 40), stride 2 on odd sides, 1x7 / 7x1, asymmetric
+# padding, a row wider than a tile, Cin 3 (the RGB route) and Cin 2080
+K7_ODD = {
+    "cout48_m_ragged": ((3, 7, 9, 32), (48, 3, 3, 32), 1, (1, 1, 1, 1)),
+    "cout80_1x1": ((2, 5, 7, 64), (80, 1, 1, 64), 1, (0, 0, 0, 0)),
+    "cout288_s2_odd": ((2, 13, 11, 256), (288, 3, 3, 256), 2, (0, 0, 0, 0)),
+    "cout320_s2_odd_pad": ((3, 9, 15, 48), (320, 3, 3, 48), 2, (1, 0, 0, 1)),
+    "1x7_asym": ((2, 6, 11, 128), (40, 1, 7, 128), 1, (0, 0, 2, 4)),
+    "7x1_cin160": ((2, 12, 5, 160), (192, 7, 1, 160), 1, (3, 3, 0, 0)),
+    "5x5_s2_wide": ((1, 6, 300, 16), (24, 5, 5, 16), 2, (2, 2, 2, 2)),
+    "1x1_cin2080": ((2, 5, 5, 2080), (1088, 1, 1, 2080), 1, (0, 0, 0, 0)),
+    "3x3_left_border2": ((2, 7, 20, 48), (64, 3, 3, 48), 1, (1, 1, 2, 0)),
+    "cin3_s2_odd": ((2, 15, 13, 3), (32, 3, 3, 3), 2, (0, 1, 1, 0)),
+    "cin3_cout80_wide_row": ((1, 5, 261, 3), (80, 3, 3, 3), 1, (1, 1, 1, 1)),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused", [True, False], ids=["k1_on", "k1_off"])
 def test_k7_matches_plain_at_every_irv2_shape(cuda_device, fused):
     """K7 against its plain version (the conv in float64, the f32 epilogue)
     to the bit, bf16 and f32 out, at every conv shape of an int8 IRv2
     forward of 2 frames at 224 (24 convs with K1 on, 244 off), on the
-    activations and weights the forward gave it."""
-    from deepfake_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain
+    activations and weights the forward gave it; the shapes are those of
+    the K7 tool's table (tools/k7_versions.py::irv2_convs) at 2 frames.
+    Then at the odd shapes of K7_ODD, random operands, ReLU on and off."""
+    import sys
+
+    from deepfake_tpu_torch.ops.int8_conv import Int8Weights, int8_conv, int8_conv_plain
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "deepfake_tpu_torch", "tools"))
+    import k7_versions
 
     n, shapes = _irv2_int8_convs(cuda_device, fused)
     assert n == (24 if fused else 244)
+    table = {(c[1], c[2], c[3], c[4], c[5]) for c in k7_versions.irv2_convs(2, 224)
+             if fused is False or not c[6]}
+    assert {(k[0], k[1], k[2], tuple(k[3]), k[4]) for k in shapes} == table
     for key, (xq, w, amax, relu, _) in shapes.items():
         for dtype in (torch.bfloat16, torch.float32):
             got = int8_conv(xq, w, amax, relu, dtype)
             want = int8_conv_plain(xq, w, amax, relu, dtype)
             torch.cuda.synchronize()
             assert got.shape == want.shape and torch.equal(got, want), (key, dtype)
+    gen = torch.Generator(cuda_device).manual_seed(53)
+    for name, (xs, ws, stride, pad) in K7_ODD.items():
+        xq = torch.randint(-127, 128, xs, generator=gen, device=cuda_device, dtype=torch.int8)
+        w = Int8Weights(
+            torch.randint(-127, 128, ws, generator=gen, device=cuda_device, dtype=torch.int8),
+            1e-3 * (1 + torch.rand(ws[0], generator=gen, device=cuda_device)),
+            torch.randn(ws[0], generator=gen, device=cuda_device), stride, pad)
+        amax = torch.full((1,), 2.5, device=cuda_device)
+        for relu in (True, False):
+            for dtype in (torch.bfloat16, torch.float32):
+                got = int8_conv(xq, w, amax, relu, dtype)
+                want = int8_conv_plain(xq, w, amax, relu, dtype)
+                torch.cuda.synchronize()
+                assert got.shape == want.shape and torch.equal(got, want), (name, relu, dtype)
 
 
 @pytest.mark.cuda
@@ -1927,7 +1971,8 @@ def test_k8_matches_plain(cuda_device, dtype, n, offset):
 def test_k7_raises_for_shapes_it_does_not_take(cuda_device):
     """K7 raises for a shape outside its range (Cin 20, a 9x9 kernel, stride
     3, padding as wide as the kernel, an output type other than f32/bf16)
-    on a CUDA tensor; nothing falls back to the plain version."""
+    on a CUDA tensor; nothing falls back to the plain version. Its C entry
+    point refuses a plan outside what the Hopper route is built for."""
     from deepfake_tpu_torch.ops.int8_conv import Int8Weights, int8_conv
 
     dev = cuda_device
@@ -1948,6 +1993,26 @@ def test_k7_raises_for_shapes_it_does_not_take(cuda_device):
     call(32, 3, 1, (1, 1, 1, 1))
     call(3, 3, 2, (0, 0, 0, 0))
     assert int8_conv.launches == before + 2
+
+    # the C entry point refuses a plan the Hopper route is not built for (a
+    # chunk of 48 bytes, a column tile of 40, a row tile of 129 pixels, a
+    # Cin that is not a multiple of 16 on it), and the wrapper raises
+    from deepfake_tpu_torch.kernels import build
+    from deepfake_tpu_torch.ops import int8_conv as Q
+
+    lib = Q._lib()
+    xq = torch.zeros(1, 16, 16, 32, dtype=torch.int8, device=dev)
+    wq = torch.zeros(32, 3, 3, 32, dtype=torch.int8, device=dev)
+    one, out = torch.ones(32, device=dev), torch.empty(1, 16, 16, 32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kc, bn, box, cin in ((48, 32, (1, 2, 16), 32), (32, 40, (1, 2, 16), 32),
+                             (32, 32, (1, 9, 16), 32), (32, 32, (1, 2, 16), 24)):
+        with pytest.raises(RuntimeError):
+            build.check(lib.k7_int8_conv(
+                xq.data_ptr(), wq.data_ptr(), amax.data_ptr(), one.data_ptr(), one.data_ptr(),
+                out.data_ptr(), 0, 1, 16, 16, cin, 32, 3, 3, 1, 1, 1, 16, 16, 1, kc, 0, bn, *box,
+                1, 1, sms, stream), lib.k7_error_string, "k7_int8_conv")
 
 
 def _int8_cfg(quant, fused=True):

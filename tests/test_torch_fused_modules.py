@@ -25,6 +25,7 @@ from deepfake_tpu_torch.models.wav2vec2 import LayerDrop, SpecAugment
 from tests.test_torch_train import _assert_grads_close, _spy_nhc_train
 from tests.torch_fused_train_helpers import one_torch_thread  # noqa: F401 (fixture)
 from tests.torch_port_helpers import SMALL_FUSED, both_configs, random_variables
+from tests.torch_port_helpers import torch_on_one_thread  # noqa: F401 (an autouse fixture)
 
 
 def _counting(monkeypatch, module, name):

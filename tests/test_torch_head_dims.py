@@ -13,7 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from tests.test_torch_swin3d import jax_routes
-from tests.torch_port_helpers import random_variables
+from tests.torch_port_helpers import random_variables, torch_on_one_thread  # noqa: F401 (autouse)
 
 from deepfake_tpu_torch.io.jax_weights import load_jax_variables
 from deepfake_tpu_torch.models.registry import precompute_bias_cache

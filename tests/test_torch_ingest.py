@@ -24,7 +24,7 @@ from deepfake_tpu_torch.data import chunking as tchunk
 from deepfake_tpu_torch.data import dataset as tds
 from deepfake_tpu_torch.data import video_decode as tvd
 
-from tests.torch_port_helpers import both_configs
+from tests.torch_port_helpers import both_configs, torch_on_one_thread  # noqa: F401 (autouse)
 
 N_CLIPS = 5
 

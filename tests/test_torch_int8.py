@@ -23,6 +23,10 @@ within 0.02 of max |y| and the backbone within 0.03 (the one-step
 differences above, carried through 7 and 244 quantised convs; the
 backbone's reason is in its test), both at corr >= 0.999."""
 
+import math
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -378,3 +382,245 @@ def test_training_ignores_quant():
     serve = build_model(cfg, "cpu")
     assert serve.quant == "int8"
     assert all(m.quant == "int8" for m in serve.modules() if isinstance(m, Int8Owner))
+
+
+# ---------------------------------------------------------------- (e) K7's host plan
+
+# the conv shapes of one fused b8 request (256 frames of 224): the 24 convs
+# outside K1's blocks and, with K1 off, the blocks' 17 distinct convs more
+# (deepfake_tpu_torch/tools/k7_versions.py::irv2_convs, which the card
+# tests and the tool share)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "deepfake_tpu_torch", "tools"))
+import k7_versions  # noqa: E402
+
+IRV2 = {("k1_on-" if not c[6] else "k1_off-") + c[0]: c[1:5]
+        for c in k7_versions.irv2_convs(256, 224)}
+ODD = {  # x [F, H, W, Cin], w [Cout, KH, KW, Cin], stride, (top, bottom, left, right)
+    "cout48_m_ragged": ((3, 7, 9, 32), (48, 3, 3, 32), 1, (1, 1, 1, 1)),
+    "cout80_1x1": ((2, 5, 7, 64), (80, 1, 1, 64), 1, (0, 0, 0, 0)),
+    "cout288_s2_odd": ((2, 13, 11, 256), (288, 3, 3, 256), 2, (0, 0, 0, 0)),
+    "cout320_s2_odd_pad": ((3, 9, 15, 48), (320, 3, 3, 48), 2, (1, 0, 0, 1)),
+    "1x7_asym": ((2, 6, 11, 128), (40, 1, 7, 128), 1, (0, 0, 2, 4)),
+    "7x1_cin160": ((2, 12, 5, 160), (192, 7, 1, 160), 1, (3, 3, 0, 0)),
+    "5x5_s2_wide": ((1, 6, 300, 16), (24, 5, 5, 16), 2, (2, 2, 2, 2)),
+    "1x1_cin2080": ((2, 5, 5, 2080), (1088, 1, 1, 2080), 1, (0, 0, 0, 0)),
+    "3x3_left_border2": ((2, 7, 20, 48), (64, 3, 3, 48), 1, (1, 1, 2, 0)),
+    "cin3_s2_odd": ((2, 15, 13, 3), (32, 3, 3, 3), 2, (0, 1, 1, 0)),
+    "cin3_cout80_wide_row": ((1, 5, 261, 3), (80, 3, 3, 3), 1, (1, 1, 1, 1)),
+}
+
+
+def _k7_reads(x_shape, w_shape, stride, pad, tiles=None, loads=True):
+    """K7's loads for the row tiles ``tiles`` (all where None), following
+    its plan, the producer's schedule (csrc/int8_conv.cu: per unit, stages of
+    128 / kc chunks of kc bytes; chunk c of a tap, or a box wholly outside
+    both tensors past the last) and TMA's rules for the maps of
+    ``tensor_maps`` (box start, traversal stride, ceil(box / stride)
+    elements a dimension, zeros outside the tensor). Returns (the number of
+    row tiles; rows [tiles, 128], each tile row's output row or -1 where the
+    epilogue drops it, as the kernel's row table; addr [tiles, 128, slots],
+    the input byte each slot of K loads into the row, -1 for a zero; kcol
+    [tiles, slots], the weights' K byte each slot meets, -1 for a zero);
+    without ``loads`` the rows alone."""
+    Fn, H, W, cin = x_shape
+    cout, kh, kw, _ = w_shape
+    Ho, Wo = Q.out_size(H, W, kh, kw, stride, pad)
+    M, K = Fn * Ho * Wo, kh * kw * cin
+    p = Q.plan(x_shape, w_shape, stride, pad)
+    bf, bh, bw = p.box
+    if p.rgb:  # segments of bw pixels of an output row, K gathered from KH row segments
+        tw = -(-Wo // bw)
+        n = Fn * Ho * tw
+        rt = np.arange(n) if tiles is None else np.asarray(tiles)
+        fy, seg = np.divmod(rt, tw)
+        f, oy = np.divmod(fy, Ho)
+        r = np.arange(Q.TILE_ROWS)
+        ox = seg[:, None] * bw + r[None]
+        rows = np.where((r < bw) & (ox < Wo), fy[:, None] * Wo + ox, -1)
+        if not loads:
+            return n, rows
+        k = np.arange(Q.RGB_K)
+        ky, rem = np.divmod(k, kw * cin)
+        kx, ci = np.divmod(rem, cin)
+        iy = oy[:, None, None] * stride - pad[0] + ky
+        ix = (seg[:, None, None] * bw * stride - pad[2] + r[None, :, None] * stride + kx)
+        ok = (k < K) & (r[None, :, None] < bw) & (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+        addr = np.where(ok, ((f[:, None, None] * H + iy) * W + ix) * cin + ci, -1)
+        return n, rows, addr, np.broadcast_to(np.where(k < K, k, -1), (len(rt), Q.RGB_K))
+    maps = Q.tensor_maps(x_shape, w_shape, stride, pad, p)
+    pl, pr = p.border
+    # the parts of the output columns, as csrc/int8_conv.cu's Part: (map, box,
+    # columns, first column, the right border's gap (column tile, width),
+    # taps along W a row of K holds, bytes of K a tap, A's W step, taps
+    # along H a stage holds)
+    parts = [(maps["a"], p.box, Wo - pl - pr, pl, (1 << 30, 0), 1 if p.wide else kw,
+              kw * cin if p.wide else cin, 1 if p.wide else stride, kh if p.halo else 1)]
+    if pl + pr:
+        parts.append((maps["a2"], (*p.border_box, 1), pl + pr, 0, (pl, Wo - pl - pr), kw, cin,
+                      stride, 1))
+    group = Q.STAGE_BYTES // p.kc
+    r = np.arange(Q.TILE_ROWS)
+    byte = np.arange(p.kc)
+    n, out = 0, []
+    for amap, (bf, bh, bw), cols, x0, (gap_at, gap), tkw, tc, xs, ksh in parts:
+        tf, th, tw = -(-Fn // bf), -(-Ho // bh), -(-cols // bw)
+        m = -(-M // Q.TILE_ROWS) if p.flat else tf * th * tw
+        rt = np.arange(n, n + m) if tiles is None else np.asarray(tiles)
+        rt = rt[(rt >= n) & (rt < n + m)] - n
+        n += m
+        counts = [-(-b // e) for b, e in zip(amap["box"], amap["elem"])]
+        R = math.prod(counts[1:])  # the box's rows, dimension 1 fastest
+        assert R == (Q.TILE_ROWS if p.flat else (bh + ksh - 1) * bw * bf) and (ksh == 1 or bf == 1)
+        bix = np.unravel_index(np.arange(R), counts[:0:-1])[::-1]
+        live = r < (Q.TILE_ROWS if p.flat else bf * bh * bw)
+        if p.flat:
+            rows = rt[:, None] * Q.TILE_ROWS + r[None]
+            rows = np.where(rows < M, rows, -1)
+            origin = [rt * Q.TILE_ROWS]
+        else:
+            xt = rt % tw
+            ox0 = x0 + xt * bw + np.where(xt >= gap_at, gap, 0)
+            oy0, f0 = rt // tw % th * bh, rt // (tw * th) * bf
+            fi, rem = np.divmod(r, bh * bw)
+            yi, xi = np.divmod(rem, bw)
+            f, y, x = f0[:, None] + fi, oy0[:, None] + yi, ox0[:, None] + xi
+            inside = live & (f < Fn) & (y < Ho) & (x < x0 + cols + gap)
+            rows = np.where(inside, (f * Ho + y) * Wo + x, -1)
+            origin = [ox0 * xs - pad[2], oy0 * stride - pad[0], f0]
+        if not loads:
+            out.append(rows)
+            continue
+        kchunks = -(-tc // p.kc)
+        chunks = kh // ksh * tkw * kchunks
+        slots = -(-chunks // group) * group
+        addr = np.full((len(rt), Q.TILE_ROWS, slots * ksh * p.kc), -1, np.int64)
+        kcol = np.full((len(rt), slots * ksh * p.kc), -1, np.int64)
+        for c in range(slots):
+            real = c < chunks
+            tap, c0 = divmod(c, kchunks) if real else (0, kchunks)
+            c0 *= p.kc
+            ky, kx = tap // tkw * ksh, tap % tkw
+            start = [c0] + [o + d for o, d in zip(origin, ([0] if p.flat else [kx, ky, 0]))]
+            ok = np.ones((len(rt), R), bool)
+            at = np.zeros((len(rt), R), np.int64)
+            for d in range(1, len(counts)):
+                i = start[d][:, None] + amap["elem"][d] * bix[d - 1][None]
+                ok &= (i >= 0) & (i < amap["dims"][d])
+                at += i * amap["strides"][d - 1]
+            i0 = c0 + byte
+            box = np.where(ok[..., None] & (i0 < amap["dims"][0])[None, None],
+                           at[..., None] + i0[None, None], -1)  # [tiles, R, kc]
+            for h in range(ksh):  # tap ky + h: the box's rows from h bw on
+                src = r + h * bw
+                blk = slice((c * ksh + h) * p.kc, (c * ksh + h + 1) * p.kc)
+                addr[:, live & (src < R), blk] = box[:, src[live & (src < R)]]
+                col = ((ky + h) * tkw + kx) * tc + c0 if real else K
+                kcol[:, blk] = np.where(col + byte < K, col + byte, -1)
+        out.append((rows, addr, kcol))
+    if not loads:
+        return n, np.concatenate(out)
+    width = max(a.shape[2] for _, a, _ in out)
+    pad_to = lambda t, v: np.pad(t, [(0, 0)] * (t.ndim - 1) + [(0, width - t.shape[-1])],
+                                 constant_values=v)
+    return (n, np.concatenate([o[0] for o in out]),
+            np.concatenate([pad_to(o[1], -1) for o in out]),
+            np.concatenate([pad_to(o[2], -1) for o in out]))
+
+
+def _check_tma_plan(p, x_shape, w_shape, stride, pad):
+    """A TMA plan's limits: the chunk, tiles and boxes K7 is built for; the
+    maps' boxes <= 256 elements a dimension, an inner box of 16-byte
+    multiples as wide as its swizzle, byte strides of 16-byte multiples,
+    traversal strides <= 8."""
+    cin = x_shape[3]
+    cout, kh, kw, _ = w_shape
+    assert p.kc in Q.CHUNKS and p.bn in Q.N_TILES and math.prod(p.box) <= Q.TILE_ROWS
+    assert p.flat == (kh == kw == 1 and stride == 1) and not p.rgb
+    maps = Q.tensor_maps(x_shape, w_shape, stride, pad, p)
+    for m in maps.values():
+        assert all(1 <= b <= Q.TMA_BOX_MAX for b in m["box"]) and all(1 <= e <= 8 for e in m["elem"])
+        assert m["box"][0] % 16 == 0 and m["box"][0] == p.kc and m["elem"][0] == 1
+        assert all(s % 16 == 0 for s in m["strides"]) and len(m["strides"]) == len(m["dims"]) - 1
+    assert maps["w"]["dims"] == (kh * kw * cin, cout)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride,pad", list(IRV2.values()) + list(ODD.values()),
+                         ids=list(IRV2) + list(ODD))
+def test_k7_plan_covers_every_output_once_within_tma_limits(x_shape, w_shape, stride, pad):
+    """K7's host plan (ops/int8_conv.py::plan, tensor_maps) at every conv
+    shape of a fused b8 request and a few odd ones: the maps' boxes stay in
+    TMA's limits (<= 256 elements a dimension, an inner box of 16-byte
+    multiples as wide as its swizzle, byte strides of 16-byte multiples,
+    traversal strides <= 8); every output channel is one column tile's and
+    every output pixel one tile row's, exactly once; and in the first, the
+    last and some seeded tiles, each tile row meets each weight of K in one
+    slot, whose load is the input byte the conv reads there (stride 2 by
+    the traversal stride or the wide rows' step), and a zero where it reads
+    padding; every other slot is zero in A or in W. Pure Python: no
+    kernel."""
+    Fn, H, W, cin = x_shape
+    cout, kh, kw, _ = w_shape
+    p = Q.plan(x_shape, w_shape, stride, pad)
+    Ho, Wo = Q.out_size(H, W, kh, kw, stride, pad)
+    if cin % 16:  # the RGB stem: K in one k32 step, segments of an output row
+        assert p.kc == 0 and p.rgb and cin <= 4 and kh * kw * cin <= Q.RGB_K
+        assert p.bn in Q.N_TILES and p.bn <= Q.RGB_BN and p.box[:2] == (1, 1)
+        assert p.box[2] <= Q.TILE_ROWS and ((p.box[2] - 1) * stride + kw) * cin <= 1056
+    else:
+        _check_tma_plan(p, x_shape, w_shape, stride, pad)
+    n_tiles = -(-cout // p.bn)
+    assert (n_tiles - 1) * p.bn < cout <= n_tiles * p.bn
+    n, rows = _k7_reads(x_shape, w_shape, stride, pad, loads=False)
+    np.testing.assert_array_equal(np.bincount(rows[rows >= 0], minlength=Fn * Ho * Wo), 1)
+    pick = np.unique(np.r_[0, n - 1, np.random.default_rng(7).integers(0, n, 8)])
+    _, rows, addr, kcol = _k7_reads(x_shape, w_shape, stride, pad, pick)
+    K = kh * kw * cin
+    f, rem = np.divmod(rows, Ho * Wo)
+    oy, ox = np.divmod(rem, Wo)
+    ky, rem = np.divmod(np.arange(K), kw * cin)
+    kx, ci = np.divmod(rem, cin)
+    iy = oy[..., None] * stride - pad[0] + ky  # [tiles, 128, K]
+    ix = ox[..., None] * stride - pad[2] + kx
+    want = np.where((iy >= 0) & (iy < H) & (ix >= 0) & (ix < W),
+                    ((f[..., None] * H + iy) * W + ix) * cin + ci, -1)
+    for t in range(len(pick)):
+        live = rows[t] >= 0
+        a, k = addr[t][live], np.broadcast_to(kcol[t], addr[t][live].shape)
+        meet = (a >= 0) & (k >= 0)  # the slots whose product can be nonzero
+        got = np.full(want[t][live].shape, -1, np.int64)
+        hit = np.zeros(got.shape, np.int64)
+        r = np.nonzero(meet)[0]
+        np.add.at(hit, (r, k[meet]), 1)
+        got[r, k[meet]] = a[meet]
+        np.testing.assert_array_equal(hit, want[t][live] >= 0)
+        np.testing.assert_array_equal(got, want[t][live])
+
+
+@pytest.mark.parametrize("name", list(ODD))
+def test_k7_plan_emulated_equals_the_conv(name):
+    """K7's loads emulated from its plan (``_k7_reads``) at the odd shapes
+    (M and Cout that no tile divides, stride 2 on odd sides, asymmetric
+    padding, 1x7 and 7x1, Cin 2080), with random stale bytes in the tile
+    rows past a box: each tile's s32 sums of the slots' products, scattered
+    by the epilogue's row table, equal ``conv_acc_plain`` exactly."""
+    x_shape, w_shape, stride, pad = ODD[name]
+    cout = w_shape[0]
+    K = math.prod(w_shape[1:])
+    rng = np.random.default_rng(3)
+    xq = rng.integers(-127, 128, x_shape).astype(np.int8)
+    wq = rng.integers(-127, 128, w_shape).astype(np.int8)
+    _, rows, addr, kcol = _k7_reads(x_shape, w_shape, stride, pad)
+    xflat = np.r_[xq.reshape(-1).astype(np.int64), 0]  # index -1: a zero
+    wk = np.c_[wq.reshape(cout, K).astype(np.int64), np.zeros(cout, np.int64)]
+    out = np.zeros((rows.max() + 1, cout), np.int64)
+    for t in range(rows.shape[0]):
+        a = xflat[addr[t]]
+        stale = rows[t] < 0
+        a[stale] = rng.integers(-127, 128, a[stale].shape)
+        acc = a @ wk[:, kcol[t]].T
+        live = rows[t] >= 0
+        out[rows[t][live]] += acc[live]
+    w = Q.Int8Weights(torch.from_numpy(wq), torch.ones(cout), torch.zeros(cout), stride, pad)
+    want = Q.conv_acc_plain(torch.from_numpy(xq), w).reshape(-1, cout).numpy()
+    np.testing.assert_array_equal(out, want)

@@ -41,7 +41,7 @@ from deepfake_tpu_torch.ops.window_attn_kernel import (
 )
 from deepfake_tpu_torch.ops.window_attn_multihead import window_attention_multihead
 
-from tests.torch_port_helpers import random_variables
+from tests.torch_port_helpers import random_variables, torch_on_one_thread  # noqa: F401 (autouse)
 
 BLOCKS = [
     # (block kind, channels C, frame side S, kwargs): S as

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from deepfake_tpu_torch.utils import logging as tlog
 from deepfake_tpu_torch.utils import profiling as tprof
+from tests.torch_port_helpers import torch_on_one_thread  # noqa: F401 (an autouse fixture)
 
 
 class FakeClock:

@@ -65,8 +65,9 @@ def _one_device_loaders(over):
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    """The two-rank job, then each mesh step's verdict against the
-    single-device step (W.reference); the ranks' serving results. The
+    """The two-rank job and, while it runs, the single-device references
+    (W.reference); then each mesh step's verdict against them, and the
+    ranks' serving results. The
     result files (hundreds of MB) are removed as they are read, the
     directory at the end."""
     from deepfake_tpu_torch.data.synthetic import make_synthetic_testset
@@ -95,7 +96,8 @@ def run(tmp_path_factory):
         torch.save({"overrides": CLIPPED, "x": x, "y": y, "serve": serve, "serve_x": serve_x,
                     "int8_x": int8_x, "eval": eval_batch, "csv": str(out / "mesh.csv"),
                     "loader": loader}, out / "setup.pt")
-        W.spawn("job_mesh2", 2, str(out))()  # the ranks first, then the references
+        # the single-device references while the ranks run, then their verdicts
+        wait = W.spawn("job_mesh2", 2, str(out))
         start_params = dict(W.port_model(cfg, "conditioned").named_parameters())
         ref = {name: W.reference(W.config(over), "conditioned", x, y) for name, over in (
             ("plain", CLIPPED), ("align", W.ALIGN))}
@@ -103,25 +105,24 @@ def run(tmp_path_factory):
 
         evaluated = Trainer(W.port_model(cfg, "conditioned"), cfg, W.Batches(x, y),
                             logger=lambda line: None, device="cpu").eval([eval_batch])
+        one = _one_device_loaders(loader)
+        ref["loader"] = W.reference(W.config(loader), "conditioned", *one.pop("batch"))
+        int8_one = W.int8_scores({"serve": serve, "serve_x": serve_x, "int8_x": int8_x})
+        wait()
         res = {"align_differs": ref["align"][0]["loss"] != ref["plain"][0]["loss"]}
         for tag, name in (("mesh21", "plain"), ("mesh12", "plain"), ("remat12", "plain"),
-                          ("align21", "align")):
+                          ("align21", "align"), ("loader21", "loader")):
             got = W.take(out / f"{tag}.pt")
             res[tag] = W.verdict(W.check_step, got, *ref[name], start_params)
-            res[tag + "_sharded"] = bool(got["sharded"])
+            if tag != "loader21":
+                res[tag + "_sharded"] = bool(got["sharded"])
             del got
-        del ref
-        W.release()
-        one = _one_device_loaders(loader)
-        ref = W.reference(W.config(loader), "conditioned", *one.pop("batch"))
-        res["loader21"] = W.verdict(W.check_step, W.take(out / "loader21.pt"), *ref,
-                                    start_params)
         del ref, start_params
         res["loaders"] = one
         res["serve"] = [torch.load(out / f"serve{r}.pt", weights_only=False) for r in (0, 1)]
         res["csv"] = [line.strip().split(",") for line in open(out / "mesh.csv") if line.strip()]
         res["serve_cfg"], res["serve_x"], res["eval"] = serve, serve_x, evaluated
-        res["int8_one"] = W.int8_scores({"serve": serve, "serve_x": serve_x, "int8_x": int8_x})
+        res["int8_one"] = int8_one
         W.release()
         yield res
     finally:

@@ -19,6 +19,7 @@ import jax
 from tests.test_torch_audio import SMALL_AUDIO_W16
 from tests.test_torch_swin3d import SMALL_VIDEO_SWIN
 from tests.torch_port_helpers import SMALL_FUSED, both_configs, random_variables
+from tests.torch_port_helpers import torch_on_one_thread  # noqa: F401 (an autouse fixture)
 
 from deepfake_tpu_torch.data.dataset import DeepFakeDataModule
 from deepfake_tpu_torch.serving import Predictor

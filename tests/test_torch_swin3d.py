@@ -24,7 +24,7 @@ import jax.numpy as jnp
 from deepfake_tpu_torch.io.jax_weights import load_jax_variables
 from deepfake_tpu_torch.models.registry import precompute_bias_cache
 
-from tests.torch_port_helpers import both_configs, random_variables
+from tests.torch_port_helpers import both_configs, random_variables, torch_on_one_thread  # noqa: F401 (autouse)
 
 SMALL_VIDEO_SWIN = {
     # stage 0: 8 x 14 x 14 tokens, four (8,7,7) windows of N = 392 per clip

@@ -25,6 +25,7 @@ from deepfake_tpu_torch.models.layers import DropPath
 
 from tests.test_torch_swin3d import SMALL_VIDEO_SWIN
 from tests.torch_port_helpers import SMALL_FUSED, both_configs, random_variables
+from tests.torch_port_helpers import torch_on_one_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture

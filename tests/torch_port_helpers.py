@@ -5,6 +5,8 @@ numpy weights."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 
@@ -68,3 +70,17 @@ def random_variables(model, *inputs, seed: int = 0, **kw):
         return 0.1 * n  # bias, q_bias, v_bias, mean
 
     return walk(shapes)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_on_one_thread():
+    """torch on one thread for a test module that imports this fixture: the
+    suite's workers share the machine's cores, and a worker's torch threads
+    spend their time in OpenMP barriers waiting for cores the other workers
+    hold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
