@@ -126,15 +126,22 @@ Phases, in order; any failure exits non-zero and prints no result:
  16. int8 serving of the IRv2 trunk (phase_int8, right after phase 3, on its
      weights and requests): model.irv2_quant = int8, then int8_static after
      SubmitCtl.calibrate on one b8 batch, each on the eager route (24 K7
-     launches a request, 24 + 24 K8 at int8 and 24 at int8_static) and as
-     CUDA graphs (graph = eager to the bit), latency, clips/s and idle
-     share beside phase 3's bf16 route, the logits' correlation with the
-     bf16 route (>= 0.99), static on its calibration batch equal to dynamic
-     to the bit; one b8 request with irv2_fused_blocks off (244 K7); K7 and
-     K8 against their plain versions to the bit at every conv shape of both
-     (bf16 and f32 out; K8 with a saturating static scale), each shape's
-     kernel, plain, cuDNN bf16 conv, torch._int_mm (1x1) and bound ms beside
-     K7's route for it (ops/int8_conv.py::plan); and,
+     launches a request; K8: one max and one quantisation a distinct
+     activation at int8, 7 + 19, the max of a K7 output from K7's
+     epilogue; 24 quantisations at int8_static) and as CUDA graphs (graph
+     = eager to the bit), the logits of both routes equal to the per-conv
+     route's (one K8 max and quantisation a conv) to the bit, the amax
+     every conv is handed equal to act_amax_plain of its input (12 from K7's
+     epilogue with K1 on, 102 off), latency, clips/s and idle share beside
+     phase 3's bf16 route, K7's and K8's device ms a request (profiler),
+     the logits' correlation with the bf16 route (>= 0.99), static on its
+     calibration batch equal to dynamic to the bit; one b8 request with
+     irv2_fused_blocks off (244 K7); K7 against its plain version to the
+     bit at every conv shape of both (bf16 and f32 out, its output's max
+     where the path asks for it), K8 at every input shape (bf16 and f32,
+     with a saturating static scale), each shape's kernel, plain, cuDNN
+     bf16 conv, torch._int_mm (1x1) and bound ms beside K7's route for it
+     (ops/int8_conv.py::plan), K8 a request on the calls the path made; and,
      inside phase 11, the inference CLI over its files at
      --set model.irv2_quant=int8 (the kernel line's K7 and K8 rows).
  17. the remaining model options (right after phase 15): (a) activation
@@ -3411,6 +3418,12 @@ K7_REPLACES = ("none (not Pallas): deepfake_tpu/models/layers.py:256 quant_conv,
 K8_AMAX_REPLACES = ("none (not Pallas): the max-abs of deepfake_tpu/models/layers.py:224 "
                     "act_scale_for (an XLA reduction)")
 K8_QUANT_REPLACES = "none (not Pallas): deepfake_tpu/models/layers.py:249 quantize_to (XLA ops)"
+K8_DESIGN = ("Hopper streams: a persistent grid sized to the SMs, block-contiguous chunks, four "
+             "independent 16-byte evict-first loads in flight a thread; the max writes its "
+             "scalar from the last block (no memset); the quantiser stores 16 bytes a thread, "
+             "its quotient by the reciprocal (the division only near a half-integer, the same "
+             "bits); called once a distinct activation, a K7 output's max taken in K7's "
+             "epilogue")
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores, NVIDIA data sheet
 
 
@@ -3421,17 +3434,45 @@ def int8_bound(ops: float, nbytes: float):
 
 def int8_convs(pred, request):
     """One request through ``pred`` (eager, at int8): the number of int8 conv
-    calls, and {shape: [first call (xq, weights, amax, relu, dtype), count]}."""
+    calls; {(shape, out_amax): [first call (xq, weights, amax, relu, dtype,
+    out_amax), count]}; the K8 calls {(op, input shape): count} (op "amax"
+    or "quantize"); and the number of convs handed their input's max from
+    the producer's K7 epilogue. Every int8 conv's amax is checked against
+    act_amax_plain of its input, and every epilogue max against
+    act_amax_plain of its output, to the bit."""
     import torch
 
-    from deepfake_tpu_torch.ops.int8_conv import conv_key, recorded_convs
+    from deepfake_tpu_torch.ops import int8_conv as Q
 
-    with recorded_convs() as calls, torch.inference_mode():
-        pred.predict(request)
+    k8, edges = collections.Counter(), [0]
+    check, conv = Q._check_act, Q.quantized_conv
+
+    def k8_spy(name, x):  # act_amax and act_quantize check their input first
+        k8[name[4:], tuple(x.shape)] += 1
+        return check(name, x)
+
+    def conv_spy(x, w, static, relu, group=None, x_q=None, out_amax=False):
+        out, used, out_q = conv(x, w, static, relu, group, x_q, out_amax)
+        if static is None and not torch_equal(used, Q.act_amax_plain(x)):
+            fail(f"int8: a conv on {tuple(x.shape)} was handed amax {used.item()}, its input's "
+                 f"is {Q.act_amax_plain(x).item()}")
+        if out_q is not None:
+            edges[0] += 1
+            if not torch_equal(out_q.amax, Q.act_amax_plain(out)):
+                fail(f"K7's out_amax at {tuple(x.shape)} -> {tuple(out.shape)}: "
+                     f"{out_q.amax.item()} against {Q.act_amax_plain(out).item()}")
+        return out, used, out_q
+
+    Q._check_act, Q.quantized_conv = k8_spy, conv_spy
+    try:
+        with Q.recorded_convs() as calls, torch.inference_mode():
+            pred.predict(request)
+    finally:
+        Q._check_act, Q.quantized_conv = check, conv
     by_shape = {}
     for c in calls:
-        by_shape.setdefault(conv_key(c[0], c[1], c[3]), [c, 0])[1] += 1
-    return len(calls), by_shape
+        by_shape.setdefault((Q.conv_key(c[0], c[1], c[3]), c[5]), [c, 0])[1] += 1
+    return len(calls), by_shape, dict(k8), edges[0]
 
 
 def int8_conv_cost(xq, w):
@@ -3447,14 +3488,19 @@ def int8_conv_cost(xq, w):
     return 2.0 * M * cout * kh * kw * cin, xq.numel() + w.wq.numel() + 8 * cout + 4 + 2 * M * cout
 
 
-def phase_int8_kernels(shapes, dev, gen, report):
-    """K7 and K8 against their plain versions to the bit at every conv shape
-    of one fused b8 request (``shapes``: K1 on and K1 off), bf16 and f32
-    out; K8 on a bf16 activation of each conv's input shape (the batch's
-    own scale, and a static scale at a quarter of the batch's max, which
-    saturates). Each shape's kernel, plain, yardstick (cuDNN's bf16 conv;
-    torch._int_mm, cuBLASLt, on the 1x1 convs) and bound ms; sums per
-    request. Returns the K7, K8 amax and K8 quantize rows."""
+def phase_int8_kernels(shapes, k8_calls, dev, gen, report):
+    """K7 and K8 against their plain versions to the bit and timed, on one
+    fused b8 request's calls (``shapes``: the int8 convs with K1 on and off;
+    ``k8_calls``: the K8 calls of each, {(op, input shape): count}). K7 at
+    every conv shape, bf16 and f32 out, with its output's max; K8 at every
+    distinct input shape on seeded bf16 and f32 values (the batch's own
+    scale, and a static scale at a quarter of the batch's max, which
+    saturates). Each K7 shape's kernel (with ``out_amax`` where the path
+    asks for it), plain, yardstick (cuDNN's bf16 conv; torch._int_mm,
+    cuBLASLt, on the 1x1 convs) and bound ms; each K8 shape's kernel, plain,
+    vector_norm and bound ms; sums per request (K8: the path's calls at
+    int8, and a quantisation a conv at int8_static). Returns the K7, K8 amax
+    and K8 quantize rows."""
     import torch
     import torch.nn.functional as F
 
@@ -3465,38 +3511,30 @@ def phase_int8_kernels(shapes, dev, gen, report):
 
     keys = ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "int_mm_ms", "ops", "bytes",
             "amax_ms", "amax_plain_ms", "amax_bound_ms", "amax_library_ms", "quant_ms",
-            "quant_plain_ms", "quant_bound_ms")
+            "quant_plain_ms", "quant_bound_ms", "static_quant_ms", "static_quant_bound_ms")
     totals = {k1: dict.fromkeys(keys, 0.0) for k1 in ("k1_on", "k1_off")}
-    rows, errs = [], 0.0
+    rows = []
     for k1, by_shape in shapes.items():
-        for key, ((xq, w, amax, relu, _), count) in by_shape.items():
+        for (key, out_amax), ((xq, w, amax, relu, _, _), count) in by_shape.items():
             for dtype in (torch.bfloat16, torch.float32):
-                got = int8_conv(xq, w, amax, relu, dtype)
+                got, got_max = int8_conv(xq, w, amax, relu, dtype, out_amax=True)
                 want = int8_conv_plain(xq, w, amax, relu, dtype)
                 torch.cuda.synchronize()
                 if not torch_equal(got, want):
                     fail(f"K7 {key} {dtype}: differs from its plain version by "
                          f"{(got.float() - want.float()).abs().max().item():.3e}")
+                if not torch_equal(got_max, act_amax_plain(want)):
+                    fail(f"K7 {key} {dtype}: out_amax {got_max.item()} against "
+                         f"{act_amax_plain(want).item()}")
             del got, want
-            x = (0.5 * torch.randn(xq.shape, generator=gen, device=dev)).to(torch.bfloat16)
-            a = act_amax(x)
-            torch.cuda.synchronize()
-            if not torch_equal(a, act_amax_plain(x)):
-                fail(f"K8 amax at {tuple(x.shape)}: {a.item()} against {act_amax_plain(x).item()}")
-            for scale in (a, 0.25 * a):  # the batch's max; a static scale below it
-                q = act_quantize(x, scale)
-                torch.cuda.synchronize()
-                if not torch_equal(q, act_quantize_plain(x, scale)):
-                    fail(f"K8 quantize at {tuple(x.shape)} differs from its plain version")
-            if q.abs().max().item() != 127:
-                fail(f"K8 quantize at {tuple(x.shape)}: a quarter of the max did not saturate")
             cout, kh, kw, cin = w.wq.shape
             p = int8_plan(tuple(xq.shape), tuple(w.wq.shape), w.stride, tuple(w.pad))
             route = ("rgb" if p.rgb else "bytes" if p.kc == 0 else "flat" if p.flat
                      else ("halo" if p.halo else "wide") if p.wide else "tap")
             ops, nbytes = int8_conv_cost(xq, w)
             bound, _ = int8_bound(ops, nbytes)
-            ms = cuda_time_ms(lambda: int8_conv(xq, w, amax, relu, torch.bfloat16), iters=10)
+            ms = cuda_time_ms(lambda: int8_conv(xq, w, amax, relu, torch.bfloat16, out_amax),
+                              iters=10)
             plain = cuda_time_ms(lambda: int8_conv_plain(xq, w, amax, relu, torch.bfloat16),
                                  iters=1, warmup=0)
             # cuDNN's bf16 conv of the same shape (channels_last; the IRv2
@@ -3512,35 +3550,72 @@ def phase_int8_kernels(shapes, dev, gen, report):
             if kh == kw == 1 and w.stride == 1 and cin % 8 == 0 and cout % 8 == 0:
                 a2, b2 = xq.view(-1, cin), w.wq.view(cout, cin).t()
                 int_mm = cuda_time_ms(lambda: torch._int_mm(a2, b2), iters=10)
-            t_amax = cuda_time_ms(lambda: act_amax(x), iters=10)
-            t_amax_plain = cuda_time_ms(lambda: act_amax_plain(x), iters=3)
-            t_amax_lib = cuda_time_ms(lambda: torch.linalg.vector_norm(x, ord=math.inf), iters=10)
-            t_quant = cuda_time_ms(lambda: act_quantize(x, a), iters=10)
-            t_quant_plain = cuda_time_ms(lambda: act_quantize_plain(x, a), iters=3)
-            b_amax, _ = int8_bound(0, 2 * x.numel() + 4)
-            b_quant, _ = int8_bound(0, 3 * x.numel() + 4)
             row = dict(k1=k1, shape=[list(key[0]), list(key[1]), key[2], list(key[3]), key[4]],
-                       route=route, bn=p.bn, count=count, ms=ms, plain_ms=plain, bound_ms=bound, cudnn_bf16_ms=cudnn,
-                       int_mm_ms=int_mm, gop=ops / 1e9, mbytes=nbytes / 1e6,
-                       amax_ms=t_amax, amax_plain_ms=t_amax_plain, amax_library_ms=t_amax_lib,
-                       amax_bound_ms=b_amax, quant_ms=t_quant, quant_plain_ms=t_quant_plain,
-                       quant_bound_ms=b_quant)
+                       out_amax=out_amax, route=route, bn=p.bn, count=count, ms=ms,
+                       plain_ms=plain, bound_ms=bound, cudnn_bf16_ms=cudnn, int_mm_ms=int_mm,
+                       gop=ops / 1e9, mbytes=nbytes / 1e6)
             rows.append(row)
             tot = totals[k1]
-            for k in keys:
-                v = {"ops": ops, "bytes": nbytes}.get(k, row.get(k))
-                tot[k] += count * (v or 0.0)
+            for k in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "int_mm_ms"):
+                tot[k] += count * (row[k] or 0.0)
+            tot["ops"] += count * ops
+            tot["bytes"] += count * nbytes
             log(f"K7 {k1} x{count} in [{','.join(map(str, xq.shape))}] w [{cout},{kh},{kw},{cin}] "
-                f"s{w.stride} pad {w.pad} ({route}, bn {p.bn}): kernel_ms={ms:.4f} "
-                f"plain_ms={plain:.3f} "
-                f"cudnn_bf16_ms={cudnn:.4f} "
+                f"s{w.stride} pad {w.pad} ({route}, bn {p.bn}{', out_amax' if out_amax else ''}): "
+                f"kernel_ms={ms:.4f} plain_ms={plain:.3f} cudnn_bf16_ms={cudnn:.4f} "
                 + (f"int_mm_ms={int_mm:.4f} " if int_mm is not None else "")
-                + f"bound_ms={bound:.4f} ({ops / 1e9:.2f} GOP, {nbytes / 1e6:.1f} MB); "
-                f"K8 amax {t_amax:.4f} (plain {t_amax_plain:.4f}, vector_norm {t_amax_lib:.4f}, "
-                f"bound {b_amax:.4f}) quantize {t_quant:.4f} (plain {t_quant_plain:.4f}, "
-                f"bound {b_quant:.4f})")
-            del x, q
+                + f"bound_ms={bound:.4f} ({ops / 1e9:.2f} GOP, {nbytes / 1e6:.1f} MB)")
+    # K8 at every distinct input shape: the path's calls, and at int8_static
+    # one quantisation a conv on its input
+    static = {k1: collections.Counter() for k1 in shapes}
+    for k1, by_shape in shapes.items():
+        for (key, _), (_, count) in by_shape.items():
+            static[k1][tuple(key[0])] += count
+    k8_rows = []
+    for shape in sorted({sh for k1 in shapes for sh in static[k1]}, key=math.prod):
+        for dtype in (torch.float32, torch.bfloat16):  # bf16 last: timed below
+            x = (0.5 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+            a = act_amax(x)
+            torch.cuda.synchronize()
+            if not torch_equal(a, act_amax_plain(x)):
+                fail(f"K8 amax at {shape} {dtype}: {a.item()} against "
+                     f"{act_amax_plain(x).item()}")
+            for scale in (a, 0.25 * a):  # the batch's max; a static scale below it
+                q = act_quantize(x, scale)
+                torch.cuda.synchronize()
+                if not torch_equal(q, act_quantize_plain(x, scale)):
+                    fail(f"K8 quantize at {shape} {dtype} differs from its plain version")
+            if q.abs().max().item() != 127:
+                fail(f"K8 quantize at {shape}: a quarter of the max did not saturate")
+        r = dict(shape=list(shape), mbytes=2 * x.numel() / 1e6,
+                 amax_ms=cuda_time_ms(lambda: act_amax(x), iters=10),
+                 amax_plain_ms=cuda_time_ms(lambda: act_amax_plain(x), iters=3),
+                 amax_library_ms=cuda_time_ms(
+                     lambda: torch.linalg.vector_norm(x, ord=math.inf), iters=10),
+                 quant_ms=cuda_time_ms(lambda: act_quantize(x, a), iters=10),
+                 quant_plain_ms=cuda_time_ms(lambda: act_quantize_plain(x, a), iters=3),
+                 amax_bound_ms=int8_bound(0, 2 * x.numel() + 4)[0],
+                 quant_bound_ms=int8_bound(0, 3 * x.numel() + 4)[0],
+                 calls={k1: dict(amax=k8_calls[k1].get(("amax", shape), 0),
+                                 quantize=k8_calls[k1].get(("quantize", shape), 0),
+                                 static_quantize=static[k1].get(shape, 0)) for k1 in shapes})
+        k8_rows.append(r)
+        for k1 in shapes:
+            c, tot = r["calls"][k1], totals[k1]
+            for k in ("amax_ms", "amax_plain_ms", "amax_bound_ms", "amax_library_ms"):
+                tot[k] += c["amax"] * r[k]
+            for k in ("quant_ms", "quant_plain_ms", "quant_bound_ms"):
+                tot[k] += c["quantize"] * r[k]
+            tot["static_quant_ms"] += c["static_quantize"] * r["quant_ms"]
+            tot["static_quant_bound_ms"] += c["static_quantize"] * r["quant_bound_ms"]
+        log(f"K8 at [{','.join(map(str, shape))}] ({r['mbytes']:.1f} MB bf16), calls "
+            f"{json.dumps(r['calls'])}: amax {r['amax_ms']:.4f} (plain {r['amax_plain_ms']:.4f}, "
+            f"vector_norm {r['amax_library_ms']:.4f}, bound {r['amax_bound_ms']:.4f}) quantize "
+            f"{r['quant_ms']:.4f} (plain {r['quant_plain_ms']:.4f}, bound "
+            f"{r['quant_bound_ms']:.4f})")
+        del x, q
     report["int8_kernels"] = rows
+    report["int8_k8_kernels"] = k8_rows
     report["int8_kernel_totals"] = totals
     torch.cuda.empty_cache()
     for name in ("int8_conv", "act_amax", "act_quantize"):
@@ -3552,7 +3627,16 @@ def phase_int8_kernels(shapes, dev, gen, report):
         f"int_mm_ms (1x1 only)={on['int_mm_ms']:.3f} bound_ms={on['bound_ms']:.4f} ({by}); "
         f"K1 off (244 convs): kernel_ms={off['ms']:.3f} plain_ms={off['plain_ms']:.2f} "
         f"cudnn_bf16_ms={off['cudnn_bf16_ms']:.3f} bound_ms={off['bound_ms']:.4f}")
+    for k1, t in totals.items():
+        log(f"K8 per fused b8 request, {k1}: amax {t['amax_ms']:.4f} ms (vector_norm of the "
+            f"same tensors {t['amax_library_ms']:.4f}, bound {t['amax_bound_ms']:.4f}), quantize "
+            f"{t['quant_ms']:.4f} (bound {t['quant_bound_ms']:.4f}), in all "
+            f"{t['amax_ms'] + t['quant_ms']:.4f} (bound "
+            f"{t['amax_bound_ms'] + t['quant_bound_ms']:.4f}); int8_static's quantisations "
+            f"{t['static_quant_ms']:.4f} (bound {t['static_quant_bound_ms']:.4f})")
     per = "one fused b8 request, K1 on: the 24 IRv2 convs outside the blocks, bf16 out"
+    per_k8 = ("one fused b8 request, K1 on: the calls the path makes on its bf16 activations "
+              "(7 maxima, 19 quantisations), each shape timed alone")
     extra = lambda t, *ks: {k: t[k] for k in ks}
     return [
         dict(name="int8_conv (K7)", route="cuda", source=K7_SRC, replaces=K7_REPLACES,
@@ -3563,16 +3647,16 @@ def phase_int8_kernels(shapes, dev, gen, report):
              int_mm_ms_1x1=on["int_mm_ms"], per=per,
              k1_off=extra(off, "ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "int_mm_ms")),
         dict(name="act_amax (K8, launch 1)", route="cuda", source=K8_SRC,
-             replaces=K8_AMAX_REPLACES, launches=None, max_abs_err=0.0, ms=on["amax_ms"],
-             plain_ms=on["amax_plain_ms"], bound_ms=on["amax_bound_ms"], bound_by="bytes",
-             library_ms=on["amax_library_ms"],
-             library="torch.linalg.vector_norm(x, ord=inf) of each input, summed",
-             per=per.replace("bf16 out", "their bf16 inputs"),
-             k1_off=extra(off, "amax_ms", "amax_plain_ms", "amax_bound_ms")),
+             replaces=K8_AMAX_REPLACES, design=K8_DESIGN, launches=None, max_abs_err=0.0,
+             ms=on["amax_ms"], plain_ms=on["amax_plain_ms"], bound_ms=on["amax_bound_ms"],
+             bound_by="bytes", library_ms=on["amax_library_ms"],
+             library="torch.linalg.vector_norm(x, ord=inf) of each input, summed", per=per_k8,
+             k1_off=extra(off, "amax_ms", "amax_plain_ms", "amax_bound_ms", "amax_library_ms")),
         dict(name="act_quantize (K8, launch 2)", route="cuda", source=K8_SRC,
-             replaces=K8_QUANT_REPLACES, launches=None, max_abs_err=0.0, ms=on["quant_ms"],
-             plain_ms=on["quant_plain_ms"], bound_ms=on["quant_bound_ms"], bound_by="bytes",
-             library_ms=None, per=per.replace("bf16 out", "their bf16 inputs"),
+             replaces=K8_QUANT_REPLACES, design=K8_DESIGN, launches=None, max_abs_err=0.0,
+             ms=on["quant_ms"], plain_ms=on["quant_plain_ms"], bound_ms=on["quant_bound_ms"],
+             bound_by="bytes", library_ms=None, per=per_k8,
+             int8_static=extra(on, "static_quant_ms", "static_quant_bound_ms"),
              k1_off=extra(off, "quant_ms", "quant_plain_ms", "quant_bound_ms"))]
 
 
@@ -3585,10 +3669,12 @@ def phase_int8(cfg, dev, gen, report, requests, bf16_logits, bf16_feats):
     """Fused serving at model.irv2_quant = int8, then int8_static after
     SubmitCtl.calibrate on one b8 batch, on phase 3's weights (the same
     seed) and requests (three b8, one b1): the eager route with the launch
-    counters (24 K7, 24 + 24 K8 per request at int8; 24 K7 and 24 K8 at
+    counters (24 K7, 7 + 19 K8 per request at int8; 24 K7 and 24 K8 at
     int8_static, no amax), then as CUDA graphs (graph = eager to the bit;
-    graph_route's checks), static on its calibration batch equal to dynamic
-    to the bit, and each mode's logits' and IRv2 features' correlation with
+    graph_route's checks), both routes' logits equal to the per-conv
+    route's (per_conv_quantization) to the bit, K7's and K8's device ms a
+    graph request (profiler), static on its calibration batch equal to
+    dynamic to the bit, and each mode's logits' and IRv2 features' correlation with
     phase 3's bf16 route (>= 0.99, tests/test_quantize.py:153's bar on the
     features; the logits of random weights move little with the trunk);
     then one b8 request
@@ -3599,11 +3685,13 @@ def phase_int8(cfg, dev, gen, report, requests, bf16_logits, bf16_feats):
 
     import torch
 
+    from deepfake_tpu_torch.ops.int8_conv import per_conv_quantization
     from deepfake_tpu_torch.serving import Predictor
     from deepfake_tpu_torch.train.submit import SubmitCtl
 
-    res, shapes = {}, {}
-    convs = {"int8": 24, "int8_static": 24}
+    res, shapes, k8 = {}, {}, {}
+    # K7, K8 max and K8 quantisation launches a request
+    want_k = {"int8": (24, 7, 19), "int8_static": (24, 0, 24)}
     eager_of = {}
     launches = graph_launches = None
     for quant in ("int8", "int8_static"):
@@ -3612,9 +3700,10 @@ def phase_int8(cfg, dev, gen, report, requests, bf16_logits, bf16_feats):
         eager = Predictor(c, device=dev, compiled=False)
         graph = Predictor(c, device=dev)
         if quant == "int8":
-            n, shapes["k1_on"] = int8_convs(eager, requests[0])
-            if n != 24:
-                fail(f"int8: a fused b8 request made {n} int8 convs, expected 24")
+            n, shapes["k1_on"], k8["k1_on"], edges = int8_convs(eager, requests[0])
+            if n != 24 or edges != 12:
+                fail(f"int8: a fused b8 request made {n} int8 convs, {edges} of them handed "
+                     "their input's max by K7's epilogue; expected 24 and 12")
         else:
             t = time.perf_counter()
             calibrated = [SubmitCtl(p, c, None, logger=lambda s: None).calibrate([requests[0]])
@@ -3634,8 +3723,8 @@ def phase_int8(cfg, dev, gen, report, requests, bf16_logits, bf16_feats):
             scores.append(sc)
             per_req.append({k: after[k] - before[k] for k in after})
         counted = counts()  # ... and ends here
-        want = {"int8_conv": convs[quant], "act_quantize": convs[quant],
-                "act_amax": convs[quant] if quant == "int8" else 0, "inception_block": 40}
+        want = dict(zip(("int8_conv", "act_amax", "act_quantize"), want_k[quant]),
+                    inception_block=40)
         for i, d in enumerate(per_req):
             if any(d[k] != v for k, v in want.items()) or not d["window_attn_tokens"] + d[
                     "window_attn_heads"]:
@@ -3643,12 +3732,28 @@ def phase_int8(cfg, dev, gen, report, requests, bf16_logits, bf16_feats):
         rg = graph_route(graph, eager, requests, scores, per_req, f"{quant} serving")
         with torch.inference_mode():
             logits = torch.cat([eager.forward(r, return_logits=True).float() for r in requests])
+            replayed = torch.cat([graph.forward(r, return_logits=True).float()
+                                  for r in requests])
+            with per_conv_quantization():
+                per_conv = torch.cat([eager.forward(r, return_logits=True).float()
+                                      for r in requests])
+        if not (torch_equal(logits, per_conv) and torch_equal(replayed, per_conv)):
+            fail(f"{quant} serving: the logits differ from the per-conv route's by "
+                 f"{(logits - per_conv).abs().max().item():.3e} (eager), "
+                 f"{(replayed - per_conv).abs().max().item():.3e} (graph)")
+        # K7's and K8's device time in one graph request (profiler)
+        by_name = device_kernel_ms(lambda: graph.predict(requests[0]), iters=3)
+        dev_ms = {k: sum(t for name, t in by_name.items() if "i8::" in name and f(name))
+                  for k, f in (("k7", lambda n: "_stream<" not in n),
+                               ("k8_amax", lambda n: "amax_stream<" in n),
+                               ("k8_quantize", lambda n: "quantize_stream<" in n))}
         eager_of[quant] = eager
         rho = corr(logits.cpu(), bf16_logits.cpu())
         rho_feat = corr(irv2_features(eager, requests[0]).cpu(), bf16_feats.cpu())
         res[quant] = dict(p50_b8_s=statistics.median(lat[:3]),
                           clips_per_s_b8=8 * 3 / sum(lat[:3]), b1_latency_s=lat[3],
                           per_request_launches=per_req, graph_route=rg,
+                          device_ms_graph_b8=dev_ms, per_conv_route_logits_equal=True,
                           logit_corr_vs_bf16=rho, irv2_feature_corr_vs_bf16=rho_feat,
                           max_abs_logit_diff_vs_bf16=(logits - bf16_logits).abs().max().item(),
                           profile={"eager b8": profile_call(lambda: eager.predict(requests[0]),
@@ -3665,7 +3770,9 @@ def phase_int8(cfg, dev, gen, report, requests, bf16_logits, bf16_feats):
             f"graph b8 p50 {bf['p50_b8_s'] * 1e3:.2f} ms, {bf['clips_per_s_b8']:.2f} clips/s, "
             f"b1 {bf['b1_latency_s'] * 1e3:.2f} ms, idle share "
             f"{bf['profile']['graph route b8']['device_idle_share']:.3f}); launches per request "
-            f"{json.dumps({k: per_req[0][k] for k in want})}; logits' correlation with the bf16 "
+            f"{json.dumps({k: per_req[0][k] for k in want})}; device ms of a graph b8 request "
+            f"{json.dumps({k: round(v, 4) for k, v in dev_ms.items()})}; logits equal to the "
+            f"per-conv route's (eager and graph); logits' correlation with the bf16 "
             f"route {rho:.5f}, max |diff| {res[quant]['max_abs_logit_diff_vs_bf16']:.3e}; IRv2 "
             f"features' (b8, 256 frames x 1536) {rho_feat:.5f} ({report['card']})")
         if not (rho >= 0.99 and rho_feat >= 0.99):
@@ -3684,21 +3791,27 @@ def phase_int8(cfg, dev, gen, report, requests, bf16_logits, bf16_feats):
     c.model.irv2_quant = "int8"
     c.model.irv2_fused_blocks = False
     off = Predictor(c, device=dev, compiled=False)
-    n, shapes["k1_off"] = int8_convs(off, requests[0])
-    if n != 244:
-        fail(f"int8 with K1 off: a fused b8 request made {n} int8 convs, expected 244")
+    n, shapes["k1_off"], k8["k1_off"], edges = int8_convs(off, requests[0])
+    calls = [sum(c for (op, _), c in k8["k1_off"].items() if op == o) for o in ("amax", "quantize")]
+    if n != 244 or edges != 102 or calls != [87, 189]:
+        fail(f"int8 with K1 off: a fused b8 request made {n} int8 convs, {edges} of them handed "
+             f"their input's max by K7's epilogue, {calls} K8 maxima and quantisations; expected "
+             "244, 102 and [87, 189]")
     (t_off,), _ = serve(off, [requests[0]])
     res["k1_off"] = dict(latency_b8_s=t_off, int8_convs=n)
     log(f"int8 serving, K1 off: one b8 request through 244 int8 convs, eager {t_off * 1e3:.1f} "
         f"ms (warm)")
     del off
     torch.cuda.empty_cache()
-    rows = phase_int8_kernels(shapes, dev, gen, report)
+    rows = phase_int8_kernels(shapes, k8, dev, gen, report)
     del shapes
     torch.cuda.empty_cache()
-    for row, name in zip(rows, ("int8_conv", "act_amax", "act_quantize")):
+    for row, name, d in zip(rows, ("int8_conv", "act_amax", "act_quantize"),
+                            ("k7", "k8_amax", "k8_quantize")):
         row["launches"] = launches[name]
         row["graph_launches"] = graph_launches.get(name, 0)
+        row["device_ms"] = res["int8"]["device_ms_graph_b8"][d]
+        row["device_ms_int8_static"] = res["int8_static"]["device_ms_graph_b8"][d]
     report["int8"] = res
     return rows
 

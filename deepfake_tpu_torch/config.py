@@ -3,7 +3,11 @@ fused, ``audio`` and ``video_swin`` serving (raw-input feature assembly and
 the ingest of video files included) and the training of every modality
 read (deepfake_tpu/config.py:18-256). Field names and defaults match the JAX
 package, so one set of dotted overrides configures both; ``get_config(argv)``
-takes the JAX package's flags (deepfake_tpu/config.py:284-380).
+takes the JAX package's flags (deepfake_tpu/config.py:284-380). Every JAX
+field is taken: the kernel switches under their JAX names as aliases
+(``ALIASES``), and the fields whose meaning is the TPU's or waits for a
+module not ported yet (``NOT_ON_THE_CARD``) at the values that say what the
+port does, raising, with the reason, at any other.
 
 The three kernel switches are on by default and renamed without "pallas":
 ``model.irv2_fused_blocks`` (deepfake_tpu: ``irv2_pallas_blocks``),
@@ -68,6 +72,7 @@ class MelConfig:
     fmin: float = 0.0
     fmax: Optional[float] = None  # sr / 2
     top_db: float = 80.0
+    target_size: int = 224  # carried as the JAX package carries it (data.audio_size sets the side)
 
 
 @dataclass
@@ -179,6 +184,11 @@ class ParallelConfig:
     # takes one entry a stage (stage_policy)
     remat: bool = False
     remat_policy: str = ""
+    # serving: every window-attention bias ([H, N, N], a function of the
+    # weights) computed once when the Predictor is built
+    # (registry.precompute_bias_cache; deepfake_tpu/config.py:200-206); off,
+    # each forward computes it
+    infer_bias_cache: bool = True
 
 
 @dataclass
@@ -249,7 +259,15 @@ class Config:
     random_seed: int = 42
 
     def set(self, key: str, value: Any) -> "Config":
-        """Set one dotted field (``"model.wav_layers"``) in place."""
+        """Set one dotted field (``"model.wav_layers"``, or a JAX name of
+        ``ALIASES``) in place; a ``NOT_ON_THE_CARD`` field takes its
+        accepted values and raises at any other."""
+        key = ALIASES.get(key, key)
+        if key in NOT_ON_THE_CARD:
+            accepted, why = NOT_ON_THE_CARD[key]
+            if value not in accepted:
+                raise ValueError(f"{key}={value!r}: {why}")
+            return self  # what the port does already
         parts = key.split(".")
         obj = self
         for p in parts[:-1]:
@@ -284,15 +302,57 @@ def _str2bool(v) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
 
 
+# the JAX names of the kernel switches (deepfake_tpu/config.py:103, :110, :122)
+ALIASES = {
+    "model.irv2_pallas_blocks": "model.irv2_fused_blocks",
+    "model.swin2d_pallas_attn": "model.swin2d_attn_kernel",
+    "model.swin3d_pallas_attn": "model.swin3d_attn_kernel",
+}
+
+_A3 = ("importing reference checkpoints waits for reference files in the repository "
+       "(ROADMAP A3)")
+# JAX fields the port has no field for: {field: (the values that say what
+# the port does, taken as they are; why any other raises)}
+NOT_ON_THE_CARD = {
+    "data.use_native_ingest": (
+        (False,), "the native C++ ingest waits for ROADMAP A1; the port decodes with its "
+                  "Python loader (data/dataset.py)"),
+    "parallel.axis_names": (
+        (("data", "model"),), "TPU-only: the names of the JAX device mesh's axes; the port's "
+                              "mesh (parallel/mesh.py) has a data and a model axis"),
+    "parallel.prng_impl": (
+        ("auto",), "TPU-only: the JAX PRNG implementation (rbg on the TPU); the port draws "
+                   "every stream from torch generators seeded by random_seed"),
+    # where the JAX package casts the serving weights, once or in each forward:
+    # a TPU layout trade (deepfake_tpu/config.py:190-196) with the same
+    # numbers; the Predictor casts them once either way
+    "parallel.infer_cast_params": ((False, True), "TPU-only"),
+    "model.video_pretrained_dir": ((None,), _A3),
+    "model.audio_pretrained_dir": ((None,), _A3),
+    "model.wav2vec2_dir": ((None,), _A3),
+}
+
+
 def _apply(cfg: Config, key: str, value: Any) -> None:
     """Set a dotted field, converted to the type of its current value (as
     the JAX package's ``_apply_dotted``: ``--set optim.learning_rate=1`` is
-    1.0)."""
+    1.0); a ``NOT_ON_THE_CARD`` field's value to its accepted values' type."""
+    key = ALIASES.get(key, key)
+    if key in NOT_ON_THE_CARD:
+        cur = NOT_ON_THE_CARD[key][0][0]
+        if isinstance(cur, bool):
+            value = _str2bool(value) if isinstance(value, (bool, str)) else value
+        elif isinstance(cur, tuple) and isinstance(value, list):
+            value = tuple(value)
+        cfg.set(key, value)
+        return
     obj = cfg
     for p in key.split(".")[:-1]:
         obj = getattr(obj, p)
     cur = getattr(obj, key.split(".")[-1], None)
-    if cur is not None and not isinstance(cur, (tuple, list)) and value is not None:
+    if isinstance(cur, bool) and isinstance(value, str):
+        value = _str2bool(value)
+    elif cur is not None and not isinstance(cur, (tuple, list)) and value is not None:
         value = type(cur)(value)
     cfg.set(key, value)
 
@@ -360,8 +420,7 @@ def get_config(argv: Optional[list] = None) -> Config:
     args = p.parse_args(argv)
     for name in _NOT_PORTED:
         if getattr(args, name) not in (None, False):
-            p.error(f"--{name}: importing reference checkpoints waits for reference "
-                    "files in the repository")
+            p.error(f"--{name}: {_A3}")
 
     cfg = Config.preset(args.preset) if args.preset else Config()
     for name, dotted in _DIRECT.items():

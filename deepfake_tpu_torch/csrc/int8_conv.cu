@@ -88,12 +88,23 @@
 // the operands gathered a byte at a time into a 3-stage ring, K zero-filled
 // to the step.
 //
-// K8: k8_amax zeroes the scalar in the stream and takes max |x| over the
-//   tensor (block maxima combined by atomicMax on the bits of a
-//   non-negative float: max is order-free, so the result repeats to the
-//   bit); k8_quantize writes q = clamp(rintf(__fdiv_rn(x, scale)), -127,
-//   127) as int8 with scale = __fdiv_rn(fmaxf(amax, 1e-12), 127), dividing
-//   as layers.py:251-253 does, half to even as jnp.round.
+// With `out_amax`, every route's epilogue also takes max |out| over the
+// values it stores (after the ReLU and the cast): a thread's running max
+// over its units, then per warp by shuffles and one atomicMax on the bits
+// into the scalar the entry point zeroed in the stream first. An int8
+// consumer of the output then needs no max pass of its own.
+//
+// K8, two streams bound by HBM, each on a persistent grid sized to the SMs,
+// a thread keeping four independent 16-byte loads in flight (evict-first:
+// each word is read once): k8_amax takes max |x| over the tensor (block
+// maxima into a device array; the last block to finish reduces them and
+// writes the scalar, so no memset precedes it; max is order-free, so the
+// result repeats to the bit); k8_quantize writes q = clamp(rintf(
+// __fdiv_rn(x, scale)), -127, 127) as int8, 16 bytes a store, with scale =
+// __fdiv_rn(fmaxf(amax, 1e-12), 127) read from the device scalar, dividing
+// as layers.py:251-253 does (the quotient by the reciprocal, the division
+// itself only near a half-integer, with the same bits: quotient, near_half),
+// half to even as jnp.round.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -114,6 +125,7 @@ struct ConvArgs {
   const float* ws;     // [N] weight scales
   const float* shift;  // [N] folded BatchNorm shift, or the conv bias
   void* out;           // [M, N], M = F * Ho * Wo
+  float* out_amax;     // max |out| (as stored) into it, zeroed first; or null
   int F, H, W, C, N, KH, KW, stride, pt, pl, Ho, Wo, K, M, relu, out_bf16;
 };
 
@@ -121,6 +133,27 @@ struct ConvArgs {
 __device__ __forceinline__ float dequant(int acc, float os, float sh, int relu) {
   const float v = __fadd_rn(__fmul_rn(__int2float_rn(acc), os), sh);
   return relu ? (v > 0.f ? v : 0.f) : v;
+}
+
+// |v| of the two bf16 in a 32-bit word, as floats (a bf16 is the top half of
+// its f32), the larger of them
+__device__ __forceinline__ float absmax_bf16x2(uint32_t w) {
+  return fmaxf(fabsf(__uint_as_float(w << 16)), fabsf(__uint_as_float(w & 0xffff0000u)));
+}
+
+__device__ __forceinline__ float warp_max(float m) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
+}
+
+// the warp's max (every lane present) into *amax: one atomicMax on the bits,
+// which order non-negative floats as their values do; max is order-free, so
+// the result repeats to the bit
+__device__ __forceinline__ void warp_max_to(float m, float* amax) {
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0 && m > 0.f)
+    atomicMax(reinterpret_cast<int*>(amax), __float_as_int(m));
 }
 
 // ------------------------------------------------------ route 1: Hopper
@@ -202,11 +235,12 @@ __host__ __device__ constexpr int fixed_smem(int bn) {
 // table (the output row of each tile row, -1 past the conv's edge) is
 // written: the roundings per element; f32 out from the registers, bf16 out
 // staged in shared memory and written in 16-byte runs (8 threads a row's
-// 8-channel runs), the stores not waited for.
+// 8-channel runs), the stores not waited for. With g.out_amax, ``omax``
+// takes the max |value| of what the thread stores.
 template <int BN>
 __device__ __forceinline__ void epilogue(const ConvArgs& g, const int (&acc)[BN / 2],
                                          const float* os, const float* sh, bf16* st_wg,
-                                         const int* rows_wg, int n0, bool vec_out) {
+                                         const int* rows_wg, int n0, bool vec_out, float& omax) {
   constexpr int SP = staging_pitch(BN);
   const int t128 = threadIdx.x & 127, warp = t128 >> 5, lane = threadIdx.x & 31;
   const int wg = threadIdx.x >> 7;
@@ -228,6 +262,7 @@ __device__ __forceinline__ void epilogue(const ConvArgs& g, const int (&acc)[BN 
           out[0] = v0;
           if (n + 1 < g.N) out[1] = v1;
         }
+        if (g.out_amax) omax = fmaxf(omax, n + 1 < g.N ? fmaxf(fabsf(v0), fabsf(v1)) : fabsf(v0));
       }
     }
     return;
@@ -252,9 +287,16 @@ __device__ __forceinline__ void epilogue(const ConvArgs& g, const int (&acc)[BN 
     const bf16* src = st_wg + r * SP + 8 * cc;
     bf16* dst = static_cast<bf16*>(g.out) + (int64_t)row * g.N + n;
     if (vec_out) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      const uint4 v = *reinterpret_cast<const uint4*>(src);
+      *reinterpret_cast<uint4*>(dst) = v;
+      if (g.out_amax)
+        omax = fmaxf(omax, fmaxf(fmaxf(absmax_bf16x2(v.x), absmax_bf16x2(v.y)),
+                                 fmaxf(absmax_bf16x2(v.z), absmax_bf16x2(v.w))));
     } else {
-      for (int e = 0; e < 8 && n + e < g.N; ++e) dst[e] = src[e];
+      for (int e = 0; e < 8 && n + e < g.N; ++e) {
+        dst[e] = src[e];
+        if (g.out_amax) omax = fmaxf(omax, fabsf(__bfloat162float(src[e])));
+      }
     }
   }
 }
@@ -353,6 +395,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bool vec_out = (g.N & 7) == 0 && (reinterpret_cast<uintptr_t>(g.out) & 15) == 0;
   int acc[ACC];
   int pos = 0;
+  float omax = 0.f;  // max |out| of this thread's stores (g.out_amax)
   for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
     const int nt = u % p.n_tiles;
     const Unit t = unit_of(p, u / p.n_tiles);
@@ -398,8 +441,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       rows_wg[t128] = row;
     }
-    epilogue<BN>(g, acc, os, sh, st_wg, rows_wg, nt * BN, vec_out);
+    epilogue<BN>(g, acc, os, sh, st_wg, rows_wg, nt * BN, vec_out, omax);
   }
+  if (g.out_amax) warp_max_to(omax, g.out_amax);
 }
 
 // ------------------------------------------------------ route 2: RGB
@@ -457,6 +501,7 @@ __global__ void __launch_bounds__(RGB_THREADS)
     src[tid] = tid < g.K ? ky * RGB_ROW_BYTES + rem : -1;
   }
   const int64_t row_bytes = (int64_t)g.W * g.C;
+  float omax = 0.f;  // max |out| of this thread's stores (g.out_amax)
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int rt = u / n_tiles, fy = rt / tw;  // fy = frame Ho + output row
     const int f = fy / g.Ho, oy = fy - f * g.Ho, ox0 = (rt - fy * tw) * bw;
@@ -514,8 +559,9 @@ __global__ void __launch_bounds__(RGB_THREADS)
       const int r = 64 * wg + t128;
       rows_wg[t128] = r < bw && ox0 + r < g.Wo ? fy * g.Wo + ox0 + r : -1;
     }
-    epilogue<BN>(g, acc, os, sh, st_wg, rows_wg, n0, vec_out);
+    epilogue<BN>(g, acc, os, sh, st_wg, rows_wg, n0, vec_out, omax);
   }
+  if (g.out_amax) warp_max_to(omax, g.out_amax);
 }
 
 }  // namespace hop
@@ -663,6 +709,7 @@ __global__ void __launch_bounds__(THREADS) conv_kernel(const ConvArgs g) {
 
   // epilogue: per output channel, explicit roundings in the JAX order
   const float xs = __fdiv_rn(fmaxf(*g.amax, 1e-12f), 127.0f);
+  float omax = 0.f;  // max |out| of this thread's stores (g.out_amax)
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int n = n0 + wn * 32 + ni * 8 + tig * 2;
@@ -684,6 +731,11 @@ __global__ void __launch_bounds__(THREADS) conv_kernel(const ConvArgs g) {
         for (int j = 0; j < 2; ++j) v[j] = dequant(acc[mi][ni][h * 2 + j], os[j], sh[j], g.relu);
         const int64_t o = (int64_t)m * g.N + n;
         const bool pair = n + 1 < g.N && (g.N & 1) == 0;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)  // the value as stored
+          if (g.out_amax && n + j < g.N)
+            omax = fmaxf(omax, fabsf(g.out_bf16 ? __bfloat162float(__float2bfloat16_rn(v[j]))
+                                                : v[j]));
         if (g.out_bf16) {
           __nv_bfloat16* out = static_cast<__nv_bfloat16*>(g.out) + o;
           if (pair) {
@@ -705,6 +757,7 @@ __global__ void __launch_bounds__(THREADS) conv_kernel(const ConvArgs g) {
       }
     }
   }
+  if (g.out_amax) warp_max_to(omax, g.out_amax);
 }
 
 }  // namespace bytes
@@ -720,81 +773,191 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-constexpr int VEC_ELEMS = 8;  // elements a thread takes at once
+constexpr int K8_THREADS = 256;
+constexpr int K8_LOADS = 4;           // independent 16-byte loads in flight a thread
+constexpr int K8_BLOCKS_PER_SM = 8;   // 2048 threads: an SM's most
+constexpr int K8_MAX_GRID = 2048;
 
-// 8 elements at i * 8 from 16-byte-aligned x (one or two 16-byte loads)
+// k8_amax's block maxima and its count of blocks done (zero when the module
+// loads, and again after every launch: the last block resets it), one set a
+// device: two k8_amax launches on one device must not overlap (each path of
+// the port launches them in one stream)
+__device__ float k8_partial[K8_MAX_GRID];
+__device__ unsigned int k8_arrived;
+
+// max |v| over a 16-byte word of f32 or bf16 elements
 template <typename T>
-__device__ __forceinline__ void load8(const T* x, int64_t i, float (&v)[8]) {
-  if (sizeof(T) == 2) {
-    const uint4 u = reinterpret_cast<const uint4*>(x)[i];
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(h[j]);
-  } else {
-    const float4 a = reinterpret_cast<const float4*>(x)[2 * i];
-    const float4 b = reinterpret_cast<const float4*>(x)[2 * i + 1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  }
+__device__ __forceinline__ float absmax16(uint4 v) {
+  if (sizeof(T) == 2)
+    return fmaxf(fmaxf(absmax_bf16x2(v.x), absmax_bf16x2(v.y)),
+                 fmaxf(absmax_bf16x2(v.z), absmax_bf16x2(v.w)));
+  return fmaxf(fmaxf(fabsf(__uint_as_float(v.x)), fabsf(__uint_as_float(v.y))),
+               fmaxf(fabsf(__uint_as_float(v.z)), fabsf(__uint_as_float(v.w))));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256) amax_kernel(const T* x, int64_t n, int64_t nvec,
-                                                   float* amax) {
-  float m = 0.f;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nvec; i += stride) {
-    float v[8];
-    load8(x, i, v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[j]));
-  }
-  for (int64_t i = nvec * VEC_ELEMS + (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    m = fmaxf(m, fabsf(to_f32(x[i])));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  __shared__ float part[8];
+// the block's max, in thread 0 (every thread present)
+__device__ __forceinline__ float block_max(float m) {
+  __shared__ float part[K8_THREADS / 32];
+  m = warp_max(m);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
   __syncthreads();
-  if (threadIdx.x < 32) {
-    m = threadIdx.x < (blockDim.x >> 5) ? part[threadIdx.x] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    // non-negative floats order as their bits do
-    if (threadIdx.x == 0) atomicMax(reinterpret_cast<int*>(amax), __float_as_int(m));
-  }
+  m = threadIdx.x < K8_THREADS / 32 ? part[threadIdx.x] : 0.f;
+  return threadIdx.x < 32 ? warp_max(m) : m;
 }
 
-__device__ __forceinline__ int8_t quantize1(float v, float scale) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f);
-  return static_cast<int8_t>(__float2int_rn(q));
-}
-
+// amax[0] = max |x| over n elements, nvec of them 16-byte words (0 where x is
+// not 16-byte aligned). Persistent: block b takes the chunks of K8_THREADS
+// K8_LOADS contiguous words b, b + grid, ..., each thread K8_LOADS words of a
+// chunk (one coalesced row a load) loaded before any is reduced, evict-first
+// (each is read once); the words past the last whole chunk grid-stride. Each
+// block writes its max to k8_partial; the last block to finish reduces them
+// into amax[0] and resets the count, so no memset is needed before a launch.
 template <typename T>
-__global__ void __launch_bounds__(256) quantize_kernel(const T* x, int64_t n, int64_t nvec,
-                                                       const float* amax, int8_t* q) {
-  const float scale = __fdiv_rn(fmaxf(*amax, 1e-12f), 127.0f);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nvec; i += stride) {
-    float v[8];
-    load8(x, i, v);
-    uint32_t lo = 0u, hi = 0u;
+__global__ void __launch_bounds__(K8_THREADS) amax_stream(const T* __restrict__ x, int64_t n,
+                                                          int64_t nvec, float* __restrict__ amax) {
+  constexpr int CHUNK = K8_THREADS * K8_LOADS;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const int64_t stride = (int64_t)gridDim.x * K8_THREADS;
+  float m = 0.f;
+  for (int64_t c = (int64_t)blockIdx.x * CHUNK + threadIdx.x; c - threadIdx.x + CHUNK <= nvec;
+       c += (int64_t)gridDim.x * CHUNK) {
+    uint4 v[K8_LOADS];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      lo |= static_cast<uint32_t>(static_cast<uint8_t>(quantize1(v[j], scale))) << (8 * j);
-      hi |= static_cast<uint32_t>(static_cast<uint8_t>(quantize1(v[j + 4], scale))) << (8 * j);
-    }
-    reinterpret_cast<uint2*>(q)[i] = make_uint2(lo, hi);
+    for (int j = 0; j < K8_LOADS; ++j) v[j] = __ldcs(xv + c + j * K8_THREADS);
+#pragma unroll
+    for (int j = 0; j < K8_LOADS; ++j) m = fmaxf(m, absmax16<T>(v[j]));
   }
-  for (int64_t i = nvec * VEC_ELEMS + (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    q[i] = quantize1(to_f32(x[i]), scale);
+  for (int64_t i = nvec / CHUNK * CHUNK + (int64_t)blockIdx.x * K8_THREADS + threadIdx.x;
+       i < nvec; i += stride)
+    m = fmaxf(m, absmax16<T>(__ldcs(xv + i)));
+  for (int64_t e = nvec * (16 / sizeof(T)) + (int64_t)blockIdx.x * K8_THREADS + threadIdx.x;
+       e < n; e += stride)
+    m = fmaxf(m, fabsf(to_f32(x[e])));
+  m = block_max(m);
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    k8_partial[blockIdx.x] = m;
+    __threadfence();  // the block's max is seen before its arrival is counted
+    last = atomicAdd(&k8_arrived, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  float r = 0.f;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += K8_THREADS)
+    r = fmaxf(r, __ldcg(k8_partial + b));
+  r = block_max(r);
+  if (threadIdx.x == 0) {
+    *amax = r;
+    k8_arrived = 0u;
+  }
 }
 
-inline int blocks_for(int64_t work) {
-  const int64_t b = (work + 255) / 256;
-  return static_cast<int>(b < 1 ? 1 : (b > 4096 ? 4096 : b));
+// The int8 quantiser's quotient v / scale, as __fdiv_rn gives it to rint,
+// from rcp = RN(1 / scale) (the division's own range check sends every zero,
+// half of a ReLU output, to its slow path): q0 = RN(v rcp) lies within 2 ulps
+// of v / scale and the correctly rounded quotient within half an ulp, so
+// where q0 is more than 2^-13 (at least 4 ulps below 256) from a half-integer
+// rint takes both alike and q0 stands (past 256 only its sign matters);
+// near_half(q0, rint(q0)) says where it does not, and there the caller
+// divides.
+__device__ __forceinline__ float quotient(float v, float rcp) {
+  const float q0 = __fmul_rn(v, rcp);
+  return fabsf(q0) < 256.f ? q0 : copysignf(256.f, v);
+}
+__device__ __forceinline__ bool near_half(float q, float r) {
+  return fabsf(q - r) >= 0.5f - 0x1p-13f;
+}
+// an integral r clamped to [-127, 127], as an int8's bits
+__device__ __forceinline__ uint32_t to_q8(float r) {
+  return static_cast<uint8_t>(static_cast<int8_t>(__float2int_rn(fminf(fmaxf(r, -127.f), 127.f))));
+}
+__device__ __forceinline__ uint32_t quantize1(float v, float scale, float rcp) {
+  const float q = quotient(v, rcp), r = rintf(q);
+  return to_q8(near_half(q, r) ? rintf(__fdiv_rn(v, scale)) : r);
+}
+
+// element e of a unit's words (f32: one a word; bf16: two, the low half first)
+template <typename T>
+__device__ __forceinline__ float element(const uint32_t* w, int e) {
+  if (sizeof(T) == 4) return __uint_as_float(w[e]);
+  return __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u : w[e >> 1] << 16);
+}
+
+// q = clamp(rint(x / scale), -127, 127) as int8, scale = max(amax, 1e-12) /
+// 127 from the device scalar; nunit units of 16 elements (0 where x or q is
+// not 16-byte aligned), then the rest one at a time. A unit is 16 / (16 /
+// sizeof(T)) 16-byte loads (bf16 2, f32 4) and one 16-byte store; block b
+// takes the chunks of K8_THREADS UPI contiguous units b, b + grid, ..., a
+// thread UPI units of a chunk, K8_LOADS words loaded before it quantises
+// any; the units past the last whole chunk grid-stride.
+template <typename T>
+__global__ void __launch_bounds__(K8_THREADS) quantize_stream(const T* __restrict__ x, int64_t n,
+                                                              int64_t nunit,
+                                                              const float* __restrict__ amax,
+                                                              int8_t* __restrict__ q) {
+  constexpr int VPU = sizeof(T);         // 16-byte loads a unit
+  constexpr int UPI = K8_LOADS / VPU;    // units a step
+  const float scale = __fdiv_rn(fmaxf(*amax, 1e-12f), 127.0f);
+  const float rcp = __frcp_rn(scale);
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* qv = reinterpret_cast<uint4*>(q);
+  const int64_t stride = (int64_t)gridDim.x * K8_THREADS;
+  int64_t u = (int64_t)blockIdx.x * K8_THREADS + threadIdx.x;
+  auto store = [&](int64_t unit, const uint4 (&v)[VPU]) {
+    uint32_t w[4 * VPU], out[4] = {0u, 0u, 0u, 0u}, exact = 0u;
+#pragma unroll
+    for (int j = 0; j < VPU; ++j) {
+      w[4 * j] = v[j].x;
+      w[4 * j + 1] = v[j].y;
+      w[4 * j + 2] = v[j].z;
+      w[4 * j + 3] = v[j].w;
+    }
+    // the quotients by the reciprocal, straight-line; then, rarely, the
+    // division for those near a half-integer
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const float q = quotient(element<T>(w, e), rcp), r = rintf(q);
+      exact |= static_cast<uint32_t>(near_half(q, r)) << e;
+      out[e >> 2] |= to_q8(r) << (8 * (e & 3));
+    }
+    if (exact) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (exact >> e & 1u)
+          out[e >> 2] = (out[e >> 2] & ~(0xffu << (8 * (e & 3)))) |
+                        to_q8(rintf(__fdiv_rn(element<T>(w, e), scale))) << (8 * (e & 3));
+    }
+    qv[unit] = make_uint4(out[0], out[1], out[2], out[3]);
+  };
+  constexpr int CHUNK = K8_THREADS * UPI;
+  for (int64_t c = (int64_t)blockIdx.x * CHUNK + threadIdx.x; c - threadIdx.x + CHUNK <= nunit;
+       c += (int64_t)gridDim.x * CHUNK) {
+    uint4 v[UPI][VPU];
+#pragma unroll
+    for (int k = 0; k < UPI; ++k)
+#pragma unroll
+      for (int j = 0; j < VPU; ++j) v[k][j] = __ldcs(xv + (c + k * K8_THREADS) * VPU + j);
+#pragma unroll
+    for (int k = 0; k < UPI; ++k) store(c + k * K8_THREADS, v[k]);
+  }
+  for (u = nunit / CHUNK * CHUNK + u; u < nunit; u += stride) {
+    uint4 v[VPU];
+#pragma unroll
+    for (int j = 0; j < VPU; ++j) v[j] = __ldcs(xv + u * VPU + j);
+    store(u, v);
+  }
+  for (int64_t e = nunit * 16 + (int64_t)blockIdx.x * K8_THREADS + threadIdx.x; e < n;
+       e += stride)
+    q[e] = static_cast<int8_t>(quantize1(to_f32(x[e]), scale, rcp));
+}
+
+// the persistent grid of a K8 stream: as many blocks as `sms` SMs hold, no
+// more than the work's steps of K8_THREADS threads
+inline int k8_grid(int64_t steps, int sms) {
+  const int64_t most = (int64_t)sms * K8_BLOCKS_PER_SM < K8_MAX_GRID
+                           ? (int64_t)sms * K8_BLOCKS_PER_SM : K8_MAX_GRID;
+  const int64_t b = (steps + K8_THREADS - 1) / K8_THREADS;
+  return static_cast<int>(b < 1 ? 1 : (b > most ? most : b));
 }
 
 inline bool aligned(const void* p, int bytes) {
@@ -861,13 +1024,15 @@ inline CUtensorMapSwizzle swizzle_of(int kc) {
 // 128 a tile), row tiles of [bf, bh, bw] output pixels, A by the wide-row
 // map where `mode` is 1, or 2 with the halo (see below); kc 0 route 2 (RGB,
 // segments of bw output pixels, bf = bh = 1, bn 32, 48 or 64) where the conv
-// fits it, else route 3 (bytes); on `sms` SMs. Returns cudaGetLastError(), or
+// fits it, else route 3 (bytes); on `sms` SMs. `out_amax` (or null): one f32
+// on the device, zeroed in the stream, then max |out| over the values as
+// stored, reduced in the epilogue. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int k7_int8_conv(const void* x, const void* w, const float* amax, const float* ws,
                             const float* shift, void* out, int out_dtype, int F, int H, int W,
                             int C, int N, int KH, int KW, int stride, int pt, int pl, int Ho,
                             int Wo, int relu, int kc, int mode, int bn, int bf, int bh, int bw,
-                            int bfb, int bhb, int sms, void* stream) {
+                            int bfb, int bhb, int sms, float* out_amax, void* stream) {
   const int64_t M = (int64_t)F * Ho * Wo;
   const int64_t K = (int64_t)KH * KW * C;
   if (!x || !w || !amax || !ws || !shift || !out || (out_dtype != 0 && out_dtype != 1) ||
@@ -878,9 +1043,13 @@ extern "C" int k7_int8_conv(const void* x, const void* w, const float* amax, con
       (N + i8::bytes::BN - 1) / i8::bytes::BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   i8::ConvArgs g{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), amax, ws, shift,
-                 out, F, H, W, C, N, KH, KW, stride, pt, pl, Ho, Wo, (int)K, (int)M, relu,
-                 out_dtype};
+                 out, out_amax, F, H, W, C, N, KH, KW, stride, pt, pl, Ho, Wo, (int)K, (int)M,
+                 relu, out_dtype};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_amax) {
+    const cudaError_t e = cudaMemsetAsync(out_amax, 0, sizeof(float), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (kc == 0 && K <= i8::hop::RGB_K && C <= 4 && KH <= 7 && bf == 1 && bh == 1 && bw >= 1 &&
       bw <= i8::hop::BM && ((bw - 1) * stride + KW) * C <= i8::hop::RGB_ROW_BYTES && sms >= 1 &&
       (bn == 32 || bn == 48 || bn == 64)) {
@@ -1023,39 +1192,41 @@ extern "C" int k7_int8_conv(const void* x, const void* w, const float* amax, con
   return static_cast<int>(e);
 }
 
-// K8, launch 1: amax[0] = max |x| over n elements (dtype 0 f32, 1 bf16),
-// the scalar zeroed in the same stream first.
-extern "C" int k8_amax(int dtype, const void* x, int64_t n, float* amax, void* stream) {
-  if (!x || !amax || n < 1 || (dtype != 0 && dtype != 1))
+// K8, launch 1: amax[0] = max |x| over n elements (dtype 0 f32, 1 bf16) on a
+// persistent grid for `sms` SMs, one launch (it needs no zeroed scalar).
+extern "C" int k8_amax(int dtype, const void* x, int64_t n, float* amax, int sms, void* stream) {
+  if (!x || !amax || n < 1 || (dtype != 0 && dtype != 1) || sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(amax, 0, sizeof(float), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t nvec = i8::aligned(x, 16) ? n / i8::VEC_ELEMS : 0;
-  const int blocks = i8::blocks_for(nvec > 0 ? nvec : n);
+  const int per_word = dtype == 0 ? 4 : 8;
+  const int64_t nvec = i8::aligned(x, 16) ? n / per_word : 0;
+  const int grid = i8::k8_grid(nvec > 0 ? (nvec + i8::K8_LOADS - 1) / i8::K8_LOADS : n, sms);
   if (dtype == 0)
-    i8::amax_kernel<float><<<blocks, 256, 0, s>>>(static_cast<const float*>(x), n, nvec, amax);
+    i8::amax_stream<float><<<grid, i8::K8_THREADS, 0, s>>>(static_cast<const float*>(x), n, nvec,
+                                                           amax);
   else
-    i8::amax_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+    i8::amax_stream<__nv_bfloat16><<<grid, i8::K8_THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), n, nvec, amax);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K8, launch 2: q = clamp(rintf(x / scale), -127, 127) as int8, scale =
-// max(amax, 1e-12) / 127 from the device scalar.
+// max(amax, 1e-12) / 127 from the device scalar, on a persistent grid for
+// `sms` SMs.
 extern "C" int k8_quantize(int dtype, const void* x, int64_t n, const float* amax, void* q,
-                           void* stream) {
-  if (!x || !amax || !q || n < 1 || (dtype != 0 && dtype != 1))
+                           int sms, void* stream) {
+  if (!x || !amax || !q || n < 1 || (dtype != 0 && dtype != 1) || sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t nvec = i8::aligned(x, 16) && i8::aligned(q, 8) ? n / i8::VEC_ELEMS : 0;
-  const int blocks = i8::blocks_for(nvec > 0 ? nvec : n);
+  const int64_t nunit = i8::aligned(x, 16) && i8::aligned(q, 16) ? n / 16 : 0;
+  const int upi = i8::K8_LOADS / (dtype == 0 ? 4 : 2);  // units a step
+  const int grid = i8::k8_grid(nunit > 0 ? (nunit + upi - 1) / upi : n, sms);
   if (dtype == 0)
-    i8::quantize_kernel<float><<<blocks, 256, 0, s>>>(static_cast<const float*>(x), n, nvec,
-                                                      amax, static_cast<int8_t*>(q));
+    i8::quantize_stream<float><<<grid, i8::K8_THREADS, 0, s>>>(
+        static_cast<const float*>(x), n, nunit, amax, static_cast<int8_t*>(q));
   else
-    i8::quantize_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), n, nvec, amax, static_cast<int8_t*>(q));
+    i8::quantize_stream<__nv_bfloat16><<<grid, i8::K8_THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), n, nunit, amax, static_cast<int8_t*>(q));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,6 +21,12 @@ the compute type before ``x + scale * res``), in eval mode. As in JAX, a
 block that runs K1 ignores it: with ``fused_blocks`` the 24 convs outside
 the blocks run int8 (12 in the stem, 4 in Reduction A, 7 in Reduction B,
 and ``conv``), without it all 244 (and 70, 100 and 50 in blocks A, B, C).
+In dynamic mode each distinct activation is reduced and quantised once: a
+tensor several convs read (the stem's pooled output, each reduction's
+input, and without K1 each block's input for its branch heads) through
+``quantize_shared``, and a conv whose input is another int8 conv's output
+alone takes that conv's max from K7's epilogue (``out_amax``). With K1 on a
+request then runs 7 maxima and 19 quantisations for its 24 convs.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from torch import nn
 
 from deepfake_tpu_torch.models.layers import (
     Conv2d, ConvBnRelu, Dropout, Int8Owner, as_nchw, as_nhwc, avg_pool_torch, max_pool_torch,
+    quantize_shared,
 )
 from deepfake_tpu_torch.ops.inception_block import (
     BlockWeights, TapConv, fold_bn, inception_block,
@@ -57,13 +64,13 @@ class Stem(nn.Module):
         self.b3_1 = ConvBnRelu(192, 64, (1, 1))
 
     def forward(self, x):
-        x = self.f2(self.f1(self.f0(x)))
-        x = max_pool_torch(x, 3, 2)
-        x = self.f5(self.f4(x))
-        x = max_pool_torch(x, 3, 2)
-        b0 = self.b0(x)
-        b1 = self.b1_1(self.b1_0(x))
-        b2 = self.b2_2(self.b2_1(self.b2_0(x)))
+        x = self.f1(*self.f0(x, out_amax=True), out_amax=True)
+        x = max_pool_torch(self.f2(*x), 3, 2)
+        x = max_pool_torch(self.f5(*self.f4(x, out_amax=True)), 3, 2)
+        q = quantize_shared(x, (self.b0, self.b1_0, self.b2_0))
+        b0 = self.b0(x, q)
+        b1 = self.b1_1(*self.b1_0(x, q, out_amax=True))
+        b2 = self.b2_2(*self.b2_1(*self.b2_0(x, q, out_amax=True), out_amax=True))
         b3 = self.b3_1(avg_pool_torch(x, 3, 1, 1, count_include_pad=False))
         return torch.cat([b0, b1, b2, b3], dim=1)  # 320
 
@@ -124,7 +131,7 @@ class _ResidualBlock(Int8Owner):
 
     def _residual(self, res):
         if self.int8_active((1, 1), 1, res.shape[1]):
-            return self.int8_forward("res_act_amax", res, relu=False)
+            return self.int8_forward("res_act_amax", res, relu=False)[0]
         return self.conv(res)
 
     def _kernel_weights(self, x) -> BlockWeights:
@@ -137,12 +144,14 @@ class _ResidualBlock(Int8Owner):
         if self.fused and not self.training and x.shape[2] == x.shape[3]:
             out = inception_block(as_nhwc(x), self._kernel_weights(x))
             return as_nchw(out)
-        parts = [getattr(self, self.direct)(x)]
+        heads = [getattr(self, self.direct)] + [getattr(self, ch[0]) for ch in self.chains]
+        q = quantize_shared(x, heads)
+        parts = [heads[0](x, q)]
         for ch in self.chains:
-            h = x
-            for name in ch:
-                h = getattr(self, name)(h)
-            parts.append(h)
+            h = (x, q)
+            for name in ch[:-1]:
+                h = getattr(self, name)(*h, out_amax=True)
+            parts.append(getattr(self, ch[-1])(*h))
         out = x + self.scale * self._residual(torch.cat(parts, dim=1))
         return torch.relu(out) if self.relu else out
 
@@ -206,8 +215,9 @@ class ReductionA(nn.Module):
         self.b1_2 = ConvBnRelu(256, 384, (3, 3), 2, "VALID")
 
     def forward(self, x):
-        b1 = self.b1_2(self.b1_1(self.b1_0(x)))
-        return torch.cat([self.b0(x), b1, max_pool_torch(x, 3, 2)], dim=1)  # 1088
+        q = quantize_shared(x, (self.b0, self.b1_0))
+        b1 = self.b1_2(*self.b1_1(*self.b1_0(x, q, out_amax=True), out_amax=True))
+        return torch.cat([self.b0(x, q), b1, max_pool_torch(x, 3, 2)], dim=1)  # 1088
 
 
 class ReductionB(nn.Module):
@@ -224,9 +234,10 @@ class ReductionB(nn.Module):
         self.b2_2 = ConvBnRelu(288, 320, (3, 3), 2, "VALID")
 
     def forward(self, x):
-        b0 = self.b0_1(self.b0_0(x))
-        b1 = self.b1_1(self.b1_0(x))
-        b2 = self.b2_2(self.b2_1(self.b2_0(x)))
+        q = quantize_shared(x, (self.b0_0, self.b1_0, self.b2_0))
+        b0 = self.b0_1(*self.b0_0(x, q, out_amax=True))
+        b1 = self.b1_1(*self.b1_0(x, q, out_amax=True))
+        b2 = self.b2_2(*self.b2_1(*self.b2_0(x, q, out_amax=True), out_amax=True))
         return torch.cat([b0, b1, b2, max_pool_torch(x, 3, 2)], dim=1)  # 2080
 
 

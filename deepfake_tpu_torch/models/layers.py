@@ -462,7 +462,12 @@ class Int8Owner(nn.Module):
     batch's max and folds it into its scalar (``torch.maximum``, in place: a
     captured graph holds the address). ``mesh`` (``parallel.mesh.attach``):
     the batch's max is taken over the data axis. Training always takes the
-    float path."""
+    float path. In dynamic mode a conv takes what its caller knows of its
+    input (``x_q``, ops/int8_conv.py::QInput: the max its producer's K7
+    epilogue reduced, or the max and int8 copy of a tensor several convs
+    read, ``quantize_shared``) and may hand its own output's max on
+    (``out_amax``), so that each distinct activation is reduced and
+    quantised once a forward."""
 
     quant: Optional[str] = None
     calibrating = False
@@ -494,23 +499,38 @@ class Int8Owner(nn.Module):
 
         return int8_shape_allowed(kernel, stride, cin)
 
-    def int8_forward(self, name: str, x: torch.Tensor, relu: bool) -> torch.Tensor:
+    def int8_dynamic(self, name: str) -> bool:
+        """Whether the conv of scalar ``name`` takes this batch's max: int8,
+        or int8_static while calibrating or before its scalar is."""
+        return not (self.quant == "int8_static" and not self.calibrating
+                    and name in self.calibrated)
+
+    @property
+    def int8_group(self):
+        """The process group the batch's max is taken over (the mesh's data
+        axis while the batch is split over it), or None."""
+        return None if self.mesh is None else self.mesh.stats_group
+
+    def int8_forward(self, name: str, x: torch.Tensor, relu: bool, x_q=None,
+                     out_amax: bool = False):
         """The int8 conv (ops/int8_conv.py) of NCHW ``x`` (channels_last)
-        with the scalar ``name``; the output NCHW in x's type."""
+        with the scalar ``name``: (the output NCHW in x's type, the output's
+        QInput or None). In dynamic mode it takes ``x_q`` (what is known of
+        x) and, with ``out_amax``, has K7 reduce the output's max."""
         from deepfake_tpu_torch.ops.int8_conv import quantized_conv
 
         w = self.int8_packed
         if w is None or w.wq.device != x.device:
             w = self.pack_int8()
         amax = getattr(self, name)
-        static = self.quant == "int8_static"
-        ready = static and not self.calibrating and name in self.calibrated
-        group = None if self.mesh is None else self.mesh.stats_group
-        out, used = quantized_conv(as_nhwc(x), w, amax if ready else None, relu, group)
-        if static and self.calibrating:
+        dynamic = self.int8_dynamic(name)
+        out, used, out_q = quantized_conv(as_nhwc(x), w, None if dynamic else amax, relu,
+                                          self.int8_group, x_q if dynamic else None,
+                                          out_amax and dynamic)
+        if self.quant == "int8_static" and self.calibrating:
             amax.copy_(torch.maximum(amax, used.reshape(())))
             self.calibrated.add(name)
-        return as_nchw(out)
+        return as_nchw(out), out_q
 
 
 class ConvBnRelu(Int8Owner):
@@ -523,7 +543,9 @@ class ConvBnRelu(Int8Owner):
     folded into the conv weight in f32 (g = scale rsqrt(var + eps), shift =
     bias - mean g, w g), the folded weight quantised per output channel,
     the input per tensor, and relu(acc (xs ws) + shift) in the input's
-    type."""
+    type. ``forward(x, x_q=None, out_amax=False)``: ``x_q`` what is known of
+    x's int8 form (``Int8Owner``); with ``out_amax`` it returns (y, y's
+    QInput or None), for a consumer that is an int8 conv."""
 
     def __init__(self, cin: int, cout: int, kernel: Sequence[int], stride: int = 1,
                  padding: Padding = 0, bn_eps: float = 1e-3, bn_momentum: float = 0.1):
@@ -545,11 +567,29 @@ class ConvBnRelu(Int8Owner):
         return Int8Weights.from_folded(self.conv.weight.float() * g.view(-1, 1, 1, 1), shift,
                                        self.conv.stride[0], (ph, ph, pw, pw))
 
-    def forward(self, x):
+    def int8_now(self) -> bool:
         c = self.conv
-        if self.int8_active(c.kernel_size, c.stride[0], c.in_channels):
-            return self.int8_forward("act_amax", x, relu=True)
-        return torch.relu(self.bn(c(x)))
+        return self.int8_active(c.kernel_size, c.stride[0], c.in_channels)
+
+    def forward(self, x, x_q=None, out_amax: bool = False):
+        if self.int8_now():
+            y, y_q = self.int8_forward("act_amax", x, relu=True, x_q=x_q, out_amax=out_amax)
+        else:
+            y, y_q = torch.relu(self.bn(self.conv(x))), None
+        return (y, y_q) if out_amax else y
+
+
+def quantize_shared(x: torch.Tensor, consumers: Sequence[ConvBnRelu]):
+    """NCHW ``x``'s max and int8 copy (ops/int8_conv.py::quantize_input),
+    made once for the ConvBnRelus that read it, where one of them runs int8
+    in dynamic mode now; else None (each consumer then takes its float path
+    or its own calibrated scalar)."""
+    live = [m for m in consumers if m.int8_now() and m.int8_dynamic("act_amax")]
+    if not live:
+        return None
+    from deepfake_tpu_torch.ops.int8_conv import quantize_input
+
+    return quantize_input(as_nhwc(x), live[0].int8_group)
 
 
 def max_pool_torch(x, window: int, stride: int, padding: int = 0):

@@ -13,7 +13,9 @@ weights are final. ``model.parity_inference_dropout`` keeps the reference's unga
 dropouts active in a serving model (``inference_dropout``). ``model.irv2_quant``
 (``irv2_quant``) sets the IRv2 trunk's int8 mode
 of the ``video`` and ``fused`` models at serving; a training model is built without it
-(its BatchNorm takes batch statistics, and its evaluation runs the float path).
+(its BatchNorm takes batch statistics); the Trainer gives it the mode
+(``set_irv2_quant``) and evaluates in int8 on weights packed before each
+evaluation pass, as the JAX package builds one model for both.
 ``calibrate_act_scales`` records int8_static's activation scales.
 """
 
@@ -233,15 +235,36 @@ def pack_block_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 def pack_int8_weights(model: nn.Module) -> nn.Module:
     """Fold BN into every int8 conv's weights and quantise them per output
-    channel, once, from the f32 weights (the JAX package folds the cast
+    channel from the f32 weights (the JAX package folds the cast
     parameters on every forward: the same numbers in f32). Call after the
-    weights are final; nothing to do without ``irv2_quant``."""
+    weights are final, or again after they change (the Trainer, before each
+    evaluation pass): weights packed before are overwritten in place, so
+    that a captured graph reads the new ones. Nothing to do without
+    ``irv2_quant``."""
     from deepfake_tpu_torch.models.layers import Int8Owner
 
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, Int8Owner) and mod.quant is not None:
-                mod.int8_packed = mod.pack_int8()
+                new, old = mod.pack_int8(), mod.int8_packed
+                if old is None or old.wq.shape != new.wq.shape or old.wq.device != new.wq.device:
+                    mod.int8_packed = new
+                    continue
+                for name in ("wq", "ws", "shift"):
+                    getattr(old, name).copy_(getattr(new, name))
+    return model
+
+
+def set_irv2_quant(model: nn.Module, quant: Optional[str]) -> nn.Module:
+    """The int8 mode (``irv2_quant``'s value) on every IRv2 trunk of
+    ``model`` and its int8 convs; a module in train mode takes the float
+    path whatever its mode."""
+    from deepfake_tpu_torch.models.inception_resnet_v2 import InceptionResNetV2
+    from deepfake_tpu_torch.models.layers import Int8Owner
+
+    for mod in model.modules():
+        if isinstance(mod, (InceptionResNetV2, Int8Owner)):
+            mod.quant = quant
     return model
 
 

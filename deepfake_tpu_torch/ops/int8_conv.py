@@ -6,14 +6,17 @@ scale rule :224, ``quantize_to`` :249, ``quant_conv`` :256), which the JAX
 package leaves to XLA's int8 convolution. Here, in ``csrc/int8_conv.cu``:
 
 * K8, two launches: ``act_amax`` (the per-tensor max |x| into a device
-  scalar, zeroed in the stream first) and ``act_quantize`` (x to int8 at
-  scale max(amax, 1e-12) / 127, the scale computed on the device from the
-  scalar; static mode skips ``act_amax`` and passes the calibrated scalar);
+  scalar) and ``act_quantize`` (x to int8 at scale max(amax, 1e-12) / 127,
+  the scale computed on the device from the scalar; static mode skips
+  ``act_amax`` and passes the calibrated scalar); each a persistent stream
+  over the tensor sized to the SMs;
 * K7, ``int8_conv``: the int8 x int8 -> int32 implicit-GEMM convolution of
   NHWC activations and [Cout, KH, KW, Cin] weights, dequantised by
   ``amax``'s scale times the per-output-channel weight scale, plus a
   per-channel shift (the folded BatchNorm, or the conv bias), ReLU
-  optional, cast to the output type. ``plan`` lays each conv out for it
+  optional, cast to the output type; with ``out_amax`` also the max |out|
+  of the values it stores, reduced in its epilogue, so that an int8
+  consumer of its output skips ``act_amax``. ``plan`` lays each conv out for it
   on the host: s8 wgmma fed by TMA in column tiles (``n_tile``), row
   tiles (``row_box``) and channel chunks (``chunk_width``), or, at Cin = 3
   (the RGB stem), s8 wgmma on tiles the block gathers itself;
@@ -28,6 +31,14 @@ layers.py:251-253, never by a reciprocal) and rounds half to even; the
 convolution is exact in float64 (|acc| <= K 127^2 < 2^53); the epilogue is
 f32 ``acc * (xs * ws) + shift``, one rounding an operation. It is never an
 int8 ``F.conv2d``, which wraps.
+
+In dynamic mode ``quantized_conv`` takes what its caller already knows of
+its input (``QInput``: the max from the producer's epilogue, or max and
+int8 copy made once for a tensor several convs read, ``quantize_input``),
+so that each distinct activation is reduced and quantised once a forward;
+``per_conv_quantization`` restores one ``act_amax`` and one
+``act_quantize`` a conv (the same kernels, composed as the first design
+did; the same bits), for comparison.
 
 ``int8_shape_allowed`` is the scope gate (``DEEPFAKE_TPU_INT8_SCOPE``):
 ``all`` (the default on the card: the TPU default ``pointwise`` came from
@@ -136,9 +147,13 @@ def out_size(H: int, W: int, kh: int, kw: int, stride: int,
 
 # ---------------------------------------------------------------- plain versions
 
+def _abs_max(x: torch.Tensor) -> torch.Tensor:
+    return x.float().abs().amax().reshape(1)
+
+
 def act_amax_plain(x: torch.Tensor) -> torch.Tensor:
     """max |x| over the tensor, as a [1] f32 tensor."""
-    return x.float().abs().amax().reshape(1)
+    return _abs_max(x)
 
 
 def act_quantize_plain(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
@@ -161,15 +176,17 @@ def conv_acc_plain(xq: torch.Tensor, w: Int8Weights) -> torch.Tensor:
 
 
 def int8_conv_plain(xq: torch.Tensor, w: Int8Weights, amax: torch.Tensor, relu: bool,
-                    dtype: torch.dtype) -> torch.Tensor:
+                    dtype: torch.dtype, out_amax: bool = False):
     """NHWC int8 xq [F, H, W, Cin] -> [F, Ho, Wo, Cout] in ``dtype``: the
     integer convolution (``conv_acc_plain``), then acc * (xs * ws) + shift
-    in f32, ReLU, the cast (layers.py:256-270, :329-330)."""
+    in f32, ReLU, the cast (layers.py:256-270, :329-330); with ``out_amax``
+    (out, max |out| of the cast output as a [1] f32 tensor)."""
     out = conv_acc_plain(xq, w).float() * (act_scale(amax.reshape(())) * w.ws)
     out = out + w.shift
     if relu:
         out = torch.relu(out)
-    return out.to(dtype).contiguous()
+    out = out.to(dtype).contiguous()
+    return (out, _abs_max(out)) if out_amax else out
 
 
 # ---------------------------------------------------------------- K7 planning
@@ -387,11 +404,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.k7_int8_conv.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
-                                     i, i, i, i, i, i, i, i, i, i, p]
+                                     i, i, i, i, i, i, i, i, i, i, p, p]
         lib.k7_int8_conv.restype = i
-        lib.k8_amax.argtypes = [i, p, i64, p, p]
+        lib.k8_amax.argtypes = [i, p, i64, p, i, p]
         lib.k8_amax.restype = i
-        lib.k8_quantize.argtypes = [i, p, i64, p, p, p]
+        lib.k8_quantize.argtypes = [i, p, i64, p, p, i, p]
         lib.k8_quantize.restype = i
         lib.k7_error_string.argtypes = [i]
         lib.k7_error_string.restype = ctypes.c_char_p
@@ -408,6 +425,11 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _sms(x: torch.Tensor) -> int:
+    return _sm_count(x.device.index if x.device.index is not None
+                     else torch.cuda.current_device())
+
+
 def _check_act(name: str, x: torch.Tensor) -> None:
     if x.dtype not in _DTYPES or not x.is_contiguous() or x.numel() == 0:
         raise ValueError(f"{name}: x must be a non-empty contiguous f32/bf16 tensor")
@@ -421,14 +443,14 @@ def _check_amax(name: str, amax: torch.Tensor, x: torch.Tensor) -> None:
 def act_amax(x: torch.Tensor) -> torch.Tensor:
     """max |x| over the whole tensor as a [1] f32 tensor on x's device. A CPU
     tensor takes the plain version; a CUDA one launches K8's first kernel
-    (the scalar zeroed in the stream, then the reduction) or raises."""
+    (one launch: the last block writes the scalar) or raises."""
     _check_act("act_amax", x)
     if not _on_cuda("act_amax", x):
         return act_amax_plain(x)
     _no_autograd("act_amax", x)
     out = torch.empty(1, dtype=torch.float32, device=x.device)
     lib = _lib()
-    build.check(lib.k8_amax(_DTYPES[x.dtype], x.data_ptr(), x.numel(), out.data_ptr(),
+    build.check(lib.k8_amax(_DTYPES[x.dtype], x.data_ptr(), x.numel(), out.data_ptr(), _sms(x),
                             _stream(x)), lib.k7_error_string, "k8_amax")
     act_amax.launches += 1
     return out
@@ -449,7 +471,8 @@ def act_quantize(x: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     lib = _lib()
     build.check(lib.k8_quantize(_DTYPES[x.dtype], x.data_ptr(), x.numel(), amax.data_ptr(),
-                                q.data_ptr(), _stream(x)), lib.k7_error_string, "k8_quantize")
+                                q.data_ptr(), _sms(x), _stream(x)), lib.k7_error_string,
+                "k8_quantize")
     act_quantize.launches += 1
     return q
 
@@ -491,32 +514,34 @@ def check_conv(xq: torch.Tensor, w: Int8Weights, amax: torch.Tensor, dtype: torc
 
 
 def int8_conv(xq: torch.Tensor, w: Int8Weights, amax: torch.Tensor, relu: bool,
-              dtype: torch.dtype) -> torch.Tensor:
+              dtype: torch.dtype, out_amax: bool = False):
     """The int8 convolution of NHWC ``xq`` [F, H, W, Cin] with ``w``, its
     epilogue acc * (scale(amax) * ws) + shift [, ReLU] cast to ``dtype``:
-    [F, Ho, Wo, Cout]. K7 on a CUDA tensor (raises for a shape it does not
-    take), the plain version on a CPU one."""
+    [F, Ho, Wo, Cout]; with ``out_amax`` (out, max |out| as a [1] f32
+    tensor, reduced in K7's epilogue). K7 on a CUDA tensor (raises for a
+    shape it does not take), the plain version on a CPU one."""
     on_cuda = _on_cuda("int8_conv", xq, w.wq, w.ws, w.shift, amax)
     Ho, Wo = check_conv(xq, w, amax, dtype, kernel=on_cuda)
     for calls in _RECORDING:
-        calls.append((xq, w, amax, relu, dtype))
+        calls.append((xq, w, amax, relu, dtype, out_amax))
     if not on_cuda:
-        return int8_conv_plain(xq, w, amax, relu, dtype)
+        return int8_conv_plain(xq, w, amax, relu, dtype, out_amax)
     Fn, H, W, C = xq.shape
     cout, kh, kw, _ = w.wq.shape
     out = torch.empty(Fn, Ho, Wo, cout, dtype=dtype, device=xq.device)
+    o_max = torch.empty(1, dtype=torch.float32, device=xq.device) if out_amax else None
     p = plan(tuple(xq.shape), tuple(w.wq.shape), w.stride, tuple(w.pad))
     # TMA reads from 16-byte aligned addresses; the byte route from any
     kc = p.kc if xq.data_ptr() % 16 == 0 and w.wq.data_ptr() % 16 == 0 else 0
-    index = xq.device.index if xq.device.index is not None else torch.cuda.current_device()
     lib = _lib()
     build.check(lib.k7_int8_conv(
         xq.data_ptr(), w.wq.data_ptr(), amax.data_ptr(), w.ws.data_ptr(), w.shift.data_ptr(),
         out.data_ptr(), _DTYPES[dtype], Fn, H, W, C, cout, kh, kw, w.stride, w.pad[0],
         w.pad[2], Ho, Wo, int(relu), kc, 2 if p.halo else int(p.wide), p.bn, *p.box,
-        *p.border_box, _sm_count(index), _stream(xq)), lib.k7_error_string, "k7_int8_conv")
+        *p.border_box, _sms(xq), None if o_max is None else o_max.data_ptr(), _stream(xq)),
+        lib.k7_error_string, "k7_int8_conv")
     int8_conv.launches += 1
-    return out
+    return (out, o_max) if out_amax else out
 
 
 int8_conv.launches = 0
@@ -529,8 +554,9 @@ _RECORDING: list = []
 @contextlib.contextmanager
 def recorded_convs():
     """While it runs, every ``int8_conv`` call is kept in the yielded list as
-    (xq, w, amax, relu, dtype) (and still made): a model's int8 convs at the
-    shapes its path gives them, for checks and timing conv by conv."""
+    (xq, w, amax, relu, dtype, out_amax) (and still made): a model's int8
+    convs at the shapes its path gives them, for checks and timing conv by
+    conv."""
     calls: list = []
     _RECORDING.append(calls)
     try:
@@ -545,15 +571,73 @@ def conv_key(xq: torch.Tensor, w: Int8Weights, relu: bool) -> Tuple:
     return tuple(xq.shape), tuple(w.wq.shape), w.stride, w.pad, relu
 
 
+# the per-conv route's switch (per_conv_quantization)
+_PER_CONV = [False]
+
+
+@contextlib.contextmanager
+def per_conv_quantization():
+    """While it runs, every dynamic int8 conv takes its input's max and int8
+    copy itself (``act_amax``, ``act_quantize``): ``quantize_input`` and
+    ``quantized_conv`` ignore what a caller knows and ask K7 for no output
+    max. The same kernels composed as the first design did, and the same
+    bits; a comparison for the shared route (a CUDA graph captured inside
+    it keeps this route)."""
+    before = _PER_CONV[0]
+    _PER_CONV[0] = True
+    try:
+        yield
+    finally:
+        _PER_CONV[0] = before
+
+
+@dataclass
+class QInput:
+    """What is known of an activation's int8 form in dynamic mode:
+    ``amax``, its max |x| ([1] f32 on x's device; over the mesh's data axis
+    where there is one), and ``q``, x quantised at that scale (NHWC int8),
+    where it is made."""
+
+    amax: torch.Tensor
+    q: Optional[torch.Tensor] = None
+
+
+def _reduced(amax: torch.Tensor, group) -> torch.Tensor:
+    """``amax`` as its max over ``group`` (a batch split over a mesh's data
+    axis takes the global batch's, as JAX's per-tensor max under GSPMD)."""
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    return amax
+
+
+def quantize_input(x: torch.Tensor, group=None) -> Optional[QInput]:
+    """An activation that several dynamic int8 convs read, reduced and
+    quantised once (NHWC ``x``); None on the per-conv route."""
+    if _PER_CONV[0]:
+        return None
+    amax = _reduced(act_amax(x), group)
+    return QInput(amax, act_quantize(x, amax))
+
+
 def quantized_conv(x: torch.Tensor, w: Int8Weights, amax: Optional[torch.Tensor], relu: bool,
-                   group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   group=None, x_q: Optional[QInput] = None, out_amax: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[QInput]]:
     """One int8 conv of NHWC ``x`` (f32/bf16), the output in x's type:
-    ``amax`` the calibrated scalar (static mode), or None for this batch's
-    (``act_amax``; with ``group``, its max over that process group: a
-    batch split over a mesh's data axis takes the global batch's, as JAX's
-    per-tensor max under GSPMD). Returns (the output, the amax used)."""
+    ``amax`` the calibrated scalar (static mode), or None for this batch's:
+    ``x_q``'s where the caller knows it, else ``act_amax`` (over ``group``),
+    and ``x_q.q`` as the int8 input where it is made. ``out_amax`` (dynamic
+    consumers of the output): K7 also reduces the output's max. Returns (the
+    output, the amax used, the output's ``QInput`` or None)."""
+    if _PER_CONV[0]:
+        x_q, out_amax = None, False
+    xq = None
     if amax is None:
-        amax = act_amax(x)
-        if group is not None:
-            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
-    return int8_conv(act_quantize(x, amax), w, amax, relu, x.dtype), amax
+        if x_q is None:
+            x_q = QInput(_reduced(act_amax(x), group))
+        amax, xq = x_q.amax, x_q.q
+    if xq is None:
+        xq = act_quantize(x, amax)
+    if not out_amax:
+        return int8_conv(xq, w, amax, relu, x.dtype), amax, None
+    out, o_max = int8_conv(xq, w, amax, relu, x.dtype, out_amax=True)
+    return out, amax, QInput(_reduced(o_max, group))

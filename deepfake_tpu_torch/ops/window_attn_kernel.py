@@ -32,7 +32,8 @@ from deepfake_tpu_torch.ops.window_attn import add_mask, l2_normalize
 MAX_TOKENS = 64
 MAX_HEAD_DIM = 128
 # the head dims K3, K5 and K6 take, as K2 does: 1 to 128 (on_wgmma says
-# which of their bf16 kernels runs; above 128 waits for ROADMAP C1)
+# which of their bf16 kernels runs; above 128 waits for ROADMAP B's head-dim
+# item)
 HEAD_DIMS = range(1, MAX_HEAD_DIM + 1)
 # the head dim of the wgmma + TMA kernels of K3, K5 and K6
 # (csrc/window_attn_mma.cuh wtile::mma::WGMMA_D)
@@ -176,7 +177,7 @@ def check_head_dim(kernel: str, n: int, d: int) -> None:
     """Raise for a head dim that K3, K5 or K6 does not take."""
     if d not in HEAD_DIMS:
         raise ValueError(f"{kernel} takes head dims {HEAD_DIMS.start} to {HEAD_DIMS.stop - 1} "
-                         f"(above that: ROADMAP C1), got N={n}, D={d}")
+                         f"(above that: ROADMAP B, head dims), got N={n}, D={d}")
 
 
 def _no_autograd(name: str, *ts) -> None:

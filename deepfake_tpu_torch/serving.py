@@ -119,7 +119,8 @@ class Predictor:
             # before the caches below: K1's packed weights and the bias
             # tables are computed from the loaded weights
             load_model_state(model, state)
-        precompute_bias_cache(model)
+        if cfg.parallel.infer_bias_cache:
+            precompute_bias_cache(model)
         pack_block_weights(model, self.dtype)
         pack_int8_weights(model)
         # parameters in the compute type, buffers (BatchNorm running

@@ -40,14 +40,18 @@ def nvcc(jobs, out_dir: str, show=("Used", "spill", "warning", "C75")):
     package's flags, csrc/ on the include path after the source's own
     folder, one nvcc process a source, all started together. Prints the
     ptxas lines that hold one of ``show``; returns {name: CDLL}, each with
-    its ptxas output in ``.ptxas``."""
+    its ptxas output in ``.ptxas``. Built without GNU unique symbols: the
+    host code's function-local statics (a launcher's cached occupancy and
+    shared-memory attribute) are otherwise bound process-wide, and a second
+    version loaded beside the first would read the first's."""
     from deepfake_tpu_torch.kernels.build import CSRC, FLAGS, nvcc_path
 
     os.makedirs(out_dir, exist_ok=True)
     procs = []
     for i, (name, src, extra) in enumerate(jobs):
         lib = os.path.join(out_dir, f"lib{i}-{re.sub(r'[^A-Za-z0-9_.-]', '_', name)[-60:]}.so")
-        cmd = [nvcc_path(), *FLAGS, f"-I{CSRC}", *extra, "-o", lib, src]
+        cmd = [nvcc_path(), *FLAGS, "-Xcompiler", "-fno-gnu-unique", f"-I{CSRC}", *extra, "-o",
+               lib, src]
         procs.append((name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                   stderr=subprocess.STDOUT, text=True)))
     libs = {}

@@ -5,12 +5,17 @@ deepfake_tpu_torch/_build/k7bench/ and called through the package's own
 wrapper (ops/int8_conv.py::int8_conv).
 
     python3 deepfake_tpu_torch/tools/k7_versions.py _checkout/int8_conv.cu \\
-        deepfake_tpu_torch/csrc/int8_conv.cu [--lists k1_on,k1_off] [--out PATH]
+        deepfake_tpu_torch/csrc/int8_conv.cu[@amax] [--lists k1_on,k1_off] [--out PATH]
+
+A version named SOURCE@amax is SOURCE called with ``out_amax`` (the output's
+max reduced in the epilogue, as the shared route asks of every conv whose
+output an int8 conv alone reads).
 
 A version may come from an older checkout (its csrc/ unpacked with git
 archive; the headers beside the source are its own): one whose
-k7_int8_conv takes no plan (the first design) is called through ``_Before``,
-which drops the plan's arguments.
+k7_int8_conv takes no plan (the first design) or no output max (before the
+epilogue reduced it) is called through ``_Older``, which drops those
+arguments.
 
 At every conv shape of a fused b8 request (256 frames of 224: the 24 convs
 outside K1's blocks, and with K1 off the 244 of the trunk; ``irv2_convs``),
@@ -166,9 +171,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("k7_versions: needs an NVIDIA GPU")
     print(common.card(), flush=True)
-    libs = common.nvcc([(v, v, []) for v in args.versions],
+    libs = common.nvcc([(v, v.split("@")[0], []) for v in args.versions],
                        os.path.join(ROOT, "deepfake_tpu_torch", "_build", "k7bench"))
-    typed = {v: Q.bind(libs[v]) if _takes_plan(v) else _Before(libs[v]) for v in args.versions}
+    typed = {v: _adapted(libs[v], v.split("@")[0]) for v in args.versions}
     lib_of = Q._lib
 
     def use(v):
@@ -202,29 +207,32 @@ def main() -> int:
                 w = Q.Int8Weights(wq, 1e-3 * (1 + torch.rand(cout, generator=gen, device=dev)),
                                   torch.randn(cout, generator=gen, device=dev), stride, pad)
                 amax = torch.full((1,), 3.0, device=dev)
-                call = lambda dt=torch.bfloat16: Q.int8_conv(xq, w, amax, relu, dt)
+                caller = lambda v: lambda dt=torch.bfloat16: Q.int8_conv(
+                    xq, w, amax, relu, dt, out_amax=v.endswith("@amax"))
                 for dt in (torch.bfloat16, torch.float32):
-                    want = Q.int8_conv_plain(xq, w, amax, relu, dt)
+                    want, want_max = Q.int8_conv_plain(xq, w, amax, relu, dt, out_amax=True)
                     for v in args.versions:
                         use(v)
                         try:
-                            got = call(dt)
+                            got = caller(v)(dt)
                             torch.cuda.synchronize()
                         except RuntimeError as e:
                             raise SystemExit(f"{v}: {name} {dt}: {e}")
-                        if not torch.equal(got, want):
+                        got, got_max = got if isinstance(got, tuple) else (got, want_max)
+                        if not (torch.equal(got, want) and torch.equal(got_max, want_max)):
                             raise SystemExit(
                                 f"{v}: {name} {dt} differs from the plain version by "
-                                f"{(got.float() - want.float()).abs().max().item():.3e}")
+                                f"{(got.float() - want.float()).abs().max().item():.3e}, "
+                                f"max {got_max.item()} against {want_max.item()}")
                         del got
                     del want
                 ms, dev_ms = {}, {}
                 for v in args.versions + args.versions[::-1]:
                     use(v)
-                    t = timed(call)
+                    t = timed(caller(v))
                     ms[v] = min(ms.get(v, t), t)
                     if v not in dev_ms:
-                        dev_ms[v] = common.device_ms(call, iters=args.iters)
+                        dev_ms[v] = common.device_ms(caller(v), iters=args.iters)
                 xb = torch.randn(xs[0], xs[3], xs[1], xs[2], generator=gen, device=dev).to(
                     torch.bfloat16).contiguous(memory_format=torch.channels_last)
                 wb = torch.randn(cout, xs[3], wsh[1], wsh[2], generator=gen, device=dev).to(
@@ -260,34 +268,48 @@ def main() -> int:
     return 0
 
 
-def _takes_plan(source: str) -> bool:
-    """Whether the source's k7_int8_conv takes a plan (the first design's
-    does not)."""
+def _takes(source: str, arg: str) -> bool:
+    """Whether the source's k7_int8_conv takes the argument ``arg``."""
     text = open(source).read()
     start = text.index('extern "C" int k7_int8_conv(')
-    return "int kc" in text[start:text.index("{", start)]
+    return arg in text[start:text.index("{", start)]
 
 
-class _Before:
-    """A build of the first design, whose k7_int8_conv takes no plan (kc,
-    wide, bn, bf, bh, bw, bfb, bhb, sms), called through the package's
-    wrapper: the plan's arguments are dropped."""
+def _adapted(lib, source: str):
+    """The library bound for the package's wrapper: as it is where its
+    k7_int8_conv takes a plan and an output max, else through ``_Older``."""
+    from deepfake_tpu_torch.ops.int8_conv import bind
+
+    plan, out_amax = _takes(source, "int kc"), _takes(source, "out_amax")
+    return bind(lib) if plan and out_amax else _Older(lib, plan, out_amax)
+
+
+class _Older:
+    """A build of an earlier design, called through the package's wrapper:
+    the plan's arguments (kc, wide, bn, bf, bh, bw, bfb, bhb, sms; the first
+    design takes none) and the output max (before the epilogue reduced it;
+    the wrapper then asks for none) are dropped."""
 
     PLAN = slice(20, 29)  # the plan's place in k7_int8_conv's arguments
+    OUT_AMAX = -2         # the output max's, before the stream
 
-    def __init__(self, lib):
+    def __init__(self, lib, plan: bool, out_amax: bool):
         from deepfake_tpu_torch.ops.int8_conv import bind
 
         self.lib = bind(lib)
-        args = list(lib.k7_int8_conv.argtypes)
-        del args[self.PLAN]
-        lib.k7_int8_conv.argtypes = args
+        self.plan, self.out_amax = plan, out_amax
+        lib.k7_int8_conv.argtypes = self._drop(list(lib.k7_int8_conv.argtypes))
         self.k7_error_string = lib.k7_error_string
 
+    def _drop(self, args):
+        if not self.out_amax:
+            del args[self.OUT_AMAX]
+        if not self.plan:
+            del args[self.PLAN]
+        return args
+
     def k7_int8_conv(self, *args):
-        args = list(args)
-        del args[self.PLAN]
-        return self.lib.k7_int8_conv(*args)
+        return self.lib.k7_int8_conv(*self._drop(list(args)))
 
 
 if __name__ == "__main__":

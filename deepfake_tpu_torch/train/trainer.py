@@ -127,7 +127,9 @@ from deepfake_tpu_torch.compiled import GraphCache, map_leaves, signature
 from deepfake_tpu_torch.config import Config
 from deepfake_tpu_torch.io.checkpoint import restore_checkpoint, save_checkpoint
 from deepfake_tpu_torch.models.layers import RecomputeStreams, set_dropout_generator
-from deepfake_tpu_torch.models.registry import build_model, compute_dtype, resolve_device
+from deepfake_tpu_torch.models.registry import (
+    build_model, compute_dtype, irv2_quant, pack_int8_weights, resolve_device, set_irv2_quant,
+)
 from deepfake_tpu_torch.parallel import mesh as pm
 from deepfake_tpu_torch.train.losses import bce_with_logits
 from deepfake_tpu_torch.train.schedule import SGD, clip_by_global_norm, make_schedule
@@ -174,6 +176,11 @@ class Trainer:
             pm.shard_model(model.to(self.device), mesh)
         self.train_sharded = pm.splits_train_batch(cfg, mesh)
         self.model = set_dropout_generator(model.to(self.device), self.dropout).train()
+        # model.irv2_quant: the IRv2 trunk evaluates in int8, its training
+        # steps take the float path (the JAX Trainer's one model for both,
+        # deepfake_tpu/models/registry.py:77, layers.py:305)
+        self.quant = irv2_quant(cfg)
+        set_irv2_quant(self.model, self.quant)
         # trap 5: the checkpointed blocks, and the RecomputeStreams of the
         # step graph being captured (None outside a capture)
         self._remat = [m for m in self.model.modules() if getattr(m, "remat", None) is not None]
@@ -421,7 +428,11 @@ class Trainer:
         """Mean loss and accuracy over the loader's rows, and the ROC-AUC;
         each batch's mean loss into ``draw`` where one is given. Under a mesh
         over the data ranks' rows gathered, padding rows (NaN labels) dropped
-        (deepfake_tpu/train/trainer.py:386-406)."""
+        (deepfake_tpu/train/trainer.py:386-406). At ``model.irv2_quant`` the
+        IRv2 trunk runs int8 on the current weights, folded and quantised
+        first."""
+        if self.quant is not None:
+            pack_int8_weights(self.model)
         loss_stat, acc_stat = AverageMeter(), AverageMeter()
         all_probs, all_labels = [], []
         for inputs, labels in loader:

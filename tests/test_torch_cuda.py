@@ -1868,7 +1868,7 @@ def _irv2_int8_convs(dev, fused: bool, frames: int = 2, side: int = 224, dtype=t
     with recorded_convs() as calls, torch.inference_mode():
         model(x)
     shapes = {}
-    for xq, w, amax, relu, dt in calls:
+    for xq, w, amax, relu, dt, _ in calls:
         shapes.setdefault(conv_key(xq, w, relu), (xq, w, amax, relu, dt))
     return len(calls), shapes
 
@@ -1937,15 +1937,60 @@ def test_k7_matches_plain_at_every_irv2_shape(cuda_device, fused):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["k1_on", "k1_off"])
+def test_k7_out_amax_equals_the_max_of_its_output(cuda_device, fused):
+    """K7's out_amax (the max |out| its epilogue reduces) equals
+    act_amax_plain of its output, and the output its plain version's, to
+    the bit: bf16 and f32 out at every conv shape of an int8 IRv2 forward
+    of 2 frames at 224 (routes 1 and 2), at K7_ODD's shapes with ReLU off
+    (negative outputs), and through route 3 (an input that is not 16-byte
+    aligned); two calls give the same bits (the scalar is zeroed in the
+    stream first)."""
+    from deepfake_tpu_torch.ops.int8_conv import (
+        Int8Weights, act_amax_plain, int8_conv, int8_conv_plain,
+    )
+
+    def check(xq, w, amax, relu, what):
+        for dtype in (torch.bfloat16, torch.float32):
+            got, got_max = int8_conv(xq, w, amax, relu, dtype, out_amax=True)
+            again = int8_conv(xq, w, amax, relu, dtype, out_amax=True)[1]
+            want, want_max = int8_conv_plain(xq, w, amax, relu, dtype, out_amax=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (what, dtype)
+            assert torch.equal(got_max, act_amax_plain(got)) and torch.equal(got_max, want_max)
+            assert torch.equal(again, got_max), (what, dtype)
+
+    _, shapes = _irv2_int8_convs(cuda_device, fused)
+    for key, (xq, w, amax, relu, _) in shapes.items():
+        check(xq, w, amax, relu, key)
+    gen = torch.Generator(cuda_device).manual_seed(54)
+    for name, (xs, ws, stride, pad) in K7_ODD.items():
+        n = math.prod(xs)
+        buf = torch.randint(-127, 128, (n + 16,), generator=gen, device=cuda_device,
+                            dtype=torch.int8)
+        w = Int8Weights(
+            torch.randint(-127, 128, ws, generator=gen, device=cuda_device, dtype=torch.int8),
+            1e-3 * (1 + torch.rand(ws[0], generator=gen, device=cuda_device)),
+            torch.randn(ws[0], generator=gen, device=cuda_device), stride, pad)
+        amax = torch.full((1,), 2.5, device=cuda_device)
+        for offset in (0, 1):  # 1: route 3's byte loads
+            check(buf[offset:offset + n].view(xs), w, amax, False, (name, offset))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n,offset", [(8 * 4096, 0), (12345, 0), (4099, 1)],
-                         ids=["aligned", "ragged", "unaligned"])
+@pytest.mark.parametrize("n,offset", [(8 * 4096, 0), (12345, 0), (4099, 1), (3 * 2 ** 22 + 37, 0),
+                                      (2 ** 22 + 8, 8)],
+                         ids=["aligned", "ragged", "unaligned", "large", "large_offset"])
 def test_k8_matches_plain(cuda_device, dtype, n, offset):
     """K8's amax and quantisation against the plain versions, to the bit:
-    random values, exact .5 ties at scale 1/8 (half to even), a static
+    random values, their ReLU (half zeros), exact .5 ties at scale 1/8 (half
+    to even: every quotient on a half-integer, so the quantiser divides), a static
     scale below the batch's max (saturation at +-127) and zeros (the 1e-12
-    floor); a length that is not a multiple of 8 and a start that is not
-    16-byte aligned take the scalar loads."""
+    floor); a length that is not a multiple of 16 takes the tail's scalar
+    loads, a start that is not 16-byte aligned takes them all; the large
+    tensors run the persistent grid's loops several times over, and each
+    call's last block finds the count of blocks its predecessor reset."""
     from deepfake_tpu_torch.ops.int8_conv import (
         act_amax, act_amax_plain, act_quantize, act_quantize_plain,
     )
@@ -1953,7 +1998,7 @@ def test_k8_matches_plain(cuda_device, dtype, n, offset):
     gen = torch.Generator(cuda_device).manual_seed(52)
     base = 3.0 * torch.randn(n + offset, generator=gen, device=cuda_device)
     ties = (torch.randint(-200, 200, (n + offset,), generator=gen, device=cuda_device) + 0.5) / 8
-    for raw in (base, ties, torch.zeros_like(base)):
+    for raw in (base, torch.relu(base), ties, torch.zeros_like(base)):
         x = raw.to(dtype)[offset:]
         amax = act_amax(x)
         torch.cuda.synchronize()
@@ -2012,7 +2057,7 @@ def test_k7_raises_for_shapes_it_does_not_take(cuda_device):
             build.check(lib.k7_int8_conv(
                 xq.data_ptr(), wq.data_ptr(), amax.data_ptr(), one.data_ptr(), one.data_ptr(),
                 out.data_ptr(), 0, 1, 16, 16, cin, 32, 3, 3, 1, 1, 1, 16, 16, 1, kc, 0, bn, *box,
-                1, 1, sms, stream), lib.k7_error_string, "k7_int8_conv")
+                1, 1, sms, None, stream), lib.k7_error_string, "k7_int8_conv")
 
 
 def _int8_cfg(quant, fused=True):
@@ -2028,8 +2073,9 @@ def _int8_cfg(quant, fused=True):
 def test_int8_graph_matches_eager(cuda_device, quant, fused):
     """The video model at int8 and int8_static (calibrated on one batch by
     both Predictors) through a CUDA graph == the eager route, to the bit;
-    the requests go through K7 and K8 (per conv: two K8 launches in
-    dynamic mode, one in static mode)."""
+    the requests go through K7 and K8 (in dynamic mode one max and one
+    quantisation a distinct activation, K8_CALLS; in static mode one
+    quantisation a conv); the per-conv route's logits equal both."""
     from deepfake_tpu_torch.ops.int8_conv import act_amax, act_quantize, int8_conv
 
     eager, graph = _predictor_pair(_int8_cfg(quant, fused), cuda_device)
@@ -2043,13 +2089,21 @@ def test_int8_graph_matches_eager(cuda_device, quant, fused):
             _model_request(eager.cfg, 2, cuda_device, 32, scale=2.0)]
     eager.predict(reqs[0])
     convs = 24 if fused else 244
-    amax = convs if quant == "int8" else 0
+    amax, quantize = {("int8", True): (7, 19), ("int8", False): (87, 189)}.get(
+        (quant, fused), (0, convs))
     assert (int8_conv.launches - before[0], act_amax.launches - before[1],
-            act_quantize.launches - before[2]) == (convs, amax, convs)
+            act_quantize.launches - before[2]) == (convs, amax, quantize)
     _assert_graph_equals_eager(graph, eager, [*reqs, reqs[0]])
     (g,) = graph.graphs.graphs.values()
-    assert g.launches.get("int8_conv") == convs and g.launches.get("act_quantize") == convs
+    assert g.launches.get("int8_conv") == convs and g.launches.get("act_quantize") == quantize
     assert g.launches.get("act_amax", 0) == amax
+    import numpy as np
+
+    from deepfake_tpu_torch.ops.int8_conv import per_conv_quantization
+
+    with per_conv_quantization():
+        for r in reqs:
+            np.testing.assert_array_equal(eager.predict(r), graph.predict(r))
 
 
 @pytest.mark.cuda
@@ -2062,7 +2116,7 @@ def test_calibrate_drops_stale_graphs(cuda_device):
     calib = _model_request(eager.cfg, 2, cuda_device, 34, scale=0.25)
     graph.predict(req)
     (old,) = graph.graphs.graphs.values()
-    assert old.launches.get("act_amax") == 24
+    assert old.launches.get("act_amax") == 7
     eager.calibrate([calib])
     graph.calibrate([calib])
     assert len(graph.graphs.graphs) == 0

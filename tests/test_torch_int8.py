@@ -313,6 +313,87 @@ def test_static_on_the_calibration_batch_equals_dynamic():
     assert not any(m.calibrated for m in _owners(block))
 
 
+# ---------------------------------------------------------------- (f2) one max and one quantisation a tensor
+
+# act_amax and act_quantize calls of one IRv2 forward by mode and K1: with K1
+# on, 7 maxima (the frames, f4's pooled input, the stem's shared input, b3_1's
+# pooled input, the inputs of the two reductions and of the 1536 conv) and 19
+# quantisations for 24 convs; with K1 off each residual block also reduces its
+# input once for its branch heads and its concatenation for its 1x1
+K8_CALLS = {("int8", True): (7, 19), ("int8", False): (87, 189),
+            ("int8_static", True): (0, 24), ("int8_static", False): (0, 244)}
+
+
+def _irv2_trunk(fused):
+    """A port IRv2 trunk with seeded random weights and BatchNorm
+    statistics, and two frames of 96 x 96."""
+    from deepfake_tpu_torch.models.inception_resnet_v2 import InceptionResNetV2
+    from deepfake_tpu_torch.models.layers import BatchNorm, init_weights
+
+    gen = torch.Generator().manual_seed(9)
+    model = init_weights(InceptionResNetV2(fused_blocks=fused), gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=gen))
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 96, 96, 3)).astype(
+        np.float32)) * 0.5
+    return model, x
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["k1_on", "k1_off"])
+@pytest.mark.parametrize("quant", ["int8", "int8_static"])
+def test_each_activation_is_reduced_and_quantised_once(monkeypatch, quant, fused):
+    """One IRv2 forward (2 frames of 96): K8's plain versions run K8_CALLS'
+    numbers of times (in dynamic mode, and while int8_static calibrates;
+    calibrated, none of the maxima); the amax each int8 conv is handed
+    equals act_amax_plain of its own input to the bit (from K7's epilogue,
+    a shared quantisation or its own max); the output equals the per-conv
+    route's (one act_amax and one act_quantize a conv) to the bit, and so
+    under the pointwise scope gate, where float convs sit between int8
+    ones."""
+    from deepfake_tpu_torch.models.registry import calibrate_act_scales
+
+    model, x = _irv2_trunk(fused)
+    _set_quant(model, quant)
+    counts, seen = {"amax": 0, "quantize": 0}, []
+    amax_plain, quantize_plain, conv = Q.act_amax_plain, Q.act_quantize_plain, Q.quantized_conv
+
+    def counted(name, fn):
+        def spy(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return spy
+
+    def conv_spy(x, *a, **kw):
+        out = conv(x, *a, **kw)
+        seen.append(torch.equal(out[1], amax_plain(x)))
+        return out
+
+    monkeypatch.setattr(Q, "act_amax_plain", counted("amax", amax_plain))
+    monkeypatch.setattr(Q, "act_quantize_plain", counted("quantize", quantize_plain))
+    monkeypatch.setattr(Q, "quantized_conv", conv_spy)
+    with torch.inference_mode():
+        if quant == "int8_static":
+            assert calibrate_act_scales(model, model, [x]) == (24 if fused else 244)
+            assert (counts["amax"], counts["quantize"]) == K8_CALLS["int8", fused]
+            counts.update(amax=0, quantize=0)
+        got = model(x)
+        assert (counts["amax"], counts["quantize"]) == K8_CALLS[quant, fused]
+        if quant == "int8":
+            assert len(seen) == (24 if fused else 244) and all(seen)
+        with Q.per_conv_quantization():
+            counts.update(amax=0, quantize=0)
+            assert torch.equal(model(x), got)
+            n = 24 if fused else 244
+            assert (counts["amax"], counts["quantize"]) == (n if quant == "int8" else 0, n)
+        monkeypatch.setenv(Q.SCOPE_ENV, "pointwise")
+        got = model(x)
+        with Q.per_conv_quantization():
+            assert torch.equal(model(x), got)
+
+
 # ---------------------------------------------------------------- (g) plumbing
 
 def test_irv2_quant_and_scope_values(monkeypatch):
